@@ -62,3 +62,10 @@ def ensure_ref_oracle() -> bool:
     except Exception:
         return False
     return os.path.exists(dec) and os.path.exists(enc)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips with a reason where none is present",
+    )

@@ -1,0 +1,64 @@
+"""Spec-defined constant tables the decoder needs.
+
+Decode-side copy of theora_tpu/constants.py. Values are normative (Theora
+spec / VP3 bitstream); reference locations: lib/internal.c:29-97,
+lib/dct.h:23-29, lib/state.h.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# Zig-zag index -> row-major coefficient index (internal.c:29-60).
+ZIGZAG_TO_NAT = np.array(
+    [
+        0, 1, 8, 16, 9, 2, 3, 10,
+        17, 24, 32, 25, 18, 11, 4, 5,
+        12, 19, 26, 33, 40, 48, 41, 34,
+        27, 20, 13, 6, 7, 14, 21, 28,
+        35, 42, 49, 56, 57, 50, 43, 36,
+        29, 22, 15, 23, 30, 37, 44, 51,
+        58, 59, 52, 45, 38, 31, 39, 46,
+        53, 60, 61, 54, 47, 55, 62, 63,
+    ],
+    dtype=np.int64,
+)
+
+# DCT constants: round(cos(n*pi/16) * 65536) (dct.h:23-29).
+C1S7 = 64277
+C2S6 = 60547
+C3S5 = 54491
+C4S4 = 46341
+C5S3 = 36410
+C6S2 = 25080
+C7S1 = 12785
+
+# Bitstream ordering of the 4 MBs inside a luma super block (internal.c:63).
+MB_MAP = np.array([[0, 3], [1, 2]], dtype=np.int32)
+
+# 4x4 Hilbert ordering of fragments inside a super block, as
+# (macro_block_quadrant, block_index) per (y, x) (state.c:133-138).
+SB_HILBERT = np.array(
+    [
+        [(0, 0), (0, 1), (3, 2), (3, 3)],
+        [(0, 3), (0, 2), (3, 1), (3, 0)],
+        [(1, 0), (1, 3), (2, 0), (2, 3)],
+        [(1, 1), (1, 2), (2, 1), (2, 2)],
+    ],
+    dtype=np.int32,
+)
+
+# Reference frame slots (state.h:171-184).
+FRAME_GOLD = 0
+FRAME_PREV = 1
+FRAME_SELF = 2
+
+# Unrestricted-motion-vector padding (state.h:167).
+UMV_PADDING = 16
+
+# Number of Huffman codebooks (codec.h:425).
+NHUFFMAN_TABLES = 80
+
+
+def ilog(v: int) -> int:
+    """Bits needed to represent v (oc_ilog, internal.c:97)."""
+    return int(v).bit_length()

@@ -1,0 +1,777 @@
+// Decode-only native host tier of theora_tpu_torch.
+//
+// Copy of the decode side of theora_tpu/native/entropy.cpp: the Huffman
+// context, residual-token decode and replay (decode.c:1141-1586), DC
+// prediction reversal (decode.c:1392-1500) and the frame side-info parser
+// (decode.c:442-981). Bit-serial work stays on the host; the pixel
+// pipeline runs on the card.
+//
+// Pure C ABI (loaded via ctypes). No Python.h dependency.
+#include <cstdint>
+#include <cstring>
+#include <cstdlib>
+#include <vector>
+
+namespace {
+
+// ---------------------------------------------------------------- bit I/O
+struct BitReader {
+  const uint8_t* data;
+  int64_t nbits;
+  int64_t pos;
+  bool eof;
+
+  void init(const uint8_t* d, int64_t nbytes) {
+    data = d;
+    nbits = nbytes * 8;
+    pos = 0;
+    eof = false;
+  }
+  // Word-based MSB-first window: up to 32 bits in one 64-bit load
+  // (zero-padded past EOF, bitpack.c:30-70 semantics).
+  uint32_t window(int bits) const {
+    int64_t byte0 = pos >> 3;
+    int off = (int)(pos & 7);
+    uint64_t w = 0;
+    int64_t navail = (nbits + 7) >> 3;
+    if (byte0 + 8 <= navail) {
+      w = ((uint64_t)data[byte0] << 56) | ((uint64_t)data[byte0 + 1] << 48) |
+          ((uint64_t)data[byte0 + 2] << 40) |
+          ((uint64_t)data[byte0 + 3] << 32) |
+          ((uint64_t)data[byte0 + 4] << 24) |
+          ((uint64_t)data[byte0 + 5] << 16) |
+          ((uint64_t)data[byte0 + 6] << 8) | (uint64_t)data[byte0 + 7];
+    } else {
+      for (int i = 0; i < 8; i++) {
+        uint64_t b = (byte0 + i < navail) ? data[byte0 + i] : 0;
+        w |= b << (56 - 8 * i);
+      }
+    }
+    uint32_t v = (uint32_t)((w << off) >> (64 - bits));
+    // Zero any bits past nbits (trailing byte padding must read as 0).
+    int64_t valid = nbits - pos;
+    if (valid < bits) {
+      if (valid <= 0) return 0;
+      v &= ~0u << (bits - (int)valid);
+    }
+    return v;
+  }
+  uint32_t read(int bits) {
+    if (bits == 0) return 0;
+    uint32_t v = bits <= 32 ? window(bits) : 0;
+    if (bits > 32) {
+      for (int i = 0; i < bits; i++) {
+        int64_t p = pos + i;
+        int b = (p < nbits) ? ((data[p >> 3] >> (7 - (p & 7))) & 1) : 0;
+        v = (v << 1) | (uint32_t)b;
+      }
+      pos += bits;
+      if (pos > nbits) eof = true;
+      return v;
+    }
+    pos += bits;
+    if (pos > nbits) eof = true;
+    return v;
+  }
+  uint32_t peek(int bits) const { return window(bits); }
+};
+
+// ------------------------------------------------------------- Huffman LUT
+// Two-level LUT per codebook: root ROOT_BITS wide; entries:
+//   >0: ((nbits<<8)|token)+1 for short codes
+//   <0: -(index into long-code chain start)  [handled linearly: rare]
+constexpr int ROOT_BITS = 10;
+
+struct Codebook {
+  int32_t lut[1 << ROOT_BITS];   // packed as above; 0 = long code
+  // Long codes (len > ROOT_BITS): linear list.
+  struct Long { uint32_t pattern; int nbits; int token; };
+  std::vector<Long> longs;
+
+  int decode(BitReader& br) const {
+    uint32_t p = br.peek(ROOT_BITS);
+    int32_t e = lut[p];
+    if (e) {
+      e -= 1;
+      br.pos += (e >> 8);
+      if (br.pos > br.nbits) { /* virtual zero bits consumed */ }
+      return e & 0xFF;
+    }
+    // Long code: extend bit by bit.
+    uint32_t code = p;
+    int nb = ROOT_BITS;
+    while (nb < 33) {
+      for (const Long& L : longs)
+        if (L.nbits == nb && L.pattern == code) {
+          br.pos += nb;
+          return L.token;
+        }
+      int64_t q = br.pos + nb;
+      int b = (q < br.nbits) ? ((br.data[q >> 3] >> (7 - (q & 7))) & 1) : 0;
+      code = (code << 1) | (uint32_t)b;
+      nb++;
+    }
+    return -1;
+  }
+};
+
+// Extra bits per spec token (internal.c:82-95).
+const int TOKEN_EB[32] = {0, 0, 0, 2, 3, 4, 12, 3, 6, 0, 0, 0, 0,
+                          1, 1, 1, 1, 2, 3, 4, 5, 6, 10,
+                          1, 1, 1, 1, 1, 3, 4, 2, 3};
+
+constexpr int64_t EOB_FINISH = 1ll << 60;
+
+// token+eb -> (eobs, rlen, coeff); see theora_tpu/huffman.py expand_token.
+inline void expand_token(int t, int eb, int64_t* eobs, int* rlen, int* coeff) {
+  *eobs = 0; *rlen = 0; *coeff = 0;
+  if (t < 3) { *eobs = t + 1; return; }
+  if (t == 3) { *eobs = 4 + eb; return; }
+  if (t == 4) { *eobs = 8 + eb; return; }
+  if (t == 5) { *eobs = 16 + eb; return; }
+  if (t == 6) { *eobs = eb ? eb : EOB_FINISH; return; }
+  if (t == 7 || t == 8) { *rlen = eb; return; }
+  if (t < 13) { static const int v[4] = {1, -1, 2, -2}; *coeff = v[t - 9]; return; }
+  if (t < 17) { int m = 3 + t - 13; *coeff = eb ? -m : m; return; }
+  if (t < 23) {
+    static const int nb[6] = {1, 2, 3, 4, 5, 9};
+    static const int base[6] = {7, 9, 13, 21, 37, 69};
+    int k = t - 17;
+    int m = base[k] + (eb & ((1 << nb[k]) - 1));
+    *coeff = (eb >> nb[k]) ? -m : m;
+    return;
+  }
+  if (t < 28) { *rlen = t - 22; *coeff = eb ? -1 : 1; return; }
+  if (t == 28) { *rlen = 6 + (eb & 3); *coeff = (eb >> 2) ? -1 : 1; return; }
+  if (t == 29) { *rlen = 10 + (eb & 7); *coeff = (eb >> 3) ? -1 : 1; return; }
+  if (t == 30) { int m = 2 + (eb & 1); *rlen = 1; *coeff = (eb >> 1) ? -m : m; return; }
+  int m = 2 + ((eb >> 1) & 1);
+  *rlen = 2 + (eb & 1);
+  *coeff = (eb >> 2) ? -m : m;
+}
+
+const int HUFF_LIST_MAX[5] = {1, 6, 15, 28, 64};
+
+struct Ctx {
+  Codebook books[80];
+};
+
+}  // namespace
+
+extern "C" {
+
+// codes: [80][32][3] int32 (token, pattern, nbits); entries with nbits==0
+// and token<0 unused. ncodes[80]: number of codes per book.
+void* th_entropy_create(const int32_t* codes, const int32_t* ncodes) {
+  Ctx* ctx = new Ctx();
+  for (int b = 0; b < 80; b++) {
+    Codebook& cb = ctx->books[b];
+    memset(cb.lut, 0, sizeof(cb.lut));
+    for (int i = 0; i < ncodes[b]; i++) {
+      const int32_t* c = codes + (b * 32 + i) * 3;
+      int token = c[0];
+      uint32_t pattern = (uint32_t)c[1];
+      int nbits = c[2];
+      if (nbits <= ROOT_BITS) {
+        uint32_t base = pattern << (ROOT_BITS - nbits);
+        int32_t entry = ((nbits << 8) | token) + 1;
+        for (uint32_t k = 0; k < (1u << (ROOT_BITS - nbits)); k++)
+          cb.lut[base + k] = entry;
+      } else {
+        cb.longs.push_back({pattern, nbits, token});
+      }
+    }
+  }
+  return ctx;
+}
+
+void th_entropy_destroy(void* p) { delete (Ctx*)p; }
+
+// Decode all residual tokens of a frame and replay them into per-fragment
+// zig-zag coefficient rows.
+//
+// Inputs:
+//   packet/packet_len: the frame packet; bit_offset: position of the
+//     residual-token section (after qi RLE).
+//   ncoded[3]: coded fragment counts per plane.
+// Outputs:
+//   qcoeffs: [total, 64] int16 quantized coefficients at final zig-zag
+//     positions (DC slot = raw DC token value, pre-prediction).
+//   last_zzi: [total] int32.
+//   dc: [total] int32 (pre-prediction DC values, coded order).
+// Returns final bit position, or -1 on error.
+int64_t th_decode_frame_tokens(
+    void* pctx, const uint8_t* packet, int64_t packet_len, int64_t bit_offset,
+    const int64_t* ncoded, int16_t* qcoeffs, int32_t* last_zzi, int32_t* dc) {
+  Ctx* ctx = (Ctx*)pctx;
+  BitReader br;
+  br.init(packet, packet_len);
+  br.pos = bit_offset;
+  int64_t total = ncoded[0] + ncoded[1] + ncoded[2];
+  memset(qcoeffs, 0, sizeof(int16_t) * total * 64);
+  memset(dc, 0, sizeof(int32_t) * total);
+
+  // Token streams: store per (pli, zzi).
+  std::vector<uint8_t> toks[3][64];
+  std::vector<int32_t> ebs[3][64];
+  int64_t eob_start[3][64];
+  int64_t ntoks_left[3][64];
+  for (int pli = 0; pli < 3; pli++)
+    for (int z = 0; z < 64; z++) ntoks_left[pli][z] = ncoded[pli];
+
+  // ---- DC tokens ----
+  int huff[2];
+  huff[0] = br.read(4);
+  huff[1] = br.read(4);
+  int64_t eobs = 0;
+  int64_t frag_base = 0;
+  for (int pli = 0; pli < 3; pli++) {
+    const Codebook& book = ctx->books[huff[(pli + 1) >> 1]];
+    int64_t run_counts[64] = {0};
+    eob_start[pli][0] = eobs;
+    int64_t n = ncoded[pli];
+    int64_t fragii = 0;
+    int64_t eobi = eobs < n ? eobs : n;
+    int64_t eob_count = eobi;
+    eobs -= eobi;
+    fragii += eobi;
+    while (fragii < n) {
+      int t = book.decode(br);
+      if (t < 0) return -1;
+      int eb = TOKEN_EB[t] ? (int)br.read(TOKEN_EB[t]) : 0;
+      toks[pli][0].push_back((uint8_t)t);
+      ebs[pli][0].push_back(eb);
+      int64_t te; int rl, cf;
+      expand_token(t, eb, &te, &rl, &cf);
+      if (te) {
+        eobi = te < n - fragii ? te : n - fragii;
+        eob_count += eobi;
+        eobs = te - eobi;
+        fragii += eobi;
+      } else {
+        run_counts[rl]++;
+        dc[frag_base + fragii] = rl ? 0 : cf;
+        fragii++;
+      }
+    }
+    run_counts[63] += eob_count;
+    int64_t acc = 0;
+    for (int r = 63; r >= 0; r--) {
+      acc += run_counts[r];
+      ntoks_left[pli][r] -= acc;
+    }
+    frag_base += n;
+  }
+
+  // ---- AC tokens ----
+  huff[0] = br.read(4);
+  huff[1] = br.read(4);
+  int zzi = 1;
+  for (int hgi = 1; hgi < 5; hgi++) {
+    huff[0] += 16;
+    huff[1] += 16;
+    for (; zzi < HUFF_LIST_MAX[hgi]; zzi++) {
+      for (int pli = 0; pli < 3; pli++) {
+        const Codebook& book = ctx->books[huff[(pli + 1) >> 1]];
+        eob_start[pli][zzi] = eobs;
+        int64_t run_counts[64] = {0};
+        int64_t eob_count = 0;
+        int64_t ntl = ntoks_left[pli][zzi];
+        int64_t ntoks = 0;
+        while (ntoks + eobs < ntl) {
+          ntoks += eobs;
+          eob_count += eobs;
+          int t = book.decode(br);
+          if (t < 0) return -1;
+          int eb = TOKEN_EB[t] ? (int)br.read(TOKEN_EB[t]) : 0;
+          toks[pli][zzi].push_back((uint8_t)t);
+          ebs[pli][zzi].push_back(eb);
+          int64_t te; int rl, cf;
+          expand_token(t, eb, &te, &rl, &cf);
+          eobs = te;
+          if (eobs == 0) {
+            run_counts[rl]++;
+            ntoks++;
+          }
+        }
+        eob_count += ntl - ntoks;
+        eobs -= ntl - ntoks;
+        run_counts[63] += eob_count;
+        int64_t acc = 0;
+        for (int r = 63; r >= 0; r--) {
+          acc += run_counts[r];
+          if (zzi + r < 64) ntoks_left[pli][zzi + r] -= acc;
+        }
+      }
+    }
+  }
+
+  // ---- Replay per fragment (decode.c:1531-1586) ----
+  frag_base = 0;
+  for (int pli = 0; pli < 3; pli++) {
+    size_t ti[64] = {0};
+    int64_t eob_runs[64];
+    for (int z = 0; z < 64; z++) eob_runs[z] = eob_start[pli][z];
+    for (int64_t f = 0; f < ncoded[pli]; f++) {
+      int16_t* row = qcoeffs + (frag_base + f) * 64;
+      int z = 0;
+      int last = 0;
+      while (z < 64) {
+        last = z;
+        if (eob_runs[z]) {
+          eob_runs[z]--;
+          break;
+        }
+        // A phase-1/phase-2 accounting divergence on an adversarial
+        // packet must map to TH_EBADPACKET, not an out-of-bounds read
+        // (the Python twin raises IndexError here).
+        if (ti[z] >= toks[pli][z].size()) return -1;
+        int t = toks[pli][z][ti[z]];
+        int eb = ebs[pli][z][ti[z]];
+        ti[z]++;
+        int64_t te; int rl, cf;
+        expand_token(t, eb, &te, &rl, &cf);
+        eob_runs[z] = te;
+        z += rl;
+        if (z < 64) row[z] = (int16_t)cf;
+        if (te == 0) z++;
+      }
+      last_zzi[frag_base + f] = last;
+    }
+    frag_base += ncoded[pli];
+  }
+  return br.pos;
+}
+
+}  // extern "C"
+
+// ===================================================================
+// DC prediction reversal (16-case predictor; decode.c:1392-1500).
+extern "C" {
+
+static inline int cdiv(int a, int b) {
+  int q = (a < 0 ? -a : a) / b;
+  return a < 0 ? -q : q;
+}
+static inline int wrap16(int v) { return (int16_t)v; }
+
+// dc += pred, in place. coded: [nv*nh] uint8; refi: [nv*nh] int32;
+// dc: [nv*nh] int32 (in/out); pred_last: [3] int32 running state.
+void th_dc_predict_plane(int nv, int nh, const uint8_t* coded,
+                         const int32_t* refi, int32_t* dc,
+                         int32_t* pred_last) {
+  for (int fy = 0; fy < nv; fy++) {
+    for (int fx = 0; fx < nh; fx++) {
+      int i = fy * nh + fx;
+      if (!coded[i]) continue;
+      int r = refi[i];
+      int pred;
+      if (fy == 0) {
+        pred = pred_last[r];
+      } else {
+        int l_ref = (fx > 0 && coded[i - 1]) ? refi[i - 1] : -1;
+        int ul_ref = (fx > 0 && coded[i - nh - 1]) ? refi[i - nh - 1] : -1;
+        int u_ref = coded[i - nh] ? refi[i - nh] : -1;
+        int ur_ref =
+            (fx + 1 < nh && coded[i - nh + 1]) ? refi[i - nh + 1] : -1;
+        int cs = (l_ref == r) | ((ul_ref == r) << 1) | ((u_ref == r) << 2) |
+                 ((ur_ref == r) << 3);
+        switch (cs) {
+          case 1:
+          case 3: pred = dc[i - 1]; break;
+          case 2: pred = dc[i - nh - 1]; break;
+          case 4:
+          case 6:
+          case 12: pred = dc[i - nh]; break;
+          case 5: pred = cdiv(dc[i - 1] + dc[i - nh], 2); break;
+          case 8: pred = dc[i - nh + 1]; break;
+          case 9:
+          case 11:
+          case 13: pred = cdiv(75 * dc[i - 1] + 53 * dc[i - nh + 1], 128); break;
+          case 10: pred = cdiv(dc[i - nh - 1] + dc[i - nh + 1], 2); break;
+          case 14:
+            pred = cdiv(3 * (dc[i - nh - 1] + dc[i - nh + 1]) + 10 * dc[i - nh],
+                        16);
+            break;
+          case 7:
+          case 15: {
+            int p0 = dc[i - 1], p1 = dc[i - nh - 1], p2 = dc[i - nh];
+            pred = cdiv(29 * (p0 + p2) - 26 * p1, 32);
+            if (abs(pred - p2) > 128) pred = p2;
+            else if (abs(pred - p0) > 128) pred = p0;
+            else if (abs(pred - p1) > 128) pred = p1;
+            break;
+          }
+          default: pred = pred_last[r]; break;
+        }
+      }
+      int v = wrap16(dc[i] + pred);
+      dc[i] = v;
+      pred_last[r] = v;
+    }
+  }
+}
+
+}  // extern "C"
+
+// ===================================================================
+// Frame side-info parser: frame header, coded-block flags, MB modes, MVs,
+// and block-qi RLE (decode.c:442-981), producing the per-fragment arrays
+// the reconstruction consumes.
+extern "C" {
+
+namespace {
+
+inline int sb_run_decode(BitReader& br) {
+  // 0 | 10x | 110x | 1110xx | 11110xxx | 111110xxxx | 111111x*12
+  if (!br.read(1)) return 1;
+  if (!br.read(1)) return 2 + br.read(1);
+  if (!br.read(1)) return 4 + br.read(1);
+  if (!br.read(1)) return 6 + br.read(2);
+  if (!br.read(1)) return 10 + br.read(3);
+  if (!br.read(1)) return 18 + br.read(4);
+  return 34 + br.read(12);
+}
+
+inline int block_run_decode(BitReader& br) {
+  // 0x | 10x | 110x | 1110xx | 11110xx | 11111xxxx
+  if (!br.read(1)) return 1 + br.read(1);
+  if (!br.read(1)) return 3 + br.read(1);
+  if (!br.read(1)) return 5 + br.read(1);
+  if (!br.read(1)) return 7 + br.read(2);
+  if (!br.read(1)) return 11 + br.read(2);
+  return 15 + br.read(4);
+}
+
+inline int mode_vlc_decode(BitReader& br) {
+  int n = 0;
+  while (n < 6 && br.read(1)) n++;
+  if (n < 6) return n;
+  return 6 + br.read(1);
+}
+
+// MV component VLC (decode.c:743-773).
+inline int mv_vlc_decode(BitReader& br) {
+  uint32_t p3 = br.read(3);
+  switch (p3) {
+    case 0: return 0;
+    case 1: return 1;
+    case 2: return -1;
+    case 3: {  // '011' + 1 bit: +-2
+      return br.read(1) ? -2 : 2;
+    }
+    case 4: {  // '100' + 1 bit: +-3
+      return br.read(1) ? -3 : 3;
+    }
+  }
+  // p3 in 5..7: read 2 more bits to complete a 5-bit prefix 20..31.
+  uint32_t p5 = (p3 << 2) | br.read(2);
+  if (p5 < 24) {  // 20..23: +-(4 + (p5-20)), 1 more bit for sign
+    int mag = 4 + (p5 - 20);
+    return br.read(1) ? -mag : mag;
+  }
+  if (p5 < 28) {  // 24..27: 2-bit suffix, values 8..15
+    int base = 8 + (p5 - 24) * 2;
+    uint32_t s = br.read(2);
+    int mag = base + (s >> 1);
+    return (s & 1) ? -mag : mag;
+  }
+  // 28..31: 3-bit suffix, values 16..31
+  int base = 16 + (p5 - 28) * 4;
+  uint32_t s = br.read(3);
+  int mag = base + (s >> 1);
+  return (s & 1) ? -mag : mag;
+}
+
+inline int mv_clc_decode(BitReader& br) {
+  uint32_t v = br.read(6);
+  int mag = v >> 1;
+  return (v & 1) ? -mag : mag;
+}
+
+const int8_t MODE_ALPHABETS_C[7][8] = {
+    {3, 4, 2, 0, 1, 5, 6, 7}, {3, 4, 0, 2, 1, 5, 6, 7},
+    {3, 2, 4, 0, 1, 5, 6, 7}, {3, 2, 0, 4, 1, 5, 6, 7},
+    {0, 3, 4, 2, 1, 5, 6, 7}, {0, 5, 3, 4, 2, 1, 6, 7},
+    {0, 1, 2, 3, 4, 5, 6, 7}};
+
+const int MB_MAP_IDXS_C[4][12] = {
+    {0, 1, 2, 3, 4, 8, -1, -1, -1, -1, -1, -1},
+    {0, 1, 2, 3, 4, 5, 8, 9, -1, -1, -1, -1},
+    {0, 1, 2, 3, 4, 6, 8, 10, -1, -1, -1, -1},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}};
+const int MB_MAP_NIDXS_C[4] = {6, 8, 8, 12};
+
+const int FRAME_FOR_MODE_C[8] = {1, 2, 1, 1, 1, 0, 0, 1};
+
+inline int div_round_pow2(int x, int shift, int rval) {
+  return (x + (x < 0 ? -1 : 0) + rval) >> shift;
+}
+
+}  // namespace
+
+// Returns the bit position after the side info, or -1 on error.
+// scan_*: canonical SB scan arrays; nsbs0 = luma plane SB count.
+// Outputs: frame_type, qis[3], nqis, coded[nfrags], refi, mode,
+// mv[nfrags*2] (dx, dy), qii[nfrags].
+int64_t th_parse_frame_sideinfo(
+    const uint8_t* packet, int64_t len, int64_t nfrags, int32_t nsbs,
+    int32_t nmbs, int32_t pixel_fmt, const int32_t* scan_fragis,
+    const int32_t* scan_sbi, const int32_t* scan_quadi, int64_t nscan,
+    int32_t nsbs0, const int32_t* mb_maps, const uint8_t* mb_valid,
+    int32_t* frame_type, int32_t* qis, int32_t* nqis, uint8_t* coded,
+    int32_t* refi, int32_t* mode, int32_t* mv, int32_t* qii) {
+  BitReader br;
+  br.init(packet, len);
+  if (br.read(1) != 0) return -1;
+  *frame_type = br.read(1);
+  *nqis = 1;
+  qis[0] = br.read(6);
+  if (br.read(1)) {
+    qis[1] = br.read(6);
+    *nqis = 2;
+    if (br.read(1)) {
+      qis[2] = br.read(6);
+      *nqis = 3;
+    }
+  }
+  memset(coded, 0, nfrags);
+  for (int64_t i = 0; i < nfrags; i++) {
+    refi[i] = 3;  // FRAME_NONE
+    mode[i] = 0;
+    mv[2 * i] = mv[2 * i + 1] = 0;
+    qii[i] = 0;
+  }
+  std::vector<uint8_t> mb_luma_coded(nmbs, 0);
+  if (*frame_type == 0) {
+    // INTRA: 3 spare bits, all fragments coded.
+    if (br.read(3) != 0) return -1;
+    for (int64_t i = 0; i < nscan; i++) {
+      int32_t f = scan_fragis[i];
+      coded[f] = 1;
+      refi[f] = 2;  // SELF
+      mode[f] = 1;  // INTRA
+    }
+  } else {
+    // Coded-block flags (decode.c:523-671).
+    std::vector<uint8_t> sb_partial(nsbs, 0), sb_full(nsbs, 0);
+    int flag = br.read(1);
+    int npartial = 0;
+    int32_t sbi = 0;
+    while (sbi < nsbs) {
+      int run = sb_run_decode(br);
+      int full_run = run >= 4129;
+      while (run > 0 && sbi < nsbs) {
+        sb_partial[sbi++] = (uint8_t)flag;
+        npartial += flag;
+        run--;
+      }
+      if (full_run && sbi < nsbs) flag = br.read(1);
+      else flag = !flag;
+    }
+    if (npartial < nsbs) {
+      sbi = 0;
+      while (sb_partial[sbi]) sbi++;
+      flag = br.read(1);
+      while (sbi < nsbs) {
+        int run = sb_run_decode(br);
+        int full_run = run >= 4129;
+        while (sbi < nsbs) {
+          if (sb_partial[sbi]) { sbi++; continue; }
+          if (run <= 0) break;
+          sb_full[sbi++] = (uint8_t)flag;
+          run--;
+        }
+        if (full_run && sbi < nsbs) flag = br.read(1);
+        else flag = !flag;
+      }
+    }
+    flag = npartial > 0 ? !br.read(1) : 0;
+    int run = 0;
+    for (int64_t i = 0; i < nscan; i++) {
+      int32_t f = scan_fragis[i];
+      int32_t sb = scan_sbi[i];
+      int c;
+      if (sb_full[sb]) c = 1;
+      else if (!sb_partial[sb]) c = 0;
+      else {
+        if (run <= 0) {
+          run = block_run_decode(br);
+          flag = !flag;
+        }
+        run--;
+        c = flag;
+      }
+      coded[f] = (uint8_t)c;
+      if (c && sb < nsbs0) mb_luma_coded[(sb << 2) | scan_quadi[i]] = 1;
+    }
+    // MB modes (decode.c:702-739).
+    int scheme = br.read(3);
+    int8_t alphabet[8];
+    if (scheme == 0) {
+      for (int i = 0; i < 8; i++) alphabet[i] = 0;
+      for (int mi = 0; mi < 8; mi++)
+        alphabet[br.read(3)] = MODE_ALPHABETS_C[6][mi];
+    } else {
+      memcpy(alphabet, MODE_ALPHABETS_C[scheme - 1], 8);
+    }
+    std::vector<int8_t> mb_modes(nmbs, 0);
+    for (int32_t mbi = 0; mbi < nmbs; mbi++) {
+      if (!mb_valid[mbi]) { mb_modes[mbi] = -1; continue; }
+      if (mb_luma_coded[mbi]) {
+        int tok = scheme == 7 ? (int)br.read(3) : mode_vlc_decode(br);
+        mb_modes[mbi] = alphabet[tok];
+      }
+    }
+    // MVs + per-fragment fill (decode.c:806-900).
+    int use_clc = br.read(1);
+    auto read_comp = [&]() {
+      return use_clc ? mv_clc_decode(br) : mv_vlc_decode(br);
+    };
+    const int* map_idxs = MB_MAP_IDXS_C[pixel_fmt];
+    int map_nidxs = MB_MAP_NIDXS_C[pixel_fmt];
+    int last_x = 0, last_y = 0, prior_x = 0, prior_y = 0;
+    for (int32_t mbi = 0; mbi < nmbs; mbi++) {
+      int m = mb_modes[mbi];
+      if (m == -1) continue;
+      const int32_t* mm = mb_maps + (int64_t)mbi * 12;
+      if (m == 7) {  // INTER_MV_FOUR
+        int lbx[4] = {0, 0, 0, 0}, lby[4] = {0, 0, 0, 0};
+        prior_x = last_x;
+        prior_y = last_y;
+        for (int bi = 0; bi < 4; bi++) {
+          int32_t f = mm[bi];
+          if (f >= 0 && coded[f]) {
+            int dx = read_comp(), dy = read_comp();
+            last_x = lbx[bi] = dx;
+            last_y = lby[bi] = dy;
+            refi[f] = 1;
+            mode[f] = 7;
+            mv[2 * f] = dx;
+            mv[2 * f + 1] = dy;
+          }
+        }
+        int cbx[4] = {0, 0, 0, 0}, cby[4] = {0, 0, 0, 0};
+        if (pixel_fmt == 0) {
+          cbx[0] = div_round_pow2(lbx[0] + lbx[1] + lbx[2] + lbx[3], 2, 2);
+          cby[0] = div_round_pow2(lby[0] + lby[1] + lby[2] + lby[3], 2, 2);
+        } else if (pixel_fmt == 2) {
+          cbx[0] = div_round_pow2(lbx[0] + lbx[1], 1, 1);
+          cby[0] = div_round_pow2(lby[0] + lby[1], 1, 1);
+          cbx[2] = div_round_pow2(lbx[2] + lbx[3], 1, 1);
+          cby[2] = div_round_pow2(lby[2] + lby[3], 1, 1);
+        } else if (pixel_fmt == 1) {
+          cbx[0] = div_round_pow2(lbx[0] + lbx[2], 1, 1);
+          cby[0] = div_round_pow2(lby[0] + lby[2], 1, 1);
+          cbx[1] = div_round_pow2(lbx[1] + lbx[3], 1, 1);
+          cby[1] = div_round_pow2(lby[1] + lby[3], 1, 1);
+        } else {
+          for (int k = 0; k < 4; k++) { cbx[k] = lbx[k]; cby[k] = lby[k]; }
+        }
+        for (int mi = 4; mi < map_nidxs; mi++) {
+          int mapi = map_idxs[mi];
+          int bi = mapi & 3;
+          int32_t f = mm[(mapi >> 2) * 4 + bi];
+          if (f >= 0 && coded[f]) {
+            refi[f] = 1;
+            mode[f] = 7;
+            mv[2 * f] = cbx[bi];
+            mv[2 * f + 1] = cby[bi];
+          }
+        }
+      } else {
+        int mvx = 0, mvy = 0;
+        switch (m) {
+          case 2:  // INTER_MV
+            prior_x = last_x; prior_y = last_y;
+            mvx = read_comp(); mvy = read_comp();
+            last_x = mvx; last_y = mvy;
+            break;
+          case 3:  // LAST
+            mvx = last_x; mvy = last_y;
+            break;
+          case 4: {  // LAST2
+            mvx = prior_x; mvy = prior_y;
+            prior_x = last_x; prior_y = last_y;
+            last_x = mvx; last_y = mvy;
+            break;
+          }
+          case 6:  // GOLDEN_MV
+            mvx = read_comp(); mvy = read_comp();
+            break;
+          default:
+            break;
+        }
+        int rf = FRAME_FOR_MODE_C[m];
+        for (int mi = 0; mi < map_nidxs; mi++) {
+          int mapi = map_idxs[mi];
+          int32_t f = mm[(mapi >> 2) * 4 + (mapi & 3)];
+          if (f >= 0 && coded[f]) {
+            refi[f] = rf;
+            mode[f] = m;
+            mv[2 * f] = mvx;
+            mv[2 * f + 1] = mvy;
+          }
+        }
+      }
+    }
+  }
+  // Coded fragments not covered by a coded-luma MB (e.g. chroma blocks of
+  // a fully-skipped-luma MB) default to INTER_NOMV from PREV -- the
+  // reference's zero-initialized frag state (decode.c:736-804 never
+  // touches them).
+  if (*frame_type != 0) {
+    for (int64_t i = 0; i < nscan; i++) {
+      int32_t f = scan_fragis[i];
+      if (coded[f] && refi[f] == 3) {
+        refi[f] = 1;  // FRAME_PREV
+        mode[f] = 0;  // MODE_INTER_NOMV
+      }
+    }
+  }
+  // Block qi RLE (decode.c:902-981) over coded fragments in scan order.
+  if (*nqis > 1) {
+    std::vector<int64_t> order;
+    order.reserve(nscan);
+    for (int64_t i = 0; i < nscan; i++)
+      if (coded[scan_fragis[i]]) order.push_back(scan_fragis[i]);
+    int64_t n = (int64_t)order.size();
+    if (n > 0) {
+      std::vector<int8_t> q(n, 0);
+      int flag = br.read(1);
+      int64_t nqi1 = 0, i = 0;
+      while (i < n) {
+        int run = sb_run_decode(br);
+        int full_run = run >= 4129;
+        while (run > 0 && i < n) {
+          q[i++] = (int8_t)flag;
+          nqi1 += flag;
+          run--;
+        }
+        if (full_run && i < n) flag = br.read(1);
+        else flag = !flag;
+      }
+      if (*nqis == 3 && nqi1 > 0) {
+        i = 0;
+        while (q[i] == 0) i++;
+        flag = br.read(1);
+        while (i < n) {
+          int run = sb_run_decode(br);
+          int full_run = run >= 4129;
+          while (i < n) {
+            if (q[i] == 0) { i++; continue; }
+            if (run <= 0) break;
+            q[i++] += (int8_t)flag;
+            run--;
+          }
+          if (full_run && i < n) flag = br.read(1);
+          else flag = !flag;
+        }
+      }
+      for (int64_t k = 0; k < n; k++) qii[order[k]] = q[k];
+    }
+  }
+  return br.pos;
+}
+
+}  // extern "C"
