@@ -6,26 +6,45 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernel K1 (nvcc, sm_90a),
-   both from the sources in the checkout, in parallel;
+2. build: the native host library (g++) and kernels K1 and K2 (nvcc,
+   sm_90a), all from the sources in the checkout, in parallel;
 3. K1 against its plain PyTorch version on the card: random blocks at the
-   main path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0,
-   batch 8) and their sum 172,800, int16 extremes included, and the
+   decode path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0,
+   batch 8) and their sum 172,800, int16 extremes included; at the encode
+   path's per-plane shapes (14,400 and 3,600 blocks, one frame, its one
+   dequant table), whose chroma launch ends in a partial CTA; and the
    libtheora iDCT vectors, exact equality; CUDA-event times of both at
    172,800 blocks, beside a device copy of the same bytes;
 4. golden streams: BatchDecoder(device="cuda").decode_clip must equal
    libtheora's .ref.yuv output byte for byte;
-5. real size, the main path: decode_clip(batch=8) of the 1280x720 test
-   stream, every frame's SHA-256 against the committed list, a warm pass
-   timed with K1's launch count reset just before it.
+5. real-size decode: decode_clip(batch=8) of the 1280x720 test stream,
+   every frame's SHA-256 against the committed list, a warm pass timed
+   with K1's launch count reset just before it;
+6. K2 against its plain version on the card: random residuals with the
+   int16-safe extremes, random dequant rows and frame types, at the
+   encode path's per-plane shapes (14,400 and 3,600 blocks at 1280x720
+   4:2:0) and their sum 21,600, and the libtheora fDCT vectors, exact
+   equality; CUDA-event times at 21,600 blocks beside a device copy of
+   the same bytes;
+7. small encodes: GopEncoder(device="cuda") at 64x48 for pixel formats
+   0, 2 and 3, every packet's SHA-256 against the list the JAX
+   TpuGopEncoder made (testdata/make_hd720_enc.py);
+8. real-size encode, the main path: 16 frames of the 1280x720 clip at
+   q48, a keyframe every 8 frames, clip_batch 8, every packet's SHA-256
+   against the JAX encoder's list; the closed-loop reconstruction of the
+   first GOP against BatchDecoder(device="cuda") on its packets; a warm
+   encode_clip pass timed with the K1 and K2 launch counts reset just
+   before it, and its PSNR against the source.
 
-The last two lines are the card's name and power limit from nvidia-smi,
-then {"ok": true, "device": {...}}. Imports nothing of JAX or theora_tpu.
+Then one JSON line listing both kernels, the card's name and power limit
+from nvidia-smi, and {"ok": true, "device": {...}}. Imports nothing of
+JAX or theora_tpu.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -50,6 +69,13 @@ INT32_OPS_S = 33.5e12
 # dequant products with a wrap (4 ops); 64 output round/shift/wraps
 # (5 ops).
 K1_OPS_PER_BLOCK = 16 * (16 * 2 + 12 * 3 + 28) + 64 * 4 + 64 * 5
+# int32 operations per 8x8 block in csrc/fdct_quant.cu: 16 1-D fDCTs of
+# 119 ops (8 input adds, 6 butterflies, 2 x 9 for the t5/t6 rotations,
+# 15 for y0/y4, 3 x 16 for y2/y6, y5/y3, y1/y7, 8 wraps of 3); 64 input
+# x4 scalings; 64 output round/shift/wraps (5 ops); 64 quantizations
+# (abs, shift, compare, add, double, divide counted as one, sign: 8).
+K2_OPS_PER_BLOCK = 16 * 119 + 64 + 64 * 5 + 64 * 8
+HD_ENC_NAME = "hd720_q48_k8_enc"
 
 
 def log(msg: str) -> None:
@@ -70,23 +96,25 @@ def card() -> tuple[str, str]:
 
 def build() -> None:
     from theora_tpu_torch import native
-    from theora_tpu_torch.ops import idct_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
-                "K1 (nvcc sm_90a)": ex.submit(timed, idct_cuda.build)}
+                "K1 (nvcc sm_90a)": ex.submit(timed, idct_cuda.build),
+                "K2 (nvcc sm_90a)": ex.submit(timed, fdct_cuda.build)}
         for what, job in jobs.items():
             path, dt = job.result()
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
-    with open(idct_cuda._SO + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+    for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO)):
+        with open(so + ".log") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {k} ptxas: {line.strip()}")
 
 
 def _k1_inputs(rng, n, nframes, device):
@@ -102,6 +130,24 @@ def _k1_inputs(rng, n, nframes, device):
         t(np.sort(rng.integers(0, nframes, n)).astype(np.int32)),
         t(rng.integers(0, 3, n).astype(np.uint8)),
         t(rng.integers(0, 2, n).astype(np.uint8)),
+        t(rng.random(n) < 0.3),
+    )
+
+
+def _k1_encode_inputs(rng, n, device):
+    """K1 inputs as the encode scan builds them for one plane of one
+    frame: a [1, 3, 2, 64] table holding the plane's intra and inter rows
+    at [0, 0], frame and qii index 0, inter per block, DC from the
+    coefficients."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    coeffs = rng.integers(-32768, 32768, (n, 64), dtype=np.int16)
+    deq_tab = np.zeros((1, 3, 2, 64), np.int16)
+    deq_tab[0, 0] = rng.integers(1, 32768, (2, 64), dtype=np.int16)
+    return (
+        t(coeffs), t(coeffs[:, 0]), t(deq_tab), t(np.zeros(n, np.int32)),
+        t(np.zeros(n, np.uint8)), t(rng.integers(0, 2, n).astype(np.uint8)),
         t(rng.random(n) < 0.3),
     )
 
@@ -164,13 +210,25 @@ def kernel_vs_plain(device) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"K1 != plain on {n} random blocks "
                                  f"(max |d| {err})")
+    # The encode path launches K1 once per plane per frame: 14,400 luma
+    # blocks and 3,600 per chroma plane, the last CTA of which is partial.
+    for ne in (14400, 3600):
+        eargs = _k1_encode_inputs(rng, ne, device)
+        got = idct_cuda.dequantize_idct_frames(*eargs)
+        want = transforms.dequantize_idct_frames(*eargs)
+        torch.cuda.synchronize()
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 != plain on {ne} encode-path blocks "
+                                 f"(max |d| {err})")
     vin, vy = _vector_inputs(device)
     vgot = idct_cuda.dequantize_idct_frames(*vin).cpu().numpy()
     vplain = transforms.dequantize_idct_frames(*vin).cpu().numpy()
     if not (np.array_equal(vgot, vy) and np.array_equal(vplain, vy)):
         raise AssertionError("K1 or plain != libtheora idct_cases.bin")
     err = max(err, int(np.abs(vgot.astype(np.int32) - vy).max()))
-    log(f"[k1] random 115200, 28800 and {n} blocks: kernel == plain; "
+    log(f"[k1] random 115200, 28800 and {n} blocks (decode shapes), 14400 "
+        f"and 3600 blocks (encode shapes): kernel == plain; "
         f"idct_cases.bin {len(vy)} cases: kernel == plain == libtheora; "
         f"max |err| {err} (tolerance 0: exact)")
 
@@ -287,6 +345,214 @@ def real_size(smi: str) -> int:
     return launches
 
 
+def _load_testdata(name: str):
+    """A generator module of testdata/ by path (numpy only at import)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(TESTDATA, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _k2_inputs(rng, n, device):
+    """Random K2 inputs: residuals over [-255, 255] with the int16-safe
+    extremes (saturated flat, checkerboard and stripe blocks), random
+    dequant rows, random frame types."""
+    res = rng.integers(-255, 256, (n, 64)).astype(np.int16)
+    ext = np.stack([
+        np.full(64, 255), np.full(64, -255),
+        np.where(np.indices((8, 8)).sum(0) % 2, 255, -255).reshape(64),
+        np.where(np.arange(64) % 2, -255, 255),
+        np.where(np.arange(64) // 8 % 2, -255, 255),
+    ]).astype(np.int16)
+    res[:len(ext)] = ext
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (t(res), t(rng.integers(8, 4097, (2, 64)).astype(np.int16)),
+            t(rng.integers(0, 2, n).astype(np.uint8)))
+
+
+def k2_vs_plain(device) -> dict:
+    from theora_tpu_torch.ops import fdct_cuda, transforms
+
+    rng = np.random.default_rng(20261017)
+    # The encode path launches K2 once per plane per frame: 14,400 luma
+    # and 3,600 blocks per chroma plane at 1280x720 4:2:0; and their sum.
+    err = 0
+    for n in (14400, 3600, 21600):
+        args = _k2_inputs(rng, n, device)
+        got = fdct_cuda.fdct_quantize(*args)
+        want = transforms.fdct_quantize(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g.int() - w.int()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"K2 != plain on {n} random blocks "
+                                     f"(max |d| {err})")
+    rec = np.dtype([("x", "<i2", 64), ("y", "<i2", 64)])
+    cases = np.fromfile(os.path.join(TESTDATA, "vectors", "fdct_cases.bin"),
+                        dtype=rec)
+    vin = (torch.from_numpy(cases["x"].copy()).to(device),
+           torch.full((2, 64), 8, dtype=torch.int16, device=device),
+           torch.zeros(len(cases), dtype=torch.uint8, device=device))
+    vq, vd = fdct_cuda.fdct_quantize(*vin)
+    pq, pd = transforms.fdct_quantize(*vin)
+    vd = vd.cpu().numpy()
+    if not (np.array_equal(vd, cases["y"]) and torch.equal(vq, pq)
+            and np.array_equal(pd.cpu().numpy(), cases["y"])):
+        raise AssertionError("K2 or plain != libtheora fdct_cases.bin")
+    err = max(err, int(np.abs(vd.astype(np.int32) - cases["y"]).max()))
+    log(f"[k2] random 14400, 3600 and {n} blocks: kernel == plain "
+        f"(quantized and DCT); fdct_cases.bin {len(cases)} cases: kernel "
+        f"DCT == plain == libtheora; max |err| {err} (tolerance 0: exact)")
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    ms = _event_ms(lambda: fdct_cuda.fdct_quantize(*args), 50, flush)
+    plain_ms = _event_ms(lambda: transforms.fdct_quantize(*args), 5, flush)
+    # Each input read once, each output written once: residuals, frame
+    # types and the two dequant rows in; quantized and DCT blocks out.
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 2 * n * 128
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    copy_ms = _event_ms(lambda: dst.copy_(src), 50, flush)
+    ops_ms = n * K2_OPS_PER_BLOCK / INT32_OPS_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"[k2] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms; bound {bound_ms:.4f} ms ({nbytes} B -> {bytes_ms:.4f} ms at "
+        f"3.35 TB/s; {n * K2_OPS_PER_BLOCK} int32 ops -> {ops_ms:.4f} ms); "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device copy of "
+        f"the same bytes takes {copy_ms:.4f} ms "
+        f"({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); no single PyTorch "
+        f"call computes this integer fDCT + quantizer (library_ms null)")
+    return {
+        "name": "fdct_quant", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/fdct_quant.cu",
+        "replaces": "theora_tpu/ops/pallas_kernels.py:194",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def _encoder(w, h, fmt, qi):
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    return GopEncoder(TheoraInfo(frame_width=w, frame_height=h,
+                                 pic_width=w, pic_height=h, quality=qi,
+                                 pixel_fmt=fmt), qi=qi, device="cuda")
+
+
+def _packet_hashes(pkts) -> list[str]:
+    return [hashlib.sha256(p.data).hexdigest() for p in pkts]
+
+
+def small_encodes() -> None:
+    mk = _load_testdata("make_hd720_enc")
+    with open(os.path.join(TESTDATA, "enc64x48.sha256")) as f:
+        want = f.read().split()
+    got = []
+    for fmt in mk.SMALL_FORMATS:
+        frames = mk.moving_frames(64, 48, fmt, mk.SMALL_FRAMES, 11 + fmt)
+        got += _packet_hashes(_encoder(64, 48, fmt, mk.SMALL_QI).encode_clip(
+            frames, keyframe_freq=mk.SMALL_KF, clip_batch=8))
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"64x48 encode: packets {bad} differ from the "
+                             f"JAX encoder's")
+    log(f"[enc64x48] formats {mk.SMALL_FORMATS}: all {len(got)} packets "
+        f"equal the JAX TpuGopEncoder's (SHA-256)")
+
+
+def _psnr(frames, outs) -> float:
+    se = n = 0
+    for src, dec in zip(frames, outs):
+        for a, b in zip(src, dec):
+            d = a.astype(np.int64) - b.astype(np.int64)
+            se += int((d * d).sum())
+            n += d.size
+    return 10 * np.log10(255.0 ** 2 * n / max(se, 1))
+
+
+def real_size_encode(smi: str) -> tuple[int, int]:
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    with open(os.path.join(TESTDATA, f"{HD_ENC_NAME}.sha256")) as f:
+        want = f.read().split()
+
+    def encode(enc):
+        return enc.encode_clip(frames, keyframe_freq=mk.HD_KF, clip_batch=8)
+
+    def check(pkts, what):
+        got = _packet_hashes(pkts)
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if len(got) != len(want) or bad:
+            raise AssertionError(f"{HD_ENC_NAME} {what}: packets {bad} "
+                                 f"differ from the JAX encoder's")
+
+    check(encode(_encoder(1280, 720, 0, mk.HD_QI)), "first pass")
+    # Closed loop: the first GOP's carried reconstruction against the
+    # port's decoder on its packets.
+    enc = _encoder(1280, 720, 0, mk.HD_QI)
+    datas, recon = enc.encode_gop(frames[:mk.HD_KF], want_recon=True)
+    hdr = enc.flush_headers()
+    info, setup = parse_info_header(hdr[0].data), parse_setup_header(
+        hdr[2].data)
+    outs = BatchDecoder(info, setup, device="cuda").decode_clip(datas,
+                                                                batch=8)
+    g = enc.g
+    for f, out in enumerate(outs):
+        for pli in range(3):
+            vpad, hpad = g.plane_padding(pli)
+            h, w = g.plane_shape(pli)
+            if not np.array_equal(
+                    recon[pli][f][vpad:vpad + h, hpad:hpad + w][::-1],
+                    out[pli]):
+                raise AssertionError(f"720p closed loop: frame {f} plane "
+                                     f"{pli} recon != decode")
+    log(f"[enc720p] closed loop: the first GOP's {len(outs)} reconstructed "
+        f"frames equal BatchDecoder(device='cuda') on its packets")
+
+    # Warm pass, the main path: launch counts from 0 just before it.
+    enc = _encoder(1280, 720, 0, mk.HD_QI)
+    enc.device_spans = []
+    torch.cuda.synchronize()
+    idct_cuda.dequantize_idct_frames.launches = 0
+    fdct_cuda.fdct_quantize.launches = 0
+    t0 = time.perf_counter()
+    pkts = encode(enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = (idct_cuda.dequantize_idct_frames.launches,
+              fdct_cuda.fdct_quantize.launches)
+    check(pkts, "warm pass")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError(f"encode path launches: K1 {k1}, K2 {k2}; "
+                             f"both must run")
+    dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
+    outs = BatchDecoder(info, setup, device="cuda").decode_clip(
+        [p.data for p in pkts[3:]], batch=8)
+    nf = len(frames)
+    mpix = nf * 1280 * 720 * 1.5 / 1e6
+    log(f"[enc720p] {nf} frames, all {len(want)} packet SHA-256 equal the "
+        f"JAX encoder's; {sum(len(p.data) for p in pkts[3:])} bytes; warm "
+        f"pass {wall:.4f} s = {nf / wall:.2f} frames/s = {mpix / wall:.2f} "
+        f"Mpix/s; host mode decision {enc.host_decide_s:.4f} s, host "
+        f"packing {enc.host_pack_s:.4f} s; device spans (CUDA events, ME "
+        f"and plane encodes) {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} "
+        f"dB against the source; launches K1 {k1}, K2 {k2} | {smi}")
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -294,10 +560,18 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     name, smi = card()
     build()
-    k1 = kernel_vs_plain(torch.device("cuda"))
+    dev = torch.device("cuda")
+    k1 = kernel_vs_plain(dev)
     golden_streams()
-    k1["launches"] = real_size(smi)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    k1_decode = real_size(smi)
+    k2 = k2_vs_plain(dev)
+    small_encodes()
+    k1_encode, k2["launches"] = real_size_encode(smi)
+    # K1 runs on both main paths: the decode's and the encode's.
+    k1["launches"] = k1_decode + k1_encode
+    k1["launches_by_path"] = {"decode": k1_decode, "encode": k1_encode}
+    k2["launches_by_path"] = {"encode": k2["launches"]}
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -23,8 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 and the device decode path "
-                    "have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2 and the device decode and "
+                    "encode paths have no CPU mode")
     return torch.device("cuda")
 
 
@@ -67,3 +67,42 @@ def test_golden_stream_on_card(card, name):
     for i, o in enumerate(outs):
         assert np.array_equal(np.concatenate([p.reshape(-1) for p in o]),
                               ref[i]), f"frame {i}"
+
+
+def test_k2_kernel_matches_plain(card):
+    from theora_tpu_torch.ops import fdct_cuda
+
+    rng = np.random.default_rng(22)
+    n = 14400
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    args = (t(rng.integers(-255, 256, (n, 64)).astype(np.int16)),
+            t(rng.integers(8, 4097, (2, 64)).astype(np.int16)),
+            t(rng.integers(0, 2, n).astype(np.uint8)))
+    before = fdct_cuda.fdct_quantize.launches
+    q, d = fdct_cuda.fdct_quantize(*args)
+    torch.cuda.synchronize()
+    assert fdct_cuda.fdct_quantize.launches == before + 1
+    qp, dp = transforms.fdct_quantize(*args)
+    assert torch.equal(q, qp) and torch.equal(d, dp)
+
+
+def test_encode_on_card_equals_cpu(card):
+    import importlib.util
+
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    frames = mod.moving_frames(64, 48, 0, 5, 11)
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=40)
+    on_card = GopEncoder(info, qi=40).encode_clip(frames, keyframe_freq=4)
+    on_cpu = GopEncoder(info, qi=40, device="cpu").encode_clip(
+        frames, keyframe_freq=4)
+    assert [p.data for p in on_card] == [p.data for p in on_cpu]

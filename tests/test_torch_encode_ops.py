@@ -1,0 +1,310 @@
+"""The encode-side modules of the PyTorch port against their JAX twins,
+on the CPU, exact: kernel K2's plain version (fDCT + quantizer), the
+trellis, the ME plan and the host frame packer.
+
+Parity hazards, each named in a test below: the trellis' float32 prefix
+sum order, XLA's multiply-add contraction in the trellis costs, the tie
+order of the ME minima, and uint8 arithmetic before a subtraction.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import TESTDATA
+from theora_tpu.ops import me_jax
+from theora_tpu.ops import pallas_kernels as pk
+from theora_tpu.ops import transforms_jax as tj
+from theora_tpu_torch import tables
+from theora_tpu_torch.constants import DCT_TOKEN_EXTRA_BITS, ZZI_GROUP
+from theora_tpu_torch.ops import fdct_cuda, me, transforms
+from theora_tpu_torch.quant import dequant_tables_init
+
+DQ = dequant_tables_init(tables.DEF_QUANT_INFO)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes on shared cores; these
+    small tensors gain nothing from many intra-op threads."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _nb_full():
+    nbt = np.zeros((5, 32), np.float32)
+    for gi in range(5):
+        for t in range(32):
+            nbt[gi, t] = (tables.VP31_HUFF_CODES[gi << 4][t][1]
+                          + DCT_TOKEN_EXTRA_BITS[t])
+    return nbt[ZZI_GROUP]
+
+
+# ---------------------------------------------------------------- K2 plain
+
+def _k2_inputs(seed, n):
+    rng = np.random.default_rng(seed)
+    res = rng.integers(-255, 256, (n, 64)).astype(np.int16)
+    # The int16-safe extremes: saturated flat, checkerboard and stripe
+    # residuals.
+    ext = np.stack([
+        np.full(64, 255), np.full(64, -255),
+        np.where(np.indices((8, 8)).sum(0) % 2, 255, -255).reshape(64),
+        np.where(np.arange(64) % 2, -255, 255),
+        np.where(np.arange(64) // 8 % 2, -255, 255),
+    ]).astype(np.int16)
+    res[:len(ext)] = ext
+    deq = rng.integers(8, 4097, (2, 64)).astype(np.int16)
+    inter = rng.integers(0, 2, n).astype(np.uint8)
+    return res, deq, inter
+
+
+def test_k2_plain_equals_jax_fdct_and_quantize():
+    res, deq, inter = _k2_inputs(7, 20480)
+    q, d = fdct_cuda.fdct_quantize(_t(res), _t(deq), _t(inter))
+    dct = np.asarray(tj.fdct8x8(jnp.asarray(
+        res.reshape(-1, 8, 8).astype(np.int32))))
+    qj = np.asarray(tj.quantize(jnp.asarray(dct),
+                                jnp.asarray(deq[inter].astype(np.int32))))
+    assert np.array_equal(d.numpy(), dct)
+    assert np.array_equal(q.numpy(), qj)
+
+
+def test_k2_plain_equals_pallas_kernel_interpreted():
+    """fdct_quantize_soa on the SoA transpose of 20,480 blocks, once per
+    dequant row (the Pallas kernel takes one; equal shapes compile
+    once), exact."""
+    res, deq, _ = _k2_inputs(8, 20480)
+    soa_in = jnp.asarray(res.astype(np.int32).T)
+    for row in (0, 1):
+        inter = np.full(len(res), row, np.uint8)
+        q, _ = fdct_cuda.fdct_quantize(_t(res), _t(deq), _t(inter))
+        soa = pk.fdct_quantize_soa(soa_in,
+                                   jnp.asarray(deq[row].astype(np.int32)),
+                                   interpret=True)
+        assert np.array_equal(np.asarray(soa).T, q.numpy())
+
+
+def test_k2_plain_equals_libtheora_fdct_vectors():
+    rec = np.dtype([("x", "<i2", 64), ("y", "<i2", 64)])
+    cases = np.fromfile(os.path.join(TESTDATA, "vectors", "fdct_cases.bin"),
+                        dtype=rec)
+    n = len(cases)
+    deq = np.full((2, 64), 8, np.int16)
+    q, d = fdct_cuda.fdct_quantize(_t(cases["x"]), _t(deq),
+                                   torch.zeros(n, dtype=torch.uint8))
+    assert n == 512
+    assert np.array_equal(d.numpy(), cases["y"])
+    qj = np.asarray(tj.quantize(jnp.asarray(cases["y"].astype(np.int32)),
+                                jnp.asarray(deq[0].astype(np.int32))))
+    assert np.array_equal(q.numpy(), qj)
+
+
+def test_uint8_residual_is_taken_in_int32():
+    """Hazard: uint8 planes are cast to int32 before cur - pred (the JAX
+    scan's curf.astype(int32) at tpu_gop.py:202-204). A uint8
+    difference would wrap 0 - 255 to 1."""
+    from theora_tpu_torch.encode.scan import plane_blocks
+
+    cur = torch.zeros((1, 8, 8), dtype=torch.uint8)
+    pred = torch.full((1, 64), 255, dtype=torch.int32)
+    res = plane_blocks(cur, 1, 1)[0].to(torch.int32) - pred
+    assert int(res.min()) == -255
+    q, d = fdct_cuda.fdct_quantize(res.to(torch.int16),
+                                   torch.full((2, 64), 8, dtype=torch.int16),
+                                   torch.zeros(1, dtype=torch.uint8))
+    want = np.asarray(tj.fdct8x8(jnp.full((1, 8, 8), -255, jnp.int32)))
+    assert np.array_equal(d.numpy(), want)
+
+
+# ------------------------------------------------------------------ trellis
+
+def _trellis_case(dct, qi, qti):
+    deq = DQ[qi, 0, qti].astype(np.int32)
+    q0 = np.asarray(tj.quantize(jnp.asarray(dct), jnp.asarray(deq)))
+    lam = np.array([tables.RD_LAMBDA[0][t][i] for t, i in zip(qti, qi)],
+                   np.float32)
+    acmin = np.where(qti == 0, 3, 0).astype(np.int32)
+    return dct.astype(np.int32), q0, deq, lam, _nb_full(), acmin
+
+
+def _both_trellis(args):
+    ref = np.asarray(jax.jit(tj.trellis_values)(*args))
+    got = transforms.trellis_values(*[_t(a) for a in args]).numpy()
+    return ref, got
+
+
+def test_trellis_equals_jax_on_encoder_blocks_and_large_coefficients():
+    rng = np.random.default_rng(11)
+    res = rng.integers(-255, 256, (6000, 8, 8)).astype(np.int32)
+    res[:3000] //= rng.integers(1, 40, (3000, 1, 1))
+    dct = np.asarray(tj.fdct8x8(jnp.asarray(res)))
+    # |c| up to 2**15: c^2 up to 2**30, prefix sums up to 2**36.
+    big = rng.integers(-32768, 32768, (1500, 64)).astype(np.int32)
+    dct = np.concatenate([dct, big])
+    n = len(dct)
+    args = _trellis_case(dct, rng.integers(0, 64, n), rng.integers(0, 2, n))
+    ref, got = _both_trellis(args)
+    assert np.array_equal(got, ref)
+    assert (np.abs(dct) > 32000).any()
+
+
+def test_trellis_prefix_sum_order_hazard(monkeypatch):
+    """Hazard: jnp.cumsum of float32 c^2 is not exact, and XLA on the
+    CPU adds in chunks of 16 positions. On these blocks (found by
+    testdata/make_trellis_cases.py) a sequential sum changes the
+    trellis' choice; the port reproduces XLA's order and equals JAX."""
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_order_cases.npz"))
+    dct = cases["dct"].astype(np.int32)
+    args = _trellis_case(dct, cases["qi"].astype(np.int64),
+                         cases["qti"].astype(np.int64))
+    ref, got = _both_trellis(args)
+    assert len(dct) >= 50
+    assert np.array_equal(got, ref)
+
+    # The order itself, on sums that depend on it.
+    rng = np.random.default_rng(3)
+    c = rng.integers(-32768, 32768, (4000, 64)).astype(np.float32)
+    z = c * c
+    xla = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=1))(z))
+    assert np.array_equal(transforms._xla_cumsum16(_t(z)).numpy(), xla)
+    seq = np.cumsum(z, axis=1, dtype=np.float32)
+    assert not np.array_equal(seq, xla)
+
+    # And the trellis with a sequential sum differs from JAX here.
+    monkeypatch.setattr(
+        transforms, "_xla_cumsum16",
+        lambda v: torch.from_numpy(np.cumsum(v.numpy(), axis=1,
+                                             dtype=np.float32)))
+    alt = transforms.trellis_values(*[_t(a) for a in args]).numpy()
+    assert not np.array_equal(alt, ref)
+
+
+def test_trellis_multiply_add_contraction_hazard():
+    """Hazard: XLA's CPU compiler contracts a*b + c into one fused
+    multiply-add (the first product feeds it), so the token cost
+    e*e + lam*bits rounds once. The port's _fma equals that; two
+    separately rounded float32 ops (or torch.addcmul) need not."""
+    rng = np.random.default_rng(5)
+    e = rng.integers(-32768, 32768, 20000).astype(np.float32)
+    lam = rng.integers(1, 20000, 20000).astype(np.float32)
+    nb = rng.integers(1, 30, 20000).astype(np.float32)
+    xla = np.asarray(jax.jit(lambda a, l, b: a * a + l * b)(e, lam, nb))
+    got = transforms._fma(_t(e), _t(e), _t(lam) * _t(nb)).numpy()
+    assert np.array_equal(got, xla)
+    separate = (e * e) + (lam * nb)
+    assert not np.array_equal(separate, xla)
+
+
+# ----------------------------------------------------------------- ME plan
+
+_PLAN_NAMES = ("mv", "sad_mv", "sad_nomv", "sad_gold", "sad_intra", "cands",
+               "cand_sads", "gmv", "sad_gmv", "bmv", "bsad4")
+
+
+def _luma_clip(h, w):
+    """Frames of cif.i420 cropped to h x w, then random noise and a shift
+    of it (large vectors), then flat and periodic frames (every candidate
+    ties: the tie order decides)."""
+    W, H = 352, 288
+    raw = np.fromfile(os.path.join(TESTDATA, "cif.i420"), np.uint8)
+    fsz = W * H * 3 // 2
+    real = [raw[i * fsz:i * fsz + W * H].reshape(H, W)[40:40 + h, 60:60 + w]
+            for i in range(min(4, raw.size // fsz))]
+    rng = np.random.default_rng(h + w)
+    noise = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    flat = np.full((h, w), 77, np.uint8)
+    stripes = (np.indices((h, w))[1] % 4 * 60).astype(np.uint8)
+    frames = real + [noise, np.roll(noise, (2, -5), (0, 1)), flat, flat,
+                     stripes, np.roll(stripes, 1, 1)]
+    return np.ascontiguousarray(np.stack(frames))
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (144, 176)])
+def test_me_plan_equals_jax_including_ties(h, w):
+    ys = _luma_clip(h, w)
+    F = len(ys)
+    kf = {0, 4, 6}
+    gidx, last = [], 0
+    for f in range(1, F):
+        last = f if f in kf else last
+        gidx.append(last)
+    gidx = np.array(gidx, np.int32)
+    ref = jax.device_get(me_jax.plan_with_gold(jnp.asarray(ys),
+                                               jnp.asarray(gidx)))
+    got = me.plan_with_gold(_t(ys), _t(gidx).long())
+    for name, r, g in zip(_PLAN_NAMES, ref, got):
+        assert np.array_equal(np.asarray(r).astype(np.int64),
+                              g.numpy().astype(np.int64)), name
+    # plan_from_gop is plan_with_gold with the first frame as gold.
+    ref0 = jax.device_get(me_jax.plan_from_gop(jnp.asarray(ys[:4])))
+    got0 = me.plan_from_gop(_t(ys[:4]))
+    for name, r, g in zip(_PLAN_NAMES, ref0, got0):
+        assert np.array_equal(np.asarray(r).astype(np.int64),
+                              g.numpy().astype(np.int64)), name
+
+
+# ------------------------------------------------------------------ packer
+
+def _random_plan(g, rng):
+    from theora_tpu.constants import FRAME_GOLD, FRAME_NONE, FRAME_PREV, \
+        FRAME_SELF
+
+    nf = g.nfrags
+    coded = rng.random(nf) < 0.6
+    qdct = (rng.integers(-40, 41, (nf, 64))
+            * (rng.random((nf, 64)) < 0.15)).astype(np.int16)
+    qdct[:, 0] = rng.integers(-300, 300, nf)
+    mb_modes = np.where(g.mb_valid, rng.integers(0, 8, g.nmbs), -1).astype(
+        np.int32)
+    mb_mvs = rng.integers(-31, 32, (g.nmbs, 2)).astype(np.int32)
+    frag_mv4 = rng.integers(-31, 32, (nf, 2)).astype(np.int32)
+    refi = np.full(nf, FRAME_PREV, np.int32)
+    for mbi in np.where(g.mb_valid)[0]:
+        ref = {1: FRAME_SELF, 5: FRAME_GOLD, 6: FRAME_GOLD}.get(
+            int(mb_modes[mbi]), FRAME_PREV)
+        for f in g.mb_maps[mbi].reshape(-1):
+            if f >= 0:
+                refi[f] = ref
+    refi = np.where(coded, refi, FRAME_NONE).astype(np.int32)
+    return coded, qdct, mb_modes, mb_mvs, frag_mv4, refi
+
+
+@pytest.mark.parametrize("fmt,w,h,qi", [(0, 64, 48, 40), (2, 80, 64, 20),
+                                        (3, 48, 32, 55)])
+def test_packer_equals_host_encoder(fmt, w, h, qi):
+    from theora_tpu.encode.encoder import Encoder
+    from theora_tpu.info import INTER_FRAME as J_INTER, TheoraInfo as JInfo
+    from theora_tpu_torch.encode.packer import FramePacker
+    from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME, TheoraInfo
+
+    kw = dict(frame_width=w, frame_height=h, pic_width=w, pic_height=h,
+              quality=qi, pixel_fmt=fmt)
+    enc = Encoder(JInfo(**kw))
+    enc.qi = qi
+    pk_ = FramePacker(TheoraInfo(**kw))
+    assert [p.data for p in pk_.flush_headers()] == [
+        p.data for p in enc.flush_headers()]
+    g = pk_.geometry
+    rng = np.random.default_rng(fmt + qi)
+    for _ in range(3):
+        coded, qdct, modes, mvs, mv4, refi = _random_plan(g, rng)
+        assert pk_.pack_frame_plan(
+            INTRA_FRAME, qi, np.ones_like(coded), np.full_like(refi, 2),
+            None, None, qdct) == enc.pack_frame_plan(
+            0, np.ones_like(coded), np.full_like(refi, 2), None, None, qdct)
+        enc._frag_mv4 = mv4
+        assert pk_.pack_frame_plan(
+            INTER_FRAME, qi, coded, refi, modes, mvs, qdct,
+            frag_mv4=mv4) == enc.pack_frame_plan(
+            J_INTER, coded, refi, modes, mvs, qdct)

@@ -1,6 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
-package, it never falls back to the CPU when a card is missing, and K1's
-wrapper takes its plain path only for CPU tensors."""
+package (nor do the testdata scripts chip_smoke.py runs, at import), it
+never falls back to the CPU when a card is missing, the
+kernel wrappers (K1, K2) take their plain paths only for CPU tensors, and
+the encoder settings it does not carry yet raise."""
 import ast
 import os
 
@@ -23,10 +25,13 @@ def _port_sources():
     yield os.path.join(REPO_ROOT, "chip_smoke.py")
 
 
-def _imported_modules(path):
+def _parse(path):
     with open(path) as f:
-        tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
+        return ast.parse(f.read(), path)
+
+
+def _imports_of(nodes):
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
@@ -37,6 +42,45 @@ def _imported_modules(path):
             yield node.args[0].value
 
 
+def _imported_modules(path):
+    yield from _imports_of(ast.walk(_parse(path)))
+
+
+def _import_time_nodes(tree):
+    """The nodes that run when the module is executed: everything but
+    the bodies of functions and lambdas."""
+    todo = [tree]
+    while todo:
+        node = todo.pop()
+        yield node
+        todo.extend(n for n in ast.iter_child_nodes(node)
+                    if not isinstance(n, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef, ast.Lambda)))
+
+
+def _smoke_scripts():
+    """The testdata scripts chip_smoke.py executes by path, followed
+    through the scripts they load in turn (a '<name>.py' string constant
+    naming a file of testdata/)."""
+    found = []
+    tree = _parse(os.path.join(REPO_ROOT, "chip_smoke.py"))
+    todo = [n.args[0].value for n in ast.walk(tree)
+            if isinstance(n, ast.Call)
+            and getattr(n.func, "id", None) == "_load_testdata"]
+    while todo:
+        name = todo.pop()
+        path = os.path.join(TESTDATA, name if name.endswith(".py")
+                            else f"{name}.py")
+        if path in found:
+            continue
+        found.append(path)
+        todo += [n.value for n in ast.walk(_parse(path))
+                 if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                 and n.value.endswith(".py")
+                 and os.path.exists(os.path.join(TESTDATA, n.value))]
+    return found
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 10
@@ -45,6 +89,16 @@ def test_port_imports_no_jax_and_no_jax_package():
         for mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append((os.path.relpath(path, REPO_ROOT), mod))
+    assert not bad, bad
+
+
+def test_smoke_scripts_import_no_jax_when_loaded():
+    scripts = _smoke_scripts()
+    names = sorted(os.path.basename(p) for p in scripts)
+    assert names == ["make_hd720.py", "make_hd720_enc.py"]
+    bad = [(os.path.basename(path), mod) for path in scripts
+           for mod in _imports_of(_import_time_nodes(_parse(path)))
+           if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 
@@ -113,3 +167,97 @@ def test_k1_wrapper_output_on_cpu():
     out = idct_cuda.dequantize_idct_frames(*_k1_args("cpu"))
     assert out.dtype == torch.int16 and out.shape == (5, 64)
     assert np.array_equal(out.numpy(), np.zeros((5, 64), np.int16))
+
+
+# ------------------------------------------------------------- encode side
+
+def _small_info():
+    from theora_tpu_torch.info import TheoraInfo
+
+    return TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=40)
+
+
+def test_gop_encoder_without_card_raises(monkeypatch):
+    from theora_tpu_torch.encode.gop import GopEncoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GopEncoder(_small_info())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GopEncoder(_small_info(), device="cuda")
+    assert GopEncoder(_small_info(), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("setting", [
+    dict(adaptive_quant=True), dict(adaptive_quant="auto"),
+    dict(use_trellis=False), dict(target_bitrate=200000),
+    dict(auto_keyframe=True), dict(attribute="adaptive_quant"),
+])
+def test_unsupported_settings_raise(setting):
+    from theora_tpu_torch.encode.gop import GopEncoder
+
+    frames = [[np.zeros((48, 64), np.uint8), np.zeros((24, 32), np.uint8),
+               np.zeros((24, 32), np.uint8)]]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if "attribute" in setting:
+            GopEncoder(_small_info(), device="cpu").adaptive_quant = "auto"
+        elif set(setting) <= {"adaptive_quant", "use_trellis"}:
+            GopEncoder(_small_info(), device="cpu", **setting)
+        else:
+            GopEncoder(_small_info(), device="cpu").encode_clip(frames,
+                                                                **setting)
+
+
+def _k2_args(device):
+    n = 5
+    return (
+        torch.zeros((n, 64), dtype=torch.int16, device=device),
+        torch.full((2, 64), 8, dtype=torch.int16, device=device),
+        torch.zeros(n, dtype=torch.uint8, device=device),
+    )
+
+
+def test_k2_plain_path_only_for_cpu_tensors(monkeypatch):
+    from theora_tpu_torch.ops import fdct_cuda
+
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        z = torch.zeros((args[0].shape[0], 64), dtype=torch.int16)
+        return z, z
+
+    monkeypatch.setattr(transforms, "fdct_quantize", plain)
+    fdct_cuda.fdct_quantize(*_k2_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fdct_cuda.fdct_quantize(*_k2_args("meta"))
+    assert calls == ["cpu"]
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((5, 64), dtype=torch.int32)),
+    (0, torch.zeros((5, 63), dtype=torch.int16)),
+    (0, torch.zeros((64, 5), dtype=torch.int16).t()),
+    (1, torch.full((3, 64), 8, dtype=torch.int16)),
+    (1, torch.full((2, 64), 8, dtype=torch.int32)),
+    (2, torch.zeros(5, dtype=torch.bool)),
+    (2, torch.zeros(4, dtype=torch.uint8)),
+])
+def test_k2_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import fdct_cuda
+
+    args = list(_k2_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        fdct_cuda.fdct_quantize(*args)
+
+
+def test_k2_wrapper_output_on_cpu():
+    from theora_tpu_torch.ops import fdct_cuda
+
+    q, d = fdct_cuda.fdct_quantize(*_k2_args("cpu"))
+    assert q.dtype == d.dtype == torch.int16
+    assert q.shape == d.shape == (5, 64)
+    assert fdct_cuda.fdct_quantize.launches == 0

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of theora_tpu's device tier, for one NVIDIA H100.
 
-The first slice is the GOP-batch decoder (``decode/batch.py``), whose
-dequant + iDCT runs as a hand-written CUDA kernel (``csrc/idct.cu``).
+Two slices: the GOP-batch decoder (``decode/batch.py``), whose dequant +
+iDCT runs as a hand-written CUDA kernel (``csrc/idct.cu``), and the
+device GOP encoder (``encode/gop.py``), whose fDCT + quantizer is a second
+one (``csrc/fdct_quant.cu``) and whose reconstruction reuses the first.
 The package imports neither JAX nor ``theora_tpu``: it keeps its own
-copies of the host modules it needs (headers, geometry, the native
-entropy tier, ...), each trimmed to the decode side.
+copies of the host modules it needs (headers, geometry, tables, the
+native entropy tier, ...), each trimmed to what the slices use.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU with ``device="cpu"``. Without a card they raise; they never

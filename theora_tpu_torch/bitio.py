@@ -1,7 +1,8 @@
-"""MSB-first bit reader with Theora's bit-unpacking semantics.
+"""MSB-first bit reader and writer with Theora's bit-packing semantics.
 
-Read-side copy of theora_tpu/bitio.py: reads past the end of the buffer
-return zero bits and latch an EOF flag (bitpack.c:47-53).
+Copy of theora_tpu/bitio.py: reads past the end of the buffer return zero
+bits and latch an EOF flag (bitpack.c:47-53); the writer's bytes equal
+oggpackB's.
 """
 from __future__ import annotations
 
@@ -58,3 +59,54 @@ class BitReader:
 
     def read_string(self, nbytes: int) -> bytes:
         return bytes(self.read(8) for _ in range(nbytes))
+
+
+class BitWriter:
+    """MSB-first bit writer, byte-output-identical to oggpackB."""
+
+    __slots__ = ("_buf", "_cur", "_curbits")
+
+    def __init__(self):
+        self._buf = bytearray()
+        self._cur = 0
+        self._curbits = 0
+
+    def write(self, value: int, bits: int) -> None:
+        if bits <= 0:
+            return
+        value &= (1 << bits) - 1
+        cur = (self._cur << bits) | value
+        curbits = self._curbits + bits
+        while curbits >= 8:
+            curbits -= 8
+            self._buf.append((cur >> curbits) & 0xFF)
+        self._cur = cur & ((1 << curbits) - 1)
+        self._curbits = curbits
+
+    def write_string(self, data: bytes) -> None:
+        for b in data:
+            self.write(b, 8)
+
+    def append_bits(self, data: bytes, nbits: int) -> None:
+        """Append the first nbits of an MSB-first bit buffer."""
+        nbytes = nbits >> 3
+        if self._curbits == 0:
+            self._buf.extend(data[:nbytes])
+        else:
+            for b in data[:nbytes]:
+                self.write(b, 8)
+        rem = nbits & 7
+        if rem:
+            self.write(data[nbytes] >> (8 - rem), rem)
+
+    @property
+    def bitpos(self) -> int:
+        return 8 * len(self._buf) + self._curbits
+
+    def bytes(self) -> bytes:
+        """The bytes written; a trailing partial byte is zero-padded
+        (oggpackB_bytes: (endbit + 7) / 8)."""
+        out = bytearray(self._buf)
+        if self._curbits:
+            out.append((self._cur << (8 - self._curbits)) & 0xFF)
+        return bytes(out)

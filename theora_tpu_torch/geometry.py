@@ -1,7 +1,7 @@
 """Frame geometry: fragment planes, super-block Hilbert maps, macro-block
-maps and the canonical bitstream scan order.
+maps, fragment coordinates and the canonical bitstream scan order.
 
-Decode-side copy of theora_tpu/geometry.py (state.c:123-332). Fragment row
+Copy of theora_tpu/geometry.py (state.c:123-332). Fragment row
 0 is the *bitstream* bottom row; planes are stored with row 0 = bitstream
 row 0 and flipped at the output boundary (internal.c:177-188).
 """
@@ -35,6 +35,7 @@ class FrameGeometry:
     mb_valid: [nmbs] bool. scan_fragis / scan_sbi / scan_quadi / scan_pli:
     every valid fragment in the canonical super-block scan order
     (decode.c:483-671) with its super block, quadrant and plane.
+    frag_x / frag_y: [nfrags] fragment column and row inside its plane.
     """
 
     def __init__(self, frame_width: int, frame_height: int, pixel_fmt: int):
@@ -70,6 +71,11 @@ class FrameGeometry:
         self._build_sb_maps()
         self._build_mb_maps()
         self._build_scan_order()
+        local = np.concatenate([np.arange(pl.nfrags) for pl in self.planes])
+        nh = np.concatenate([np.full(pl.nfrags, pl.nhfrags)
+                             for pl in self.planes])
+        self.frag_x = (local % nh).astype(np.int32)
+        self.frag_y = (local // nh).astype(np.int32)
 
     def _build_sb_maps(self) -> None:
         sb_maps = np.full((self.nsbs, 4, 4), -1, dtype=np.int32)

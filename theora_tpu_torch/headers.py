@@ -1,15 +1,18 @@
-"""Header packet parsing (info 0x80, comment 0x81, setup 0x82).
+"""Header packets (info 0x80, comment 0x81, setup 0x82): parsing and
+packing.
 
-Decode-side copy of theora_tpu/headers.py (lib/decinfo.c).
+Copy of theora_tpu/headers.py (lib/decinfo.c, lib/encinfo.c).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from theora_tpu_torch.bitio import BitReader
-from theora_tpu_torch.huffman import Codebook, codebooks_unpack
-from theora_tpu_torch.info import VERSION_MAJOR, VERSION_MINOR, TheoraInfo
-from theora_tpu_torch.quant import quant_params_unpack
+from theora_tpu_torch.bitio import BitReader, BitWriter
+from theora_tpu_torch.huffman import Codebook, codebooks_pack, \
+    codebooks_unpack
+from theora_tpu_torch.info import VENDOR_STRING, VERSION_MAJOR, \
+    VERSION_MINOR, VERSION_SUBMINOR, TheoraInfo
+from theora_tpu_torch.quant import quant_params_pack, quant_params_unpack
 
 
 @dataclasses.dataclass
@@ -106,3 +109,60 @@ def parse_setup_header(packet: bytes) -> SetupInfo:
     qinfo = quant_params_unpack(br)
     books = codebooks_unpack(br)
     return SetupInfo(qinfo=qinfo, codebooks=books)
+
+
+def pack_info_header(info: TheoraInfo) -> bytes:
+    bw = BitWriter()
+    bw.write(0x80, 8)
+    bw.write_string(b"theora")
+    bw.write(VERSION_MAJOR, 8)
+    bw.write(VERSION_MINOR, 8)
+    bw.write(VERSION_SUBMINOR, 8)
+    bw.write(info.frame_width >> 4, 16)
+    bw.write(info.frame_height >> 4, 16)
+    bw.write(info.pic_width, 24)
+    bw.write(info.pic_height, 24)
+    bw.write(info.pic_x, 8)
+    bw.write(info.frame_height - info.pic_height - info.pic_y, 8)
+    bw.write(info.fps_numerator, 32)
+    bw.write(info.fps_denominator, 32)
+    bw.write(info.aspect_numerator, 24)
+    bw.write(info.aspect_denominator, 24)
+    bw.write(int(info.colorspace), 8)
+    bw.write(info.target_bitrate, 24)
+    bw.write(info.quality, 6)
+    bw.write(info.keyframe_granule_shift, 5)
+    bw.write(int(info.pixel_fmt), 2)
+    bw.write(0, 3)
+    return bw.bytes()
+
+
+def pack_comment_header(comments: list[bytes] | None = None,
+                        vendor: bytes | None = None) -> bytes:
+    bw = BitWriter()
+    bw.write(0x81, 8)
+    bw.write_string(b"theora")
+    vendor = vendor if vendor is not None else VENDOR_STRING.encode()
+
+    def write_len(v: int) -> None:
+        for i in range(4):
+            bw.write((v >> (8 * i)) & 0xFF, 8)
+
+    write_len(len(vendor))
+    bw.write_string(vendor)
+    comments = comments or []
+    write_len(len(comments))
+    for c in comments:
+        write_len(len(c))
+        bw.write_string(c)
+    return bw.bytes()
+
+
+def pack_setup_header(qinfo: dict,
+                      huff_codes: list[list[tuple[int, int]]]) -> bytes:
+    bw = BitWriter()
+    bw.write(0x82, 8)
+    bw.write_string(b"theora")
+    quant_params_pack(bw, qinfo)
+    codebooks_pack(bw, huff_codes)
+    return bw.bytes()

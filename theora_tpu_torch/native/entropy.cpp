@@ -1,12 +1,17 @@
-// Decode-only native host tier of theora_tpu_torch.
+// Native host tier of theora_tpu_torch.
 //
-// Copy of the decode side of theora_tpu/native/entropy.cpp: the Huffman
-// context, residual-token decode and replay (decode.c:1141-1586), DC
-// prediction reversal (decode.c:1392-1500) and the frame side-info parser
-// (decode.c:442-981). Bit-serial work stays on the host; the pixel
-// pipeline runs on the card.
+// Copy of the parts of theora_tpu/native/entropy.cpp the port runs. Decode:
+// the Huffman context, residual-token decode and replay
+// (decode.c:1141-1586), DC prediction (decode.c:1392-1500) and the frame
+// side-info parser (decode.c:442-981). Encode (the device GOP encoder's
+// host stages): DC prediction residuals (tokenize.c:977-1074), the token
+// packer (tokenize + Huffman selection + residual section,
+// encode.c:816-863), the coded-flags and MB-mode packers
+// (encode.c:487-621) and the sequential mode decision of the GOP encoder.
+// Bit-serial work stays on the host; the pixel pipeline runs on the card.
 //
 // Pure C ABI (loaded via ctypes). No Python.h dependency.
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <cstdlib>
@@ -74,6 +79,30 @@ struct BitReader {
     return v;
   }
   uint32_t peek(int bits) const { return window(bits); }
+};
+
+struct BitWriter {
+  std::vector<uint8_t> buf;
+  uint64_t cur = 0;
+  int curbits = 0;
+
+  void write(uint32_t value, int bits) {
+    if (bits <= 0) return;
+    cur = (cur << bits) | (value & ((bits >= 32) ? 0xFFFFFFFFu : ((1u << bits) - 1)));
+    curbits += bits;
+    while (curbits >= 8) {
+      curbits -= 8;
+      buf.push_back((uint8_t)((cur >> curbits) & 0xFF));
+    }
+    cur &= (1ull << curbits) - 1;
+  }
+  void flush() {
+    if (curbits) {
+      buf.push_back((uint8_t)((cur << (8 - curbits)) & 0xFF));
+      cur = 0;
+      curbits = 0;
+    }
+  }
 };
 
 // ------------------------------------------------------------- Huffman LUT
@@ -346,7 +375,271 @@ int64_t th_decode_frame_tokens(
 }  // extern "C"
 
 // ===================================================================
-// DC prediction reversal (16-case predictor; decode.c:1392-1500).
+// Token packer: tokenize the coded blocks and pack the residual section.
+extern "C" {
+
+// ------------------------------------------------------------------ encode
+namespace {
+
+struct EncStreams {
+  std::vector<uint8_t> toks[3][64];
+  std::vector<int32_t> ebs[3][64];
+  int64_t eob_run[3][64];
+  int64_t offs[3][64];
+};
+
+const uint8_t EOB_TOKEN_TAB[31] = {0, 1, 2, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4,
+                                   5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
+const uint8_t EOB_EB_TAB[31] = {0, 0, 0, 0, 1, 2, 3, 0, 1, 2, 3, 4, 5, 6, 7,
+                                0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15};
+
+inline void make_eob(int64_t run, int* tok, int* eb) {
+  if (run < 32) {
+    *tok = EOB_TOKEN_TAB[run - 1];
+    *eb = EOB_EB_TAB[run - 1];
+  } else {
+    *tok = 6;
+    *eb = (int)run;
+  }
+}
+
+inline int64_t decode_eob(int tok, int eb) {
+  return ((0x20820C41u >> (tok * 5)) & 0x1F) + eb;
+}
+
+inline void value_token(int v, int* tok, int* eb) {
+  int a = v < 0 ? -v : v;
+  int neg = v < 0;
+  if (a == 1) { *tok = neg ? 10 : 9; *eb = 0; }
+  else if (a == 2) { *tok = neg ? 12 : 11; *eb = 0; }
+  else if (a <= 6) { *tok = 13 + a - 3; *eb = neg; }
+  else if (a <= 8) { *tok = 17; *eb = (neg << 1) | (a - 7); }
+  else if (a <= 12) { *tok = 18; *eb = (neg << 2) | (a - 9); }
+  else if (a <= 20) { *tok = 19; *eb = (neg << 3) | (a - 13); }
+  else if (a <= 36) { *tok = 20; *eb = (neg << 4) | (a - 21); }
+  else if (a <= 68) { *tok = 21; *eb = (neg << 5) | (a - 37); }
+  else { *tok = 22; *eb = (neg << 9) | (a - 69); }
+}
+
+inline bool combo_token(int nz, int v, int* tok, int* eb) {
+  int a = v < 0 ? -v : v;
+  int neg = v < 0;
+  if (a == 1 && nz >= 1 && nz <= 17) {
+    if (nz <= 5) { *tok = 23 + nz - 1; *eb = neg; }
+    else if (nz <= 9) { *tok = 28; *eb = (neg << 2) | (nz - 6); }
+    else { *tok = 29; *eb = (neg << 3) | (nz - 10); }
+    return true;
+  }
+  if (a >= 2 && a <= 3 && nz >= 1 && nz <= 3) {
+    if (nz == 1) { *tok = 30; *eb = (neg << 1) | (a - 2); }
+    else { *tok = 31; *eb = (neg << 2) | ((a - 2) << 1) | (nz - 2); }
+    return true;
+  }
+  return false;
+}
+
+void log_token(EncStreams& es, int pli, int zzi, int tok, int eb) {
+  if (es.eob_run[pli][zzi] > 0) {
+    int t, e;
+    make_eob(es.eob_run[pli][zzi], &t, &e);
+    es.toks[pli][zzi].push_back((uint8_t)t);
+    es.ebs[pli][zzi].push_back(e);
+    es.eob_run[pli][zzi] = 0;
+  }
+  es.toks[pli][zzi].push_back((uint8_t)tok);
+  es.ebs[pli][zzi].push_back(eb);
+}
+
+}  // namespace
+
+static int64_t finish_and_pack(EncStreams& es, const int32_t* huff_codes,
+                               const uint8_t* prefix, int64_t prefix_bits,
+                               uint8_t* out, int64_t cap,
+                               int32_t* chosen_out);
+
+// Tokenize all coded blocks and pack the residual-token section.
+//
+// Inputs:
+//   vecs: [total, 64] int16 zig-zag coefficients with the DC *residual* at
+//     index 0, in coded order; ncoded[3] per-plane counts.
+//   huff_codes: [80][32][2] int32 (pattern, nbits).
+//   prefix / prefix_bits: already-packed packet prefix.
+// Output: out (caller-allocated, cap bytes); returns byte length or -1.
+int64_t th_encode_frame_tokens(
+    const int16_t* vecs, const int64_t* ncoded, const int32_t* huff_codes,
+    const uint8_t* prefix, int64_t prefix_bits, uint8_t* out, int64_t cap) {
+  EncStreams es;
+  memset(es.eob_run, 0, sizeof(es.eob_run));
+  memset(es.offs, 0, sizeof(es.offs));
+
+  int64_t idx = 0;
+  for (int pli = 0; pli < 3; pli++) {
+    for (int64_t f = 0; f < ncoded[pli]; f++, idx++) {
+      const int16_t* vec = vecs + idx * 64;
+      int zzi = 0;
+      for (int p = 0; p < 64; p++) {
+        if (!vec[p]) continue;
+        int v = vec[p];
+        int nz = p - zzi;
+        int tok, eb;
+        if (nz == 0) {
+          value_token(v, &tok, &eb);
+          log_token(es, pli, zzi, tok, eb);
+        } else if (combo_token(nz, v, &tok, &eb)) {
+          log_token(es, pli, zzi, tok, eb);
+        } else {
+          // Pure zero run consuming nz positions, then the value.
+          tok = nz <= 8 ? 7 : 8;
+          log_token(es, pli, zzi, tok, nz - 1);
+          value_token(v, &tok, &eb);
+          log_token(es, pli, p, tok, eb);
+        }
+        zzi = p + 1;
+      }
+      if (zzi < 64) {
+        int64_t run = es.eob_run[pli][zzi] + 1;
+        if (run >= 4095) {
+          es.toks[pli][zzi].push_back(6);
+          es.ebs[pli][zzi].push_back((int)run);
+          run = 0;
+        }
+        es.eob_run[pli][zzi] = run;
+      }
+    }
+  }
+  return finish_and_pack(es, huff_codes, prefix, prefix_bits, out, cap, nullptr);
+}
+
+static int64_t finish_and_pack(EncStreams& es, const int32_t* huff_codes,
+                               const uint8_t* prefix, int64_t prefix_bits,
+                               uint8_t* out, int64_t cap,
+                               int32_t* chosen_out) {
+  // Flush trailing runs.
+  for (int pli = 0; pli < 3; pli++)
+    for (int z = 0; z < 64; z++)
+      if (es.eob_run[pli][z] > 0) {
+        int t, e;
+        make_eob(es.eob_run[pli][z], &t, &e);
+        es.toks[pli][z].push_back((uint8_t)t);
+        es.ebs[pli][z].push_back(e);
+        es.eob_run[pli][z] = 0;
+      }
+  // Cross-stream EOB merge (tokenize.c:1319-1366).
+  for (int z = 0; z < 64; z++) {
+    for (int pli = 0; pli < 3; pli++) {
+      if ((int64_t)es.toks[pli][z].size() <= es.offs[pli][z]) continue;
+      int64_t first = es.offs[pli][z];
+      int tok2 = es.toks[pli][z][first];
+      if (tok2 > 6) continue;
+      int zj = z, pj = pli;
+      int64_t ti = -1;
+      bool found = false;
+      while (!found) {
+        pj--;
+        if (pj < 0) {
+          zj--;
+          if (zj < 0) break;
+          pj = 2;
+        }
+        ti = (int64_t)es.toks[pj][zj].size() - 1;
+        if (ti >= es.offs[pj][zj]) found = true;
+      }
+      if (!found) continue;
+      int tok1 = es.toks[pj][zj][ti];
+      if (tok1 > 6) continue;
+      int64_t run = decode_eob(tok1, es.ebs[pj][zj][ti]) +
+                    decode_eob(tok2, es.ebs[pli][z][first]);
+      if (run >= 4096) continue;
+      int t, e;
+      make_eob(run, &t, &e);
+      es.toks[pj][zj][ti] = (uint8_t)t;
+      es.ebs[pj][zj][ti] = e;
+      es.offs[pli][z]++;
+    }
+  }
+
+  // Table selection by exact bit counting (encode.c:816-863).
+  auto group_counts = [&](int z0, int z1, int64_t cy[32], int64_t cc[32]) {
+    memset(cy, 0, 32 * sizeof(int64_t));
+    memset(cc, 0, 32 * sizeof(int64_t));
+    for (int z = z0; z < z1; z++) {
+      for (size_t t = es.offs[0][z]; t < es.toks[0][z].size(); t++)
+        cy[es.toks[0][z][t]]++;
+      for (int pli = 1; pli < 3; pli++)
+        for (size_t t = es.offs[pli][z]; t < es.toks[pli][z].size(); t++)
+          cc[es.toks[pli][z][t]]++;
+    }
+  };
+  auto select = [&](const int64_t counts[32], int hgi) {
+    int best = 0;
+    int64_t best_bits = -1;
+    for (int h = 0; h < 16; h++) {
+      int64_t bits = 0;
+      for (int t = 0; t < 32; t++)
+        bits += counts[t] * huff_codes[((hgi * 16 + h) * 32 + t) * 2 + 1];
+      if (best_bits < 0 || bits < best_bits) { best_bits = bits; best = h; }
+    }
+    return best;
+  };
+
+  BitWriter bw;
+  // Copy the prefix.
+  for (int64_t i = 0; i < prefix_bits; i++)
+    bw.write((prefix[i >> 3] >> (7 - (i & 7))) & 1, 1);
+
+  auto emit_group = [&](int z0, int z1, int hy, int hc) {
+    for (int z = z0; z < z1; z++) {
+      for (int pli = 0; pli < 3; pli++) {
+        int h = pli == 0 ? hy : hc;
+        for (size_t t = es.offs[pli][z]; t < es.toks[pli][z].size(); t++) {
+          int tok = es.toks[pli][z][t];
+          const int32_t* c = huff_codes + (h * 32 + tok) * 2;
+          bw.write((uint32_t)c[0], c[1]);
+          if (TOKEN_EB[tok]) bw.write((uint32_t)es.ebs[pli][z][t], TOKEN_EB[tok]);
+        }
+      }
+    }
+  };
+
+  int64_t cy[32], cc[32];
+  group_counts(0, 1, cy, cc);
+  int hy = select(cy, 0), hc = select(cc, 0);
+  if (chosen_out) { chosen_out[0] = hy; chosen_out[1] = hc; }
+  bw.write(hy, 4);
+  bw.write(hc, 4);
+  emit_group(0, 1, hy, hc);
+  int64_t bits_y[16] = {0}, bits_c[16] = {0};
+  for (int hgi = 1; hgi < 5; hgi++) {
+    group_counts(HUFF_LIST_MAX[hgi - 1], HUFF_LIST_MAX[hgi], cy, cc);
+    for (int h = 0; h < 16; h++)
+      for (int t = 0; t < 32; t++) {
+        bits_y[h] += cy[t] * huff_codes[((hgi * 16 + h) * 32 + t) * 2 + 1];
+        bits_c[h] += cc[t] * huff_codes[((hgi * 16 + h) * 32 + t) * 2 + 1];
+      }
+  }
+  hy = 0; hc = 0;
+  for (int h = 1; h < 16; h++) {
+    if (bits_y[h] < bits_y[hy]) hy = h;
+    if (bits_c[h] < bits_c[hc]) hc = h;
+  }
+  if (chosen_out) { chosen_out[2] = hy; chosen_out[3] = hc; }
+  bw.write(hy, 4);
+  bw.write(hc, 4);
+  for (int hgi = 1; hgi < 5; hgi++)
+    emit_group(HUFF_LIST_MAX[hgi - 1], HUFF_LIST_MAX[hgi], hgi * 16 + hy,
+               hgi * 16 + hc);
+
+  bw.flush();
+  if ((int64_t)bw.buf.size() > cap) return -1;
+  memcpy(out, bw.buf.data(), bw.buf.size());
+  return (int64_t)bw.buf.size();
+}
+
+}  // extern "C"
+
+// ===================================================================
+// DC prediction (16-case predictor shared by decode.c:1392-1500 and
+// tokenize.c:977-1074).
 extern "C" {
 
 static inline int cdiv(int a, int b) {
@@ -355,10 +648,12 @@ static inline int cdiv(int a, int b) {
 }
 static inline int wrap16(int v) { return (int16_t)v; }
 
-// dc += pred, in place. coded: [nv*nh] uint8; refi: [nv*nh] int32;
-// dc: [nv*nh] int32 (in/out); pred_last: [3] int32 running state.
-void th_dc_predict_plane(int nv, int nh, const uint8_t* coded,
-                         const int32_t* refi, int32_t* dc,
+// mode=0: decode (dc += pred); mode=1: encode (out = dc - pred, dc kept).
+// coded: [nv*nh] uint8; refi: [nv*nh] int32; dc: [nv*nh] int32 (in/out);
+// out: [nv*nh] int32 (encode residuals; may be null for decode);
+// pred_last: [3] int32 running state (updated).
+void th_dc_predict_plane(int mode, int nv, int nh, const uint8_t* coded,
+                         const int32_t* refi, int32_t* dc, int32_t* out,
                          int32_t* pred_last) {
   for (int fy = 0; fy < nv; fy++) {
     for (int fx = 0; fx < nh; fx++) {
@@ -405,9 +700,14 @@ void th_dc_predict_plane(int nv, int nh, const uint8_t* coded,
           default: pred = pred_last[r]; break;
         }
       }
-      int v = wrap16(dc[i] + pred);
-      dc[i] = v;
-      pred_last[r] = v;
+      if (mode == 0) {
+        int v = wrap16(dc[i] + pred);
+        dc[i] = v;
+        pred_last[r] = v;
+      } else {
+        out[i] = wrap16(dc[i] - pred);
+        pred_last[r] = dc[i];
+      }
     }
   }
 }
@@ -775,3 +1075,270 @@ int64_t th_parse_frame_sideinfo(
 }
 
 }  // extern "C"
+
+// ===================================================================
+// Coded-block flags (encode.c:487-589).
+extern "C" {
+
+namespace {
+
+const int SB_RUN_VAL_MIN[8] = {1, 2, 4, 6, 10, 18, 34, 4130};
+const int SB_RUN_CODE_PREFIX[7] = {0, 4, 0xC, 0x38, 0xF0, 0x3E0, 0x3F000};
+const int SB_RUN_CODE_NBITS[7] = {1, 3, 4, 6, 8, 10, 18};
+const int BLK_RUN_NBITS[30] = {2, 2, 3, 3, 4, 4, 6, 6, 6, 6, 7, 7, 7, 7,
+                               9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9,
+                               9, 9};
+const int BLK_RUN_PAT[30] = {0x000, 0x001, 0x004, 0x005, 0x00C, 0x00D,
+                             0x038, 0x039, 0x03A, 0x03B, 0x078, 0x079,
+                             0x07A, 0x07B, 0x1F0, 0x1F1, 0x1F2, 0x1F3,
+                             0x1F4, 0x1F5, 0x1F6, 0x1F7, 0x1F8, 0x1F9,
+                             0x1FA, 0x1FB, 0x1FC, 0x1FD, 0x1FE, 0x1FF};
+
+void sb_run_pack_c(BitWriter& bw, int64_t run, int flag, bool done) {
+  if (run >= 4129) {
+    while (run >= 4129) {
+      bw.write(0x3FFFF, 18);
+      run -= 4129;
+      if (run > 0)
+        bw.write(flag, 1);
+      else if (!done)
+        bw.write(flag ? 0 : 1, 1);
+    }
+    if (run <= 0) return;
+  }
+  int i = 0;
+  while (run >= SB_RUN_VAL_MIN[i + 1]) i++;
+  bw.write((uint32_t)(SB_RUN_CODE_PREFIX[i] + run - SB_RUN_VAL_MIN[i]),
+           SB_RUN_CODE_NBITS[i]);
+}
+
+}  // namespace
+
+// Packs the coded-block flag section into `out`; returns the bit count
+// (or -1 on overflow). sb_partial_out receives the per-SB partial flags.
+int64_t th_coded_flags_pack(const uint8_t* coded, const int32_t* scan_fragis,
+                            const int32_t* scan_sbi, int64_t nscan,
+                            int64_t nsbs, uint8_t* out, int64_t cap,
+                            uint8_t* sb_partial_out) {
+  std::vector<uint8_t> sb_any(nsbs, 0), sb_all(nsbs, 1), has(nsbs, 0);
+  for (int64_t i = 0; i < nscan; i++) {
+    uint8_t c = coded[scan_fragis[i]];
+    int sbi = scan_sbi[i];
+    sb_any[sbi] |= c;
+    sb_all[sbi] &= c;
+    has[sbi] = 1;
+  }
+  std::vector<uint8_t> sb_partial(nsbs), sb_full(nsbs);
+  int64_t npartial = 0;
+  for (int64_t s = 0; s < nsbs; s++) {
+    sb_partial[s] = sb_any[s] && !(sb_all[s] && has[s]);
+    sb_full[s] = sb_all[s] && has[s] && !sb_partial[s];
+    npartial += sb_partial[s];
+    sb_partial_out[s] = sb_partial[s];
+  }
+  BitWriter bw;
+  int flag = sb_partial[0];
+  bw.write(flag, 1);
+  int64_t sbi = 0;
+  while (sbi < nsbs) {
+    int64_t run = 0;
+    while (sbi < nsbs && sb_partial[sbi] == flag) { run++; sbi++; }
+    sb_run_pack_c(bw, run, flag, sbi >= nsbs);
+    flag = 1 - flag;
+  }
+  if (npartial < nsbs) {
+    std::vector<int32_t> order;
+    order.reserve(nsbs - npartial);
+    for (int64_t s = 0; s < nsbs; s++)
+      if (!sb_partial[s]) order.push_back((int32_t)s);
+    flag = sb_full[order[0]];
+    bw.write(flag, 1);
+    size_t i = 0;
+    while (i < order.size()) {
+      int64_t run = 0;
+      while (i < order.size() && sb_full[order[i]] == flag) { run++; i++; }
+      sb_run_pack_c(bw, run, flag, i >= order.size());
+      flag = 1 - flag;
+    }
+  }
+  if (npartial > 0) {
+    std::vector<uint8_t> flags;
+    flags.reserve(nscan);
+    for (int64_t i = 0; i < nscan; i++)
+      if (sb_partial[scan_sbi[i]]) flags.push_back(coded[scan_fragis[i]]);
+    flag = flags[0];
+    bw.write(flag, 1);
+    size_t i = 0;
+    while (i < flags.size()) {
+      int run = 0;
+      while (i < flags.size() && flags[i] == flag) { run++; i++; }
+      // A partial SB holds <= 15 same-flag blocks and a run spans at
+      // most 2 partial SBs (encode.c:425-452).
+      if (run > 30) return -1;
+      bw.write((uint32_t)BLK_RUN_PAT[run - 1], BLK_RUN_NBITS[run - 1]);
+      flag = 1 - flag;
+    }
+  }
+  int64_t bits = (int64_t)bw.buf.size() * 8 + bw.curbits;
+  bw.flush();
+  if ((int64_t)bw.buf.size() > cap) return -1;
+  memcpy(out, bw.buf.data(), bw.buf.size());
+  return bits;
+}
+
+}  // extern "C"
+
+// ===================================================================
+// MB-mode scheme selection + emission (encode.c:591-621): histogram the
+// coded modes, pick the cheapest of 8 coding schemes (custom ranking /
+// 6 fixed alphabets / 3-bit CLC), and emit. Returns bit count or -1.
+extern "C" int64_t th_mb_modes_pack(const int32_t* modes, int64_t n,
+                                    const int32_t* alphabets /*[6][8]*/,
+                                    uint8_t* out, int64_t cap) {
+  static const int VLC_BITS[8] = {1, 2, 3, 4, 5, 6, 7, 7};
+  static const uint32_t VLC_CODES[8] = {0, 2, 6, 14, 30, 62, 126, 127};
+  int64_t hist[8] = {0};
+  for (int64_t i = 0; i < n; i++) hist[modes[i]]++;
+  // Scheme 0: rank by descending frequency (stable, ties by mode index).
+  int order0[8];
+  for (int m = 0; m < 8; m++) order0[m] = m;
+  std::stable_sort(order0, order0 + 8,
+                   [&](int a, int b) { return hist[a] > hist[b]; });
+  int rank0[8];
+  for (int r = 0; r < 8; r++) rank0[order0[r]] = r;
+  int64_t costs[8];
+  costs[0] = 24;
+  for (int m = 0; m < 8; m++) costs[0] += hist[m] * VLC_BITS[rank0[m]];
+  for (int s = 1; s < 7; s++) {
+    int rank[8];
+    for (int r = 0; r < 8; r++) rank[alphabets[(s - 1) * 8 + r]] = r;
+    costs[s] = 0;
+    for (int m = 0; m < 8; m++) costs[s] += hist[m] * VLC_BITS[rank[m]];
+  }
+  costs[7] = 3 * n;
+  int scheme = 0;
+  for (int s = 1; s < 8; s++)
+    if (costs[s] < costs[scheme]) scheme = s;
+  BitWriter bw;
+  bw.write((uint32_t)scheme, 3);
+  int rank[8];
+  if (scheme == 0) {
+    for (int m = 0; m < 8; m++) bw.write((uint32_t)rank0[m], 3);
+    for (int m = 0; m < 8; m++) rank[m] = rank0[m];
+  } else if (scheme == 7) {
+    for (int m = 0; m < 8; m++) rank[m] = m;
+  } else {
+    for (int r = 0; r < 8; r++) rank[alphabets[(scheme - 1) * 8 + r]] = r;
+  }
+  for (int64_t i = 0; i < n; i++) {
+    int r = rank[modes[i]];
+    if (scheme == 7)
+      bw.write((uint32_t)r, 3);
+    else
+      bw.write(VLC_CODES[r], VLC_BITS[r]);
+  }
+  int64_t bits = (int64_t)bw.buf.size() * 8 + bw.curbits;
+  bw.flush();
+  if ((int64_t)bw.buf.size() > cap) return -1;
+  memcpy(out, bw.buf.data(), bw.buf.size());
+  return bits;
+}
+
+// ===================================================================
+// Device-tier sequential mode decision (encode/tpu_gop.py
+// _decide_frame): the LAST/LAST2-aware walk over device-precomputed
+// SADs.  The walk order carries the decoder's last/prior MV state
+// (decode.c:806-900) so it is inherently serial; in Python it measured
+// ~33 ms per 720p frame -- the clip-batched driver's host floor.
+// All costs are IEEE doubles exactly as the Python expressions
+// (int SAD + double bias products); ties keep the FIRST candidate in
+// the fixed evaluation order, matching Python's min().
+extern "C" void th_mode_decide(
+    int64_t nmb_walk, const int32_t* mb_list, const int32_t* mb_row,
+    const int32_t* mb_col, const uint8_t* mb_all4,
+    const int32_t* mb_birc,                     // [nmb_walk, 4, 2]
+    const int32_t* mv,                          // [nv, nh, 2]
+    const int32_t* sad_mv, const int32_t* sad_nomv,
+    const int32_t* sad_gold, const int32_t* sad_intra,  // [nv, nh]
+    const int32_t* cands,                       // [K, 2]
+    const int32_t* cand_sads,                   // [K, nv, nh]
+    const int32_t* gmv,                         // [nv, nh, 2]
+    const int32_t* sad_gmv,                     // [nv, nh]
+    const int32_t* bmv,                         // [2nv, 2nh, 2]
+    const int32_t* bsad4,                       // [nv, nh] 4MV sums
+    int64_t nv, int64_t nh, int64_t K, double b, double mvb,
+    int32_t* mb_modes, int32_t* mb_mvs, int32_t* mb_bmvs) {
+  enum { NOMV = 0, INTRA = 1, MVM = 2, LAST = 3, LAST2 = 4,
+         GNOMV = 5, GMV = 6, FOUR = 7 };
+  int cand_tab[63 * 63];
+  for (int i = 0; i < 63 * 63; i++) cand_tab[i] = -1;
+  for (int64_t k = 0; k < K; k++) {
+    int dx = cands[2 * k], dy = cands[2 * k + 1];
+    if (dx || dy) cand_tab[(dx + 31) * 63 + (dy + 31)] = (int)k;
+  }
+  int lx = 0, ly = 0, px = 0, py = 0;
+  for (int64_t i = 0; i < nmb_walk; i++) {
+    const int64_t mbi = mb_list[i];
+    const int64_t r = mb_row[i], c = mb_col[i];
+    const int64_t rc = r * nh + c;
+    const int bx = mv[2 * rc], by = mv[2 * rc + 1];
+    const int gx = gmv[2 * rc], gy = gmv[2 * rc + 1];
+    double best_cost = (double)sad_nomv[rc];
+    int mode = NOMV, vx = 0, vy = 0;
+    auto consider = [&](double cost, int m, int x, int y) {
+      if (cost < best_cost) { best_cost = cost; mode = m; vx = x; vy = y; }
+    };
+    consider((double)sad_intra[rc] + 350.0 * b, INTRA, 0, 0);
+    consider((double)sad_gold[rc] + 80.0 * b, GNOMV, 0, 0);
+    if (bx || by) consider((double)sad_mv[rc] + mvb, MVM, bx, by);
+    if (gx || gy)
+      consider((double)sad_gmv[rc] + mvb + 80.0 * b, GMV, gx, gy);
+    if (mb_all4[i])
+      consider((double)bsad4[rc] + 640.0 * b + 4.0 * mvb, FOUR, 0, 0);
+    auto sad_at = [&](int x, int y) -> int64_t {
+      if (x == bx && y == by) return sad_mv[rc];
+      const int k = cand_tab[(x + 31) * 63 + (y + 31)];
+      return k < 0 ? -1 : (int64_t)cand_sads[k * nv * nh + rc];
+    };
+    if (lx || ly) {
+      const int64_t s = sad_at(lx, ly);
+      if (s >= 0) consider((double)s + 16.0 * b, LAST, lx, ly);
+    }
+    if ((px || py) && (px != lx || py != ly)) {
+      const int64_t s = sad_at(px, py);
+      if (s >= 0) consider((double)s + 24.0 * b, LAST2, px, py);
+    }
+    mb_modes[mbi] = mode;
+    switch (mode) {
+      case MVM:
+        mb_mvs[2 * mbi] = vx; mb_mvs[2 * mbi + 1] = vy;
+        px = lx; py = ly; lx = vx; ly = vy;
+        break;
+      case LAST:
+        mb_mvs[2 * mbi] = vx; mb_mvs[2 * mbi + 1] = vy;
+        break;
+      case LAST2: {
+        mb_mvs[2 * mbi] = vx; mb_mvs[2 * mbi + 1] = vy;
+        int tx = lx, ty = ly; lx = px; ly = py; px = tx; py = ty;
+        break;
+      }
+      case GMV:
+        mb_mvs[2 * mbi] = vx; mb_mvs[2 * mbi + 1] = vy;
+        break;
+      case FOUR: {
+        for (int j = 0; j < 4; j++) {
+          const int64_t br = mb_birc[(i * 4 + j) * 2];
+          const int64_t bc = mb_birc[(i * 4 + j) * 2 + 1];
+          mb_bmvs[(mbi * 4 + j) * 2] = bmv[(br * 2 * nh + bc) * 2];
+          mb_bmvs[(mbi * 4 + j) * 2 + 1] = bmv[(br * 2 * nh + bc) * 2 + 1];
+        }
+        px = lx; py = ly;
+        lx = mb_bmvs[(mbi * 4 + 3) * 2];
+        ly = mb_bmvs[(mbi * 4 + 3) * 2 + 1];
+        break;
+      }
+      default:
+        break;
+    }
+  }
+}

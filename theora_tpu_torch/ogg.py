@@ -1,6 +1,7 @@
-"""Ogg demux (RFC 3533): pages, CRC check, packet reassembly.
+"""Ogg (RFC 3533): page mux and demux, CRC, packet reassembly.
 
-Read-side copy of theora_tpu/ogg.py (`PageReader`, `demux_stream`).
+Copy of theora_tpu/ogg.py (`PageWriter`, `mux_stream`, `PageReader`,
+`demux_stream`).
 """
 from __future__ import annotations
 
@@ -23,6 +24,78 @@ def _crc(data: bytes) -> int:
     for b in data:
         r = ((r << 8) & 0xFFFFFFFF) ^ _CRC_TABLE[((r >> 24) & 0xFF) ^ b]
     return r
+
+
+class PageWriter:
+    """Packs the packets of one logical stream into Ogg pages."""
+
+    def __init__(self, serialno: int):
+        self.serialno = serialno
+        self.pageno = 0
+        self._lacing: list[int] = []
+        self._data = bytearray()
+        self._granulepos = -1
+        self._bos_pending = True
+        self._continued = False
+
+    def _flush_page(self, granulepos: int, eos: bool,
+                    continued: bool) -> bytes:
+        header_type = ((0x01 if self._continued else 0)
+                       | (0x02 if self._bos_pending else 0)
+                       | (0x04 if eos else 0))
+        self._bos_pending = False
+        seg_table = bytes(self._lacing)
+        header = struct.pack("<4sBBqIIi", b"OggS", 0, header_type,
+                             granulepos, self.serialno, self.pageno, 0)
+        page = bytearray(header + bytes([len(seg_table)]) + seg_table
+                         + bytes(self._data))
+        page[22:26] = struct.pack("<I", _crc(bytes(page)))
+        self.pageno += 1
+        self._lacing = []
+        self._data = bytearray()
+        self._continued = continued
+        return bytes(page)
+
+    def add_packet(self, pkt: Packet, flush: bool = False) -> list[bytes]:
+        """Add a packet; returns the pages it completed."""
+        pages = []
+        data = pkt.data
+        n = len(data)
+        # n // 255 lacing values of 255, then one of n % 255 (< 255).
+        lacing = [255] * (n // 255) + [n % 255]
+        pos = 0
+        for k, lv in enumerate(lacing):
+            self._lacing.append(lv)
+            self._data += data[pos:pos + lv]
+            pos += lv
+            if len(self._lacing) == 255:
+                last = k == len(lacing) - 1
+                pages.append(self._flush_page(
+                    pkt.granulepos if last else -1, False,
+                    continued=not last))
+        self._granulepos = pkt.granulepos
+        if (flush or pkt.e_o_s) and (self._lacing or pkt.e_o_s):
+            pages.append(self._flush_page(pkt.granulepos, pkt.e_o_s, False))
+        return pages
+
+    def flush(self, eos: bool = False) -> list[bytes]:
+        if not self._lacing and not eos:
+            return []
+        return [self._flush_page(self._granulepos, eos, False)]
+
+
+def mux_stream(packets: list[Packet], serialno: int = 0x74707531) -> bytes:
+    """Mux a Theora packet list into an Ogg byte stream, one packet per
+    page (the first header alone on the first page, as stream
+    identification requires)."""
+    w = PageWriter(serialno)
+    out = bytearray()
+    for p in packets:
+        for page in w.add_packet(p, flush=True):
+            out += page
+    for page in w.flush():
+        out += page
+    return bytes(out)
 
 
 class PageReader:

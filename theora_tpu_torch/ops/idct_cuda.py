@@ -11,13 +11,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from theora_tpu_torch.ops import transforms
+from theora_tpu_torch.ops.cuda_build import nvcc_build
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -27,41 +25,10 @@ _SO = os.path.join(_CSRC, "build", "libtheora_idct.so")
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required "
-                           "to build kernel K1")
-    return path
-
-
 def build() -> str:
     """Compile csrc/idct.cu when the library is missing or older than its
     source; returns the library path."""
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_SO))
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", tmp, _SRC],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{proc.stderr}")
-        # ptxas -v: registers, shared memory and spills of each kernel.
-        with open(_SO + ".log", "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _SO
+    return nvcc_build(_SRC, _SO)
 
 
 def _load():

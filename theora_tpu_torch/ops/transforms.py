@@ -1,13 +1,16 @@
-"""Plain PyTorch twins of the decode transforms.
+"""Plain PyTorch twins of the codec transforms.
 
-Port of the decode side of theora_tpu/ops/transforms_jax.py (`_i16`,
-`idct8`, `idct8x8`, `dc_fill`, `dequantize_idct`). All arithmetic is
-int32 with the explicit int16 wrap where the spec stores int16, so the
-results equal the C reference (idct.c:30-296, state.c:959-980).
+Port of theora_tpu/ops/transforms_jax.py: the iDCT side (`_i16`, `idct8`,
+`idct8x8`, `dc_fill`, `dequantize_idct`), the fDCT and quantizer
+(`fdct8`, `fdct8x8`, `quantize`) and the batched trellis
+(`trellis_values`). Integer arithmetic is int32 with the explicit int16
+wrap where the spec stores int16, so the results equal the C reference
+(idct.c:30-296, fdct.c:27-154, enquant.c:220-249, state.c:959-980).
 
 `dequantize_idct_frames` is the function kernel K1 computes
-(ops/idct_cuda.py): the CPU path of its wrapper and its oracle on the
-card.
+(ops/idct_cuda.py) and `fdct_quantize` the one kernel K2 computes
+(ops/fdct_cuda.py): the CPU paths of their wrappers and their oracles on
+the card.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from theora_tpu_torch.constants import (
 )
 
 _ZZ = torch.from_numpy(ZIGZAG_TO_NAT)
+# The JAX package's float32 "infinite" cost (transforms_jax._BIG).
+_BIG = 1e30
 
 
 def _i16(x: torch.Tensor) -> torch.Tensor:
@@ -111,3 +116,298 @@ def dequantize_idct_frames(qz, dc, deq_tab, frame, qii, inter, dc_only):
     res = dequantize_idct(qz.to(torch.int32), rows, dc.to(torch.int32), dcq,
                           dc_only)
     return res.reshape(-1, 64).to(torch.int16)
+
+
+def fdct8(x: torch.Tensor) -> torch.Tensor:
+    """1-D 8-point fDCT along the last axis (fdct.c:27-120); int32."""
+    t0 = x[..., 0] + x[..., 7]
+    t7 = x[..., 0] - x[..., 7]
+    t1 = x[..., 1] + x[..., 6]
+    t6 = x[..., 1] - x[..., 6]
+    t2 = x[..., 2] + x[..., 5]
+    t5 = x[..., 2] - x[..., 5]
+    t3 = x[..., 3] + x[..., 4]
+    t4 = x[..., 3] - x[..., 4]
+    t0, t3 = t0 + t3, t0 - t3
+    t1, t2 = t1 + t2, t1 - t2
+    t6, t5 = t6 + t5, t6 - t5
+
+    def nz(t):
+        return (t != 0).to(torch.int32)
+
+    s = (((27146 * t5 + 0xB500) >> 16) + t5 + nz(t5)) >> 1
+    t4, t5 = t4 + s, t4 - s
+    s = (((27146 * t6 + 0xB500) >> 16) + t6 + nz(t6)) >> 1
+    t7, t6 = t7 + s, t7 - s
+    r = ((27146 * t0 + 0x4000) >> 16) + t0 + nz(t0)
+    s = ((27146 * t1 + 0xB500) >> 16) + t1 + nz(t1)
+    u = (r + s) >> 1
+    y0, y4 = u, r - u
+    u = ((C6S2 * t2 + C2S6 * t3 + 0x6CB7) >> 16) + nz(t3)
+    s = ((C6S2 * u) >> 16) - t2
+    y2, y6 = u, ((s * 21600 + 0x2800) >> 18) + s + nz(s)
+    u = ((C5S3 * t6 + C3S5 * t5 + 0x0E3D) >> 16) + nz(t5)
+    s = t6 - ((C5S3 * u) >> 16)
+    y5, y3 = u, ((s * 26568 + 0x3400) >> 17) + s + nz(s)
+    u = ((C7S1 * t4 + C1S7 * t7 + 0x7B1B) >> 16) + nz(t7)
+    s = ((C7S1 * u) >> 16) - t4
+    y1, y7 = u, ((s * 20539 + 0x3000) >> 20) + s + nz(s)
+    return _i16(torch.stack([y0, y1, y2, y3, y4, y5, y6, y7], dim=-1))
+
+
+def fdct8x8(res: torch.Tensor) -> torch.Tensor:
+    """[N, 8, 8] residuals -> [N, 64] zig-zag DCT coefficients, int32
+    (fdct.c:128-154): x4 scaling, the systematic-error biases of x[0],
+    x[1] and x[8], a column pass, a row pass, then (y + 2) >> 2."""
+    w = res.to(torch.int32) << 2
+    w[:, 0, 0] += (w[:, 0, 0] != 0).to(torch.int32) + 1
+    w[:, 0, 1] += 1
+    w[:, 1, 0] -= 1
+    y = fdct8(w.transpose(-1, -2))
+    w2 = fdct8(y.transpose(-1, -2))
+    flat = w2.reshape(w2.shape[0], 64)
+    return _i16((flat[:, _ZZ.to(flat.device)] + 2) >> 2)
+
+
+def quantize(dct_zz: torch.Tensor, dequant_zz: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest quantizer, ties away from zero
+    (enquant.c:220-249); int32."""
+    d = dequant_zz.to(torch.int32)
+    v2 = dct_zz.abs() << 1
+    q = torch.where(v2 >= d, torch.div(v2 + d, 2 * d, rounding_mode="floor"),
+                    0)
+    return torch.sign(dct_zz) * q
+
+
+def fdct_quantize(res, deq, inter):
+    """fDCT + round-to-nearest quantization of [N] blocks of one plane of
+    one frame (kernel K2's function; the JAX encode scan's
+    `fdct8x8` + `quantize` at theora_tpu/encode/tpu_gop.py:203-218, the
+    Pallas kernel `fdct_quantize_soa`).
+
+    res: [N, 64] int16 residuals, raster order inside each block; deq:
+    [2, 64] int16 zig-zag dequant rows, row 0 intra, row 1 inter; inter:
+    [N] uint8, the row each block uses. Returns ([N, 64] int16 zig-zag
+    quantized coefficients, [N, 64] int16 zig-zag unquantized DCT, the
+    trellis' input).
+    """
+    dct = fdct8x8(res.reshape(-1, 8, 8))
+    rows = deq.to(torch.int32)[inter.long()]
+    return quantize(dct, rows).to(torch.int16), dct.to(torch.int16)
+
+
+def rd_lambda(qi: int, dequant_ac: int) -> float:
+    """R/D lambda of the skip test, 0.2125 * qavg^2 with qavg the AC
+    quantizer in the x4 domain (theora_tpu/ops/fdct_np.py:rd_lambda,
+    after rate.c:151-202)."""
+    return 0.2125 * float(dequant_ac) * float(dequant_ac) / 16.0
+
+
+# ---------------------------------------------------------------------------
+# Batched trellis quantizer (transforms_jax.trellis_values, the device
+# counterpart of the host Viterbi tokenizer, tokenize.c:457-744): a dense
+# dynamic program over the 63 AC positions of every block at once, float32
+# costs. Its decisions must equal the JAX package's, so every float32
+# operation is the JAX program's, in its order, as XLA on the CPU runs it:
+#   - the prefix sum of c^2 is reduce-window based: sequential inside
+#     chunks of 16 positions, the chunk totals summed sequentially and
+#     added to each chunk (`_xla_cumsum16`); torch.cumsum adds in another
+#     order (and accumulates float32 in double on the CPU);
+#   - XLA's CPU compiler contracts a*b + c into one fused multiply-add
+#     where the product feeds the add directly. Of those, only the token
+#     costs e*e + lam*bits round differently (every other product here
+#     is exact); `_fma` computes them with one rounding, exactly;
+#   - no other op may fuse (no addcmul), and nothing uses TF32.
+
+def _value_token_id(mag, neg):
+    """Token id of a lone coefficient of magnitude mag >= 1 (tokenize.c
+    category layout)."""
+    t = torch.where(mag <= 2, 9 + (mag - 1) * 2 + neg, 0)
+    t = torch.where((mag >= 3) & (mag <= 6), 10 + mag, t)
+    t = torch.where((mag >= 7) & (mag <= 8), 17, t)
+    t = torch.where((mag >= 9) & (mag <= 12), 18, t)
+    t = torch.where((mag >= 13) & (mag <= 20), 19, t)
+    t = torch.where((mag >= 21) & (mag <= 36), 20, t)
+    t = torch.where((mag >= 37) & (mag <= 68), 21, t)
+    return torch.where(mag >= 69, 22, t)
+
+
+def _alt_mag(mag):
+    """Top of the next-lower value-token category."""
+    alt = torch.where(mag <= 6, mag - 1, 0)
+    alt = torch.where((mag >= 7) & (mag <= 8), 6, alt)
+    alt = torch.where((mag >= 9) & (mag <= 12), 8, alt)
+    alt = torch.where((mag >= 13) & (mag <= 20), 12, alt)
+    alt = torch.where((mag >= 21) & (mag <= 36), 20, alt)
+    alt = torch.where((mag >= 37) & (mag <= 68), 36, alt)
+    return torch.where(mag >= 69, 68, alt)
+
+
+def _xla_cumsum16(z: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum of [N, 64] along dim 1 in the order of
+    XLA's CPU reduce-window rewrite (chunks of 16)."""
+    n = z.shape[0]
+    loc = z.reshape(n, 4, 16).clone()
+    for j in range(1, 16):
+        loc[:, :, j] = loc[:, :, j - 1] + loc[:, :, j]
+    tot = loc[:, :, 15]
+    pre = torch.zeros((n, 4), dtype=z.dtype, device=z.device)
+    for c in range(1, 4):
+        pre[:, c] = pre[:, c - 1] + tot[:, c - 1]
+    return (loc + pre[:, :, None]).reshape(n, 64)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c with one rounding. Exact through float64 here:
+    the operands are integer-valued with |a * b + c| < 2**53."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
+    """Jointly choose quantized values minimizing d^2 + lam * bits over
+    the block's token structure (runs, combos, EOB placement).
+
+    dct_zz, qdct_rtn, dequant_zz: [N, 64] int32 (unquantized DCT, its
+    round-to-nearest quantization, dequant factors; zig-zag); lam: [N]
+    float32; nb_full: [64, 32] float32 bits per (position, token); acmin:
+    [N] int32, positions below it code values rate-free. Returns [N, 64]
+    int32 chosen values, DC passed through.
+    """
+    dev = dct_zz.device
+    f32 = torch.float32
+    N = dct_zz.shape[0]
+    big = torch.tensor(_BIG, dtype=f32, device=dev)
+    cf = dct_zz.to(f32)
+    df = dequant_zz.to(f32)
+    q = qdct_rtn
+    jcols = torch.arange(64, device=dev)
+    idx = torch.arange(63, 0, -1, device=dev)
+    z = torch.where(q != 0, cf * cf, 0.0)
+    P = torch.cat([torch.zeros((N, 1), dtype=f32, device=dev),
+                   _xla_cumsum16(z)], dim=1)
+    aj = q.abs()
+    sj = torch.where(q < 0, -1, 1).to(torch.int32)
+    m23 = torch.where(aj > 2, 3, 2)
+    cv23 = sj * m23
+
+    lamv = torch.where(jcols[None, :] < acmin[:, None], 0.0, lam[:, None])
+    a_cl = torch.clamp(aj, max=580)
+    neg = (q < 0).to(torch.int32)
+    tokA = _value_token_id(torch.clamp(a_cl, min=1), neg)
+    altm = _alt_mag(a_cl)
+    tokB = _value_token_id(torch.clamp(altm, min=1), neg)
+    pos = jcols[None, :].expand(N, 64)
+    nbA = nb_full[pos, tokA]
+    nbB = nb_full[pos, tokB]
+    eA = (a_cl * sj).to(f32) * df - cf
+    eB = (altm * sj).to(f32) * df - cf
+    cA_s = _fma(eA, eA, lamv * nbA)
+    cB_s = _fma(eB, eB, lamv * nbB)
+    useB = (altm >= 1) & (cB_s < cA_s)
+    c1_s = torch.where(aj >= 1, torch.where(useB, cB_s, cA_s), big)
+    v1_s = torch.where(aj >= 1, torch.where(useB, altm * sj, a_cl * sj), 0)
+    e1j = cf - sj.to(f32) * df
+    e23j = cf - cv23.to(f32) * df
+    pre1 = torch.where((aj >= 1) & (aj <= 2), e1j * e1j, big)
+    pre23 = torch.where((aj >= 2) & (aj <= 4), e23j * e23j, big)
+    costc_s = (P[:, 64:] - P[:, :64]) + lam[:, None] * nb_full[:, 0][None]
+    # Per-step rows by run length r = j - i (the i == 1 step keeps one
+    # slot of headroom for a zero DC extending the leading run).
+    r_si = jcols[None, :] - idx[:, None]                  # [63, 64]
+    maskj_si = r_si > 0
+    nbi = nb_full[idx]                                    # [63, 32]
+    zb_si = torch.where(r_si <= 8, nbi[:, 7:8], nbi[:, 8:9])
+    amask_si = torch.where(maskj_si, 0.0, big)
+    cb1_si = torch.where(r_si <= 5, nbi[:, 22:23], 0.0)
+    for rr, ti in ((1, 23), (2, 24), (3, 25), (4, 26), (5, 27)):
+        cb1_si = torch.where(r_si == rr, nbi[:, ti:ti + 1], cb1_si)
+    cb1_si = torch.where((r_si >= 6) & (r_si <= 9), nbi[:, 28:29], cb1_si)
+    cb1_si = torch.where(r_si >= 10, nbi[:, 29:30], cb1_si)
+    dc_allow = torch.where(idx == 1, 0, 1)[:, None]
+    b1mask_si = torch.where(maskj_si & (r_si <= 16 + dc_allow), 0.0, big)
+    cb23_si = torch.where(r_si == 1, nbi[:, 30:31], nbi[:, 31:32])
+    b23mask_si = torch.where(maskj_si & (r_si <= 2 + dc_allow), 0.0, big)
+
+    # Forward DP over positions 63..1; per position one int32 decision
+    # word (bits 0-10 node1 value + 1024, 11 node1 successor, 12-13 node0
+    # ending, 14-19 node0 run end, 20-30 node0 combo value + 1024).
+    cost0 = torch.full((N, 64), _BIG, dtype=f32, device=dev)
+    cost0[:, 0] = 0.0
+    cost1 = torch.full((N, 64), _BIG, dtype=f32, device=dev)
+    c0p = torch.zeros(N, dtype=f32, device=dev)
+    c1p = torch.full((N,), _BIG, dtype=f32, device=dev)
+    lamc = lam[:, None]
+    Pj = P[:, :64]
+    words = []
+    for k in range(63):
+        i = 63 - k
+        bn_next = torch.minimum(c0p, c1p)
+        next1 = (c1p < c0p).to(torch.int32)
+        c1 = c1_s[:, i] + bn_next
+        D2 = Pj - P[:, i:i + 1]
+        costa = D2 + (lamc * zb_si[k][None, :] + amask_si[k][None, :]) + cost1
+        bn = torch.minimum(cost0, cost1)
+        bn_nextj = torch.roll(bn, -1, dims=1)
+        cost_b1 = (pre1 + D2 + (lamc * cb1_si[k][None, :]
+                                + b1mask_si[k][None, :]) + bn_nextj)
+        cost_b23 = (pre23 + D2 + (lamc * cb23_si[k][None, :]
+                                  + b23mask_si[k][None, :]) + bn_nextj)
+        m_b = torch.minimum(cost_b1, cost_b23)
+        m_j = torch.minimum(costa, m_b)
+        # First minimum, as jnp.argmin picks it, by an integer min over
+        # the tied positions (no reliance on a reduction's tie order).
+        cbest = m_j.amin(dim=1)
+        jbest = torch.where(m_j == cbest[:, None], jcols, 64).amin(dim=1)
+        typ_j = torch.where(costa <= m_b, 1,
+                            torch.where(cost_b1 <= cost_b23, 2, 3))
+        jb = jbest[:, None]
+        typ_at = torch.gather(typ_j, 1, jb)[:, 0]
+        cv_j = torch.where(typ_j == 3, cv23, sj)
+        cv_at = torch.gather(cv_j, 1, jb)[:, 0]
+        costc = costc_s[:, i]
+        use_eob = costc <= cbest
+        c0 = torch.where(use_eob, costc, cbest)
+        e0 = torch.where(use_eob, 0, typ_at)
+        words.append(
+            (v1_s[:, i] + 1024)
+            | (next1 << 11)
+            | (e0 << 12)
+            | (torch.where(use_eob, 0, jbest) << 14)
+            | ((cv_at + 1024) << 20)
+        )
+        cost0[:, i] = c0
+        cost1[:, i] = c1
+        c0p, c1p = c0, c1
+
+    # Backtrack: one sweep over positions 1..63, each block carrying its
+    # next event (position, node kind, pending combo value).
+    ep = torch.ones(N, dtype=torch.int64, device=dev)
+    nd = (cost1[:, 1] < cost0[:, 1]).to(torch.int64)
+    runend = torch.zeros(N, dtype=torch.bool, device=dev)
+    pend = torch.zeros(N, dtype=torch.int64, device=dev)
+    take = torch.zeros(N, dtype=torch.bool, device=dev)
+    out = torch.zeros((N, 64), dtype=torch.int32, device=dev)
+    for p in range(1, 64):
+        w = words[63 - p].to(torch.int64)
+        v1 = (w & 0x7FF) - 1024
+        nxt1 = (w >> 11) & 1
+        er = (w >> 12) & 3
+        jr = (w >> 14) & 63
+        cv = ((w >> 20) & 0x7FF) - 1024
+        at = ep == p
+        isn = at & ~runend
+        isr = at & runend
+        n1 = isn & (nd == 1)
+        run = isn & (nd == 0) & (er != 0)
+        out[:, p] = torch.where(
+            n1, v1, torch.where(isr, torch.where(take, v1, pend), 0)
+        ).to(torch.int32)
+        adv = n1 | isr
+        ep = torch.where(at, torch.where(adv, p + 1,
+                                         torch.where(run, jr, 0)), ep)
+        nd = torch.where(adv, nxt1, nd)
+        runend = torch.where(at, run, runend)
+        pend = torch.where(run, cv, pend)
+        take = torch.where(run, er == 1, take)
+    out[:, 0] = q[:, 0]
+    return out

@@ -1,13 +1,15 @@
-"""Quantization parameters: setup-header unpack and dequant tables.
+"""Quantization parameters: setup-header unpack and pack, and dequant
+tables.
 
-Decode-side copy of theora_tpu/quant.py (`quant_params_unpack`,
-`dequant_tables_init`; dequant.c:24-144, quant.c:48-127).
+Copy of theora_tpu/quant.py (`quant_params_unpack`, dequant.c:24-144;
+`quant_params_pack`, enquant.c:85-182; `dequant_tables_init`,
+quant.c:48-127).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from theora_tpu_torch.bitio import BitReader
+from theora_tpu_torch.bitio import BitReader, BitWriter
 from theora_tpu_torch.constants import ZIGZAG_TO_NAT, ilog
 
 QUANT_MAX = 1024 << 2
@@ -63,6 +65,80 @@ def quant_params_unpack(br: BitReader) -> dict:
         "dc_scale": dc_scale,
         "qi_ranges": qi_ranges,
     }
+
+
+def quant_params_pack(bw: BitWriter, qinfo: dict) -> None:
+    """Emit quantization parameters into a setup header, with base-matrix
+    deduplication (oc_quant_params_pack, enquant.c:85-182)."""
+    lfl = qinfo["loop_filter_limits"]
+    nbits = max(ilog(v) for v in lfl)
+    bw.write(nbits, 3)
+    for v in lfl:
+        bw.write(v, nbits)
+    for key in ("ac_scale", "dc_scale"):
+        vals = qinfo[key]
+        nbits = max(max(ilog(v) for v in vals), 1)
+        bw.write(nbits - 1, 4)
+        for v in vals:
+            bw.write(v, nbits)
+    range_sets = [qinfo["qi_ranges"][qti][pli]
+                  for qti, pli in (divmod(i, 3) for i in range(6))]
+    # Unique base matrices in first-use order over the range sets that are
+    # not packed as references to an earlier set.
+    base_mats: list[tuple] = []
+    mat_index: dict[tuple, int] = {}
+    for i in range(6):
+        if _dup_of(range_sets, i) >= 0:
+            continue
+        for m in range_sets[i]["base_matrices"]:
+            key = tuple(m)
+            if key not in mat_index:
+                mat_index[key] = len(base_mats)
+                base_mats.append(key)
+    bw.write(len(base_mats) - 1, 9)
+    for m in base_mats:
+        for v in m:
+            bw.write(v, 8)
+    nbits = ilog(len(base_mats) - 1)
+    for i in range(6):
+        qti = i // 3
+        dup = _dup_of(range_sets, i)
+        if i > 0:
+            if dup >= 0:
+                bw.write(0, 1)
+                if qti > 0:
+                    # 1: same plane of the previous qti; 0: previous set.
+                    if dup != i - 3 and dup != i - 1:
+                        raise ValueError("unsupported range-set reuse")
+                    bw.write(1 if dup == i - 3 else 0, 1)
+                continue
+            bw.write(1, 1)
+        rs = range_sets[i]
+        bw.write(mat_index[tuple(rs["base_matrices"][0])], nbits)
+        qi = 0
+        for ri, size in enumerate(rs["sizes"]):
+            bw.write(size - 1, ilog(62 - qi))
+            qi += size
+            bw.write(mat_index[tuple(rs["base_matrices"][ri + 1])], nbits)
+        if qi != 63:
+            raise ValueError("qi ranges must cover 0..63")
+
+
+def _dup_of(range_sets: list, i: int) -> int:
+    """Index j (i-3 or i-1) of an earlier range set equal to set i, else
+    -1: the bitstream can only reference those two (dequant.c:74-96)."""
+    if i == 0:
+        return -1
+
+    def eq(a, b):
+        return (a["sizes"] == b["sizes"]
+                and a["base_matrices"] == b["base_matrices"])
+
+    if i >= 3 and eq(range_sets[i], range_sets[i - 3]):
+        return i - 3
+    if eq(range_sets[i], range_sets[i - 1]):
+        return i - 1
+    return -1
 
 
 def dequant_tables_init(qinfo: dict) -> np.ndarray:

@@ -1,0 +1,128 @@
+"""Where the device GOP encode's time goes on the card.
+
+Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
+
+Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
+the 1280x720 test clip (testdata/make_hd720.py's source frames,
+q48, a keyframe every 8 frames, clip_batch 8) once to warm up, then R
+more times: untraced passes timed on the host clock (wall, host mode
+decision, host packing, device spans from CUDA events), and one pass
+under torch.profiler, which reports device time per codec stage (the
+record_function labels in encode/gop.py and encode/scan.py), per kernel,
+and the device's busy and idle share of the traced pass. Needs a CUDA
+card. Prints one JSON summary as its last line.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from theora_tpu_torch.tools.profile_decode import _split
+
+_TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "testdata")
+QI, KF, BATCH = 48, 8, 8
+
+
+def hd720_frames(n: int):
+    """The first n frames of testdata/make_hd720.py's 1280x720 clip."""
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720", os.path.join(_TESTDATA, "make_hd720.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.source_frames()[:n]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=16)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_encode: needs a CUDA card", file=sys.stderr)
+        return 2
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    frames = hd720_frames(args.frames)
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=QI)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def encode(enc):
+        return enc.encode_clip(frames, keyframe_freq=KF, clip_batch=BATCH)
+
+    encode(GopEncoder(info, qi=QI))  # warm
+    runs = []
+    for _ in range(args.repeat):
+        enc = GopEncoder(info, qi=QI)
+        enc.device_spans = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(enc)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        spans = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
+        runs.append({"wall_s": wall, "host_decide_s": enc.host_decide_s,
+                     "host_pack_s": enc.host_pack_s,
+                     "device_span_s": spans})
+        print(f"[run] wall {wall:.4f} s, host mode decision "
+              f"{enc.host_decide_s:.4f} s, host packing "
+              f"{enc.host_pack_s:.4f} s, device spans {spans:.4f} s",
+              flush=True)
+
+    enc = GopEncoder(info, qi=QI)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        encode(enc)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    stages, kernels = _split(prof.events())
+    kernels = sorted(((k, sec, c) for k, (sec, c) in kernels.items()),
+                     key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"[stage] {name}: {sec:.6f} s device", flush=True)
+    # K1 and K2 are launched from their own libraries, outside any PyTorch
+    # op, so the profiler does not attribute them to their scopes; list
+    # them by name.
+    shown = kernels[:20] + [k for k in kernels[20:]
+                            if "idct" in k[0] or "fdct" in k[0]]
+    for name, sec, count in shown:
+        print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
+    nf = len(frames)
+    mid = sorted(r["wall_s"] for r in runs)[len(runs) // 2]
+    summary = {
+        "card": smi, "frames": nf, "qi": QI, "keyframe_freq": KF,
+        "clip_batch": BATCH, "median_wall_s": mid,
+        "frames_per_s": nf / mid,
+        "mpix_per_s": nf * 1280 * 720 * 1.5 / 1e6 / mid,
+        "runs": runs, "traced_wall_s": traced_wall,
+        "traced_device_busy_s": busy,
+        "traced_idle_share": 1.0 - busy / traced_wall,
+        "traced_host_decide_s": enc.host_decide_s,
+        "traced_host_pack_s": enc.host_pack_s,
+        "stages_device_s": stages,
+        "kernel_launches": sum(k[2] for k in kernels),
+    }
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
