@@ -6,8 +6,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernels K1 and K2 (nvcc,
-   sm_90a), all from the sources in the checkout, in parallel;
+2. build: the native host library (g++) and kernels K1, K2 and KT (nvcc,
+   sm_90a; KT with -fmad=false), all from the sources in the checkout, in
+   parallel;
 3. K1 against its plain PyTorch version on the card: random blocks at the
    decode path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0,
    batch 8) and their sum 172,800, int16 extremes included; at the encode
@@ -26,6 +27,14 @@ and prints no result line):
    4:2:0) and their sum 21,600, and the libtheora fDCT vectors, exact
    equality; CUDA-event times at 21,600 blocks beside a device copy of
    the same bytes;
+6b. KT (the trellis) against its plain version on the card, exact
+   equality: on K2's own outputs for random residuals at 14,400, 3,600
+   and 21,600 blocks, each launch at a qi drawn from 0-63 with the
+   RD_LAMBDA lambdas and both frame types (intra blocks: acmin 3 and the
+   intra lambda; inter blocks: acmin 0 and the inter lambda); on 1,500
+   blocks of coefficients up to +-32767 at per-block qi; on the 97 blocks
+   of testdata/vectors/trellis_order_cases.npz; CUDA-event times of both
+   at 14,400 blocks beside the bound;
 7. small encodes: GopEncoder(device="cuda") at 64x48 for pixel formats
    0, 2 and 3, every packet's SHA-256 against the list the JAX
    TpuGopEncoder made (testdata/make_hd720_enc.py);
@@ -33,10 +42,11 @@ and prints no result line):
    q48, a keyframe every 8 frames, clip_batch 8, every packet's SHA-256
    against the JAX encoder's list; the closed-loop reconstruction of the
    first GOP against BatchDecoder(device="cuda") on its packets; a warm
-   encode_clip pass timed with the K1 and K2 launch counts reset just
-   before it, and its PSNR against the source.
+   encode_clip pass timed with the K1, K2 and KT launch counts reset just
+   before it (KT must launch once per plane per frame: 48), and its PSNR
+   against the source.
 
-Then one JSON line listing both kernels, the card's name and power limit
+Then one JSON line listing the three kernels, the card's name and power limit
 from nvidia-smi, and {"ok": true, "device": {...}}. Imports nothing of
 JAX or theora_tpu.
 """
@@ -75,6 +85,8 @@ K1_OPS_PER_BLOCK = 16 * (16 * 2 + 12 * 3 + 28) + 64 * 4 + 64 * 5
 # x4 scalings; 64 output round/shift/wraps (5 ops); 64 quantizations
 # (abs, shift, compare, add, double, divide counted as one, sign: 8).
 K2_OPS_PER_BLOCK = 16 * 119 + 64 + 64 * 5 + 64 * 8
+# Published float32 rate outside the tensor cores (NVIDIA data sheet).
+FP32_OPS_S = 67e12
 HD_ENC_NAME = "hd720_q48_k8_enc"
 
 
@@ -96,21 +108,24 @@ def card() -> tuple[str, str]:
 
 def build() -> None:
     from theora_tpu_torch import native
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a)": ex.submit(timed, idct_cuda.build),
-                "K2 (nvcc sm_90a)": ex.submit(timed, fdct_cuda.build)}
+                "K2 (nvcc sm_90a)": ex.submit(timed, fdct_cuda.build),
+                "KT (nvcc sm_90a, -fmad=false)": ex.submit(
+                    timed, trellis_cuda.build)}
         for what, job in jobs.items():
             path, dt = job.result()
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
-    for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO)):
+    for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
+                  ("KT", trellis_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -438,6 +453,141 @@ def k2_vs_plain(device) -> dict:
     }
 
 
+def _kt_cases(rng, device):
+    """(label, KT inputs) pairs: K2's outputs on random residuals at the
+    encode path's per-plane shapes, as the scan builds the trellis' inputs
+    from them; coefficients up to +-32767; the prefix-sum order cases."""
+    from theora_tpu_torch import tables
+    from theora_tpu_torch.encode.gop import trellis_bit_costs
+    from theora_tpu_torch.ops import fdct_cuda, transforms
+    from theora_tpu_torch.quant import dequant_tables_init
+
+    dq = dequant_tables_init(tables.DEF_QUANT_INFO)
+    nb = torch.from_numpy(trellis_bit_costs(tables.VP31_HUFF_CODES)).to(
+        device)
+    lam_tab = np.array(tables.RD_LAMBDA[0], np.float32)  # [qti, qi]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for n in (14400, 3600, 21600):
+        # One qi per launch, as on the main path; per block the frame type
+        # (intra: acmin 3; inter: acmin 0) and its lambda; residuals from
+        # noise to nearly flat blocks.
+        qi = int(rng.integers(0, 64))
+        deq = dq[qi, int(rng.integers(0, 3))].astype(np.int16)
+        inter = rng.integers(0, 2, n).astype(np.uint8)
+        res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
+        q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq),
+                                       t(inter))
+        yield f"K2 outputs, {n} blocks, qi {qi}", (
+            d.to(torch.int32), q.to(torch.int32),
+            t(deq.astype(np.int32)[inter]), t(lam_tab[inter, qi]), nb,
+            t(np.where(inter == 0, 3, 0).astype(np.int32)))
+
+    def per_block(dct, qi, qti):
+        deq = t(dq[qi, 0, qti].astype(np.int32))
+        dct = t(dct.astype(np.int32))
+        return (dct, transforms.quantize(dct, deq), deq, t(lam_tab[qti, qi]),
+                nb, t(np.where(qti == 0, 3, 0).astype(np.int32)))
+
+    n = 1500
+    yield f"coefficients up to +-32767, {n} blocks", per_block(
+        rng.integers(-32767, 32768, (n, 64)), rng.integers(0, 64, n),
+        rng.integers(0, 2, n))
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_order_cases.npz"))
+    yield f"trellis_order_cases.npz, {len(cases['dct'])} blocks", per_block(
+        cases["dct"], cases["qi"].astype(np.int64),
+        cases["qti"].astype(np.int64))
+
+
+def _kt_pairs(limit: int) -> np.ndarray:
+    """[64] per position j: the DP steps i (1 <= i < j) at which a run
+    from i may end at j within run length limit (limit - 1 at i == 1,
+    where the DC keeps one slot of headroom)."""
+    return np.array([sum(j - i <= (limit - 1 if i == 1 else limit)
+                         for i in range(1, j)) for j in range(64)])
+
+
+def kt_float_ops(qrtn: np.ndarray) -> int:
+    """The float32 operations the trellis needs for these blocks ([N, 64]
+    round-to-nearest values), a fused multiply-add counted as two, as the
+    67 TFLOP/s peak counts it. Only a nonzero position can end a run
+    (every other one costs _BIG), a +-1 combo only at magnitude 1-2 and
+    run length <= 17, a +-2/3 combo only at magnitude 2-4 and run length
+    <= 3. Set-up: c^2 and its prefix sum per nonzero position (2), the
+    EOB cost per AC position (3); per nonzero AC position the value's
+    error and token cost (5), the next-lower value's and the compare
+    (6, magnitude >= 2), each combo's error base (3). Per DP step: the
+    best next cost, node1's cost, the EOB compare (3), each position's
+    best cost (1). Per (step, nonzero position) pair: D2 and the run +
+    value cost (4) and the first-minimum reduction (1); each combo in
+    reach 4 and a minimum. The integer work (token ids, decision words,
+    backtrack) runs on the separate INT32 pipe and binds less."""
+    a = np.abs(qrtn.astype(np.int64))
+    nz = a != 0
+    ac = a[:, 1:]
+    j = np.arange(1, 64)
+    nzac = ac != 0
+    c1 = (ac >= 1) & (ac <= 2)
+    c23 = (ac >= 2) & (ac <= 4)
+    setup = (2 * nz.sum() + 63 * 3 * len(a) + 5 * nzac.sum()
+             + 6 * (ac >= 2).sum() + 3 * c1.sum() + 3 * c23.sum())
+    dp = (63 * 4 * len(a) + nzac.sum() + 5 * (nzac * (j - 1)).sum()
+          + 5 * (c1 * _kt_pairs(17)[1:]).sum()
+          + 5 * (c23 * _kt_pairs(3)[1:]).sum())
+    return int(setup + dp)
+
+
+def kt_vs_plain(device) -> dict:
+    from theora_tpu_torch.ops import transforms, trellis_cuda
+
+    cases = list(_kt_cases(np.random.default_rng(20261018), device))
+    err = 0
+    for label, args in cases:
+        got = trellis_cuda.trellis_values(*args)
+        want = transforms.trellis_values(*args)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"KT != plain on {label}: {bad} blocks "
+                                 f"differ (max |d| {err})")
+        moved = int((want != args[1]).any(dim=1).sum())
+        log(f"[kt] {label}: kernel == plain; the trellis changed {moved} "
+            f"of {len(want)} blocks' round-to-nearest values")
+    log(f"[kt] max |err| {err} (tolerance 0: exact)")
+    timed = cases[0][1]  # 14,400 blocks: one 720p luma plane
+
+    n = timed[0].shape[0]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    ms = _event_ms(lambda: trellis_cuda.trellis_values(*timed), 50, flush)
+    plain_ms = _event_ms(lambda: transforms.trellis_values(*timed), 5, flush)
+    # Each input read once (three [N, 64] int32 rows, lambda and acmin per
+    # block, the [64, 32] bit table), the [N, 64] int32 output written once.
+    nbytes = sum(a.numel() * a.element_size() for a in timed) + n * 256
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops = kt_float_ops(timed[1].cpu().numpy())
+    ops_ms = ops / FP32_OPS_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"[kt] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms; bound {bound_ms:.4f} ms ({ops} float32 ops that these inputs "
+        f"need -> {ops_ms:.4f} ms at 67 TFLOP/s; {nbytes} B -> "
+        f"{bytes_ms:.4f} ms at 3.35 TB/s); kernel at "
+        f"{100 * bound_ms / ms:.2f}% of its bound; no single PyTorch call "
+        f"computes this trellis (library_ms null)")
+    return {
+        "name": "trellis", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/trellis.cu",
+        "replaces": "theora_tpu/ops/transforms_jax.py:300",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
 def _encoder(w, h, fmt, qi):
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
@@ -482,7 +632,7 @@ def real_size_encode(smi: str) -> tuple[int, int]:
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
 
     mk = _load_testdata("make_hd720_enc")
     frames = mk.hd_frames()
@@ -528,16 +678,20 @@ def real_size_encode(smi: str) -> tuple[int, int]:
     torch.cuda.synchronize()
     idct_cuda.dequantize_idct_frames.launches = 0
     fdct_cuda.fdct_quantize.launches = 0
+    trellis_cuda.trellis_values.launches = 0
     t0 = time.perf_counter()
     pkts = encode(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = (idct_cuda.dequantize_idct_frames.launches,
-              fdct_cuda.fdct_quantize.launches)
+    k1, k2, kt = (idct_cuda.dequantize_idct_frames.launches,
+                  fdct_cuda.fdct_quantize.launches,
+                  trellis_cuda.trellis_values.launches)
     check(pkts, "warm pass")
-    if k1 == 0 or k2 == 0:
-        raise AssertionError(f"encode path launches: K1 {k1}, K2 {k2}; "
-                             f"both must run")
+    # One launch of each per plane per frame.
+    if k1 == 0 or k2 == 0 or kt != 3 * len(frames):
+        raise AssertionError(f"encode path launches: K1 {k1}, K2 {k2}, KT "
+                             f"{kt}; K1 and K2 must run, KT "
+                             f"{3 * len(frames)} times")
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
     outs = BatchDecoder(info, setup, device="cuda").decode_clip(
         [p.data for p in pkts[3:]], batch=8)
@@ -549,8 +703,9 @@ def real_size_encode(smi: str) -> tuple[int, int]:
         f"Mpix/s; host mode decision {enc.host_decide_s:.4f} s, host "
         f"packing {enc.host_pack_s:.4f} s; device spans (CUDA events, ME "
         f"and plane encodes) {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} "
-        f"dB against the source; launches K1 {k1}, K2 {k2} | {smi}")
-    return k1, k2
+        f"dB against the source; launches K1 {k1}, K2 {k2}, KT {kt} | "
+        f"{smi}")
+    return k1, k2, kt
 
 
 def main() -> int:
@@ -565,13 +720,15 @@ def main() -> int:
     golden_streams()
     k1_decode = real_size(smi)
     k2 = k2_vs_plain(dev)
+    kt = kt_vs_plain(dev)
     small_encodes()
-    k1_encode, k2["launches"] = real_size_encode(smi)
+    k1_encode, k2["launches"], kt["launches"] = real_size_encode(smi)
     # K1 runs on both main paths: the decode's and the encode's.
     k1["launches"] = k1_decode + k1_encode
     k1["launches_by_path"] = {"decode": k1_decode, "encode": k1_encode}
     k2["launches_by_path"] = {"encode": k2["launches"]}
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    kt["launches_by_path"] = {"encode": kt["launches"]}
+    print(json.dumps({"kernels": [k1, k2, kt]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

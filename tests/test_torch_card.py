@@ -23,8 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2 and the device decode and "
-                    "encode paths have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2, KT and the device decode "
+                    "and encode paths have no CPU mode")
     return torch.device("cuda")
 
 
@@ -87,6 +87,39 @@ def test_k2_kernel_matches_plain(card):
     assert fdct_cuda.fdct_quantize.launches == before + 1
     qp, dp = transforms.fdct_quantize(*args)
     assert torch.equal(q, qp) and torch.equal(d, dp)
+
+
+def test_kt_kernel_matches_plain(card):
+    """KT on K2's outputs for 3,600 random residual blocks (one chroma
+    plane of a 720p frame), random qi and both frame types, exact."""
+    from theora_tpu_torch import tables
+    from theora_tpu_torch.encode.gop import trellis_bit_costs
+    from theora_tpu_torch.ops import fdct_cuda, trellis_cuda
+    from theora_tpu_torch.quant import dequant_tables_init
+
+    rng = np.random.default_rng(23)
+    n = 3600
+    qi = int(rng.integers(0, 64))
+    deq = dequant_tables_init(tables.DEF_QUANT_INFO)[qi, 1].astype(np.int16)
+    inter = rng.integers(0, 2, n).astype(np.uint8)
+    res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq), t(inter))
+    lam = np.array([tables.RD_LAMBDA[0][f][qi] for f in inter], np.float32)
+    args = (d.to(torch.int32), q.to(torch.int32),
+            t(deq.astype(np.int32)[inter]), t(lam),
+            t(trellis_bit_costs(tables.VP31_HUFF_CODES)),
+            t(np.where(inter == 0, 3, 0).astype(np.int32)))
+    before = trellis_cuda.trellis_values.launches
+    got = trellis_cuda.trellis_values(*args)
+    torch.cuda.synchronize()
+    assert trellis_cuda.trellis_values.launches == before + 1
+    want = transforms.trellis_values(*args)
+    assert torch.equal(got, want)
+    assert bool((want != q.to(torch.int32)).any())  # the trellis moved some
 
 
 def test_encode_on_card_equals_cpu(card):

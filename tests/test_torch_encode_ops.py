@@ -1,6 +1,7 @@
 """The encode-side modules of the PyTorch port against their JAX twins,
 on the CPU, exact: kernel K2's plain version (fDCT + quantizer), the
-trellis, the ME plan and the host frame packer.
+trellis (kernel KT's plain version), the ME plan and the host frame
+packer.
 
 Parity hazards, each named in a test below: the trellis' float32 prefix
 sum order, XLA's multiply-add contraction in the trellis costs, the tie
@@ -19,8 +20,8 @@ from theora_tpu.ops import me_jax
 from theora_tpu.ops import pallas_kernels as pk
 from theora_tpu.ops import transforms_jax as tj
 from theora_tpu_torch import tables
-from theora_tpu_torch.constants import DCT_TOKEN_EXTRA_BITS, ZZI_GROUP
-from theora_tpu_torch.ops import fdct_cuda, me, transforms
+from theora_tpu_torch.encode.gop import trellis_bit_costs
+from theora_tpu_torch.ops import fdct_cuda, me, transforms, trellis_cuda
 from theora_tpu_torch.quant import dequant_tables_init
 
 DQ = dequant_tables_init(tables.DEF_QUANT_INFO)
@@ -38,15 +39,6 @@ def _few_torch_threads():
 
 def _t(a):
     return torch.from_numpy(np.array(a))  # a writable copy
-
-
-def _nb_full():
-    nbt = np.zeros((5, 32), np.float32)
-    for gi in range(5):
-        for t in range(32):
-            nbt[gi, t] = (tables.VP31_HUFF_CODES[gi << 4][t][1]
-                          + DCT_TOKEN_EXTRA_BITS[t])
-    return nbt[ZZI_GROUP]
 
 
 # ---------------------------------------------------------------- K2 plain
@@ -134,7 +126,8 @@ def _trellis_case(dct, qi, qti):
     lam = np.array([tables.RD_LAMBDA[0][t][i] for t, i in zip(qti, qi)],
                    np.float32)
     acmin = np.where(qti == 0, 3, 0).astype(np.int32)
-    return dct.astype(np.int32), q0, deq, lam, _nb_full(), acmin
+    return (dct.astype(np.int32), q0, deq, lam,
+            trellis_bit_costs(tables.VP31_HUFF_CODES), acmin)
 
 
 def _both_trellis(args):
@@ -158,18 +151,26 @@ def test_trellis_equals_jax_on_encoder_blocks_and_large_coefficients():
     assert (np.abs(dct) > 32000).any()
 
 
-def test_trellis_prefix_sum_order_hazard(monkeypatch):
+@pytest.fixture(scope="module")
+def order_cases():
+    """The blocks of testdata/vectors/trellis_order_cases.npz as trellis
+    inputs, and the JAX trellis' values for them (compiled once)."""
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_order_cases.npz"))
+    args = _trellis_case(cases["dct"].astype(np.int32),
+                         cases["qi"].astype(np.int64),
+                         cases["qti"].astype(np.int64))
+    return args, np.asarray(jax.jit(tj.trellis_values)(*args))
+
+
+def test_trellis_prefix_sum_order_hazard(monkeypatch, order_cases):
     """Hazard: jnp.cumsum of float32 c^2 is not exact, and XLA on the
     CPU adds in chunks of 16 positions. On these blocks (found by
     testdata/make_trellis_cases.py) a sequential sum changes the
     trellis' choice; the port reproduces XLA's order and equals JAX."""
-    cases = np.load(os.path.join(TESTDATA, "vectors",
-                                 "trellis_order_cases.npz"))
-    dct = cases["dct"].astype(np.int32)
-    args = _trellis_case(dct, cases["qi"].astype(np.int64),
-                         cases["qti"].astype(np.int64))
-    ref, got = _both_trellis(args)
-    assert len(dct) >= 50
+    args, ref = order_cases
+    got = transforms.trellis_values(*[_t(a) for a in args]).numpy()
+    assert len(args[0]) >= 50
     assert np.array_equal(got, ref)
 
     # The order itself, on sums that depend on it.
@@ -204,6 +205,17 @@ def test_trellis_multiply_add_contraction_hazard():
     assert np.array_equal(got, xla)
     separate = (e * e) + (lam * nb)
     assert not np.array_equal(separate, xla)
+
+
+def test_kt_wrapper_equals_jax_on_order_cases(order_cases):
+    """Kernel KT's wrapper on CPU tensors (its plain version) on the 97
+    blocks whose result depends on the prefix-sum order; the card holds
+    the kernel against the same plain version (chip_smoke.py)."""
+    args, ref = order_cases
+    got = trellis_cuda.trellis_values(*[_t(a) for a in args])
+    assert got.dtype == torch.int32 and len(got) == 97
+    assert np.array_equal(got.numpy(), ref)
+    assert trellis_cuda.trellis_values.launches == 0
 
 
 # ----------------------------------------------------------------- ME plan

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1, K2) take their plain paths only for CPU tensors, and
-the encoder settings it does not carry yet raise."""
+kernel wrappers (K1, K2, KT) take their plain paths only for CPU tensors,
+KT is built without floating-point contraction, and the encoder settings
+it does not carry yet raise."""
 import ast
 import os
 
@@ -261,3 +262,102 @@ def test_k2_wrapper_output_on_cpu():
     assert q.dtype == d.dtype == torch.int16
     assert q.shape == d.shape == (5, 64)
     assert fdct_cuda.fdct_quantize.launches == 0
+
+
+# ------------------------------------------------------------- kernel KT
+
+def _kt_args(device):
+    n = 5
+    return (
+        torch.zeros((n, 64), dtype=torch.int32, device=device),
+        torch.zeros((n, 64), dtype=torch.int32, device=device),
+        torch.full((n, 64), 8, dtype=torch.int32, device=device),
+        torch.full((n,), 100.0, dtype=torch.float32, device=device),
+        torch.ones((64, 32), dtype=torch.float32, device=device),
+        torch.zeros(n, dtype=torch.int32, device=device),
+    )
+
+
+def test_kt_plain_path_only_for_cpu_tensors(monkeypatch):
+    from theora_tpu_torch.ops import trellis_cuda
+
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        return torch.zeros((args[0].shape[0], 64), dtype=torch.int32)
+
+    monkeypatch.setattr(transforms, "trellis_values", plain)
+    trellis_cuda.trellis_values(*_kt_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        trellis_cuda.trellis_values(*_kt_args("meta"))
+    assert calls == ["cpu"]
+    assert trellis_cuda.trellis_values.launches == 0
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((5, 64), dtype=torch.int16)),
+    (0, torch.zeros((5, 63), dtype=torch.int32)),
+    (0, torch.zeros((64, 5), dtype=torch.int32).t()),
+    (1, torch.zeros((4, 64), dtype=torch.int32)),
+    (1, torch.zeros((5, 64), dtype=torch.int64)),
+    (2, torch.full((2, 64), 8, dtype=torch.int16)),
+    (2, torch.full((5, 64), 8, dtype=torch.int32, device="meta")),
+    (3, torch.full((5,), 100.0, dtype=torch.float64)),
+    (3, torch.full((5, 1), 100.0, dtype=torch.float32)),
+    (4, torch.ones((32, 64), dtype=torch.float32).t()),
+    (4, torch.ones((64, 31), dtype=torch.float32)),
+    (4, torch.ones((64, 32), dtype=torch.float16)),
+    (5, torch.zeros(5, dtype=torch.int64)),
+    (5, torch.zeros(6, dtype=torch.int32)),
+    (5, torch.zeros(5, dtype=torch.int32, device="meta")),
+])
+def test_kt_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import trellis_cuda
+
+    args = list(_kt_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        trellis_cuda.trellis_values(*args)
+
+
+def test_kt_build_is_sm90a_without_contraction(monkeypatch, tmp_path):
+    """KT's library is built by nvcc_build from csrc/trellis.cu for
+    sm_90a with -fmad=false (its float32 sums must not fuse) and without
+    fast math. Nothing is compiled: subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, trellis_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(trellis_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_trellis.so"))
+    so = trellis_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == trellis_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "trellis.cu"))
+    assert so == trellis_cuda._SO and os.path.exists(so)
+    with open(so + ".log") as f:
+        assert f.read() == "ptxas info"
+
+
+def test_kt_wrapper_output_on_cpu():
+    from theora_tpu_torch.ops import trellis_cuda
+
+    out = trellis_cuda.trellis_values(*_kt_args("cpu"))
+    assert out.dtype == torch.int32 and out.shape == (5, 64)
+    assert not out.any()
+    assert trellis_cuda.trellis_values.launches == 0

@@ -91,6 +91,18 @@ def _unsupported(what: str):
         f"{what} is not ported to theora_tpu_torch yet: {_TODO[what]}")
 
 
+def trellis_bit_costs(huff_codes) -> np.ndarray:
+    """The trellis' token bit costs [64, 32] float32 (its nb_full): per
+    coefficient position, the code length of each token in the first
+    Huffman table of the position's group, plus the token's extra
+    bits."""
+    nbt = np.zeros((5, 32), np.float32)
+    for gi in range(5):
+        for t in range(32):
+            nbt[gi, t] = huff_codes[gi << 4][t][1] + DCT_TOKEN_EXTRA_BITS[t]
+    return nbt[ZZI_GROUP]
+
+
 def gop_starts(frames, keyframe_freq: int,
                auto_keyframe: bool = False) -> list[int]:
     """The clip's GOP start indices at fixed spacing."""
@@ -127,14 +139,8 @@ class GopEncoder:
         lf = g.mb_maps[self._mb_list, 0]
         self._mb_birc = np.stack([lf // nh8, lf % nh8], axis=-1)
         self._mb_all4 = (lf >= 0).all(axis=1)
-        # Trellis token bit costs [64, 32]: code length of each group's
-        # first table + extra bits.
-        nbt = np.zeros((5, 32), np.float32)
-        for gi in range(5):
-            for t in range(32):
-                nbt[gi, t] = (self.packer.huff_codes[gi << 4][t][1]
-                              + DCT_TOKEN_EXTRA_BITS[t])
-        self._nb = torch.from_numpy(nbt[ZZI_GROUP]).to(self.device)
+        self._nb = torch.from_numpy(
+            trellis_bit_costs(self.packer.huff_codes)).to(self.device)
         self.set_qi(int(info.quality if qi is None else qi))
         # Host seconds of the mode decision and of the packing; and, when
         # device_spans is set to a list, a (start, end) CUDA event pair

@@ -6,8 +6,8 @@ single device (frag_axis None). The JAX scan over frames becomes a loop;
 the carried (prev, gold) reference planes stay on the device. Per frame:
 
   MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
-  (fDCT + quantization, also returning the unquantized DCT) -> the trellis
-  (ops/transforms.py) -> kernel K1 (dequant + iDCT) -> reconstruction ->
+  (fDCT + quantization, also returning the unquantized DCT) -> kernel KT
+  (the trellis) -> kernel K1 (dequant + iDCT) -> reconstruction ->
   the R/D skip test against the uncoded copy -> loop filter -> borders.
 
 The skip test keeps the JAX program's float32 lambda product. Its SSDs
@@ -19,11 +19,10 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
 from theora_tpu_torch.ops.loopfilter import loop_filter_plane
 from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
     mc_predict
-from theora_tpu_torch.ops.transforms import trellis_values
 from theora_tpu_torch.pipeline import fill_borders
 
 
@@ -93,9 +92,9 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
             acmin = torch.where(rs == 0, 3, 0).to(torch.int32)
             lam_n = torch.full((n,), lam_t[0 if ik else 1],
                                dtype=torch.float32, device=dev)
-            qdct = trellis_values(dct.to(torch.int32),
-                                  qdct0.to(torch.int32), deq_rows, lam_n,
-                                  nb, acmin)
+            qdct = trellis_cuda.trellis_values(
+                dct.to(torch.int32), qdct0.to(torch.int32), deq_rows, lam_n,
+                nb, acmin)
         with record_function("theora.enc.idct_recon"):
             nzf = qdct != 0
             cnt = nzf.sum(dim=1, dtype=torch.int32)

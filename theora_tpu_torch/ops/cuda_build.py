@@ -2,8 +2,8 @@
 
 Each kernel (csrc/*.cu) has a plain C interface and is compiled with nvcc
 for sm_90a at first use into the git-ignored ``csrc/build/``, then bound
-with ctypes by its wrapper (ops/idct_cuda.py, ops/fdct_cuda.py). A failed
-build raises.
+with ctypes by its wrapper (ops/idct_cuda.py, ops/fdct_cuda.py,
+ops/trellis_cuda.py). A failed build raises.
 """
 from __future__ import annotations
 
@@ -23,9 +23,10 @@ def _nvcc() -> str:
     return path
 
 
-def nvcc_build(src: str, so: str) -> str:
+def nvcc_build(src: str, so: str, flags: tuple[str, ...] = ()) -> str:
     """Compile src into so when so is missing or older than src; returns
-    so. ptxas' report (registers, shared memory and spills of each
+    so. flags are the source's own nvcc options, added to the common
+    ones. ptxas' report (registers, shared memory and spills of each
     kernel) is kept beside it as so + ".log". Concurrent builders each
     write a private file and rename it into place."""
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
@@ -37,7 +38,7 @@ def nvcc_build(src: str, so: str) -> str:
         proc = subprocess.run(
             [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", tmp, src],
+             "-Xptxas", "-v", *flags, "-o", tmp, src],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

@@ -8,9 +8,10 @@ wrap where the spec stores int16, so the results equal the C reference
 (idct.c:30-296, fdct.c:27-154, enquant.c:220-249, state.c:959-980).
 
 `dequantize_idct_frames` is the function kernel K1 computes
-(ops/idct_cuda.py) and `fdct_quantize` the one kernel K2 computes
-(ops/fdct_cuda.py): the CPU paths of their wrappers and their oracles on
-the card.
+(ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
+(ops/fdct_cuda.py) and `trellis_values` the one kernel KT computes
+(ops/trellis_cuda.py): the CPU paths of their wrappers and their oracles
+on the card.
 """
 from __future__ import annotations
 

@@ -98,14 +98,19 @@ def main(argv=None) -> int:
     busy = sum(k[1] for k in kernels)
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device", flush=True)
-    # K1 and K2 are launched from their own libraries, outside any PyTorch
-    # op, so the profiler does not attribute them to their scopes; list
-    # them by name.
+    # K1, K2 and KT are launched from their own libraries, outside any
+    # PyTorch op, so the profiler does not attribute them to their scopes;
+    # list them by name.
     shown = kernels[:20] + [k for k in kernels[20:]
-                            if "idct" in k[0] or "fdct" in k[0]]
+                            if any(w in k[0]
+                                   for w in ("idct", "fdct", "trellis"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
+    launches = sum(k[2] for k in kernels)
+    per_plane_frame = launches / (3 * nf)
+    print(f"[launches] {launches} device kernels in the traced pass, "
+          f"{per_plane_frame:.1f} per plane per frame", flush=True)
     mid = sorted(r["wall_s"] for r in runs)[len(runs) // 2]
     summary = {
         "card": smi, "frames": nf, "qi": QI, "keyframe_freq": KF,
@@ -118,7 +123,8 @@ def main(argv=None) -> int:
         "traced_host_decide_s": enc.host_decide_s,
         "traced_host_pack_s": enc.host_pack_s,
         "stages_device_s": stages,
-        "kernel_launches": sum(k[2] for k in kernels),
+        "kernel_launches": launches,
+        "launches_per_plane_frame": per_plane_frame,
     }
     print(json.dumps(summary), flush=True)
     return 0
