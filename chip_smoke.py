@@ -27,14 +27,22 @@ and prints no result line):
    4:2:0) and their sum 21,600, and the libtheora fDCT vectors, exact
    equality; CUDA-event times at 21,600 blocks beside a device copy of
    the same bytes;
-6b. KT (the trellis) against its plain version on the card, exact
-   equality: on K2's own outputs for random residuals at 14,400, 3,600
-   and 21,600 blocks, each launch at a qi drawn from 0-63 with the
-   RD_LAMBDA lambdas and both frame types (intra blocks: acmin 3 and the
-   intra lambda; inter blocks: acmin 0 and the inter lambda); on 1,500
-   blocks of coefficients up to +-32767 at per-block qi; on the 97 blocks
-   of testdata/vectors/trellis_order_cases.npz; CUDA-event times of both
-   at 14,400 blocks beside the bound;
+6b. KT (the trellis) against its plain version (transforms.
+   trellis_quantize) on the card, exact equality of the values, nonzero
+   counts and DC-only flags, one launch per frame type as the encoder
+   makes them (one qi, the frame's RD_LAMBDA lambda; intra blocks take
+   acmin 3, inter blocks acmin 0): on K2's own outputs for random
+   residuals at 14,400, 3,600 and 21,600 blocks, an intra and an inter
+   frame each; on the 1280x720 clip's first frame, luma and chroma; on
+   the edge classes (no nonzero AC value, one nonzero value at position
+   63 or at position 1, dense +-32767) among K2's outputs; on a launch
+   without any nonzero AC value; on 1,500 blocks of coefficients up to
+   +-32767; on the 97 blocks of testdata/vectors/trellis_order_cases.npz,
+   one launch per (qi, frame type); CUDA-event times at 14,400 and 3,600
+   blocks of K2's outputs, of the first frame's planes and of the launch
+   without nonzero AC values, each beside its bound and its histogram of
+   nonzero AC values per block (tools/bench_trellis.py), and of the plain
+   version at 14,400;
 7. small encodes: GopEncoder(device="cuda") at 64x48 for pixel formats
    0, 2 and 3, every packet's SHA-256 against the list the JAX
    TpuGopEncoder made (testdata/make_hd720_enc.py);
@@ -85,8 +93,6 @@ K1_OPS_PER_BLOCK = 16 * (16 * 2 + 12 * 3 + 28) + 64 * 4 + 64 * 5
 # x4 scalings; 64 output round/shift/wraps (5 ops); 64 quantizations
 # (abs, shift, compare, add, double, divide counted as one, sign: 8).
 K2_OPS_PER_BLOCK = 16 * 119 + 64 + 64 * 5 + 64 * 8
-# Published float32 rate outside the tensor cores (NVIDIA data sheet).
-FP32_OPS_S = 67e12
 HD_ENC_NAME = "hd720_q48_k8_enc"
 
 
@@ -190,26 +196,9 @@ def _vector_inputs(device):
     return inputs, cases["y"].astype(np.int16)
 
 
-def _event_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean CUDA-event time of fn over iters calls, each after writing a
-    buffer larger than L2 so the inputs come from device memory."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        flush.fill_(1)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / iters
-
-
 def kernel_vs_plain(device) -> dict:
     from theora_tpu_torch.ops import idct_cuda, transforms
+    from theora_tpu_torch.tools.bench_trellis import event_ms
 
     rng = np.random.default_rng(20261016)
     # The main path launches K1 once per plane per batch of 8 frames:
@@ -248,9 +237,9 @@ def kernel_vs_plain(device) -> dict:
         f"max |err| {err} (tolerance 0: exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = _event_ms(lambda: idct_cuda.dequantize_idct_frames(*args), 50,
+    ms = event_ms(lambda: idct_cuda.dequantize_idct_frames(*args), 50,
                    flush)
-    plain_ms = _event_ms(lambda: transforms.dequantize_idct_frames(*args), 5,
+    plain_ms = event_ms(lambda: transforms.dequantize_idct_frames(*args), 5,
                          flush)
     nbytes = sum(a.numel() * a.element_size() for a in args) + n * 64 * 2
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
@@ -258,7 +247,7 @@ def kernel_vs_plain(device) -> dict:
     # reads and writes the same number of bytes as K1 moves.
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
     dst = torch.empty_like(src)
-    copy_ms = _event_ms(lambda: dst.copy_(src), 50, flush)
+    copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
     ops_ms = n * K1_OPS_PER_BLOCK / INT32_OPS_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"[k1] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -391,6 +380,7 @@ def _k2_inputs(rng, n, device):
 
 def k2_vs_plain(device) -> dict:
     from theora_tpu_torch.ops import fdct_cuda, transforms
+    from theora_tpu_torch.tools.bench_trellis import event_ms
 
     rng = np.random.default_rng(20261017)
     # The encode path launches K2 once per plane per frame: 14,400 luma
@@ -424,15 +414,15 @@ def k2_vs_plain(device) -> dict:
         f"DCT == plain == libtheora; max |err| {err} (tolerance 0: exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = _event_ms(lambda: fdct_cuda.fdct_quantize(*args), 50, flush)
-    plain_ms = _event_ms(lambda: transforms.fdct_quantize(*args), 5, flush)
+    ms = event_ms(lambda: fdct_cuda.fdct_quantize(*args), 50, flush)
+    plain_ms = event_ms(lambda: transforms.fdct_quantize(*args), 5, flush)
     # Each input read once, each output written once: residuals, frame
     # types and the two dequant rows in; quantized and DCT blocks out.
     nbytes = sum(a.numel() * a.element_size() for a in args) + 2 * n * 128
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
     dst = torch.empty_like(src)
-    copy_ms = _event_ms(lambda: dst.copy_(src), 50, flush)
+    copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
     ops_ms = n * K2_OPS_PER_BLOCK / INT32_OPS_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"[k2] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -453,138 +443,145 @@ def k2_vs_plain(device) -> dict:
     }
 
 
-def _kt_cases(rng, device):
-    """(label, KT inputs) pairs: K2's outputs on random residuals at the
-    encode path's per-plane shapes, as the scan builds the trellis' inputs
-    from them; coefficients up to +-32767; the prefix-sum order cases."""
+def _kt_cases(device):
+    """(label, KT arguments, timed) for one launch each: K2's outputs on
+    random residuals at the encode path's per-plane shapes, an intra and an
+    inter frame each (tools/bench_trellis.py:k2_cases); the 720p clip's
+    first frame, luma and chroma; the edge classes; a launch of blocks with
+    no nonzero AC value; coefficients up to +-32767; the prefix-sum order
+    cases, one launch per (qi, frame type)."""
     from theora_tpu_torch import tables
-    from theora_tpu_torch.encode.gop import trellis_bit_costs
     from theora_tpu_torch.ops import fdct_cuda, transforms
-    from theora_tpu_torch.quant import dequant_tables_init
+    from theora_tpu_torch.tools import bench_trellis as bt
 
-    dq = dequant_tables_init(tables.DEF_QUANT_INFO)
-    nb = torch.from_numpy(trellis_bit_costs(tables.VP31_HUFF_CODES)).to(
-        device)
-    lam_tab = np.array(tables.RD_LAMBDA[0], np.float32)  # [qti, qi]
+    for label, args in bt.k2_cases(device):
+        yield label, args, args[0].shape[0] in (14400, 3600) and \
+            "inter" in label
+    for label, args in bt.first_frame_cases(device):
+        yield label, args, True
+    dq, nb, lam_tab = bt.kt_tables()
+    nb = torch.from_numpy(nb).to(device)
+    rng = np.random.default_rng(20261019)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    for n in (14400, 3600, 21600):
-        # One qi per launch, as on the main path; per block the frame type
-        # (intra: acmin 3; inter: acmin 0) and its lambda; residuals from
-        # noise to nearly flat blocks.
-        qi = int(rng.integers(0, 64))
-        deq = dq[qi, int(rng.integers(0, 3))].astype(np.int16)
-        inter = rng.integers(0, 2, n).astype(np.uint8)
+    def launch(dct, qi, qti, inter=None):
+        """KT arguments for [N, 64] DCT rows of one frame type at qi; the
+        round-to-nearest values from the plain quantizer, as K2 makes
+        them."""
+        n = len(dct)
+        if inter is None:
+            inter = np.full(n, qti, np.uint8)
+        deq = dq[qi, 0].astype(np.int16)
+        q = transforms.quantize(
+            t(dct.astype(np.int32)),
+            t(deq.astype(np.int32)[inter.astype(np.int64)]))
+        return (q.to(torch.int16), t(dct.astype(np.int16)), t(deq), t(inter),
+                lam_tab[qti, qi], nb)
+
+    # Edge classes among K2's outputs, a frame of each type at one qi: no
+    # nonzero AC value (a fixed result), one nonzero value at position 63
+    # (its combos wrap to position 0) or at position 1 (the first step's
+    # headroom), dense +-32767.
+    qi, n = 36, 2000
+    rows = dq[qi, 0].astype(np.int32)
+    for qti in (0, 1):
+        inter = (np.zeros(n, np.uint8) if qti == 0
+                 else rng.integers(0, 2, n).astype(np.uint8))
         res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
-        q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq),
-                                       t(inter))
-        yield f"K2 outputs, {n} blocks, qi {qi}", (
-            d.to(torch.int32), q.to(torch.int32),
-            t(deq.astype(np.int32)[inter]), t(lam_tab[inter, qi]), nb,
-            t(np.where(inter == 0, 3, 0).astype(np.int32)))
-
-    def per_block(dct, qi, qti):
-        deq = t(dq[qi, 0, qti].astype(np.int32))
-        dct = t(dct.astype(np.int32))
-        return (dct, transforms.quantize(dct, deq), deq, t(lam_tab[qti, qi]),
-                nb, t(np.where(qti == 0, 3, 0).astype(np.int32)))
-
-    n = 1500
-    yield f"coefficients up to +-32767, {n} blocks", per_block(
-        rng.integers(-32767, 32768, (n, 64)), rng.integers(0, 64, n),
-        rng.integers(0, 2, n))
+        _, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)),
+                                       t(rows.astype(np.int16)), t(inter))
+        dct = d.cpu().numpy().astype(np.int32)
+        r = rows[inter.astype(np.int64)]
+        sign = rng.choice([-1, 1], (n, 64))
+        k = np.arange(0, 400, 4)
+        dct[k, 1:] = sign[k, 1:] * (r[k, 1:] // 2 - 1)
+        dct[k + 1, 1:] = 0
+        dct[k + 1, 63] = sign[k + 1, 63] * r[k + 1, 63] * (k % 37 + 1)
+        dct[k + 2, 1:] = 0
+        dct[k + 2, 1] = sign[k + 2, 1] * r[k + 2, 1] * (k % 37 + 1)
+        dct[k + 3] = sign[k + 3] * 32767
+        yield (f"edge classes among K2 outputs, {n} blocks, qi {qi}, "
+               f"{('intra', 'inter')[qti]} frame",
+               launch(dct, qi, qti, inter), False)
+    # A whole launch without a nonzero AC value: every block skips the DP.
+    dct = rng.integers(-255, 256, (3600, 64))
+    dct[:, 1:] //= 64
+    yield ("3600 blocks without a nonzero AC value, q48",
+           launch(dct, 48, 0), True)
+    for qi in (5, 30, 60):
+        for qti in (0, 1):
+            yield (f"coefficients up to +-32767, 250 blocks, qi {qi}, "
+                   f"{('intra', 'inter')[qti]}",
+                   launch(rng.integers(-32767, 32768, (250, 64)), qi, qti),
+                   False)
     cases = np.load(os.path.join(TESTDATA, "vectors",
                                  "trellis_order_cases.npz"))
-    yield f"trellis_order_cases.npz, {len(cases['dct'])} blocks", per_block(
-        cases["dct"], cases["qi"].astype(np.int64),
-        cases["qti"].astype(np.int64))
-
-
-def _kt_pairs(limit: int) -> np.ndarray:
-    """[64] per position j: the DP steps i (1 <= i < j) at which a run
-    from i may end at j within run length limit (limit - 1 at i == 1,
-    where the DC keeps one slot of headroom)."""
-    return np.array([sum(j - i <= (limit - 1 if i == 1 else limit)
-                         for i in range(1, j)) for j in range(64)])
-
-
-def kt_float_ops(qrtn: np.ndarray) -> int:
-    """The float32 operations the trellis needs for these blocks ([N, 64]
-    round-to-nearest values), a fused multiply-add counted as two, as the
-    67 TFLOP/s peak counts it. Only a nonzero position can end a run
-    (every other one costs _BIG), a +-1 combo only at magnitude 1-2 and
-    run length <= 17, a +-2/3 combo only at magnitude 2-4 and run length
-    <= 3. Set-up: c^2 and its prefix sum per nonzero position (2), the
-    EOB cost per AC position (3); per nonzero AC position the value's
-    error and token cost (5), the next-lower value's and the compare
-    (6, magnitude >= 2), each combo's error base (3). Per DP step: the
-    best next cost, node1's cost, the EOB compare (3), each position's
-    best cost (1). Per (step, nonzero position) pair: D2 and the run +
-    value cost (4) and the first-minimum reduction (1); each combo in
-    reach 4 and a minimum. The integer work (token ids, decision words,
-    backtrack) runs on the separate INT32 pipe and binds less."""
-    a = np.abs(qrtn.astype(np.int64))
-    nz = a != 0
-    ac = a[:, 1:]
-    j = np.arange(1, 64)
-    nzac = ac != 0
-    c1 = (ac >= 1) & (ac <= 2)
-    c23 = (ac >= 2) & (ac <= 4)
-    setup = (2 * nz.sum() + 63 * 3 * len(a) + 5 * nzac.sum()
-             + 6 * (ac >= 2).sum() + 3 * c1.sum() + 3 * c23.sum())
-    dp = (63 * 4 * len(a) + nzac.sum() + 5 * (nzac * (j - 1)).sum()
-          + 5 * (c1 * _kt_pairs(17)[1:]).sum()
-          + 5 * (c23 * _kt_pairs(3)[1:]).sum())
-    return int(setup + dp)
+    for qi, qti in sorted(set(zip(cases["qi"].tolist(),
+                                  cases["qti"].tolist()))):
+        sel = (cases["qi"] == qi) & (cases["qti"] == qti)
+        yield (f"trellis_order_cases.npz, qi {qi}, qti {qti}, "
+               f"{int(sel.sum())} blocks",
+               launch(cases["dct"][sel], qi, qti), False)
 
 
 def kt_vs_plain(device) -> dict:
     from theora_tpu_torch.ops import transforms, trellis_cuda
+    from theora_tpu_torch.tools import bench_trellis as bt
 
-    cases = list(_kt_cases(np.random.default_rng(20261018), device))
     err = 0
-    for label, args in cases:
-        got = trellis_cuda.trellis_values(*args)
-        want = transforms.trellis_values(*args)
+    n_order = n_launches = 0
+    timed = []
+    for label, args, is_timed in _kt_cases(device):
+        got = trellis_cuda.trellis_quantize(*args)
+        want = transforms.trellis_quantize(*args)
         torch.cuda.synchronize()
-        err = max(err, int((got - want).abs().max()))
-        if not torch.equal(got, want):
-            bad = int((got != want).any(dim=1).sum())
-            raise AssertionError(f"KT != plain on {label}: {bad} blocks "
-                                 f"differ (max |d| {err})")
-        moved = int((want != args[1]).any(dim=1).sum())
-        log(f"[kt] {label}: kernel == plain; the trellis changed {moved} "
-            f"of {len(want)} blocks' round-to-nearest values")
-    log(f"[kt] max |err| {err} (tolerance 0: exact)")
-    timed = cases[0][1]  # 14,400 blocks: one 720p luma plane
+        for g, w in zip(got, want):
+            err = max(err, int((g.int() - w.int()).abs().max()))
+            if not torch.equal(g, w):
+                bad = int((g != w).reshape(len(g), -1).any(dim=1).sum())
+                raise AssertionError(f"KT != plain on {label}: {bad} blocks "
+                                     f"differ (max |d| {err})")
+        n_launches += 1
+        if label.startswith("trellis_order_cases"):
+            n_order += len(want[0])
+            continue
+        moved = int((want[0] != args[0]).any(dim=1).sum())
+        log(f"[kt] {label}: kernel == plain (values, counts, DC-only flags); "
+            f"the trellis changed {moved} of {len(want[0])} blocks' "
+            f"round-to-nearest values; {int(want[2].sum())} blocks DC-only")
+        if is_timed:
+            timed.append((label, args))
+    log(f"[kt] trellis_order_cases.npz: {n_order} blocks, kernel == plain "
+        f"in every (qi, frame type) launch; {n_launches} launches in all; "
+        f"max |err| {err} (tolerance 0: exact)")
 
-    n = timed[0].shape[0]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = _event_ms(lambda: trellis_cuda.trellis_values(*timed), 50, flush)
-    plain_ms = _event_ms(lambda: transforms.trellis_values(*timed), 5, flush)
-    # Each input read once (three [N, 64] int32 rows, lambda and acmin per
-    # block, the [64, 32] bit table), the [N, 64] int32 output written once.
-    nbytes = sum(a.numel() * a.element_size() for a in timed) + n * 256
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops = kt_float_ops(timed[1].cpu().numpy())
-    ops_ms = ops / FP32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"[kt] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms; bound {bound_ms:.4f} ms ({ops} float32 ops that these inputs "
-        f"need -> {ops_ms:.4f} ms at 67 TFLOP/s; {nbytes} B -> "
-        f"{bytes_ms:.4f} ms at 3.35 TB/s); kernel at "
-        f"{100 * bound_ms / ms:.2f}% of its bound; no single PyTorch call "
+    for i, (label, args) in enumerate(timed):
+        ms = bt.event_ms(lambda: trellis_cuda.trellis_quantize(*args), 50,
+                         flush)
+        b = bt.kt_bound(args)
+        hist = bt.nonzero_histogram(args[0].cpu().numpy())
+        log(f"[kt] time, {label}: kernel {ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B -> "
+            f"{b['bytes_ms']:.4f} ms at 3.35 TB/s; {b['ops']} float32 ops "
+            f"that these inputs need -> {b['ops_ms']:.4f} ms at 67 TFLOP/s);"
+            f" kernel at {100 * b['bound_ms'] / ms:.2f}% of its bound; "
+            f"blocks by nonzero AC values {hist}")
+        if i == 0:  # 14,400 blocks of K2's outputs: one 720p luma plane
+            head, head_ms, head_bound = label, ms, b
+            plain_ms = bt.event_ms(
+                lambda: transforms.trellis_quantize(*args), 5, flush)
+    log(f"[kt] {head}: plain {plain_ms:.4f} ms; no single PyTorch call "
         f"computes this trellis (library_ms null)")
     return {
         "name": "trellis", "route": "cuda",
         "source": "theora_tpu_torch/csrc/trellis.cu",
         "replaces": "theora_tpu/ops/transforms_jax.py:300",
-        "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "launches": None, "max_abs_err": err, "ms": head_ms,
+        "plain_ms": plain_ms, "bound_ms": head_bound["bound_ms"],
+        "bound_by": head_bound["bound_by"], "library_ms": None,
     }
 
 
@@ -678,14 +675,14 @@ def real_size_encode(smi: str) -> tuple[int, int]:
     torch.cuda.synchronize()
     idct_cuda.dequantize_idct_frames.launches = 0
     fdct_cuda.fdct_quantize.launches = 0
-    trellis_cuda.trellis_values.launches = 0
+    trellis_cuda.trellis_quantize.launches = 0
     t0 = time.perf_counter()
     pkts = encode(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, kt = (idct_cuda.dequantize_idct_frames.launches,
                   fdct_cuda.fdct_quantize.launches,
-                  trellis_cuda.trellis_values.launches)
+                  trellis_cuda.trellis_quantize.launches)
     check(pkts, "warm pass")
     # One launch of each per plane per frame.
     if k1 == 0 or k2 == 0 or kt != 3 * len(frames):

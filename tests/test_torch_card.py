@@ -91,7 +91,8 @@ def test_k2_kernel_matches_plain(card):
 
 def test_kt_kernel_matches_plain(card):
     """KT on K2's outputs for 3,600 random residual blocks (one chroma
-    plane of a 720p frame), random qi and both frame types, exact."""
+    plane of a 720p frame) at a random qi, an intra and an inter frame,
+    exact: values, nonzero counts and DC-only flags."""
     from theora_tpu_torch import tables
     from theora_tpu_torch.encode.gop import trellis_bit_costs
     from theora_tpu_torch.ops import fdct_cuda, trellis_cuda
@@ -101,25 +102,27 @@ def test_kt_kernel_matches_plain(card):
     n = 3600
     qi = int(rng.integers(0, 64))
     deq = dequant_tables_init(tables.DEF_QUANT_INFO)[qi, 1].astype(np.int16)
-    inter = rng.integers(0, 2, n).astype(np.uint8)
-    res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(card)
 
-    q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq), t(inter))
-    lam = np.array([tables.RD_LAMBDA[0][f][qi] for f in inter], np.float32)
-    args = (d.to(torch.int32), q.to(torch.int32),
-            t(deq.astype(np.int32)[inter]), t(lam),
-            t(trellis_bit_costs(tables.VP31_HUFF_CODES)),
-            t(np.where(inter == 0, 3, 0).astype(np.int32)))
-    before = trellis_cuda.trellis_values.launches
-    got = trellis_cuda.trellis_values(*args)
-    torch.cuda.synchronize()
-    assert trellis_cuda.trellis_values.launches == before + 1
-    want = transforms.trellis_values(*args)
-    assert torch.equal(got, want)
-    assert bool((want != q.to(torch.int32)).any())  # the trellis moved some
+    nb = t(trellis_bit_costs(tables.VP31_HUFF_CODES))
+    for qti in (0, 1):
+        inter = (np.zeros(n, np.uint8) if qti == 0
+                 else rng.integers(0, 2, n).astype(np.uint8))
+        res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
+        q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq),
+                                       t(inter))
+        args = (q, d, t(deq), t(inter),
+                np.float32(tables.RD_LAMBDA[0][qti][qi]), nb)
+        before = trellis_cuda.trellis_quantize.launches
+        got = trellis_cuda.trellis_quantize(*args)
+        torch.cuda.synchronize()
+        assert trellis_cuda.trellis_quantize.launches == before + 1
+        want = transforms.trellis_quantize(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool((want[0] != q).any())  # the trellis moved some
 
 
 def test_encode_on_card_equals_cpu(card):

@@ -207,15 +207,86 @@ def test_trellis_multiply_add_contraction_hazard():
     assert not np.array_equal(separate, xla)
 
 
+def _kt_wrapper(dct, deq, inter, lam):
+    """Kernel KT's wrapper on CPU tensors (its plain path) for one frame:
+    [N, 64] DCT rows, a [2, 64] dequant pair, [N] inter flags, the frame's
+    lambda; the round-to-nearest values from the plain quantizer, as K2
+    computes them."""
+    rows = _t(deq.astype(np.int32)[inter.astype(np.int64)])
+    q = transforms.quantize(_t(dct.astype(np.int32)), rows).to(torch.int16)
+    return trellis_cuda.trellis_quantize(
+        q, _t(dct.astype(np.int16)), _t(deq.astype(np.int16)), _t(inter),
+        np.float32(lam), torch.from_numpy(
+            trellis_bit_costs(tables.VP31_HUFF_CODES)))
+
+
 def test_kt_wrapper_equals_jax_on_order_cases(order_cases):
     """Kernel KT's wrapper on CPU tensors (its plain version) on the 97
-    blocks whose result depends on the prefix-sum order; the card holds
-    the kernel against the same plain version (chip_smoke.py)."""
+    blocks whose result depends on the prefix-sum order, one call per
+    (qi, frame type) group, as the encoder calls it per plane and frame;
+    the card holds the kernel against the same plain version
+    (chip_smoke.py)."""
     args, ref = order_cases
-    got = trellis_cuda.trellis_values(*[_t(a) for a in args])
-    assert got.dtype == torch.int32 and len(got) == 97
-    assert np.array_equal(got.numpy(), ref)
-    assert trellis_cuda.trellis_values.launches == 0
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_order_cases.npz"))
+    groups = sorted(set(zip(cases["qi"].tolist(), cases["qti"].tolist())))
+    assert len(groups) > 10
+    for qi, qti in groups:
+        sel = (cases["qi"] == qi) & (cases["qti"] == qti)
+        vals, cnt, dc_only = _kt_wrapper(
+            args[0][sel], DQ[qi, 0], np.full(int(sel.sum()), qti, np.uint8),
+            tables.RD_LAMBDA[0][qti][qi])
+        assert vals.dtype == torch.int16 and len(vals) == sel.sum()
+        assert np.array_equal(vals.numpy(), ref[sel]), (qi, qti)
+        nz = ref[sel] != 0
+        assert np.array_equal(cnt.numpy(), nz.sum(1))
+        assert np.array_equal(dc_only.numpy(), ~nz[:, 1:].any(1))
+    assert trellis_cuda.trellis_quantize.launches == 0
+
+
+def test_kt_wrapper_equals_jax_on_k2_outputs_and_edge_classes():
+    """KT's wrapper (CPU path) against the JAX trellis on K2's plain
+    outputs for an intra and an inter frame at one qi, values, nonzero
+    counts and DC-only flags, with edge classes among the blocks: no
+    nonzero AC value (a fixed result), one nonzero value at position 63
+    (its combos wrap to position 0) or at position 1 (the first step's
+    headroom), and dense +-32767 coefficients."""
+    rng = np.random.default_rng(29)
+    qi, n = 36, 1000
+    deq = DQ[qi, 0].astype(np.int16)
+    jit = jax.jit(tj.trellis_values)
+    for qti in (0, 1):
+        inter = (np.zeros(n, np.uint8) if qti == 0
+                 else rng.integers(0, 2, n).astype(np.uint8))
+        res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
+        _, d = fdct_cuda.fdct_quantize(_t(res.astype(np.int16)), _t(deq),
+                                       _t(inter))
+        dct = d.numpy().astype(np.int32)
+        rows = deq.astype(np.int32)[inter.astype(np.int64)]
+        sign = rng.choice([-1, 1], (n, 64))
+        k = np.arange(0, 40, 4)
+        dct[k, 1:] = sign[k, 1:] * (rows[k, 1:] // 2 - 1)  # AC all round to 0
+        dct[k + 1, 1:] = 0
+        dct[k + 1, 63] = sign[k + 1, 63] * rows[k + 1, 63] * (k + 1)
+        dct[k + 2, 1:] = 0
+        dct[k + 2, 1] = sign[k + 2, 1] * rows[k + 2, 1] * (k + 2)
+        dct[k + 3] = sign[k + 3] * 32767
+        assert np.abs(dct).max() <= 32767  # K2 writes int16
+        lam = tables.RD_LAMBDA[0][qti][qi]
+        vals, cnt, dc_only = _kt_wrapper(dct, deq, inter, lam)
+        q = np.asarray(tj.quantize(jnp.asarray(dct), jnp.asarray(rows)))
+        ref = np.asarray(jit(dct, q, rows, np.full(n, lam, np.float32),
+                             trellis_bit_costs(tables.VP31_HUFF_CODES),
+                             np.where(inter == 0, 3, 0).astype(np.int32)))
+        assert np.array_equal(vals.numpy(), ref)
+        nz = ref != 0
+        assert np.array_equal(cnt.numpy(), nz.sum(1))
+        assert np.array_equal(dc_only.numpy(), ~nz[:, 1:].any(1))
+        assert dc_only.numpy()[k].all() and not q[k, 1:].any()
+        assert (q[k + 1, 1:] != 0).sum(1).tolist() == [1] * len(k)
+        assert (q[k + 2, 1:] != 0).sum(1).tolist() == [1] * len(k)
+        assert (np.abs(dct[k + 3]) == 32767).all()
+        assert (ref != q).any()  # the trellis moved values
 
 
 # ----------------------------------------------------------------- ME plan

@@ -269,12 +269,12 @@ def test_k2_wrapper_output_on_cpu():
 def _kt_args(device):
     n = 5
     return (
-        torch.zeros((n, 64), dtype=torch.int32, device=device),
-        torch.zeros((n, 64), dtype=torch.int32, device=device),
-        torch.full((n, 64), 8, dtype=torch.int32, device=device),
-        torch.full((n,), 100.0, dtype=torch.float32, device=device),
+        torch.zeros((n, 64), dtype=torch.int16, device=device),
+        torch.zeros((n, 64), dtype=torch.int16, device=device),
+        torch.full((2, 64), 8, dtype=torch.int16, device=device),
+        torch.zeros(n, dtype=torch.uint8, device=device),
+        np.float32(100.0),
         torch.ones((64, 32), dtype=torch.float32, device=device),
-        torch.zeros(n, dtype=torch.int32, device=device),
     )
 
 
@@ -285,33 +285,42 @@ def test_kt_plain_path_only_for_cpu_tensors(monkeypatch):
 
     def plain(*args):
         calls.append(args[0].device.type)
-        return torch.zeros((args[0].shape[0], 64), dtype=torch.int32)
+        n = args[0].shape[0]
+        return (torch.zeros((n, 64), dtype=torch.int16),
+                torch.zeros(n, dtype=torch.int32),
+                torch.ones(n, dtype=torch.bool))
 
-    monkeypatch.setattr(transforms, "trellis_values", plain)
-    trellis_cuda.trellis_values(*_kt_args("cpu"))
+    monkeypatch.setattr(transforms, "trellis_quantize", plain)
+    trellis_cuda.trellis_quantize(*_kt_args("cpu"))
     assert calls == ["cpu"]
     with pytest.raises(ValueError, match="unsupported device"):
-        trellis_cuda.trellis_values(*_kt_args("meta"))
+        trellis_cuda.trellis_quantize(*_kt_args("meta"))
     assert calls == ["cpu"]
-    assert trellis_cuda.trellis_values.launches == 0
+    assert trellis_cuda.trellis_quantize.launches == 0
 
 
 @pytest.mark.parametrize("which,bad", [
-    (0, torch.zeros((5, 64), dtype=torch.int16)),
-    (0, torch.zeros((5, 63), dtype=torch.int32)),
-    (0, torch.zeros((64, 5), dtype=torch.int32).t()),
-    (1, torch.zeros((4, 64), dtype=torch.int32)),
-    (1, torch.zeros((5, 64), dtype=torch.int64)),
-    (2, torch.full((2, 64), 8, dtype=torch.int16)),
-    (2, torch.full((5, 64), 8, dtype=torch.int32, device="meta")),
-    (3, torch.full((5,), 100.0, dtype=torch.float64)),
-    (3, torch.full((5, 1), 100.0, dtype=torch.float32)),
-    (4, torch.ones((32, 64), dtype=torch.float32).t()),
-    (4, torch.ones((64, 31), dtype=torch.float32)),
-    (4, torch.ones((64, 32), dtype=torch.float16)),
-    (5, torch.zeros(5, dtype=torch.int64)),
-    (5, torch.zeros(6, dtype=torch.int32)),
-    (5, torch.zeros(5, dtype=torch.int32, device="meta")),
+    (0, torch.zeros((5, 64), dtype=torch.int32)),
+    (0, torch.zeros((5, 63), dtype=torch.int16)),
+    (0, torch.zeros((64, 5), dtype=torch.int16).t()),
+    (1, torch.zeros((4, 64), dtype=torch.int16)),
+    (1, torch.zeros((5, 64), dtype=torch.int32)),
+    (1, torch.zeros((5, 64), dtype=torch.int16, device="meta")),
+    (1, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(5, 64)),
+    (2, torch.full((5, 64), 8, dtype=torch.int16)),
+    (2, torch.full((2, 64), 8, dtype=torch.int32)),
+    (2, torch.full((64, 2), 8, dtype=torch.int16).t()),
+    (3, torch.zeros(5, dtype=torch.bool)),
+    (3, torch.zeros(6, dtype=torch.uint8)),
+    (3, torch.zeros(5, dtype=torch.uint8, device="meta")),
+    (4, float("nan")),
+    (4, float("inf")),
+    (4, -1.0),
+    (4, 100),
+    (4, torch.tensor(100.0)),
+    (5, torch.ones((32, 64), dtype=torch.float32).t()),
+    (5, torch.ones((64, 31), dtype=torch.float32)),
+    (5, torch.ones((64, 32), dtype=torch.float16)),
 ])
 def test_kt_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
     from theora_tpu_torch.ops import trellis_cuda
@@ -319,7 +328,7 @@ def test_kt_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
     args = list(_kt_args("cpu"))
     args[which] = bad
     with pytest.raises((TypeError, ValueError)):
-        trellis_cuda.trellis_values(*args)
+        trellis_cuda.trellis_quantize(*args)
 
 
 def test_kt_build_is_sm90a_without_contraction(monkeypatch, tmp_path):
@@ -357,7 +366,9 @@ def test_kt_build_is_sm90a_without_contraction(monkeypatch, tmp_path):
 def test_kt_wrapper_output_on_cpu():
     from theora_tpu_torch.ops import trellis_cuda
 
-    out = trellis_cuda.trellis_values(*_kt_args("cpu"))
-    assert out.dtype == torch.int32 and out.shape == (5, 64)
-    assert not out.any()
-    assert trellis_cuda.trellis_values.launches == 0
+    vals, cnt, dc_only = trellis_cuda.trellis_quantize(*_kt_args("cpu"))
+    assert vals.dtype == torch.int16 and vals.shape == (5, 64)
+    assert cnt.dtype == torch.int32 and cnt.shape == (5,)
+    assert dc_only.dtype == torch.bool and dc_only.shape == (5,)
+    assert not vals.any() and not cnt.any() and dc_only.all()
+    assert trellis_cuda.trellis_quantize.launches == 0

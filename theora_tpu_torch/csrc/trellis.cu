@@ -4,9 +4,17 @@
 // (:300): a forward dynamic program over the 63 AC positions of each 8x8
 // block (a 63-step lax.scan, :471) and a backtrack sweep (a second 63-step
 // lax.scan, :527). It is not a Pallas kernel; XLA fuses the scans on the
-// TPU. Its plain PyTorch version, theora_tpu_torch/ops/transforms.py:
-// trellis_values, runs the same program as ~6,300 small launches per call;
-// this kernel runs it for [N] independent blocks in one launch.
+// TPU. Plain PyTorch version: theora_tpu_torch/ops/transforms.py:
+// trellis_quantize (trellis_values behind the casts of this interface).
+//
+// Interface: kernel K2's outputs as K2 writes them ([N, 64] int16 round-to-
+// nearest values and unquantized DCT, zig-zag), K2's [2, 64] int16 dequant
+// rows (intra, inter) and [N] uint8 inter flags, the frame's float32 lambda
+// and the [64, 32] float32 token bit table. Per block the kernel takes the
+// dequant row deq[inter] and acmin (0 for an inter block, 3 for an intra
+// one). It writes the chosen values ([N, 64] int16, DC passed through),
+// their nonzero count ([N] int32) and whether no AC value is nonzero ([N]
+// bool), which kernel K1 and the skip test read as they are.
 //
 // Exact float32. The decisions must equal the JAX package's, which are what
 // XLA on the CPU computes, and so the plain version's:
@@ -18,44 +26,89 @@
 //   - every other product and sum is a separate IEEE operation in the
 //     Python's left-to-right order, parenthesised as the Python groups it:
 //     the file is built with -fmad=false, so nvcc contracts nothing but the
-//     explicit __fmaf_rn (and never with --use_fast_math);
-//   - the "infinite" cost is the finite float32 1e30, as in the reference:
-//     many comparisons are between sums that contain it;
-//   - ties take the first position (jnp.argmin): a float min over the warp,
-//     then an integer min over the positions that reach it.
+//     explicit __fmaf_rn (and never with --use_fast_math). lam * bits is
+//     the same product whether formed per use or once per table entry;
+//   - the "infinite" cost is the finite float32 1e30, as in the reference;
+//   - ties take the first position (jnp.argmin).
 //
-// Bound: the memory traffic, ~1 KB per block (three [64] int32 rows and
-// two scalars in, one [64] int32 row out). The float32 work the function
-// needs takes less at the card's peak rate: step i weighs a run ending at
-// each later nonzero position j (about 5 operations, the combos within
-// their run limits more), at most 1,953 (i, j) pairs per block;
-// chip_smoke.py counts both for its inputs. This kernel is far from that
-// bound: every lane evaluates both its positions at every step, needed or
-// not, and each step's first-minimum reduction is a chain of dependent
-// warp shuffles.
-// Design: one warp per block, so the DP's 64-wide steps need no block-wide
-// barrier. Lane l holds positions 2l and 2l+1: their prefix sums, error
-// bases and the DP's cost0/cost1 columns live in registers; the next
-// position's best cost is the lane's own second slot or one shuffle from
-// lane l+1 (lane 31 wraps to position 0, as torch.roll does, whose best cost
-// is 0). The token bit table nb_full [64, 32] is staged once per thread
-// block in shared memory; the per-position constants of the step's start
-// (c1_s, v1_s, costc_s, P) are broadcast reads of a per-warp shared row.
-// Each step's decision word goes to shared memory; one lane then runs the
-// backtrack sweep over them, and the warp stores the block's row.
+// Only the candidates the inputs need. At DP step i a run may end at any
+// position j; the plain version weighs all 64. A position j <= i carries a
+// 1e30 mask, and a position whose round-to-nearest value is 0 has a 1e30
+// node-1 cost and 1e30 combo errors, so its cost is at least ~1e30, while
+// the EOB cost is finite (below 64 * 2^30 + lam * bits): such a candidate
+// neither wins nor ties. The kernel weighs only the nonzero positions
+// j > i, the +-1 combo only at |q| 1-2 within run length 17 (16 at i = 1)
+// and the +-2/3 combo only at |q| 2-4 within run length 3 (2 at i = 1),
+// where the plain version's masks are 0. Steps above the block group's last
+// nonzero AC position have no candidate: their node-0 cost is the EOB cost
+// and the DP starts below them. A block with no nonzero AC value keeps its
+// DC and 63 zeros.
+//
+// Bound: memory, ~390 B per block (two [64] int16 rows and a flag in; a
+// [64] int16 row, a count and a flag out), against the float32 work its
+// inputs need (tools/bench_trellis.py:kt_float_ops counts both). The DP is
+// a chain of 63 dependent steps per block, so the design keeps many blocks
+// in flight and each step short.
+// Design: 8 lanes per block, 4 blocks per warp, 4 warps per CTA; a grid of
+// the CTAs the card holds at once, whose warps walk over the blocks. A CTA
+// computes the table lam * bits [64][32] and stages the dequant rows in
+// shared memory once. Lane g loads positions 8g..8g+7 of each input row as
+// one 16-byte vector, derives their constants and sums c^2 in chunk order
+// (a chunk is two lanes, which chain their partial sums). The nonzero AC
+// positions of the block are compacted, in ascending order, into a list in
+// shared memory. At step i the list's entries past i are e0, e0 + 1, ...;
+// lane g weighs e0 + g, e0 + g + 8, ... and keeps its first minimum, and a
+// 3-level butterfly over the block's lanes orders (cost, position) pairs to
+// give the first minimum.
+// The decision is packed beside the position's node-1 value; then one lane
+// walks the path from position 1, visiting only the positions where an
+// event happens, into a zeroed row, and the lanes store it as 16-byte
+// vectors.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
-// allocates nothing and returns cudaGetLastError().
+// allocates nothing and returns the first CUDA error.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // 8x8 blocks per thread block, one per warp
+constexpr int kLanes = 8;                 // lanes per 8x8 block
+constexpr int kGroups = 32 / kLanes;      // blocks per warp
+constexpr int kWarps = 4;                 // warps per CTA
 constexpr int kThreads = kWarps * 32;
+constexpr int kBlocksPerCta = kWarps * kGroups;
 constexpr unsigned kFull = 0xffffffffu;
 // transforms_jax._BIG: large, but finite.
 constexpr float kBig = 1e30f;
+
+// pos[i].w, an int: bits 0-15 node-1 value v1 (int16), 16 "q != 0"; dec[i]
+// adds the step's decision: 17 node-1 successor, 18-19 node-0 ending (0 EOB,
+// 1 run + coded value, 2 +-1 combo, 3 +-2/3 combo), 20-25 its run end,
+// 26-28 the combo value + 4.
+constexpr int kNz = 1 << 16;
+constexpr int kDecShift = 17;
+// ent[e].w, an int: bits 0-5 position, 6 a +-1 combo may end here, 7 a
+// +-2/3 combo may, 8-10 sign + 4, 11-13 the +-2/3 combo value + 4.
+constexpr int kHas1 = 1 << 6;
+constexpr int kHas23 = 1 << 7;
+
+// A block's shared memory.
+struct BlockArea {
+  float4 pos[64];  // position i: P[i], EOB cost, node-1 cost, bits
+  float4 ent[64];  // e-th nonzero AC position j: P[j], +-1 and +-2/3 combo
+                   // errors, bits; after the DP, the output row
+  float2 dyn[64];  // e-th nonzero AC position j: node-1 cost, best cost at
+                   // j + 1
+  int dec[64];     // position i: pos[i].w with the step's decision
+  // 2,880 B: the next block's dyn row starts 16 banks on, so the 8-byte
+  // loads of two blocks in a half-warp meet no bank conflict.
+  float4 pad[4];
+};
+
+constexpr int kNb = 64 * 32;  // bit table entries
+constexpr size_t kSmemBytes = kBlocksPerCta * sizeof(BlockArea) +
+                              kNb * sizeof(float) + 64 * sizeof(float4) +
+                              2 * 64 * sizeof(int16_t);
 
 // Token id of a lone coefficient of magnitude mag >= 1 (tokenize.c).
 __device__ __forceinline__ int value_token(int mag, int neg) {
@@ -80,232 +133,315 @@ __device__ __forceinline__ int alt_mag(int mag) {
   return 68;
 }
 
-// One position j of a lane: its constants and its DP columns.
-struct Slot {
-  float p;      // P[j], the prefix sum of c^2 below j
-  float pre1;   // squared error of a +-1 combo ending at j (or kBig)
-  float pre23;  // squared error of a +-2/3 combo ending at j (or kBig)
-  float cost0;  // best cost from j with node0 (zero run / EOB) at j
-  float cost1;  // best cost from j with node1 (coded value) at j
-  int sj;       // sign of the round-to-nearest value
-  int cv23;     // the +-2/3 combo value
-};
-
-// Node0 starting at i with its run ending at j = slot's position: the
-// minimum of the three endings (run + value, combo +-1, combo +-2/3), and
-// in *fld the decision word's bits 12-30 for that end (ending type, j, the
-// combo value). bnn is the best cost at j + 1.
-__device__ __forceinline__ float node0_end(int j, int i, int dc_allow,
-                                           float lam, float Pi,
-                                           const float* nbi, const Slot& s,
-                                           float bnn, int* fld) {
-  const int r = j - i;
-  const float D2 = s.p - Pi;
-  const float zb = r <= 8 ? nbi[7] : nbi[8];
-  const float amask = r > 0 ? 0.f : kBig;
-  const float costa = (D2 + (lam * zb + amask)) + s.cost1;
-  const int t1 = r <= 0 ? 22 : (r <= 5 ? 22 + r : (r <= 9 ? 28 : 29));
-  const float b1mask = (r > 0 && r <= 16 + dc_allow) ? 0.f : kBig;
-  const float b23mask = (r > 0 && r <= 2 + dc_allow) ? 0.f : kBig;
-  const float cb23 = r == 1 ? nbi[30] : nbi[31];
-  const float cost_b1 = ((s.pre1 + D2) + (lam * nbi[t1] + b1mask)) + bnn;
-  const float cost_b23 = ((s.pre23 + D2) + (lam * cb23 + b23mask)) + bnn;
-  const float m_b = fminf(cost_b1, cost_b23);
-  const int typ = costa <= m_b ? 1 : (cost_b1 <= cost_b23 ? 2 : 3);
-  const int cv = typ == 3 ? s.cv23 : s.sj;
-  *fld = (typ << 12) | (j << 14) | ((cv + 1024) << 20);
-  return fminf(costa, m_b);
+// The eight int16 of a 16-byte vector, in memory order.
+__device__ __forceinline__ void unpack8(int4 v, int x[8]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int m = 0; m < 4; m++) {
+    x[2 * m] = (int16_t)(w[m] & 0xFFFF);
+    x[2 * m + 1] = w[m] >> 16;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-trellis_kernel(const int32_t* __restrict__ dct,
-               const int32_t* __restrict__ qrtn,
-               const int32_t* __restrict__ deq,
-               const float* __restrict__ lam_in,
-               const float* __restrict__ nb_full,
-               const int32_t* __restrict__ acmin_in,
-               int32_t* __restrict__ out, int64_t n) {
-  __shared__ float s_nb[64 * 32];
-  __shared__ float s_P[kWarps][68];
-  __shared__ float s_c1[kWarps][64];
-  __shared__ float s_costc[kWarps][64];
-  __shared__ int32_t s_v1[kWarps][64];
-  __shared__ int32_t s_word[kWarps][64];
-  __shared__ int32_t s_out[kWarps][64];
-
-  for (int k = threadIdx.x; k < 64 * 32; k += kThreads) s_nb[k] = nb_full[k];
+__global__ void __launch_bounds__(kThreads, 4)
+trellis_kernel(const int16_t* __restrict__ qrtn,
+               const int16_t* __restrict__ dct,
+               const int16_t* __restrict__ deq_in,
+               const uint8_t* __restrict__ inter_in, float lam,
+               const float* __restrict__ nb_full, int16_t* __restrict__ out,
+               int32_t* __restrict__ cnt_out, uint8_t* __restrict__ dc_only,
+               int64_t n) {
+  extern __shared__ float4 smem[];
+  BlockArea* areas = reinterpret_cast<BlockArea*>(smem);
+  float* s_lnb = reinterpret_cast<float*>(areas + kBlocksPerCta);
+  // Per step i: lam * bits of the zero runs up to 8 and longer (tokens 7,
+  // 8) and of the +-2/3 combo after a run of 1 and of 2 (tokens 30, 31).
+  float4* s_step = reinterpret_cast<float4*>(s_lnb + kNb);
+  int16_t* s_deq = reinterpret_cast<int16_t*>(s_step + 64);
+  {
+    const float4* nb4 = reinterpret_cast<const float4*>(nb_full);
+    float4* lnb4 = reinterpret_cast<float4*>(s_lnb);
+#pragma unroll
+    for (int k = 0; k < kNb / 4 / kThreads; k++) {
+      const float4 v = nb4[threadIdx.x + k * kThreads];
+      lnb4[threadIdx.x + k * kThreads] =
+          make_float4(lam * v.x, lam * v.y, lam * v.z, lam * v.w);
+    }
+    const int t = threadIdx.x;
+    if (t < 64)
+      s_step[t] = make_float4(lam * nb_full[t * 32 + 7],
+                              lam * nb_full[t * 32 + 8],
+                              lam * nb_full[t * 32 + 30],
+                              lam * nb_full[t * 32 + 31]);
+    if (t < 2 * 64) s_deq[t] = deq_in[t];
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t b = (int64_t)blockIdx.x * kWarps + warp;
-  if (b >= n) return;
-  float* P = s_P[warp];
-  float* c1_s = s_c1[warp];
-  float* costc_s = s_costc[warp];
-  int32_t* v1_s = s_v1[warp];
-  int32_t* word = s_word[warp];
-  const float lam = lam_in[b];
-  const int acmin = acmin_in[b];
+  const int g = lane & (kLanes - 1);  // lane within the block's group
+  BlockArea& A = areas[warp * kGroups + lane / kLanes];
+  const float inf = __int_as_float(0x7f800000);
+  const int64_t ngroups = (n + kGroups - 1) / kGroups;
+  for (int64_t wg = (int64_t)blockIdx.x * kWarps + warp; wg < ngroups;
+       wg += (int64_t)gridDim.x * kWarps) {
+    const int64_t b = wg * kGroups + lane / kLanes;
+    const bool live = b < n;
+    __syncwarp();  // the previous block's reads of A are done
+    int q[8], cd[8];
+    int inter = 0;
+    {
+      int4 qv = make_int4(0, 0, 0, 0), dv = qv;
+      if (live) {
+        qv = reinterpret_cast<const int4*>(qrtn)[b * 8 + g];
+        dv = reinterpret_cast<const int4*>(dct)[b * 8 + g];
+        inter = inter_in[b] != 0;
+      }
+      unpack8(qv, q);
+      unpack8(dv, cd);
+    }
 
-  // ---- per-position constants (transforms.py:285-313) ----
-  Slot s[2];
-  int q0 = 0;
+    // ---- prefix sum of z = (q != 0) c^2 in chunk-16 order ----
+    float loc[8];
+    float acc = 0.f;
 #pragma unroll
-  for (int h = 0; h < 2; h++) {
-    const int j = 2 * lane + h;
-    const int64_t at = b * 64 + j;
-    const int q = qrtn[at];
-    const float cf = (float)dct[at];
-    const float df = (float)deq[at];
-    const int aj = q < 0 ? -q : q;
-    const int sj = q < 0 ? -1 : 1;
-    const int cv23 = sj * (aj > 2 ? 3 : 2);
-    const float lamv = j < acmin ? 0.f : lam;
-    const int a_cl = min(aj, 580);
-    const int neg = q < 0;
-    const int altm = alt_mag(a_cl);
-    const float nbA = s_nb[j * 32 + value_token(max(a_cl, 1), neg)];
-    const float nbB = s_nb[j * 32 + value_token(max(altm, 1), neg)];
-    const float eA = (float)(a_cl * sj) * df - cf;
-    const float eB = (float)(altm * sj) * df - cf;
-    const float cA = __fmaf_rn(eA, eA, lamv * nbA);
-    const float cB = __fmaf_rn(eB, eB, lamv * nbB);
-    const bool useB = altm >= 1 && cB < cA;
-    c1_s[j] = aj >= 1 ? (useB ? cB : cA) : kBig;
-    v1_s[j] = aj >= 1 ? (useB ? altm * sj : a_cl * sj) : 0;
-    const float e1 = cf - (float)sj * df;
-    const float e23 = cf - (float)cv23 * df;
-    s[h].pre1 = (aj >= 1 && aj <= 2) ? e1 * e1 : kBig;
-    s[h].pre23 = (aj >= 2 && aj <= 4) ? e23 * e23 : kBig;
-    s[h].sj = sj;
-    s[h].cv23 = cv23;
-    s[h].cost0 = j == 0 ? 0.f : kBig;
-    s[h].cost1 = kBig;
-    P[j + 1] = q != 0 ? cf * cf : 0.f;  // z, summed in place below
-    if (j == 0) q0 = q;
-  }
-  __syncwarp();
-  // Prefix sum in XLA's order: sequential inside each chunk of 16...
-  if (lane < 4) {
-    float* c = P + 1 + 16 * lane;
-    for (int k = 1; k < 16; k++) c[k] = c[k - 1] + c[k];
-  }
-  __syncwarp();
-  // ...then the chunk totals, sequentially, added to each chunk.
-  float pre[4];
-  pre[0] = 0.f;
-  pre[1] = pre[0] + P[16];
-  pre[2] = pre[1] + P[32];
-  pre[3] = pre[2] + P[48];
-  __syncwarp();
+    for (int k = 0; k < 8; k++) {
+      const float cf = (float)cd[k];
+      acc = acc + (q[k] != 0 ? cf * cf : 0.f);
+      loc[k] = acc;
+    }
+    // A chunk is lanes 2c and 2c + 1: the odd lane continues the even
+    // lane's sequential sum.
+    const float carry = __shfl_up_sync(kFull, acc, 1, kLanes);
+    if (g & 1) {
+      acc = carry;
 #pragma unroll
-  for (int h = 0; h < 2; h++) {
-    const int j = 2 * lane + h;
-    P[j + 1] = P[j + 1] + pre[j >> 4];
-  }
-  if (lane == 0) P[0] = 0.f;
-  __syncwarp();
-  const float P64 = P[64];
-#pragma unroll
-  for (int h = 0; h < 2; h++) {
-    const int j = 2 * lane + h;
-    s[h].p = P[j];
-    costc_s[j] = (P64 - P[j]) + lam * s_nb[j * 32];
-  }
-  __syncwarp();
-
-  // ---- forward DP over positions 63..1 (transforms.py:334-380) ----
-  float c0p = 0.f, c1p = kBig;  // the costs at i + 1 (63 wraps to 0)
-  for (int i = 63; i >= 1; i--) {
-    const float bn_next = fminf(c0p, c1p);
-    const int next1 = c1p < c0p;
-    const float c1 = c1_s[i] + bn_next;
-    const float Pi = P[i];
-    const float* nbi = s_nb + i * 32;
-    const int dc_allow = i == 1 ? 0 : 1;  // the i == 1 step's headroom
-    const float bn0 = fminf(s[0].cost0, s[0].cost1);
-    const float bn1 = fminf(s[1].cost0, s[1].cost1);
-    const float bn2 = __shfl_sync(kFull, bn0, (lane + 1) & 31);
-    int f0, f1;
-    const float m0 =
-        node0_end(2 * lane, i, dc_allow, lam, Pi, nbi, s[0], bn1, &f0);
-    const float m1 =
-        node0_end(2 * lane + 1, i, dc_allow, lam, Pi, nbi, s[1], bn2, &f1);
-    float cbest = fminf(m0, m1);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      cbest = fminf(cbest, __shfl_xor_sync(kFull, cbest, o));
-    const unsigned cand =
-        m0 == cbest ? 2 * lane : (m1 == cbest ? 2 * lane + 1 : 64);
-    const int jbest = (int)__reduce_min_sync(kFull, cand);
-    const int fld = __shfl_sync(kFull, (jbest & 1) ? f1 : f0, jbest >> 1);
-    const float costc = costc_s[i];
-    const bool use_eob = costc <= cbest;
-    const float c0 = use_eob ? costc : cbest;
-    // Decision word: bits 0-10 node1 value + 1024, 11 node1 successor,
-    // 12-13 node0 ending, 14-19 node0 run end, 20-30 combo value + 1024.
-    if (lane == 0)
-      word[i] = (v1_s[i] + 1024) | (next1 << 11) |
-                (use_eob ? (fld & ~0xFF000) : fld);
-    if (lane == (i >> 1)) {
-      if (i & 1) {
-        s[1].cost0 = c0;
-        s[1].cost1 = c1;
-      } else {
-        s[0].cost0 = c0;
-        s[0].cost1 = c1;
+      for (int k = 0; k < 8; k++) {
+        const float cf = (float)cd[k];
+        acc = acc + (q[k] != 0 ? cf * cf : 0.f);
+        loc[k] = acc;
       }
     }
-    c0p = c0;
-    c1p = c1;
-  }
+    const float t0 = __shfl_sync(kFull, acc, 1, kLanes);
+    const float t1 = __shfl_sync(kFull, acc, 3, kLanes);
+    const float t2 = __shfl_sync(kFull, acc, 5, kLanes);
+    const float pr1 = 0.f + t0;
+    const float pr2 = pr1 + t1;
+    const float pr3 = pr2 + t2;
+    const int ch = g >> 1;
+    const float pre = ch == 0 ? 0.f : (ch == 1 ? pr1 : (ch == 2 ? pr2 : pr3));
+    float P[8];  // P[j], the sum below position j
+    float last = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const float incl = loc[k] + pre;
+      if (k < 7) P[k + 1] = incl;
+      last = incl;
+    }
+    const float before = __shfl_up_sync(kFull, last, 1, kLanes);
+    P[0] = g == 0 ? 0.f : before;
+    const float P64 = __shfl_sync(kFull, last, kLanes - 1, kLanes);
 
-  // ---- backtrack over positions 1..63 (transforms.py:384-412) ----
-  int32_t* o = s_out[warp];
-  if (lane == 0) {
-    // Position 1 is lane 0's second slot.
-    int ep = 1, nd = s[1].cost1 < s[1].cost0;
-    bool runend = false, take = false;
-    int pend = 0;
-    o[0] = q0;  // DC passes through
-    for (int p = 1; p < 64; p++) {
-      const int w = word[p];
-      const int v1 = (w & 0x7FF) - 1024;
-      const int nxt1 = (w >> 11) & 1;
-      const int er = (w >> 12) & 3;
-      const int jr = (w >> 14) & 63;
-      const int cv = ((w >> 20) & 0x7FF) - 1024;
-      const bool at = ep == p;
-      const bool isn = at && !runend;
-      const bool isr = at && runend;
-      const bool n1 = isn && nd == 1;
-      const bool run = isn && nd == 0 && er != 0;
-      o[p] = n1 ? v1 : (isr ? (take ? v1 : pend) : 0);
-      const bool adv = n1 || isr;
-      if (at) ep = adv ? p + 1 : (run ? jr : 0);
-      if (adv) nd = nxt1;
-      if (at) runend = run;
-      if (run) {
-        pend = cv;
-        take = er == 1;
+    // ---- the nonzero AC positions, compacted in ascending order ----
+    unsigned nzm = 0;
+#pragma unroll
+    for (int k = 0; k < 8; k++)
+      if (q[k] != 0 && (g | k) != 0) nzm |= 1u << k;
+    int below = __popc(nzm);  // inclusive prefix count over the lanes
+#pragma unroll
+    for (int o = 1; o < kLanes; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, below, o, kLanes);
+      if (g >= o) below += t;
+    }
+    const int K = __shfl_sync(kFull, below, kLanes - 1, kLanes);
+    int e = below - __popc(nzm);
+    int L = nzm ? 8 * g + 31 - __clz(nzm) : 0;  // last nonzero AC position
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1)
+      L = max(L, __shfl_xor_sync(kFull, L, o));
+
+    // ---- per-position constants (transforms.py:285-314) ----
+    const int16_t* drow = s_deq + (inter ? 64 : 0);
+    const int acmin = inter ? 0 : 3;
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const int j = 8 * g + k;
+      const int qk = q[k];
+      const float cf = (float)cd[k];
+      const float df = (float)drow[j];
+      const float* lnb = s_lnb + j * 32;
+      const int aj = qk < 0 ? -qk : qk;
+      const int sj = qk < 0 ? -1 : 1;
+      const int cv23 = sj * (aj > 2 ? 3 : 2);
+      const int a_cl = min(aj, 580);
+      const int neg = qk < 0;
+      const int altm = alt_mag(a_cl);
+      // Positions below acmin code values rate-free (lam 0).
+      const float lnA = j < acmin ? 0.f : lnb[value_token(max(a_cl, 1), neg)];
+      const float lnB = j < acmin ? 0.f : lnb[value_token(max(altm, 1), neg)];
+      const float eA = (float)(a_cl * sj) * df - cf;
+      const float eB = (float)(altm * sj) * df - cf;
+      const float cA = __fmaf_rn(eA, eA, lnA);
+      const float cB = __fmaf_rn(eB, eB, lnB);
+      const bool useB = altm >= 1 && cB < cA;
+      const float c1s = aj >= 1 ? (useB ? cB : cA) : kBig;
+      const int v1 = aj >= 1 ? (useB ? altm * sj : a_cl * sj) : 0;
+      const float costc = (P64 - P[k]) + lnb[0];
+      const bool nz = (nzm >> k) & 1;
+      A.pos[j] = make_float4(P[k], costc, c1s,
+                             __int_as_float((v1 & 0xFFFF) | (nz ? kNz : 0)));
+      if (nz) {
+        const float e1 = cf - (float)sj * df;
+        const float e23 = cf - (float)cv23 * df;
+        const bool has1 = aj <= 2;
+        const bool has23 = aj >= 2 && aj <= 4;
+        const int meta = j | (has1 ? kHas1 : 0) | (has23 ? kHas23 : 0) |
+                         ((sj + 4) << 8) | ((cv23 + 4) << 11);
+        A.ent[e++] = make_float4(P[k], has1 ? e1 * e1 : kBig,
+                                 has23 ? e23 * e23 : kBig,
+                                 __int_as_float(meta));
       }
     }
-  }
-  __syncwarp();
+    __syncwarp();
+
+    // ---- forward DP over positions Lmax..1 (transforms.py:343-381) ----
+    const int Lmax = (int)__reduce_max_sync(kFull, (unsigned)L);
+    // The costs at i + 1: above every nonzero position, node 0 is the EOB
+    // and node 1 costs 1e30; position 64 wraps to 0, whose best cost is 0.
+    float c0p = Lmax < 63 ? A.pos[Lmax + 1].y : 0.f;
+    float c1p = kBig;
+    int e0 = K;  // entries e0.. lie above the step
+    for (int i = Lmax; i >= 1; i--) {
+      const float4 s = A.pos[i];
+      const float Pi = s.x;
+      const float* lnb = s_lnb + i * 32;
+      const float4 ls = s_step[i];  // lam * bits of tokens 7, 8, 30, 31
+      // The i == 1 step keeps one slot of headroom for a zero DC.
+      const int lim1 = i == 1 ? 16 : 17;
+      const int lim23 = i == 1 ? 2 : 3;
+      float best = inf;
+      int bf = 0x7FFFFFFF;  // run end << 8 | ending << 3 | combo value + 4
+      for (int ee = e0 + g; ee < K; ee += kLanes) {
+        const float4 a = A.ent[ee];
+        const float2 d = A.dyn[ee];
+        const int meta = __float_as_int(a.w);
+        const int j = meta & 63;
+        const int r = j - i;
+        const float D2 = a.x - Pi;
+        const float costa = (D2 + (r <= 8 ? ls.x : ls.y)) + d.x;
+        float b1 = inf, b23 = inf;
+        if ((meta & kHas1) && r <= lim1)
+          b1 = ((a.y + D2) + lnb[r <= 5 ? 22 + r : (r <= 9 ? 28 : 29)]) + d.y;
+        if ((meta & kHas23) && r <= lim23)
+          b23 = ((a.z + D2) + (r == 1 ? ls.z : ls.w)) + d.y;
+        const float mb = fminf(b1, b23);
+        const float m = fminf(costa, mb);
+        if (m < best) {  // entries ascend: the lane keeps its first minimum
+          const int typ = costa <= mb ? 1 : (b1 <= b23 ? 2 : 3);
+          best = m;
+          bf = (j << 8) | (typ << 3) |
+               ((typ == 3 ? meta >> 11 : meta >> 8) & 7);
+        }
+      }
 #pragma unroll
-  for (int h = 0; h < 2; h++) out[b * 64 + 2 * lane + h] = o[2 * lane + h];
+      for (int o = kLanes / 2; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(kFull, best, o);
+        const int of = __shfl_xor_sync(kFull, bf, o);
+        if (ob < best || (ob == best && of < bf)) {
+          best = ob;
+          bf = of;
+        }
+      }
+      const bool use_eob = s.y <= best;
+      const float c0 = use_eob ? s.y : best;
+      const float bn_next = fminf(c0p, c1p);
+      const int next1 = c1p < c0p;
+      const int bits = __float_as_int(s.w);
+      const bool nzi = bits & kNz;
+      const float c1 = nzi ? s.z + bn_next : kBig;
+      if (g == 0) {
+        const int dec =
+            next1 | (use_eob ? 0
+                             : (((bf >> 3) & 3) << 1) | ((bf >> 8) << 3) |
+                                   ((bf & 7) << 9));
+        A.dec[i] = bits | (dec << kDecShift);
+        if (nzi) A.dyn[e0 - 1] = make_float2(c1, bn_next);
+      }
+      if (nzi) e0--;
+      c0p = c0;
+      c1p = c1;
+      __syncwarp();
+    }
+
+    // ---- backtrack along the path (transforms.py:383-413) ----
+    int16_t* orow = reinterpret_cast<int16_t*>(A.ent);
+    reinterpret_cast<int4*>(orow)[g] = make_int4(0, 0, 0, 0);
+    __syncwarp();
+    if (g == 0 && live) {
+      orow[0] = (int16_t)q[0];  // DC passes through
+      int nac = 0;
+      int ep = 1;
+      int nd = c1p < c0p;  // node at position 1
+      // Above L every node is an EOB; each event moves past its position.
+      for (int guard = 0; ep <= L && guard < 63; guard++) {
+        const int w = A.dec[ep];
+        int at, v, wn;
+        if (nd) {  // coded value at ep
+          at = ep;
+          v = (int16_t)(w & 0xFFFF);
+          wn = w;
+        } else {
+          const int typ = (w >> (kDecShift + 1)) & 3;
+          if (typ == 0) break;  // EOB
+          at = (w >> (kDecShift + 3)) & 63;  // the run's end
+          wn = A.dec[at];
+          v = typ == 1 ? (int16_t)(wn & 0xFFFF)
+                       : ((w >> (kDecShift + 9)) & 7) - 4;
+        }
+        orow[at] = (int16_t)v;
+        nac += v != 0;
+        nd = (wn >> kDecShift) & 1;
+        ep = at + 1;
+      }
+      cnt_out[b] = nac + (q[0] != 0);
+      dc_only[b] = nac == 0;
+    }
+    __syncwarp();
+    if (live)
+      reinterpret_cast<int4*>(out)[b * 8 + g] =
+          reinterpret_cast<const int4*>(orow)[g];
+  }
 }
 
 }  // namespace
 
-extern "C" int th_trellis(const int32_t* dct, const int32_t* qrtn,
-                          const int32_t* deq, const float* lam,
-                          const float* nb_full, const int32_t* acmin,
-                          int32_t* out, int64_t n, void* stream) {
+extern "C" int th_trellis(const int16_t* qrtn, const int16_t* dct,
+                          const int16_t* deq, const uint8_t* inter,
+                          float lam, const float* nb_full, int16_t* out,
+                          int32_t* cnt, uint8_t* dc_only, int64_t n,
+                          void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int64_t grid = (n + kWarps - 1) / kWarps;
-  trellis_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      dct, qrtn, deq, lam, nb_full, acmin, out, n);
+  // The CTAs the card holds at once (its first use sets the shared memory
+  // limit and reads the SM count).
+  static int resident = 0;
+  if (resident == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        trellis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBytes);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, trellis_kernel, kThreads, kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+  }
+  const int64_t need = (n + kBlocksPerCta - 1) / kBlocksPerCta;
+  const int grid = (int)(need < resident ? need : resident);
+  trellis_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      qrtn, dct, deq, inter, lam, nb_full, out, cnt, dc_only, n);
   return (int)cudaGetLastError();
 }

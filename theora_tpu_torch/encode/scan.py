@@ -7,7 +7,8 @@ the carried (prev, gold) reference planes stay on the device. Per frame:
 
   MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
   (fDCT + quantization, also returning the unquantized DCT) -> kernel KT
-  (the trellis) -> kernel K1 (dequant + iDCT) -> reconstruction ->
+  (the trellis, on K2's outputs as they are; it also returns the nonzero
+  counts and DC-only flags) -> kernel K1 (dequant + iDCT) -> reconstruction ->
   the R/D skip test against the uncoded copy -> loop filter -> borders.
 
 The skip test keeps the JAX program's float32 lambda product. Its SSDs
@@ -66,7 +67,6 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
     deq_tab[0, 0] = deq
     zeros_i32 = torch.zeros(n, dtype=torch.int32, device=dev)
     zeros_u8 = torch.zeros(n, dtype=torch.uint8, device=dev)
-    deq_i32 = deq.to(torch.int32)
     lam_dev = torch.tensor(lam, dtype=torch.float32, device=dev)
     qout = torch.empty((F, n, 64), dtype=torch.int16, device=dev)
     coded_out = torch.empty((F, n), dtype=torch.bool, device=dev)
@@ -88,18 +88,9 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
         with record_function("theora.enc.fdct_quant"):
             qdct0, dct = fdct_cuda.fdct_quantize(res, deq, inter)
         with record_function("theora.enc.trellis"):
-            deq_rows = deq_i32[inter.long()]
-            acmin = torch.where(rs == 0, 3, 0).to(torch.int32)
-            lam_n = torch.full((n,), lam_t[0 if ik else 1],
-                               dtype=torch.float32, device=dev)
-            qdct = trellis_cuda.trellis_values(
-                dct.to(torch.int32), qdct0.to(torch.int32), deq_rows, lam_n,
-                nb, acmin)
+            q16, cnt, dc_only = trellis_cuda.trellis_quantize(
+                qdct0, dct, deq, inter, lam_t[0 if ik else 1], nb)
         with record_function("theora.enc.idct_recon"):
-            nzf = qdct != 0
-            cnt = nzf.sum(dim=1, dtype=torch.int32)
-            dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
-            q16 = qdct.to(torch.int16)
             residual = idct_cuda.dequantize_idct_frames(
                 q16, q16[:, 0].contiguous(), deq_tab, zeros_i32, zeros_u8,
                 inter, dc_only)

@@ -9,9 +9,9 @@ wrap where the spec stores int16, so the results equal the C reference
 
 `dequantize_idct_frames` is the function kernel K1 computes
 (ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
-(ops/fdct_cuda.py) and `trellis_values` the one kernel KT computes
-(ops/trellis_cuda.py): the CPU paths of their wrappers and their oracles
-on the card.
+(ops/fdct_cuda.py) and `trellis_quantize` (`trellis_values` on K2's
+outputs) the one kernel KT computes (ops/trellis_cuda.py): the CPU paths
+of their wrappers and their oracles on the card.
 """
 from __future__ import annotations
 
@@ -412,3 +412,28 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
         take = torch.where(run, er == 1, take)
     out[:, 0] = q[:, 0]
     return out
+
+
+def trellis_quantize(qout, dout, deq, inter, lam, nb_full):
+    """The trellis on kernel K2's outputs for [N] blocks of one plane of
+    one frame: trellis_values behind the casts this interface needs.
+
+    qout, dout: [N, 64] int16 zig-zag round-to-nearest values and
+    unquantized DCT (fdct_quantize's outputs); deq: [2, 64] int16 dequant
+    rows (intra, inter); inter: [N] uint8, nonzero for an inter block
+    (dequant row 1, acmin 0; an intra block: row 0, acmin 3); lam: the
+    frame's lambda, a float32 value; nb_full: [64, 32] float32. Returns
+    ([N, 64] int16 chosen values, [N] int32 nonzero counts, [N] bool "no
+    AC value is nonzero").
+    """
+    n = qout.shape[0]
+    is_inter = inter != 0
+    vals = trellis_values(
+        dout.to(torch.int32), qout.to(torch.int32),
+        deq.to(torch.int32)[is_inter.long()],
+        torch.full((n,), lam, dtype=torch.float32, device=qout.device),
+        nb_full, torch.where(is_inter, 0, 3).to(torch.int32))
+    nzf = vals != 0
+    cnt = nzf.sum(dim=1, dtype=torch.int32)
+    dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
+    return vals.to(torch.int16), cnt, dc_only

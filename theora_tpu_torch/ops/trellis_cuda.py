@@ -3,27 +3,30 @@
 Replaces the encoder's trellis, theora_tpu/ops/transforms_jax.py:
 trellis_values (:300), whose forward DP (the lax.scan at :471) and
 backtrack (the lax.scan at :527) XLA runs as two 63-step scans; it is not
-a Pallas kernel. The plain PyTorch version (ops/transforms.py) runs the
-same program as ~6,300 small launches per plane per frame; KT runs it as
-one. Its bound is its ~1 KB of memory traffic per block (the float32
-work its inputs need, a run ending at each later nonzero position per DP
-step, takes less at the card's peak); its design gives each block one
-warp, so a step needs no barrier, and keeps the DP's columns in
-registers (see the source's note).
+a Pallas kernel. It reads kernel K2's outputs as K2 writes them (int16
+rows, the [2, 64] dequant rows and the inter flags) with the frame's
+lambda, and writes the chosen values with their nonzero counts and DC-only
+flags, which K1 and the skip test read: one launch per plane per frame.
+Its bound is its ~390 B of memory traffic per block; its design weighs,
+at each DP step, only the positions that can end a run, with 8 lanes per
+block (see the source's note).
 
-Its results must equal the plain version's bit for bit, so every float32
-operation is the plain version's, in its order, with XLA's one fused
-multiply-add written out as __fmaf_rn; the source is compiled with
-``-fmad=false``, so nvcc contracts nothing else. The library is compiled with nvcc for sm_90a
-at first use into ``csrc/build/`` and bound with ctypes. The wrapper runs
-the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+Its results must equal the plain version's (transforms.trellis_quantize,
+the plain trellis_values behind the casts of this interface) bit for bit,
+so every float32 operation is the plain version's, in its order, with
+XLA's one fused multiply-add written out as __fmaf_rn; the source is
+compiled with ``-fmad=false``, so nvcc contracts nothing else. The library
+is compiled with nvcc for sm_90a at first use into ``csrc/build/`` and
+bound with ctypes. The wrapper runs the plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
+import numpy as np
 import torch
 
 from theora_tpu_torch.ops import transforms
@@ -52,49 +55,67 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         lib.th_trellis.restype = ctypes.c_int
-        lib.th_trellis.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int64, ctypes.c_void_p,
-        ]
+        lib.th_trellis.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_float] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64, ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
-    """The trellis quantizer's chosen values for [N] blocks.
+def _lambda(lam) -> np.float32:
+    if isinstance(lam, bool) or not isinstance(lam, (float, np.floating)):
+        raise TypeError(f"lam: expected a float, got {type(lam).__name__}")
+    lam = np.float32(lam)
+    if not math.isfinite(lam) or lam < 0:
+        raise ValueError(f"lam: expected a finite float >= 0, got {lam}")
+    return lam
 
-    dct_zz, qdct_rtn, dequant_zz: [N, 64] int32 (unquantized DCT, its
-    round-to-nearest quantization, dequant factors; zig-zag); lam: [N]
-    float32; nb_full: [64, 32] float32 bits per (position, token); acmin:
-    [N] int32. Returns [N, 64] int32 chosen values, DC passed through.
-    Same contract as transforms.trellis_values, which is the CPU path.
+
+def trellis_quantize(qout, dout, deq, inter, lam, nb_full):
+    """The trellis quantizer's chosen values for [N] blocks of one plane of
+    one frame, from kernel K2's outputs.
+
+    qout, dout: [N, 64] int16 zig-zag round-to-nearest values and
+    unquantized DCT (fdct_cuda.fdct_quantize's outputs); deq: [2, 64] int16
+    dequant rows (intra, inter), as K2 takes them; inter: [N] uint8,
+    nonzero for an inter block; lam: the frame's lambda (a float, taken as
+    float32); nb_full: [64, 32] float32 bits per (position, token). Returns
+    ([N, 64] int16 chosen values, DC passed through; [N] int32 nonzero
+    counts; [N] bool, True where no AC value is nonzero). Same contract as
+    transforms.trellis_quantize, which is the CPU path.
     """
-    n = dct_zz.shape[0]
-    dev = dct_zz.device
-    _check(dct_zz, "dct_zz", torch.int32, (n, 64), dev)
-    _check(qdct_rtn, "qdct_rtn", torch.int32, (n, 64), dev)
-    _check(dequant_zz, "dequant_zz", torch.int32, (n, 64), dev)
-    _check(lam, "lam", torch.float32, (n,), dev)
+    n = qout.shape[0]
+    dev = qout.device
+    _check(qout, "qout", torch.int16, (n, 64), dev)
+    _check(dout, "dout", torch.int16, (n, 64), dev)
+    _check(deq, "deq", torch.int16, (2, 64), dev)
+    _check(inter, "inter", torch.uint8, (n,), dev)
     _check(nb_full, "nb_full", torch.float32, (64, 32), dev)
-    _check(acmin, "acmin", torch.int32, (n,), dev)
+    for t, name in ((qout, "qout"), (dout, "dout"), (nb_full, "nb_full")):
+        if t.data_ptr() % 16:  # the kernel loads 16-byte vectors
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    lam = _lambda(lam)
     if dev.type == "cpu":
-        return transforms.trellis_values(dct_zz, qdct_rtn, dequant_zz, lam,
-                                         nb_full, acmin)
+        return transforms.trellis_quantize(qout, dout, deq, inter, float(lam),
+                                           nb_full)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _load()
-    out = torch.empty((n, 64), dtype=torch.int32, device=dev)
+    vals = torch.empty((n, 64), dtype=torch.int16, device=dev)
+    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    dc_only = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
-        return out
+        return vals, cnt, dc_only
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.th_trellis(dct_zz.data_ptr(), qdct_rtn.data_ptr(),
-                         dequant_zz.data_ptr(), lam.data_ptr(),
-                         nb_full.data_ptr(), acmin.data_ptr(), out.data_ptr(),
+    err = lib.th_trellis(qout.data_ptr(), dout.data_ptr(), deq.data_ptr(),
+                         inter.data_ptr(), float(lam), nb_full.data_ptr(),
+                         vals.data_ptr(), cnt.data_ptr(), dc_only.data_ptr(),
                          n, stream)
     if err != 0:
         raise RuntimeError(f"KT trellis launch failed: CUDA error {err}")
-    trellis_values.launches += 1
-    return out
+    trellis_quantize.launches += 1
+    return vals, cnt, dc_only
 
 
 # Kernel launches made through the wrapper (CPU calls do not count).
-trellis_values.launches = 0
+trellis_quantize.launches = 0

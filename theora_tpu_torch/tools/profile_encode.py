@@ -8,9 +8,10 @@ q48, a keyframe every 8 frames, clip_batch 8) once to warm up, then R
 more times: untraced passes timed on the host clock (wall, host mode
 decision, host packing, device spans from CUDA events), and one pass
 under torch.profiler, which reports device time per codec stage (the
-record_function labels in encode/gop.py and encode/scan.py), per kernel,
-and the device's busy and idle share of the traced pass. Needs a CUDA
-card. Prints one JSON summary as its last line.
+record_function labels in encode/gop.py and encode/scan.py) with the
+PyTorch kernels each launches, per kernel, the launches of the kernel
+libraries (K1, K2, KT), and the device's busy and idle share of the
+traced pass. Needs a CUDA card. Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -38,6 +39,21 @@ def hd720_frames(n: int):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.source_frames()[:n]
+
+
+def _stage_kernels(events) -> dict:
+    """{stage: device kernels launched by the PyTorch ops inside its
+    record_function ranges} from the profiler's events."""
+    from torch.autograd import DeviceType
+
+    def count(e):
+        return len(e.kernels) + sum(count(c) for c in e.cpu_children)
+
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("theora."):
+            out[e.name] = out.get(e.name, 0) + count(e)
+    return out
 
 
 def main(argv=None) -> int:
@@ -84,6 +100,12 @@ def main(argv=None) -> int:
               f"{enc.host_pack_s:.4f} s, device spans {spans:.4f} s",
               flush=True)
 
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
+
+    wrappers = {"K1": idct_cuda.dequantize_idct_frames,
+                "K2": fdct_cuda.fdct_quantize,
+                "KT": trellis_cuda.trellis_quantize}
+    before = {k: w.launches for k, w in wrappers.items()}
     enc = GopEncoder(info, qi=QI)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -92,15 +114,21 @@ def main(argv=None) -> int:
         encode(enc)
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    stages, kernels = _split(prof.events())
+    events = prof.events()
+    stages, kernels = _split(events)
+    stage_kernels = _stage_kernels(events)
+    lib_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
     kernels = sorted(((k, sec, c) for k, (sec, c) in kernels.items()),
                      key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"[stage] {name}: {sec:.6f} s device", flush=True)
+        print(f"[stage] {name}: {sec:.6f} s device, "
+              f"{stage_kernels.get(name, 0)} PyTorch kernels", flush=True)
     # K1, K2 and KT are launched from their own libraries, outside any
     # PyTorch op, so the profiler does not attribute them to their scopes;
-    # list them by name.
+    # list them by name, and their launches by their wrappers' counts.
+    print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
+          flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis"))]
@@ -123,6 +151,8 @@ def main(argv=None) -> int:
         "traced_host_decide_s": enc.host_decide_s,
         "traced_host_pack_s": enc.host_pack_s,
         "stages_device_s": stages,
+        "stages_pytorch_kernels": stage_kernels,
+        "library_launches": lib_launches,
         "kernel_launches": launches,
         "launches_per_plane_frame": per_plane_frame,
     }
