@@ -12,51 +12,67 @@ and prints no result line):
 3. K1 against its plain PyTorch version on the card: random blocks at the
    decode path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0,
    batch 8) and their sum 172,800, int16 extremes included; at the encode
-   path's per-plane shapes (14,400 and 3,600 blocks, one frame, its one
-   dequant table), whose chroma launch ends in a partial CTA; and the
-   libtheora iDCT vectors, exact equality; CUDA-event times of both at
-   172,800 blocks, beside a device copy of the same bytes;
+   path's per-plane shapes (14,400 and 3,600 blocks, one frame) at one qi
+   row and at three (43,200 and 10,800 blocks, qii 0-2), whose chroma
+   launches end in a partial CTA; and the libtheora iDCT vectors, exact
+   equality; CUDA-event times at 172,800 (decode) and 43,200 (encode at
+   three qi rows) blocks, beside a device copy of the same bytes;
 4. golden streams: BatchDecoder(device="cuda").decode_clip must equal
    libtheora's .ref.yuv output byte for byte;
 5. real-size decode: decode_clip(batch=8) of the 1280x720 test stream,
    every frame's SHA-256 against the committed list, a warm pass timed
    with K1's launch count reset just before it;
 6. K2 against its plain version on the card: random residuals with the
-   int16-safe extremes, random dequant rows and frame types, at the
-   encode path's per-plane shapes (14,400 and 3,600 blocks at 1280x720
-   4:2:0) and their sum 21,600, and the libtheora fDCT vectors, exact
-   equality; CUDA-event times at 21,600 blocks beside a device copy of
-   the same bytes;
+   int16-safe extremes and random frame types at the encode path's
+   per-plane shapes (14,400 and 3,600 blocks at 1280x720 4:2:0) and their
+   sum 21,600, at K = 1, 2 and 3 qi rows of adaptive quantization's real
+   lists (DC at the base qi), each row of a K-row launch also against a
+   one-row launch at that row; the libtheora fDCT vectors; exact
+   equality; CUDA-event times at 21,600 blocks at K = 1 and 3 beside
+   their bounds (tools/bench_fdct.py) and a device copy of the same
+   bytes;
 6b. KT (the trellis) against its plain version (transforms.
    trellis_quantize) on the card, exact equality of the values, nonzero
-   counts and DC-only flags, one launch per frame type as the encoder
-   makes them (one qi, the frame's RD_LAMBDA lambda; intra blocks take
-   acmin 3, inter blocks acmin 0): on K2's own outputs for random
-   residuals at 14,400, 3,600 and 21,600 blocks, an intra and an inter
-   frame each; on the 1280x720 clip's first frame, luma and chroma; on
-   the edge classes (no nonzero AC value, one nonzero value at position
-   63 or at position 1, dense +-32767) among K2's outputs; on a launch
-   without any nonzero AC value; on 1,500 blocks of coefficients up to
-   +-32767; on the 97 blocks of testdata/vectors/trellis_order_cases.npz,
-   one launch per (qi, frame type); CUDA-event times at 14,400 and 3,600
-   blocks of K2's outputs, of the first frame's planes and of the launch
-   without nonzero AC values, each beside its bound and its histogram of
-   nonzero AC values per block (tools/bench_trellis.py), and of the plain
-   version at 14,400;
-7. small encodes: GopEncoder(device="cuda") at 64x48 for pixel formats
-   0, 2 and 3, every packet's SHA-256 against the list the JAX
-   TpuGopEncoder made (testdata/make_hd720_enc.py);
-8. real-size encode, the main path: 16 frames of the 1280x720 clip at
-   q48, a keyframe every 8 frames, clip_batch 8, every packet's SHA-256
-   against the JAX encoder's list; the closed-loop reconstruction of the
-   first GOP against BatchDecoder(device="cuda") on its packets; a warm
-   encode_clip pass timed with the K1, K2 and KT launch counts reset just
-   before it (KT must launch once per plane per frame: 48), and its PSNR
-   against the source.
+   counts and DC-only flags: at three qi rows (the q56 inter triple) on
+   K2's outputs at 14,400, 3,600 and 21,600 blocks, an inter frame with
+   per-block lambda scales drawn in [0.1, 8] and an intra frame without;
+   at one qi row, one launch per frame type as the encoder makes them
+   (the frame's RD_LAMBDA lambda; intra blocks take acmin 3, inter blocks
+   acmin 0): on K2's own outputs for random residuals at 14,400, 3,600
+   and 21,600 blocks, an intra and an inter frame each; on the 1280x720
+   clip's first frame, luma and chroma; on the edge classes (no nonzero
+   AC value, one nonzero value at position 63 or at position 1, dense
+   +-32767) among K2's outputs; on a launch without any nonzero AC value;
+   on 1,500 blocks of coefficients up to +-32767; on the 97 blocks of
+   testdata/vectors/trellis_order_cases.npz and the blocks of
+   trellis_fma_cases.npz (fractional lambdas, as lambda 1 times per-block
+   scales), one launch per (qi, frame type); CUDA-event times of the three-row inter launch at 14,400
+   blocks, of K2's outputs at 14,400 and 3,600 blocks at one row, of the
+   first frame's planes and of the launch without nonzero AC values, each
+   beside its bound and its histogram of nonzero AC values per block
+   (tools/bench_trellis.py), and of the plain version at 3 x 14,400;
+7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
+   64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
+   half-smooth, half-noise clip (the qi triple) and "auto" on the
+   half-smooth, half-texture clip (the triple with per-block lambda
+   scales); every packet's SHA-256 against the list the JAX
+   TpuGopEncoder made (testdata/make_hd720_enc.py); the 96x64 clips must
+   code blocks at a non-base qi, and their closed loops must equal
+   BatchDecoder(device="cuda");
+8. real-size encodes: 16 frames of the 1280x720 clip, a keyframe every 8
+   frames, clip_batch 8, at q48 with adaptive_quant=False and, the main
+   path, at q56 with the default adaptive_quant="auto" (the qi triple on
+   every frame): every packet's SHA-256 against the JAX encoder's list;
+   the first GOP's closed-loop reconstruction against
+   BatchDecoder(device="cuda") on its packets; a warm encode_clip pass
+   timed with the K1, K2 and KT launch counts reset just before it (each
+   must launch once per plane per frame: 48), blocks at a non-base qi at
+   q56, and its PSNR against the source.
 
-Then one JSON line listing the three kernels, the card's name and power limit
-from nvidia-smi, and {"ok": true, "device": {...}}. Imports nothing of
-JAX or theora_tpu.
+Then one JSON line listing the three kernels (times and bounds at three qi
+rows; launches on the q56 encode), the card's name and power limit from
+nvidia-smi, and {"ok": true, "device": {...}}. Imports nothing of JAX or
+theora_tpu.
 """
 from __future__ import annotations
 
@@ -87,13 +103,6 @@ INT32_OPS_S = 33.5e12
 # dequant products with a wrap (4 ops); 64 output round/shift/wraps
 # (5 ops).
 K1_OPS_PER_BLOCK = 16 * (16 * 2 + 12 * 3 + 28) + 64 * 4 + 64 * 5
-# int32 operations per 8x8 block in csrc/fdct_quant.cu: 16 1-D fDCTs of
-# 119 ops (8 input adds, 6 butterflies, 2 x 9 for the t5/t6 rotations,
-# 15 for y0/y4, 3 x 16 for y2/y6, y5/y3, y1/y7, 8 wraps of 3); 64 input
-# x4 scalings; 64 output round/shift/wraps (5 ops); 64 quantizations
-# (abs, shift, compare, add, double, divide counted as one, sign: 8).
-K2_OPS_PER_BLOCK = 16 * 119 + 64 + 64 * 5 + 64 * 8
-HD_ENC_NAME = "hd720_q48_k8_enc"
 
 
 def log(msg: str) -> None:
@@ -155,21 +164,22 @@ def _k1_inputs(rng, n, nframes, device):
     )
 
 
-def _k1_encode_inputs(rng, n, device):
+def _k1_encode_inputs(rng, n, device, k=1):
     """K1 inputs as the encode scan builds them for one plane of one
-    frame: a [1, 3, 2, 64] table holding the plane's intra and inter rows
-    at [0, 0], frame and qii index 0, inter per block, DC from the
-    coefficients."""
+    frame at k qi rows: a [1, 3, 2, 64] table holding the k rows' intra
+    and inter rows at qii 0..k-1, frame index 0, block r*n + i being row r
+    of block i (qii r, block i's inter flag), DC from the coefficients."""
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    coeffs = rng.integers(-32768, 32768, (n, 64), dtype=np.int16)
+    coeffs = rng.integers(-32768, 32768, (k * n, 64), dtype=np.int16)
     deq_tab = np.zeros((1, 3, 2, 64), np.int16)
-    deq_tab[0, 0] = rng.integers(1, 32768, (2, 64), dtype=np.int16)
+    deq_tab[0, :k] = rng.integers(1, 32768, (k, 2, 64), dtype=np.int16)
     return (
-        t(coeffs), t(coeffs[:, 0]), t(deq_tab), t(np.zeros(n, np.int32)),
-        t(np.zeros(n, np.uint8)), t(rng.integers(0, 2, n).astype(np.uint8)),
-        t(rng.random(n) < 0.3),
+        t(coeffs), t(coeffs[:, 0]), t(deq_tab), t(np.zeros(k * n, np.int32)),
+        t(np.repeat(np.arange(k, dtype=np.uint8), n)),
+        t(np.tile(rng.integers(0, 2, n).astype(np.uint8), k)),
+        t(rng.random(k * n) < 0.3),
     )
 
 
@@ -214,17 +224,19 @@ def kernel_vs_plain(device) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"K1 != plain on {n} random blocks "
                                  f"(max |d| {err})")
-    # The encode path launches K1 once per plane per frame: 14,400 luma
-    # blocks and 3,600 per chroma plane, the last CTA of which is partial.
-    for ne in (14400, 3600):
-        eargs = _k1_encode_inputs(rng, ne, device)
+    # The encode path launches K1 once per plane per frame over K qi rows:
+    # 14,400 luma blocks and 3,600 per chroma plane (whose last CTA is
+    # partial) at one row; 14,400 x 3 = 43,200 with adaptive quantization's
+    # triple, qii 0-2.
+    for ne, k in ((14400, 1), (3600, 1), (14400, 3), (3600, 3)):
+        eargs = _k1_encode_inputs(rng, ne, device, k)
         got = idct_cuda.dequantize_idct_frames(*eargs)
         want = transforms.dequantize_idct_frames(*eargs)
         torch.cuda.synchronize()
         err = max(err, int((got.int() - want.int()).abs().max()))
         if not torch.equal(got, want):
-            raise AssertionError(f"K1 != plain on {ne} encode-path blocks "
-                                 f"(max |d| {err})")
+            raise AssertionError(f"K1 != plain on {k} x {ne} encode-path "
+                                 f"blocks (max |d| {err})")
     vin, vy = _vector_inputs(device)
     vgot = idct_cuda.dequantize_idct_frames(*vin).cpu().numpy()
     vplain = transforms.dequantize_idct_frames(*vin).cpu().numpy()
@@ -232,39 +244,54 @@ def kernel_vs_plain(device) -> dict:
         raise AssertionError("K1 or plain != libtheora idct_cases.bin")
     err = max(err, int(np.abs(vgot.astype(np.int32) - vy).max()))
     log(f"[k1] random 115200, 28800 and {n} blocks (decode shapes), 14400 "
-        f"and 3600 blocks (encode shapes): kernel == plain; "
-        f"idct_cases.bin {len(vy)} cases: kernel == plain == libtheora; "
-        f"max |err| {err} (tolerance 0: exact)")
+        f"and 3600 blocks at one qi row and 3 x 14400, 3 x 3600 at three "
+        f"(encode shapes): kernel == plain; idct_cases.bin {len(vy)} cases: "
+        f"kernel == plain == libtheora; max |err| {err} (tolerance 0: "
+        f"exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = event_ms(lambda: idct_cuda.dequantize_idct_frames(*args), 50,
-                   flush)
-    plain_ms = event_ms(lambda: transforms.dequantize_idct_frames(*args), 5,
-                         flush)
-    nbytes = sum(a.numel() * a.element_size() for a in args) + n * 64 * 2
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    # What the card's memory actually sustains: one device copy that
-    # reads and writes the same number of bytes as K1 moves.
-    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-    copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
-    ops_ms = n * K1_OPS_PER_BLOCK / INT32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"[k1] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms; bound {bound_ms:.4f} ms ({nbytes} B -> {bytes_ms:.4f} ms at "
-        f"3.35 TB/s; {n * K1_OPS_PER_BLOCK} int32 ops -> {ops_ms:.4f} ms); "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device copy of "
-        f"the same bytes takes {copy_ms:.4f} ms "
-        f"({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); no single PyTorch "
-        f"call computes this integer iDCT (library_ms null)")
+    timed = {}
+    # The decode's launch (172,800 blocks) and the encode's luma launch at
+    # three qi rows (43,200 blocks), which the kernels line reports.
+    for what, targs in (("decode", args),
+                        ("encode K=3", _k1_encode_inputs(rng, 14400, device,
+                                                          3))):
+        nt = targs[0].shape[0]
+        ms = event_ms(lambda: idct_cuda.dequantize_idct_frames(*targs), 50,
+                      flush)
+        plain_ms = event_ms(
+            lambda: transforms.dequantize_idct_frames(*targs), 5, flush)
+        nbytes = (sum(a.numel() * a.element_size() for a in targs)
+                  + nt * 64 * 2)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        # What the card's memory actually sustains: one device copy that
+        # reads and writes the same number of bytes as K1 moves.
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
+        ops_ms = nt * K1_OPS_PER_BLOCK / INT32_OPS_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"[k1] time, {what}, {nt} blocks: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} B -> "
+            f"{bytes_ms:.4f} ms at 3.35 TB/s; {nt * K1_OPS_PER_BLOCK} int32 "
+            f"ops -> {ops_ms:.4f} ms); kernel at "
+            f"{100 * bound_ms / ms:.2f}% of its bound; "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device copy "
+            f"of the same bytes takes {copy_ms:.4f} ms "
+            f"({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); no single "
+            f"PyTorch call computes this integer iDCT (library_ms null)")
+        timed[what] = {"blocks": nt, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": "bytes"
+                       if bytes_ms >= ops_ms else "operations"}
+    enc = timed["encode K=3"]
     return {
         "name": "dequant_idct", "route": "cuda",
         "source": "theora_tpu_torch/csrc/idct.cu",
         "replaces": "theora_tpu/ops/pallas_kernels.py:174",
-        "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "launches": None, "max_abs_err": err, "ms": enc["ms"],
+        "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+        "bound_by": enc["bound_by"], "library_ms": None,
+        "timed_blocks": enc["blocks"], "decode_shape": timed["decode"],
     }
 
 
@@ -358,49 +385,52 @@ def _load_testdata(name: str):
     return mod
 
 
-def _k2_inputs(rng, n, device):
-    """Random K2 inputs: residuals over [-255, 255] with the int16-safe
-    extremes (saturated flat, checkerboard and stripe blocks), random
-    dequant rows, random frame types."""
-    res = rng.integers(-255, 256, (n, 64)).astype(np.int16)
-    ext = np.stack([
-        np.full(64, 255), np.full(64, -255),
-        np.where(np.indices((8, 8)).sum(0) % 2, 255, -255).reshape(64),
-        np.where(np.arange(64) % 2, -255, 255),
-        np.where(np.arange(64) // 8 % 2, -255, 255),
-    ]).astype(np.int16)
-    res[:len(ext)] = ext
+def k2_vs_plain(device) -> dict:
+    from theora_tpu_torch.encode import aq
+    from theora_tpu_torch.ops import fdct_cuda, transforms
+    from theora_tpu_torch.tools import bench_fdct as bf
+    from theora_tpu_torch.tools.bench_trellis import event_ms
+
+    rng = np.random.default_rng(20261017)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return (t(res), t(rng.integers(8, 4097, (2, 64)).astype(np.int16)),
-            t(rng.integers(0, 2, n).astype(np.uint8)))
-
-
-def k2_vs_plain(device) -> dict:
-    from theora_tpu_torch.ops import fdct_cuda, transforms
-    from theora_tpu_torch.tools.bench_trellis import event_ms
-
-    rng = np.random.default_rng(20261017)
     # The encode path launches K2 once per plane per frame: 14,400 luma
-    # and 3,600 blocks per chroma plane at 1280x720 4:2:0; and their sum.
+    # and 3,600 blocks per chroma plane at 1280x720 4:2:0, and their sum,
+    # at K = 1, 2 and 3 qi rows: real qi lists of adaptive quantization
+    # (the q56 inter triple, the q63 pair), DC at the base qi.
+    lists = {1: [48], 2: aq.qi_triple(True, 63, 1, 0),
+             3: aq.qi_triple("auto", 56, 1, 0)}
     err = 0
-    for n in (14400, 3600, 21600):
-        args = _k2_inputs(rng, n, device)
-        got = fdct_cuda.fdct_quantize(*args)
-        want = transforms.fdct_quantize(*args)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            err = max(err, int((g.int() - w.int()).abs().max()))
-            if not torch.equal(g, w):
-                raise AssertionError(f"K2 != plain on {n} random blocks "
-                                     f"(max |d| {err})")
+    for n, pli in ((14400, 0), (3600, 1), (21600, 2)):
+        res = t(bf.random_residuals(rng, n))
+        inter = t(rng.integers(0, 2, n).astype(np.uint8))
+        single = {}
+        for k, qis in lists.items():
+            deq = t(bf.triple_rows(qis, pli))
+            got = fdct_cuda.fdct_quantize(res, deq, inter)
+            want = transforms.fdct_quantize(res, deq, inter)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = max(err, int((g.int() - w.int()).abs().max()))
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K2 != plain at K = {k} on {n} "
+                                         f"random blocks (max |d| {err})")
+            # Row r of a K-row launch equals a one-row launch at row r.
+            for r in range(k):
+                one = single.setdefault(
+                    qis[r], fdct_cuda.fdct_quantize(res, deq[r:r + 1],
+                                                    inter))
+                if not (torch.equal(one[0][0], got[0][r])
+                        and torch.equal(one[1], got[1])):
+                    raise AssertionError(f"K2 row {r} of K = {k} != its "
+                                         f"one-row launch on {n} blocks")
     rec = np.dtype([("x", "<i2", 64), ("y", "<i2", 64)])
     cases = np.fromfile(os.path.join(TESTDATA, "vectors", "fdct_cases.bin"),
                         dtype=rec)
-    vin = (torch.from_numpy(cases["x"].copy()).to(device),
-           torch.full((2, 64), 8, dtype=torch.int16, device=device),
+    vin = (t(cases["x"]), torch.full((1, 2, 64), 8, dtype=torch.int16,
+                                     device=device),
            torch.zeros(len(cases), dtype=torch.uint8, device=device))
     vq, vd = fdct_cuda.fdct_quantize(*vin)
     pq, pd = transforms.fdct_quantize(*vin)
@@ -409,53 +439,95 @@ def k2_vs_plain(device) -> dict:
             and np.array_equal(pd.cpu().numpy(), cases["y"])):
         raise AssertionError("K2 or plain != libtheora fdct_cases.bin")
     err = max(err, int(np.abs(vd.astype(np.int32) - cases["y"]).max()))
-    log(f"[k2] random 14400, 3600 and {n} blocks: kernel == plain "
-        f"(quantized and DCT); fdct_cases.bin {len(cases)} cases: kernel "
-        f"DCT == plain == libtheora; max |err| {err} (tolerance 0: exact)")
+    log(f"[k2] random 14400, 3600 and 21600 blocks at K = 1 {lists[1]}, "
+        f"2 {lists[2]} and 3 {lists[3]}: kernel == plain (quantized rows "
+        f"and DCT), each row == its one-row launch; fdct_cases.bin "
+        f"{len(cases)} cases: kernel DCT == plain == libtheora; max |err| "
+        f"{err} (tolerance 0: exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    ms = event_ms(lambda: fdct_cuda.fdct_quantize(*args), 50, flush)
-    plain_ms = event_ms(lambda: transforms.fdct_quantize(*args), 5, flush)
-    # Each input read once, each output written once: residuals, frame
-    # types and the two dequant rows in; quantized and DCT blocks out.
-    nbytes = sum(a.numel() * a.element_size() for a in args) + 2 * n * 128
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-    copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
-    ops_ms = n * K2_OPS_PER_BLOCK / INT32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"[k2] time at {n} blocks: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms; bound {bound_ms:.4f} ms ({nbytes} B -> {bytes_ms:.4f} ms at "
-        f"3.35 TB/s; {n * K2_OPS_PER_BLOCK} int32 ops -> {ops_ms:.4f} ms); "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device copy of "
-        f"the same bytes takes {copy_ms:.4f} ms "
-        f"({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); no single PyTorch "
-        f"call computes this integer fDCT + quantizer (library_ms null)")
+    timed = {}
+    for k in (1, 3):
+        kargs = (res, t(bf.triple_rows(lists[k], 2)), inter)
+        ms = event_ms(lambda: fdct_cuda.fdct_quantize(*kargs), 50, flush)
+        plain_ms = event_ms(lambda: transforms.fdct_quantize(*kargs), 5,
+                            flush)
+        b = bf.k2_bound(kargs)
+        src = torch.empty(b["bytes"] // 2, dtype=torch.uint8, device=device)
+        dst = torch.empty_like(src)
+        copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
+        log(f"[k2] time at K = {k}, {n} blocks: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({b['bytes']} B -> {b['bytes_ms']:.4f} ms at "
+            f"3.35 TB/s; {b['ops']} int32 ops -> {b['ops_ms']:.4f} ms); "
+            f"kernel at {100 * b['bound_ms'] / ms:.2f}% of its bound; "
+            f"{b['bytes'] / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device "
+            f"copy of the same bytes takes {copy_ms:.4f} ms; no single "
+            f"PyTorch call computes this integer fDCT + quantizer "
+            f"(library_ms null)")
+        timed[k] = {"blocks": n, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
     return {
         "name": "fdct_quant", "route": "cuda",
         "source": "theora_tpu_torch/csrc/fdct_quant.cu",
         "replaces": "theora_tpu/ops/pallas_kernels.py:194",
-        "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "launches": None, "max_abs_err": err, "ms": timed[3]["ms"],
+        "plain_ms": timed[3]["plain_ms"], "bound_ms": timed[3]["bound_ms"],
+        "bound_by": timed[3]["bound_by"], "library_ms": None,
+        "timed_blocks": n, "timed_rows": 3, "one_row": timed[1],
     }
 
 
+def _kt_row_cases(device):
+    """(label, KT arguments) at three qi rows, as adaptive quantization
+    launches KT: K2's outputs on random residuals at the q56 inter triple
+    (DC at the base qi) at 14,400, 3,600 and 21,600 blocks; per size an
+    inter frame (inter flags at random, the inter lambdas of the three
+    rows) with per-block lambda scales drawn in [0.1, 8], and an intra
+    frame (the intra lambdas) without them."""
+    from theora_tpu_torch.encode import aq
+    from theora_tpu_torch.ops import fdct_cuda
+    from theora_tpu_torch.tools import bench_fdct as bf
+    from theora_tpu_torch.tools import bench_trellis as bt
+
+    _, nb, lam_tab = bt.kt_tables()
+    nb = torch.from_numpy(nb).to(device)
+    qis = aq.qi_triple("auto", 56, 1, 0)
+    rng = np.random.default_rng(20261021)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for n, pli in ((14400, 0), (3600, 1), (21600, 2)):
+        deq = t(bf.triple_rows(qis, pli))
+        for qti in (1, 0):
+            inter = (np.zeros(n, np.uint8) if qti == 0
+                     else rng.integers(0, 2, n).astype(np.uint8))
+            q, d = fdct_cuda.fdct_quantize(
+                t(bf.random_residuals(rng, n)), deq, t(inter))
+            sc = (t(rng.uniform(0.1, 8.0, n).astype(np.float32)) if qti
+                  else None)
+            yield (f"K2 outputs, 3 x {n} blocks, qis {qis}, "
+                   f"{('intra', 'inter')[qti]} frame"
+                   + (", lambda scales in [0.1, 8]" if qti else ""),
+                   (q, d, deq, t(inter), lam_tab[qti, qis], nb, sc))
+
+
 def _kt_cases(device):
-    """(label, KT arguments, timed) for one launch each: K2's outputs on
-    random residuals at the encode path's per-plane shapes, an intra and an
-    inter frame each (tools/bench_trellis.py:k2_cases); the 720p clip's
-    first frame, luma and chroma; the edge classes; a launch of blocks with
-    no nonzero AC value; coefficients up to +-32767; the prefix-sum order
+    """(label, KT arguments, timed) for one launch each: K2's outputs at
+    three qi rows (_kt_row_cases); K2's outputs on random residuals at one
+    qi row at the encode path's per-plane shapes, an intra and an inter
+    frame each (tools/bench_trellis.py:k2_cases); the 720p clip's first
+    frame, luma and chroma; the edge classes; a launch of blocks with no
+    nonzero AC value; coefficients up to +-32767; the prefix-sum order
     cases, one launch per (qi, frame type)."""
-    from theora_tpu_torch import tables
     from theora_tpu_torch.ops import fdct_cuda, transforms
     from theora_tpu_torch.tools import bench_trellis as bt
 
+    for label, args in _kt_row_cases(device):
+        yield label, args, args[0].shape[1] == 14400 and "inter" in label
     for label, args in bt.k2_cases(device):
-        yield label, args, args[0].shape[0] in (14400, 3600) and \
+        yield label, args, args[0].shape[1] in (14400, 3600) and \
             "inter" in label
     for label, args in bt.first_frame_cases(device):
         yield label, args, True
@@ -477,8 +549,8 @@ def _kt_cases(device):
         q = transforms.quantize(
             t(dct.astype(np.int32)),
             t(deq.astype(np.int32)[inter.astype(np.int64)]))
-        return (q.to(torch.int16), t(dct.astype(np.int16)), t(deq), t(inter),
-                lam_tab[qti, qi], nb)
+        return (q.to(torch.int16)[None], t(dct.astype(np.int16)),
+                t(deq[None]), t(inter), lam_tab[qti, qi:qi + 1], nb, None)
 
     # Edge classes among K2's outputs, a frame of each type at one qi: no
     # nonzero AC value (a fixed result), one nonzero value at position 63
@@ -491,7 +563,8 @@ def _kt_cases(device):
                  else rng.integers(0, 2, n).astype(np.uint8))
         res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
         _, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)),
-                                       t(rows.astype(np.int16)), t(inter))
+                                       t(rows[None].astype(np.int16)),
+                                       t(inter))
         dct = d.cpu().numpy().astype(np.int32)
         r = rows[inter.astype(np.int64)]
         sign = rng.choice([-1, 1], (n, 64))
@@ -524,6 +597,18 @@ def _kt_cases(device):
         yield (f"trellis_order_cases.npz, qi {qi}, qti {qti}, "
                f"{int(sel.sum())} blocks",
                launch(cases["dct"][sel], qi, qti), False)
+    # Fractional lambdas, where the placement of the fused multiply-adds
+    # decides: lambda 1 times each block's own scale.
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_fma_cases.npz"))
+    for qi, qti in sorted(set(zip(cases["qi"].tolist(),
+                                  cases["qti"].tolist()))):
+        sel = (cases["qi"] == qi) & (cases["qti"] == qti)
+        args = list(launch(cases["dct"][sel], qi, qti))
+        args[4] = np.ones(1, np.float32)
+        args[6] = t(cases["lam"][sel])
+        yield (f"trellis_fma_cases.npz, qi {qi}, qti {qti}, "
+               f"{int(sel.sum())} blocks", tuple(args), False)
 
 
 def kt_vs_plain(device) -> dict:
@@ -544,35 +629,40 @@ def kt_vs_plain(device) -> dict:
                 raise AssertionError(f"KT != plain on {label}: {bad} blocks "
                                      f"differ (max |d| {err})")
         n_launches += 1
-        if label.startswith("trellis_order_cases"):
-            n_order += len(want[0])
+        nblk = want[0].numel() // 64
+        if label.startswith(("trellis_order_cases", "trellis_fma_cases")):
+            n_order += nblk
             continue
-        moved = int((want[0] != args[0]).any(dim=1).sum())
+        moved = int((want[0] != args[0]).any(dim=2).sum())
         log(f"[kt] {label}: kernel == plain (values, counts, DC-only flags); "
-            f"the trellis changed {moved} of {len(want[0])} blocks' "
-            f"round-to-nearest values; {int(want[2].sum())} blocks DC-only")
+            f"the trellis changed {moved} of {nblk} (row, block) pairs' "
+            f"round-to-nearest values; {int(want[2].sum())} DC-only")
         if is_timed:
             timed.append((label, args))
-    log(f"[kt] trellis_order_cases.npz: {n_order} blocks, kernel == plain "
-        f"in every (qi, frame type) launch; {n_launches} launches in all; "
-        f"max |err| {err} (tolerance 0: exact)")
+    log(f"[kt] trellis_order_cases.npz and trellis_fma_cases.npz: "
+        f"{n_order} blocks, kernel == plain in every (qi, frame type) "
+        f"launch; {n_launches} launches in all; max |err| {err} "
+        f"(tolerance 0: exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     for i, (label, args) in enumerate(timed):
         ms = bt.event_ms(lambda: trellis_cuda.trellis_quantize(*args), 50,
                          flush)
         b = bt.kt_bound(args)
-        hist = bt.nonzero_histogram(args[0].cpu().numpy())
+        hist = bt.nonzero_histogram(args[0].reshape(-1, 64).cpu().numpy())
         log(f"[kt] time, {label}: kernel {ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']} B -> "
             f"{b['bytes_ms']:.4f} ms at 3.35 TB/s; {b['ops']} float32 ops "
             f"that these inputs need -> {b['ops_ms']:.4f} ms at 67 TFLOP/s);"
             f" kernel at {100 * b['bound_ms'] / ms:.2f}% of its bound; "
             f"blocks by nonzero AC values {hist}")
-        if i == 0:  # 14,400 blocks of K2's outputs: one 720p luma plane
+        if i == 0:  # 3 x 14,400 (row, block) pairs: one 720p luma plane
             head, head_ms, head_bound = label, ms, b
             plain_ms = bt.event_ms(
                 lambda: transforms.trellis_quantize(*args), 5, flush)
+        elif i == 1:  # the same plane at one qi row
+            one_row = {"blocks": int(args[0].shape[1]), "ms": ms,
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
     log(f"[kt] {head}: plain {plain_ms:.4f} ms; no single PyTorch call "
         f"computes this trellis (library_ms null)")
     return {
@@ -582,37 +672,91 @@ def kt_vs_plain(device) -> dict:
         "launches": None, "max_abs_err": err, "ms": head_ms,
         "plain_ms": plain_ms, "bound_ms": head_bound["bound_ms"],
         "bound_by": head_bound["bound_by"], "library_ms": None,
+        "timed_blocks": 14400, "timed_rows": 3, "one_row": one_row,
     }
 
 
-def _encoder(w, h, fmt, qi):
+def _encoder(w, h, fmt, qi, adaptive_quant):
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
 
     return GopEncoder(TheoraInfo(frame_width=w, frame_height=h,
                                  pic_width=w, pic_height=h, quality=qi,
-                                 pixel_fmt=fmt), qi=qi, device="cuda")
+                                 pixel_fmt=fmt), qi=qi, device="cuda",
+                      adaptive_quant=adaptive_quant)
 
 
 def _packet_hashes(pkts) -> list[str]:
     return [hashlib.sha256(p.data).hexdigest() for p in pkts]
 
 
-def small_encodes() -> None:
-    mk = _load_testdata("make_hd720_enc")
-    with open(os.path.join(TESTDATA, "enc64x48.sha256")) as f:
+def _check_hashes(pkts, name: str, what: str) -> int:
+    with open(os.path.join(TESTDATA, f"{name}.sha256")) as f:
         want = f.read().split()
+    got = _packet_hashes(pkts)
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{name} {what}: packets {bad} differ from the "
+                             f"JAX encoder's")
+    return len(want)
+
+
+def _closed_loop(enc, frames, what: str) -> None:
+    """One GOP's carried reconstruction against the port's decoder on its
+    packets."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+
+    datas, recon = enc.encode_gop(frames, want_recon=True)
+    hdr = enc.flush_headers()
+    outs = BatchDecoder(parse_info_header(hdr[0].data),
+                        parse_setup_header(hdr[2].data),
+                        device="cuda").decode_clip(datas, batch=8)
+    g = enc.g
+    for f, out in enumerate(outs):
+        for pli in range(3):
+            vpad, hpad = g.plane_padding(pli)
+            h, w = g.plane_shape(pli)
+            if not np.array_equal(
+                    recon[pli][f][vpad:vpad + h, hpad:hpad + w][::-1],
+                    out[pli]):
+                raise AssertionError(f"{what} closed loop: frame {f} plane "
+                                     f"{pli} recon != decode")
+    log(f"[{what}] closed loop: the GOP's {len(outs)} reconstructed frames "
+        f"equal BatchDecoder(device='cuda') on its packets")
+
+
+def small_encodes() -> None:
+    """64x48 in three pixel formats (adaptive_quant=False, as their list
+    was made); the 96x64 half-smooth, half-noise clip (adaptive_quant=True:
+    the triple, noise-like frames) and the half-smooth, half-texture clip
+    ("auto": the triple with per-block lambda scales), each with its
+    closed loop."""
+    mk = _load_testdata("make_hd720_enc")
     got = []
     for fmt in mk.SMALL_FORMATS:
         frames = mk.moving_frames(64, 48, fmt, mk.SMALL_FRAMES, 11 + fmt)
-        got += _packet_hashes(_encoder(64, 48, fmt, mk.SMALL_QI).encode_clip(
-            frames, keyframe_freq=mk.SMALL_KF, clip_batch=8))
-    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-    if len(got) != len(want) or bad:
-        raise AssertionError(f"64x48 encode: packets {bad} differ from the "
-                             f"JAX encoder's")
-    log(f"[enc64x48] formats {mk.SMALL_FORMATS}: all {len(got)} packets "
-        f"equal the JAX TpuGopEncoder's (SHA-256)")
+        got += _encoder(64, 48, fmt, mk.SMALL_QI, False).encode_clip(
+            frames, keyframe_freq=mk.SMALL_KF, clip_batch=8)
+    n = _check_hashes(got, "enc64x48", "formats 0, 2, 3")
+    log(f"[enc64x48] formats {mk.SMALL_FORMATS}: all {n} packets equal the "
+        f"JAX TpuGopEncoder's (SHA-256)")
+    for name, frames, qi, mode in (
+            ("mixed96x64_q40_aq_enc", mk.mixed_frames(), mk.MIXED_QI, True),
+            ("halftex96x64_q48_aq_enc", mk.halftexture_frames(),
+             mk.HALFTEX_QI, "auto")):
+        enc = _encoder(mk.MIXED_W, mk.MIXED_H, 0, qi, mode)
+        n = _check_hashes(enc.encode_clip(
+            frames, keyframe_freq=mk.MIXED_FRAMES, clip_batch=8), name,
+            f"adaptive_quant={mode}")
+        if enc.nonbase_qi_blocks == 0:
+            raise AssertionError(f"{name}: no block took a non-base qi")
+        log(f"[{name}] adaptive_quant={mode}: all {n} packets equal the JAX "
+            f"encoder's; {enc.nonbase_qi_blocks} coded blocks at a non-base "
+            f"qi")
+        _closed_loop(_encoder(mk.MIXED_W, mk.MIXED_H, 0, qi, mode), frames,
+                     name)
 
 
 def _psnr(frames, outs) -> float:
@@ -625,7 +769,12 @@ def _psnr(frames, outs) -> float:
     return 10 * np.log10(255.0 ** 2 * n / max(se, 1))
 
 
-def real_size_encode(smi: str) -> tuple[int, int]:
+def real_size_encode(smi: str, name: str, qi: int, adaptive_quant):
+    """16 frames of the 1280x720 clip, a keyframe every 8, clip_batch 8:
+    packets against the JAX encoder's list `name`, the first GOP's closed
+    loop, and a warm pass with the launch counts of K1, K2 and KT reset
+    just before it: each must be one per plane per frame. Returns the
+    counts."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -633,44 +782,18 @@ def real_size_encode(smi: str) -> tuple[int, int]:
 
     mk = _load_testdata("make_hd720_enc")
     frames = mk.hd_frames()
-    with open(os.path.join(TESTDATA, f"{HD_ENC_NAME}.sha256")) as f:
-        want = f.read().split()
+    what = f"enc720p q{qi} aq={adaptive_quant}"
 
     def encode(enc):
         return enc.encode_clip(frames, keyframe_freq=mk.HD_KF, clip_batch=8)
 
-    def check(pkts, what):
-        got = _packet_hashes(pkts)
-        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-        if len(got) != len(want) or bad:
-            raise AssertionError(f"{HD_ENC_NAME} {what}: packets {bad} "
-                                 f"differ from the JAX encoder's")
-
-    check(encode(_encoder(1280, 720, 0, mk.HD_QI)), "first pass")
-    # Closed loop: the first GOP's carried reconstruction against the
-    # port's decoder on its packets.
-    enc = _encoder(1280, 720, 0, mk.HD_QI)
-    datas, recon = enc.encode_gop(frames[:mk.HD_KF], want_recon=True)
-    hdr = enc.flush_headers()
-    info, setup = parse_info_header(hdr[0].data), parse_setup_header(
-        hdr[2].data)
-    outs = BatchDecoder(info, setup, device="cuda").decode_clip(datas,
-                                                                batch=8)
-    g = enc.g
-    for f, out in enumerate(outs):
-        for pli in range(3):
-            vpad, hpad = g.plane_padding(pli)
-            h, w = g.plane_shape(pli)
-            if not np.array_equal(
-                    recon[pli][f][vpad:vpad + h, hpad:hpad + w][::-1],
-                    out[pli]):
-                raise AssertionError(f"720p closed loop: frame {f} plane "
-                                     f"{pli} recon != decode")
-    log(f"[enc720p] closed loop: the first GOP's {len(outs)} reconstructed "
-        f"frames equal BatchDecoder(device='cuda') on its packets")
+    _check_hashes(encode(_encoder(1280, 720, 0, qi, adaptive_quant)), name,
+                  "first pass")
+    _closed_loop(_encoder(1280, 720, 0, qi, adaptive_quant),
+                 frames[:mk.HD_KF], what)
 
     # Warm pass, the main path: launch counts from 0 just before it.
-    enc = _encoder(1280, 720, 0, mk.HD_QI)
+    enc = _encoder(1280, 720, 0, qi, adaptive_quant)
     enc.device_spans = []
     torch.cuda.synchronize()
     idct_cuda.dequantize_idct_frames.launches = 0
@@ -680,29 +803,35 @@ def real_size_encode(smi: str) -> tuple[int, int]:
     pkts = encode(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2, kt = (idct_cuda.dequantize_idct_frames.launches,
-                  fdct_cuda.fdct_quantize.launches,
-                  trellis_cuda.trellis_quantize.launches)
-    check(pkts, "warm pass")
-    # One launch of each per plane per frame.
-    if k1 == 0 or k2 == 0 or kt != 3 * len(frames):
-        raise AssertionError(f"encode path launches: K1 {k1}, K2 {k2}, KT "
-                             f"{kt}; K1 and K2 must run, KT "
+    counts = (idct_cuda.dequantize_idct_frames.launches,
+              fdct_cuda.fdct_quantize.launches,
+              trellis_cuda.trellis_quantize.launches)
+    n = _check_hashes(pkts, name, "warm pass")
+    if counts != (3 * len(frames),) * 3:
+        raise AssertionError(f"{what} launches: K1, K2, KT {counts}; each "
+                             f"must run once per plane per frame, "
                              f"{3 * len(frames)} times")
+    if adaptive_quant and enc.nonbase_qi_blocks == 0:
+        raise AssertionError(f"{what}: no block took a non-base qi")
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
-    outs = BatchDecoder(info, setup, device="cuda").decode_clip(
+    hdr = pkts[:3]
+    outs = BatchDecoder(parse_info_header(hdr[0].data),
+                        parse_setup_header(hdr[2].data),
+                        device="cuda").decode_clip(
         [p.data for p in pkts[3:]], batch=8)
     nf = len(frames)
     mpix = nf * 1280 * 720 * 1.5 / 1e6
-    log(f"[enc720p] {nf} frames, all {len(want)} packet SHA-256 equal the "
-        f"JAX encoder's; {sum(len(p.data) for p in pkts[3:])} bytes; warm "
-        f"pass {wall:.4f} s = {nf / wall:.2f} frames/s = {mpix / wall:.2f} "
-        f"Mpix/s; host mode decision {enc.host_decide_s:.4f} s, host "
-        f"packing {enc.host_pack_s:.4f} s; device spans (CUDA events, ME "
-        f"and plane encodes) {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} "
-        f"dB against the source; launches K1 {k1}, K2 {k2}, KT {kt} | "
-        f"{smi}")
-    return k1, k2, kt
+    log(f"[{what}] {nf} frames, all {n} packet SHA-256 equal the JAX "
+        f"encoder's; {sum(len(p.data) for p in pkts[3:])} bytes; "
+        f"{enc.nonbase_qi_blocks} coded blocks at a non-base qi; warm pass "
+        f"{wall:.4f} s = {nf / wall:.2f} frames/s = {mpix / wall:.2f} "
+        f"Mpix/s; host mode decision and gates {enc.host_decide_s:.4f} s, "
+        f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
+        f"ME and plane encodes) {dev_s:.4f} s; PSNR "
+        f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
+        f"K2, KT {counts} = {counts[0] / (3 * nf):.0f} per plane per frame "
+        f"| {smi}")
+    return counts
 
 
 def main() -> int:
@@ -719,12 +848,19 @@ def main() -> int:
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
     small_encodes()
-    k1_encode, k2["launches"], kt["launches"] = real_size_encode(smi)
+    fixed = real_size_encode(smi, "hd720_q48_k8_enc", 48, False)
+    # The main encode path: the JAX encoder's default, adaptive
+    # quantization "auto", which engages the qi triple at q56.
+    k1_encode, k2["launches"], kt["launches"] = real_size_encode(
+        smi, "hd720_q56_k8_aq_enc", 56, "auto")
     # K1 runs on both main paths: the decode's and the encode's.
     k1["launches"] = k1_decode + k1_encode
-    k1["launches_by_path"] = {"decode": k1_decode, "encode": k1_encode}
-    k2["launches_by_path"] = {"encode": k2["launches"]}
-    kt["launches_by_path"] = {"encode": kt["launches"]}
+    k1["launches_by_path"] = {"decode": k1_decode, "encode": k1_encode,
+                              "encode q48 aq off": fixed[0]}
+    k2["launches_by_path"] = {"encode": k2["launches"],
+                              "encode q48 aq off": fixed[1]}
+    kt["launches_by_path"] = {"encode": kt["launches"],
+                              "encode q48 aq off": fixed[2]}
     print(json.dumps({"kernels": [k1, k2, kt]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,23 +2,37 @@
 GOP encoder (theora_tpu_torch.encode.gop.GopEncoder) to the JAX
 TpuGopEncoder.
 
-Two lists, each line the SHA-256 of one packet (the three headers, then
+Five lists, each line the SHA-256 of one packet (the three headers, then
 one line per frame):
 
 - hd720_q48_k8_enc.sha256: 16 frames of make_hd720.source_frames()
   (cif_smooth.i420 upscaled to 1280x720 4:2:0), q48, a keyframe every 8
-  frames, clip_batch=8;
+  frames, clip_batch=8, adaptive_quant=False;
 - enc64x48.sha256: moving_frames() at 64x48 for pixel formats 0, 2 and 3
-  (5 frames each, keyframe_freq=4, q40), in that order, one block of
-  lines per format.
+  (5 frames each, keyframe_freq=4, q40, adaptive_quant=False), in that
+  order, one block of lines per format;
+- hd720_q56_k8_aq_enc.sha256: the same 16 frames at q56, a keyframe every
+  8 frames, clip_batch=8, with the JAX encoder's default adaptive_quant
+  "auto", which engages the qi triple on every frame at q56;
+- mixed96x64_q40_aq_enc.sha256: mixed_frames(), 4 frames of a 96x64 clip
+  whose left half is smooth and right half noise, q40, one GOP,
+  adaptive_quant=True: the qi triple on every frame (the frames are mixed
+  but noise-like, so no activity scales);
+- halftex96x64_q48_aq_enc.sha256: halftexture_frames(), the same clip
+  with its noise half smoothed into a texture, q48, one GOP, the default
+  adaptive_quant "auto": mixed frames that are not noise-like, so the luma
+  scan runs with the per-block activity scales.
 
-Both use the configuration the port supports: fixed qi, the trellis,
-adaptive_quant=False, no target bitrate, no scene-cut keyframes. The JAX
-encoder runs on the CPU; adaptive_quant and delta_upload are set as
-attributes. Run from the repository root (the 720p encode takes a few
-minutes):
+All use a fixed qi, the trellis, no target bitrate and no scene-cut
+keyframes. The JAX encoder runs on the CPU; adaptive_quant (where not the
+default) and delta_upload are set as attributes. Run from the repository
+root, for all lists or the named ones:
 
-    python testdata/make_hd720_enc.py
+    python testdata/make_hd720_enc.py [LIST ...]
+
+The q56 "auto" 720p encode (three qi rows per block) took 42.1 s on the
+CPU of an 8-core x86 machine, the 96x64 ones about 20 s each (JAX 0.9.0,
+compile times included).
 
 It is not part of the port and pytest does not collect it;
 chip_smoke.py loads moving_frames() and make_hd720.source_frames() from
@@ -41,6 +55,9 @@ SMALL_FORMATS = (0, 2, 3)
 SMALL_FRAMES = 5
 SMALL_KF = 4
 SMALL_QI = 40
+AQ_QI = 56
+MIXED_W, MIXED_H, MIXED_FRAMES, MIXED_QI = 96, 64, 4, 40
+HALFTEX_QI = 48
 
 
 def moving_frames(w: int, h: int, fmt: int, n: int, seed: int):
@@ -60,6 +77,35 @@ def moving_frames(w: int, h: int, fmt: int, n: int, seed: int):
     ]
 
 
+def mixed_frames():
+    """The 96x64 clip of tests/test_tpu_gop.py:test_adaptive_quant_device:
+    luma smooth on the left half and noise on the right, rolled one
+    column a frame; flat U, noise V."""
+    rng = np.random.RandomState(9)
+    w, h = MIXED_W, MIXED_H
+    y0 = np.zeros((h, w), np.uint8)
+    y0[:, :w // 2] = 128 + (np.arange(w // 2) // 4)[None, :]
+    y0[:, w // 2:] = rng.randint(0, 256, (h, w // 2))
+    u0 = np.full((h // 2, w // 2), 90, np.uint8)
+    v0 = rng.randint(0, 256, (h // 2, w // 2)).astype(np.uint8)
+    return [[np.roll(y0, f, 1), u0, v0] for f in range(MIXED_FRAMES)]
+
+
+def halftexture_frames():
+    """mixed_frames() with the noise half replaced by noise averaged over
+    three columns: a texture (lag-1 autocorrelation ~0.67) beside the
+    smooth half."""
+    rng = np.random.RandomState(10)
+    w, h = MIXED_W, MIXED_H
+    y0 = np.zeros((h, w), np.uint8)
+    y0[:, :w // 2] = 128 + (np.arange(w // 2) // 4)[None, :]
+    noise = rng.randint(0, 256, (h, w // 2 + 2))
+    y0[:, w // 2:] = (noise[:, :-2] + noise[:, 1:-1] + noise[:, 2:]) // 3
+    u0 = np.full((h // 2, w // 2), 90, np.uint8)
+    v0 = np.full((h // 2, w // 2), 160, np.uint8)
+    return [[np.roll(y0, f, 1), u0, v0] for f in range(MIXED_FRAMES)]
+
+
 def hd_frames():
     import importlib.util
 
@@ -70,14 +116,14 @@ def hd_frames():
     return mod.source_frames()[:HD_FRAMES]
 
 
-def _jax_packets(frames, w, h, fmt, qi, kf):
+def _jax_packets(frames, w, h, fmt, qi, kf, adaptive_quant=False):
     from theora_tpu.encode.tpu_gop import TpuGopEncoder
     from theora_tpu.info import TheoraInfo
 
     info = TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
                       pic_height=h, quality=qi, pixel_fmt=fmt)
     enc = TpuGopEncoder(info, qi=qi)
-    enc.adaptive_quant = False
+    enc.adaptive_quant = adaptive_quant
     enc.delta_upload = False
     return enc.encode_clip(frames, keyframe_freq=kf, clip_batch=8)
 
@@ -90,19 +136,41 @@ def _write(name, pkts):
           f"{sum(len(p.data) for p in pkts)} bytes")
 
 
-def main() -> None:
-    sys.path.insert(0, os.path.dirname(HERE))
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def _small():
     small = []
     for fmt in SMALL_FORMATS:
         frames = moving_frames(64, 48, fmt, SMALL_FRAMES, 11 + fmt)
         small += _jax_packets(frames, 64, 48, fmt, SMALL_QI, SMALL_KF)
-    _write("enc64x48.sha256", small)
-    _write("hd720_q48_k8_enc.sha256",
-           _jax_packets(hd_frames(), 1280, 720, 0, HD_QI, HD_KF))
+    return small
+
+
+LISTS = {
+    "enc64x48.sha256": _small,
+    "hd720_q48_k8_enc.sha256": lambda: _jax_packets(
+        hd_frames(), 1280, 720, 0, HD_QI, HD_KF),
+    "hd720_q56_k8_aq_enc.sha256": lambda: _jax_packets(
+        hd_frames(), 1280, 720, 0, AQ_QI, HD_KF, adaptive_quant="auto"),
+    "mixed96x64_q40_aq_enc.sha256": lambda: _jax_packets(
+        mixed_frames(), MIXED_W, MIXED_H, 0, MIXED_QI, MIXED_FRAMES,
+        adaptive_quant=True),
+    "halftex96x64_q48_aq_enc.sha256": lambda: _jax_packets(
+        halftexture_frames(), MIXED_W, MIXED_H, 0, HALFTEX_QI,
+        MIXED_FRAMES, adaptive_quant="auto"),
+}
+
+
+def main(names=None) -> None:
+    sys.path.insert(0, os.path.dirname(HERE))
+    import time
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    for name in names or LISTS:
+        t0 = time.perf_counter()
+        _write(name, LISTS[name]())
+        print(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -51,6 +51,31 @@ def test_k1_kernel_matches_plain(card):
     assert torch.equal(got, transforms.dequantize_idct_frames(*args))
 
 
+def test_k1_kernel_matches_plain_at_three_qi_rows(card):
+    """K1 as the encode scan launches it with three qi rows: 3 x 3,600
+    blocks, a [1, 3, 2, 64] table, block r * 3600 + i row r of block i."""
+    rng = np.random.default_rng(24)
+    n, k = 3600, 3
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    coeffs = rng.integers(-32768, 32768, (k * n, 64), dtype=np.int16)
+    args = (
+        t(coeffs), t(coeffs[:, 0]),
+        t(rng.integers(1, 32768, (1, 3, 2, 64), dtype=np.int16)),
+        t(np.zeros(k * n, np.int32)),
+        t(np.repeat(np.arange(k, dtype=np.uint8), n)),
+        t(np.tile(rng.integers(0, 2, n).astype(np.uint8), k)),
+        t(rng.random(k * n) < 0.3),
+    )
+    before = idct_cuda.dequantize_idct_frames.launches
+    got = idct_cuda.dequantize_idct_frames(*args)
+    torch.cuda.synchronize()
+    assert idct_cuda.dequantize_idct_frames.launches == before + 1
+    assert torch.equal(got, transforms.dequantize_idct_frames(*args))
+
+
 @pytest.mark.parametrize("name", ["clip64x48_k8_q5", "clip444"])
 def test_golden_stream_on_card(card, name):
     from theora_tpu_torch.decode.batch import BatchDecoder
@@ -69,7 +94,10 @@ def test_golden_stream_on_card(card, name):
                               ref[i]), f"frame {i}"
 
 
-def test_k2_kernel_matches_plain(card):
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_k2_kernel_matches_plain(card, k):
+    """K2 at K qi rows on 14,400 random blocks (a 720p luma plane), one
+    launch, exact; each row equals a one-row launch at that row."""
     from theora_tpu_torch.ops import fdct_cuda
 
     rng = np.random.default_rng(22)
@@ -79,19 +107,26 @@ def test_k2_kernel_matches_plain(card):
         return torch.from_numpy(np.ascontiguousarray(a)).to(card)
 
     args = (t(rng.integers(-255, 256, (n, 64)).astype(np.int16)),
-            t(rng.integers(8, 4097, (2, 64)).astype(np.int16)),
+            t(rng.integers(1, 4097, (k, 2, 64)).astype(np.int16)),
             t(rng.integers(0, 2, n).astype(np.uint8)))
     before = fdct_cuda.fdct_quantize.launches
     q, d = fdct_cuda.fdct_quantize(*args)
     torch.cuda.synchronize()
     assert fdct_cuda.fdct_quantize.launches == before + 1
     qp, dp = transforms.fdct_quantize(*args)
+    assert q.shape == (k, n, 64)
     assert torch.equal(q, qp) and torch.equal(d, dp)
+    for r in range(k):
+        q1, d1 = fdct_cuda.fdct_quantize(args[0], args[1][r:r + 1], args[2])
+        assert torch.equal(q1[0], q[r]) and torch.equal(d1, d)
 
 
-def test_kt_kernel_matches_plain(card):
+@pytest.mark.parametrize("rows", [1, 3])
+def test_kt_kernel_matches_plain(card, rows):
     """KT on K2's outputs for 3,600 random residual blocks (one chroma
-    plane of a 720p frame) at a random qi, an intra and an inter frame,
+    plane of a 720p frame) at a random qi (and, at three rows, the qis
+    10 and 20 above it, DC at the first), an intra and an inter frame,
+    the inter one with per-block lambda scales in [0.1, 8] at three rows,
     exact: values, nonzero counts and DC-only flags."""
     from theora_tpu_torch import tables
     from theora_tpu_torch.encode.gop import trellis_bit_costs
@@ -100,8 +135,10 @@ def test_kt_kernel_matches_plain(card):
 
     rng = np.random.default_rng(23)
     n = 3600
-    qi = int(rng.integers(0, 64))
-    deq = dequant_tables_init(tables.DEF_QUANT_INFO)[qi, 1].astype(np.int16)
+    qi = int(rng.integers(0, 44))
+    qis = [qi, qi + 10, qi + 20][:rows]
+    deq = dequant_tables_init(tables.DEF_QUANT_INFO)[qis, 1].astype(np.int16)
+    deq[:, :, 0] = deq[:1, :, 0]
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(card)
@@ -113,8 +150,11 @@ def test_kt_kernel_matches_plain(card):
         res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
         q, d = fdct_cuda.fdct_quantize(t(res.astype(np.int16)), t(deq),
                                        t(inter))
+        sc = (t(rng.uniform(0.1, 8.0, n).astype(np.float32))
+              if rows > 1 and qti else None)
         args = (q, d, t(deq), t(inter),
-                np.float32(tables.RD_LAMBDA[0][qti][qi]), nb)
+                np.array([tables.RD_LAMBDA[0][qti][x] for x in qis],
+                         np.float32), nb, sc)
         before = trellis_cuda.trellis_quantize.launches
         got = trellis_cuda.trellis_quantize(*args)
         torch.cuda.synchronize()

@@ -1,9 +1,10 @@
 """The device GOP encoder of the PyTorch port as a whole, on the CPU:
-`GopEncoder(device="cpu")` against the JAX `TpuGopEncoder` in the
-configuration the port carries (fixed qi, the trellis,
-adaptive_quant=False), byte-identical packets, headers included; its
-closed-loop reconstruction against the port's own decoder; the
-encoder CLI against the JAX package's; the port's tables."""
+`GopEncoder(device="cpu")` against the JAX `TpuGopEncoder` at a fixed qi
+with the trellis and adaptive_quant=False on both sides, byte-identical
+packets, headers included; its closed-loop reconstruction against the
+port's own decoder; the encoder CLI against the JAX package's; the port's
+tables. Adaptive quantization, the default, is held to JAX in
+tests/test_torch_adaptive.py."""
 import hashlib
 import importlib.util
 import os
@@ -69,10 +70,13 @@ def jax_packets():
 
 
 def _port_encoder(fmt, qi, **kw):
+    """The port's encoder in the JAX twins' configuration:
+    adaptive_quant=False, as jax_packets sets it."""
     from theora_tpu_torch import info
     from theora_tpu_torch.encode.gop import GopEncoder
 
-    return GopEncoder(_info(info, fmt, qi), qi=qi, device="cpu", **kw)
+    return GopEncoder(_info(info, fmt, qi), qi=qi, device="cpu",
+                      adaptive_quant=False, **kw)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -147,7 +151,8 @@ def test_encoder_cli_equals_jax_cli(tmp_path):
     a, b = str(tmp_path / "jax.ogv"), str(tmp_path / "port.ogv")
     jenc.main(["--device", "--adaptive-quant", "off", "-q", "36", "-k", "8",
                y4m, a])
-    tenc.main(["--device", "cpu", "-q", "36", "-k", "8", y4m, b])
+    tenc.main(["--device", "cpu", "--adaptive-quant", "off", "-q", "36",
+               "-k", "8", y4m, b])
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
 

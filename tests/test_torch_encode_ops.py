@@ -62,7 +62,7 @@ def _k2_inputs(seed, n):
 
 def test_k2_plain_equals_jax_fdct_and_quantize():
     res, deq, inter = _k2_inputs(7, 20480)
-    q, d = fdct_cuda.fdct_quantize(_t(res), _t(deq), _t(inter))
+    (q,), d = fdct_cuda.fdct_quantize(_t(res), _t(deq[None]), _t(inter))
     dct = np.asarray(tj.fdct8x8(jnp.asarray(
         res.reshape(-1, 8, 8).astype(np.int32))))
     qj = np.asarray(tj.quantize(jnp.asarray(dct),
@@ -79,7 +79,7 @@ def test_k2_plain_equals_pallas_kernel_interpreted():
     soa_in = jnp.asarray(res.astype(np.int32).T)
     for row in (0, 1):
         inter = np.full(len(res), row, np.uint8)
-        q, _ = fdct_cuda.fdct_quantize(_t(res), _t(deq), _t(inter))
+        (q,), _ = fdct_cuda.fdct_quantize(_t(res), _t(deq[None]), _t(inter))
         soa = pk.fdct_quantize_soa(soa_in,
                                    jnp.asarray(deq[row].astype(np.int32)),
                                    interpret=True)
@@ -92,8 +92,8 @@ def test_k2_plain_equals_libtheora_fdct_vectors():
                         dtype=rec)
     n = len(cases)
     deq = np.full((2, 64), 8, np.int16)
-    q, d = fdct_cuda.fdct_quantize(_t(cases["x"]), _t(deq),
-                                   torch.zeros(n, dtype=torch.uint8))
+    (q,), d = fdct_cuda.fdct_quantize(_t(cases["x"]), _t(deq[None]),
+                                      torch.zeros(n, dtype=torch.uint8))
     assert n == 512
     assert np.array_equal(d.numpy(), cases["y"])
     qj = np.asarray(tj.quantize(jnp.asarray(cases["y"].astype(np.int32)),
@@ -111,8 +111,9 @@ def test_uint8_residual_is_taken_in_int32():
     pred = torch.full((1, 64), 255, dtype=torch.int32)
     res = plane_blocks(cur, 1, 1)[0].to(torch.int32) - pred
     assert int(res.min()) == -255
-    q, d = fdct_cuda.fdct_quantize(res.to(torch.int16),
-                                   torch.full((2, 64), 8, dtype=torch.int16),
+    _, d = fdct_cuda.fdct_quantize(res.to(torch.int16),
+                                   torch.full((1, 2, 64), 8,
+                                              dtype=torch.int16),
                                    torch.zeros(1, dtype=torch.uint8))
     want = np.asarray(tj.fdct8x8(jnp.full((1, 8, 8), -255, jnp.int32)))
     assert np.array_equal(d.numpy(), want)
@@ -207,17 +208,107 @@ def test_trellis_multiply_add_contraction_hazard():
     assert not np.array_equal(separate, xla)
 
 
+def test_trellis_fractional_lambda_fma_hazard():
+    """Hazard: with adaptive quantization's per-block lambda scales the
+    trellis lambda is fractional and lam * bits inexact, so where XLA's
+    CPU compiler fuses a multiply-add decides some blocks: it forms the
+    next-lower value's cost as fma(lam, bits, e * e) and the EOB cost as
+    fma(lam, bits, P[64] - P[i]) (the lone value's as fma(e, e, lam *
+    bits)). On the blocks of testdata/vectors/trellis_fma_cases.npz
+    (found by testdata/make_trellis_fma_cases.py: the other placement
+    changes them) the port equals JAX, the plain trellis and KT's wrapper
+    (lambda 1 times the block's scale) alike."""
+    cases = np.load(os.path.join(TESTDATA, "vectors",
+                                 "trellis_fma_cases.npz"))
+    dct = cases["dct"].astype(np.int32)
+    qi = cases["qi"].astype(np.int64)
+    qti = cases["qti"].astype(np.int64)
+    lam = cases["lam"]
+    assert len(dct) >= 20 and lam.dtype == np.float32
+    assert (lam != np.round(lam)).all()
+    args = list(_trellis_case(dct, qi, qti))
+    args[3] = lam
+    ref = np.asarray(jax.jit(tj.trellis_values)(*args))
+    got = transforms.trellis_values(*[_t(a) for a in args]).numpy()
+    assert np.array_equal(got, ref)
+    nb = torch.from_numpy(args[4])
+    for q, t in sorted(set(zip(qi.tolist(), qti.tolist()))):
+        sel = (qi == q) & (qti == t)
+        m = int(sel.sum())
+        deq = DQ[q, 0].astype(np.int16)
+        vals, _, _ = trellis_cuda.trellis_quantize(
+            _t(args[1][sel].astype(np.int16))[None],
+            _t(dct[sel].astype(np.int16)), _t(deq[None]),
+            torch.full((m,), t, dtype=torch.uint8),
+            np.ones(1, np.float32), nb, _t(lam[sel]))
+        assert np.array_equal(vals[0].numpy(), ref[sel]), (q, t)
+
+
+def test_k2_reciprocal_divide_is_exact():
+    """K2 (csrc/fdct_quant.cu) quantizes a DCT value v with dequant value
+    d without a divide: q = ((|v| + (d >> 1)) * m) >> 31, m = ceil(2^31 /
+    d), where the reference computes 2|v| >= d ? (2|v| + d) // (2d) : 0
+    (enquant.c). Proved here over the whole domain, d in [1, 32767] and
+    |v| in [0, 32768]:
+    (1) (|v| + (d >> 1)) // d equals the reference: both are
+        non-decreasing in |v|, the first steps exactly at |v| = j d -
+        (d >> 1), and the reference takes j - 1 just below and j at each
+        such point (and 0 at 0, the same value at 32768);
+    (2) for n = |v| + (d >> 1) in [0, 49151], (n * m) >> 31 == n // d:
+        it is non-decreasing in n and equals n // d at every multiple of
+        d and one below it (and at 49151);
+    and exhaustively over every |v| for each dequant value the encoder's
+    tables hold."""
+    n_max = 32768 + 16383
+
+    def ref(a, d):
+        return np.where(2 * a >= d, (2 * a + d) // (2 * d), 0)
+
+    def kernel(n, d):
+        return (n * (((1 << 31) + d - 1) // d)) >> 31
+
+    d_all = np.arange(1, 32768, dtype=np.int64)
+    # (1) the steps of (a + h) // d at a = j d - h, 1 <= a <= 32768.
+    h = d_all >> 1
+    cnt = (32768 + h) // d_all
+    d = np.repeat(d_all, cnt)
+    j = np.arange(len(d)) - np.repeat(np.cumsum(cnt) - cnt, cnt) + 1
+    a = j * d - (d >> 1)
+    assert a.min() >= 1 and a.max() <= 32768
+    assert np.array_equal(ref(a, d), j)
+    assert np.array_equal(ref(a - 1, d), j - 1)
+    assert not ref(np.zeros_like(d_all), d_all).any()
+    assert np.array_equal(ref(np.full_like(d_all, 32768), d_all),
+                          (32768 + h) // d_all)
+    # (2) the reciprocal at every multiple of d up to n_max and below it.
+    cnt = n_max // d_all + 1
+    d = np.repeat(d_all, cnt)
+    j = np.arange(len(d)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    assert np.array_equal(kernel(j * d, d), j)
+    assert np.array_equal(kernel(j[j > 0] * d[j > 0] - 1, d[j > 0]),
+                          j[j > 0] - 1)
+    assert np.array_equal(kernel(np.full_like(d_all, n_max), d_all),
+                          n_max // d_all)
+    # Exhaustively for the dequant values of the tables.
+    a = np.arange(32769, dtype=np.int64)[None, :]
+    for dv in np.array_split(np.unique(DQ).astype(np.int64), 8):
+        dv = dv[:, None]
+        assert np.array_equal(kernel(a + (dv >> 1), dv), ref(a, dv))
+
+
 def _kt_wrapper(dct, deq, inter, lam):
-    """Kernel KT's wrapper on CPU tensors (its plain path) for one frame:
-    [N, 64] DCT rows, a [2, 64] dequant pair, [N] inter flags, the frame's
-    lambda; the round-to-nearest values from the plain quantizer, as K2
-    computes them."""
+    """Kernel KT's wrapper on CPU tensors (its plain path) for one frame
+    at one qi row: [N, 64] DCT rows, a [2, 64] dequant pair, [N] inter
+    flags, the frame's lambda; the round-to-nearest values from the plain
+    quantizer, as K2 computes them. Returns the row's (values, counts,
+    DC-only flags)."""
     rows = _t(deq.astype(np.int32)[inter.astype(np.int64)])
     q = transforms.quantize(_t(dct.astype(np.int32)), rows).to(torch.int16)
-    return trellis_cuda.trellis_quantize(
-        q, _t(dct.astype(np.int16)), _t(deq.astype(np.int16)), _t(inter),
-        np.float32(lam), torch.from_numpy(
+    vals, cnt, dc_only = trellis_cuda.trellis_quantize(
+        q[None], _t(dct.astype(np.int16)), _t(deq.astype(np.int16)[None]),
+        _t(inter), np.array([lam], np.float32), torch.from_numpy(
             trellis_bit_costs(tables.VP31_HUFF_CODES)))
+    return vals[0], cnt[0], dc_only[0]
 
 
 def test_kt_wrapper_equals_jax_on_order_cases(order_cases):
@@ -259,8 +350,8 @@ def test_kt_wrapper_equals_jax_on_k2_outputs_and_edge_classes():
         inter = (np.zeros(n, np.uint8) if qti == 0
                  else rng.integers(0, 2, n).astype(np.uint8))
         res = rng.integers(-255, 256, (n, 64)) // rng.integers(1, 40, (n, 1))
-        _, d = fdct_cuda.fdct_quantize(_t(res.astype(np.int16)), _t(deq),
-                                       _t(inter))
+        _, d = fdct_cuda.fdct_quantize(_t(res.astype(np.int16)),
+                                       _t(deq[None]), _t(inter))
         dct = d.numpy().astype(np.int32)
         rows = deq.astype(np.int32)[inter.astype(np.int64)]
         sign = rng.choice([-1, 1], (n, 64))

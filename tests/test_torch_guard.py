@@ -3,7 +3,8 @@ package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
 kernel wrappers (K1, K2, KT) take their plain paths only for CPU tensors,
 KT is built without floating-point contraction, and the encoder settings
-it does not carry yet raise."""
+it does not carry yet raise NotImplementedError naming their ROADMAP
+item."""
 import ast
 import os
 
@@ -191,30 +192,65 @@ def test_gop_encoder_without_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(adaptive_quant=True), dict(adaptive_quant="auto"),
     dict(use_trellis=False), dict(target_bitrate=200000),
-    dict(auto_keyframe=True), dict(attribute="adaptive_quant"),
+    dict(auto_keyframe=True), dict(rate_window=4),
+    dict(call="set_splevel"), dict(call="encode_clip_pass1"),
+    dict(call="encode_clip_pass2"), dict(call="encode_clip_twopass"),
 ])
 def test_unsupported_settings_raise(setting):
     from theora_tpu_torch.encode.gop import GopEncoder
 
     frames = [[np.zeros((48, 64), np.uint8), np.zeros((24, 32), np.uint8),
                np.zeros((24, 32), np.uint8)]]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if "attribute" in setting:
-            GopEncoder(_small_info(), device="cpu").adaptive_quant = "auto"
-        elif set(setting) <= {"adaptive_quant", "use_trellis"}:
+    item = ("'Rate control'" if setting.get("call", "").startswith("encode")
+            or {"target_bitrate", "rate_window"} & set(setting)
+            else "'Speed levels'" if "use_trellis" in setting
+            or setting.get("call") == "set_splevel"
+            else "'Scene-cut keyframes'")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        if "call" in setting:
+            enc = GopEncoder(_small_info(), device="cpu")
+            if setting["call"] == "set_splevel":
+                enc.set_splevel(2)
+            elif setting["call"] == "encode_clip_pass2":
+                enc.encode_clip_pass2(frames, b"", target_bitrate=200000)
+            else:
+                getattr(enc, setting["call"])(frames,
+                                              target_bitrate=200000)
+        elif "use_trellis" in setting:
             GopEncoder(_small_info(), device="cpu", **setting)
         else:
             GopEncoder(_small_info(), device="cpu").encode_clip(frames,
                                                                 **setting)
 
 
+def test_encoder_settings_that_are_ported():
+    """adaptive_quant takes False, True and "auto" (the default) and
+    nothing else; rd_strength is a constructor argument; speed levels 0
+    and 1 (the encoder's one mode) are accepted."""
+    from theora_tpu_torch.encode.gop import GopEncoder
+
+    enc = GopEncoder(_small_info(), device="cpu")
+    assert enc.adaptive_quant == "auto" and enc.rd_strength == 3.0
+    for mode in (False, True, "auto"):
+        enc.adaptive_quant = mode
+        assert enc.adaptive_quant is mode
+    for bad in ("on", 1, None, "Auto"):
+        with pytest.raises(ValueError, match="adaptive_quant"):
+            enc.adaptive_quant = bad
+        with pytest.raises(ValueError, match="adaptive_quant"):
+            GopEncoder(_small_info(), device="cpu", adaptive_quant=bad)
+    assert GopEncoder(_small_info(), device="cpu",
+                      rd_strength=1.5).rd_strength == 1.5
+    enc.set_splevel(0)
+    enc.set_splevel(1)
+
+
 def _k2_args(device):
     n = 5
     return (
         torch.zeros((n, 64), dtype=torch.int16, device=device),
-        torch.full((2, 64), 8, dtype=torch.int16, device=device),
+        torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
         torch.zeros(n, dtype=torch.uint8, device=device),
     )
 
@@ -231,6 +267,11 @@ def test_k2_plain_path_only_for_cpu_tensors(monkeypatch):
 
     monkeypatch.setattr(transforms, "fdct_quantize", plain)
     fdct_cuda.fdct_quantize(*_k2_args("cpu"))
+    fdct_cuda.fdct_quantize(*_k2_args("cpu")[:1],
+                            torch.full((3, 2, 64), 8, dtype=torch.int16),
+                            *_k2_args("cpu")[2:])
+    assert calls == ["cpu", "cpu"]
+    calls.pop()
     assert calls == ["cpu"]
     with pytest.raises(ValueError, match="unsupported device"):
         fdct_cuda.fdct_quantize(*_k2_args("meta"))
@@ -245,6 +286,11 @@ def test_k2_plain_path_only_for_cpu_tensors(monkeypatch):
     (1, torch.full((2, 64), 8, dtype=torch.int32)),
     (2, torch.zeros(5, dtype=torch.bool)),
     (2, torch.zeros(4, dtype=torch.uint8)),
+    (1, torch.full((4, 2, 64), 8, dtype=torch.int16)),
+    (1, torch.full((0, 2, 64), 8, dtype=torch.int16)),
+    (1, torch.full((1, 2, 64), 8, dtype=torch.int32)),
+    (1, torch.full((1, 3, 64), 8, dtype=torch.int16)),
+    (0, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(5, 64)),
 ])
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
     from theora_tpu_torch.ops import fdct_cuda
@@ -260,7 +306,11 @@ def test_k2_wrapper_output_on_cpu():
 
     q, d = fdct_cuda.fdct_quantize(*_k2_args("cpu"))
     assert q.dtype == d.dtype == torch.int16
-    assert q.shape == d.shape == (5, 64)
+    assert q.shape == (1, 5, 64) and d.shape == (5, 64)
+    q3, _ = fdct_cuda.fdct_quantize(
+        _k2_args("cpu")[0], torch.full((3, 2, 64), 8, dtype=torch.int16),
+        _k2_args("cpu")[2])
+    assert q3.shape == (3, 5, 64)
     assert fdct_cuda.fdct_quantize.launches == 0
 
 
@@ -269,12 +319,13 @@ def test_k2_wrapper_output_on_cpu():
 def _kt_args(device):
     n = 5
     return (
+        torch.zeros((1, n, 64), dtype=torch.int16, device=device),
         torch.zeros((n, 64), dtype=torch.int16, device=device),
-        torch.zeros((n, 64), dtype=torch.int16, device=device),
-        torch.full((2, 64), 8, dtype=torch.int16, device=device),
+        torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
         torch.zeros(n, dtype=torch.uint8, device=device),
-        np.float32(100.0),
+        np.array([100.0], np.float32),
         torch.ones((64, 32), dtype=torch.float32, device=device),
+        None,
     )
 
 
@@ -321,6 +372,17 @@ def test_kt_plain_path_only_for_cpu_tensors(monkeypatch):
     (5, torch.ones((32, 64), dtype=torch.float32).t()),
     (5, torch.ones((64, 31), dtype=torch.float32)),
     (5, torch.ones((64, 32), dtype=torch.float16)),
+    (0, torch.zeros((4, 5, 64), dtype=torch.int16)),
+    (0, torch.zeros((2, 5, 64), dtype=torch.int16)),
+    (2, torch.full((2, 2, 64), 8, dtype=torch.int16)),
+    (4, np.array([float("nan")], np.float32)),
+    (4, np.array([-1.0], np.float32)),
+    (4, np.array([100.0], np.float64)),
+    (4, np.array([100.0, 100.0], np.float32)),
+    (4, np.float32(100.0)),
+    (6, torch.ones(4, dtype=torch.float32)),
+    (6, torch.ones(5, dtype=torch.float64)),
+    (6, torch.ones(5, dtype=torch.float32, device="meta")),
 ])
 def test_kt_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
     from theora_tpu_torch.ops import trellis_cuda
@@ -367,8 +429,15 @@ def test_kt_wrapper_output_on_cpu():
     from theora_tpu_torch.ops import trellis_cuda
 
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(*_kt_args("cpu"))
-    assert vals.dtype == torch.int16 and vals.shape == (5, 64)
-    assert cnt.dtype == torch.int32 and cnt.shape == (5,)
-    assert dc_only.dtype == torch.bool and dc_only.shape == (5,)
+    assert vals.dtype == torch.int16 and vals.shape == (1, 5, 64)
+    assert cnt.dtype == torch.int32 and cnt.shape == (1, 5)
+    assert dc_only.dtype == torch.bool and dc_only.shape == (1, 5)
     assert not vals.any() and not cnt.any() and dc_only.all()
+    args = list(_kt_args("cpu"))
+    args[0] = torch.zeros((3, 5, 64), dtype=torch.int16)
+    args[2] = torch.full((3, 2, 64), 8, dtype=torch.int16)
+    args[4] = np.array([1.0, 2.0, 3.0], np.float32)
+    args[6] = torch.full((5,), 0.5)
+    vals, cnt, dc_only = trellis_cuda.trellis_quantize(*args)
+    assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
     assert trellis_cuda.trellis_quantize.launches == 0

@@ -1,33 +1,48 @@
 // Kernel K2: 8x8 integer forward DCT + round-to-nearest quantization of the
-// encode scan, for NVIDIA Hopper (sm_90a).
+// encode scan at K quantizer rows, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas kernel theora_tpu/ops/pallas_kernels.py:
 // fdct_quantize_soa (body _fdct_quant_kernel), which computes the function
 // of `fdct8x8` + `quantize` in the JAX encode scan
-// (theora_tpu/encode/tpu_gop.py:203-218). Besides the quantized values it
-// writes the unquantized zig-zag DCT, which the trellis reads. Plain
-// PyTorch version: theora_tpu_torch/ops/transforms.py:fdct_quantize.
+// (theora_tpu/encode/tpu_gop.py:203-218); with adaptive quantization the
+// scan quantizes one fDCT with each of its K <= 3 qi rows
+// (tpu_gop.py:249-264). Besides the K quantized rows it writes the
+// unquantized zig-zag DCT, which the trellis reads. Plain PyTorch version:
+// theora_tpu_torch/ops/transforms.py:fdct_quantize.
 //
-// Per 8x8 block b (raster index k = 8*row + col, zig-zag index z):
-//   x[k]  = res[b][k] << 2; x[0] += (x[0] != 0) + 1; x[1] += 1; x[8] -= 1
+// Per 8x8 block b (raster index r = 8*row + col, zig-zag index z):
+//   x[r]  = res[b][r] << 2; x[0] += (x[0] != 0) + 1; x[1] += 1; x[8] -= 1
 //           (the systematic-error biases, fdct.c:134-141)
 //   y     = 1-D fDCT of each column of x, written as the rows of y;
 //   w     = 1-D fDCT of each column of y (fdct.c:27-120, int16 wrap of
 //           every output);
 //   dct[z] = i16((w[zig[z]] + 2) >> 2)
-//   d     = deq[inter[b]][z]; v2 = 2|dct[z]|
-//   q[z]  = sign(dct[z]) * (v2 >= d ? (v2 + d) / (2d) : 0)   (enquant.c)
-// All arithmetic is int32; products go through uint32 so a wrap is
+//   d     = deq[k][inter[b]][z]; v2 = 2|dct[z]|
+//   q[k][z] = sign(dct[z]) * (v2 >= d ? (v2 + d) / (2d) : 0)  (enquant.c)
+// The divide is exact without a divide instruction:
+//   (v2 >= d ? (v2 + d) / (2d) : 0) == (|v| + (d >> 1)) / d
+// (v2 + d is odd or even as d is, so halving it floors to |v| + (d >> 1);
+// where v2 < d that is below d), and for d in [1, 32767] and
+// n = |v| + (d >> 1) <= 49151,
+//   n / d == (n * m) >> 31,  m = ceil(2^31 / d),
+// since m * d - 2^31 < d and n * (m * d - 2^31) < 2^31. The reciprocals are
+// computed once per CTA beside the staged dequant rows;
+// tests/test_torch_encode_ops.py proves the identity over the whole domain.
+// All other arithmetic is int32; products go through uint32 so a wrap is
 // defined, and right shifts of negative values are arithmetic, as in JAX.
 //
 // Bound: memory. Per block the kernel reads 128 B of residuals and 1 B of
-// flag and writes 2 x 128 B (the 256 B of dequant rows stay in L1/L2):
-// ~385 B against ~1,300 int32 operations, far below the card's
-// operations-per-byte balance. Design (as kernel K1): a thread block takes
-// 32 blocks; residuals are staged through shared memory with coalesced
-// loads, 8 threads per block run one column each in both passes (a row of
-// 9 words keeps the second pass's reads on distinct banks), and both
-// outputs leave through shared memory with coalesced stores.
+// flag and writes 128 B of DCT and K x 128 B of values (641 B at K = 3);
+// the K x 256 B of dequant rows are read once per CTA. Design: 8 lanes per
+// block, 4 blocks per warp, 8 warps per CTA; a block's work stays inside
+// its warp (shared memory between __syncwarp()s). Lane c loads raster row c
+// as one 16-byte vector and parks it in shared memory; pass 1 reads column
+// c, pass 2 reads column c of pass 1's output (a row of 9 words keeps those
+// reads on distinct banks, and a block's area of 136 words puts the 4
+// blocks of a warp 8 banks apart); the DCT goes back as natural rows, lane
+// c gathers zig-zag positions 8c..8c+7 from it, and stores the DCT vector
+// and, for each qi row, the quantized vector, each as one 16-byte store:
+// the K quantizations read the DCT from registers.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
@@ -36,18 +51,34 @@
 
 namespace {
 
-constexpr int kBlocksPerCta = 32;
-constexpr int kThreads = kBlocksPerCta * 8;
+constexpr int kMaxRows = 3;            // qi rows per launch
+constexpr int kLanes = 8;              // lanes per 8x8 block
+constexpr int kGroups = 32 / kLanes;   // blocks per warp
+// Warps per CTA; tools/bench_fdct.py --warps builds other shapes.
+#ifndef K2_WARPS
+#define K2_WARPS 8
+#endif
+constexpr int kWarps = K2_WARPS;
+constexpr int kBlocksPerCta = kWarps * kGroups;
+constexpr int kThreads = kWarps * 32;
 
 constexpr int C1S7 = 64277, C2S6 = 60547, C3S5 = 54491, C5S3 = 36410,
               C6S2 = 25080, C7S1 = 12785;
 
-// Row-major coefficient index -> zig-zag index.
-__constant__ int8_t kNatToZig[64] = {
-    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
-    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
-    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
-    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+// Zig-zag index -> row-major coefficient index.
+__constant__ int8_t kZigToNat[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// One 8x8 block's shared memory: 136 words, so the 4 blocks of a warp sit
+// 8 banks apart.
+struct BlockArea {
+  int4 rows[8];   // raster rows of the residual, later of the DCT (int16)
+  int32_t y[72];  // pass 1's output, rows of 9 words
+  int32_t pad[32];
+};
 
 __device__ __forceinline__ int32_t i16(int32_t x) {
   return ((x + 0x8000) & 0xFFFF) - 0x8000;
@@ -102,70 +133,103 @@ __device__ __forceinline__ void fdct8(const int32_t x[8], int32_t y[8]) {
   y[7] = i16(((mul(s, 20539) + 0x3000) >> 20) + s + nz(s));
 }
 
+// The eight int16 of a 16-byte vector, in memory order, and back.
+__device__ __forceinline__ void unpack8(int4 v, int32_t x[8]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int m = 0; m < 4; m++) {
+    x[2 * m] = (int16_t)(w[m] & 0xFFFF);
+    x[2 * m + 1] = w[m] >> 16;
+  }
+}
+
+__device__ __forceinline__ int4 pack8(const int32_t x[8]) {
+  int w[4];
+#pragma unroll
+  for (int m = 0; m < 4; m++)
+    w[m] = (x[2 * m] & 0xFFFF) | (int)((uint32_t)x[2 * m + 1] << 16);
+  return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 fdct_quant_kernel(const int16_t* __restrict__ res,
                   const int16_t* __restrict__ deq,
                   const uint8_t* __restrict__ inter,
                   int16_t* __restrict__ qout, int16_t* __restrict__ dout,
                   int64_t n) {
-  __shared__ int16_t s_in[kBlocksPerCta * 64];
-  // First-pass output; a row of 9 words keeps the column reads of the
-  // second pass on distinct banks.
-  __shared__ int32_t s_y[kBlocksPerCta * 8 * 9];
-  __shared__ int16_t s_q[kBlocksPerCta * 64];
-  __shared__ int16_t s_d[kBlocksPerCta * 64];
+  __shared__ BlockArea areas[kBlocksPerCta];
+  // The K qi rows [k][inter][z] and their reciprocals ceil(2^31 / d).
+  __shared__ __align__(16) int16_t s_deq[K * 2 * 64];
+  __shared__ __align__(16) uint32_t s_rcp[K * 2 * 64];
 
-  const int64_t first = (int64_t)blockIdx.x * kBlocksPerCta;
-  const int nb = (int)min((int64_t)kBlocksPerCta, n - first);
   const int tid = threadIdx.x;
-
-  const int16_t* src = res + first * 64;
-  for (int k = tid; k < nb * 64; k += kThreads) s_in[k] = src[k];
-  __syncthreads();
-
-  const int lb = tid >> 3;  // local block
-  const int c = tid & 7;    // column (first pass), row of y (second)
-  const bool live = lb < nb;
-  if (live) {
-    int32_t x[8], y[8];
-#pragma unroll
-    for (int k = 0; k < 8; k++) x[k] = (int32_t)s_in[lb * 64 + 8 * k + c] * 4;
-    if (c == 0) {
-      x[0] += nz(x[0]) + 1;
-      x[1] -= 1;  // raster index 8
-    } else if (c == 1) {
-      x[0] += 1;  // raster index 1
-    }
-    fdct8(x, y);
-#pragma unroll
-    for (int j = 0; j < 8; j++) s_y[(lb * 8 + c) * 9 + j] = y[j];
+  for (int e = tid; e < K * 2 * 64; e += kThreads) {
+    const uint32_t d = (uint32_t)deq[e];
+    s_deq[e] = (int16_t)d;
+    s_rcp[e] = (0x80000000u + d - 1) / d;
   }
   __syncthreads();
 
-  if (live) {
-    int32_t x[8], w[8];
-#pragma unroll
-    for (int k = 0; k < 8; k++) x[k] = s_y[(lb * 8 + k) * 9 + c];
-    fdct8(x, w);
-    const int16_t* row = deq + (inter[first + lb] ? 64 : 0);
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      const int z = kNatToZig[8 * c + j];
-      const int32_t v = i16((w[j] + 2) >> 2);
-      const int32_t d = row[z];
-      const int32_t v2 = (v < 0 ? -v : v) << 1;
-      const int32_t q = v2 >= d ? (v2 + d) / (2 * d) : 0;
-      s_d[lb * 64 + z] = (int16_t)v;
-      s_q[lb * 64 + z] = (int16_t)(v < 0 ? -q : q);
-    }
-  }
-  __syncthreads();
+  const int c = tid & (kLanes - 1);       // row (in), column (passes)
+  const int lb = tid / kLanes;            // local block
+  BlockArea& A = areas[lb];
+  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + lb;
+  const bool live = b < n;
 
-  int16_t* qdst = qout + first * 64;
-  int16_t* ddst = dout + first * 64;
-  for (int k = tid; k < nb * 64; k += kThreads) {
-    qdst[k] = s_q[k];
-    ddst[k] = s_d[k];
+  int32_t x[8];
+  A.rows[c] = live ? reinterpret_cast<const int4*>(res)[b * 8 + c]
+                   : make_int4(0, 0, 0, 0);
+  __syncwarp();
+  const int16_t* in = reinterpret_cast<const int16_t*>(A.rows);
+#pragma unroll
+  for (int k = 0; k < 8; k++) x[k] = (int32_t)in[8 * k + c] * 4;
+  if (c == 0) {
+    x[0] += nz(x[0]) + 1;
+    x[1] -= 1;  // raster index 8
+  } else if (c == 1) {
+    x[0] += 1;  // raster index 1
+  }
+  int32_t y[8];
+  fdct8(x, y);
+#pragma unroll
+  for (int j = 0; j < 8; j++) A.y[c * 9 + j] = y[j];
+  __syncwarp();
+
+#pragma unroll
+  for (int k = 0; k < 8; k++) x[k] = A.y[k * 9 + c];
+  fdct8(x, y);
+  // Natural row c of the DCT.
+#pragma unroll
+  for (int j = 0; j < 8; j++) y[j] = i16((y[j] + 2) >> 2);
+  A.rows[c] = pack8(y);
+  __syncwarp();
+
+  // Zig-zag positions 8c..8c+7.
+  int32_t v[8];
+#pragma unroll
+  for (int t = 0; t < 8; t++) v[t] = in[kZigToNat[8 * c + t]];
+  if (live) {
+    reinterpret_cast<int4*>(dout)[b * 8 + c] = pack8(v);
+    const int t = inter[b] ? 1 : 0;
+#pragma unroll
+    for (int k = 0; k < K; k++) {
+      const int row = (k * 2 + t) * 64 + 8 * c;
+      int32_t d[8];
+      unpack8(*reinterpret_cast<const int4*>(s_deq + row), d);
+      const uint4 m0 = *reinterpret_cast<const uint4*>(s_rcp + row);
+      const uint4 m1 = *reinterpret_cast<const uint4*>(s_rcp + row + 4);
+      const uint32_t m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+      int32_t q[8];
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        const uint32_t a = (uint32_t)(v[j] < 0 ? -v[j] : v[j]);
+        const uint32_t qa = (uint32_t)(
+            ((uint64_t)(a + ((uint32_t)d[j] >> 1)) * m[j]) >> 31);
+        q[j] = v[j] < 0 ? -(int32_t)qa : (int32_t)qa;
+      }
+      reinterpret_cast<int4*>(qout)[((int64_t)k * n + b) * 8 + c] = pack8(q);
+    }
   }
 }
 
@@ -173,10 +237,19 @@ fdct_quant_kernel(const int16_t* __restrict__ res,
 
 extern "C" int th_fdct_quant(const int16_t* res, const int16_t* deq,
                              const uint8_t* inter, int16_t* qout,
-                             int16_t* dout, int64_t n, void* stream) {
+                             int16_t* dout, int64_t n, int k, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > kMaxRows) return (int)cudaErrorInvalidValue;
   const int64_t grid = (n + kBlocksPerCta - 1) / kBlocksPerCta;
-  fdct_quant_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      res, deq, inter, qout, dout, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1)
+    fdct_quant_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(
+        res, deq, inter, qout, dout, n);
+  else if (k == 2)
+    fdct_quant_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(
+        res, deq, inter, qout, dout, n);
+  else
+    fdct_quant_kernel<3><<<(unsigned)grid, kThreads, 0, s>>>(
+        res, deq, inter, qout, dout, n);
   return (int)cudaGetLastError();
 }

@@ -7,27 +7,36 @@
 // TPU. Plain PyTorch version: theora_tpu_torch/ops/transforms.py:
 // trellis_quantize (trellis_values behind the casts of this interface).
 //
-// Interface: kernel K2's outputs as K2 writes them ([N, 64] int16 round-to-
-// nearest values and unquantized DCT, zig-zag), K2's [2, 64] int16 dequant
-// rows (intra, inter) and [N] uint8 inter flags, the frame's float32 lambda
-// and the [64, 32] float32 token bit table. Per block the kernel takes the
-// dequant row deq[inter] and acmin (0 for an inter block, 3 for an intra
-// one). It writes the chosen values ([N, 64] int16, DC passed through),
-// their nonzero count ([N] int32) and whether no AC value is nonzero ([N]
-// bool), which kernel K1 and the skip test read as they are.
+// Interface: kernel K2's outputs as K2 writes them ([K, N, 64] int16
+// round-to-nearest values at K <= 3 qi rows and the [N, 64] unquantized
+// DCT, zig-zag), K2's [K, 2, 64] int16 dequant rows (per qi row intra,
+// inter) and [N] uint8 inter flags, the frame's float32 lambda per qi row,
+// an optional [N] float32 lambda scale per block (adaptive quantization's
+// activity masking) and the [64, 32] float32 token bit table. One launch
+// covers the K x N (row, block) pairs. Pair (k, n) takes the dequant row
+// deq[k][inter[n]], acmin (0 for an inter block, 3 for an intra one) and
+// the lambda lam[k] * lam_sc[n] (one float32 product, in the order of
+// theora_tpu/encode/tpu_gop.py:228; lam[k] without scales). It writes the
+// chosen values ([K, N, 64] int16, DC passed through), their nonzero count
+// ([K, N] int32) and whether no AC value is nonzero ([K, N] bool), which
+// kernel K1 and the chooser read as they are.
 //
 // Exact float32. The decisions must equal the JAX package's, which are what
 // XLA on the CPU computes, and so the plain version's:
 //   - the prefix sum of c^2 is taken in XLA's chunk-16 order: sequential
 //     inside each chunk of 16 positions, the chunk totals summed
 //     sequentially and added to each chunk (transforms.py:_xla_cumsum16);
-//   - the token costs e*e + lam*bits round once (XLA contracts them into a
-//     fused multiply-add): __fmaf_rn(e, e, lam * bits);
+//   - XLA contracts the three cost sums that take a lambda into fused
+//     multiply-adds, each with its own product fused: the value's token
+//     cost __fmaf_rn(e, e, lam * bits), the next-lower value's
+//     __fmaf_rn(lam, bits, e * e) and the EOB cost
+//     __fmaf_rn(lam, bits, P[64] - P[i]) (transforms.py, the note above
+//     trellis_values);
 //   - every other product and sum is a separate IEEE operation in the
 //     Python's left-to-right order, parenthesised as the Python groups it:
 //     the file is built with -fmad=false, so nvcc contracts nothing but the
 //     explicit __fmaf_rn (and never with --use_fast_math). lam * bits is
-//     the same product whether formed per use or once per table entry;
+//     formed where it is used, from the block's own lambda;
 //   - the "infinite" cost is the finite float32 1e30, as in the reference;
 //   - ties take the first position (jnp.argmin).
 //
@@ -50,9 +59,9 @@
 // a chain of 63 dependent steps per block, so the design keeps many blocks
 // in flight and each step short.
 // Design: 8 lanes per block, 4 blocks per warp, 4 warps per CTA; a grid of
-// the CTAs the card holds at once, whose warps walk over the blocks. A CTA
-// computes the table lam * bits [64][32] and stages the dequant rows in
-// shared memory once. Lane g loads positions 8g..8g+7 of each input row as
+// the CTAs the card holds at once, whose warps walk over the (row, block)
+// pairs. A CTA stages the bit table [64][32] and the dequant rows in shared
+// memory once; a block's lambda multiplies the bits where they are used. Lane g loads positions 8g..8g+7 of each input row as
 // one 16-byte vector, derives their constants and sums c^2 in chunk order
 // (a chunk is two lanes, which chain their partial sums). The nonzero AC
 // positions of the block are compacted, in ascending order, into a list in
@@ -106,9 +115,10 @@ struct BlockArea {
 };
 
 constexpr int kNb = 64 * 32;  // bit table entries
+constexpr int kMaxRows = 3;  // qi rows per launch
 constexpr size_t kSmemBytes = kBlocksPerCta * sizeof(BlockArea) +
                               kNb * sizeof(float) + 64 * sizeof(float4) +
-                              2 * 64 * sizeof(int16_t);
+                              kMaxRows * 2 * 64 * sizeof(int16_t);
 
 // Token id of a lone coefficient of magnitude mag >= 1 (tokenize.c).
 __device__ __forceinline__ int value_token(int mag, int neg) {
@@ -147,33 +157,29 @@ __global__ void __launch_bounds__(kThreads, 4)
 trellis_kernel(const int16_t* __restrict__ qrtn,
                const int16_t* __restrict__ dct,
                const int16_t* __restrict__ deq_in,
-               const uint8_t* __restrict__ inter_in, float lam,
+               const uint8_t* __restrict__ inter_in, float lam0, float lam1,
+               float lam2, const float* __restrict__ lam_sc,
                const float* __restrict__ nb_full, int16_t* __restrict__ out,
                int32_t* __restrict__ cnt_out, uint8_t* __restrict__ dc_only,
-               int64_t n) {
+               int64_t n, int nrows) {
   extern __shared__ float4 smem[];
   BlockArea* areas = reinterpret_cast<BlockArea*>(smem);
-  float* s_lnb = reinterpret_cast<float*>(areas + kBlocksPerCta);
-  // Per step i: lam * bits of the zero runs up to 8 and longer (tokens 7,
-  // 8) and of the +-2/3 combo after a run of 1 and of 2 (tokens 30, 31).
-  float4* s_step = reinterpret_cast<float4*>(s_lnb + kNb);
+  float* s_nb = reinterpret_cast<float*>(areas + kBlocksPerCta);
+  // Per step i: the bits of the zero runs up to 8 and longer (tokens 7, 8)
+  // and of the +-2/3 combo after a run of 1 and of 2 (tokens 30, 31).
+  float4* s_step = reinterpret_cast<float4*>(s_nb + kNb);
   int16_t* s_deq = reinterpret_cast<int16_t*>(s_step + 64);
   {
     const float4* nb4 = reinterpret_cast<const float4*>(nb_full);
-    float4* lnb4 = reinterpret_cast<float4*>(s_lnb);
+    float4* snb4 = reinterpret_cast<float4*>(s_nb);
 #pragma unroll
-    for (int k = 0; k < kNb / 4 / kThreads; k++) {
-      const float4 v = nb4[threadIdx.x + k * kThreads];
-      lnb4[threadIdx.x + k * kThreads] =
-          make_float4(lam * v.x, lam * v.y, lam * v.z, lam * v.w);
-    }
+    for (int k = 0; k < kNb / 4 / kThreads; k++)
+      snb4[threadIdx.x + k * kThreads] = nb4[threadIdx.x + k * kThreads];
     const int t = threadIdx.x;
     if (t < 64)
-      s_step[t] = make_float4(lam * nb_full[t * 32 + 7],
-                              lam * nb_full[t * 32 + 8],
-                              lam * nb_full[t * 32 + 30],
-                              lam * nb_full[t * 32 + 31]);
-    if (t < 2 * 64) s_deq[t] = deq_in[t];
+      s_step[t] = make_float4(nb_full[t * 32 + 7], nb_full[t * 32 + 8],
+                              nb_full[t * 32 + 30], nb_full[t * 32 + 31]);
+    for (int e = t; e < nrows * 2 * 64; e += kThreads) s_deq[e] = deq_in[e];
   }
   __syncthreads();
 
@@ -182,20 +188,27 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
   const int g = lane & (kLanes - 1);  // lane within the block's group
   BlockArea& A = areas[warp * kGroups + lane / kLanes];
   const float inf = __int_as_float(0x7f800000);
-  const int64_t ngroups = (n + kGroups - 1) / kGroups;
+  const int64_t total = n * nrows;  // (row, block) pairs, row-major
+  const int64_t ngroups = (total + kGroups - 1) / kGroups;
   for (int64_t wg = (int64_t)blockIdx.x * kWarps + warp; wg < ngroups;
        wg += (int64_t)gridDim.x * kWarps) {
     const int64_t b = wg * kGroups + lane / kLanes;
-    const bool live = b < n;
+    const bool live = b < total;
+    // The pair's qi row and block.
+    const int row = (int)(b >= n) + (int)(b >= 2 * n);
+    const int64_t blk = b - row * n;
     __syncwarp();  // the previous block's reads of A are done
     int q[8], cd[8];
     int inter = 0;
+    float lam = 0.f;
     {
       int4 qv = make_int4(0, 0, 0, 0), dv = qv;
       if (live) {
         qv = reinterpret_cast<const int4*>(qrtn)[b * 8 + g];
-        dv = reinterpret_cast<const int4*>(dct)[b * 8 + g];
-        inter = inter_in[b] != 0;
+        dv = reinterpret_cast<const int4*>(dct)[blk * 8 + g];
+        inter = inter_in[blk] != 0;
+        lam = row == 0 ? lam0 : (row == 1 ? lam1 : lam2);
+        if (lam_sc != nullptr) lam = lam * lam_sc[blk];
       }
       unpack8(qv, q);
       unpack8(dv, cd);
@@ -261,7 +274,7 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
       L = max(L, __shfl_xor_sync(kFull, L, o));
 
     // ---- per-position constants (transforms.py:285-314) ----
-    const int16_t* drow = s_deq + (inter ? 64 : 0);
+    const int16_t* drow = s_deq + (live ? (row * 2 + inter) * 64 : 0);
     const int acmin = inter ? 0 : 3;
 #pragma unroll
     for (int k = 0; k < 8; k++) {
@@ -269,7 +282,7 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
       const int qk = q[k];
       const float cf = (float)cd[k];
       const float df = (float)drow[j];
-      const float* lnb = s_lnb + j * 32;
+      const float* nbj = s_nb + j * 32;
       const int aj = qk < 0 ? -qk : qk;
       const int sj = qk < 0 ? -1 : 1;
       const int cv23 = sj * (aj > 2 ? 3 : 2);
@@ -277,16 +290,17 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
       const int neg = qk < 0;
       const int altm = alt_mag(a_cl);
       // Positions below acmin code values rate-free (lam 0).
-      const float lnA = j < acmin ? 0.f : lnb[value_token(max(a_cl, 1), neg)];
-      const float lnB = j < acmin ? 0.f : lnb[value_token(max(altm, 1), neg)];
+      const float lamv = j < acmin ? 0.f : lam;
       const float eA = (float)(a_cl * sj) * df - cf;
       const float eB = (float)(altm * sj) * df - cf;
-      const float cA = __fmaf_rn(eA, eA, lnA);
-      const float cB = __fmaf_rn(eB, eB, lnB);
+      const float cA =
+          __fmaf_rn(eA, eA, lamv * nbj[value_token(max(a_cl, 1), neg)]);
+      const float cB =
+          __fmaf_rn(lamv, nbj[value_token(max(altm, 1), neg)], eB * eB);
       const bool useB = altm >= 1 && cB < cA;
       const float c1s = aj >= 1 ? (useB ? cB : cA) : kBig;
       const int v1 = aj >= 1 ? (useB ? altm * sj : a_cl * sj) : 0;
-      const float costc = (P64 - P[k]) + lnb[0];
+      const float costc = __fmaf_rn(lam, nbj[0], P64 - P[k]);
       const bool nz = (nzm >> k) & 1;
       A.pos[j] = make_float4(P[k], costc, c1s,
                              __int_as_float((v1 & 0xFFFF) | (nz ? kNz : 0)));
@@ -314,8 +328,10 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
     for (int i = Lmax; i >= 1; i--) {
       const float4 s = A.pos[i];
       const float Pi = s.x;
-      const float* lnb = s_lnb + i * 32;
-      const float4 ls = s_step[i];  // lam * bits of tokens 7, 8, 30, 31
+      const float* nbi = s_nb + i * 32;
+      const float4 st = s_step[i];  // bits of tokens 7, 8, 30, 31
+      const float4 ls =
+          make_float4(lam * st.x, lam * st.y, lam * st.z, lam * st.w);
       // The i == 1 step keeps one slot of headroom for a zero DC.
       const int lim1 = i == 1 ? 16 : 17;
       const int lim23 = i == 1 ? 2 : 3;
@@ -331,7 +347,8 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
         const float costa = (D2 + (r <= 8 ? ls.x : ls.y)) + d.x;
         float b1 = inf, b23 = inf;
         if ((meta & kHas1) && r <= lim1)
-          b1 = ((a.y + D2) + lnb[r <= 5 ? 22 + r : (r <= 9 ? 28 : 29)]) + d.y;
+          b1 = ((a.y + D2) + lam * nbi[r <= 5 ? 22 + r : (r <= 9 ? 28 : 29)]) +
+               d.y;
         if ((meta & kHas23) && r <= lim23)
           b23 = ((a.z + D2) + (r == 1 ? ls.z : ls.w)) + d.y;
         const float mb = fminf(b1, b23);
@@ -417,10 +434,12 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
 
 extern "C" int th_trellis(const int16_t* qrtn, const int16_t* dct,
                           const int16_t* deq, const uint8_t* inter,
-                          float lam, const float* nb_full, int16_t* out,
-                          int32_t* cnt, uint8_t* dc_only, int64_t n,
-                          void* stream) {
+                          float lam0, float lam1, float lam2,
+                          const float* lam_sc, const float* nb_full,
+                          int16_t* out, int32_t* cnt, uint8_t* dc_only,
+                          int64_t n, int nrows, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (nrows < 1 || nrows > kMaxRows) return (int)cudaErrorInvalidValue;
   // The CTAs the card holds at once (its first use sets the shared memory
   // limit and reads the SM count).
   static int resident = 0;
@@ -439,9 +458,10 @@ extern "C" int th_trellis(const int16_t* qrtn, const int16_t* dct,
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident = sms * per_sm;
   }
-  const int64_t need = (n + kBlocksPerCta - 1) / kBlocksPerCta;
+  const int64_t need = (n * nrows + kBlocksPerCta - 1) / kBlocksPerCta;
   const int grid = (int)(need < resident ? need : resident);
   trellis_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      qrtn, dct, deq, inter, lam, nb_full, out, cnt, dc_only, n);
+      qrtn, dct, deq, inter, lam0, lam1, lam2, lam_sc, nb_full, out, cnt,
+      dc_only, n, nrows);
   return (int)cudaGetLastError();
 }

@@ -3,21 +3,23 @@ the reconstruction on the card; mode decision and entropy coding on the
 host.
 
 Port of theora_tpu/encode/tpu_gop.py (`TpuGopEncoder`: the constructor,
-`set_qi`, `_lam_t_for`, `_decide_frames`, `_frag_plan`, `_plane_inputs`,
-`dispatch_me`, `complete_dispatch` and `finish_gop` (one `_encode_chunk`
-here), `_pack_gop`, `encode_gop`, `encode_clip` and `gop_starts`) for the
-configuration the port supports: a fixed qi, the trellis at the default
-rd_strength, no adaptive quantization, no rate control and fixed keyframe
-spacing. Its packets are byte-identical to the JAX encoder's in that
-configuration.
+`set_qi`, `_lam_t_for`, `_adaptive_qis`, `_decide_frames`, `_frag_plan`,
+`_plane_inputs`, `dispatch_me`, `complete_dispatch` and `finish_gop`
+(one `_encode_chunk` here), `_pack_gop`, `encode_gop`, `encode_clip` and
+`gop_starts`) for the configuration the port supports: a fixed qi, the
+trellis at any rd_strength, adaptive quantization (False, True or the
+default "auto"), no rate control and fixed keyframe spacing. Its packets
+are byte-identical to the JAX encoder's in that configuration.
 
 Per chunk of frames (consecutive GOPs, `clip_batch` frames at most):
   1. upload the luma stack; the ME plan (ops/me.py) on the device;
   2. download the plan; the host's sequential mode decision
-     (native `mode_decide_native`) and per-fragment plan;
-  3. per plane, the closed-loop encode (encode/scan.py: kernels K2 and
-     K1) on the device;
-  4. download the coded flags, nonzero counts and the nonzero
+     (native `mode_decide_native`) and per-fragment plan; per frame the
+     adaptive-quantization gates and qi list (encode/aq.py), padded to
+     the chunk's longest list by repeating the base qi;
+  3. per plane, the closed-loop encode (encode/scan.py: kernels K2, KT
+     and K1 once per frame at every qi row) on the device;
+  4. download the coded flags, nonzero counts, qi indices and the nonzero
      coefficients (sized by their true count), then pack on the host
      (encode/packer.py).
 The chunks run one after the other: GOPs are independent, so overlapping
@@ -49,6 +51,7 @@ from theora_tpu_torch.constants import (
     ZZI_GROUP,
 )
 from theora_tpu_torch.decode.decoder import _MVMAP, _MVMAP2
+from theora_tpu_torch.encode import aq
 from theora_tpu_torch.encode.packer import FramePacker
 from theora_tpu_torch.encode.scan import encode_plane
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME, TheoraInfo
@@ -60,13 +63,17 @@ from theora_tpu_torch.tpkt import Packet
 
 # The settings of the JAX encoder this port does not carry yet, each with
 # the ROADMAP.md item that ports it.
+_SPEED = "speed levels 2-4 and quantize_rd (ROADMAP.md section 1, " \
+         "'Speed levels')"
+_RATE = "CBR and 2-pass rate control (ROADMAP.md section 1, 'Rate control')"
 _TODO = {
-    "adaptive_quant": "adaptive quantization (ROADMAP.md section 1, "
-                      "'Adaptive quant')",
-    "use_trellis": "speed levels 2-4 and quantize_rd (ROADMAP.md section "
-                   "1, 'Speed levels')",
-    "target_bitrate": "CBR and 2-pass rate control (ROADMAP.md section 1, "
-                      "'Rate control')",
+    "use_trellis": _SPEED,
+    "set_splevel": _SPEED,
+    "target_bitrate": _RATE,
+    "rate_window": _RATE,
+    "encode_clip_pass1": _RATE,
+    "encode_clip_pass2": _RATE,
+    "encode_clip_twopass": _RATE,
     "auto_keyframe": "scene-cut keyframes (ROADMAP.md section 1, "
                      "'Scene-cut keyframes')",
 }
@@ -81,9 +88,6 @@ _MV_MODES = np.zeros(8, bool)
 _MV_MODES[[MODE_INTER_MV, MODE_INTER_MV_LAST, MODE_INTER_MV_LAST2,
            MODE_GOLDEN_MV]] = True
 _RS_TO_REF = np.array([FRAME_SELF, FRAME_PREV, FRAME_GOLD], np.int32)
-# The JAX encoder's default R/D strength: it scales the skip test's lambda
-# and the MV-bit bias of the mode decision.
-RD_STRENGTH = 3.0
 
 
 def _unsupported(what: str):
@@ -115,14 +119,17 @@ class GopEncoder:
     """Encode clips with ME, the closed-loop reconstruction and every
     pixel decision on `device` ("cuda" by default; "cpu" runs the plain
     PyTorch versions of the kernels). qinfo and huff_codes default to the
-    spec tables (tables.py)."""
+    spec tables (tables.py). rd_strength scales the skip test's and the
+    qi chooser's lambda and the MV-bit bias of the mode decision.
+    adaptive_quant: False, True or "auto" (encode/aq.py)."""
 
     def __init__(self, info: TheoraInfo, qi: int | None = None,
-                 use_trellis: bool = True,
+                 rd_strength: float = 3.0, use_trellis: bool = True,
                  device="cuda", qinfo: dict | None = None,
                  huff_codes: list | None = None,
-                 adaptive_quant: bool = False):
+                 adaptive_quant: bool | str = "auto"):
         self.device = resolve_device(device)
+        self.rd_strength = float(rd_strength)
         self.adaptive_quant = adaptive_quant
         self.use_trellis = use_trellis
         self.info = info
@@ -142,11 +149,14 @@ class GopEncoder:
         self._nb = torch.from_numpy(
             trellis_bit_costs(self.packer.huff_codes)).to(self.device)
         self.set_qi(int(info.quality if qi is None else qi))
-        # Host seconds of the mode decision and of the packing; and, when
-        # device_spans is set to a list, a (start, end) CUDA event pair
-        # around each chunk's ME and around its plane encodes.
+        # Host seconds of the mode decision (with the adaptive-quant
+        # gates) and of the packing; the coded blocks packed at a qi other
+        # than their frame's base qi; and, when device_spans is set to a
+        # list, a (start, end) CUDA event pair around each chunk's ME and
+        # around its plane encodes.
         self.host_decide_s = 0.0
         self.host_pack_s = 0.0
+        self.nonbase_qi_blocks = 0
         self.device_spans: list[tuple] | None = None
 
     def _span(self):
@@ -164,13 +174,12 @@ class GopEncoder:
             self.device_spans.append(span)
 
     @property
-    def adaptive_quant(self) -> bool:
-        return False
+    def adaptive_quant(self) -> bool | str:
+        return self._adaptive_quant
 
     @adaptive_quant.setter
     def adaptive_quant(self, value) -> None:
-        if value is not False:
-            _unsupported("adaptive_quant")
+        self._adaptive_quant = aq.check_mode(value)
 
     @property
     def use_trellis(self) -> bool:
@@ -181,6 +190,12 @@ class GopEncoder:
         if not value:
             _unsupported("use_trellis")
 
+    def set_splevel(self, lvl: int) -> None:
+        """Speed levels 0-1 (full quality, the batched trellis) are this
+        encoder's only mode; 2-4 are not ported."""
+        if lvl >= 2:
+            _unsupported("set_splevel")
+
     # ------------------------------------------------------------------
     def set_qi(self, qi: int) -> None:
         """Set the quantizer and the parameters derived from it."""
@@ -190,8 +205,7 @@ class GopEncoder:
         self._bias_scale = min(
             1.0, float(dq[self.qi, 0, 1, 1]) / float(dq[40, 0, 1, 1]))
         self._mv_bits_sad = (
-            28 * int(RD_STRENGTH * 4 + 4) * self._bias_scale)
-        self._lam_t = self._lam_t_for(self.qi)
+            28 * int(self.rd_strength * 4 + 4) * self._bias_scale)
 
     def _lam_t_for(self, qi: int):
         """DCT-domain trellis lambdas (intra, inter) at a qi."""
@@ -341,14 +355,23 @@ class GopEncoder:
                    np.zeros(g.nfrags, bool))
         frame_frag = [kf_frag if p is None else self._frag_plan(*p)
                       for p in plan_pf]
+        fqis, luma_sc = self._frame_qis(planes_bs, kf_flags)
         self.host_decide_s += time.perf_counter() - t0
 
         qi = self.qi
         dq = self.dequant
-        lam_t = np.array(self._lam_t, np.float32)
+        # Each frame's qi list padded to the chunk's K by repeating its
+        # base row, which the chooser never picks (equal output, dearer
+        # signalling), so a padded frame still packs one qi.
+        K = max(len(q) for q in fqis)
+        rows = [list(q) + [q[0]] * (K - len(q)) for q in fqis]
+        # The trellis' lambda of each row, keyed by the frame's type.
+        lam_t = np.array([[self._lam_t_for(q)[0 if kf_flags[f] else 1]
+                           for q in row] for f, row in enumerate(rows)],
+                         np.float32)
         limit = int(self.packer.qinfo["loop_filter_limits"][qi])
         lam = np.float32(rd_lambda(qi, int(dq[qi, 0, 1, 1]))
-                         * RD_STRENGTH * 4.0)
+                         * self.rd_strength * 4.0)
         span = self._span()
         plane_out = {}
         for pli in range(3):
@@ -366,15 +389,20 @@ class GopEncoder:
             cur = ys if pli == 0 else torch.from_numpy(
                 np.stack([planes_bs[f][pli] for f in range(F)])).to(
                     self.device)
-            deq = torch.from_numpy(dq[qi, pli].astype(np.int16)).to(
-                self.device)
+            # [F, K, 2, 64]: DC (slot 0) always quantizes with the base qi.
+            deq = dq[rows, pli].astype(np.int16)
+            deq[:, :, :, 0] = deq[:, :1, :, 0]
+            sc = None
+            if pli == 0 and luma_sc is not None:
+                sc = torch.from_numpy(luma_sc).to(self.device)
             plane_out[pli] = encode_plane(
-                cur, frag, kf_flags, deq, limit, lam, lam_t, self._nb,
-                pl.nvfrags, pl.nhfrags, vpad, hpad, emit_recon=want_recon)
+                cur, frag, kf_flags, torch.from_numpy(deq).to(self.device),
+                limit, lam, lam_t, self._nb, pl.nvfrags, pl.nhfrags, vpad,
+                hpad, lam_sc=sc, emit_recon=want_recon)
         self._end_span(span)
 
-        qdct_pl, coded_pl, recon_pl = {}, {}, {}
-        for pli, (qout, coded, nnz, recon) in plane_out.items():
+        qdct_pl, coded_pl, qii_pl, recon_pl = {}, {}, {}, {}
+        for pli, (qout, coded, nnz, qii, recon) in plane_out.items():
             # Only the nonzero coefficients come down, as (zig-zag index,
             # value) pairs in block order; the counts place them.
             with record_function("theora.enc.download"):
@@ -384,6 +412,8 @@ class GopEncoder:
                 vals = flat[pos].cpu().numpy()
                 counts = nnz.cpu().numpy().reshape(-1)
                 coded_pl[pli] = coded.cpu().numpy()
+                if K > 1:
+                    qii_pl[pli] = qii.cpu().numpy()
                 if want_recon:
                     recon_pl[pli] = recon.cpu().numpy()
             dense = np.zeros((counts.size, 64), np.int16)
@@ -391,32 +421,71 @@ class GopEncoder:
             qdct_pl[pli] = dense.reshape(F, -1, 64)
         t0 = time.perf_counter()
         pkts = self._pack_gop(F, plan_pf, frame_frag, qdct_pl, coded_pl,
-                              kf_flags)
+                              kf_flags, fqis, qii_pl)
         self.host_pack_s += time.perf_counter() - t0
         return pkts, (recon_pl if want_recon else None)
 
-    def _pack_gop(self, F, plans, frame_frag, qdct_pl, coded_pl, kf_flags):
+    def _frame_qis(self, planes_bs, kf_flags):
+        """Per frame of a chunk its qi list (tpu_gop.py:1041-1123): the
+        content gates on its luma plane and the adaptive-quantization
+        triple, the intra one for a frame whose GOP is only a keyframe.
+        Returns (qi tuples, [F, n] float32 luma lambda scales or None
+        where no frame with more than one qi engaged masking)."""
+        F = len(planes_bs)
+        starts = [f for f in range(F) if kf_flags[f]] + [F]
+        gop_len = np.zeros(F, np.int64)
+        for a, b in zip(starts, starts[1:]):
+            gop_len[a:b] = b - a
+        mode = self.adaptive_quant
+        fqis, frame_sc = [], [None] * F
+        for f in range(F):
+            nl, mixed, sc = (aq.frame_gates(planes_bs[f][0], mode) if mode
+                             else (False, False, None))
+            fqis.append(aq.frame_qis(mode, self.qi,
+                                     int(self.info.pixel_fmt),
+                                     gop_len[f] == 1, nl, mixed,
+                                     sc is not None))
+            if sc is not None and len(fqis[-1]) > 1:
+                frame_sc[f] = sc
+        if all(s is None for s in frame_sc):
+            return fqis, None
+        luma_sc = np.ones((F, self.g.planes[0].nfrags), np.float32)
+        for f, sc in enumerate(frame_sc):
+            if sc is not None:
+                luma_sc[f] = sc.astype(np.float32)
+        return fqis, luma_sc
+
+    def _pack_gop(self, F, plans, frame_frag, qdct_pl, coded_pl, kf_flags,
+                  fqis, qii_pl):
         g = self.g
         pkts = []
         for f in range(F):
             qdct = np.zeros((g.nfrags, 64), np.int16)
             coded = np.zeros(g.nfrags, bool)
+            qis = fqis[f] if len(fqis[f]) > 1 else None
+            frag_qii = None if qis is None else np.zeros(g.nfrags, np.int32)
             for pli in range(3):
                 pl = g.planes[pli]
                 sl = slice(pl.froffset, pl.froffset + pl.nfrags)
                 qdct[sl] = qdct_pl[pli][f]
                 coded[sl] = coded_pl[pli][f]
+                if qis is not None:
+                    frag_qii[sl] = qii_pl[pli][f]
+            if qis is not None:
+                self.nonbase_qi_blocks += int(np.count_nonzero(
+                    frag_qii[coded]))
             rs, fmv, _ = frame_frag[f]
             frag_refi = np.where(coded, _RS_TO_REF[rs.astype(np.int32)],
                                  FRAME_NONE).astype(np.int32)
             if kf_flags[f]:
                 data = self.packer.pack_frame_plan(
-                    INTRA_FRAME, self.qi, coded, frag_refi, None, None, qdct)
+                    INTRA_FRAME, self.qi, coded, frag_refi, None, None, qdct,
+                    qis=qis, frag_qii=frag_qii)
             else:
                 mb_modes, mb_mvs = plans[f][:2]
                 data = self.packer.pack_frame_plan(
                     INTER_FRAME, self.qi, coded, frag_refi, mb_modes, mb_mvs,
-                    qdct, frag_mv4=fmv)
+                    qdct, frag_mv4=fmv, qis=qis, frag_qii=frag_qii)
             pkts.append(data)
         return pkts
 
@@ -427,7 +496,8 @@ class GopEncoder:
         return self._encode_chunk(gop_frames, want_recon=want_recon)
 
     def encode_clip(self, frames: list, keyframe_freq: int = 8,
-                    target_bitrate: int = 0, auto_keyframe: bool = False,
+                    target_bitrate: int = 0, rate_window: int | None = None,
+                    auto_keyframe: bool = False,
                     clip_batch: int = 8) -> list[Packet]:
         """Headers + data packets for a whole clip: consecutive GOPs ride
         one chunk of at most clip_batch frames (a GOP longer than that is
@@ -435,6 +505,8 @@ class GopEncoder:
         so the bytes equal per-GOP encodes."""
         if target_bitrate > 0:
             _unsupported("target_bitrate")
+        if rate_window is not None:
+            _unsupported("rate_window")
         out = self.flush_headers()
         shift = self.info.keyframe_granule_shift
         nf = len(frames)
@@ -467,3 +539,12 @@ class GopEncoder:
                 pno += 1
             i = j
         return out
+
+    def encode_clip_pass1(self, *args, **kwargs):
+        _unsupported("encode_clip_pass1")
+
+    def encode_clip_pass2(self, *args, **kwargs):
+        _unsupported("encode_clip_pass2")
+
+    def encode_clip_twopass(self, *args, **kwargs):
+        _unsupported("encode_clip_twopass")

@@ -2,11 +2,12 @@
 stages of a frame whose coding plan was made on the device.
 
 Port of the part of theora_tpu/encode/encoder.py that
-`Encoder.pack_frame_plan` reaches for a single-qi frame: the constructor's
-tables, `flush_headers`, `_frame_header_pack`, `_dc_predict_and_order`
-(the branch without trellis plans), `_coded_flags_pack`,
-`_mb_modes_pack`, `_mvs_pack` and `_pack_tokens` on the native packer
-(encode.c:487-863, tokenize.c:977-1074). Packing cannot change the
+`Encoder.pack_frame_plan` reaches: the constructor's tables,
+`flush_headers`, `_frame_header_pack` (up to three qis),
+`_dc_predict_and_order` (the branch without trellis plans),
+`_coded_flags_pack`, `_mb_modes_pack`, `_mvs_pack`, `_block_qis_pack`
+with `sb_run_pack`, and `_pack_tokens` on the native packer
+(encode.c:405-421, 487-863, tokenize.c:977-1074). Packing cannot change the
 reconstruction, so the device's closed loop stays in step with any
 decoder of the packets.
 """
@@ -39,6 +40,44 @@ from theora_tpu_torch.native import (
 from theora_tpu_torch.quant import dequant_tables_init
 from theora_tpu_torch.tpkt import Packet
 
+# Super-block run codes (encode.c:383-388).
+_SB_RUN_VAL_MIN = [1, 2, 4, 6, 10, 18, 34, 4130]
+_SB_RUN_CODE_PREFIX = [0, 4, 0xC, 0x38, 0xF0, 0x3E0, 0x3F000]
+_SB_RUN_CODE_NBITS = [1, 3, 4, 6, 8, 10, 18]
+
+
+def sb_run_pack(bw: BitWriter, run: int, flag: int, done: bool) -> None:
+    """One run of a long-run flag code (encode.c:405-421)."""
+    if run >= 4129:
+        while run >= 4129:
+            bw.write(0x3FFFF, 18)
+            run -= 4129
+            if run > 0:
+                bw.write(flag, 1)
+            elif not done:
+                bw.write(0 if flag else 1, 1)
+        if run <= 0:
+            return
+    i = 0
+    while run >= _SB_RUN_VAL_MIN[i + 1]:
+        i += 1
+    bw.write(_SB_RUN_CODE_PREFIX[i] + run - _SB_RUN_VAL_MIN[i],
+             _SB_RUN_CODE_NBITS[i])
+
+
+def _flag_runs_pack(bw: BitWriter, flags) -> None:
+    """The first flag, then the runs of equal flags (encode.c:685-725)."""
+    flag = int(flags[0])
+    bw.write(flag, 1)
+    i, n = 0, len(flags)
+    while i < n:
+        run = 0
+        while i < n and flags[i] == flag:
+            run += 1
+            i += 1
+        sb_run_pack(bw, run, flag, i >= n)
+        flag = 1 - flag
+
 
 class FramePacker:
     """Packs headers and frames for one stream configuration."""
@@ -70,13 +109,33 @@ class FramePacker:
         ]
 
     @staticmethod
-    def _frame_header_pack(bw: BitWriter, ftype: int, qi: int) -> None:
+    def _frame_header_pack(bw: BitWriter, ftype: int, qis) -> None:
         bw.write(0, 1)
         bw.write(ftype, 1)
-        bw.write(qi, 6)
-        bw.write(0, 1)          # one qi: no second one follows
+        bw.write(qis[0], 6)
+        for q in qis[1:]:       # each further qi behind a 1 bit
+            bw.write(1, 1)
+            bw.write(q, 6)
+        if len(qis) < 3:
+            bw.write(0, 1)
         if ftype == INTRA_FRAME:
             bw.write(0, 3)
+
+    def _block_qis_pack(self, bw: BitWriter, qis, frag_qii, coded) -> None:
+        """The coded blocks' qi indices in coded order, as runs of
+        "qii > 0", then, with three qis, runs of "qii == 2" over the
+        blocks with qii > 0 (encode.c:685-725)."""
+        g = self.geometry
+        order = np.concatenate([
+            fr[coded[fr]] for fr in
+            (g.scan_fragis[g.scan_pli == pli] for pli in range(3))])
+        if len(order) == 0:
+            return
+        qii = frag_qii[order]
+        _flag_runs_pack(bw, (qii > 0).astype(int))
+        if len(qis) < 3 or int((qii == 0).sum()) >= len(qii):
+            return
+        _flag_runs_pack(bw, qii[qii > 0] - 1)
 
     def _dc_predict_and_order(self, coded, frag_refi, qdct_by_frag):
         """DC-predict every plane (raster order) and order the coded
@@ -150,21 +209,27 @@ class FramePacker:
                                        bw.bytes(), bw.bitpos)
 
     def pack_frame_plan(self, ftype, qi, coded, frag_refi, mb_modes, mb_mvs,
-                        qdct_by_frag, frag_mv4=None) -> bytes:
+                        qdct_by_frag, frag_mv4=None, qis=None,
+                        frag_qii=None) -> bytes:
         """Pack one frame from its device-made plan.
 
         ftype: INTRA_FRAME or INTER_FRAME; qi: the frame's quantizer;
         coded: [nfrags] bool; frag_refi: [nfrags] FRAME_* (FRAME_NONE for
         uncoded); qdct_by_frag: [nfrags, 64] zig-zag quantized values with
         the actual DC at 0 (prediction happens here); mb_modes [nmbs],
-        mb_mvs [nmbs, 2] and frag_mv4 [nfrags, 2] for inter frames.
+        mb_mvs [nmbs, 2] and frag_mv4 [nfrags, 2] for inter frames; qis:
+        adaptive quantization's list of 2-3 qis (qi first) and frag_qii
+        [nfrags] each block's index into it, or None for one qi.
         """
         g = self.geometry
+        qis = list(qis) if qis is not None and len(qis) > 1 else None
         vecs_by_plane = self._dc_predict_and_order(coded, frag_refi,
                                                    qdct_by_frag)
         bw = BitWriter()
-        self._frame_header_pack(bw, ftype, qi)
+        self._frame_header_pack(bw, ftype, qis or [qi])
         if ftype == INTRA_FRAME:
+            if qis is not None:
+                self._block_qis_pack(bw, qis, frag_qii, coded)
             return self._pack_tokens(bw, vecs_by_plane)
         self._coded_flags_pack(bw, coded)
         lum = g.mb_maps[:, 0, :]
@@ -172,4 +237,6 @@ class FramePacker:
         coded_mbis = list(np.where(has.any(axis=1) & g.mb_valid)[0])
         self._mb_modes_pack(bw, mb_modes, coded_mbis)
         self._mvs_pack(bw, mb_modes, mb_mvs, coded_mbis, coded, frag_mv4)
+        if qis is not None:
+            self._block_qis_pack(bw, qis, frag_qii, coded)
         return self._pack_tokens(bw, vecs_by_plane)

@@ -15,6 +15,7 @@ of their wrappers and their oracles on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from theora_tpu_torch.constants import (
@@ -181,20 +182,21 @@ def quantize(dct_zz: torch.Tensor, dequant_zz: torch.Tensor) -> torch.Tensor:
 
 
 def fdct_quantize(res, deq, inter):
-    """fDCT + round-to-nearest quantization of [N] blocks of one plane of
-    one frame (kernel K2's function; the JAX encode scan's
-    `fdct8x8` + `quantize` at theora_tpu/encode/tpu_gop.py:203-218, the
-    Pallas kernel `fdct_quantize_soa`).
+    """fDCT of [N] blocks of one plane of one frame and their
+    round-to-nearest quantization with each of K qi rows (kernel K2's
+    function; the JAX encode scan's `fdct8x8` + `quantize` at
+    theora_tpu/encode/tpu_gop.py:203-218, once per qi row with adaptive
+    quantization, :249-264; the Pallas kernel `fdct_quantize_soa`).
 
     res: [N, 64] int16 residuals, raster order inside each block; deq:
-    [2, 64] int16 zig-zag dequant rows, row 0 intra, row 1 inter; inter:
-    [N] uint8, the row each block uses. Returns ([N, 64] int16 zig-zag
-    quantized coefficients, [N, 64] int16 zig-zag unquantized DCT, the
-    trellis' input).
+    [K, 2, 64] int16 zig-zag dequant rows, per qi row the intra row, then
+    the inter row; inter: [N] uint8, the row each block uses. Returns
+    ([K, N, 64] int16 zig-zag quantized coefficients, [N, 64] int16
+    zig-zag unquantized DCT, the trellis' input).
     """
     dct = fdct8x8(res.reshape(-1, 8, 8))
-    rows = deq.to(torch.int32)[inter.long()]
-    return quantize(dct, rows).to(torch.int16), dct.to(torch.int16)
+    rows = deq.to(torch.int32)[:, inter.long()]
+    return quantize(dct[None], rows).to(torch.int16), dct.to(torch.int16)
 
 
 def rd_lambda(qi: int, dequant_ac: int) -> float:
@@ -215,9 +217,16 @@ def rd_lambda(qi: int, dequant_ac: int) -> float:
 #     added to each chunk (`_xla_cumsum16`); torch.cumsum adds in another
 #     order (and accumulates float32 in double on the CPU);
 #   - XLA's CPU compiler contracts a*b + c into one fused multiply-add
-#     where the product feeds the add directly. Of those, only the token
-#     costs e*e + lam*bits round differently (every other product here
-#     is exact); `_fma` computes them with one rounding, exactly;
+#     where the product feeds the add directly, and the JAX program's
+#     three cost sums with a lambda each take a different product into
+#     the fma: the lone value's cost e*e + lam*bits as fma(e, e,
+#     lam*bits), the next-lower value's as fma(lam, bits, e*e), and the
+#     EOB cost (P[64] - P[i]) + lam*bits as fma(lam, bits, P[64] - P[i]).
+#     With the integer table lambdas lam*bits is exact and only the
+#     first matters (e*e is inexact above 2**12); adaptive quantization's
+#     per-block scales make lam fractional and all three matter. `_fma`
+#     computes them with one rounding. Every other product feeds no add
+#     or adds a 0 / 1e30 mask, where contraction changes nothing;
 #   - no other op may fuse (no addcmul), and nothing uses TF32.
 
 def _value_token_id(mag, neg):
@@ -259,9 +268,20 @@ def _xla_cumsum16(z: torch.Tensor) -> torch.Tensor:
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c with one rounding. Exact through float64 here:
-    the operands are integer-valued with |a * b + c| < 2**53."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a * b + c with one rounding, as a fused multiply-add. The
+    float64 product of two float32 values is exact; the float64 sum is
+    rounded to odd (its exact error from a two-sum moves an even result
+    one ulp towards the exact value), which makes the final rounding to
+    float32 the correctly rounded one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    return torch.where((err != 0) & even, odd, s).float()
 
 
 def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
@@ -303,7 +323,7 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
     eA = (a_cl * sj).to(f32) * df - cf
     eB = (altm * sj).to(f32) * df - cf
     cA_s = _fma(eA, eA, lamv * nbA)
-    cB_s = _fma(eB, eB, lamv * nbB)
+    cB_s = _fma(lamv, nbB, eB * eB)
     useB = (altm >= 1) & (cB_s < cA_s)
     c1_s = torch.where(aj >= 1, torch.where(useB, cB_s, cA_s), big)
     v1_s = torch.where(aj >= 1, torch.where(useB, altm * sj, a_cl * sj), 0)
@@ -311,7 +331,8 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
     e23j = cf - cv23.to(f32) * df
     pre1 = torch.where((aj >= 1) & (aj <= 2), e1j * e1j, big)
     pre23 = torch.where((aj >= 2) & (aj <= 4), e23j * e23j, big)
-    costc_s = (P[:, 64:] - P[:, :64]) + lam[:, None] * nb_full[:, 0][None]
+    costc_s = _fma(lam[:, None].expand(N, 64),
+                   nb_full[:, 0][None].expand(N, 64), P[:, 64:] - P[:, :64])
     # Per-step rows by run length r = j - i (the i == 1 step keeps one
     # slot of headroom for a zero DC extending the leading run).
     r_si = jcols[None, :] - idx[:, None]                  # [63, 64]
@@ -414,26 +435,35 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
     return out
 
 
-def trellis_quantize(qout, dout, deq, inter, lam, nb_full):
+def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     """The trellis on kernel K2's outputs for [N] blocks of one plane of
-    one frame: trellis_values behind the casts this interface needs.
+    one frame at each of K qi rows: trellis_values behind the casts this
+    interface needs.
 
-    qout, dout: [N, 64] int16 zig-zag round-to-nearest values and
-    unquantized DCT (fdct_quantize's outputs); deq: [2, 64] int16 dequant
-    rows (intra, inter); inter: [N] uint8, nonzero for an inter block
-    (dequant row 1, acmin 0; an intra block: row 0, acmin 3); lam: the
-    frame's lambda, a float32 value; nb_full: [64, 32] float32. Returns
-    ([N, 64] int16 chosen values, [N] int32 nonzero counts, [N] bool "no
-    AC value is nonzero").
+    qout: [K, N, 64] int16 zig-zag round-to-nearest values and dout:
+    [N, 64] int16 unquantized DCT (fdct_quantize's outputs); deq: [K, 2,
+    64] int16 dequant rows (per qi row intra, inter); inter: [N] uint8,
+    nonzero for an inter block (dequant row 1, acmin 0; an intra block:
+    row 0, acmin 3); lam: [K] float32, the frame's lambda per qi row;
+    nb_full: [64, 32] float32; lam_sc: [N] float32 per-block lambda
+    scales or None. Block n of row k takes the float32 product lam[k] *
+    lam_sc[n] (theora_tpu/encode/tpu_gop.py:228), lam[k] without lam_sc.
+    Returns ([K, N, 64] int16 chosen values, [K, N] int32 nonzero counts,
+    [K, N] bool "no AC value is nonzero").
     """
-    n = qout.shape[0]
+    k, n = qout.shape[:2]
+    dev = qout.device
     is_inter = inter != 0
+    lam_k = torch.as_tensor(np.asarray(lam, np.float32)).to(dev)[:, None]
+    lam_b = lam_k.expand(k, n) if lam_sc is None else lam_k * lam_sc[None]
     vals = trellis_values(
-        dout.to(torch.int32), qout.to(torch.int32),
-        deq.to(torch.int32)[is_inter.long()],
-        torch.full((n,), lam, dtype=torch.float32, device=qout.device),
-        nb_full, torch.where(is_inter, 0, 3).to(torch.int32))
+        dout.to(torch.int32).repeat(k, 1),
+        qout.reshape(k * n, 64).to(torch.int32),
+        deq.to(torch.int32)[:, is_inter.long()].reshape(k * n, 64),
+        lam_b.reshape(k * n).contiguous(), nb_full,
+        torch.where(is_inter, 0, 3).to(torch.int32).repeat(k))
     nzf = vals != 0
     cnt = nzf.sum(dim=1, dtype=torch.int32)
     dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
-    return vals.to(torch.int16), cnt, dc_only
+    return (vals.to(torch.int16).reshape(k, n, 64), cnt.reshape(k, n),
+            dc_only.reshape(k, n))

@@ -8,18 +8,18 @@ frame):
 
 - K2's outputs on random residuals (the generator chip_smoke.py's phase
   6b checks KT on), 14,400 and 3,600 blocks (a 1280x720 luma and chroma
-  plane), an inter frame;
+  plane), an inter frame, one qi row;
 - the 1280x720 test clip's first frame as the encoder's first launch of
   each plane sees it (intra: residual = source - 128; q48), luma and
   chroma.
 
 For each it prints the histogram of nonzero AC values per block and the
 bound (bytes moved and the float32 operations these inputs need). With
---old-src, a trellis.cu of the interface before KT read K2's outputs
-directly (th_trellis over three [N, 64] int32 rows, [N] lambdas and [N]
-acmins) is built beside it and both are timed in turns, old, new, new, old;
-both must equal the plain version first. Needs a CUDA card. Prints one
-JSON summary as its last line.
+--old-src, a trellis.cu of the one-row interface (th_trellis over K2's
+[N, 64] int16 outputs, a [2, 64] dequant pair and one float lambda) is
+built beside it and both are timed in turns, old, new, new, old; both
+must equal the plain version first. Needs a CUDA card. Prints one JSON
+summary as its last line.
 """
 from __future__ import annotations
 
@@ -54,10 +54,10 @@ def kt_tables():
 
 
 def k2_cases(device, sizes=(14400, 3600, 21600)):
-    """(label, KT arguments) for K2's outputs on random residuals, from
-    noise to nearly flat blocks: per size an intra frame (every block
-    intra, the intra lambda) and an inter frame (inter flags at random,
-    the inter lambda), at a qi and plane drawn per size."""
+    """(label, KT arguments) for K2's outputs on random residuals at one
+    qi row, from noise to nearly flat blocks: per size an intra frame
+    (every block intra, the intra lambda) and an inter frame (inter flags
+    at random, the inter lambda), at a qi and plane drawn per size."""
     from theora_tpu_torch.ops import fdct_cuda
 
     dq, nb, lam_tab = kt_tables()
@@ -69,7 +69,7 @@ def k2_cases(device, sizes=(14400, 3600, 21600)):
 
     for n in sizes:
         qi = int(rng.integers(0, 64))
-        deq = t(dq[qi, int(rng.integers(0, 3))].astype(np.int16))
+        deq = t(dq[qi, int(rng.integers(0, 3))][None].astype(np.int16))
         for qti in (0, 1):
             inter = (np.zeros(n, np.uint8) if qti == 0
                      else rng.integers(0, 2, n).astype(np.uint8))
@@ -79,7 +79,7 @@ def k2_cases(device, sizes=(14400, 3600, 21600)):
                                            t(inter))
             yield (f"K2 outputs, {n} blocks, qi {qi}, "
                    f"{('intra', 'inter')[qti]} frame",
-                   (q, d, deq, t(inter), lam_tab[qti, qi], nb))
+                   (q, d, deq, t(inter), lam_tab[qti, qi:qi + 1], nb, None))
 
 
 def first_frame_cases(device):
@@ -99,11 +99,12 @@ def first_frame_cases(device):
         blocks = plane_blocks(torch.from_numpy(plane)[None], h // 8,
                               w // 8)[0].to(device)
         res = (blocks.to(torch.int32) - 128).to(torch.int16)
-        deq = torch.from_numpy(dq[QI_HD, pli].astype(np.int16)).to(device)
+        deq = torch.from_numpy(dq[QI_HD, pli][None].astype(np.int16)).to(
+            device)
         inter = torch.zeros(len(res), dtype=torch.uint8, device=device)
         q, d = fdct_cuda.fdct_quantize(res, deq, inter)
         yield (f"720p first frame {what}, {len(res)} blocks, q{QI_HD}",
-               (q, d, deq, inter, lam_tab[0, QI_HD], nb))
+               (q, d, deq, inter, lam_tab[0, QI_HD:QI_HD + 1], nb, None))
 
 
 def nonzero_histogram(qout: np.ndarray) -> dict:
@@ -152,17 +153,21 @@ def kt_float_ops(qrtn: np.ndarray) -> int:
 
 
 def kt_bound(args) -> dict:
-    """KT's least time for these arguments: each input read once (two
-    [N, 64] int16 rows, [N] flags, the dequant rows, the lambda, the bit
-    table), each output written once ([N, 64] int16, [N] int32, [N]
-    bool), over the memory rate; the float32 operations these inputs need
-    over the float32 rate. The larger binds."""
-    qout, dout, deq, inter, _, nb = args
-    n = qout.shape[0]
-    nbytes = (sum(a.numel() * a.element_size()
-                  for a in (qout, dout, deq, inter, nb)) + 4
-              + n * (64 * 2 + 4 + 1))
-    ops = kt_float_ops(qout.cpu().numpy())
+    """KT's least time for these arguments: each input read once (the
+    [K, N, 64] and [N, 64] int16 rows, [N] flags, the dequant rows, the K
+    lambdas, the [N] lambda scales if any, the bit table), each output
+    written once ([K, N, 64] int16, [K, N] int32, [K, N] bool), over the
+    memory rate; the float32 operations these inputs need (a lambda
+    scale's product per pair included) over the float32 rate. The larger
+    binds."""
+    qout, dout, deq, inter, lam, nb, lam_sc = args
+    k, n = qout.shape[:2]
+    ins = [qout, dout, deq, inter, nb] + ([] if lam_sc is None else [lam_sc])
+    nbytes = (sum(a.numel() * a.element_size() for a in ins) + 4 * k
+              + k * n * (64 * 2 + 4 + 1))
+    ops = kt_float_ops(qout.reshape(-1, 64).cpu().numpy())
+    if lam_sc is not None:
+        ops += k * n
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = ops / FP32_OPS_S * 1e3
     return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops": ops,
@@ -192,33 +197,34 @@ def event_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 
 def _old_kernel(src: str):
-    """A launcher for the earlier KT interface built from src: it takes
-    the new interface's arguments, makes the old one's (int32 rows, [N]
-    lambdas and acmins) once, and returns (launch, output)."""
+    """A launcher for the one-row KT interface built from src
+    (th_trellis(qout, dout, deq [2, 64], inter, float lam, nb, vals, cnt,
+    dc_only, n, stream)): it takes one-row arguments of the new interface
+    and returns (launch, values output)."""
     from theora_tpu_torch.ops.cuda_build import nvcc_build
     from theora_tpu_torch.ops.trellis_cuda import NVCC_FLAGS, _SO
 
     so = nvcc_build(src, _SO.replace(".so", "_old.so"), NVCC_FLAGS)
     lib = ctypes.CDLL(so)
     lib.th_trellis.restype = ctypes.c_int
-    lib.th_trellis.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64,
-                                                        ctypes.c_void_p]
+    lib.th_trellis.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
 
     def prepare(args):
-        qout, dout, deq, inter, lam, nb = args
-        n = qout.shape[0]
-        is_inter = inter != 0
-        ins = (dout.to(torch.int32), qout.to(torch.int32),
-               deq.to(torch.int32)[is_inter.long()].contiguous(),
-               torch.full((n,), float(lam), dtype=torch.float32,
-                          device=qout.device),
-               nb, torch.where(is_inter, 0, 3).to(torch.int32))
-        out = torch.empty((n, 64), dtype=torch.int32, device=qout.device)
+        qout, dout, deq, inter, lam, nb, _ = args
+        n = qout.shape[1]
+        dev = qout.device
+        out = torch.empty((n, 64), dtype=torch.int16, device=dev)
+        cnt = torch.empty(n, dtype=torch.int32, device=dev)
+        dc_only = torch.empty(n, dtype=torch.bool, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def launch():
-            err = lib.th_trellis(*(a.data_ptr() for a in ins),
-                                 out.data_ptr(), n, stream)
+            err = lib.th_trellis(qout.data_ptr(), dout.data_ptr(),
+                                 deq.data_ptr(), inter.data_ptr(),
+                                 float(lam[0]), nb.data_ptr(),
+                                 out.data_ptr(), cnt.data_ptr(),
+                                 dc_only.data_ptr(), n, stream)
             if err != 0:
                 raise RuntimeError(f"old KT launch failed: CUDA error {err}")
 
@@ -255,9 +261,9 @@ def main(argv=None) -> int:
         got = trellis_cuda.trellis_quantize(*kargs)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"KT != plain on {label}")
-        row = {"case": label, "blocks": int(kargs[0].shape[0]),
+        row = {"case": label, "blocks": int(kargs[0].shape[1]),
                "nonzero_ac_histogram": nonzero_histogram(
-                   kargs[0].cpu().numpy())}
+                   kargs[0].reshape(-1, 64).cpu().numpy())}
         row.update(kt_bound(kargs))
 
         def new():
@@ -269,7 +275,7 @@ def main(argv=None) -> int:
             old, old_out = prepare(kargs)
             old()
             torch.cuda.synchronize()
-            if not torch.equal(old_out, want[0].to(torch.int32)):
+            if not torch.equal(old_out, want[0][0]):
                 raise AssertionError(f"old KT != plain on {label}")
             turns = [("old", old), ("new", new), ("new", new), ("old", old)]
             for who, fn in turns:

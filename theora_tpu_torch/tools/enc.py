@@ -1,12 +1,14 @@
 """Encode a .y4m file to Ogg Theora (.ogv) with the device GOP encoder.
 
-Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [--device D] in.y4m out.ogv
+Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF]
+           [--adaptive-quant {auto,on,off}] [--device D] in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
 TpuGopEncoder) for the configuration the port carries: a fixed qi, the
-trellis, no adaptive quantization, no rate control, keyframes every KF
-frames. Encodes on the card (``--device cuda``, the default); ``cpu``
-runs the plain PyTorch versions of the kernels.
+trellis, adaptive quantization ("auto" by default, as there), no rate
+control, keyframes every KF frames. Encodes on the card (``--device
+cuda``, the default); ``cpu`` runs the plain PyTorch versions of the
+kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +42,12 @@ def main(argv=None):
     ap.add_argument("output")
     ap.add_argument("-q", "--quality", type=int, default=48)
     ap.add_argument("-k", "--keyframe-freq", type=int, default=64)
+    ap.add_argument("--adaptive-quant", choices=["auto", "on", "off"],
+                    nargs="?", const="on", default="auto",
+                    help="activity masking: auto (high-qi region, noise-like "
+                         "and mixed frames; default), on (every qi the "
+                         "spec allows), off; bare --adaptive-quant means "
+                         "'on'")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
@@ -55,7 +63,9 @@ def main(argv=None):
                       pic_height=H, fps_numerator=fps[0],
                       fps_denominator=fps[1], quality=args.quality,
                       pixel_fmt=pixel_fmt)
-    enc = GopEncoder(info, qi=args.quality, device=args.device)
+    enc = GopEncoder(info, qi=args.quality, device=args.device,
+                     adaptive_quant={"auto": "auto", "on": True,
+                                     "off": False}[args.adaptive_quant])
     t0 = time.perf_counter()
     pkts = enc.encode_clip(frames, keyframe_freq=args.keyframe_freq)
     dt = time.perf_counter() - t0

@@ -1,10 +1,12 @@
 """Where the device GOP encode's time goes on the card.
 
 Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
+           [--qi Q] [--adaptive-quant {auto,on,off}]
 
 Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
-the 1280x720 test clip (testdata/make_hd720.py's source frames,
-q48, a keyframe every 8 frames, clip_batch 8) once to warm up, then R
+the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
+adaptive_quant=False unless asked otherwise, a keyframe every 8 frames,
+clip_batch 8) once to warm up, then R
 more times: untraced passes timed on the host clock (wall, host mode
 decision, host packing, device spans from CUDA events), and one pass
 under torch.profiler, which reports device time per codec stage (the
@@ -60,7 +62,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--qi", type=int, default=QI)
+    ap.add_argument("--adaptive-quant", choices=["auto", "on", "off"],
+                    default="off")
     args = ap.parse_args(argv)
+    qi = args.qi
+    aq = {"auto": "auto", "on": True, "off": False}[args.adaptive_quant]
     if not torch.cuda.is_available():
         print("profile_encode: needs a CUDA card", file=sys.stderr)
         return 2
@@ -72,7 +79,7 @@ def main(argv=None) -> int:
 
     frames = hd720_frames(args.frames)
     info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
-                      pic_height=720, quality=QI)
+                      pic_height=720, quality=qi)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -81,10 +88,10 @@ def main(argv=None) -> int:
     def encode(enc):
         return enc.encode_clip(frames, keyframe_freq=KF, clip_batch=BATCH)
 
-    encode(GopEncoder(info, qi=QI))  # warm
+    encode(GopEncoder(info, qi=qi, adaptive_quant=aq))  # warm
     runs = []
     for _ in range(args.repeat):
-        enc = GopEncoder(info, qi=QI)
+        enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
         enc.device_spans = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -106,7 +113,7 @@ def main(argv=None) -> int:
                 "K2": fdct_cuda.fdct_quantize,
                 "KT": trellis_cuda.trellis_quantize}
     before = {k: w.launches for k, w in wrappers.items()}
-    enc = GopEncoder(info, qi=QI)
+    enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -141,7 +148,8 @@ def main(argv=None) -> int:
           f"{per_plane_frame:.1f} per plane per frame", flush=True)
     mid = sorted(r["wall_s"] for r in runs)[len(runs) // 2]
     summary = {
-        "card": smi, "frames": nf, "qi": QI, "keyframe_freq": KF,
+        "card": smi, "frames": nf, "qi": qi, "adaptive_quant": aq,
+        "keyframe_freq": KF,
         "clip_batch": BATCH, "median_wall_s": mid,
         "frames_per_s": nf / mid,
         "mpix_per_s": nf * 1280 * 720 * 1.5 / 1e6 / mid,
