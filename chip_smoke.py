@@ -7,16 +7,30 @@ and prints no result line):
 
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2 and KT (nvcc,
-   sm_90a; KT with -fmad=false), all from the sources in the checkout, in
-   parallel;
-3. K1 against its plain PyTorch version on the card: random blocks at the
-   decode path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0,
-   batch 8) and their sum 172,800, int16 extremes included; at the encode
-   path's per-plane shapes (14,400 and 3,600 blocks, one frame) at one qi
-   row and at three (43,200 and 10,800 blocks, qii 0-2), whose chroma
-   launches end in a partial CTA; and the libtheora iDCT vectors, exact
-   equality; CUDA-event times at 172,800 (decode) and 43,200 (encode at
-   three qi rows) blocks, beside a device copy of the same bytes;
+   sm_90a; K1 and KT with -fmad=false), all from the sources in the
+   checkout, in parallel;
+3. K1 against its plain PyTorch versions on the card, exact equality. The
+   decode entry (dequantize_idct_frames): random blocks at the decode
+   path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0, batch
+   8) and their sum 172,800, int16 extremes included; as the encode scan
+   launched it before the encode entry (14,400 and 3,600 blocks, one
+   frame, at one qi row and at three: 43,200 and 10,800 blocks, qii 0-2),
+   whose chroma launches end in a partial CTA; and the libtheora iDCT
+   vectors. The encode entry (idct_recon_choose; reconstruction, SSD, qii,
+   values and counts of the kept row against transforms.idct_recon_choose):
+   random values at K = 1, 2 and 3 over 14,400 and 3,600 blocks (the 3,600
+   launch ends in a partial CTA), with lambda scales drawn in [0.1, 8] and
+   without, the edge classes first (an all-zero row, a DC-only row, int16
+   extremes); K2 -> KT outputs of random residuals at K = 1 and 3
+   (tools/bench_idct.py:kernel_chain_inputs); blocks whose rows tie in
+   cost (the earlier row must win), and blocks whose lambda term lies
+   within one float32 ulp of an integer, so that one rounding decides the
+   row. CUDA-event times, each beside its bound (tools/bench_idct.py:
+   k1_bound), its plain version and a device copy of the same bytes: the
+   decode entry at 172,800 blocks and at 3 x 14,400; the encode entry at
+   K = 3 and K = 1 over 14,400 blocks of K2 -> KT outputs, beside the
+   chain it replaced (the decode entry over K x N pairs and the PyTorch
+   ops after it, tools/bench_idct.py:parent_chain);
 4. golden streams: BatchDecoder(device="cuda").decode_clip must equal
    libtheora's .ref.yuv output byte for byte;
 5. real-size decode: decode_clip(batch=8) of the 1280x720 test stream,
@@ -65,14 +79,15 @@ and prints no result line):
    every frame): every packet's SHA-256 against the JAX encoder's list;
    the first GOP's closed-loop reconstruction against
    BatchDecoder(device="cuda") on its packets; a warm encode_clip pass
-   timed with the K1, K2 and KT launch counts reset just before it (each
-   must launch once per plane per frame: 48), blocks at a non-base qi at
+   timed with the K1, K2 and KT launch counts reset just before it (K1's
+   encode entry, K2 and KT must each launch once per plane per frame, 48
+   times, and K1's decode entry not at all), blocks at a non-base qi at
    q56, and its PSNR against the source.
 
 Then one JSON line listing the three kernels (times and bounds at three qi
-rows; launches on the q56 encode), the card's name and power limit from
-nvidia-smi, and {"ok": true, "device": {...}}. Imports nothing of JAX or
-theora_tpu.
+rows, K1's at both entries; launches on the 720p decode and the q56
+encode), the card's name and power limit from nvidia-smi, and {"ok": true,
+"device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
 
@@ -93,16 +108,6 @@ TESTDATA = os.path.join(ROOT, "testdata")
 GOLDEN = ("cif_k4_q40", "cif_cbr", "clip64x48_k8_q5", "crop80x64",
           "clip422", "clip444")
 HD_NAME = "hd720_q56_k12"
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and int32
-# operations/s outside the tensor cores, half the 67 TFLOP/s float32 rate
-# (an SM has 64 INT32 lanes beside its 128 FP32 lanes).
-HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 33.5e12
-# int32 operations per 8x8 block in csrc/idct.cu: 16 1-D iDCTs of 16
-# (c*x)>>16 products (2 ops), 12 wraps (3 ops) and 28 adds = 96 ops; 64
-# dequant products with a wrap (4 ops); 64 output round/shift/wraps
-# (5 ops).
-K1_OPS_PER_BLOCK = 16 * (16 * 2 + 12 * 3 + 28) + 64 * 4 + 64 * 5
 
 
 def log(msg: str) -> None:
@@ -132,7 +137,8 @@ def build() -> None:
 
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
-                "K1 (nvcc sm_90a)": ex.submit(timed, idct_cuda.build),
+                "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
+                    timed, idct_cuda.build),
                 "K2 (nvcc sm_90a)": ex.submit(timed, fdct_cuda.build),
                 "KT (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, trellis_cuda.build)}
@@ -145,42 +151,6 @@ def build() -> None:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {k} ptxas: {line.strip()}")
-
-
-def _k1_inputs(rng, n, nframes, device):
-    """Random K1 inputs: coefficients over the whole int16 range (so the
-    wraps are exercised), random DC, tables, flags."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return (
-        t(rng.integers(-32768, 32768, (n, 64), dtype=np.int16)),
-        t(rng.integers(-32768, 32768, n, dtype=np.int16)),
-        t(rng.integers(1, 32768, (nframes, 3, 2, 64), dtype=np.int16)),
-        t(np.sort(rng.integers(0, nframes, n)).astype(np.int32)),
-        t(rng.integers(0, 3, n).astype(np.uint8)),
-        t(rng.integers(0, 2, n).astype(np.uint8)),
-        t(rng.random(n) < 0.3),
-    )
-
-
-def _k1_encode_inputs(rng, n, device, k=1):
-    """K1 inputs as the encode scan builds them for one plane of one
-    frame at k qi rows: a [1, 3, 2, 64] table holding the k rows' intra
-    and inter rows at qii 0..k-1, frame index 0, block r*n + i being row r
-    of block i (qii r, block i's inter flag), DC from the coefficients."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    coeffs = rng.integers(-32768, 32768, (k * n, 64), dtype=np.int16)
-    deq_tab = np.zeros((1, 3, 2, 64), np.int16)
-    deq_tab[0, :k] = rng.integers(1, 32768, (k, 2, 64), dtype=np.int16)
-    return (
-        t(coeffs), t(coeffs[:, 0]), t(deq_tab), t(np.zeros(k * n, np.int32)),
-        t(np.repeat(np.arange(k, dtype=np.uint8), n)),
-        t(np.tile(rng.integers(0, 2, n).astype(np.uint8), k)),
-        t(rng.random(k * n) < 0.3),
-    )
 
 
 def _vector_inputs(device):
@@ -206,17 +176,48 @@ def _vector_inputs(device):
     return inputs, cases["y"].astype(np.int16)
 
 
+def _recon_cases(rng, device):
+    """(label, encode-entry arguments) of K1's encode entry: random values
+    (tools/bench_idct.py:recon_inputs, the edge classes first: an all-zero
+    row, a DC-only row, int16 extremes) at K = 1, 2 and 3 over 14,400 and
+    3,600 blocks (a 1280x720 luma and chroma plane; 3,600 ends in a
+    partial CTA), with lambda scales in [0.1, 8] and without; kernel K2's
+    and KT's outputs for random residuals at K = 1 and 3 (scales at 3);
+    rows that tie in cost; lambda terms within one float32 ulp of an
+    integer."""
+    from theora_tpu_torch.tools import bench_idct as bi
+
+    for n in (14400, 3600):
+        for k in (1, 2, 3):
+            for scales in (True, False):
+                yield (f"random values, {k} x {n} blocks, lambda scales "
+                       f"{'in [0.1, 8]' if scales else 'none'}",
+                       bi.recon_args(bi.recon_inputs(rng, n, k, scales),
+                                     device))
+        for k in (1, 3):
+            yield (f"K2 -> KT outputs of random residuals, {k} x {n} "
+                   f"blocks", bi.kernel_chain_inputs(rng, n, k, device,
+                                                     k == 3))
+    yield ("rows that tie in cost, 3 x 14400 blocks, lambda scales",
+           bi.recon_args(bi.tie_inputs(rng, 14400), device))
+    yield ("rows that tie in cost, 3 x 3600 blocks, no lambda scales",
+           bi.recon_args(bi.tie_inputs(rng, 3600, False), device))
+    yield ("lambda terms within one float32 ulp of an integer, 2 x 14400 "
+           "blocks", bi.recon_args(bi.ulp_inputs(rng, 14400), device))
+
+
 def kernel_vs_plain(device) -> dict:
     from theora_tpu_torch.ops import idct_cuda, transforms
+    from theora_tpu_torch.tools import bench_idct as bi
     from theora_tpu_torch.tools.bench_trellis import event_ms
 
     rng = np.random.default_rng(20261016)
-    # The main path launches K1 once per plane per batch of 8 frames:
-    # 8 * 14400 luma and 8 * 3600 blocks per chroma plane at 1280x720
-    # 4:2:0. Check those shapes and their sum, the issue's 172,800.
+    # The main path launches K1's decode entry once per plane per batch of
+    # 8 frames: 8 * 14400 luma and 8 * 3600 blocks per chroma plane at
+    # 1280x720 4:2:0. Check those shapes and their sum, 172,800.
     err = 0
     for n in (8 * 14400, 8 * 3600, 8 * (14400 + 2 * 3600)):
-        args = _k1_inputs(rng, n, 8, device)
+        args = bi.decode_inputs(rng, n, 8, device)
         got = idct_cuda.dequantize_idct_frames(*args)
         want = transforms.dequantize_idct_frames(*args)
         torch.cuda.synchronize()
@@ -224,12 +225,12 @@ def kernel_vs_plain(device) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"K1 != plain on {n} random blocks "
                                  f"(max |d| {err})")
-    # The encode path launches K1 once per plane per frame over K qi rows:
-    # 14,400 luma blocks and 3,600 per chroma plane (whose last CTA is
-    # partial) at one row; 14,400 x 3 = 43,200 with adaptive quantization's
-    # triple, qii 0-2.
+    # The decode entry as the encode scan launched it before the encode
+    # entry: 14,400 luma blocks and 3,600 per chroma plane (whose last CTA
+    # is partial) at one row; 14,400 x 3 = 43,200 with adaptive
+    # quantization's triple, qii 0-2.
     for ne, k in ((14400, 1), (3600, 1), (14400, 3), (3600, 3)):
-        eargs = _k1_encode_inputs(rng, ne, device, k)
+        eargs = bi.encode_inputs(rng, ne, device, k)
         got = idct_cuda.dequantize_idct_frames(*eargs)
         want = transforms.dequantize_idct_frames(*eargs)
         torch.cuda.synchronize()
@@ -243,55 +244,90 @@ def kernel_vs_plain(device) -> dict:
     if not (np.array_equal(vgot, vy) and np.array_equal(vplain, vy)):
         raise AssertionError("K1 or plain != libtheora idct_cases.bin")
     err = max(err, int(np.abs(vgot.astype(np.int32) - vy).max()))
-    log(f"[k1] random 115200, 28800 and {n} blocks (decode shapes), 14400 "
-        f"and 3600 blocks at one qi row and 3 x 14400, 3 x 3600 at three "
-        f"(encode shapes): kernel == plain; idct_cases.bin {len(vy)} cases: "
-        f"kernel == plain == libtheora; max |err| {err} (tolerance 0: "
-        f"exact)")
+    log(f"[k1] decode entry: random 115200, 28800 and {n} blocks (decode "
+        f"shapes), 14400 and 3600 blocks at one qi row and 3 x 14400, 3 x "
+        f"3600 at three (the earlier encode shapes): kernel == plain; "
+        f"idct_cases.bin {len(vy)} cases: kernel == plain == libtheora; "
+        f"max |err| {err} (tolerance 0: exact)")
+    # The encode entry: all five outputs equal the plain version's.
+    for label, rargs in _recon_cases(rng, device):
+        got = idct_cuda.idct_recon_choose(*rargs)
+        want = transforms.idct_recon_choose(*rargs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g.int() - w.int()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"K1 encode entry != plain on {label} "
+                                     f"(max |d| {err})")
+        rows = torch.bincount(want[2].long(), minlength=3).tolist()
+        log(f"[k1] encode entry, {label}: kernel == plain (recon, SSD, qii, "
+            f"values, counts); rows kept {rows}; "
+            f"{int(rargs[1].sum())} DC-only (row, block) pairs")
+    log(f"[k1] max |err| {err} over both entries (tolerance 0: exact)")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    timed = {}
-    # The decode's launch (172,800 blocks) and the encode's luma launch at
-    # three qi rows (43,200 blocks), which the kernels line reports.
-    for what, targs in (("decode", args),
-                        ("encode K=3", _k1_encode_inputs(rng, 14400, device,
-                                                          3))):
-        nt = targs[0].shape[0]
-        ms = event_ms(lambda: idct_cuda.dequantize_idct_frames(*targs), 50,
-                      flush)
-        plain_ms = event_ms(
-            lambda: transforms.dequantize_idct_frames(*targs), 5, flush)
-        nbytes = (sum(a.numel() * a.element_size() for a in targs)
-                  + nt * 64 * 2)
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        # What the card's memory actually sustains: one device copy that
-        # reads and writes the same number of bytes as K1 moves.
+
+    def copy_ms(nbytes):
+        """A device copy that reads and writes nbytes in all: what the
+        card's memory actually sustains for K1's traffic."""
         src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
         dst = torch.empty_like(src)
-        copy_ms = event_ms(lambda: dst.copy_(src), 50, flush)
-        ops_ms = nt * K1_OPS_PER_BLOCK / INT32_OPS_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        log(f"[k1] time, {what}, {nt} blocks: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} B -> "
-            f"{bytes_ms:.4f} ms at 3.35 TB/s; {nt * K1_OPS_PER_BLOCK} int32 "
-            f"ops -> {ops_ms:.4f} ms); kernel at "
-            f"{100 * bound_ms / ms:.2f}% of its bound; "
-            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s achieved; a device copy "
-            f"of the same bytes takes {copy_ms:.4f} ms "
-            f"({nbytes / (copy_ms * 1e-3) / 1e9:.1f} GB/s); no single "
-            f"PyTorch call computes this integer iDCT (library_ms null)")
-        timed[what] = {"blocks": nt, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": "bytes"
-                       if bytes_ms >= ops_ms else "operations"}
-    enc = timed["encode K=3"]
+        return event_ms(lambda: dst.copy_(src), 50, flush)
+
+    def report(what, entry, targs, fn, plain, chain=None):
+        ms = event_ms(fn, 50, flush)
+        plain_ms = event_ms(plain, 5, flush)
+        b = bi.k1_bound(entry, targs)
+        cms = copy_ms(b["bytes"])
+        out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+               "bound_by": b["bound_by"], "bytes": b["bytes"],
+               "copy_ms": cms}
+        extra = ""
+        if chain is not None:
+            out["replaced_chain_ms"] = event_ms(chain, 50, flush)
+            extra = (f"; the chain it replaced (decode entry over K x N "
+                     f"pairs + PyTorch ops) {out['replaced_chain_ms']:.4f} "
+                     f"ms")
+        log(f"[k1] time, {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({b['bytes']} B -> {b['bytes_ms']:.4f} ms at 3.35 TB/s; "
+            f"{b['int32_ops']} int32 + {b['float32_ops']} float32 ops -> "
+            f"{b['ops_ms']:.4f} ms); kernel at {100 * b['bound_ms'] / ms:.2f}%"
+            f" of its bound; a device copy of the same bytes takes "
+            f"{cms:.4f} ms{extra}; no single PyTorch call computes this "
+            f"integer iDCT (library_ms null)")
+        return out
+
+    timed = {}
+    for what, targs in (("decode", args),
+                        ("decode entry, 3 x 14400",
+                         bi.encode_inputs(rng, 14400, device, 3))):
+        timed[what] = report(
+            f"{what}, {targs[0].shape[0]} blocks", "decode", targs,
+            lambda targs=targs: idct_cuda.dequantize_idct_frames(*targs),
+            lambda targs=targs: transforms.dequantize_idct_frames(*targs))
+        timed[what]["blocks"] = targs[0].shape[0]
+    for k in (3, 1):
+        rargs = bi.kernel_chain_inputs(rng, 14400, k, device, k == 3)
+        timed[k] = report(
+            f"encode entry, K = {k}, 14400 blocks (K2 -> KT outputs)",
+            "encode", rargs,
+            lambda rargs=rargs: idct_cuda.idct_recon_choose(*rargs),
+            lambda rargs=rargs: transforms.idct_recon_choose(*rargs),
+            bi.parent_chain(idct_cuda.dequantize_idct_frames, rargs))
+        timed[k].update(blocks=14400, rows=k)
+    enc = timed[3]
     return {
         "name": "dequant_idct", "route": "cuda",
         "source": "theora_tpu_torch/csrc/idct.cu",
-        "replaces": "theora_tpu/ops/pallas_kernels.py:174",
+        "replaces": "theora_tpu/ops/pallas_kernels.py:175",
         "launches": None, "max_abs_err": err, "ms": enc["ms"],
         "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": None,
-        "timed_blocks": enc["blocks"], "decode_shape": timed["decode"],
+        "timed_entry": "idct_recon_choose", "timed_blocks": 14400,
+        "timed_rows": 3, "replaced_chain_ms": enc["replaced_chain_ms"],
+        "encode_entry_one_row": timed[1], "decode_entry": timed["decode"],
+        "decode_entry_encode_rows": timed["decode entry, 3 x 14400"],
     }
 
 
@@ -772,9 +808,10 @@ def _psnr(frames, outs) -> float:
 def real_size_encode(smi: str, name: str, qi: int, adaptive_quant):
     """16 frames of the 1280x720 clip, a keyframe every 8, clip_batch 8:
     packets against the JAX encoder's list `name`, the first GOP's closed
-    loop, and a warm pass with the launch counts of K1, K2 and KT reset
-    just before it: each must be one per plane per frame. Returns the
-    counts."""
+    loop, and a warm pass with the launch counts of K1 (both entries), K2
+    and KT reset just before it: K1's encode entry, K2 and KT must each
+    run once per plane per frame, K1's decode entry not at all. Returns
+    the counts."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -797,20 +834,24 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant):
     enc.device_spans = []
     torch.cuda.synchronize()
     idct_cuda.dequantize_idct_frames.launches = 0
+    idct_cuda.idct_recon_choose.launches = 0
     fdct_cuda.fdct_quantize.launches = 0
     trellis_cuda.trellis_quantize.launches = 0
     t0 = time.perf_counter()
     pkts = encode(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = (idct_cuda.dequantize_idct_frames.launches,
+    counts = (idct_cuda.idct_recon_choose.launches,
               fdct_cuda.fdct_quantize.launches,
               trellis_cuda.trellis_quantize.launches)
     n = _check_hashes(pkts, name, "warm pass")
     if counts != (3 * len(frames),) * 3:
-        raise AssertionError(f"{what} launches: K1, K2, KT {counts}; each "
-                             f"must run once per plane per frame, "
-                             f"{3 * len(frames)} times")
+        raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT "
+                             f"{counts}; each must run once per plane per "
+                             f"frame, {3 * len(frames)} times")
+    if idct_cuda.dequantize_idct_frames.launches:
+        raise AssertionError(f"{what}: the encode launched K1's decode "
+                             f"entry")
     if adaptive_quant and enc.nonbase_qi_blocks == 0:
         raise AssertionError(f"{what}: no block took a non-base qi")
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3

@@ -76,6 +76,29 @@ def test_k1_kernel_matches_plain_at_three_qi_rows(card):
     assert torch.equal(got, transforms.dequantize_idct_frames(*args))
 
 
+@pytest.mark.parametrize("k", [1, 3])
+def test_k1_encode_entry_matches_plain(card, k):
+    """K1's encode entry (dequant + iDCT of each qi row, reconstruction,
+    SSD and the chooser) against its plain version: 3,600 random blocks
+    (a partial last CTA) with lambda scales, and the blocks whose rows tie
+    in cost at K = 3; all five outputs exact."""
+    from theora_tpu_torch.tools import bench_idct as bi
+
+    rng = np.random.default_rng(25 + k)
+    sets = [bi.recon_inputs(rng, 3600, k)]
+    if k == 3:
+        sets.append(bi.tie_inputs(rng, 3600))
+    for arrays in sets:
+        args = bi.recon_args(arrays, card)
+        before = idct_cuda.idct_recon_choose.launches
+        got = idct_cuda.idct_recon_choose(*args)
+        torch.cuda.synchronize()
+        assert idct_cuda.idct_recon_choose.launches == before + 1
+        want = transforms.idct_recon_choose(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("name", ["clip64x48_k8_q5", "clip444"])
 def test_golden_stream_on_card(card, name):
     from theora_tpu_torch.decode.batch import BatchDecoder

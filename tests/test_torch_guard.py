@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1, K2, KT) take their plain paths only for CPU tensors,
-KT is built without floating-point contraction, and the encoder settings
+kernel wrappers (K1 at both entries, K2, KT) take their plain paths only
+for CPU tensors and K1's have no fallback, K1 and KT are built without
+floating-point contraction, and the encoder settings
 it does not carry yet raise NotImplementedError naming their ROADMAP
 item."""
 import ast
@@ -169,6 +170,133 @@ def test_k1_wrapper_output_on_cpu():
     out = idct_cuda.dequantize_idct_frames(*_k1_args("cpu"))
     assert out.dtype == torch.int16 and out.shape == (5, 64)
     assert np.array_equal(out.numpy(), np.zeros((5, 64), np.int16))
+
+
+def _k1r_args(device, k=1, n=5):
+    """Arguments of K1's encode entry (idct_recon_choose) at k rows."""
+    return (
+        torch.zeros((k, n, 64), dtype=torch.int16, device=device),
+        torch.ones((k, n), dtype=torch.bool, device=device),
+        torch.zeros((k, n), dtype=torch.int32, device=device),
+        torch.full((k, 2, 64), 8, dtype=torch.int16, device=device),
+        torch.zeros(n, dtype=torch.uint8, device=device),
+        torch.full((n, 64), 128, dtype=torch.int32, device=device),
+        torch.full((n, 64), 130, dtype=torch.uint8, device=device),
+        torch.tensor(100.0, dtype=torch.float32, device=device),
+        None,
+    )
+
+
+def test_k1_encode_entry_plain_path_only_for_cpu_tensors(monkeypatch):
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        n = args[0].shape[1]
+        return (torch.zeros((n, 64), dtype=torch.uint8),
+                torch.zeros(n, dtype=torch.int32),
+                torch.zeros(n, dtype=torch.uint8),
+                torch.zeros((n, 64), dtype=torch.int16),
+                torch.zeros(n, dtype=torch.int32))
+
+    monkeypatch.setattr(transforms, "idct_recon_choose", plain)
+    idct_cuda.idct_recon_choose(*_k1r_args("cpu", 3))
+    assert calls == ["cpu"]
+    # A tensor on any other device never reaches the plain version.
+    with pytest.raises(ValueError, match="unsupported device"):
+        idct_cuda.idct_recon_choose(*_k1r_args("meta", 3))
+    assert calls == ["cpu"]
+    assert idct_cuda.idct_recon_choose.launches == 0
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((5, 64), dtype=torch.int16)),
+    (0, torch.zeros((4, 5, 64), dtype=torch.int16)),
+    (0, torch.zeros((1, 5, 64), dtype=torch.int32)),
+    (0, torch.zeros((1, 5, 63), dtype=torch.int16)),
+    (0, torch.zeros((1, 64, 5), dtype=torch.int16).transpose(1, 2)),
+    (0, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(1, 5, 64)),
+    (0, torch.zeros((1, 5, 64), dtype=torch.int16, device="meta")),
+    (1, torch.ones((1, 5), dtype=torch.uint8)),
+    (1, torch.ones((1, 4), dtype=torch.bool)),
+    (2, torch.zeros((1, 5), dtype=torch.int64)),
+    (2, torch.zeros((2, 5), dtype=torch.int32)),
+    (3, torch.full((2, 64), 8, dtype=torch.int16)),
+    (3, torch.full((1, 2, 64), 8, dtype=torch.int32)),
+    (3, torch.full((2, 2, 64), 8, dtype=torch.int16)),
+    (4, torch.zeros(5, dtype=torch.bool)),
+    (4, torch.zeros(6, dtype=torch.uint8)),
+    (5, torch.zeros((5, 64), dtype=torch.int16)),
+    (5, torch.zeros((5, 8, 8), dtype=torch.int32)),
+    (5, torch.zeros(5 * 64 + 1, dtype=torch.int32)[1:].view(5, 64)),
+    (6, torch.zeros((5, 64), dtype=torch.int32)),
+    (6, torch.zeros((64, 5), dtype=torch.uint8).t()),
+    (6, torch.zeros(5 * 64 + 1, dtype=torch.uint8)[1:].view(5, 64)),
+    (6, torch.zeros((5, 64), dtype=torch.uint8, device="meta")),
+    (7, torch.tensor([100.0])),
+    (7, torch.tensor(100.0, dtype=torch.float64)),
+    (7, torch.tensor(100.0, device="meta")),
+    (8, torch.ones(4, dtype=torch.float32)),
+    (8, torch.ones(5, dtype=torch.float64)),
+    (8, torch.ones(5, dtype=torch.float32, device="meta")),
+])
+def test_k1_encode_entry_rejects_what_the_kernel_does_not_take(which, bad):
+    args = list(_k1r_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        idct_cuda.idct_recon_choose(*args)
+
+
+def test_k1_encode_entry_output_on_cpu():
+    for k in (1, 3):
+        recon, ssd, qii, q, cnt = idct_cuda.idct_recon_choose(
+            *_k1r_args("cpu", k))
+        assert recon.dtype == qii.dtype == torch.uint8
+        assert ssd.dtype == cnt.dtype == torch.int32
+        assert q.dtype == torch.int16
+        assert recon.shape == q.shape == (5, 64)
+        assert ssd.shape == qii.shape == cnt.shape == (5,)
+        # Zero values leave the prediction, 2 below the source everywhere.
+        assert (recon == 128).all() and (ssd == 64 * 4).all()
+        assert not qii.any()
+    assert idct_cuda.idct_recon_choose.launches == 0
+
+
+def test_k1_wrappers_have_no_fallback():
+    """Neither K1 wrapper catches an error to fall back to the plain
+    version: idct_cuda has no try statement."""
+    tree = _parse(idct_cuda.__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_k1_build_is_sm90a_without_contraction(monkeypatch, tmp_path):
+    """K1's library is built by nvcc_build from csrc/idct.cu for sm_90a
+    with -fmad=false (the chooser's float32 costs must not fuse) and
+    without fast math. Nothing is compiled: subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(idct_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_idct.so"))
+    so = idct_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == idct_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "idct.cu"))
+    assert so == idct_cuda._SO and os.path.exists(so)
 
 
 # ------------------------------------------------------------- encode side

@@ -9,10 +9,10 @@ carried (prev, gold) reference planes stay on the device. Per frame:
   MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
   (fDCT + quantization with each qi row, also returning the unquantized
   DCT) -> kernel KT (the trellis at every qi row, on K2's outputs as they
-  are; it also returns the nonzero counts and DC-only flags) -> kernel K1
-  (dequant + iDCT of every row) -> reconstruction -> with K > 1 rows the
-  chooser keeps each block's cheapest row -> the R/D skip test against the
-  uncoded copy -> loop filter -> borders.
+  are; it also returns the nonzero counts and DC-only flags) -> kernel K1's
+  encode entry (dequant + iDCT of every row, reconstruction, SSD, and with
+  K > 1 rows the chooser, which keeps each block's cheapest row) -> the R/D
+  skip test against the uncoded copy -> loop filter -> borders.
 
 Each kernel runs once per plane per frame whatever K is. The chooser and
 the skip test keep the JAX program's float32 lambda products. Their SSDs
@@ -36,28 +36,6 @@ def plane_blocks(planes: torch.Tensor, nv: int, nh: int) -> torch.Tensor:
     F = planes.shape[0]
     return (planes.reshape(F, nv, 8, nh, 8).permute(0, 1, 3, 2, 4)
             .reshape(F, nv * nh, 64))
-
-
-def choose_rows(ssd, cnt, lam, lam_sc):
-    """Each block's qi row by the scan's R/D proxy (tpu_gop.py:256-285):
-    the least 16 ssd + int32(lam * lam_sc * (6 cnt + 2 + 6 [k > 0])), in
-    float32 and in that order, truncated toward zero; a tie keeps the
-    earlier row.
-
-    ssd, cnt: [K, n] int32; lam: float32 0-d tensor; lam_sc: [n] float32
-    or None (all ones). Returns [n] uint8 row indices.
-    """
-    lam_b = lam if lam_sc is None else lam * lam_sc
-    cntf = cnt.to(torch.float32)
-    best = 16 * ssd[0] + (lam_b * (6.0 * cntf[0] + 2.0)).to(torch.int32)
-    qii = torch.zeros(ssd.shape[1], dtype=torch.uint8, device=ssd.device)
-    for k in range(1, ssd.shape[0]):
-        cost = 16 * ssd[k] + (lam_b * (6.0 * cntf[k] + 2.0 + 6.0)).to(
-            torch.int32)
-        win = cost < best
-        best = torch.where(win, cost, best)
-        qii = torch.where(win, k, qii)
-    return qii
 
 
 def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
@@ -94,15 +72,6 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
     prev = torch.full((h + 2 * pad_y, w + 2 * pad_x), 0x80,
                       dtype=torch.uint8, device=dev)
     gold = prev
-    # K1's inputs that do not change within a frame: its dequant table
-    # holds the frame's K rows as qii 0..K-1, and block k*n + i of a
-    # launch is row k of block i.
-    deq_tab = torch.zeros((F, 3, 2, 64), dtype=torch.int16, device=dev)
-    deq_tab[:, :K] = deq
-    zeros_i32 = torch.zeros(K * n, dtype=torch.int32, device=dev)
-    row_of = torch.arange(K, dtype=torch.uint8, device=dev).repeat_interleave(
-        n)
-    blk = torch.arange(n, device=dev)
     lam_dev = torch.tensor(lam, dtype=torch.float32, device=dev)
     qout = torch.empty((F, n, 64), dtype=torch.int16, device=dev)
     coded_out = torch.empty((F, n), dtype=torch.bool, device=dev)
@@ -119,7 +88,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
             pred = mc_predict(prev, gold, grid, rs, frag["o1y"][f],
                               frag["o1x"][f], frag["o2y"][f],
                               frag["o2x"][f], frag["u2"][f]).reshape(n, 64)
-            unc = prev.reshape(-1)[grid].reshape(n, 64).to(torch.int32)
+            unc = prev.reshape(-1)[grid].reshape(n, 64)
             curi = cur[f].to(torch.int32)
             inter = (rs != 0).to(torch.uint8)
             res = (curi - pred).to(torch.int16)
@@ -129,24 +98,10 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
             q16, cnt, dc_only = trellis_cuda.trellis_quantize(
                 qdct0, dct, deq[f], inter, lam_t[f], nb, sc)
         with record_function("theora.enc.idct_recon"):
-            flat = q16.reshape(K * n, 64)
-            residual = idct_cuda.dequantize_idct_frames(
-                flat, flat[:, 0].contiguous(), deq_tab[f:f + 1], zeros_i32,
-                row_of, inter if K == 1 else inter.repeat(K),
-                dc_only.reshape(K * n))
-            recon = torch.clamp(
-                residual.to(torch.int32).reshape(K, n, 64) + pred, 0, 255)
-            dr = recon - curi
-            ssd = (dr * dr).sum(dim=2, dtype=torch.int32)
+            recon, ssd_rec, qii, q16, cnt = idct_cuda.idct_recon_choose(
+                q16, dc_only, cnt, deq[f], inter, pred, cur[f], lam_dev, sc)
         if K > 1:
-            with record_function("theora.enc.choose"):
-                qii = choose_rows(ssd, cnt, lam_dev, sc)
-                sel = qii.long()
-                q16, cnt = q16[sel, blk], cnt[sel, blk]
-                recon, ssd_rec = recon[sel, blk], ssd[sel, blk]
-                qii_out[f] = qii
-        else:
-            q16, cnt, recon, ssd_rec = q16[0], cnt[0], recon[0], ssd[0]
+            qii_out[f] = qii
         with record_function("theora.enc.skip"):
             du = unc - curi
             ssd_unc = (du * du).sum(dim=1, dtype=torch.int32)
@@ -156,7 +111,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
                       & (16 * ssd_unc <= 16 * ssd_rec + lamterm))
             if ik:
                 coded = torch.ones_like(coded)
-            blocks = torch.where(coded[:, None], recon, unc).to(torch.uint8)
+            blocks = torch.where(coded[:, None], recon, unc)
             plane = blocks_to_plane(blocks.reshape(n, 8, 8), nv, nh, pad_y,
                                     pad_x)
         if limit:

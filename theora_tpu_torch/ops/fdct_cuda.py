@@ -19,7 +19,7 @@ import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.idct_cuda import _check
+from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _check
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -45,10 +45,6 @@ def _load():
         ]
         _lib = lib
     return _lib
-
-
-# The most qi rows one launch quantizes with (a frame carries 1-3 qis).
-MAX_ROWS = 3
 
 
 def fdct_quantize(res, deq, inter):

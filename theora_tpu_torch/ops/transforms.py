@@ -7,8 +7,9 @@ Port of theora_tpu/ops/transforms_jax.py: the iDCT side (`_i16`, `idct8`,
 wrap where the spec stores int16, so the results equal the C reference
 (idct.c:30-296, fdct.c:27-154, enquant.c:220-249, state.c:959-980).
 
-`dequantize_idct_frames` is the function kernel K1 computes
-(ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
+`dequantize_idct_frames` and `idct_recon_choose` (with the qi chooser
+`choose_rows`) are the functions kernel K1 computes at its two entry
+points (ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
 (ops/fdct_cuda.py) and `trellis_quantize` (`trellis_values` on K2's
 outputs) the one kernel KT computes (ops/trellis_cuda.py): the CPU paths
 of their wrappers and their oracles on the card.
@@ -118,6 +119,68 @@ def dequantize_idct_frames(qz, dc, deq_tab, frame, qii, inter, dc_only):
     res = dequantize_idct(qz.to(torch.int32), rows, dc.to(torch.int32), dcq,
                           dc_only)
     return res.reshape(-1, 64).to(torch.int16)
+
+
+def choose_rows(ssd, cnt, lam, lam_sc):
+    """Each block's qi row by the scan's R/D proxy (tpu_gop.py:256-285):
+    the least 16 ssd + int32(lam * lam_sc * (6 cnt + 2 + 6 [k > 0])), in
+    float32 and in that order, truncated toward zero; a tie keeps the
+    earlier row.
+
+    ssd, cnt: [K, n] int32; lam: float32 0-d tensor; lam_sc: [n] float32
+    or None (all ones). Returns [n] uint8 row indices.
+    """
+    lam_b = lam if lam_sc is None else lam * lam_sc
+    cntf = cnt.to(torch.float32)
+    best = 16 * ssd[0] + (lam_b * (6.0 * cntf[0] + 2.0)).to(torch.int32)
+    qii = torch.zeros(ssd.shape[1], dtype=torch.uint8, device=ssd.device)
+    for k in range(1, ssd.shape[0]):
+        cost = 16 * ssd[k] + (lam_b * (6.0 * cntf[k] + 2.0 + 6.0)).to(
+            torch.int32)
+        win = cost < best
+        best = torch.where(win, cost, best)
+        qii = torch.where(win, k, qii)
+    return qii
+
+
+def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
+                      lam_sc=None):
+    """The encode scan's step after the trellis (kernel K1's encode entry;
+    the JAX scan's dequant + iDCT, reconstruction, SSD and qi chooser at
+    theora_tpu/encode/tpu_gop.py:231-285): each of the K qi rows through
+    `dequantize_idct_frames` as one launch over K x N (row, block) pairs
+    (qii = row, DC from the values' slot 0 with row 0's DC factor), the
+    clamp to [0, 255], the int32 SSD against the source, and each block's
+    row by `choose_rows`.
+
+    q16: [K, N, 64] int16 values; dc_only: [K, N] bool; cnt: [K, N] int32;
+    deq: [K, 2, 64] int16 dequant rows (every row's slot 0 the base qi's
+    DC factor); inter: [N] uint8; pred: [N, 64] int32; cur: [N, 64] uint8;
+    lam: float32 0-d tensor; lam_sc: None or [N] float32. Returns (recon
+    [N, 64] uint8, ssd [N] int32, qii [N] uint8, q [N, 64] int16, cnt [N]
+    int32) of each block's kept row; at K = 1, row 0 (q and cnt are views).
+    """
+    K, n = q16.shape[0], q16.shape[1]
+    dev = q16.device
+    flat = q16.reshape(K * n, 64)
+    deq_tab = torch.zeros((1, 3, 2, 64), dtype=torch.int16, device=dev)
+    deq_tab[0, :K] = deq
+    residual = dequantize_idct_frames(
+        flat, flat[:, 0].contiguous(), deq_tab,
+        torch.zeros(K * n, dtype=torch.int32, device=dev),
+        torch.arange(K, dtype=torch.uint8, device=dev).repeat_interleave(n),
+        inter.repeat(K), dc_only.reshape(K * n))
+    recon = torch.clamp(residual.to(torch.int32).reshape(K, n, 64) + pred,
+                        0, 255)
+    dr = recon - cur.to(torch.int32)
+    ssd = (dr * dr).sum(dim=2, dtype=torch.int32)
+    if K == 1:
+        return (recon[0].to(torch.uint8), ssd[0],
+                torch.zeros(n, dtype=torch.uint8, device=dev), q16[0], cnt[0])
+    qii = choose_rows(ssd, cnt, lam, lam_sc)
+    sel, blk = qii.long(), torch.arange(n, device=dev)
+    return (recon[sel, blk].to(torch.uint8), ssd[sel, blk], qii,
+            q16[sel, blk], cnt[sel, blk])
 
 
 def fdct8(x: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,7 @@ import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.fdct_cuda import MAX_ROWS
-from theora_tpu_torch.ops.idct_cuda import _check
+from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _check
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")

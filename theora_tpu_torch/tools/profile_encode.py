@@ -12,7 +12,8 @@ decision, host packing, device spans from CUDA events), and one pass
 under torch.profiler, which reports device time per codec stage (the
 record_function labels in encode/gop.py and encode/scan.py) with the
 PyTorch kernels each launches, per kernel, the launches of the kernel
-libraries (K1, K2, KT), and the device's busy and idle share of the
+libraries (K1 at both entries, K2, KT) and of K1 in the
+theora.enc.idct_recon scope, and the device's busy and idle share of the
 traced pass. Needs a CUDA card. Prints one JSON summary as its last line.
 """
 from __future__ import annotations
@@ -109,10 +110,16 @@ def main(argv=None) -> int:
 
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
 
-    wrappers = {"K1": idct_cuda.dequantize_idct_frames,
-                "K2": fdct_cuda.fdct_quantize,
-                "KT": trellis_cuda.trellis_quantize}
-    before = {k: w.launches for k, w in wrappers.items()}
+    # K1 counts both entries; the encode launches its encode entry.
+    wrappers = {"K1": (idct_cuda.dequantize_idct_frames,
+                       idct_cuda.idct_recon_choose),
+                "K2": (fdct_cuda.fdct_quantize,),
+                "KT": (trellis_cuda.trellis_quantize,)}
+
+    def lib_counts():
+        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+
+    before = lib_counts()
     enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -124,7 +131,7 @@ def main(argv=None) -> int:
     events = prof.events()
     stages, kernels = _split(events)
     stage_kernels = _stage_kernels(events)
-    lib_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+    lib_launches = {k: c - before[k] for k, c in lib_counts().items()}
     kernels = sorted(((k, sec, c) for k, (sec, c) in kernels.items()),
                      key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
@@ -136,6 +143,11 @@ def main(argv=None) -> int:
     # list them by name, and their launches by their wrappers' counts.
     print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
           flush=True)
+    print(f"[launches] theora.enc.idct_recon: "
+          f"{stage_kernels.get('theora.enc.idct_recon', 0)} PyTorch kernels "
+          f"+ {lib_launches['K1']} K1 launches = "
+          f"{lib_launches['K1'] / (3 * len(frames)):.2f} per plane per "
+          f"frame", flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis"))]
