@@ -6,9 +6,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernels K1, K2 and KT (nvcc,
-   sm_90a; K1 and KT with -fmad=false), all from the sources in the
-   checkout, in parallel;
+2. build: the native host library (g++) and kernels K1, K2, KT and KR
+   (nvcc, sm_90a; K1, KT and KR with -fmad=false), all from the sources in
+   the checkout, in parallel;
 3. K1 against its plain PyTorch versions on the card, exact equality. The
    decode entry (dequantize_idct_frames): random blocks at the decode
    path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0, batch
@@ -65,6 +65,17 @@ and prints no result line):
    first frame's planes and of the launch without nonzero AC values, each
    beside its bound and its histogram of nonzero AC values per block
    (tools/bench_trellis.py), and of the plain version at 3 x 14,400;
+6c. KR (the R/D quantizer of speed levels 2-4 and use_trellis=False)
+   against its plain version (transforms.quantize_rd_rows) on the card,
+   exact equality of the values, nonzero counts and DC-only flags: K2's
+   outputs on random residuals at K = 1, 2 and 3 real qi lists over
+   14,400, 3,600 and 21,600 blocks, intra and inter blocks mixed (each
+   block takes its row's intra or inter lambda); the edge classes (a lone
+   +-1 at position 1 and at position 63, +-1 pairs, no nonzero AC value,
+   +-32767); the blocks of testdata/vectors/qrd_fma_cases.npz, one launch
+   each; CUDA-event times at K = 1 and 3 over 14,400 blocks beside the
+   bound (tools/bench_qrd.py:kr_bound), the plain version, a device copy
+   of the same bytes and KT on the same K2 outputs;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -72,7 +83,11 @@ and prints no result line):
    scales); every packet's SHA-256 against the list the JAX
    TpuGopEncoder made (testdata/make_hd720_enc.py); the 96x64 clips must
    code blocks at a non-base qi, and their closed loops must equal
-   BatchDecoder(device="cuda");
+   BatchDecoder(device="cuda"); the rest of the encoder's settings against
+   their lists: speed levels 2 and 4 at 64x48, use_trellis=False on both
+   96x64 clips (KR at three qi rows), auto_keyframe on a clip with a
+   scene cut, CBR at 60 kbit/s (the qi must move) and a 2-pass encode
+   (packets and the pass-1 metrics blob);
 8. real-size encodes: 16 frames of the 1280x720 clip, a keyframe every 8
    frames, clip_batch 8, at q48 with adaptive_quant=False and, the main
    path, at q56 with the default adaptive_quant="auto" (the qi triple on
@@ -82,11 +97,17 @@ and prints no result line):
    timed with the K1, K2 and KT launch counts reset just before it (K1's
    encode entry, K2 and KT must each launch once per plane per frame, 48
    times, and K1's decode entry not at all), blocks at a non-base qi at
-   q56, and its PSNR against the source.
+   q56, and its PSNR against the source; the same at q48 and speed level
+   2 (the R/D quantizer: KR 48 launches, KT none); and a 2-pass encode
+   of the 16 frames at 2 Mbit/s with a 16-frame rate buffer: packets and
+   metrics blob against the list, more than one qi among the frames, the
+   first GOP's closed loop at its frames' qis, and a warm pass timed with
+   the launch counts reset (pass 1 and pass 2: 96 launches of K1's
+   encode entry, K2 and KT, none of KR).
 
-Then one JSON line listing the three kernels (times and bounds at three qi
-rows, K1's at both entries; launches on the 720p decode and the q56
-encode), the card's name and power limit from nvidia-smi, and {"ok": true,
+Then one JSON line listing the four kernels (times and bounds, K1's at both
+entries; launches on the 720p decode and each 720p encode path), the
+card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
@@ -128,25 +149,28 @@ def card() -> tuple[str, str]:
 
 def build() -> None:
     from theora_tpu_torch import native
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+        trellis_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
                 "K2 (nvcc sm_90a)": ex.submit(timed, fdct_cuda.build),
                 "KT (nvcc sm_90a, -fmad=false)": ex.submit(
-                    timed, trellis_cuda.build)}
+                    timed, trellis_cuda.build),
+                "KR (nvcc sm_90a, -fmad=false)": ex.submit(
+                    timed, qrd_cuda.build)}
         for what, job in jobs.items():
             path, dt = job.result()
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
-                  ("KT", trellis_cuda._SO)):
+                  ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -712,24 +736,97 @@ def kt_vs_plain(device) -> dict:
     }
 
 
-def _encoder(w, h, fmt, qi, adaptive_quant):
+def kr_vs_plain(device) -> dict:
+    from theora_tpu_torch.ops import qrd_cuda, transforms
+    from theora_tpu_torch.tools import bench_qrd as bq
+
+    err = 0
+
+    def check(label, args):
+        nonlocal err
+        got = qrd_cuda.quantize_rd(*args)
+        want = transforms.quantize_rd_rows(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g.int() - w.int()).abs().max()))
+            if not torch.equal(g, w):
+                bad = int((g != w).reshape(len(g), -1).any(dim=1).sum())
+                raise AssertionError(f"KR != plain on {label}: {bad} rows "
+                                     f"differ (max |d| {err})")
+        return want
+
+    for label, args in bq.kr_cases(device):
+        want = check(label, args)
+        moved = int((want[0] != args[0]).any(dim=2).sum())
+        log(f"[kr] {label}: kernel == plain (values, counts, DC-only "
+            f"flags); {moved} of {want[0].numel() // 64} (row, block) pairs "
+            f"moved off round-to-nearest; {int(want[2].sum())} DC-only")
+    want = check("edge classes", bq.edge_args(device))
+    log(f"[kr] edge classes (lone +-1 at positions 1 and 63, +-1 pairs, no "
+        f"nonzero AC value, +-32767), {want[0].shape[1]} blocks: kernel == "
+        f"plain")
+    path = os.path.join(TESTDATA, "vectors", "qrd_fma_cases.npz")
+    n = 0
+    for n, args in enumerate(bq.fma_args(path, device), 1):
+        check(f"qrd_fma_cases.npz block {n - 1}", args)
+    log(f"[kr] qrd_fma_cases.npz: {n} blocks, one launch each, kernel == "
+        f"plain; max |err| {err} (tolerance 0: exact)")
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rng = np.random.default_rng(20261023)
+    timed = {}
+    for k in (1, 3):
+        qis = bq.qi_lists()[k]
+        r = bq.time_case(bq.kr_args(rng, 14400, qis, 0, device), qis, flush)
+        log(f"[kr] time at K = {k}, 14400 blocks: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.4f} ms at "
+            f"3.35 TB/s; {r['ops']} float32 ops -> {r['ops_ms']:.4f} ms at "
+            f"67 TFLOP/s); kernel at {100 * r['bound_ms'] / r['ms']:.2f}% of "
+            f"its bound; a device copy of the same bytes takes "
+            f"{r['copy_ms']:.4f} ms; KT on the same K2 outputs "
+            f"{r['kt_ms']:.4f} ms; no single PyTorch call computes this "
+            f"quantizer (library_ms null)")
+        timed[k] = r
+    one = timed[1]
+    return {
+        "name": "quantize_rd", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/quantize_rd.cu",
+        "replaces": "theora_tpu/ops/transforms_jax.py:185",
+        "launches": None, "max_abs_err": err, "ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"], "library_ms": None,
+        "timed_blocks": 14400, "timed_rows": 1, "kt_ms": one["kt_ms"],
+        "three_rows": {key: timed[3][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "kt_ms")},
+    }
+
+
+def _encoder(w, h, fmt, qi, adaptive_quant, quality=None, splevel=0):
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
 
-    return GopEncoder(TheoraInfo(frame_width=w, frame_height=h,
-                                 pic_width=w, pic_height=h, quality=qi,
-                                 pixel_fmt=fmt), qi=qi, device="cuda",
-                      adaptive_quant=adaptive_quant)
+    enc = GopEncoder(TheoraInfo(frame_width=w, frame_height=h,
+                                pic_width=w, pic_height=h,
+                                quality=qi if quality is None else quality,
+                                pixel_fmt=fmt), qi=qi, device="cuda",
+                     adaptive_quant=adaptive_quant)
+    enc.set_splevel(splevel)
+    return enc
 
 
 def _packet_hashes(pkts) -> list[str]:
     return [hashlib.sha256(p.data).hexdigest() for p in pkts]
 
 
-def _check_hashes(pkts, name: str, what: str) -> int:
+def _check_hashes(pkts, name: str, what: str, blob=None) -> int:
+    """Packets (and a 2-pass encode's metrics blob, the list's last line)
+    against the JAX encoder's list."""
     with open(os.path.join(TESTDATA, f"{name}.sha256")) as f:
         want = f.read().split()
     got = _packet_hashes(pkts)
+    if blob is not None:
+        got.append(hashlib.sha256(blob).hexdigest())
     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
     if len(got) != len(want) or bad:
         raise AssertionError(f"{name} {what}: packets {bad} differ from the "
@@ -737,14 +834,24 @@ def _check_hashes(pkts, name: str, what: str) -> int:
     return len(want)
 
 
-def _closed_loop(enc, frames, what: str) -> None:
-    """One GOP's carried reconstruction against the port's decoder on its
-    packets."""
+def _frame_qis(pkts) -> list[int]:
+    """The base qi in each data packet's frame header."""
+    return [p.data[0] & 0x3F for p in pkts[3:]]
+
+
+def _closed_loop(enc, frames, what: str, frame_qi=None, want=None) -> None:
+    """One GOP's carried reconstruction (at per-frame qis frame_qi, if
+    given) against the port's decoder on its packets, which must equal
+    want where given."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
 
-    datas, recon = enc.encode_gop(frames, want_recon=True)
+    datas, recon = enc._encode_chunk(frames, want_recon=True,
+                                     frame_qi=frame_qi)
+    if want is not None and datas != want:
+        raise AssertionError(f"{what}: the GOP's packets differ from the "
+                             f"clip's")
     hdr = enc.flush_headers()
     outs = BatchDecoder(parse_info_header(hdr[0].data),
                         parse_setup_header(hdr[2].data),
@@ -793,6 +900,51 @@ def small_encodes() -> None:
             f"qi")
         _closed_loop(_encoder(mk.MIXED_W, mk.MIXED_H, 0, qi, mode), frames,
                      name)
+    got = []
+    for lvl in (2, 4):
+        got += _encoder(64, 48, 0, mk.SMALL_QI, "auto", splevel=lvl
+                        ).encode_clip(mk.moving_frames(64, 48, 0,
+                                                       mk.SMALL_FRAMES, 11),
+                                      keyframe_freq=mk.SMALL_KF)
+    n = _check_hashes(got, "enc64x48_sp24", "speed levels 2 and 4")
+    log(f"[enc64x48_sp24] speed levels 2 and 4: all {n} packets equal the "
+        f"JAX encoder's")
+    for name, frames, qi, mode in (
+            ("mixed96x64_q40_aq_rd_enc", mk.mixed_frames(), mk.MIXED_QI,
+             True),
+            ("halftex96x64_q48_aq_rd_enc", mk.halftexture_frames(),
+             mk.HALFTEX_QI, "auto")):
+        enc = _encoder(mk.MIXED_W, mk.MIXED_H, 0, qi, mode)
+        enc.use_trellis = False
+        n = _check_hashes(enc.encode_clip(
+            frames, keyframe_freq=mk.MIXED_FRAMES), name,
+            f"use_trellis=False, adaptive_quant={mode}")
+        if enc.nonbase_qi_blocks == 0:
+            raise AssertionError(f"{name}: no block took a non-base qi")
+        log(f"[{name}] use_trellis=False (KR at three qi rows), "
+            f"adaptive_quant={mode}: all {n} packets equal the JAX "
+            f"encoder's; {enc.nonbase_qi_blocks} coded blocks at a non-base "
+            f"qi")
+    pkts = _encoder(64, 48, 0, mk.SMALL_QI, "auto").encode_clip(
+        mk.cut_frames(), keyframe_freq=mk.CUT_KF, auto_keyframe=True)
+    n = _check_hashes(pkts, "cut64x48_autokf_enc", "auto_keyframe")
+    log(f"[cut64x48_autokf_enc] auto_keyframe: all {n} packets equal the JAX "
+        f"encoder's")
+    enc = _encoder(64, 48, 0, mk.CBR_QI, "auto")
+    pkts = enc.encode_clip(mk.cbr_frames(), keyframe_freq=mk.CBR_KF,
+                           target_bitrate=mk.CBR_RATE, rate_window=1)
+    n = _check_hashes(pkts, "cbr64x48_enc", "CBR")
+    if enc.qi == mk.CBR_QI:
+        raise AssertionError("cbr64x48_enc: the qi never moved")
+    log(f"[cbr64x48_enc] CBR at {mk.CBR_RATE} bit/s: all {n} packets equal "
+        f"the JAX encoder's; frame qis {_frame_qis(pkts)}")
+    pkts, blob = _encoder(64, 48, 0, mk.CBR_QI, "auto", quality=0
+                          ).encode_clip_twopass(
+        mk.cbr_frames(), keyframe_freq=mk.CBR_KF, target_bitrate=mk.CBR_RATE)
+    n = _check_hashes(pkts, "twopass64x48_enc", "2-pass", blob)
+    log(f"[twopass64x48_enc] 2-pass at {mk.CBR_RATE} bit/s: all {n} lines "
+        f"(packets and the pass-1 metrics blob) equal the JAX encoder's; "
+        f"frame qis {_frame_qis(pkts)}")
 
 
 def _psnr(frames, outs) -> float:
@@ -805,54 +957,75 @@ def _psnr(frames, outs) -> float:
     return 10 * np.log10(255.0 ** 2 * n / max(se, 1))
 
 
-def real_size_encode(smi: str, name: str, qi: int, adaptive_quant):
+def _reset_counts() -> None:
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+        trellis_cuda
+
+    torch.cuda.synchronize()
+    for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
+              fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
+              qrd_cuda.quantize_rd):
+        w.launches = 0
+
+
+def _read_counts(what: str, want: tuple) -> tuple:
+    """(K1's encode entry, K2, KT, KR) launches since _reset_counts; they
+    must equal want, and K1's decode entry must not have run."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+        trellis_cuda
+
+    counts = (idct_cuda.idct_recon_choose.launches,
+              fdct_cuda.fdct_quantize.launches,
+              trellis_cuda.trellis_quantize.launches,
+              qrd_cuda.quantize_rd.launches)
+    if counts != want:
+        raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT, "
+                             f"KR {counts}; expected {want}")
+    if idct_cuda.dequantize_idct_frames.launches:
+        raise AssertionError(f"{what}: the encode launched K1's decode "
+                             f"entry")
+    return counts
+
+
+def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
+                     splevel: int = 0):
     """16 frames of the 1280x720 clip, a keyframe every 8, clip_batch 8:
     packets against the JAX encoder's list `name`, the first GOP's closed
-    loop, and a warm pass with the launch counts of K1 (both entries), K2
-    and KT reset just before it: K1's encode entry, K2 and KT must each
-    run once per plane per frame, K1's decode entry not at all. Returns
-    the counts."""
+    loop, and a warm pass with the launch counts of K1 (both entries), K2,
+    KT and KR reset just before it: K1's encode entry, K2 and the
+    quantizer (KT at speed levels 0-1, KR at 2-4) must each run once per
+    plane per frame, the other quantizer and K1's decode entry not at all.
+    Returns the counts (K1 encode entry, K2, KT, KR)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
 
     mk = _load_testdata("make_hd720_enc")
     frames = mk.hd_frames()
-    what = f"enc720p q{qi} aq={adaptive_quant}"
+    what = f"enc720p q{qi} aq={adaptive_quant} sp{splevel}"
 
     def encode(enc):
         return enc.encode_clip(frames, keyframe_freq=mk.HD_KF, clip_batch=8)
 
-    _check_hashes(encode(_encoder(1280, 720, 0, qi, adaptive_quant)), name,
-                  "first pass")
-    _closed_loop(_encoder(1280, 720, 0, qi, adaptive_quant),
-                 frames[:mk.HD_KF], what)
+    def make():
+        return _encoder(1280, 720, 0, qi, adaptive_quant, splevel=splevel)
+
+    _check_hashes(encode(make()), name, "first pass")
+    _closed_loop(make(), frames[:mk.HD_KF], what)
 
     # Warm pass, the main path: launch counts from 0 just before it.
-    enc = _encoder(1280, 720, 0, qi, adaptive_quant)
+    enc = make()
     enc.device_spans = []
-    torch.cuda.synchronize()
-    idct_cuda.dequantize_idct_frames.launches = 0
-    idct_cuda.idct_recon_choose.launches = 0
-    fdct_cuda.fdct_quantize.launches = 0
-    trellis_cuda.trellis_quantize.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     pkts = encode(enc)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = (idct_cuda.idct_recon_choose.launches,
-              fdct_cuda.fdct_quantize.launches,
-              trellis_cuda.trellis_quantize.launches)
+    per = 3 * len(frames)
+    counts = _read_counts(what, (per, per) + ((per, 0) if splevel < 2
+                                              else (0, per)))
     n = _check_hashes(pkts, name, "warm pass")
-    if counts != (3 * len(frames),) * 3:
-        raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT "
-                             f"{counts}; each must run once per plane per "
-                             f"frame, {3 * len(frames)} times")
-    if idct_cuda.dequantize_idct_frames.launches:
-        raise AssertionError(f"{what}: the encode launched K1's decode "
-                             f"entry")
-    if adaptive_quant and enc.nonbase_qi_blocks == 0:
+    if adaptive_quant and splevel < 2 and enc.nonbase_qi_blocks == 0:
         raise AssertionError(f"{what}: no block took a non-base qi")
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
     hdr = pkts[:3]
@@ -870,8 +1043,70 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant):
         f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
         f"ME and plane encodes) {dev_s:.4f} s; PSNR "
         f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
-        f"K2, KT {counts} = {counts[0] / (3 * nf):.0f} per plane per frame "
-        f"| {smi}")
+        f"K2, KT, KR {counts} = {counts[1] / (3 * nf):.0f} per plane per "
+        f"frame | {smi}")
+    return counts
+
+
+def real_size_twopass(smi: str):
+    """encode_clip_twopass of the 16 720p frames at 2 Mbit/s with a
+    16-frame rate buffer (info quality 0, encoder qi 48): packets and
+    metrics blob against the JAX encoder's list, more than one qi among
+    the frames, the first GOP's closed loop at its frames' qis, and a warm
+    pass with the launch counts reset just before it (pass 1 and pass 2
+    each launch K1's encode entry, K2 and KT once per plane per frame).
+    Returns the counts (K1 encode entry, K2, KT, KR)."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    name, what = "hd720_2pass_k8_enc", "enc720p 2-pass"
+
+    def encode(enc):
+        return enc.encode_clip_twopass(frames, keyframe_freq=mk.HD_KF,
+                                       target_bitrate=mk.HD_2PASS_RATE,
+                                       buf_delay=mk.HD_2PASS_BUF)
+
+    def make():
+        return _encoder(1280, 720, 0, mk.HD_QI, "auto", quality=0)
+
+    pkts, blob = encode(make())
+    _check_hashes(pkts, name, "first run", blob)
+    qis = _frame_qis(pkts)
+    if len(set(qis)) < 2:
+        raise AssertionError(f"{what}: every frame at qi {qis[0]}")
+    _closed_loop(make(), frames[:mk.HD_KF], what, qis[:mk.HD_KF],
+                 [p.data for p in pkts[3:3 + mk.HD_KF]])
+
+    enc = make()
+    enc.device_spans = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    pkts, blob = encode(enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = 2 * 3 * len(frames)
+    counts = _read_counts(what, (per, per, per, 0))
+    n = _check_hashes(pkts, name, "warm run", blob)
+    dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
+    hdr = pkts[:3]
+    outs = BatchDecoder(parse_info_header(hdr[0].data),
+                        parse_setup_header(hdr[2].data),
+                        device="cuda").decode_clip(
+        [p.data for p in pkts[3:]], batch=8)
+    nf = len(frames)
+    nbytes = sum(len(p.data) for p in pkts[3:])
+    log(f"[{what}] {nf} frames at {mk.HD_2PASS_RATE} bit/s: all {n} lines "
+        f"(packets and the pass-1 metrics blob) equal the JAX encoder's; "
+        f"frame qis {qis}; {nbytes} bytes = "
+        f"{8 * nbytes * 30 / nf / 1e6:.3f} Mbit/s at 30 frames/s; warm run "
+        f"(pass 1 + pass 2) {wall:.4f} s; host mode decision and gates "
+        f"{enc.host_decide_s:.4f} s, host packing {enc.host_pack_s:.4f} s; "
+        f"device spans {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} dB; "
+        f"launches K1, K2, KT, KR {counts} = {counts[1] / (6 * nf):.0f} per "
+        f"plane per frame in each pass | {smi}")
     return counts
 
 
@@ -888,21 +1123,28 @@ def main() -> int:
     k1_decode = real_size(smi)
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
+    kr = kr_vs_plain(dev)
     small_encodes()
-    fixed = real_size_encode(smi, "hd720_q48_k8_enc", 48, False)
+    paths = {"encode q48 aq off": real_size_encode(
+        smi, "hd720_q48_k8_enc", 48, False)}
     # The main encode path: the JAX encoder's default, adaptive
     # quantization "auto", which engages the qi triple at q56.
-    k1_encode, k2["launches"], kt["launches"] = real_size_encode(
-        smi, "hd720_q56_k8_aq_enc", 56, "auto")
+    paths["encode"] = real_size_encode(smi, "hd720_q56_k8_aq_enc", 56,
+                                       "auto")
+    # KR's path: speed level 2, the R/D quantizer in the trellis' place.
+    paths["encode q48 speed 2"] = real_size_encode(
+        smi, "hd720_q48_k8_sp2_enc", 48, "auto", splevel=2)
+    paths["encode 2-pass 2 Mbit/s"] = real_size_twopass(smi)
     # K1 runs on both main paths: the decode's and the encode's.
-    k1["launches"] = k1_decode + k1_encode
-    k1["launches_by_path"] = {"decode": k1_decode, "encode": k1_encode,
-                              "encode q48 aq off": fixed[0]}
-    k2["launches_by_path"] = {"encode": k2["launches"],
-                              "encode q48 aq off": fixed[1]}
-    kt["launches_by_path"] = {"encode": kt["launches"],
-                              "encode q48 aq off": fixed[2]}
-    print(json.dumps({"kernels": [k1, k2, kt]}), flush=True)
+    k1["launches"] = k1_decode + paths["encode"][0]
+    k2["launches"] = paths["encode"][1]
+    kt["launches"] = paths["encode"][2]
+    kr["launches"] = paths["encode q48 speed 2"][3]
+    k1["launches_by_path"] = {"decode": k1_decode}
+    for i, k in enumerate((k1, k2, kt, kr)):
+        k.setdefault("launches_by_path", {}).update(
+            {p: c[i] for p, c in paths.items()})
+    print(json.dumps({"kernels": [k1, k2, kt, kr]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

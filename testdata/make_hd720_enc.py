@@ -2,8 +2,9 @@
 GOP encoder (theora_tpu_torch.encode.gop.GopEncoder) to the JAX
 TpuGopEncoder.
 
-Five lists, each line the SHA-256 of one packet (the three headers, then
-one line per frame):
+Lists of SHA-256 lines, one per packet (the three headers, then one per
+frame; a 2-pass list ends with one more line, the SHA-256 of the pass-1
+metrics blob):
 
 - hd720_q48_k8_enc.sha256: 16 frames of make_hd720.source_frames()
   (cif_smooth.i420 upscaled to 1280x720 4:2:0), q48, a keyframe every 8
@@ -23,10 +24,38 @@ one line per frame):
   adaptive_quant "auto": mixed frames that are not noise-like, so the luma
   scan runs with the per-block activity scales.
 
-All use a fixed qi, the trellis, no target bitrate and no scene-cut
-keyframes. The JAX encoder runs on the CPU; adaptive_quant (where not the
-default) and delta_upload are set as attributes. Run from the repository
-root, for all lists or the named ones:
+These five use a fixed qi, the trellis, no target bitrate and no
+scene-cut keyframes. The others hold the rest of the encoder's settings:
+
+- enc64x48_sp24.sha256: moving_frames() at 64x48, format 0, 5 frames,
+  keyframe_freq=4, q40, set_splevel(2) (the R/D quantizer, one qi per
+  frame), then the same at set_splevel(4) (no motion compensation);
+- mixed96x64_q40_aq_rd_enc.sha256 and halftex96x64_q48_aq_rd_enc.sha256:
+  the two 96x64 clips as above with use_trellis=False: the R/D quantizer
+  at three qi rows, with the activity scales in the chooser on the second;
+- cut64x48_autokf_enc.sha256: cut_frames(), 14 frames of smooth panning
+  content with a scene cut at frame 9, q40, keyframe_freq=8,
+  auto_keyframe=True;
+- cbr64x48_enc.sha256: moving_frames() at 64x48 (12 frames, seed 13), q40,
+  keyframe_freq=4, target_bitrate=60_000, rate_window=1 (the case of
+  tests/test_tpu_gop.py:test_single_device_cbr_matches_mesh; the qi
+  moves);
+- twopass64x48_enc.sha256: the same 12 frames, encode_clip_twopass at
+  target_bitrate=60_000 with the whole file as the window, info quality
+  0 (no quality floor), encoder qi 40;
+- hd720_q48_k8_sp2_enc.sha256: the 16 720p frames at q48, keyframe every
+  8, set_splevel(2);
+- hd720_2pass_k8_enc.sha256: the 16 720p frames, encode_clip_twopass at
+  target_bitrate=2_000_000, buf_delay=16, keyframe every 8, info quality
+  0, encoder qi 48.
+
+The JAX encoder runs on the CPU; adaptive_quant (where not the default)
+and delta_upload are set as attributes. With use_trellis=False and more
+than one qi row the JAX scan passes its per-frame lambda as the
+trellis' lambda slots, which that path never reads but indexes by row,
+and raises; `_rd_rows_scan_fix` gives those slots [F, K] zeros in this
+process (theora_tpu is not edited). Run from the repository root, for
+all lists or the named ones:
 
     python testdata/make_hd720_enc.py [LIST ...]
 
@@ -58,6 +87,9 @@ SMALL_QI = 40
 AQ_QI = 56
 MIXED_W, MIXED_H, MIXED_FRAMES, MIXED_QI = 96, 64, 4, 40
 HALFTEX_QI = 48
+CBR_FRAMES, CBR_SEED, CBR_KF, CBR_QI, CBR_RATE = 12, 13, 4, 40, 60_000
+CUT_FRAMES, CUT_AT, CUT_KF = 14, 9, 8
+HD_2PASS_RATE, HD_2PASS_BUF = 2_000_000, 16
 
 
 def moving_frames(w: int, h: int, fmt: int, n: int, seed: int):
@@ -106,6 +138,30 @@ def halftexture_frames():
     return [[np.roll(y0, f, 1), u0, v0] for f in range(MIXED_FRAMES)]
 
 
+def cut_frames():
+    """The 64x48 clip of tests/test_tpu_gop.py:
+    test_mesh_arbitrary_rate_window_and_auto_keyframes: smooth panning
+    luma over a fixed texture, inverted from frame CUT_AT on (a scene
+    cut), with smooth moving chroma."""
+    yy, xx = np.mgrid[0:48, 0:64]
+    rng = np.random.RandomState(5)
+    tex = rng.randint(0, 48, (48, 64)).astype(np.int32)
+    frames = []
+    for t in range(CUT_FRAMES):
+        y = (tex + 80 + 70 * np.sin((xx + 2 * t) / 9.0)).clip(0, 255)
+        y = y.astype(np.uint8)
+        if t >= CUT_AT:
+            y = 255 - y
+        u = (128 + 40 * np.cos((yy[::2, ::2] + t) / 7.0)).astype(np.uint8)
+        v = (128 - 40 * np.sin((xx[::2, ::2] - t) / 8.0)).astype(np.uint8)
+        frames.append([y, u, v])
+    return frames
+
+
+def cbr_frames():
+    return moving_frames(64, 48, 0, CBR_FRAMES, CBR_SEED)
+
+
 def hd_frames():
     import importlib.util
 
@@ -116,24 +172,69 @@ def hd_frames():
     return mod.source_frames()[:HD_FRAMES]
 
 
-def _jax_packets(frames, w, h, fmt, qi, kf, adaptive_quant=False):
+def _rd_rows_scan_fix():
+    """Give the JAX scan's trellis-lambda slots [F, K] zeros where it
+    passes none (use_trellis=False), in this process only."""
+    import jax.numpy as jnp
+
+    from theora_tpu.encode import tpu_gop
+
+    if getattr(tpu_gop.make_plane_scan, "rd_rows_fix", False):
+        return
+    make = tpu_gop.make_plane_scan
+
+    def make_plane_scan(*args, **kwargs):
+        scan_fn = make(*args, **kwargs)
+
+        def fixed(*a, **kw):
+            if len(a) == 17:  # no nb_* / lam_t_* slots
+                a = a + (None, None, jnp.zeros_like(a[15]),
+                         jnp.zeros_like(a[16]))
+            return scan_fn(*a, **kw)
+        return fixed
+
+    make_plane_scan.rd_rows_fix = True
+    tpu_gop.make_plane_scan = make_plane_scan
+
+
+def _jax_encoder(w, h, fmt, qi, adaptive_quant=False, quality=None,
+                 splevel=0, use_trellis=True):
     from theora_tpu.encode.tpu_gop import TpuGopEncoder
     from theora_tpu.info import TheoraInfo
 
     info = TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
-                      pic_height=h, quality=qi, pixel_fmt=fmt)
-    enc = TpuGopEncoder(info, qi=qi)
+                      pic_height=h, quality=qi if quality is None
+                      else quality, pixel_fmt=fmt)
+    enc = TpuGopEncoder(info, qi=qi, use_trellis=use_trellis)
     enc.adaptive_quant = adaptive_quant
     enc.delta_upload = False
+    if splevel:
+        enc.set_splevel(splevel)
+    if not enc.use_trellis:
+        _rd_rows_scan_fix()
+    return enc
+
+
+def _jax_packets(frames, w, h, fmt, qi, kf, adaptive_quant=False, **kw):
+    enc = _jax_encoder(w, h, fmt, qi, adaptive_quant, **kw)
     return enc.encode_clip(frames, keyframe_freq=kf, clip_batch=8)
 
 
+def _twopass(frames, w, h, qi, kf, rate, buf_delay):
+    """Packets of encode_clip_twopass, then the blob as one more entry."""
+    enc = _jax_encoder(w, h, 0, qi, "auto", quality=0)
+    pkts, blob = enc.encode_clip_twopass(frames, keyframe_freq=kf,
+                                         target_bitrate=rate,
+                                         buf_delay=buf_delay)
+    return [p.data for p in pkts] + [blob]
+
+
 def _write(name, pkts):
-    lines = [hashlib.sha256(p.data).hexdigest() for p in pkts]
+    datas = [p if isinstance(p, bytes) else p.data for p in pkts]
+    lines = [hashlib.sha256(d).hexdigest() for d in datas]
     with open(os.path.join(HERE, name), "w") as f:
         f.write("\n".join(lines) + "\n")
-    print(f"{name}: {len(lines)} packets, "
-          f"{sum(len(p.data) for p in pkts)} bytes")
+    print(f"{name}: {len(lines)} lines, {sum(map(len, datas))} bytes")
 
 
 def _small():
@@ -156,6 +257,29 @@ LISTS = {
     "halftex96x64_q48_aq_enc.sha256": lambda: _jax_packets(
         halftexture_frames(), MIXED_W, MIXED_H, 0, HALFTEX_QI,
         MIXED_FRAMES, adaptive_quant="auto"),
+    "enc64x48_sp24.sha256": lambda: [
+        p for lvl in (2, 4) for p in _jax_packets(
+            moving_frames(64, 48, 0, SMALL_FRAMES, 11), 64, 48, 0, SMALL_QI,
+            SMALL_KF, "auto", splevel=lvl)],
+    "mixed96x64_q40_aq_rd_enc.sha256": lambda: _jax_packets(
+        mixed_frames(), MIXED_W, MIXED_H, 0, MIXED_QI, MIXED_FRAMES,
+        adaptive_quant=True, use_trellis=False),
+    "halftex96x64_q48_aq_rd_enc.sha256": lambda: _jax_packets(
+        halftexture_frames(), MIXED_W, MIXED_H, 0, HALFTEX_QI,
+        MIXED_FRAMES, adaptive_quant="auto", use_trellis=False),
+    "cut64x48_autokf_enc.sha256": lambda: _jax_encoder(
+        64, 48, 0, SMALL_QI, "auto").encode_clip(
+            cut_frames(), keyframe_freq=CUT_KF, auto_keyframe=True),
+    "cbr64x48_enc.sha256": lambda: _jax_encoder(
+        64, 48, 0, CBR_QI, "auto").encode_clip(
+            cbr_frames(), keyframe_freq=CBR_KF, target_bitrate=CBR_RATE,
+            rate_window=1),
+    "twopass64x48_enc.sha256": lambda: _twopass(
+        cbr_frames(), 64, 48, CBR_QI, CBR_KF, CBR_RATE, None),
+    "hd720_q48_k8_sp2_enc.sha256": lambda: _jax_packets(
+        hd_frames(), 1280, 720, 0, HD_QI, HD_KF, "auto", splevel=2),
+    "hd720_2pass_k8_enc.sha256": lambda: _twopass(
+        hd_frames(), 1280, 720, HD_QI, HD_KF, HD_2PASS_RATE, HD_2PASS_BUF),
 }
 
 

@@ -23,8 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2, KT and the device decode "
-                    "and encode paths have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2, KT, KR and the device "
+                    "decode and encode paths have no CPU mode")
     return torch.device("cuda")
 
 
@@ -205,3 +205,52 @@ def test_encode_on_card_equals_cpu(card):
     on_cpu = GopEncoder(info, qi=40, device="cpu").encode_clip(
         frames, keyframe_freq=4)
     assert [p.data for p in on_card] == [p.data for p in on_cpu]
+
+
+def test_kr_kernel_matches_plain(card):
+    """KR on K2's outputs at K = 1, 2 and 3 (3,600 blocks, intra and
+    inter mixed), the edge classes and the FMA-deciding blocks: values,
+    counts and DC-only flags equal the plain version's, one launch each."""
+    from theora_tpu_torch.ops import qrd_cuda
+    from theora_tpu_torch.tools import bench_qrd
+
+    cases = [a for _, a in bench_qrd.kr_cases(card, ((3600, 1),))]
+    cases.append(bench_qrd.edge_args(card))
+    cases += list(bench_qrd.fma_args(
+        os.path.join(TESTDATA, "vectors", "qrd_fma_cases.npz"), card))
+    before = qrd_cuda.quantize_rd.launches
+    for args in cases:
+        got = qrd_cuda.quantize_rd(*args)
+        want = transforms.quantize_rd_rows(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert qrd_cuda.quantize_rd.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("setting", ["speed 2", "cbr"])
+def test_rate_and_speed_encodes_on_card_equal_cpu(card, setting):
+    """Speed level 2 (KR) and CBR (per-frame qis, the loop filter below
+    qi 47) at 64x48: the card's packets equal the CPU path's."""
+    import importlib.util
+
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    frames = mod.cbr_frames()
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=40)
+    out = []
+    for dev in ("cuda", "cpu"):
+        enc = GopEncoder(info, qi=40, device=dev)
+        if setting == "speed 2":
+            enc.set_splevel(2)
+            out.append(enc.encode_clip(frames, keyframe_freq=4))
+        else:
+            out.append(enc.encode_clip(frames, keyframe_freq=4,
+                                       target_bitrate=60_000, rate_window=1))
+    assert [p.data for p in out[0]] == [p.data for p in out[1]]

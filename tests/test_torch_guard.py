@@ -1,11 +1,10 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1 at both entries, K2, KT) take their plain paths only
-for CPU tensors and K1's have no fallback, K1 and KT are built without
-floating-point contraction, and the encoder settings
-it does not carry yet raise NotImplementedError naming their ROADMAP
-item."""
+kernel wrappers (K1 at both entries, K2, KT, KR) take their plain paths
+only for CPU tensors and K1's have no fallback, K1, KT and KR are built
+without floating-point contraction, and the encoder takes every setting of
+the JAX encoder, with its defaults."""
 import ast
 import os
 
@@ -319,43 +318,16 @@ def test_gop_encoder_without_card_raises(monkeypatch):
     assert GopEncoder(_small_info(), device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("setting", [
-    dict(use_trellis=False), dict(target_bitrate=200000),
-    dict(auto_keyframe=True), dict(rate_window=4),
-    dict(call="set_splevel"), dict(call="encode_clip_pass1"),
-    dict(call="encode_clip_pass2"), dict(call="encode_clip_twopass"),
-])
-def test_unsupported_settings_raise(setting):
-    from theora_tpu_torch.encode.gop import GopEncoder
-
-    frames = [[np.zeros((48, 64), np.uint8), np.zeros((24, 32), np.uint8),
-               np.zeros((24, 32), np.uint8)]]
-    item = ("'Rate control'" if setting.get("call", "").startswith("encode")
-            or {"target_bitrate", "rate_window"} & set(setting)
-            else "'Speed levels'" if "use_trellis" in setting
-            or setting.get("call") == "set_splevel"
-            else "'Scene-cut keyframes'")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        if "call" in setting:
-            enc = GopEncoder(_small_info(), device="cpu")
-            if setting["call"] == "set_splevel":
-                enc.set_splevel(2)
-            elif setting["call"] == "encode_clip_pass2":
-                enc.encode_clip_pass2(frames, b"", target_bitrate=200000)
-            else:
-                getattr(enc, setting["call"])(frames,
-                                              target_bitrate=200000)
-        elif "use_trellis" in setting:
-            GopEncoder(_small_info(), device="cpu", **setting)
-        else:
-            GopEncoder(_small_info(), device="cpu").encode_clip(frames,
-                                                                **setting)
-
-
 def test_encoder_settings_that_are_ported():
     """adaptive_quant takes False, True and "auto" (the default) and
-    nothing else; rd_strength is a constructor argument; speed levels 0
-    and 1 (the encoder's one mode) are accepted."""
+    nothing else; rd_strength and use_trellis are constructor arguments;
+    speed levels 0-4, clipped to that range, set the quantizer (the
+    trellis at 0-1) and, at 4, the mode decision without motion
+    compensation, as TpuGopEncoder.set_splevel does; encode_clip's
+    rate_window defaults to 8, as in JAX."""
+    import inspect
+
+    from theora_tpu.encode.tpu_gop import TpuGopEncoder
     from theora_tpu_torch.encode.gop import GopEncoder
 
     enc = GopEncoder(_small_info(), device="cpu")
@@ -370,8 +342,19 @@ def test_encoder_settings_that_are_ported():
             GopEncoder(_small_info(), device="cpu", adaptive_quant=bad)
     assert GopEncoder(_small_info(), device="cpu",
                       rd_strength=1.5).rd_strength == 1.5
-    enc.set_splevel(0)
-    enc.set_splevel(1)
+    assert enc.use_trellis is True and enc.sp_level == 0
+    assert GopEncoder(_small_info(), device="cpu",
+                      use_trellis=False).use_trellis is False
+    for lvl in (-1, 0, 1, 2, 3, 4, 7):
+        enc.set_splevel(lvl)
+        assert (enc.sp_level, enc.use_trellis, enc._no_mc) == (
+            min(max(lvl, 0), 4), lvl < 2, lvl >= 4)
+    for fn in ("encode_clip", "encode_clip_pass1", "encode_clip_pass2",
+               "encode_clip_twopass"):
+        ours = inspect.signature(getattr(GopEncoder, fn)).parameters
+        ref = inspect.signature(getattr(TpuGopEncoder, fn)).parameters
+        assert {k: v.default for k, v in ours.items()} == \
+            {k: v.default for k, v in ref.items()}, fn
 
 
 def _k2_args(device):
@@ -569,3 +552,120 @@ def test_kt_wrapper_output_on_cpu():
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(*args)
     assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
     assert trellis_cuda.trellis_quantize.launches == 0
+
+
+# ------------------------------------------------------------- kernel KR
+
+def _kr_args(device):
+    n = 5
+    return (
+        torch.zeros((1, n, 64), dtype=torch.int16, device=device),
+        torch.zeros((n, 64), dtype=torch.int16, device=device),
+        torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
+        torch.zeros(n, dtype=torch.uint8, device=device),
+        np.array([[10.0, 12.0]], np.float32),
+    )
+
+
+def test_kr_plain_path_only_for_cpu_tensors(monkeypatch):
+    from theora_tpu_torch.ops import qrd_cuda
+
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        n = args[0].shape[1]
+        return (torch.zeros((1, n, 64), dtype=torch.int16),
+                torch.zeros((1, n), dtype=torch.int32),
+                torch.ones((1, n), dtype=torch.bool))
+
+    monkeypatch.setattr(transforms, "quantize_rd_rows", plain)
+    qrd_cuda.quantize_rd(*_kr_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        qrd_cuda.quantize_rd(*_kr_args("meta"))
+    assert calls == ["cpu"]
+    assert qrd_cuda.quantize_rd.launches == 0
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((5, 64), dtype=torch.int16)),
+    (0, torch.zeros((1, 5, 64), dtype=torch.int32)),
+    (0, torch.zeros((4, 5, 64), dtype=torch.int16)),
+    (0, torch.zeros((1, 64, 5), dtype=torch.int16).transpose(1, 2)),
+    (0, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(1, 5, 64)),
+    (1, torch.zeros((4, 64), dtype=torch.int16)),
+    (1, torch.zeros((5, 64), dtype=torch.int32)),
+    (1, torch.zeros((5, 64), dtype=torch.int16, device="meta")),
+    (1, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(5, 64)),
+    (2, torch.full((2, 64), 8, dtype=torch.int16)),
+    (2, torch.full((2, 2, 64), 8, dtype=torch.int16)),
+    (2, torch.full((1, 2, 64), 8, dtype=torch.int32)),
+    (3, torch.zeros(5, dtype=torch.bool)),
+    (3, torch.zeros(6, dtype=torch.uint8)),
+    (4, np.array([10.0, 12.0], np.float32)),
+    (4, np.array([[10.0, 12.0]], np.float64)),
+    (4, np.array([[10.0, np.nan]], np.float32)),
+    (4, np.array([[10.0, -1.0]], np.float32)),
+    (4, np.array([[10.0, 12.0], [1.0, 2.0]], np.float32)),
+    (4, torch.tensor([[10.0, 12.0]])),
+    (4, 10.0),
+])
+def test_kr_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import qrd_cuda
+
+    args = list(_kr_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        qrd_cuda.quantize_rd(*args)
+
+
+def test_kr_build_is_sm90a_without_contraction(monkeypatch, tmp_path):
+    """KR's library is built by nvcc_build from csrc/quantize_rd.cu for
+    sm_90a with -fmad=false (only its explicit fused multiply-adds may
+    fuse) and without fast math. Nothing is compiled: subprocess.run is
+    replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, qrd_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(qrd_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_qrd.so"))
+    so = qrd_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == qrd_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "quantize_rd.cu"))
+    assert so == qrd_cuda._SO and os.path.exists(so)
+
+
+def test_kr_wrapper_output_on_cpu():
+    """Shapes and types at K = 1 and 3, and an all-zero input's result:
+    zero values and counts, every block DC-only; nothing counts as a
+    launch."""
+    from theora_tpu_torch.ops import qrd_cuda
+
+    vals, cnt, dc_only = qrd_cuda.quantize_rd(*_kr_args("cpu"))
+    assert vals.dtype == torch.int16 and vals.shape == (1, 5, 64)
+    assert cnt.dtype == torch.int32 and cnt.shape == (1, 5)
+    assert dc_only.dtype == torch.bool and dc_only.shape == (1, 5)
+    assert not vals.any() and not cnt.any() and dc_only.all()
+    args = list(_kr_args("cpu"))
+    args[0] = torch.zeros((3, 5, 64), dtype=torch.int16)
+    args[2] = torch.full((3, 2, 64), 8, dtype=torch.int16)
+    args[4] = np.ones((3, 2), np.float32)
+    vals, cnt, dc_only = qrd_cuda.quantize_rd(*args)
+    assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
+    assert qrd_cuda.quantize_rd.launches == 0

@@ -3,13 +3,17 @@ the reconstruction on the card; mode decision and entropy coding on the
 host.
 
 Port of theora_tpu/encode/tpu_gop.py (`TpuGopEncoder`: the constructor,
-`set_qi`, `_lam_t_for`, `_adaptive_qis`, `_decide_frames`, `_frag_plan`,
-`_plane_inputs`, `dispatch_me`, `complete_dispatch` and `finish_gop`
-(one `_encode_chunk` here), `_pack_gop`, `encode_gop`, `encode_clip` and
-`gop_starts`) for the configuration the port supports: a fixed qi, the
-trellis at any rd_strength, adaptive quantization (False, True or the
-default "auto"), no rate control and fixed keyframe spacing. Its packets
-are byte-identical to the JAX encoder's in that configuration.
+`set_qi`, `set_splevel`, `_lam_t_for`, `_adaptive_qis`, `_decide_frames`,
+`_frag_plan`, `_plane_inputs`, `dispatch_me`, `complete_dispatch` and
+`finish_gop` (one `_encode_chunk` here), `_pack_gop`, `encode_gop`,
+`encode_clip`, `encode_clip_pass1`, `encode_clip_pass2`,
+`encode_clip_twopass`, `WindowRateController`, `detect_scene_cuts` and
+`gop_starts`) with every setting of the JAX encoder: speed levels 0-4
+(the trellis at 0-1, the R/D quantizer at 2-4 or with use_trellis=False,
+no motion compensation at 4), any rd_strength, adaptive quantization
+(False, True or the default "auto"), scene-cut keyframes, CBR
+(target_bitrate, rate_window) and 2-pass rate control. Its packets, and
+its 2-pass metrics, are byte-identical to the JAX encoder's.
 
 Per chunk of frames (consecutive GOPs, `clip_batch` frames at most):
   1. upload the luma stack; the ME plan (ops/me.py) on the device;
@@ -17,16 +21,19 @@ Per chunk of frames (consecutive GOPs, `clip_batch` frames at most):
      (native `mode_decide_native`) and per-fragment plan; per frame the
      adaptive-quantization gates and qi list (encode/aq.py), padded to
      the chunk's longest list by repeating the base qi;
-  3. per plane, the closed-loop encode (encode/scan.py: kernels K2, KT
-     and K1 once per frame at every qi row) on the device;
+  3. per plane, the closed-loop encode (encode/scan.py: kernels K2, KT or
+     KR, and K1 once per frame at every qi row) on the device;
   4. download the coded flags, nonzero counts, qi indices and the nonzero
      coefficients (sized by their true count), then pack on the host
      (encode/packer.py).
 The chunks run one after the other: GOPs are independent, so overlapping
-them could not change a byte.
+them could not change a byte. With a target bitrate each GOP is a chunk
+of its own, and the qi moves between GOPs (WindowRateController); in a
+2-pass encode each frame has its own qi (`frame_qi`).
 """
 from __future__ import annotations
 
+import copy
 import time
 
 import numpy as np
@@ -53,6 +60,7 @@ from theora_tpu_torch.constants import (
 from theora_tpu_torch.decode.decoder import _MVMAP, _MVMAP2
 from theora_tpu_torch.encode import aq
 from theora_tpu_torch.encode.packer import FramePacker
+from theora_tpu_torch.encode.rate import RateControl, twopass_window_qvecs
 from theora_tpu_torch.encode.scan import encode_plane
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME, TheoraInfo
 from theora_tpu_torch.native import mode_decide_native
@@ -60,23 +68,6 @@ from theora_tpu_torch.ops import me
 from theora_tpu_torch.ops.transforms import rd_lambda
 from theora_tpu_torch.tables import RD_LAMBDA
 from theora_tpu_torch.tpkt import Packet
-
-# The settings of the JAX encoder this port does not carry yet, each with
-# the ROADMAP.md item that ports it.
-_SPEED = "speed levels 2-4 and quantize_rd (ROADMAP.md section 1, " \
-         "'Speed levels')"
-_RATE = "CBR and 2-pass rate control (ROADMAP.md section 1, 'Rate control')"
-_TODO = {
-    "use_trellis": _SPEED,
-    "set_splevel": _SPEED,
-    "target_bitrate": _RATE,
-    "rate_window": _RATE,
-    "encode_clip_pass1": _RATE,
-    "encode_clip_pass2": _RATE,
-    "encode_clip_twopass": _RATE,
-    "auto_keyframe": "scene-cut keyframes (ROADMAP.md section 1, "
-                     "'Scene-cut keyframes')",
-}
 
 _RS_OF = np.zeros(8, np.int8)
 for _m in (MODE_INTER_NOMV, MODE_INTER_MV, MODE_INTER_MV_LAST,
@@ -88,11 +79,6 @@ _MV_MODES = np.zeros(8, bool)
 _MV_MODES[[MODE_INTER_MV, MODE_INTER_MV_LAST, MODE_INTER_MV_LAST2,
            MODE_GOLDEN_MV]] = True
 _RS_TO_REF = np.array([FRAME_SELF, FRAME_PREV, FRAME_GOLD], np.int32)
-
-
-def _unsupported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to theora_tpu_torch yet: {_TODO[what]}")
 
 
 def trellis_bit_costs(huff_codes) -> np.ndarray:
@@ -107,11 +93,31 @@ def trellis_bit_costs(huff_codes) -> np.ndarray:
     return nbt[ZZI_GROUP]
 
 
+def detect_scene_cuts(frames, keyframe_freq: int,
+                      threshold: float = 24.0) -> list[int]:
+    """GOP starts from pixels alone (tpu_gop.py:67-96): a frame opens a
+    GOP when the mean absolute delta of its luma, subsampled 2x2, to its
+    predecessor's exceeds threshold, or when its GOP has keyframe_freq
+    frames. frames: list of [y, u, v] display-orientation planes. Returns
+    the sorted start indices, 0 first."""
+    starts = [0]
+    prev = None
+    for i, fr in enumerate(frames):
+        y = np.asarray(fr[0]).astype(np.float32)[::2, ::2]
+        if prev is not None:
+            if (i - starts[-1] >= keyframe_freq
+                    or float(np.abs(y - prev).mean()) > threshold):
+                starts.append(i)
+        prev = y
+    return starts
+
+
 def gop_starts(frames, keyframe_freq: int,
                auto_keyframe: bool = False) -> list[int]:
-    """The clip's GOP start indices at fixed spacing."""
+    """The clip's GOP start indices: fixed spacing, or at scene cuts
+    (bounded by keyframe_freq) with auto_keyframe."""
     if auto_keyframe:
-        _unsupported("auto_keyframe")
+        return detect_scene_cuts(frames, keyframe_freq)
     return list(range(0, len(frames), keyframe_freq))
 
 
@@ -119,9 +125,11 @@ class GopEncoder:
     """Encode clips with ME, the closed-loop reconstruction and every
     pixel decision on `device` ("cuda" by default; "cpu" runs the plain
     PyTorch versions of the kernels). qinfo and huff_codes default to the
-    spec tables (tables.py). rd_strength scales the skip test's and the
-    qi chooser's lambda and the MV-bit bias of the mode decision.
-    adaptive_quant: False, True or "auto" (encode/aq.py)."""
+    spec tables (tables.py). rd_strength scales the skip test's, the qi
+    chooser's and the R/D quantizer's lambda and the MV-bit bias of the
+    mode decision. use_trellis: the trellis (kernel KT), else the R/D
+    quantizer (kernel KR); set_splevel sets it. adaptive_quant: False,
+    True or "auto" (encode/aq.py)."""
 
     def __init__(self, info: TheoraInfo, qi: int | None = None,
                  rd_strength: float = 3.0, use_trellis: bool = True,
@@ -131,7 +139,9 @@ class GopEncoder:
         self.device = resolve_device(device)
         self.rd_strength = float(rd_strength)
         self.adaptive_quant = adaptive_quant
-        self.use_trellis = use_trellis
+        self.use_trellis = bool(use_trellis)
+        self.sp_level = 0
+        self._no_mc = False
         self.info = info
         self.packer = FramePacker(info, qinfo, huff_codes)
         self.g = g = self.packer.geometry
@@ -181,20 +191,14 @@ class GopEncoder:
     def adaptive_quant(self, value) -> None:
         self._adaptive_quant = aq.check_mode(value)
 
-    @property
-    def use_trellis(self) -> bool:
-        return True
-
-    @use_trellis.setter
-    def use_trellis(self, value) -> None:
-        if not value:
-            _unsupported("use_trellis")
-
     def set_splevel(self, lvl: int) -> None:
-        """Speed levels 0-1 (full quality, the batched trellis) are this
-        encoder's only mode; 2-4 are not ported."""
-        if lvl >= 2:
-            _unsupported("set_splevel")
+        """Speed levels (tpu_gop.py:609-618), clipped to 0-4: 0-1 the
+        trellis, 2-3 the R/D quantizer and one qi per frame, 4 also no
+        motion compensation (the MV modes priced out of the decision)."""
+        lvl = int(np.clip(lvl, 0, 4))
+        self.sp_level = lvl
+        self.use_trellis = lvl < 2
+        self._no_mc = lvl >= 4
 
     # ------------------------------------------------------------------
     def set_qi(self, qi: int) -> None:
@@ -229,7 +233,7 @@ class GopEncoder:
                 self._mb_birc, mv[fi], sad_mv[fi], sad_nomv[fi],
                 sad_gold[fi], sad_intra[fi], cands[fi], cand_sads[fi],
                 gmv[fi], sad_gmv[fi], bmv[fi], bsad[fi], g.nmbs,
-                self._bias_scale, self._mv_bits_sad)
+                self._bias_scale, self._mv_bits_sad, self._no_mc)
             for fi in rows
         }
 
@@ -304,7 +308,8 @@ class GopEncoder:
 
     # ------------------------------------------------------------------
     def _encode_chunk(self, frames: list, kf_flags: list | None = None,
-                      want_recon: bool = False):
+                      want_recon: bool = False,
+                      frame_qi: list | None = None):
         """Encode a chunk of frames: ME on the device, the host mode
         decision, the per-plane closed-loop encodes on the device, then
         the download and the host packing.
@@ -312,7 +317,11 @@ class GopEncoder:
         frames: list of [y, u, v] display-orientation planes of frame
         size. kf_flags marks the keyframes of a multi-GOP chunk
         (kf_flags[0] must be True); None: frame 0 is the only one. Golden
-        references follow each frame's own GOP keyframe. Returns (packet
+        references follow each frame's own GOP keyframe. frame_qi: each
+        frame's base qi (rate control's per-frame quantizers,
+        complete_dispatch(frame_qi=...)); None: self.qi for every frame.
+        A frame's base qi drives its qi list, lambdas, loop-filter limit
+        and header; the mode decision keeps self.qi's. Returns (packet
         data list, recon {pli: [F, Hp, Wp] uint8 padded planes} or None).
         """
         g = self.g
@@ -355,10 +364,11 @@ class GopEncoder:
                    np.zeros(g.nfrags, bool))
         frame_frag = [kf_frag if p is None else self._frag_plan(*p)
                       for p in plan_pf]
-        fqis, luma_sc = self._frame_qis(planes_bs, kf_flags)
+        if frame_qi is not None and len(frame_qi) != F:
+            raise ValueError("frame_qi must give one qi per frame")
+        fqis, luma_sc = self._frame_qis(planes_bs, kf_flags, frame_qi)
         self.host_decide_s += time.perf_counter() - t0
 
-        qi = self.qi
         dq = self.dequant
         # Each frame's qi list padded to the chunk's K by repeating its
         # base row, which the chooser never picks (equal output, dearer
@@ -369,9 +379,13 @@ class GopEncoder:
         lam_t = np.array([[self._lam_t_for(q)[0 if kf_flags[f] else 1]
                            for q in row] for f, row in enumerate(rows)],
                          np.float32)
-        limit = int(self.packer.qinfo["loop_filter_limits"][qi])
-        lam = np.float32(rd_lambda(qi, int(dq[qi, 0, 1, 1]))
-                         * self.rd_strength * 4.0)
+        # Per frame, at its base qi: the loop-filter limit and the skip
+        # test's and chooser's lambda.
+        limits = [int(self.packer.qinfo["loop_filter_limits"][row[0]])
+                  for row in rows]
+        lam = np.array([rd_lambda(row[0], int(dq[row[0], 0, 1, 1]))
+                        * self.rd_strength * 4.0 for row in rows],
+                       np.float32)
         span = self._span()
         plane_out = {}
         for pli in range(3):
@@ -395,10 +409,19 @@ class GopEncoder:
             sc = None
             if pli == 0 and luma_sc is not None:
                 sc = torch.from_numpy(luma_sc).to(self.device)
+            lam_q = None
+            if not self.use_trellis:
+                # The R/D quantizer's lambda of each row for an intra and
+                # an inter block (tpu_gop.py:1151-1154).
+                lam_q = np.array(
+                    [[[rd_lambda(q, int(dq[q, pli, t, 1])) * self.rd_strength
+                       for t in (0, 1)] for q in row] for row in rows],
+                    np.float32)
             plane_out[pli] = encode_plane(
                 cur, frag, kf_flags, torch.from_numpy(deq).to(self.device),
-                limit, lam, lam_t, self._nb, pl.nvfrags, pl.nhfrags, vpad,
-                hpad, lam_sc=sc, emit_recon=want_recon)
+                limits, lam, pl.nvfrags, pl.nhfrags, vpad, hpad,
+                use_trellis=self.use_trellis, lam_t=lam_t, nb=self._nb,
+                lam_q=lam_q, lam_sc=sc, emit_recon=want_recon)
         self._end_span(span)
 
         qdct_pl, coded_pl, qii_pl, recon_pl = {}, {}, {}, {}
@@ -425,23 +448,26 @@ class GopEncoder:
         self.host_pack_s += time.perf_counter() - t0
         return pkts, (recon_pl if want_recon else None)
 
-    def _frame_qis(self, planes_bs, kf_flags):
+    def _frame_qis(self, planes_bs, kf_flags, frame_qi=None):
         """Per frame of a chunk its qi list (tpu_gop.py:1041-1123): the
         content gates on its luma plane and the adaptive-quantization
-        triple, the intra one for a frame whose GOP is only a keyframe.
-        Returns (qi tuples, [F, n] float32 luma lambda scales or None
-        where no frame with more than one qi engaged masking)."""
+        triple at the frame's base qi (frame_qi[f], else self.qi), the
+        intra one for a frame whose GOP is only a keyframe; one qi at speed
+        levels 2-4. Returns (qi tuples, [F, n] float32 luma lambda scales
+        or None where no frame with more than one qi engaged masking)."""
         F = len(planes_bs)
         starts = [f for f in range(F) if kf_flags[f]] + [F]
         gop_len = np.zeros(F, np.int64)
         for a, b in zip(starts, starts[1:]):
             gop_len[a:b] = b - a
-        mode = self.adaptive_quant
+        mode = self.adaptive_quant if self.sp_level < 2 else False
         fqis, frame_sc = [], [None] * F
         for f in range(F):
+            base = (self.qi if frame_qi is None
+                    else int(np.clip(frame_qi[f], 0, 63)))
             nl, mixed, sc = (aq.frame_gates(planes_bs[f][0], mode) if mode
                              else (False, False, None))
-            fqis.append(aq.frame_qis(mode, self.qi,
+            fqis.append(aq.frame_qis(mode, base,
                                      int(self.info.pixel_fmt),
                                      gop_len[f] == 1, nl, mixed,
                                      sc is not None))
@@ -477,15 +503,16 @@ class GopEncoder:
             rs, fmv, _ = frame_frag[f]
             frag_refi = np.where(coded, _RS_TO_REF[rs.astype(np.int32)],
                                  FRAME_NONE).astype(np.int32)
+            # The frame's own base qi goes into its header.
             if kf_flags[f]:
                 data = self.packer.pack_frame_plan(
-                    INTRA_FRAME, self.qi, coded, frag_refi, None, None, qdct,
-                    qis=qis, frag_qii=frag_qii)
+                    INTRA_FRAME, fqis[f][0], coded, frag_refi, None, None,
+                    qdct, qis=qis, frag_qii=frag_qii)
             else:
                 mb_modes, mb_mvs = plans[f][:2]
                 data = self.packer.pack_frame_plan(
-                    INTER_FRAME, self.qi, coded, frag_refi, mb_modes, mb_mvs,
-                    qdct, frag_mv4=fmv, qis=qis, frag_qii=frag_qii)
+                    INTER_FRAME, fqis[f][0], coded, frag_refi, mb_modes,
+                    mb_mvs, qdct, frag_mv4=fmv, qis=qis, frag_qii=frag_qii)
             pkts.append(data)
         return pkts
 
@@ -495,26 +522,50 @@ class GopEncoder:
         data list, recon {pli: [F, Hp, Wp]} or None)."""
         return self._encode_chunk(gop_frames, want_recon=want_recon)
 
+    def _emit(self, out: list, datas, kf, pbase: int, nf: int) -> None:
+        """Append the packets of frames pbase.. (kf marks their keyframes)
+        with their granule positions; packet numbers continue from out."""
+        shift = self.info.keyframe_granule_shift
+        gop_base = pbase
+        for k, data in enumerate(datas):
+            fnum = pbase + k
+            if kf[k]:
+                gop_base = fnum
+            gp = ((gop_base + 1) << shift) + (fnum - gop_base)
+            out.append(Packet(data, granulepos=gp, packetno=len(out),
+                              e_o_s=(fnum == nf - 1)))
+
     def encode_clip(self, frames: list, keyframe_freq: int = 8,
-                    target_bitrate: int = 0, rate_window: int | None = None,
+                    target_bitrate: int = 0, rate_window: int = 8,
                     auto_keyframe: bool = False,
                     clip_batch: int = 8) -> list[Packet]:
         """Headers + data packets for a whole clip: consecutive GOPs ride
         one chunk of at most clip_batch frames (a GOP longer than that is
         a chunk of its own); the plane encodes restart at every keyframe,
-        so the bytes equal per-GOP encodes."""
-        if target_bitrate > 0:
-            _unsupported("target_bitrate")
-        if rate_window is not None:
-            _unsupported("rate_window")
+        so the bytes equal per-GOP encodes. auto_keyframe places keyframes
+        at scene cuts (detect_scene_cuts).
+
+        With target_bitrate > 0 each GOP is a chunk of its own and the
+        fixed-window controller (WindowRateController) moves the qi from
+        the real packed bits every rate_window GOPs and once at the end
+        (tpu_gop.py:1394-1418)."""
         out = self.flush_headers()
-        shift = self.info.keyframe_granule_shift
         nf = len(frames)
         bases = gop_starts(frames, keyframe_freq, auto_keyframe)
         bounds = bases + [nf]
         gops = [frames[bases[k]:bounds[k + 1]] for k in range(len(bases))]
+        if target_bitrate > 0:
+            rc = WindowRateController(self, target_bitrate, rate_window)
+            for gi, gfr in enumerate(gops):
+                datas, _ = self._encode_chunk(gfr)
+                self._emit(out, datas, [True] + [False] * (len(gfr) - 1),
+                           bases[gi], nf)
+                rc.add(8 * sum(len(d) for d in datas), len(datas))
+                if (gi + 1) % rate_window == 0:
+                    rc.update()
+            rc.update()
+            return out
         chunk_max = max(int(clip_batch), 1)
-        pno = 3
         i = 0
         while i < len(gops):
             j, total = i, 0
@@ -526,25 +577,129 @@ class GopEncoder:
             for k in range(i, j):
                 cfr.extend(gops[k])
                 kf.extend([True] + [False] * (len(gops[k]) - 1))
-            pbase = bases[i]
             datas, _ = self._encode_chunk(cfr, kf_flags=kf)
-            gop_base = pbase
-            for k, data in enumerate(datas):
-                fnum = pbase + k
-                if kf[k]:
-                    gop_base = fnum
-                gp = ((gop_base + 1) << shift) + (fnum - gop_base)
-                out.append(Packet(data, granulepos=gp, packetno=pno,
-                                  e_o_s=(fnum == nf - 1)))
-                pno += 1
+            self._emit(out, datas, kf, bases[i], nf)
             i = j
         return out
 
-    def encode_clip_pass1(self, *args, **kwargs):
-        _unsupported("encode_clip_pass1")
+    def _rc_info(self, target_bitrate: int) -> TheoraInfo:
+        """A copy of the stream info with the rate target set, for the
+        controller only: the packed headers keep the caller's info."""
+        rc_info = copy.copy(self.info)
+        rc_info.target_bitrate = int(target_bitrate)
+        return rc_info
 
-    def encode_clip_pass2(self, *args, **kwargs):
-        _unsupported("encode_clip_pass2")
+    def encode_clip_pass1(self, frames: list, keyframe_freq: int = 8,
+                          target_bitrate: int = 0,
+                          auto_keyframe: bool = False):
+        """2-pass, pass 1 (tpu_gop.py:1484-1526): a fixed-qi encode_clip
+        at the qi the controller's pass 1 picks, then the controller
+        replayed over the real packet sizes. Returns (packets, OT2P
+        metrics blob in the reference's format)."""
+        rc = RateControl(self._rc_info(target_bitrate), keyframe_freq)
+        rc.start_pass1()
+        saved_qi = self.qi
+        self.set_qi(rc._pass1_qi)
+        try:
+            pkts = self.encode_clip(frames, keyframe_freq=keyframe_freq,
+                                    auto_keyframe=auto_keyframe)
+        finally:
+            self.set_qi(saved_qi)
+        kf_set = set(gop_starts(frames, keyframe_freq, auto_keyframe))
+        qi = rc._pass1_qi
+        body = b""
+        for j, p in enumerate(pkts[3:]):
+            ftype = 0 if j in kf_set else 1
+            qi = rc.select_qi(ftype, qi)
+            rc.update(ftype, qi, 8 * len(p.data))
+            body += rc.pass1_frame_data()
+        return pkts, rc.pass1_summary() + body
 
-    def encode_clip_twopass(self, *args, **kwargs):
-        _unsupported("encode_clip_twopass")
+    def encode_clip_pass2(self, frames: list, pass1_data: bytes,
+                          keyframe_freq: int = 8, target_bitrate: int = 0,
+                          buf_delay: int | None = None,
+                          rate_window: int = 1,
+                          auto_keyframe: bool = False) -> list[Packet]:
+        """2-pass, pass 2 (tpu_gop.py:1540-1617): per window of
+        rate_window GOPs, every frame's qi from the controller's model
+        pre-pass (twopass_window_qvecs) from the window-start state; the
+        GOPs encode at those qis (one chunk each), and the controller
+        replays each frame with its real packed bits."""
+        rc = RateControl(self._rc_info(target_bitrate), keyframe_freq)
+        rc.start_pass2(pass1_data, buf_delay)
+        out = self.flush_headers()
+        nf = len(frames)
+        bases = gop_starts(frames, keyframe_freq, auto_keyframe)
+        bounds = bases + [nf]
+        gops = [(bases[k], frames[bases[k]:bounds[k + 1]])
+                for k in range(len(bases))]
+        applied_qi = self.qi
+        for w0 in range(0, len(gops), rate_window):
+            window = gops[w0:w0 + rate_window]
+            qvecs = twopass_window_qvecs(
+                rc, [len(gfr) for _, gfr in window], applied_qi)
+            prev_applied = applied_qi
+            for (base, gfr), qv in zip(window, qvecs):
+                datas, _ = self._encode_chunk(gfr, frame_qi=qv)
+                self._emit(out, datas, [True] + [False] * (len(gfr) - 1),
+                           base, nf)
+                for j, data in enumerate(datas):
+                    ftype = 0 if j == 0 else 1
+                    # The controller's own selection is discarded: the
+                    # frame's qi was fixed by the pre-pass.
+                    rc.select_qi(ftype, prev_applied)
+                    rc.log_qtarget = rc.log_qavg[ftype][qv[j]]
+                    rc.update(ftype, qv[j], 8 * len(data))
+                    prev_applied = qv[j]
+            applied_qi = prev_applied
+        return out
+
+    def encode_clip_twopass(self, frames: list, keyframe_freq: int = 8,
+                            target_bitrate: int = 0,
+                            buf_delay: int | None = None,
+                            rate_window: int = 1,
+                            auto_keyframe: bool = False):
+        """Pass 1 and pass 2; returns (packets, pass-1 metrics blob)."""
+        _, blob = self.encode_clip_pass1(frames, keyframe_freq,
+                                         target_bitrate, auto_keyframe)
+        pkts = self.encode_clip_pass2(frames, blob, keyframe_freq,
+                                      target_bitrate, buf_delay,
+                                      rate_window, auto_keyframe)
+        return pkts, blob
+
+
+class WindowRateController:
+    """Fixed-window CBR (tpu_gop.py:1756-1794): between GOP windows, steer
+    the encoder's qi from the real packed bit counts."""
+
+    def __init__(self, enc: GopEncoder, target_bitrate: int,
+                 rate_window: int):
+        self.enc = enc
+        self.target_bitrate = int(target_bitrate)
+        info = enc.info
+        self.fps = max(info.fps_numerator / max(info.fps_denominator, 1),
+                       1e-6)
+        self.rate_window = int(rate_window)
+        self.fullness = 0.0
+        self.win_bits = 0
+        self.win_frames = 0
+
+    def add(self, bits: int, nframes: int) -> None:
+        self.win_bits += int(bits)
+        self.win_frames += int(nframes)
+
+    def update(self) -> None:
+        self.apply(self.win_bits, self.win_frames)
+        self.win_bits = 0
+        self.win_frames = 0
+
+    def apply(self, total_bits: int, nframes: int) -> None:
+        """Move the qi by at most 4 after a window of nframes frames that
+        took total_bits."""
+        if nframes == 0:
+            return
+        target = self.target_bitrate * nframes / self.fps
+        self.fullness += target - total_bits
+        step = int(round(-self.fullness / max(target / 2, 1.0)))
+        if step:
+            self.enc.set_qi(self.enc.qi + int(np.clip(step, -4, 4)))

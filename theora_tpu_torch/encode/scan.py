@@ -1,18 +1,21 @@
 """Closed-loop encode of one plane over the frames of a chunk.
 
 Port of theora_tpu/encode/tpu_gop.py `make_plane_scan` and
-`_scan_encode_plane` with the trellis, for one qi row (n_qis == 1) or for
-adaptive quantization's K <= 3 rows per frame (n_qis > 1), on a single
-device (frag_axis None). The JAX scan over frames becomes a loop; the
-carried (prev, gold) reference planes stay on the device. Per frame:
+`_scan_encode_plane`, with the trellis (use_trellis) or the R/D quantizer,
+for one qi row (n_qis == 1) or for adaptive quantization's K <= 3 rows per
+frame (n_qis > 1), on a single device (frag_axis None). The quantizer
+inputs are per frame, as there: rate control changes the qi from frame to
+frame. The JAX scan over frames becomes a loop; the carried (prev, gold)
+reference planes stay on the device. Per frame:
 
   MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
   (fDCT + quantization with each qi row, also returning the unquantized
-  DCT) -> kernel KT (the trellis at every qi row, on K2's outputs as they
-  are; it also returns the nonzero counts and DC-only flags) -> kernel K1's
-  encode entry (dequant + iDCT of every row, reconstruction, SSD, and with
-  K > 1 rows the chooser, which keeps each block's cheapest row) -> the R/D
-  skip test against the uncoded copy -> loop filter -> borders.
+  DCT) -> kernel KT (the trellis) or kernel KR (the R/D quantizer) at every
+  qi row, on K2's outputs as they are; each also returns the nonzero
+  counts and DC-only flags -> kernel K1's encode entry (dequant + iDCT of
+  every row, reconstruction, SSD, and with K > 1 rows the chooser, which
+  keeps each block's cheapest row) -> the R/D skip test against the
+  uncoded copy -> loop filter -> borders.
 
 Each kernel runs once per plane per frame whatever K is. The chooser and
 the skip test keep the JAX program's float32 lambda products. Their SSDs
@@ -24,7 +27,8 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
+from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+    trellis_cuda
 from theora_tpu_torch.ops.loopfilter import loop_filter_plane
 from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
     mc_predict
@@ -38,9 +42,10 @@ def plane_blocks(planes: torch.Tensor, nv: int, nh: int) -> torch.Tensor:
             .reshape(F, nv * nh, 64))
 
 
-def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
-                 nb, nv: int, nh: int, pad_y: int, pad_x: int,
-                 lam_sc=None, emit_recon: bool = False):
+def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
+                 nh: int, pad_y: int, pad_x: int, use_trellis: bool = True,
+                 lam_t=None, nb=None, lam_q=None, lam_sc=None,
+                 emit_recon: bool = False):
     """Closed-loop encode of one plane over F frames at K qi rows.
 
     cur_planes: [F, nv*8, nh*8] uint8 source planes (bitstream
@@ -50,12 +55,15 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
     bool); is_intra: F bools (each True frame starts a GOP); deq: [F, K,
     2, 64] int16 zig-zag dequant rows on the device, per frame and qi row
     the intra and the inter row, slot 0 of every row holding the frame's
-    base qi's DC factor; limit: the loop-filter limit; lam: the chooser's
-    and the skip test's float32 lambda; lam_t: [F, K] float32 numpy, the
-    trellis' lambda of each frame's rows for its frame type; nb: [64, 32]
-    float32 token bit costs on the device; lam_sc: None or [F, n] float32
+    base qi's DC factor; limit: [F] the loop-filter limit of each frame
+    (0: no filter); lam: [F] float32 numpy, each frame's chooser and skip
+    test lambda. With use_trellis, kernel KT quantizes: lam_t [F, K]
+    float32 numpy, the trellis' lambda of each frame's rows for its frame
+    type, and nb, the [64, 32] float32 token bit costs on the device;
+    otherwise kernel KR: lam_q [F, K, 2] float32 numpy, per frame and row
+    the intra and the inter block's lambda. lam_sc: None or [F, n] float32
     per-block lambda scales on the device (the trellis' and the
-    chooser's).
+    chooser's; KR takes none).
 
     Returns (qout [F, n, 64] int16 quantized coefficients, zero for
     uncoded blocks; coded [F, n] bool; nnz [F, n] int32 nonzero counts;
@@ -72,7 +80,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
     prev = torch.full((h + 2 * pad_y, w + 2 * pad_x), 0x80,
                       dtype=torch.uint8, device=dev)
     gold = prev
-    lam_dev = torch.tensor(lam, dtype=torch.float32, device=dev)
+    lam_dev = torch.from_numpy(lam).to(dev)
     qout = torch.empty((F, n, 64), dtype=torch.int16, device=dev)
     coded_out = torch.empty((F, n), dtype=torch.bool, device=dev)
     nnz_out = torch.empty((F, n), dtype=torch.int32, device=dev)
@@ -94,18 +102,24 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
             res = (curi - pred).to(torch.int16)
         with record_function("theora.enc.fdct_quant"):
             qdct0, dct = fdct_cuda.fdct_quantize(res, deq[f], inter)
-        with record_function("theora.enc.trellis"):
-            q16, cnt, dc_only = trellis_cuda.trellis_quantize(
-                qdct0, dct, deq[f], inter, lam_t[f], nb, sc)
+        if use_trellis:
+            with record_function("theora.enc.trellis"):
+                q16, cnt, dc_only = trellis_cuda.trellis_quantize(
+                    qdct0, dct, deq[f], inter, lam_t[f], nb, sc)
+        else:
+            with record_function("theora.enc.quantize_rd"):
+                q16, cnt, dc_only = qrd_cuda.quantize_rd(
+                    qdct0, dct, deq[f], inter, lam_q[f])
+        lam_f = lam_dev[f]
         with record_function("theora.enc.idct_recon"):
             recon, ssd_rec, qii, q16, cnt = idct_cuda.idct_recon_choose(
-                q16, dc_only, cnt, deq[f], inter, pred, cur[f], lam_dev, sc)
+                q16, dc_only, cnt, deq[f], inter, pred, cur[f], lam_f, sc)
         if K > 1:
             qii_out[f] = qii
         with record_function("theora.enc.skip"):
             du = unc - curi
             ssd_unc = (du * du).sum(dim=1, dtype=torch.int32)
-            lamterm = (lam_dev * (6.0 * cnt.to(torch.float32) + 2.0)).to(
+            lamterm = (lam_f * (6.0 * cnt.to(torch.float32) + 2.0)).to(
                 torch.int32)
             coded = ~(frag["ms"][f]
                       & (16 * ssd_unc <= 16 * ssd_rec + lamterm))
@@ -114,10 +128,11 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit: int, lam, lam_t,
             blocks = torch.where(coded[:, None], recon, unc)
             plane = blocks_to_plane(blocks.reshape(n, 8, 8), nv, nh, pad_y,
                                     pad_x)
-        if limit:
+        if limit[f]:
             with record_function("theora.enc.loopfilter"):
                 plane = loop_filter_plane(plane, coded.reshape(nv, nh),
-                                          limit, nv, nh, pad_y, pad_x)
+                                          int(limit[f]), nv, nh, pad_y,
+                                          pad_x)
         with record_function("theora.enc.borders"):
             fill_borders(plane, h, w, pad_y, pad_x)
             qout[f] = torch.where(coded[:, None], q16, 0)

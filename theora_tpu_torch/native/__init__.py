@@ -90,7 +90,7 @@ def get_lib():
     lib.th_mode_decide.restype = None
     lib.th_mode_decide.argtypes = (
         [_I64] + [_P] * 16 + [_I64] * 3
-        + [ctypes.c_double, ctypes.c_double] + [_P] * 3
+        + [ctypes.c_double, ctypes.c_double, _I32] + [_P] * 3
     )
     lib.th_parse_frame_sideinfo.restype = _I64
     lib.th_parse_frame_sideinfo.argtypes = [
@@ -241,11 +241,13 @@ def mb_modes_pack_native(modes, alphabets):
 def mode_decide_native(mb_list, mb_row, mb_col, mb_all4, mb_birc,
                        mv, sad_mv, sad_nomv, sad_gold, sad_intra,
                        cands, cand_sads, gmv, sad_gmv, bmv, bsad,
-                       nmbs, b, mvb):
+                       nmbs, b, mvb, no_mc: bool = False):
     """Sequential LAST/LAST2-aware mode decision of one frame over the
     device-precomputed SADs (th_mode_decide; the walk in
-    TpuGopEncoder._decide_frame). Returns (mb_modes [nmbs] int32,
-    mb_mvs [nmbs, 2] int32, mb_bmvs [nmbs, 4, 2] int32)."""
+    TpuGopEncoder._decide_frame). With no_mc (speed level 4) the MV and
+    golden-MV vectors count as zero and 4MV is never considered. Returns
+    (mb_modes [nmbs] int32, mb_mvs [nmbs, 2] int32, mb_bmvs [nmbs, 4, 2]
+    int32)."""
     lib = get_lib()
     nv, nh = sad_mv.shape
     K = cands.shape[0]
@@ -266,7 +268,7 @@ def mode_decide_native(mb_list, mb_row, mb_col, mb_all4, mb_birc,
     lib.th_mode_decide(
         len(mb_list), mb_list.ctypes.data, row.ctypes.data, col.ctypes.data,
         all4.ctypes.data, birc.ctypes.data, *[x.ctypes.data for x in ins],
-        nv, nh, K, float(b), float(mvb),
+        nv, nh, K, float(b), float(mvb), int(bool(no_mc)),
         mb_modes.ctypes.data, mb_mvs.ctypes.data, mb_bmvs.ctypes.data,
     )
     return mb_modes, mb_mvs, mb_bmvs

@@ -1267,6 +1267,7 @@ extern "C" void th_mode_decide(
     const int32_t* bmv,                         // [2nv, 2nh, 2]
     const int32_t* bsad4,                       // [nv, nh] 4MV sums
     int64_t nv, int64_t nh, int64_t K, double b, double mvb,
+    int32_t no_mc,
     int32_t* mb_modes, int32_t* mb_mvs, int32_t* mb_bmvs) {
   enum { NOMV = 0, INTRA = 1, MVM = 2, LAST = 3, LAST2 = 4,
          GNOMV = 5, GMV = 6, FOUR = 7 };
@@ -1281,8 +1282,9 @@ extern "C" void th_mode_decide(
     const int64_t mbi = mb_list[i];
     const int64_t r = mb_row[i], c = mb_col[i];
     const int64_t rc = r * nh + c;
-    const int bx = mv[2 * rc], by = mv[2 * rc + 1];
-    const int gx = gmv[2 * rc], gy = gmv[2 * rc + 1];
+    int bx = mv[2 * rc], by = mv[2 * rc + 1];
+    int gx = gmv[2 * rc], gy = gmv[2 * rc + 1];
+    if (no_mc) { bx = by = gx = gy = 0; }
     double best_cost = (double)sad_nomv[rc];
     int mode = NOMV, vx = 0, vy = 0;
     auto consider = [&](double cost, int m, int x, int y) {
@@ -1293,7 +1295,7 @@ extern "C" void th_mode_decide(
     if (bx || by) consider((double)sad_mv[rc] + mvb, MVM, bx, by);
     if (gx || gy)
       consider((double)sad_gmv[rc] + mvb + 80.0 * b, GMV, gx, gy);
-    if (mb_all4[i])
+    if (!no_mc && mb_all4[i])
       consider((double)bsad4[rc] + 640.0 * b + 4.0 * mvb, FOUR, 0, 0);
     auto sad_at = [&](int x, int y) -> int64_t {
       if (x == bx && y == by) return sad_mv[rc];

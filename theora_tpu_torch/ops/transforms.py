@@ -530,3 +530,116 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
     return (vals.to(torch.int16).reshape(k, n, 64), cnt.reshape(k, n),
             dc_only.reshape(k, n))
+
+
+# ---------------------------------------------------------------------------
+# R/D quantizer (transforms_jax.quantize_rd, the speed levels' and
+# use_trellis=False's quantizer): per AC coefficient a magnitude reduction,
+# two sweeps that kill isolated +-1 values and four that kill a block's
+# last +-1, each accepted when it wins d^2 + lam * bits in float32. As XLA
+# on the CPU compiles it, three of its float32 expressions contract into a
+# fused multiply-add (found with testdata/make_qrd_fma_cases.py):
+#   - the magnitude test err + lam * bits, on both sides, as fma(lam, bits,
+#     err) (err = t * t, rounded);
+#   - the kill sweeps' gain av * av - err_coded as fma(av, av, -err_coded)
+#     (err_coded = (d - av)^2, rounded).
+# With the encoder's dequant values (<= 304) every square is an exact
+# integer and only the first matters: lam * bits is inexact.
+
+# Bits of a lone value of magnitude 0..8 (transforms_jax._MAG_BITS_J).
+_MAG_BITS = torch.tensor([0.0, 4.5, 5.5, 6.5, 6.5, 7.5, 7.5, 8.5, 9.5])
+_ISO_BITS = 11.0
+_TAIL_BITS = 14.0
+
+
+def quantize_rd_values(q0, dct_zz, dequant_zz, lam):
+    """The R/D quantizer's values from the round-to-nearest ones.
+
+    q0: [N, 64] int32 round-to-nearest values (quantize(dct_zz,
+    dequant_zz), kernel K2's output); dct_zz, dequant_zz: [N, 64] int32
+    (zig-zag); lam: [N] float32. Returns [N, 64] int32, DC passed
+    through.
+    """
+    dev = q0.device
+    f32 = torch.float32
+    d = dequant_zz.to(f32)
+    av = dct_zz.abs().to(f32)
+    lamc = lam[:, None]
+    a0 = q0.abs()
+    a1 = torch.clamp(a0 - 1, min=0)
+    mb = _MAG_BITS.to(dev)
+    t0 = a0.to(f32) * d - av
+    t1 = a1.to(f32) * d - av
+    bits0 = mb[torch.clamp(a0, max=8)]
+    bits1 = mb[torch.clamp(a1, max=8)]
+    take1 = _fma(lamc.expand_as(d), bits1, t1 * t1) <= _fma(
+        lamc.expand_as(d), bits0, t0 * t0)
+    out = torch.where(take1, torch.sign(q0) * a1, q0)
+    out[:, 0] = q0[:, 0]
+    # Isolated kill: a lone +-1 between zeros (position 1's left and
+    # position 63's right neighbour count as zero); two sweeps, the second
+    # on the first's output.
+    tc = d - av
+    gain = _fma(av, av, -(tc * tc))
+    kill_iso = gain <= lamc * _ISO_BITS
+    for _ in range(2):
+        nz = out != 0
+        left_zero = torch.ones_like(nz)
+        left_zero[:, 2:] = ~nz[:, 1:-1]
+        right_zero = torch.ones_like(nz)
+        right_zero[:, :-1] = ~nz[:, 1:]
+        iso = nz & left_zero & right_zero & (out.abs() == 1)
+        iso[:, 0] = False
+        out = torch.where(iso & kill_iso, 0, out)
+    # Tail kill: a block's last nonzero AC value, if +-1; four sweeps.
+    rows = torch.arange(out.shape[0], device=dev)
+    pos = torch.arange(64, device=dev)
+    for _ in range(4):
+        nz = out != 0
+        nz[:, 0] = False
+        has = nz.any(dim=1)
+        last = torch.where(nz, pos, 0).amax(dim=1)
+        q_at = out[rows, last]
+        t_at = q_at.abs().to(f32) * d[rows, last] - av[rows, last]
+        v_at = av[rows, last]
+        kill = has & (q_at.abs() == 1) & (
+            _fma(v_at, v_at, -(t_at * t_at)) <= lam * _TAIL_BITS)
+        out[rows, last] = torch.where(kill, 0, q_at)
+    return out
+
+
+def quantize_rd(dct_zz, dequant_zz, lam):
+    """transforms_jax.quantize_rd: dct_zz, dequant_zz [N, 64] int32, lam
+    [N] float32 -> [N, 64] int32."""
+    return quantize_rd_values(quantize(dct_zz, dequant_zz), dct_zz,
+                              dequant_zz, lam)
+
+
+def quantize_rd_rows(qout, dout, deq, inter, lam_q):
+    """The R/D quantizer on kernel K2's outputs for [N] blocks of one
+    plane of one frame at each of K qi rows (kernel KR's function; the JAX
+    scan's quantize_rd at theora_tpu/encode/tpu_gop.py:230-236, once per
+    qi row), with trellis_quantize's output contract.
+
+    qout: [K, N, 64] int16 round-to-nearest values and dout: [N, 64] int16
+    unquantized DCT (fdct_quantize's outputs); deq: [K, 2, 64] int16
+    dequant rows (per qi row intra, inter); inter: [N] uint8; lam_q: [K, 2]
+    float32 (per qi row the intra and the inter lambda; block n takes
+    lam_q[k, inter[n] != 0], keyed by the block, not the frame). Returns
+    ([K, N, 64] int16 values, DC passed through; [K, N] int32 nonzero
+    counts; [K, N] bool "no AC value is nonzero").
+    """
+    k, n = qout.shape[:2]
+    dev = qout.device
+    sel = (inter != 0).long()
+    lam = torch.as_tensor(np.asarray(lam_q, np.float32)).to(dev)[:, sel]
+    vals = quantize_rd_values(
+        qout.reshape(k * n, 64).to(torch.int32),
+        dout.to(torch.int32).repeat(k, 1),
+        deq.to(torch.int32)[:, sel].reshape(k * n, 64),
+        lam.reshape(k * n).contiguous())
+    nzf = vals != 0
+    cnt = nzf.sum(dim=1, dtype=torch.int32)
+    dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
+    return (vals.to(torch.int16).reshape(k, n, 64), cnt.reshape(k, n),
+            dc_only.reshape(k, n))

@@ -63,15 +63,16 @@ def _load():
     return _lib
 
 
-def _lambdas(lam, k: int) -> np.ndarray:
-    """lam as [k] float32 values, each finite and >= 0."""
+def _lambdas(lam, shape: tuple, name: str = "lam") -> np.ndarray:
+    """lam as a float32 numpy array of `shape`, each value finite and
+    >= 0."""
     if not isinstance(lam, np.ndarray) or lam.dtype != np.float32:
-        raise TypeError(f"lam: expected a float32 numpy array, got "
+        raise TypeError(f"{name}: expected a float32 numpy array, got "
                         f"{type(lam).__name__} {getattr(lam, 'dtype', '')}")
-    if lam.shape != (k,):
-        raise ValueError(f"lam: expected shape ({k},), got {lam.shape}")
+    if lam.shape != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {lam.shape}")
     if not (np.isfinite(lam).all() and (lam >= 0).all()):
-        raise ValueError(f"lam: expected finite values >= 0, got {lam}")
+        raise ValueError(f"{name}: expected finite values >= 0, got {lam}")
     return lam
 
 
@@ -106,7 +107,7 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     for t, name in ((qout, "qout"), (dout, "dout"), (nb_full, "nb_full")):
         if t.data_ptr() % 16:  # the kernel loads 16-byte vectors
             raise ValueError(f"{name}: must be 16-byte aligned")
-    lam = _lambdas(lam, k)
+    lam = _lambdas(lam, (k,))
     if dev.type == "cpu":
         return transforms.trellis_quantize(qout, dout, deq, inter, lam,
                                            nb_full, lam_sc)

@@ -1,14 +1,16 @@
 """Encode a .y4m file to Ogg Theora (.ogv) with the device GOP encoder.
 
-Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF]
+Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [-z SPEED]
+           [-b BITRATE [--two-pass [--two-pass-file F] [--rate-buffer N]]]
            [--adaptive-quant {auto,on,off}] [--device D] in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
-TpuGopEncoder) for the configuration the port carries: a fixed qi, the
-trellis, adaptive quantization ("auto" by default, as there), no rate
-control, keyframes every KF frames. Encodes on the card (``--device
-cuda``, the default); ``cpu`` runs the plain PyTorch versions of the
-kernels.
+TpuGopEncoder) with its device-branch options: the qi (with a bitrate, the
+quality floor of the rate controller), the keyframe spacing, speed levels
+0-4, CBR (-b), 2-pass (--two-pass with -b, the pass-1 metrics file and the
+rate buffer) and adaptive quantization ("auto" by default, as there).
+Encodes on the card (``--device cuda``, the default); ``cpu`` runs the
+plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +44,18 @@ def main(argv=None):
     ap.add_argument("output")
     ap.add_argument("-q", "--quality", type=int, default=48)
     ap.add_argument("-k", "--keyframe-freq", type=int, default=64)
+    ap.add_argument("-b", "--bitrate", type=int, default=0,
+                    help="target bitrate (bps); enables CBR")
+    ap.add_argument("--two-pass", action="store_true",
+                    help="two-pass rate control (requires --bitrate)")
+    ap.add_argument("--two-pass-file", default=None,
+                    help="write the OT2P pass-1 metrics file here")
+    ap.add_argument("--rate-buffer", type=int, default=0,
+                    help="rate buffer size in frames (finite 2-pass "
+                         "window; default = whole file)")
+    ap.add_argument("-z", "--speed", type=int, default=0,
+                    help="speed level 0-4: 0-1 the trellis, 2-3 the R/D "
+                         "quantizer, 4 also no motion compensation")
     ap.add_argument("--adaptive-quant", choices=["auto", "on", "off"],
                     nargs="?", const="on", default="auto",
                     help="activity masking: auto (high-qi region, noise-like "
@@ -51,6 +65,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
+    if args.two_pass and not args.bitrate:
+        ap.error("--two-pass requires --bitrate")
 
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
@@ -62,12 +78,24 @@ def main(argv=None):
     info = TheoraInfo(frame_width=fw, frame_height=fh, pic_width=W,
                       pic_height=H, fps_numerator=fps[0],
                       fps_denominator=fps[1], quality=args.quality,
-                      pixel_fmt=pixel_fmt)
+                      target_bitrate=args.bitrate, pixel_fmt=pixel_fmt)
     enc = GopEncoder(info, qi=args.quality, device=args.device,
                      adaptive_quant={"auto": "auto", "on": True,
                                      "off": False}[args.adaptive_quant])
+    if args.speed:
+        enc.set_splevel(args.speed)
     t0 = time.perf_counter()
-    pkts = enc.encode_clip(frames, keyframe_freq=args.keyframe_freq)
+    if args.two_pass:
+        pkts, blob = enc.encode_clip_twopass(
+            frames, keyframe_freq=args.keyframe_freq,
+            target_bitrate=args.bitrate,
+            buf_delay=args.rate_buffer or None)
+        if args.two_pass_file:
+            with open(args.two_pass_file, "wb") as f:
+                f.write(blob)
+    else:
+        pkts = enc.encode_clip(frames, keyframe_freq=args.keyframe_freq,
+                               target_bitrate=args.bitrate)
     dt = time.perf_counter() - t0
     with open(args.output, "wb") as f:
         f.write(mux_stream(pkts))

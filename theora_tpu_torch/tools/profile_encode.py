@@ -1,18 +1,21 @@
 """Where the device GOP encode's time goes on the card.
 
 Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
-           [--qi Q] [--adaptive-quant {auto,on,off}]
+           [--qi Q] [--adaptive-quant {auto,on,off}] [--speed S]
+           [--bitrate B [--two-pass]]
 
 Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
 the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
 adaptive_quant=False unless asked otherwise, a keyframe every 8 frames,
-clip_batch 8) once to warm up, then R
+clip_batch 8; at speed level S; with B > 0 in CBR at B bit/s, or with
+--two-pass an encode_clip_twopass at B with a 16-frame rate buffer and
+no quality floor) once to warm up, then R
 more times: untraced passes timed on the host clock (wall, host mode
 decision, host packing, device spans from CUDA events), and one pass
 under torch.profiler, which reports device time per codec stage (the
 record_function labels in encode/gop.py and encode/scan.py) with the
 PyTorch kernels each launches, per kernel, the launches of the kernel
-libraries (K1 at both entries, K2, KT) and of K1 in the
+libraries (K1 at both entries, K2, KT, KR) and of K1 in the
 theora.enc.idct_recon scope, and the device's busy and idle share of the
 traced pass. Needs a CUDA card. Prints one JSON summary as its last line.
 """
@@ -66,7 +69,12 @@ def main(argv=None) -> int:
     ap.add_argument("--qi", type=int, default=QI)
     ap.add_argument("--adaptive-quant", choices=["auto", "on", "off"],
                     default="off")
+    ap.add_argument("--speed", type=int, default=0)
+    ap.add_argument("--bitrate", type=int, default=0)
+    ap.add_argument("--two-pass", action="store_true")
     args = ap.parse_args(argv)
+    if args.two_pass and not args.bitrate:
+        ap.error("--two-pass requires --bitrate")
     qi = args.qi
     aq = {"auto": "auto", "on": True, "off": False}[args.adaptive_quant]
     if not torch.cuda.is_available():
@@ -80,19 +88,29 @@ def main(argv=None) -> int:
 
     frames = hd720_frames(args.frames)
     info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
-                      pic_height=720, quality=qi)
+                      pic_height=720, quality=0 if args.two_pass else qi)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    def encode(enc):
-        return enc.encode_clip(frames, keyframe_freq=KF, clip_batch=BATCH)
+    def make():
+        enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
+        enc.set_splevel(args.speed)
+        return enc
 
-    encode(GopEncoder(info, qi=qi, adaptive_quant=aq))  # warm
+    def encode(enc):
+        if args.two_pass:
+            return enc.encode_clip_twopass(
+                frames, keyframe_freq=KF, target_bitrate=args.bitrate,
+                buf_delay=16)[0]
+        return enc.encode_clip(frames, keyframe_freq=KF, clip_batch=BATCH,
+                               target_bitrate=args.bitrate)
+
+    encode(make())  # warm
     runs = []
     for _ in range(args.repeat):
-        enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
+        enc = make()
         enc.device_spans = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -108,19 +126,21 @@ def main(argv=None) -> int:
               f"{enc.host_pack_s:.4f} s, device spans {spans:.4f} s",
               flush=True)
 
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+        trellis_cuda
 
     # K1 counts both entries; the encode launches its encode entry.
     wrappers = {"K1": (idct_cuda.dequantize_idct_frames,
                        idct_cuda.idct_recon_choose),
                 "K2": (fdct_cuda.fdct_quantize,),
-                "KT": (trellis_cuda.trellis_quantize,)}
+                "KT": (trellis_cuda.trellis_quantize,),
+                "KR": (qrd_cuda.quantize_rd,)}
 
     def lib_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
 
     before = lib_counts()
-    enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
+    enc = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -138,7 +158,7 @@ def main(argv=None) -> int:
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device, "
               f"{stage_kernels.get(name, 0)} PyTorch kernels", flush=True)
-    # K1, K2 and KT are launched from their own libraries, outside any
+    # K1, K2, KT and KR are launched from their own libraries, outside any
     # PyTorch op, so the profiler does not attribute them to their scopes;
     # list them by name, and their launches by their wrappers' counts.
     print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
@@ -150,7 +170,8 @@ def main(argv=None) -> int:
           f"frame", flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
-                                   for w in ("idct", "fdct", "trellis"))]
+                                   for w in ("idct", "fdct", "trellis",
+                                             "qrd"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
@@ -161,6 +182,8 @@ def main(argv=None) -> int:
     mid = sorted(r["wall_s"] for r in runs)[len(runs) // 2]
     summary = {
         "card": smi, "frames": nf, "qi": qi, "adaptive_quant": aq,
+        "speed": args.speed, "bitrate": args.bitrate,
+        "two_pass": args.two_pass,
         "keyframe_freq": KF,
         "clip_batch": BATCH, "median_wall_s": mid,
         "frames_per_s": nf / mid,
