@@ -105,14 +105,34 @@ and prints no result line):
    the launch counts reset (pass 1 and pass 2: 96 launches of K1's
    encode entry, K2 and KT, none of KR).
 
+9. the paths of the stages: (a) the device-resident transcode
+   (transcode_device) of the 1280x720 test stream's 24 data packets,
+   decode batches of 8 feeding the encoder on the card, qi 48,
+   adaptive_quant "auto": the 27 packets against the JAX
+   transcode_device's list, a warm pass with the launch counts reset
+   (K1's decode entry 9, its encode entry, K2 and KT 72 each) and every
+   device->host copy counted at the port's copy calls, none the size of
+   a decoded frame; (b) the 720p q56 "auto" encode through the pipelined
+   encode_clip and stage by stage through dispatch_me, complete_dispatch
+   and finish_gop in turns, 3 pairs, the enqueue stages under
+   torch.cuda.set_sync_debug_mode("error") (whether an explicit event
+   wait trips it is printed, and such a wait is then kept outside), every
+   run's 19 packets against the list; the 720p decode's dispatch_batch
+   under the same mode; one chunk's coefficient download, sparse against
+   dense, timed; (c) the 720p stream decoded packet by packet
+   (PacketDecoder) against its SHA-256 list, ms per frame beside
+   decode_clip's, K1's decode entry once per plane per frame.
+
 Then one JSON line listing the four kernels (times and bounds, K1's at both
-entries; launches on the 720p decode and each 720p encode path), the
+entries; launches on the 720p decode, each 720p encode path, the
+transcode and the per-packet decode), the
 card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -847,8 +867,8 @@ def _closed_loop(enc, frames, what: str, frame_qi=None, want=None) -> None:
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
 
-    datas, recon = enc._encode_chunk(frames, want_recon=True,
-                                     frame_qi=frame_qi)
+    datas, recon = enc.finish_gop(enc.dispatch_gop(frames, want_recon=True,
+                                                   frame_qi=frame_qi))
     if want is not None and datas != want:
         raise AssertionError(f"{what}: the GOP's packets differ from the "
                              f"clip's")
@@ -1110,6 +1130,265 @@ def real_size_twopass(smi: str):
     return counts
 
 
+@contextlib.contextmanager
+def _sync_debug():
+    """torch.cuda.set_sync_debug_mode("error") inside: an implicit
+    synchronisation (a blocking copy, .item(), nonzero) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _sync_debug_findings() -> bool:
+    """The mode must catch a blocking copy; returns whether an explicit
+    event wait trips it too."""
+    x = torch.ones(4, device="cuda")
+    try:
+        with _sync_debug():
+            x.cpu()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("sync debug mode let a blocking copy pass")
+    ev = torch.cuda.Event()
+    ev.record()
+    try:
+        with _sync_debug():
+            ev.synchronize()
+    except RuntimeError:
+        trips = True
+    else:
+        trips = False
+    log(f"[sync debug] a blocking .cpu() raises; an explicit CUDA event "
+        f"wait {'raises' if trips else 'does not raise'}")
+    return trips
+
+
+def _counts_all() -> dict:
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
+        trellis_cuda
+
+    return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
+            "K1 encode": idct_cuda.idct_recon_choose.launches,
+            "K2": fdct_cuda.fdct_quantize.launches,
+            "KT": trellis_cuda.trellis_quantize.launches,
+            "KR": qrd_cuda.quantize_rd.launches}
+
+
+def transcode_720p(smi: str) -> dict:
+    """(a) The device-resident transcode of the 1280x720 test stream's 24
+    data packets (decode batches of 8, three pipelined GOPs, qi 48,
+    adaptive_quant "auto"): the 27 packets against the JAX list, and a
+    warm pass with the launch counts reset just before it and every
+    device->host copy counted at the port's own copy calls: none may be
+    the size of a decoded frame. Returns the launch counts (K1 at both
+    entries, K2, KT, KR)."""
+    from theora_tpu_torch import transfer
+    from theora_tpu_torch.encode.gop import transcode_device
+
+    mk = _load_testdata("make_hd720_enc")
+    dec, datas = _open(mk.HD_TC_SOURCE)
+    name = "hd720_transcode_q48_k8_enc"
+
+    def run():
+        return transcode_device(dec.info, dec.setup, datas,
+                                keyframe_freq=mk.HD_TC_KF, qi=mk.HD_TC_QI)
+
+    _check_hashes(run(), name, "first pass")
+    _reset_counts()
+    transfer.copy_log = []
+    t0 = time.perf_counter()
+    pkts = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    copies, transfer.copy_log = transfer.copy_log, None
+    counts = _counts_all()
+    n = _check_hashes(pkts, name, "warm pass")
+    nf = len(datas)
+    batches = -(-nf // mk.HD_TC_KF)
+    want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
+            "KT": 3 * nf, "KR": 0}
+    if counts != want:
+        raise AssertionError(f"transcode launches {counts}; expected {want}")
+    frame_bytes = 1280 * 720 * 3 // 2
+    if max(copies) >= frame_bytes:
+        raise AssertionError(f"transcode: a device->host copy of "
+                             f"{max(copies)} bytes, a decoded frame's "
+                             f"{frame_bytes}")
+    log(f"[transcode720p] {nf} packets, batches of {mk.HD_TC_KF}, qi "
+        f"{mk.HD_TC_QI}, adaptive_quant auto: all {n} packet SHA-256 equal "
+        f"the JAX transcode_device's; warm pass {wall:.4f} s = "
+        f"{nf / wall:.2f} frames/s; launches {counts}; device->host "
+        f"{len(copies)} copies, {sum(copies)} bytes, largest {max(copies)} "
+        f"(a decoded frame: {frame_bytes}) | {smi}")
+    return (counts["K1 decode"] + counts["K1 encode"], counts["K2"],
+            counts["KT"], counts["KR"])
+
+
+def packet_decode_720p(smi: str) -> tuple:
+    """(c) PacketDecoder on the 1280x720 test stream, packet by packet,
+    every frame's SHA-256 against the committed list, and a warm pass with
+    the launch counts reset (K1's decode entry once per plane per frame)
+    timed beside a warm decode_clip(batch=8) of the same stream. Returns
+    the launch counts (K1, K2, KT, KR)."""
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+
+    with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
+        want = f.read().split()
+    dec, datas = _open(f"{HD_NAME}.ogv")
+
+    def per_packet():
+        pd = PacketDecoder(dec.info, dec.setup, device="cuda")
+        outs = []
+        for data in datas:
+            if pd.decode_packet(data) != 0:
+                raise AssertionError("the 720p stream has no dup packet")
+            outs.append(pd.ycbcr_out())
+        return outs
+
+    def check(outs, what):
+        got = [hashlib.sha256(_frame_bytes(o)).hexdigest() for o in outs]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"{HD_NAME} {what}: frames {bad} differ")
+
+    check(per_packet(), "per packet, first pass")
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = per_packet()
+    wall = time.perf_counter() - t0
+    counts = _counts_all()
+    check(outs, "per packet, warm pass")
+    nf = len(datas)
+    if counts != {"K1 decode": 3 * nf, "K1 encode": 0, "K2": 0, "KT": 0,
+                  "KR": 0}:
+        raise AssertionError(f"per-packet decode launches {counts}")
+    dec, _ = _open(f"{HD_NAME}.ogv")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(dec.decode_clip(datas, batch=8), "batch, warm pass")
+    batch_wall = time.perf_counter() - t0
+    log(f"[packet720p] {nf} frames decoded packet by packet, all SHA-256 "
+        f"match; warm pass {wall:.4f} s = {1e3 * wall / nf:.3f} ms per "
+        f"frame (decode_packet + ycbcr_out), decode_clip(batch=8) "
+        f"{1e3 * batch_wall / nf:.3f} ms per frame; K1 launches "
+        f"{counts['K1 decode']} | {smi}")
+    return (counts["K1 decode"], 0, 0, 0)
+
+
+def pipelined_vs_staged(smi: str) -> dict:
+    """(b) The 720p q56 "auto" encode (16 frames, two 8-frame GOPs)
+    through the pipelined encode_clip and, in turns with it, the same GOPs
+    stage by stage through dispatch_me, complete_dispatch and finish_gop
+    with the enqueue stages under the sync debug mode (an explicit event
+    wait before complete_dispatch is scoped out if it trips the mode), 3
+    pairs: every run's 19 packets against the JAX list. Also the 720p
+    decode's dispatch_batch under the mode, and one chunk's coefficient
+    download sparse (finish_gop's) against a dense copy. Returns the last
+    stage-by-stage run's launch counts (K1 encode entry, K2, KT, KR)."""
+    from theora_tpu_torch import transfer
+
+    trips = _sync_debug_findings()
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    nf = len(frames)
+    name = "hd720_q56_k8_aq_enc"
+
+    def make():
+        return _encoder(1280, 720, 0, mk.AQ_QI, "auto")
+
+    def pipelined():
+        return make().encode_clip(frames, keyframe_freq=mk.HD_KF,
+                                  clip_batch=8)
+
+    def staged():
+        enc = make()
+        out = enc.flush_headers()
+        for base in range(0, nf, mk.HD_KF):
+            gfr = frames[base:base + mk.HD_KF]
+            with _sync_debug():
+                me_state = enc.dispatch_me(gfr)
+            if trips and me_state.plan is not None:
+                me_state.plan.wait()
+            with _sync_debug():
+                state = enc.complete_dispatch(me_state)
+            datas, _ = enc.finish_gop(state)
+            enc._emit(out, datas, [True] + [False] * (len(gfr) - 1), base,
+                      nf)
+        return out
+
+    walls = {"pipelined": [], "staged": []}
+    for what, fn in (("pipelined", pipelined), ("staged", staged)):
+        _check_hashes(fn(), name, f"{what}, first run")
+    per = 3 * nf
+    for _ in range(3):
+        for what, fn in (("pipelined", pipelined), ("staged", staged)):
+            _reset_counts()
+            t0 = time.perf_counter()
+            pkts = fn()
+            torch.cuda.synchronize()
+            walls[what].append(time.perf_counter() - t0)
+            launches = _read_counts(f"enc720p {what}", (per, per, per, 0))
+            _check_hashes(pkts, name, what)
+    log(f"[pipelined] 720p q56 auto, {nf} frames: 19/19 packets both ways "
+        f"in all runs; walls in turns pipelined "
+        f"{[round(w, 4) for w in walls['pipelined']]} s, stage by stage "
+        f"{[round(w, 4) for w in walls['staged']]} s; no sync debug error "
+        f"in the enqueue stages | {smi}")
+
+    dec, datas = _open(f"{HD_NAME}.ogv")
+    with _sync_debug():
+        for b in range(0, len(datas), 8):
+            dec.dispatch_batch(datas[b:b + 8])
+    torch.cuda.synchronize()
+    log("[sync debug] the 720p decode's dispatch_batch (the transcode's "
+        "decode stage) raises no sync debug error")
+
+    # One 8-frame chunk's coefficients on an idle card: finish_gop's
+    # sparse copy (nonzero values and their places found on the side
+    # stream, copied, then placed on the host) against a dense int16 copy
+    # of the same tensors.
+    enc = make()
+    st = enc.complete_dispatch(enc.dispatch_me(frames[:mk.HD_KF]))
+    st.download.wait()
+    g = enc.g
+    copy_s, place_s, dense_s = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nonzeros = enc._coefficients(st.qout, st.download.event)
+        t1 = time.perf_counter()
+        sparse = np.zeros((mk.HD_KF, g.nfrags, 64), np.int16)
+        for idx, vals in nonzeros:
+            sparse.reshape(-1)[idx] = vals
+        t2 = time.perf_counter()
+        copy_s.append(t1 - t0)
+        place_s.append(t2 - t1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = transfer.Download(st.qout).wait()
+        dense_s.append(time.perf_counter() - t0)
+    for pli, d in enumerate(dense):
+        pl = g.planes[pli]
+        if not np.array_equal(
+                sparse[:, pl.froffset:pl.froffset + pl.nfrags], d):
+            raise AssertionError("sparse and dense coefficients differ")
+    nvals = sum(v.size for _, v in nonzeros)
+    dense_bytes = sum(q.numel() * 2 for q in st.qout)
+
+    def ms(v):
+        return f"{sorted(v)[len(v) // 2] * 1e3:.3f}"
+
+    log(f"[download] one 8-frame 720p q56 chunk's coefficients, medians of "
+        f"5 on the host clock: sparse {nvals} values = {6 * nvals} bytes, "
+        f"found and copied {ms(copy_s)} ms + placed on the host "
+        f"{ms(place_s)} ms; dense {dense_bytes} bytes copied "
+        f"{ms(dense_s)} ms | {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1135,10 +1414,15 @@ def main() -> int:
     paths["encode q48 speed 2"] = real_size_encode(
         smi, "hd720_q48_k8_sp2_enc", 48, "auto", splevel=2)
     paths["encode 2-pass 2 Mbit/s"] = real_size_twopass(smi)
-    # K1 runs on both main paths: the decode's and the encode's.
-    k1["launches"] = k1_decode + paths["encode"][0]
-    k2["launches"] = paths["encode"][1]
-    kt["launches"] = paths["encode"][2]
+    paths["transcode"] = transcode_720p(smi)
+    paths["encode stage by stage"] = pipelined_vs_staged(smi)
+    paths["decode per packet"] = packet_decode_720p(smi)
+    # K1 runs on every main path: the decodes, the encode, the transcode;
+    # K2 and KT on the encode and the transcode.
+    main_paths = ("encode", "transcode", "decode per packet")
+    k1["launches"] = k1_decode + sum(paths[p][0] for p in main_paths)
+    k2["launches"] = sum(paths[p][1] for p in main_paths)
+    kt["launches"] = sum(paths[p][2] for p in main_paths)
     kr["launches"] = paths["encode q48 speed 2"][3]
     k1["launches_by_path"] = {"decode": k1_decode}
     for i, k in enumerate((k1, k2, kt, kr)):

@@ -49,6 +49,26 @@ scene-cut keyframes. The others hold the rest of the encoder's settings:
   target_bitrate=2_000_000, buf_delay=16, keyframe every 8, info quality
   0, encoder qi 48.
 
+Four hold the device-resident transcode (decode batches of
+keyframe_freq packets feeding the encoder's stages), with the input
+stream's own info and the encoder's defaults (adaptive_quant "auto"):
+
+- transcode64x48_k6_enc.sha256: clip64x48_k8_q20.tpkt's 8 data packets,
+  keyframe_freq=6, qi=40, by JAX transcode_device;
+- transcode64x48_dup_enc.sha256: dup_packets() of the same packets
+  (keyframe_freq=4: a dup in mid-batch, a dup leading the second batch,
+  a batch of dups only), qi=40. JAX transcode_device gives a dup that
+  leads a batch (emit index -1) that batch's last live frame, a future
+  frame, against the contract of its own docstring (byte-identical to
+  host decode + encode_clip); this list is made by that contract, the
+  JAX host Decoder and TpuGopEncoder.encode_clip;
+- transcode64x48_cbr_enc.sha256: the 8 packets, qi=40, keyframe_freq=2
+  (4 GOPs), target_bitrate=60_000, rate_window=1 (the qi moves), by JAX
+  transcode_device;
+- hd720_transcode_q48_k8_enc.sha256: hd720_q56_k12.ogv's 24 data
+  packets, keyframe_freq=8, qi=48, by JAX transcode_device (chip_smoke.py
+  only).
+
 The JAX encoder runs on the CPU; adaptive_quant (where not the default)
 and delta_upload are set as attributes. With use_trellis=False and more
 than one qi row the JAX scan passes its per-frame lambda as the
@@ -90,6 +110,17 @@ HALFTEX_QI = 48
 CBR_FRAMES, CBR_SEED, CBR_KF, CBR_QI, CBR_RATE = 12, 13, 4, 40, 60_000
 CUT_FRAMES, CUT_AT, CUT_KF = 14, 9, 8
 HD_2PASS_RATE, HD_2PASS_BUF = 2_000_000, 16
+TC_SOURCE, TC_KF, TC_QI, TC_DUP_KF = "clip64x48_k8_q20.tpkt", 6, 40, 4
+TC_CBR_KF, TC_CBR_RATE = 2, 60_000
+HD_TC_SOURCE, HD_TC_KF, HD_TC_QI = "hd720_q56_k12.ogv", 8, 48
+
+
+def dup_packets(datas):
+    """8 data packets with dup (0-byte) packets inserted so that, in
+    batches of TC_DUP_KF, the first batch holds a dup in mid-batch, the
+    second leads with a dup and the third holds dups only."""
+    d = list(datas)
+    return d[0:2] + [b""] + d[2:3] + [b""] + d[3:6] + [b""] * 4 + d[6:8]
 
 
 def moving_frames(w: int, h: int, fmt: int, n: int, seed: int):
@@ -229,6 +260,48 @@ def _twopass(frames, w, h, qi, kf, rate, buf_delay):
     return [p.data for p in pkts] + [blob]
 
 
+def _read_stream(name):
+    """(info, setup, data packets) of a testdata stream, by the JAX
+    package's parsers."""
+    from theora_tpu.headers import parse_info_header, parse_setup_header
+
+    path = os.path.join(HERE, name)
+    if name.endswith(".ogv"):
+        from theora_tpu.ogg import demux_stream
+
+        with open(path, "rb") as f:
+            pkts = demux_stream(f.read())
+    else:
+        from theora_tpu.tpkt import read_tpkt
+
+        pkts = read_tpkt(path)
+    return (parse_info_header(pkts[0].data), parse_setup_header(pkts[2].data),
+            [p.data for p in pkts[3:]])
+
+
+def _transcode(name, kf, qi, **kw):
+    from theora_tpu.encode.tpu_gop import transcode_device
+
+    info, setup, datas = _read_stream(name)
+    return transcode_device(info, setup, datas, keyframe_freq=kf, qi=qi,
+                            **kw)
+
+
+def _transcode_by_host(name, packets, kf, qi):
+    """Headers + packets of the host decode of `packets` fed to
+    encode_clip: transcode_device's contract."""
+    from theora_tpu.decode.decoder import Decoder
+    from theora_tpu.encode.tpu_gop import TpuGopEncoder
+
+    info, setup, _ = _read_stream(name)
+    dec = Decoder(info, setup)
+    frames = []
+    for data in packets:
+        dec.decode_packet(data)
+        frames.append([p.copy() for p in dec.ycbcr_out()])
+    return TpuGopEncoder(info, qi=qi).encode_clip(frames, keyframe_freq=kf)
+
+
 def _write(name, pkts):
     datas = [p if isinstance(p, bytes) else p.data for p in pkts]
     lines = [hashlib.sha256(d).hexdigest() for d in datas]
@@ -280,6 +353,16 @@ LISTS = {
         hd_frames(), 1280, 720, 0, HD_QI, HD_KF, "auto", splevel=2),
     "hd720_2pass_k8_enc.sha256": lambda: _twopass(
         hd_frames(), 1280, 720, HD_QI, HD_KF, HD_2PASS_RATE, HD_2PASS_BUF),
+    "transcode64x48_k6_enc.sha256": lambda: _transcode(
+        TC_SOURCE, TC_KF, TC_QI),
+    "transcode64x48_dup_enc.sha256": lambda: _transcode_by_host(
+        TC_SOURCE, dup_packets(_read_stream(TC_SOURCE)[2]), TC_DUP_KF,
+        TC_QI),
+    "transcode64x48_cbr_enc.sha256": lambda: _transcode(
+        TC_SOURCE, TC_CBR_KF, TC_QI, target_bitrate=TC_CBR_RATE,
+        rate_window=1),
+    "hd720_transcode_q48_k8_enc.sha256": lambda: _transcode(
+        HD_TC_SOURCE, HD_TC_KF, HD_TC_QI),
 }
 
 

@@ -254,3 +254,28 @@ def test_rate_and_speed_encodes_on_card_equal_cpu(card, setting):
             out.append(enc.encode_clip(frames, keyframe_freq=4,
                                        target_bitrate=60_000, rate_window=1))
     assert [p.data for p in out[0]] == [p.data for p in out[1]]
+
+
+def test_transcode_on_card_equals_cpu(card):
+    """The device-resident transcode of a 64x48 stream with dup packets
+    (in mid-batch, leading a batch, a batch of dups only): the card's
+    packets equal the CPU path's."""
+    import importlib.util
+
+    from theora_tpu_torch.encode.gop import transcode_device
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    pkts = read_tpkt(os.path.join(TESTDATA, mod.TC_SOURCE))
+    info = parse_info_header(pkts[0].data)
+    setup = parse_setup_header(pkts[2].data)
+    datas = mod.dup_packets([p.data for p in pkts[3:]])
+    out = [transcode_device(info, setup, datas, keyframe_freq=mod.TC_DUP_KF,
+                            qi=mod.TC_QI, enc_kwargs={"device": dev})
+           for dev in ("cuda", "cpu")]
+    assert [p.data for p in out[0]] == [p.data for p in out[1]]

@@ -4,7 +4,8 @@ never falls back to the CPU when a card is missing, the
 kernel wrappers (K1 at both entries, K2, KT, KR) take their plain paths
 only for CPU tensors and K1's have no fallback, K1, KT and KR are built
 without floating-point contraction, and the encoder takes every setting of
-the JAX encoder, with its defaults."""
+the JAX encoder, with its defaults, and its stages and the device
+transcode take JAX's signatures."""
 import ast
 import os
 
@@ -355,6 +356,25 @@ def test_encoder_settings_that_are_ported():
         ref = inspect.signature(getattr(TpuGopEncoder, fn)).parameters
         assert {k: v.default for k, v in ours.items()} == \
             {k: v.default for k, v in ref.items()}, fn
+
+
+def test_stages_and_transcode_take_the_jax_signatures():
+    """The encoder's stages and the device transcode take JAX's
+    parameters with JAX's defaults (the device rides enc_kwargs)."""
+    import inspect
+
+    from theora_tpu.encode import tpu_gop
+    from theora_tpu_torch.encode import gop
+
+    def params(fn):
+        return {k: v.default
+                for k, v in inspect.signature(fn).parameters.items()}
+
+    for fn in ("dispatch_me", "complete_dispatch", "finish_gop",
+               "dispatch_gop", "encode_gop"):
+        assert params(getattr(gop.GopEncoder, fn)) == \
+            params(getattr(tpu_gop.TpuGopEncoder, fn)), fn
+    assert params(gop.transcode_device) == params(tpu_gop.transcode_device)
 
 
 def _k2_args(device):

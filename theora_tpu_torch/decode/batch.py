@@ -14,6 +14,11 @@ Transfers:
 - DOWN: only the uint8 frame planes without their UMV padding, copied
   asynchronously into pinned host buffers.
 - Reference planes stay resident on the device between batches.
+Uploads and downloads go through pinned host buffers without waiting on
+the stream (transfer.py), so a batch's device work queues behind the
+previous batch's without the host waiting for it. dispatch_batch's
+planes can stay on the card: encode/gop.py:transcode_device feeds them to
+the encoder.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from theora_tpu_torch import resolve_device
+from theora_tpu_torch import resolve_device, transfer
 from theora_tpu_torch.constants import FRAME_GOLD, FRAME_PREV, FRAME_SELF
 from theora_tpu_torch.decode.decoder import Decoder, _MVMAP, _MVMAP2
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME
@@ -187,11 +192,11 @@ class BatchDecoder(Decoder):
         # record_function labels group profiler time by codec stage
         # (tools/profile_decode.py).
         with record_function("theora.upload"):
-            frag = torch.from_numpy(inp["frag"]).to(dev)
+            frag = transfer.upload(inp["frag"], dev)
             nnz = len(inp["zz"])
-            counts = torch.from_numpy(inp["counts"]).to(dev).reshape(-1)
-            zz = torch.from_numpy(inp["zz"]).to(dev)
-            vals = torch.from_numpy(inp["vals"]).to(dev)
+            counts = transfer.upload(inp["counts"], dev).reshape(-1)
+            zz = transfer.upload(inp["zz"], dev)
+            vals = transfer.upload(inp["vals"], dev)
             # Sparse -> dense [F*n, 64] zig-zag coefficients.
             ids = torch.arange(F * n, device=dev).repeat_interleave(
                 counts.long(), output_size=nnz)
@@ -199,8 +204,8 @@ class BatchDecoder(Decoder):
             qz[ids, zz.long()] = vals
             k1_args = (
                 qz,
-                torch.from_numpy(inp["dc"]).to(dev).reshape(-1),
-                torch.from_numpy(inp["deqt"]).to(dev),
+                transfer.upload(inp["dc"], dev).reshape(-1),
+                transfer.upload(inp["deqt"], dev),
                 torch.arange(F, dtype=torch.int32, device=dev)
                 .repeat_interleave(n),
                 frag[:, _QII].reshape(-1).to(torch.uint8),
@@ -246,10 +251,23 @@ class BatchDecoder(Decoder):
         frame}."""
         t0 = time.perf_counter()
         per_frame = self._parse_batch(packets)
+        self.host_parse_s += time.perf_counter() - t0
         live = [f for f in per_frame if f is not None]
         if not live:
-            self.host_parse_s += time.perf_counter() - t0
             return None
+        emit = []
+        li = -1
+        for fr in per_frame:
+            if fr is not None:
+                li += 1
+            emit.append(li)
+        return {"dev": self._dispatch_live(live), "emit": emit}
+
+    def _dispatch_live(self, live: list[dict]) -> dict:
+        """Enqueue the device work of parsed live frames, carry the
+        reference planes and slots on; returns {pli: [F, h, w] uint8}
+        device planes."""
+        t0 = time.perf_counter()
         inputs = [self._plane_inputs(live, pli) for pli in range(3)]
         self.host_parse_s += time.perf_counter() - t0
 
@@ -282,37 +300,15 @@ class BatchDecoder(Decoder):
             self.ref_idx[FRAME_GOLD] = (
                 refi if last_intra == len(live) - 1 else int(refi == 0)
             )
-
-        emit = []
-        li = -1
-        for fr in per_frame:
-            if fr is not None:
-                li += 1
-            emit.append(li)
-        return {"dev": out_planes, "emit": emit}
+        return out_planes
 
     # ------------------------------------------------------------------
-    def _start_download(self, dev_planes: dict):
-        """Begin the device->host copies of a batch's planes: into pinned
-        buffers with a CUDA event on the card, directly on the CPU."""
-        if self.device.type != "cuda":
-            return dev_planes, None
-        host = {}
-        for pli, t in dev_planes.items():
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t, non_blocking=True)
-            host[pli] = buf
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
-
     @staticmethod
-    def _finish_download(host: dict, done) -> dict:
-        if done is not None:
-            done.synchronize()
-        return {pli: t.numpy() for pli, t in host.items()}
+    def _start_download(dev_planes: dict) -> transfer.Download:
+        """Begin the device->host copies of a batch's planes."""
+        return transfer.Download([dev_planes[pli] for pli in range(3)])
 
-    def _frame(self, host: dict, li: int) -> list[np.ndarray]:
+    def _frame(self, host: list, li: int) -> list[np.ndarray]:
         """Display-orientation [y, u, v] of live frame li."""
         return [host[pli][li][::-1].copy() for pli in range(3)]
 
@@ -342,7 +338,7 @@ class BatchDecoder(Decoder):
             if prev_frame is None:
                 prev_frame = self._prev_output_frame()
             return [[p.copy() for p in prev_frame] for _ in packets]
-        host = self._finish_download(*self._start_download(st["dev"]))
+        host = self._start_download(st["dev"]).wait()
         return [
             [p.copy() for p in prev_frame] if li < 0 else self._frame(host, li)
             for li in st["emit"]
@@ -375,7 +371,7 @@ class BatchDecoder(Decoder):
             if st is None:
                 outs.extend(last_frame() for _ in chunk)
                 return
-            host = self._finish_download(*download)
+            host = download.wait()
             for li in st["emit"]:
                 # A dup before the chunk's first live frame repeats the
                 # previous chunk's last output, not a future frame.

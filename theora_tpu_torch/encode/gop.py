@@ -4,10 +4,10 @@ host.
 
 Port of theora_tpu/encode/tpu_gop.py (`TpuGopEncoder`: the constructor,
 `set_qi`, `set_splevel`, `_lam_t_for`, `_adaptive_qis`, `_decide_frames`,
-`_frag_plan`, `_plane_inputs`, `dispatch_me`, `complete_dispatch` and
-`finish_gop` (one `_encode_chunk` here), `_pack_gop`, `encode_gop`,
-`encode_clip`, `encode_clip_pass1`, `encode_clip_pass2`,
-`encode_clip_twopass`, `WindowRateController`, `detect_scene_cuts` and
+`_frag_plan`, `_plane_inputs`, `dispatch_me`, `complete_dispatch`,
+`finish_gop`, `dispatch_gop`, `_pack_gop`, `encode_gop`, `encode_clip`,
+`encode_clip_pass1`, `encode_clip_pass2`, `encode_clip_twopass`;
+`transcode_device`, `WindowRateController`, `detect_scene_cuts` and
 `gop_starts`) with every setting of the JAX encoder: speed levels 0-4
 (the trellis at 0-1, the R/D quantizer at 2-4 or with use_trellis=False,
 no motion compensation at 4), any rd_strength, adaptive quantization
@@ -15,32 +15,40 @@ no motion compensation at 4), any rd_strength, adaptive quantization
 (target_bitrate, rate_window) and 2-pass rate control. Its packets, and
 its 2-pass metrics, are byte-identical to the JAX encoder's.
 
-Per chunk of frames (consecutive GOPs, `clip_batch` frames at most):
-  1. upload the luma stack; the ME plan (ops/me.py) on the device;
-  2. download the plan; the host's sequential mode decision
-     (native `mode_decide_native`) and per-fragment plan; per frame the
-     adaptive-quantization gates and qi list (encode/aq.py), padded to
-     the chunk's longest list by repeating the base qi;
-  3. per plane, the closed-loop encode (encode/scan.py: kernels K2, KT or
-     KR, and K1 once per frame at every qi row) on the device;
-  4. download the coded flags, nonzero counts, qi indices and the nonzero
-     coefficients (sized by their true count), then pack on the host
+A chunk of frames (consecutive GOPs, `clip_batch` frames at most) goes
+through three stages, none of which waits for work queued after its own:
+  1. dispatch_me: upload the planes from pinned memory (or take planes
+     already on the card); the ME plan (ops/me.py) on the device; start
+     the plan's copy to the host;
+  2. complete_dispatch: wait for that copy; the host's sequential mode
+     decision (native `mode_decide_native`) and per-fragment plan; per
+     frame the adaptive-quantization gates and qi list (encode/aq.py),
+     padded to the chunk's longest list by repeating the base qi; per
+     plane the closed-loop encode (encode/scan.py: kernels K2, KT or KR,
+     and K1 once per frame at every qi row) on the device; start the
+     copies of the coded flags and qi indices;
+  3. finish_gop: wait for those; find and bring down the nonzero
+     coefficients on a side stream; pack on the host
      (encode/packer.py).
-The chunks run one after the other: GOPs are independent, so overlapping
-them could not change a byte. With a target bitrate each GOP is a chunk
-of its own, and the qi moves between GOPs (WindowRateController); in a
-2-pass encode each frame has its own qi (`frame_qi`).
+encode_clip runs the chunks two deep, as JAX does: chunk k+1's upload and
+ME are queued before chunk k's plane encodes, which are queued before
+chunk k-1's packing. GOPs are independent, so the overlap cannot change a
+byte. With a target bitrate each GOP is a chunk of its own and the chunks
+run in turn, since the qi moves between GOPs (WindowRateController); in a
+2-pass encode each frame has its own qi (`frame_qi`). transcode_device
+feeds the batch decoder's planes to the same stages on the card.
 """
 from __future__ import annotations
 
 import copy
 import time
+from collections import deque
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from theora_tpu_torch import resolve_device
+from theora_tpu_torch import resolve_device, transfer
 from theora_tpu_torch.constants import (
     DCT_TOKEN_EXTRA_BITS,
     FRAME_GOLD,
@@ -57,6 +65,7 @@ from theora_tpu_torch.constants import (
     MODE_INTRA,
     ZZI_GROUP,
 )
+from theora_tpu_torch.decode.batch import BatchDecoder
 from theora_tpu_torch.decode.decoder import _MVMAP, _MVMAP2
 from theora_tpu_torch.encode import aq
 from theora_tpu_torch.encode.packer import FramePacker
@@ -79,6 +88,64 @@ _MV_MODES = np.zeros(8, bool)
 _MV_MODES[[MODE_INTER_MV, MODE_INTER_MV_LAST, MODE_INTER_MV_LAST2,
            MODE_GOLDEN_MV]] = True
 _RS_TO_REF = np.array([FRAME_SELF, FRAME_PREV, FRAME_GOLD], np.int32)
+
+
+# The ME plan goes to the host narrowed, exactly: its vectors (half-pel,
+# within +-31) as int8, its SADs (at most 256 * 255 = 65280) as int16
+# offset by -32768. Indices of the vectors among plan()'s outputs.
+_PLAN_VECTORS = (0, 5, 7, 9)
+
+
+def _narrow_plan(outs) -> list:
+    return [o.to(torch.int8) if i in _PLAN_VECTORS
+            else (o - 32768).to(torch.int16) for i, o in enumerate(outs)]
+
+
+def _widen_plan(host) -> list[np.ndarray]:
+    return [h.astype(np.int32) if i in _PLAN_VECTORS
+            else h.astype(np.int32) + 32768 for i, h in enumerate(host)]
+
+
+def _nonzeros(qout: torch.Tensor, row0: int, nrows: int):
+    """The nonzero entries of qout, [F, n, 64] int16 blocks that are rows
+    row0 .. row0 + n - 1 of each frame's [nrows, 64] blocks: (int32 flat
+    index into [F, nrows, 64], int16 value), in memory order. Their number
+    comes back from the device: on the card this waits for the current
+    stream."""
+    F, n, _ = qout.shape
+    flat = qout.reshape(-1)
+    pos = torch.nonzero(flat).reshape(-1)
+    idx = pos + (pos // (n * 64)) * ((nrows - n) * 64) + row0 * 64
+    return idx.to(torch.int32), flat[pos]
+
+
+class _MeState:
+    """dispatch_me's result."""
+
+    def __init__(self, F, planes_bs, cur, kf_flags, plan, keep):
+        self.F = F
+        self.planes_bs = planes_bs  # host planes, or None for device ones
+        self.cur = cur              # [F, h, w] uint8 device planes per pli
+        self.kf_flags = kf_flags
+        self.plan = plan            # the ME plan's Download, or None
+        self.keep = keep            # pinned sources of the uploads
+
+
+class _ChunkState:
+    """complete_dispatch's result."""
+
+    def __init__(self, F, plan_pf, frame_frag, fqis, kf_flags, qout,
+                 download, K, want_recon, keep):
+        self.F = F
+        self.plan_pf = plan_pf
+        self.frame_frag = frame_frag
+        self.fqis = fqis
+        self.kf_flags = kf_flags
+        self.qout = qout            # [F, n, 64] int16 per plane, on device
+        self.download = download
+        self.K = K
+        self.want_recon = want_recon
+        self.keep = keep
 
 
 def trellis_bit_costs(huff_codes) -> np.ndarray:
@@ -162,12 +229,17 @@ class GopEncoder:
         # Host seconds of the mode decision (with the adaptive-quant
         # gates) and of the packing; the coded blocks packed at a qi other
         # than their frame's base qi; and, when device_spans is set to a
-        # list, a (start, end) CUDA event pair around each chunk's ME and
-        # around its plane encodes.
+        # list, a (start, end) CUDA event pair around the work each chunk
+        # enqueues for its ME and for its plane encodes. Once the stages
+        # overlap, a span also holds any device idle time between the two
+        # enqueues.
         self.host_decide_s = 0.0
         self.host_pack_s = 0.0
         self.nonbase_qi_blocks = 0
         self.device_spans: list[tuple] | None = None
+        # Host seconds the stages spend waiting for the device's copies.
+        self.host_wait_s = 0.0
+        self._side = None  # finish_gop's copy stream, made at first use
 
     def _span(self):
         """A started CUDA event pair when spans are being kept."""
@@ -307,37 +379,52 @@ class GopEncoder:
                     ms=may_skip[sl])
 
     # ------------------------------------------------------------------
-    def _encode_chunk(self, frames: list, kf_flags: list | None = None,
-                      want_recon: bool = False,
-                      frame_qi: list | None = None):
-        """Encode a chunk of frames: ME on the device, the host mode
-        decision, the per-plane closed-loop encodes on the device, then
-        the download and the host packing.
+    def dispatch_me(self, gop_frames: list | None = None,
+                    device_planes=None, kf_flags: list | None = None):
+        """Stage 1: upload a chunk's planes, enqueue the ME plan and start
+        its copy to the host; nothing waits for the device.
 
-        frames: list of [y, u, v] display-orientation planes of frame
-        size. kf_flags marks the keyframes of a multi-GOP chunk
-        (kf_flags[0] must be True); None: frame 0 is the only one. Golden
-        references follow each frame's own GOP keyframe. frame_qi: each
-        frame's base qi (rate control's per-frame quantizers,
-        complete_dispatch(frame_qi=...)); None: self.qi for every frame.
-        A frame's base qi drives its qi list, lambdas, loop-filter limit
-        and header; the mode decision keeps self.qi's. Returns (packet
-        data list, recon {pli: [F, Hp, Wp] uint8 padded planes} or None).
-        """
+        gop_frames: list of [y, u, v] display-orientation planes of frame
+        size. device_planes: {pli: [F, h, w] uint8} on the encoder's
+        device, bitstream orientation, frame size without padding
+        (BatchDecoder.dispatch_batch's "dev"), in place of gop_frames: no
+        pixel crosses to the host, and adaptive quantization's content
+        gates are skipped, as in JAX (tpu_gop.py:1062-1066). kf_flags
+        marks the keyframes of a multi-GOP chunk (kf_flags[0] must be
+        True); None: frame 0 is the only one. Golden references follow
+        each frame's own GOP keyframe. Returns the state complete_dispatch
+        takes."""
         g = self.g
-        F = len(frames)
+        keep: list = []
+        if device_planes is not None:
+            cur = [device_planes[pli] for pli in range(3)]
+            F = int(cur[0].shape[0])
+            for pli, t in enumerate(cur):
+                want = (F,) + tuple(g.plane_shape(pli))
+                if (t.device.type != self.device.type
+                        or t.dtype != torch.uint8
+                        or tuple(t.shape) != want):
+                    raise ValueError(
+                        f"device_planes[{pli}]: expected {want} uint8 on "
+                        f"{self.device}, got {tuple(t.shape)} {t.dtype} on "
+                        f"{t.device}")
+            planes_bs = None
+        else:
+            planes_bs = [[np.ascontiguousarray(p[::-1], dtype=np.uint8)
+                          for p in fr] for fr in gop_frames]
+            F = len(planes_bs)
+            with record_function("theora.enc.upload"):
+                cur = [transfer.upload(np.stack([fr[pli] for fr in planes_bs]),
+                                       self.device, keep)
+                       for pli in range(3)]
         if kf_flags is None:
             kf_flags = [True] + [False] * (F - 1)
         if len(kf_flags) != F or not kf_flags[0]:
             raise ValueError("kf_flags must cover all frames and mark "
                              "frame 0 a keyframe")
         kf_flags = [bool(b) for b in kf_flags]
-        planes_bs = [[np.ascontiguousarray(p[::-1], dtype=np.uint8)
-                      for p in fr] for fr in frames]
         span = self._span()
-        ys = torch.from_numpy(np.stack([fr[0] for fr in planes_bs])).to(
-            self.device)
-        me_outs = None
+        plan = None
         if F > 1 and not all(kf_flags):
             gidx = np.zeros(F - 1, np.int64)
             last = 0
@@ -346,13 +433,37 @@ class GopEncoder:
                     last = f
                 gidx[f - 1] = last
             with record_function("theora.enc.me"):
-                me_outs = me.plan_with_gold(
-                    ys, torch.from_numpy(gidx).to(self.device))
-        self._end_span(span)
-        host = None
-        if me_outs is not None:
+                outs = me.plan_with_gold(
+                    cur[0], transfer.upload(gidx, self.device, keep))
             with record_function("theora.enc.download"):
-                host = [o.cpu().numpy() for o in me_outs]
+                plan = transfer.Download(_narrow_plan(outs))
+        self._end_span(span)
+        return _MeState(F, planes_bs, cur, kf_flags, plan, keep)
+
+    def complete_dispatch(self, me_state, want_recon: bool = False,
+                          frame_qi: list | None = None):
+        """Stage 2: wait for the ME plan's copy (its event, nothing queued
+        after it), run the host mode decision and the per-frame qi lists,
+        enqueue the three plane encodes (encode/scan.py) and start the
+        copies finish_gop reads: per block its coded flag and, with more
+        than one qi row, its qi index; the padded reconstruction with
+        want_recon.
+
+        frame_qi: each frame's base qi (rate control's per-frame
+        quantizers); None: self.qi for every frame. A frame's base qi
+        drives its qi list, lambdas, loop-filter limit and header; the
+        mode decision keeps self.qi's. Returns the state finish_gop
+        takes."""
+        st = me_state
+        g = self.g
+        F, kf_flags, cur, keep = st.F, st.kf_flags, st.cur, st.keep
+        if frame_qi is not None and len(frame_qi) != F:
+            raise ValueError("frame_qi must give one qi per frame")
+        host = None
+        if st.plan is not None:
+            t0 = time.perf_counter()
+            host = _widen_plan(st.plan.wait())
+            self.host_wait_s += time.perf_counter() - t0
 
         t0 = time.perf_counter()
         # Plan row f - 1 belongs to frame f; keyframes' rows are not read.
@@ -364,12 +475,11 @@ class GopEncoder:
                    np.zeros(g.nfrags, bool))
         frame_frag = [kf_frag if p is None else self._frag_plan(*p)
                       for p in plan_pf]
-        if frame_qi is not None and len(frame_qi) != F:
-            raise ValueError("frame_qi must give one qi per frame")
-        fqis, luma_sc = self._frame_qis(planes_bs, kf_flags, frame_qi)
+        fqis, luma_sc = self._frame_qis(st.planes_bs, kf_flags, frame_qi)
         self.host_decide_s += time.perf_counter() - t0
 
         dq = self.dequant
+        dev = self.device
         # Each frame's qi list padded to the chunk's K by repeating its
         # base row, which the chooser never picks (equal output, dearer
         # signalling), so a padded frame still packs one qi.
@@ -387,28 +497,26 @@ class GopEncoder:
                         * self.rd_strength * 4.0 for row in rows],
                        np.float32)
         span = self._span()
-        plane_out = {}
+        plane_out = []
         for pli in range(3):
             pl = g.planes[pli]
             vpad, hpad = g.plane_padding(pli)
             per = [self._plane_inputs(pli, *frame_frag[f]) for f in range(F)]
-            frag = {}
-            for k in ("rs", "o1y", "o1x", "o2y", "o2x"):
-                frag[k] = torch.from_numpy(
-                    np.stack([p[k] for p in per]).astype(np.int64)).to(
-                        self.device)
-            for k in ("u2", "ms"):
-                frag[k] = torch.from_numpy(np.stack([p[k] for p in per])).to(
-                    self.device)
-            cur = ys if pli == 0 else torch.from_numpy(
-                np.stack([planes_bs[f][pli] for f in range(F)])).to(
-                    self.device)
-            # [F, K, 2, 64]: DC (slot 0) always quantizes with the base qi.
-            deq = dq[rows, pli].astype(np.int16)
-            deq[:, :, :, 0] = deq[:, :1, :, 0]
-            sc = None
-            if pli == 0 and luma_sc is not None:
-                sc = torch.from_numpy(luma_sc).to(self.device)
+            with record_function("theora.enc.upload"):
+                frag = {k: transfer.upload(
+                    np.stack([p[k] for p in per]).astype(np.int64), dev, keep)
+                    for k in ("rs", "o1y", "o1x", "o2y", "o2x")}
+                for k in ("u2", "ms"):
+                    frag[k] = transfer.upload(np.stack([p[k] for p in per]),
+                                              dev, keep)
+                # [F, K, 2, 64]: DC (slot 0) always quantizes with the base
+                # qi.
+                deq = dq[rows, pli].astype(np.int16)
+                deq[:, :, :, 0] = deq[:, :1, :, 0]
+                deq = transfer.upload(deq, dev, keep)
+                sc = None
+                if pli == 0 and luma_sc is not None:
+                    sc = transfer.upload(luma_sc, dev, keep)
             lam_q = None
             if not self.use_trellis:
                 # The R/D quantizer's lambda of each row for an intra and
@@ -417,45 +525,90 @@ class GopEncoder:
                     [[[rd_lambda(q, int(dq[q, pli, t, 1])) * self.rd_strength
                        for t in (0, 1)] for q in row] for row in rows],
                     np.float32)
-            plane_out[pli] = encode_plane(
-                cur, frag, kf_flags, torch.from_numpy(deq).to(self.device),
-                limits, lam, pl.nvfrags, pl.nhfrags, vpad, hpad,
-                use_trellis=self.use_trellis, lam_t=lam_t, nb=self._nb,
-                lam_q=lam_q, lam_sc=sc, emit_recon=want_recon)
+            plane_out.append(encode_plane(
+                cur[pli], frag, kf_flags, deq, limits, lam, pl.nvfrags,
+                pl.nhfrags, vpad, hpad, use_trellis=self.use_trellis,
+                lam_t=lam_t, nb=self._nb, lam_q=lam_q, lam_sc=sc,
+                emit_recon=want_recon))
         self._end_span(span)
+        # The nonzero coefficients come down in finish_gop, once their
+        # number is known.
+        copies = []
+        for _, coded, qii, recon in plane_out:
+            copies.append(coded)
+            if K > 1:
+                copies.append(qii)
+            if want_recon:
+                copies.append(recon)
+        with record_function("theora.enc.download"):
+            download = transfer.Download(copies)
+        return _ChunkState(F, plan_pf, frame_frag, fqis, kf_flags,
+                           [o[0] for o in plane_out], download, K,
+                           want_recon, keep)
 
-        qdct_pl, coded_pl, qii_pl, recon_pl = {}, {}, {}, {}
-        for pli, (qout, coded, nnz, qii, recon) in plane_out.items():
-            # Only the nonzero coefficients come down, as (zig-zag index,
-            # value) pairs in block order; the counts place them.
-            with record_function("theora.enc.download"):
-                flat = qout.reshape(-1)
-                pos = torch.nonzero(flat).reshape(-1)
-                zzi = (pos & 63).to(torch.uint8).cpu().numpy()
-                vals = flat[pos].cpu().numpy()
-                counts = nnz.cpu().numpy().reshape(-1)
-                coded_pl[pli] = coded.cpu().numpy()
-                if K > 1:
-                    qii_pl[pli] = qii.cpu().numpy()
-                if want_recon:
-                    recon_pl[pli] = recon.cpu().numpy()
-            dense = np.zeros((counts.size, 64), np.int16)
-            dense[np.repeat(np.arange(counts.size), counts), zzi] = vals
-            qdct_pl[pli] = dense.reshape(F, -1, 64)
+    def finish_gop(self, state):
+        """Stage 3: wait for the chunk's copies, find and bring down its
+        nonzero coefficients (on a side stream that waits for this chunk
+        only), place them and pack the packets on the host. Returns
+        (packet data list, recon {pli: [F, Hp, Wp] uint8 padded planes}
+        or None)."""
+        st = state
+        g = self.g
         t0 = time.perf_counter()
-        pkts = self._pack_gop(F, plan_pf, frame_frag, qdct_pl, coded_pl,
-                              kf_flags, fqis, qii_pl)
+        host = iter(st.download.wait())
+        coded_pl, qii_pl, recon_pl = {}, {}, {}
+        for pli in range(3):
+            coded_pl[pli] = next(host)
+            if st.K > 1:
+                qii_pl[pli] = next(host)
+            if st.want_recon:
+                recon_pl[pli] = next(host)
+        nonzeros = self._coefficients(st.qout, st.download.event)
+        self.host_wait_s += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        qdct = np.zeros((st.F, g.nfrags, 64), np.int16)
+        for idx, vals in nonzeros:
+            qdct.reshape(-1)[idx] = vals
+        pkts = self._pack_gop(st.F, st.plan_pf, st.frame_frag, qdct,
+                              coded_pl, st.kf_flags, st.fqis, qii_pl)
         self.host_pack_s += time.perf_counter() - t0
-        return pkts, (recon_pl if want_recon else None)
+        return pkts, (recon_pl if st.want_recon else None)
+
+    def _coefficients(self, qouts, after) -> list[tuple]:
+        """Per plane, the nonzero entries of its [F, n, 64] int16
+        coefficients as _nonzeros gives them, indexed into the chunk's
+        [F, nfrags, 64] blocks, as numpy. On the card they are found and
+        copied on a side stream that waits for the event `after` only, so
+        the work queued since on the main stream (the next chunk's) does
+        not delay them."""
+        g = self.g
+        rows = [(g.planes[pli].froffset, g.nfrags) for pli in range(3)]
+        if self.device.type != "cuda":
+            return [tuple(t.numpy() for t in _nonzeros(q, *r))
+                    for q, r in zip(qouts, rows)]
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device, priority=-1)
+        self._side.wait_event(after)
+        with torch.cuda.stream(self._side), \
+                record_function("theora.enc.download"):
+            found = []
+            for q, r in zip(qouts, rows):
+                q.record_stream(self._side)
+                found += _nonzeros(q, *r)
+            host = transfer.Download(found).wait()
+        return list(zip(host[0::2], host[1::2]))
 
     def _frame_qis(self, planes_bs, kf_flags, frame_qi=None):
         """Per frame of a chunk its qi list (tpu_gop.py:1041-1123): the
-        content gates on its luma plane and the adaptive-quantization
-        triple at the frame's base qi (frame_qi[f], else self.qi), the
-        intra one for a frame whose GOP is only a keyframe; one qi at speed
-        levels 2-4. Returns (qi tuples, [F, n] float32 luma lambda scales
-        or None where no frame with more than one qi engaged masking)."""
-        F = len(planes_bs)
+        content gates on its luma plane (none for device planes,
+        planes_bs None: not noise-like, not mixed, no lambda scales) and
+        the adaptive-quantization triple at the frame's base qi
+        (frame_qi[f], else self.qi), the intra one for a frame whose GOP
+        is only a keyframe; one qi at speed levels 2-4. Returns (qi
+        tuples, [F, n] float32 luma lambda scales or None where no frame
+        with more than one qi engaged masking)."""
+        F = len(kf_flags)
         starts = [f for f in range(F) if kf_flags[f]] + [F]
         gop_len = np.zeros(F, np.int64)
         for a, b in zip(starts, starts[1:]):
@@ -465,7 +618,8 @@ class GopEncoder:
         for f in range(F):
             base = (self.qi if frame_qi is None
                     else int(np.clip(frame_qi[f], 0, 63)))
-            nl, mixed, sc = (aq.frame_gates(planes_bs[f][0], mode) if mode
+            nl, mixed, sc = (aq.frame_gates(planes_bs[f][0], mode)
+                             if mode and planes_bs is not None
                              else (False, False, None))
             fqis.append(aq.frame_qis(mode, base,
                                      int(self.info.pixel_fmt),
@@ -481,19 +635,19 @@ class GopEncoder:
                 luma_sc[f] = sc.astype(np.float32)
         return fqis, luma_sc
 
-    def _pack_gop(self, F, plans, frame_frag, qdct_pl, coded_pl, kf_flags,
+    def _pack_gop(self, F, plans, frame_frag, qdct_f, coded_pl, kf_flags,
                   fqis, qii_pl):
+        """Packets of a chunk's frames; qdct_f: [F, nfrags, 64] int16."""
         g = self.g
         pkts = []
         for f in range(F):
-            qdct = np.zeros((g.nfrags, 64), np.int16)
+            qdct = qdct_f[f]
             coded = np.zeros(g.nfrags, bool)
             qis = fqis[f] if len(fqis[f]) > 1 else None
             frag_qii = None if qis is None else np.zeros(g.nfrags, np.int32)
             for pli in range(3):
                 pl = g.planes[pli]
                 sl = slice(pl.froffset, pl.froffset + pl.nfrags)
-                qdct[sl] = qdct_pl[pli][f]
                 coded[sl] = coded_pl[pli][f]
                 if qis is not None:
                     frag_qii[sl] = qii_pl[pli][f]
@@ -517,10 +671,48 @@ class GopEncoder:
         return pkts
 
     # ------------------------------------------------------------------
+    def dispatch_gop(self, gop_frames: list | None = None,
+                     want_recon: bool = False, device_planes=None,
+                     frame_qi: list | None = None):
+        """Stages 1 and 2 for one GOP (frame 0 its keyframe): enqueue all
+        its device work; returns the state finish_gop takes."""
+        return self.complete_dispatch(
+            self.dispatch_me(gop_frames, device_planes=device_planes),
+            want_recon=want_recon, frame_qi=frame_qi)
+
     def encode_gop(self, gop_frames: list, want_recon: bool = False):
         """Encode one GOP (frame 0 becomes the keyframe). Returns (packet
         data list, recon {pli: [F, Hp, Wp]} or None)."""
-        return self._encode_chunk(gop_frames, want_recon=want_recon)
+        return self.finish_gop(self.dispatch_gop(gop_frames,
+                                                 want_recon=want_recon))
+
+    def _pipelined(self, dispatched, emit) -> None:
+        """Run chunks two deep (tpu_gop.py:1460-1482): `dispatched` yields
+        (tag, dispatch_me state) per chunk, dispatching as it is read;
+        chunk k's complete_dispatch runs after chunk k+1's dispatch_me,
+        and its finish_gop, then emit(tag, packet data list), after chunk
+        k+1's complete_dispatch."""
+        me_q: deque = deque()
+        fin_q: deque = deque()
+
+        def drain_complete():
+            tag, st = me_q.popleft()
+            fin_q.append((tag, self.complete_dispatch(st)))
+
+        def drain_finish():
+            tag, st = fin_q.popleft()
+            emit(tag, self.finish_gop(st)[0])
+
+        for item in dispatched:
+            me_q.append(item)
+            if len(me_q) >= 2:
+                drain_complete()
+            if len(fin_q) >= 2:
+                drain_finish()
+        while me_q:
+            drain_complete()
+        while fin_q:
+            drain_finish()
 
     def _emit(self, out: list, datas, kf, pbase: int, nf: int) -> None:
         """Append the packets of frames pbase.. (kf marks their keyframes)
@@ -543,12 +735,15 @@ class GopEncoder:
         one chunk of at most clip_batch frames (a GOP longer than that is
         a chunk of its own); the plane encodes restart at every keyframe,
         so the bytes equal per-GOP encodes. auto_keyframe places keyframes
-        at scene cuts (detect_scene_cuts).
+        at scene cuts (detect_scene_cuts). The chunks run two deep
+        (_pipelined): chunk k+1's upload and ME are queued before chunk
+        k's plane encodes, and its plane encodes before chunk k's packing,
+        so the host's mode decision and packing overlap the device's work.
 
-        With target_bitrate > 0 each GOP is a chunk of its own and the
-        fixed-window controller (WindowRateController) moves the qi from
-        the real packed bits every rate_window GOPs and once at the end
-        (tpu_gop.py:1394-1418)."""
+        With target_bitrate > 0 each GOP is a chunk of its own, run stage
+        after stage, and the fixed-window controller (WindowRateController)
+        moves the qi from the real packed bits every rate_window GOPs and
+        once at the end (tpu_gop.py:1394-1418)."""
         out = self.flush_headers()
         nf = len(frames)
         bases = gop_starts(frames, keyframe_freq, auto_keyframe)
@@ -557,7 +752,7 @@ class GopEncoder:
         if target_bitrate > 0:
             rc = WindowRateController(self, target_bitrate, rate_window)
             for gi, gfr in enumerate(gops):
-                datas, _ = self._encode_chunk(gfr)
+                datas, _ = self.encode_gop(gfr)
                 self._emit(out, datas, [True] + [False] * (len(gfr) - 1),
                            bases[gi], nf)
                 rc.add(8 * sum(len(d) for d in datas), len(datas))
@@ -566,6 +761,7 @@ class GopEncoder:
             rc.update()
             return out
         chunk_max = max(int(clip_batch), 1)
+        chunks = []  # (first frame, frames, kf_flags)
         i = 0
         while i < len(gops):
             j, total = i, 0
@@ -577,9 +773,12 @@ class GopEncoder:
             for k in range(i, j):
                 cfr.extend(gops[k])
                 kf.extend([True] + [False] * (len(gops[k]) - 1))
-            datas, _ = self._encode_chunk(cfr, kf_flags=kf)
-            self._emit(out, datas, kf, bases[i], nf)
+            chunks.append((bases[i], cfr, kf))
             i = j
+        self._pipelined(
+            (((base, kf), self.dispatch_me(cfr, kf_flags=kf))
+             for base, cfr, kf in chunks),
+            lambda tag, datas: self._emit(out, datas, tag[1], tag[0], nf))
         return out
 
     def _rc_info(self, target_bitrate: int) -> TheoraInfo:
@@ -640,7 +839,8 @@ class GopEncoder:
                 rc, [len(gfr) for _, gfr in window], applied_qi)
             prev_applied = applied_qi
             for (base, gfr), qv in zip(window, qvecs):
-                datas, _ = self._encode_chunk(gfr, frame_qi=qv)
+                datas, _ = self.finish_gop(self.dispatch_gop(gfr,
+                                                             frame_qi=qv))
                 self._emit(out, datas, [True] + [False] * (len(gfr) - 1),
                            base, nf)
                 for j, data in enumerate(datas):
@@ -666,6 +866,72 @@ class GopEncoder:
                                       target_bitrate, buf_delay,
                                       rate_window, auto_keyframe)
         return pkts, blob
+
+
+def transcode_device(info, setup, data_packets, keyframe_freq: int = 8,
+                     qi: int = 40, target_bitrate: int = 0,
+                     rate_window: int = 8, enc_kwargs: dict | None = None):
+    """Device-resident transcode (tpu_gop.py:1636-1754): BatchDecoder's
+    decoded planes feed GopEncoder.dispatch_me on the card; no decoded
+    pixel is copied to the host.
+
+    data_packets: the input stream's data packets (its headers parsed into
+    info and setup). Decode batches of keyframe_freq packets; each becomes
+    one output GOP, a keyframe every keyframe_freq frames. enc_kwargs go
+    to GopEncoder (device among them: "cuda" by default), and the decoder
+    runs on the encoder's device. Without a target bitrate batch k+1's
+    decode and ME are queued before batch k's plane encodes, and those
+    before batch k-1's packing (_pipelined); with one, the batches run in
+    turn under WindowRateController. Returns the output packets, headers
+    first.
+
+    A dup (0-byte) packet repeats the latest frame before it, and a batch
+    of dups only the previous batch's last frame. A dup that leads a
+    batch takes the previous batch's last frame too, as the output must
+    equal a host decode fed to encode_clip; the JAX function gives it
+    the batch's last live frame, a later one. Device planes skip
+    adaptive quantization's content gates, as in JAX."""
+    enc = GopEncoder(info, qi=qi, **(enc_kwargs or {}))
+    dec = BatchDecoder(info, setup, device=enc.device)
+    out = enc.flush_headers()
+    nf = len(data_packets)
+    bases = range(0, nf, keyframe_freq)
+    last = None  # the latest frame given to the encoder, {pli: [h, w]}
+
+    def decode(base):
+        nonlocal last
+        chunk = data_packets[base:base + keyframe_freq]
+        st = dec.dispatch_batch(chunk)
+        emit = [-1] * len(chunk) if st is None else st["emit"]
+        if emit == list(range(len(chunk))):
+            planes = st["dev"]
+        else:
+            if last is None and emit[0] < 0:
+                raise ValueError("stream must start with a live frame")
+            planes = {pli: torch.stack([last[pli] if li < 0
+                                        else st["dev"][pli][li]
+                                        for li in emit])
+                      for pli in range(3)}
+        last = {pli: planes[pli][-1] for pli in range(3)}
+        return planes
+
+    def emit_gop(base, datas):
+        enc._emit(out, datas, [True] + [False] * (len(datas) - 1), base, nf)
+
+    if target_bitrate > 0:
+        rc = WindowRateController(enc, target_bitrate, rate_window)
+        for gi, base in enumerate(bases):
+            datas, _ = enc.finish_gop(
+                enc.dispatch_gop(device_planes=decode(base)))
+            emit_gop(base, datas)
+            rc.add(8 * sum(len(d) for d in datas), len(datas))
+            if (gi + 1) % rate_window == 0:
+                rc.update()
+        rc.update()
+        return out
+    enc._pipelined(((base, enc.dispatch_me(device_planes=decode(base)))
+                    for base in bases), emit_gop)
+    return out
 
 
 class WindowRateController:

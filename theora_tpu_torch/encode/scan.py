@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from theora_tpu_torch import transfer
 from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
     trellis_cuda
 from theora_tpu_torch.ops.loopfilter import loop_filter_plane
@@ -66,9 +67,9 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     chooser's; KR takes none).
 
     Returns (qout [F, n, 64] int16 quantized coefficients, zero for
-    uncoded blocks; coded [F, n] bool; nnz [F, n] int32 nonzero counts;
-    qii [F, n] uint8 each block's qi row; recon [F, Hp, Wp] uint8 padded
-    planes when emit_recon, else None).
+    uncoded blocks; coded [F, n] bool; qii [F, n] uint8 each block's qi
+    row; recon [F, Hp, Wp] uint8 padded planes when emit_recon, else
+    None).
     """
     dev = cur_planes.device
     F = cur_planes.shape[0]
@@ -80,10 +81,9 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     prev = torch.full((h + 2 * pad_y, w + 2 * pad_x), 0x80,
                       dtype=torch.uint8, device=dev)
     gold = prev
-    lam_dev = torch.from_numpy(lam).to(dev)
+    lam_dev = transfer.upload(lam, dev)
     qout = torch.empty((F, n, 64), dtype=torch.int16, device=dev)
     coded_out = torch.empty((F, n), dtype=torch.bool, device=dev)
-    nnz_out = torch.empty((F, n), dtype=torch.int32, device=dev)
     qii_out = torch.zeros((F, n), dtype=torch.uint8, device=dev)
     recon_out = [] if emit_recon else None
     # record_function labels group profiler time by codec stage
@@ -137,11 +137,10 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
             fill_borders(plane, h, w, pad_y, pad_x)
             qout[f] = torch.where(coded[:, None], q16, 0)
             coded_out[f] = coded
-            nnz_out[f] = torch.where(coded, cnt, 0)
         if ik:
             gold = plane
         prev = plane
         if emit_recon:
             recon_out.append(plane)
     recon = torch.stack(recon_out) if emit_recon else None
-    return qout, coded_out, nnz_out, qii_out, recon
+    return qout, coded_out, qii_out, recon

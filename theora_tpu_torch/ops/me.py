@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from theora_tpu_torch import transfer
+
 _COARSE_R = 7
 _REFINE_R = 2
 _MV_MAX = 15      # full-pel; half-pel range is +-31 (bitstream limit)
@@ -114,7 +116,7 @@ def _refine_select(grid, by, bx, mv_max):
     oy = by[..., None] + steps // 5 - 2
     ox = bx[..., None] + steps % 5 - 2
     valid = (oy.abs() <= mv_max) & (ox.abs() <= mv_max)
-    rank = torch.from_numpy(_refine_rank()).to(dev)
+    rank = transfer.upload(_refine_rank(), dev)
     # sad <= 65280, so sad * 32 + rank < 2**22: unique keys.
     key = torch.where(valid, grid.to(torch.int64) * 32 + rank, _I32_MAX)
     kmin, idx = key.min(dim=-1)
@@ -180,7 +182,7 @@ def _me_search(cur, ref):
         shifted = ref2p[:, R2 + dy:R2 + dy + H2, R2 + dx:R2 + dx + W2]
         sad = _box((cur2 - shifted).abs(), 8)
         best_key = torch.minimum(best_key, sad.to(torch.int64) * 256 + k)
-    cand_t = torch.from_numpy(cands).to(dev)
+    cand_t = transfer.upload(cands, dev)
     c_d = cand_t[best_key & 255]                     # [F, nv, nh, 2] (dy, dx)
 
     # ---- full-pel refine around 2x coarse

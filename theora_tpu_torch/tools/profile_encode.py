@@ -2,7 +2,7 @@
 
 Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
            [--qi Q] [--adaptive-quant {auto,on,off}] [--speed S]
-           [--bitrate B [--two-pass]]
+           [--bitrate B [--two-pass]] [--transcode | --staged]
 
 Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
 the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
@@ -11,13 +11,21 @@ clip_batch 8; at speed level S; with B > 0 in CBR at B bit/s, or with
 --two-pass an encode_clip_twopass at B with a 16-frame rate buffer and
 no quality floor) once to warm up, then R
 more times: untraced passes timed on the host clock (wall, host mode
-decision, host packing, device spans from CUDA events), and one pass
+decision, host packing, host waits for the device's copies, device spans
+from CUDA events), and one pass
 under torch.profiler, which reports device time per codec stage (the
 record_function labels in encode/gop.py and encode/scan.py) with the
 PyTorch kernels each launches, per kernel, the launches of the kernel
 libraries (K1 at both entries, K2, KT, KR) and of K1 in the
 theora.enc.idct_recon scope, and the device's busy and idle share of the
-traced pass. Needs a CUDA card. Prints one JSON summary as its last line.
+traced pass. With --transcode the pass is instead the device-resident
+transcode (encode/gop.py:transcode_device) of the first N data packets of
+testdata/hd720_q56_k12.ogv in decode batches of 8 at qi Q with the
+encoder's settings (adaptive quantization "auto" unless asked otherwise),
+whose encoder's host timers are not reported. With --staged the 8-frame
+GOPs go one after another through dispatch_me, complete_dispatch and
+finish_gop, where encode_clip runs them two deep. Needs a CUDA card.
+Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -68,25 +76,43 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--qi", type=int, default=QI)
     ap.add_argument("--adaptive-quant", choices=["auto", "on", "off"],
-                    default="off")
+                    default=None)
     ap.add_argument("--speed", type=int, default=0)
     ap.add_argument("--bitrate", type=int, default=0)
     ap.add_argument("--two-pass", action="store_true")
+    ap.add_argument("--transcode", action="store_true")
+    ap.add_argument("--staged", action="store_true")
     args = ap.parse_args(argv)
     if args.two_pass and not args.bitrate:
         ap.error("--two-pass requires --bitrate")
+    if args.transcode and (args.two_pass or args.speed or args.staged):
+        ap.error("--transcode takes no --two-pass, --speed or --staged")
+    if args.staged and (args.two_pass or args.bitrate):
+        ap.error("--staged takes no --bitrate")
     qi = args.qi
-    aq = {"auto": "auto", "on": True, "off": False}[args.adaptive_quant]
+    aq = {"auto": "auto", "on": True, "off": False}[
+        args.adaptive_quant or ("auto" if args.transcode else "off")]
     if not torch.cuda.is_available():
         print("profile_encode: needs a CUDA card", file=sys.stderr)
         return 2
 
     from torch.profiler import ProfilerActivity, profile
 
-    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.encode.gop import GopEncoder, transcode_device
     from theora_tpu_torch.info import TheoraInfo
 
-    frames = hd720_frames(args.frames)
+    if args.transcode:
+        from theora_tpu_torch.headers import parse_info_header, \
+            parse_setup_header
+        from theora_tpu_torch.ogg import demux_stream
+
+        with open(os.path.join(_TESTDATA, "hd720_q56_k12.ogv"), "rb") as f:
+            pkts = demux_stream(f.read())
+        src_info = parse_info_header(pkts[0].data)
+        src_setup = parse_setup_header(pkts[2].data)
+        frames = [p.data for p in pkts[3:3 + args.frames]]
+    else:
+        frames = hd720_frames(args.frames)
     info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
                       pic_height=720, quality=0 if args.two_pass else qi)
     smi = subprocess.run(
@@ -95,11 +121,22 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     def make():
+        if args.transcode:
+            return None
         enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
         enc.set_splevel(args.speed)
         return enc
 
     def encode(enc):
+        if args.transcode:
+            return transcode_device(src_info, src_setup, frames,
+                                    keyframe_freq=KF, qi=qi,
+                                    target_bitrate=args.bitrate,
+                                    enc_kwargs={"adaptive_quant": aq})
+        if args.staged:
+            for base in range(0, len(frames), KF):
+                enc.finish_gop(enc.dispatch_gop(frames[base:base + KF]))
+            return None
         if args.two_pass:
             return enc.encode_clip_twopass(
                 frames, keyframe_freq=KF, target_bitrate=args.bitrate,
@@ -111,19 +148,22 @@ def main(argv=None) -> int:
     runs = []
     for _ in range(args.repeat):
         enc = make()
-        enc.device_spans = []
+        if enc is not None:
+            enc.device_spans = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         encode(enc)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        spans = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
-        runs.append({"wall_s": wall, "host_decide_s": enc.host_decide_s,
-                     "host_pack_s": enc.host_pack_s,
-                     "device_span_s": spans})
-        print(f"[run] wall {wall:.4f} s, host mode decision "
-              f"{enc.host_decide_s:.4f} s, host packing "
-              f"{enc.host_pack_s:.4f} s, device spans {spans:.4f} s",
+        run = {"wall_s": wall}
+        if enc is not None:
+            run.update(
+                host_decide_s=enc.host_decide_s,
+                host_pack_s=enc.host_pack_s, host_wait_s=enc.host_wait_s,
+                device_span_s=sum(a.elapsed_time(b)
+                                  for a, b in enc.device_spans) / 1e3)
+        runs.append(run)
+        print("[run] " + ", ".join(f"{k} {v:.4f}" for k, v in run.items()),
               flush=True)
 
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
@@ -183,7 +223,8 @@ def main(argv=None) -> int:
     summary = {
         "card": smi, "frames": nf, "qi": qi, "adaptive_quant": aq,
         "speed": args.speed, "bitrate": args.bitrate,
-        "two_pass": args.two_pass,
+        "two_pass": args.two_pass, "transcode": args.transcode,
+        "staged": args.staged,
         "keyframe_freq": KF,
         "clip_batch": BATCH, "median_wall_s": mid,
         "frames_per_s": nf / mid,
@@ -191,8 +232,9 @@ def main(argv=None) -> int:
         "runs": runs, "traced_wall_s": traced_wall,
         "traced_device_busy_s": busy,
         "traced_idle_share": 1.0 - busy / traced_wall,
-        "traced_host_decide_s": enc.host_decide_s,
-        "traced_host_pack_s": enc.host_pack_s,
+        "traced_host_decide_s": None if enc is None else enc.host_decide_s,
+        "traced_host_pack_s": None if enc is None else enc.host_pack_s,
+        "traced_host_wait_s": None if enc is None else enc.host_wait_s,
         "stages_device_s": stages,
         "stages_pytorch_kernels": stage_kernels,
         "library_launches": lib_launches,
