@@ -123,9 +123,29 @@ and prints no result line):
    (PacketDecoder) against its SHA-256 list, ms per frame beside
    decode_clip's, K1's decode entry once per plane per frame.
 
+10. the mesh GOP encoder (parallel/gop.py, the gop axis as a batch
+   dimension on one card): (a) K2, KT, KR and K1's encode entry over 3
+   segments of 14,400 blocks (a 720p luma plane per GOP), a distinct qi
+   triple, lambdas and lambda scales per segment
+   (tools/bench_segments.py), each kernel's one launch equal to its plain
+   version and to 3 launches of one segment, exactly, and timed beside
+   them; (b) the slice's main path, encode_clip_mesh of the 16 720p frames
+   at q56 "auto", keyframe every 8, gop axis 2: the 19 packets against
+   hd720_q56_k8_aq_enc.sha256 (the sequential encoder's list, which JAX's
+   mesh at gop axis 2 also gives: testdata/make_hd720_enc.py CHECKS), a
+   warm pass with the counts reset (K1's encode entry, K2, KT 24 each),
+   and KR's path: the two GOPs at q48 speed 2 in one encode_gops batch
+   against hd720_q48_k8_sp2_enc.sha256 (K1, K2, KR 24 each);
+   (c) 24 720p frames at q48 "auto", keyframe every 8, through
+   encode_clip_mesh on a gop axis of 3 and the sequential encode_clip in
+   turns, 3 pairs: 27 packets equal both ways, walls, each kernel's
+   launches (24 against 72) and, from one traced pass each way, device
+   kernels per plane per frame. No claim.
+
 Then one JSON line listing the four kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
-transcode and the per-packet decode), the
+transcode, the per-packet decode and the mesh; the one launch over 3
+segments beside 3 launches), the
 card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
@@ -590,7 +610,7 @@ def _kt_row_cases(device):
             yield (f"K2 outputs, 3 x {n} blocks, qis {qis}, "
                    f"{('intra', 'inter')[qti]} frame"
                    + (", lambda scales in [0.1, 8]" if qti else ""),
-                   (q, d, deq, t(inter), lam_tab[qti, qis], nb, sc))
+                   (q, d, deq, t(inter), t(lam_tab[qti, qis]), nb, sc))
 
 
 def _kt_cases(device):
@@ -630,7 +650,7 @@ def _kt_cases(device):
             t(dct.astype(np.int32)),
             t(deq.astype(np.int32)[inter.astype(np.int64)]))
         return (q.to(torch.int16)[None], t(dct.astype(np.int16)),
-                t(deq[None]), t(inter), lam_tab[qti, qi:qi + 1], nb, None)
+                t(deq[None]), t(inter), t(lam_tab[qti, qi:qi + 1]), nb, None)
 
     # Edge classes among K2's outputs, a frame of each type at one qi: no
     # nonzero AC value (a fixed result), one nonzero value at position 63
@@ -685,7 +705,7 @@ def _kt_cases(device):
                                   cases["qti"].tolist()))):
         sel = (cases["qi"] == qi) & (cases["qti"] == qti)
         args = list(launch(cases["dct"][sel], qi, qti))
-        args[4] = np.ones(1, np.float32)
+        args[4] = t(np.ones(1, np.float32))
         args[6] = t(cases["lam"][sel])
         yield (f"trellis_fma_cases.npz, qi {qi}, qti {qti}, "
                f"{int(sel.sum())} blocks", tuple(args), False)
@@ -1389,6 +1409,158 @@ def pipelined_vs_staged(smi: str) -> dict:
     return launches
 
 
+def mesh_kernels(smi: str, device) -> dict:
+    """10 (a): K2, KT, KR and K1's encode entry over 3 segments of the
+    1280x720 luma plane's 14,400 blocks, each segment with its own qi
+    triple, lambdas and per-block lambda scales
+    (tools/bench_segments.py): every output of each kernel's one launch
+    equals its plain version on the same inputs and 3 launches of one
+    segment each; the one launch timed beside the 3. Returns {kernel:
+    (one launch ms, 3 launches ms)}."""
+    from theora_tpu_torch.tools import bench_segments as bs
+
+    c = bs.segment_case(np.random.default_rng(bs.SEED), 14400, 3, device)
+    args = bs.kernel_args(c)
+    one = bs.run_chain(c, args)
+    plain = bs.run_chain(c, args, bs.plains())
+    sep = bs.run_separately(c)
+    torch.cuda.synchronize()
+    err = max(int((g.int() - w.int()).abs().max())
+              for k in one for g, w in zip(one[k], plain[k]))
+    for what, other in (("plain", plain), ("3 launches", sep)):
+        bad = bs.differ(one, other)
+        if bad:
+            raise AssertionError(f"mesh kernels over 3 segments != {what}: "
+                                 f"{bad}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    times = bs.time_segments(c, flush)
+    for k, (t1, t3) in times.items():
+        log(f"[mesh kernels] {k} over 3 x 14400 blocks (qi triples "
+            f"{c['qis']}, lambdas and lambda scales per segment): one "
+            f"launch == plain == 3 launches of one segment (max |err| "
+            f"{err}, tolerance 0); one launch {t1:.4f} ms, 3 launches "
+            f"{t3:.4f} ms | {smi}")
+    return times
+
+
+def mesh_720p(smi: str) -> tuple:
+    """10 (b): encode_clip_mesh of the 16 720p frames at q56 "auto", a
+    keyframe every 8, on a gop axis of 2 (both GOPs in one dispatch):
+    the 19 packets against hd720_q56_k8_aq_enc.sha256, and a warm pass
+    with the launch counts reset just before it (K1's encode entry, K2
+    and KT once per plane per frame step: 3 x 8 = 24 each, KR none).
+    Then KR's path: the two GOPs at q48 through MeshGopEncoder.encode_gops
+    at speed level 2 against hd720_q48_k8_sp2_enc.sha256, counts reset
+    just before it (K1's encode entry, K2 and KR 24 each, KT none).
+    Returns the two runs' counts (K1 encode entry, K2, KT, KR)."""
+    import types
+
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.parallel.gop import MeshGopEncoder, \
+        encode_clip_mesh, make_mesh
+
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=mk.AQ_QI)
+    name = "hd720_q56_k8_aq_enc"
+
+    def run():
+        return encode_clip_mesh(frames, info, make_mesh(2),
+                                keyframe_freq=mk.HD_KF, qi=mk.AQ_QI)
+
+    _check_hashes(run(), name, "mesh, gop axis 2, first pass")
+    _reset_counts()
+    t0 = time.perf_counter()
+    pkts = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = 3 * mk.HD_KF
+    counts = _read_counts("mesh 720p", (per, per, per, 0))
+    n = _check_hashes(pkts, name, "mesh, gop axis 2, warm pass")
+    log(f"[mesh720p] q56 auto, 16 frames, keyframe every 8, gop axis 2: "
+        f"all {n} packet SHA-256 equal the JAX encoder's list; warm pass "
+        f"{wall:.4f} s; launches K1, K2, KT, KR {counts} (one per plane per "
+        f"frame step of the 2 GOPs) | {smi}")
+    info48 = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                        pic_height=720, quality=mk.HD_QI)
+    enc = MeshGopEncoder(make_mesh(2), info48, qi=mk.HD_QI)
+    enc.base.set_splevel(2)
+    _reset_counts()
+    datas = enc.encode_gops([frames[:mk.HD_KF], frames[mk.HD_KF:]])
+    torch.cuda.synchronize()
+    sp2 = _read_counts("mesh 720p speed 2", (per, per, 0, per))
+    n = _check_hashes(enc.base.flush_headers() + [
+        types.SimpleNamespace(data=d) for gop in datas for d in gop],
+        "hd720_q48_k8_sp2_enc", "mesh, gop axis 2, speed 2")
+    log(f"[mesh720p] q48 speed 2 (KR over 2 segments), the two GOPs in one "
+        f"encode_gops batch: all {n} packet SHA-256 equal the JAX encoder's "
+        f"list; launches K1, K2, KT, KR {sp2} | {smi}")
+    return counts, sp2
+
+
+def mesh_vs_sequential(smi: str) -> dict:
+    """10 (c): 24 720p frames (tools/profile_encode.py:hd720_frames) at
+    q48 "auto", a keyframe every 8, through encode_clip_mesh on a gop axis
+    of 3 (the three GOPs in one dispatch) and the sequential
+    GopEncoder.encode_clip (clip_batch 8), in turns, 3 pairs: the 27
+    packets of every run equal, each run's kernel launches counted from
+    0, then one traced pass each way for the device kernels launched per
+    plane per frame. No claim. Returns {way: launch counts (K1 encode
+    entry, K2, KT, KR)}."""
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
+    from theora_tpu_torch.tools.profile_encode import device_launches, \
+        hd720_frames, traced
+
+    frames = hd720_frames(24)
+    nf, qi, kf = len(frames), 48, 8
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=qi)
+    ways = {
+        "mesh": (lambda: encode_clip_mesh(frames, info, make_mesh(3),
+                                          keyframe_freq=kf, qi=qi),
+                 (3 * kf, 3 * kf, 3 * kf, 0)),
+        "sequential": (lambda: GopEncoder(info, qi=qi).encode_clip(
+            frames, keyframe_freq=kf, clip_batch=8),
+            (3 * nf, 3 * nf, 3 * nf, 0)),
+    }
+    ref = [p.data for p in ways["sequential"][0]()]
+    if len(ref) != 3 + nf:
+        raise AssertionError(f"sequential 24 frames: {len(ref)} packets")
+    walls = {w: [] for w in ways}
+    counts = {}
+    for _ in range(3):
+        for way, (fn, want) in ways.items():
+            _reset_counts()
+            t0 = time.perf_counter()
+            pkts = fn()
+            torch.cuda.synchronize()
+            walls[way].append(time.perf_counter() - t0)
+            counts[way] = _read_counts(f"720p 24 frames {way}", want)
+            if [p.data for p in pkts] != ref:
+                raise AssertionError(f"720p 24 frames {way}: packets differ "
+                                     f"from the sequential encode's")
+    per_ppf = {}
+    for way, (fn, _) in ways.items():
+        _, events, wall = traced(fn)
+        launches, busy = device_launches(events)
+        per_ppf[way] = launches / (3 * nf)
+        log(f"[mesh vs sequential] {way}: traced pass {wall:.4f} s, "
+            f"{launches} device kernels = {per_ppf[way]:.1f} per plane per "
+            f"frame, device busy {busy:.5f} s | {smi}")
+    log(f"[mesh vs sequential] 720p q48 auto, {nf} frames, keyframe every "
+        f"{kf}: all {len(ref)} packets equal both ways in all 3 pairs; "
+        f"walls in turns mesh (gop axis 3) "
+        f"{[round(w, 4) for w in walls['mesh']]} s, sequential "
+        f"{[round(w, 4) for w in walls['sequential']]} s; launches K1, K2, "
+        f"KT, KR mesh {counts['mesh']}, sequential {counts['sequential']}; "
+        f"device kernels per plane per frame mesh {per_ppf['mesh']:.1f}, "
+        f"sequential {per_ppf['sequential']:.1f} (no claim) | {smi}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1417,17 +1589,27 @@ def main() -> int:
     paths["transcode"] = transcode_720p(smi)
     paths["encode stage by stage"] = pipelined_vs_staged(smi)
     paths["decode per packet"] = packet_decode_720p(smi)
-    # K1 runs on every main path: the decodes, the encode, the transcode;
-    # K2 and KT on the encode and the transcode.
-    main_paths = ("encode", "transcode", "decode per packet")
+    segments = mesh_kernels(smi, dev)
+    # The mesh slice's main path: both GOPs of the 720p q56 clip in one
+    # dispatch.
+    paths["mesh"], paths["mesh speed 2"] = mesh_720p(smi)
+    for way, c in mesh_vs_sequential(smi).items():
+        paths[f"24 frames q48 {way}"] = c
+    # K1 runs on every main path: the decodes, the encode, the transcode,
+    # the mesh; K2 and KT on the encode, the transcode and the mesh.
+    main_paths = ("encode", "transcode", "decode per packet", "mesh")
     k1["launches"] = k1_decode + sum(paths[p][0] for p in main_paths)
     k2["launches"] = sum(paths[p][1] for p in main_paths)
     kt["launches"] = sum(paths[p][2] for p in main_paths)
-    kr["launches"] = paths["encode q48 speed 2"][3]
+    kr["launches"] = (paths["encode q48 speed 2"][3]
+                      + paths["mesh speed 2"][3])
     k1["launches_by_path"] = {"decode": k1_decode}
     for i, k in enumerate((k1, k2, kt, kr)):
         k.setdefault("launches_by_path", {}).update(
             {p: c[i] for p, c in paths.items()})
+    for k, key in ((k1, "K1"), (k2, "K2"), (kt, "KT"), (kr, "KR")):
+        k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
+                                   "three_launches": segments[key][1]}
     print(json.dumps({"kernels": [k1, k2, kt, kr]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

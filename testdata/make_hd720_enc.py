@@ -69,6 +69,43 @@ stream's own info and the encoder's defaults (adaptive_quant "auto"):
   packets, keyframe_freq=8, qi=48, by JAX transcode_device (chip_smoke.py
   only).
 
+Five hold the mesh GOP encoder (JAX theora_tpu.parallel.gop on the CPU's
+8-device virtual mesh, as tests/conftest.py sets it up; the port runs the
+gop axis as a batch dimension on one card, theora_tpu_torch.parallel.gop):
+
+- mesh64x48_vbr_enc.sha256: moving_frames(64, 48, 0, 11, 7), encode_clip_mesh
+  at keyframe_freq=4, qi=40 on make_mesh(8, frag_axis=2) (gop axis 4; the
+  last GOP is 3 frames, padded);
+- mesh64x48_cut_cbr_enc.sha256: cut_frames(), keyframe_freq=8, qi=40,
+  target_bitrate=90_000, rate_window=3, auto_keyframe=True on make_mesh(4)
+  (gop axis 4): the window does not divide the axis and the GOPs are
+  uneven (8, 1 and 5 frames);
+- mesh64x48_twopass_enc.sha256: the 11 frames at info quality 0, pass 1 by
+  TpuGopEncoder(qi=40).encode_clip_pass1(keyframe_freq=4,
+  target_bitrate=120_000), then encode_clip_mesh with that blob,
+  rate_window=2, buf_delay=16 on make_mesh(8, frag_axis=2); the pass-1
+  blob's SHA-256 is the last line;
+- mesh96x64_sp2_enc.sha256: mixed_frames() at q40 "auto" through
+  MeshGopEncoder(make_mesh(2)) with base.set_splevel(2) (the R/D
+  quantizer, one qi per frame): encode_gops of the two 2-frame GOPs in one
+  batch, headers first;
+- mesh96x64_halftex_q48_enc.sha256: halftexture_frames() at q48 (the
+  default adaptive_quant "auto"), encode_clip_mesh at keyframe_freq=2 on
+  make_mesh(2): the qi triple with the per-block lambda scales on both
+  GOPs of one batch (mixed_frames() at speed 0 is noise-like, so it never
+  reaches the scales).
+
+The 720p mesh is checked against the sequential lists (CHECKS): JAX's
+encode_clip_mesh of hd_frames() at q56 "auto", keyframe every 8, on
+make_mesh(2), and MeshGopEncoder(make_mesh(2)) at q48 with
+base.set_splevel(2), encode_gops of the two 8-frame GOPs in one batch.
+Where JAX's mesh gives the sequential list's hashes, no mesh list is
+written and chip_smoke.py holds the port's mesh at gop axis 2 to the
+sequential list; where it does not, hd720_mesh_q56_k8_enc.sha256 or
+hd720_mesh_q48_k8_sp2_enc.sha256 is written. Both matched (JAX 0.9.0 on
+the CPU of an 8-core x86 machine, 59.0 s and 18.9 s), so neither file
+exists.
+
 The JAX encoder runs on the CPU; adaptive_quant (where not the default)
 and delta_upload are set as attributes. With use_trellis=False and more
 than one qi row the JAX scan passes its per-frame lambda as the
@@ -113,6 +150,8 @@ HD_2PASS_RATE, HD_2PASS_BUF = 2_000_000, 16
 TC_SOURCE, TC_KF, TC_QI, TC_DUP_KF = "clip64x48_k8_q20.tpkt", 6, 40, 4
 TC_CBR_KF, TC_CBR_RATE = 2, 60_000
 HD_TC_SOURCE, HD_TC_KF, HD_TC_QI = "hd720_q56_k12.ogv", 8, 48
+MESH_FRAMES, MESH_SEED, MESH_CBR_RATE, MESH_2PASS_RATE = 11, 7, 90_000, \
+    120_000
 
 
 def dup_packets(datas):
@@ -302,12 +341,104 @@ def _transcode_by_host(name, packets, kf, qi):
     return TpuGopEncoder(info, qi=qi).encode_clip(frames, keyframe_freq=kf)
 
 
+def _mesh_info(quality=40):
+    from theora_tpu.info import TheoraInfo
+
+    return TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=quality, fps_numerator=30,
+                      fps_denominator=1)
+
+
+def _mesh(frames, info, nd, frag, **kw):
+    from theora_tpu.parallel.gop import encode_clip_mesh, make_mesh
+
+    return encode_clip_mesh(frames, info, make_mesh(nd, frag_axis=frag),
+                            **kw)
+
+
+def _mesh_twopass():
+    """Packets of the mesh 2-pass encode, then the pass-1 blob."""
+    from theora_tpu.encode.tpu_gop import TpuGopEncoder
+
+    frames = moving_frames(64, 48, 0, MESH_FRAMES, MESH_SEED)
+    info = _mesh_info(quality=0)
+    _, blob = TpuGopEncoder(info, qi=SMALL_QI).encode_clip_pass1(
+        frames, keyframe_freq=SMALL_KF, target_bitrate=MESH_2PASS_RATE)
+    pkts = _mesh(frames, info, 8, 2, keyframe_freq=SMALL_KF, qi=SMALL_QI,
+                 target_bitrate=MESH_2PASS_RATE, rate_window=2,
+                 twopass_data=blob, buf_delay=16)
+    return [p.data for p in pkts] + [blob]
+
+
+def _mesh_sp2():
+    """Headers + the packets of mixed_frames() as two 2-frame GOPs in one
+    encode_gops batch at speed level 2."""
+    from theora_tpu.info import TheoraInfo
+    from theora_tpu.parallel.gop import MeshGopEncoder, make_mesh
+
+    frames = mixed_frames()
+    info = TheoraInfo(frame_width=MIXED_W, frame_height=MIXED_H,
+                      pic_width=MIXED_W, pic_height=MIXED_H,
+                      quality=MIXED_QI)
+    enc = MeshGopEncoder(make_mesh(2), info, qi=MIXED_QI)
+    enc.base.set_splevel(2)
+    pkts = enc.encode_gops([frames[:2], frames[2:]])
+    return [p.data for p in enc.base.flush_headers()] + pkts[0] + pkts[1]
+
+
+def _mesh_halftex():
+    from theora_tpu.info import TheoraInfo
+
+    info = TheoraInfo(frame_width=MIXED_W, frame_height=MIXED_H,
+                      pic_width=MIXED_W, pic_height=MIXED_H,
+                      quality=HALFTEX_QI)
+    return _mesh(halftexture_frames(), info, 2, 1, keyframe_freq=2,
+                 qi=HALFTEX_QI)
+
+
+def _mesh_hd720_q56():
+    from theora_tpu.info import TheoraInfo
+
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=AQ_QI)
+    return _mesh(hd_frames(), info, 2, 1, keyframe_freq=HD_KF, qi=AQ_QI)
+
+
+def _mesh_hd720_sp2():
+    """Headers + the packets of hd_frames() as two 8-frame GOPs in one
+    encode_gops batch at q48, speed level 2."""
+    from theora_tpu.info import TheoraInfo
+    from theora_tpu.parallel.gop import MeshGopEncoder, make_mesh
+
+    frames = hd_frames()
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=HD_QI)
+    enc = MeshGopEncoder(make_mesh(2), info, qi=HD_QI)
+    enc.base.set_splevel(2)
+    pkts = enc.encode_gops([frames[:HD_KF], frames[HD_KF:]])
+    return [p.data for p in enc.base.flush_headers()] + pkts[0] + pkts[1]
+
+
 def _write(name, pkts):
     datas = [p if isinstance(p, bytes) else p.data for p in pkts]
     lines = [hashlib.sha256(d).hexdigest() for d in datas]
     with open(os.path.join(HERE, name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print(f"{name}: {len(lines)} lines, {sum(map(len, datas))} bytes")
+
+
+def _check(name, pkts, seq_name):
+    """Write the mesh list `name` unless its hashes equal `seq_name`'s."""
+    datas = [p if isinstance(p, bytes) else p.data for p in pkts]
+    got = [hashlib.sha256(d).hexdigest() for d in datas]
+    with open(os.path.join(HERE, seq_name)) as f:
+        want = f.read().split()
+    if got == want:
+        print(f"{name}: JAX's mesh gives all {len(got)} hashes of "
+              f"{seq_name}; not written")
+    else:
+        print(f"{name}: JAX's mesh differs from {seq_name}")
+        _write(name, datas)
 
 
 def _small():
@@ -363,6 +494,24 @@ LISTS = {
         rate_window=1),
     "hd720_transcode_q48_k8_enc.sha256": lambda: _transcode(
         HD_TC_SOURCE, HD_TC_KF, HD_TC_QI),
+    "mesh64x48_vbr_enc.sha256": lambda: _mesh(
+        moving_frames(64, 48, 0, MESH_FRAMES, MESH_SEED), _mesh_info(), 8, 2,
+        keyframe_freq=SMALL_KF, qi=SMALL_QI),
+    "mesh64x48_cut_cbr_enc.sha256": lambda: _mesh(
+        cut_frames(), _mesh_info(), 4, 1, keyframe_freq=CUT_KF, qi=SMALL_QI,
+        target_bitrate=MESH_CBR_RATE, rate_window=3, auto_keyframe=True),
+    "mesh64x48_twopass_enc.sha256": _mesh_twopass,
+    "mesh96x64_sp2_enc.sha256": _mesh_sp2,
+    "mesh96x64_halftex_q48_enc.sha256": _mesh_halftex,
+}
+
+
+# Mesh list -> (its packets, the sequential list they are checked against).
+CHECKS = {
+    "hd720_mesh_q56_k8_enc.sha256": (_mesh_hd720_q56,
+                                     "hd720_q56_k8_aq_enc.sha256"),
+    "hd720_mesh_q48_k8_sp2_enc.sha256": (_mesh_hd720_sp2,
+                                         "hd720_q48_k8_sp2_enc.sha256"),
 }
 
 
@@ -370,12 +519,22 @@ def main(names=None) -> None:
     sys.path.insert(0, os.path.dirname(HERE))
     import time
 
+    # The mesh lists run on the CPU's 8-device virtual mesh
+    # (tests/conftest.py).
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    for name in names or LISTS:
+    for name in names or [*LISTS, *CHECKS]:
         t0 = time.perf_counter()
-        _write(name, LISTS[name]())
+        if name in CHECKS:
+            fn, seq_name = CHECKS[name]
+            _check(name, fn(), seq_name)
+        else:
+            _write(name, LISTS[name]())
         print(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 

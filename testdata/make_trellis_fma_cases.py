@@ -5,15 +5,16 @@ fractional lambda.
 With adaptive quantization's per-block lambda scales the trellis lambda
 is fractional, so lam * bits is inexact, and the JAX trellis
 (theora_tpu/ops/transforms_jax.py:trellis_values) as XLA on the CPU
-compiles it fuses the next-lower value's cost as fma(lam, bits, e * e)
-and the EOB cost as fma(lam, bits, P[64] - P[i]). This script searches
-zig-zag DCT blocks (fDCTs of random residuals, and coefficients over the
-int16 range) at random qi and frame type with lambdas scaled by factors
-in [0.1, 8], and keeps, for each of the two costs, up to 30 blocks where
-the port's trellis (theora_tpu_torch/ops/transforms.py) gives another
-result when the cost is formed the other way (fma(e, e, lam * bits), or
-two roundings). tests/test_torch_encode_ops.py holds the port against
-the JAX trellis on them, and chip_smoke.py kernel KT.
+compiles it in the encoder's scan fuses the lone and the next-lower
+value's costs as fma(lam, bits, e * e) and the EOB cost as fma(lam,
+bits, P[64] - P[i]). This script searches zig-zag DCT blocks (fDCTs of
+random residuals, and coefficients over the int16 range) at random qi
+and frame type with lambdas scaled by factors in [0.1, 8], and keeps,
+for each of the three costs, up to 30 blocks where the port's trellis
+(theora_tpu_torch/ops/transforms.py) gives another result when the cost
+is formed the other way (fma(e, e, lam * bits), or two roundings).
+tests/test_torch_encode_ops.py holds the port against the JAX trellis in
+that scan on them, and chip_smoke.py kernel KT.
 
     python testdata/make_trellis_fma_cases.py
 """
@@ -35,8 +36,10 @@ from theora_tpu_torch.encode.gop import trellis_bit_costs  # noqa: E402
 from theora_tpu_torch.ops import transforms  # noqa: E402
 from theora_tpu_torch.quant import dequant_tables_init  # noqa: E402
 
-# The two fused costs and the other way to form each.
+# The three fused costs and the other way to form each.
 ALTERNATES = {
+    "lone value": ("cA_s = _fma(lamv, nbA, eA * eA)",
+                   "cA_s = _fma(eA, eA, lamv * nbA)"),
     "next-lower value": ("cB_s = _fma(lamv, nbB, eB * eB)",
                          "cB_s = _fma(eB, eB, lamv * nbB)"),
     "EOB": ("costc_s = _fma(lam[:, None].expand(N, 64),",

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tests.conftest import TESTDATA
+from tests.test_torch_encode_ops import jax_scan_trellis
 from theora_tpu.ops import transforms_jax as tj
 from theora_tpu_torch import tables
 from theora_tpu_torch.encode import aq
@@ -238,9 +239,10 @@ def test_kt_rows_equal_jax_trellis(scaled):
     """KT's plain version at K = 3 on K2's outputs, an inter frame's
     lambdas per row, with per-block lambda scales in [0.1, 8] (the float32
     product lam[k] * lam_sc[n], tpu_gop.py:228) or without, against
-    tj.trellis_values row by row: values, nonzero counts, DC-only flags.
-    With the scales the lambdas are fractional, so the placement of XLA's
-    fused multiply-adds in the costs decides some blocks."""
+    tj.trellis_values in the encoder's scan, row by row: values, nonzero
+    counts, DC-only flags. With the scales the lambdas are fractional, so
+    the placement of XLA's fused multiply-adds in the costs decides some
+    blocks."""
     qis = (56, 46, 63)
     rng, res, deq, inter = _row_inputs(43, 3000, qis, 0)
     q, d = fdct_cuda.fdct_quantize(_t(res), _t(deq), _t(inter))
@@ -248,17 +250,16 @@ def test_kt_rows_equal_jax_trellis(scaled):
     sc = rng.uniform(0.1, 8.0, 3000).astype(np.float32) if scaled else None
     nb = trellis_bit_costs(tables.VP31_HUFF_CODES)
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(
-        q, d, _t(deq), _t(inter), lam, torch.from_numpy(nb),
+        q, d, _t(deq), _t(inter), _t(lam), torch.from_numpy(nb),
         None if sc is None else _t(sc))
-    jit = jax.jit(tj.trellis_values)
     dct = d.numpy().astype(np.int32)
     acmin = np.where(inter == 0, 3, 0).astype(np.int32)
+    ones = np.ones(3000, np.float32)
     for k in range(3):
-        lam_b = (np.full(3000, lam[k], np.float32) if sc is None
-                 else lam[k] * sc)
-        ref = np.asarray(jit(dct, q[k].numpy().astype(np.int32),
-                             deq[k].astype(np.int32)[inter], lam_b, nb,
-                             acmin))
+        ref = np.asarray(jax_scan_trellis(
+            dct, q[k].numpy().astype(np.int32),
+            deq[k].astype(np.int32)[inter], np.full(3000, lam[k], np.float32),
+            ones if sc is None else sc, nb, acmin))
         assert np.array_equal(vals[k].numpy(), ref), k
         nz = ref != 0
         assert np.array_equal(cnt[k].numpy(), nz.sum(1))

@@ -176,8 +176,8 @@ def test_kt_kernel_matches_plain(card, rows):
         sc = (t(rng.uniform(0.1, 8.0, n).astype(np.float32))
               if rows > 1 and qti else None)
         args = (q, d, t(deq), t(inter),
-                np.array([tables.RD_LAMBDA[0][qti][x] for x in qis],
-                         np.float32), nb, sc)
+                t(np.array([tables.RD_LAMBDA[0][qti][x] for x in qis],
+                           np.float32)), nb, sc)
         before = trellis_cuda.trellis_quantize.launches
         got = trellis_cuda.trellis_quantize(*args)
         torch.cuda.synchronize()
@@ -277,5 +277,29 @@ def test_transcode_on_card_equals_cpu(card):
     datas = mod.dup_packets([p.data for p in pkts[3:]])
     out = [transcode_device(info, setup, datas, keyframe_freq=mod.TC_DUP_KF,
                             qi=mod.TC_QI, enc_kwargs={"device": dev})
+           for dev in ("cuda", "cpu")]
+    assert [p.data for p in out[0]] == [p.data for p in out[1]]
+
+
+def test_mesh_on_card_equals_cpu(card):
+    """encode_clip_mesh at 64x48 on a gop axis of 2 (the VBR clip of
+    testdata/mesh64x48_vbr_enc.sha256, 3 GOPs: a full batch, then one
+    padded with a copy of its first GOP): the card's packets equal the CPU
+    path's."""
+    import importlib.util
+
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
+
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    frames = mod.moving_frames(64, 48, 0, mod.MESH_FRAMES, mod.MESH_SEED)
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=40, fps_numerator=30,
+                      fps_denominator=1)
+    out = [encode_clip_mesh(frames, info, make_mesh(2, devices=[dev]),
+                            keyframe_freq=4, qi=40)
            for dev in ("cuda", "cpu")]
     assert [p.data for p in out[0]] == [p.data for p in out[1]]

@@ -131,6 +131,20 @@ def _trellis_case(dct, qi, qti):
             trellis_bit_costs(tables.VP31_HUFF_CODES), acmin)
 
 
+@jax.jit
+def jax_scan_trellis(dct, q, deq, lam_t, lam_sc, nb, acmin):
+    """tj.trellis_values as the JAX encoder compiles it: inside the plane
+    scan, with the lambda the float32 product of the step's inputs lam_t
+    and lam_sc (theora_tpu/encode/tpu_gop.py:226-229). XLA chooses which
+    product a multiply-add fuses by the compiled context, and at
+    fractional lambdas the standalone jax.jit(tj.trellis_values) forms
+    the lone value's cost the other way (ROADMAP.md §3, F4)."""
+    def step(carry, x):
+        return carry, tj.trellis_values(dct, q, deq, x[0] * x[1], nb, acmin)
+    steps = (jnp.stack([lam_t, lam_t]), jnp.stack([lam_sc, lam_sc]))
+    return jax.lax.scan(step, 0, steps)[1][0]
+
+
 def _both_trellis(args):
     ref = np.asarray(jax.jit(tj.trellis_values)(*args))
     got = transforms.trellis_values(*[_t(a) for a in args]).numpy()
@@ -211,13 +225,13 @@ def test_trellis_multiply_add_contraction_hazard():
 def test_trellis_fractional_lambda_fma_hazard():
     """Hazard: with adaptive quantization's per-block lambda scales the
     trellis lambda is fractional and lam * bits inexact, so where XLA's
-    CPU compiler fuses a multiply-add decides some blocks: it forms the
-    next-lower value's cost as fma(lam, bits, e * e) and the EOB cost as
-    fma(lam, bits, P[64] - P[i]) (the lone value's as fma(e, e, lam *
-    bits)). On the blocks of testdata/vectors/trellis_fma_cases.npz
+    CPU compiler fuses a multiply-add decides some blocks: inside the
+    encoder's scan it forms the lone and the next-lower value's costs as
+    fma(lam, bits, e * e) and the EOB cost as fma(lam, bits, P[64] -
+    P[i]). On the blocks of testdata/vectors/trellis_fma_cases.npz
     (found by testdata/make_trellis_fma_cases.py: the other placement
-    changes them) the port equals JAX, the plain trellis and KT's wrapper
-    (lambda 1 times the block's scale) alike."""
+    changes them) the port equals JAX in that context, the plain trellis
+    and KT's wrapper (lambda 1 times the block's scale) alike."""
     cases = np.load(os.path.join(TESTDATA, "vectors",
                                  "trellis_fma_cases.npz"))
     dct = cases["dct"].astype(np.int32)
@@ -228,7 +242,8 @@ def test_trellis_fractional_lambda_fma_hazard():
     assert (lam != np.round(lam)).all()
     args = list(_trellis_case(dct, qi, qti))
     args[3] = lam
-    ref = np.asarray(jax.jit(tj.trellis_values)(*args))
+    ref = np.asarray(jax_scan_trellis(*args[:4], np.ones_like(lam),
+                                      *args[4:]))
     got = transforms.trellis_values(*[_t(a) for a in args]).numpy()
     assert np.array_equal(got, ref)
     nb = torch.from_numpy(args[4])
@@ -240,7 +255,7 @@ def test_trellis_fractional_lambda_fma_hazard():
             _t(args[1][sel].astype(np.int16))[None],
             _t(dct[sel].astype(np.int16)), _t(deq[None]),
             torch.full((m,), t, dtype=torch.uint8),
-            np.ones(1, np.float32), nb, _t(lam[sel]))
+            torch.ones(1), nb, _t(lam[sel]))
         assert np.array_equal(vals[0].numpy(), ref[sel]), (q, t)
 
 
@@ -306,8 +321,8 @@ def _kt_wrapper(dct, deq, inter, lam):
     q = transforms.quantize(_t(dct.astype(np.int32)), rows).to(torch.int16)
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(
         q[None], _t(dct.astype(np.int16)), _t(deq.astype(np.int16)[None]),
-        _t(inter), np.array([lam], np.float32), torch.from_numpy(
-            trellis_bit_costs(tables.VP31_HUFF_CODES)))
+        _t(inter), torch.tensor([lam], dtype=torch.float32),
+        torch.from_numpy(trellis_bit_costs(tables.VP31_HUFF_CODES)))
     return vals[0], cnt[0], dc_only[0]
 
 

@@ -454,7 +454,7 @@ def _kt_args(device):
         torch.zeros((n, 64), dtype=torch.int16, device=device),
         torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
         torch.zeros(n, dtype=torch.uint8, device=device),
-        np.array([100.0], np.float32),
+        torch.tensor([100.0], device=device),
         torch.ones((64, 32), dtype=torch.float32, device=device),
         None,
     )
@@ -511,6 +511,9 @@ def test_kt_plain_path_only_for_cpu_tensors(monkeypatch):
     (4, np.array([100.0], np.float64)),
     (4, np.array([100.0, 100.0], np.float32)),
     (4, np.float32(100.0)),
+    (4, torch.tensor([100.0], dtype=torch.float64)),
+    (4, torch.tensor([100.0, 100.0])),
+    (4, torch.tensor([100.0], device="meta")),
     (6, torch.ones(4, dtype=torch.float32)),
     (6, torch.ones(5, dtype=torch.float64)),
     (6, torch.ones(5, dtype=torch.float32, device="meta")),
@@ -567,7 +570,7 @@ def test_kt_wrapper_output_on_cpu():
     args = list(_kt_args("cpu"))
     args[0] = torch.zeros((3, 5, 64), dtype=torch.int16)
     args[2] = torch.full((3, 2, 64), 8, dtype=torch.int16)
-    args[4] = np.array([1.0, 2.0, 3.0], np.float32)
+    args[4] = torch.tensor([1.0, 2.0, 3.0])
     args[6] = torch.full((5,), 0.5)
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(*args)
     assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
@@ -583,7 +586,7 @@ def _kr_args(device):
         torch.zeros((n, 64), dtype=torch.int16, device=device),
         torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
         torch.zeros(n, dtype=torch.uint8, device=device),
-        np.array([[10.0, 12.0]], np.float32),
+        torch.tensor([[10.0, 12.0]], device=device),
     )
 
 
@@ -628,7 +631,10 @@ def test_kr_plain_path_only_for_cpu_tensors(monkeypatch):
     (4, np.array([[10.0, np.nan]], np.float32)),
     (4, np.array([[10.0, -1.0]], np.float32)),
     (4, np.array([[10.0, 12.0], [1.0, 2.0]], np.float32)),
-    (4, torch.tensor([[10.0, 12.0]])),
+    (4, torch.tensor([[10.0, 12.0]], dtype=torch.float64)),
+    (4, torch.tensor([10.0, 12.0])),
+    (4, torch.tensor([[10.0, 12.0]], device="meta")),
+    (4, torch.tensor([0.0, 10.0, 12.0])[1:].view(1, 2)),
     (4, 10.0),
 ])
 def test_kr_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
@@ -685,7 +691,64 @@ def test_kr_wrapper_output_on_cpu():
     args = list(_kr_args("cpu"))
     args[0] = torch.zeros((3, 5, 64), dtype=torch.int16)
     args[2] = torch.full((3, 2, 64), 8, dtype=torch.int16)
-    args[4] = np.ones((3, 2), np.float32)
+    args[4] = torch.ones((3, 2))
     vals, cnt, dc_only = qrd_cuda.quantize_rd(*args)
     assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
     assert qrd_cuda.quantize_rd.launches == 0
+
+
+# ------------------------------------------------- the mesh GOP encoder
+
+def test_mesh_encoder_takes_the_jax_signatures():
+    """encode_clip_mesh, MeshGopEncoder (constructor and encode_gops),
+    make_mesh and rate_psum take JAX's parameters with JAX's defaults;
+    the mesh runs on the card unless asked for the CPU."""
+    import inspect
+
+    from theora_tpu.parallel import gop as jgop
+    from theora_tpu_torch.parallel import gop as pgop
+
+    def params(fn):
+        return {k: v.default
+                for k, v in inspect.signature(fn).parameters.items()}
+
+    for fn in ("encode_clip_mesh", "make_mesh", "rate_psum"):
+        assert params(getattr(pgop, fn)) == params(getattr(jgop, fn)), fn
+    for fn in ("__init__", "encode_gops"):
+        assert params(getattr(pgop.MeshGopEncoder, fn)) == \
+            params(getattr(jgop.MeshGopEncoder, fn)), fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pgop.make_mesh(2)
+
+
+@pytest.mark.parametrize("kernel,which,bad", [
+    ("K2", 1, torch.full((2, 1, 2, 64), 8, dtype=torch.int16)),
+    ("K2", 1, torch.full((65, 1, 2, 64), 8, dtype=torch.int16)),
+    ("KT", 4, torch.full((1, 1), 100.0)),
+    ("KT", 4, torch.full((5, 2), 100.0)),
+    ("KT", 4, torch.full((1,), 100.0)),
+    ("KR", 4, torch.ones((1, 2))),
+    ("KR", 4, torch.ones((5, 1, 3))),
+    ("KR", 4, torch.ones((1, 1, 2))),
+])
+def test_segment_forms_the_wrappers_reject(kernel, which, bad):
+    """Dequant rows [G, K, 2, 64] split the N blocks into G segments of N
+    / G: a G that does not divide N, or lambdas without the segment axis
+    or of another segment count raise."""
+    from theora_tpu_torch.ops import fdct_cuda, qrd_cuda, trellis_cuda
+
+    seg = torch.full((5, 1, 2, 64), 8, dtype=torch.int16)
+    if kernel == "K2":
+        args, fn = [*_k2_args("cpu")], fdct_cuda.fdct_quantize
+        args[1] = seg
+    elif kernel == "KT":
+        args, fn = [*_kt_args("cpu")], trellis_cuda.trellis_quantize
+        args[2], args[4] = seg, torch.full((5, 1), 100.0)
+    else:
+        args, fn = [*_kr_args("cpu")], qrd_cuda.quantize_rd
+        args[2], args[4] = seg, torch.ones((5, 1, 2))
+    fn(*args)  # the segment form itself is taken
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        fn(*args)

@@ -60,7 +60,7 @@ def _jax_rows(args):
     vals = np.stack([
         np.asarray(_jax_qrd(dout.numpy().astype(np.int32),
                             deq[k].numpy().astype(np.int32)[sel],
-                            lam_q[k][sel]))
+                            lam_q[k].numpy()[sel]))
         for k in range(qout.shape[0])])
     nz = vals != 0
     cnt = nz.sum(axis=2)
@@ -100,7 +100,7 @@ def test_kr_rows_equal_jax_on_k2_outputs(pli, qis, blocks):
         torch.from_numpy(bench_fdct.random_residuals(rng, n)), deq,
         torch.from_numpy(inter))
     args = (q, d, deq, torch.from_numpy(inter),
-            bench_qrd.lam_q_rows(qis, pli))
+            torch.from_numpy(bench_qrd.lam_q_rows(qis, pli)))
     vals = _assert_kr_equals_jax(args)
     moved = (vals != q.numpy()).any(axis=2).sum(axis=1)
     assert (moved > 0).all()

@@ -1,12 +1,18 @@
 """PyTorch/CUDA port of theora_tpu's device tier, for one NVIDIA H100.
 
-Two slices: the GOP-batch decoder (``decode/batch.py``), whose dequant +
-iDCT runs as a hand-written CUDA kernel (``csrc/idct.cu``), and the
-device GOP encoder (``encode/gop.py``), whose fDCT + quantizer is a second
-one (``csrc/fdct_quant.cu``) and whose reconstruction reuses the first.
-The package imports neither JAX nor ``theora_tpu``: it keeps its own
-copies of the host modules it needs (headers, geometry, tables, the
-native entropy tier, ...), each trimmed to what the slices use.
+The decoders: the GOP-batch decoder (``decode/batch.py``) and the
+per-packet decoder on its references (``decode/scalar.py``). The device
+GOP encoder (``encode/gop.py``) with every setting of the JAX one (speed
+levels, adaptive quantization, scene cuts, CBR, 2-pass), its three
+stages and the device-resident transcode; and the mesh GOP encoder
+(``parallel/gop.py``), which runs a batch of GOPs side by side on one
+card. Their hand-written CUDA kernels (``csrc/``): K1, dequant + iDCT
+(the decode's, and the encode's through reconstruction and the qi
+chooser); K2, fDCT + quantization; KT, the trellis; KR, the R/D
+quantizer. The package imports neither JAX nor ``theora_tpu``: it keeps
+its own copies of the host modules it needs (headers, geometry, tables,
+the native entropy tier, rate control, ...), each trimmed to what the
+port uses.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU with ``device="cpu"``. Without a card they raise; they never

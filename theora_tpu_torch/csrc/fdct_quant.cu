@@ -44,6 +44,12 @@
 // and, for each qi row, the quantized vector, each as one 16-byte store:
 // the K quantizations read the DCT from registers.
 //
+// Segments: a launch may cover G segments of n blocks each (the mesh
+// encoder's G GOPs at one frame step: N = G n blocks of one plane), each
+// with its own K dequant rows ([G][K][2][64]); block b takes segment b / n.
+// The segment is blockIdx.y, so a CTA stages one segment's rows and never
+// straddles two; G = 1 is the one-segment launch.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 #include <cstdint>
@@ -164,6 +170,8 @@ fdct_quant_kernel(const int16_t* __restrict__ res,
   __shared__ __align__(16) uint32_t s_rcp[K * 2 * 64];
 
   const int tid = threadIdx.x;
+  const int64_t seg = blockIdx.y;
+  deq += seg * (K * 2 * 64);
   for (int e = tid; e < K * 2 * 64; e += kThreads) {
     const uint32_t d = (uint32_t)deq[e];
     s_deq[e] = (int16_t)d;
@@ -174,8 +182,10 @@ fdct_quant_kernel(const int16_t* __restrict__ res,
   const int c = tid & (kLanes - 1);       // row (in), column (passes)
   const int lb = tid / kLanes;            // local block
   BlockArea& A = areas[lb];
-  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + lb;
-  const bool live = b < n;
+  const int64_t local = (int64_t)blockIdx.x * kBlocksPerCta + lb;
+  const bool live = local < n;
+  const int64_t b = seg * n + local;  // block of the launch
+  const int64_t total = n * gridDim.y;
 
   int32_t x[8];
   A.rows[c] = live ? reinterpret_cast<const int4*>(res)[b * 8 + c]
@@ -228,28 +238,35 @@ fdct_quant_kernel(const int16_t* __restrict__ res,
             ((uint64_t)(a + ((uint32_t)d[j] >> 1)) * m[j]) >> 31);
         q[j] = v[j] < 0 ? -(int32_t)qa : (int32_t)qa;
       }
-      reinterpret_cast<int4*>(qout)[((int64_t)k * n + b) * 8 + c] = pack8(q);
+      reinterpret_cast<int4*>(qout)[((int64_t)k * total + b) * 8 + c] =
+          pack8(q);
     }
   }
 }
 
 }  // namespace
 
+// res [nseg n, 64] int16, deq [nseg, k, 2, 64] int16, inter [nseg n]
+// uint8; writes qout [k, nseg n, 64] and dout [nseg n, 64] int16. n is the
+// blocks of one segment.
 extern "C" int th_fdct_quant(const int16_t* res, const int16_t* deq,
                              const uint8_t* inter, int16_t* qout,
-                             int16_t* dout, int64_t n, int k, void* stream) {
+                             int16_t* dout, int64_t n, int k, int nseg,
+                             void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (k < 1 || k > kMaxRows) return (int)cudaErrorInvalidValue;
-  const int64_t grid = (n + kBlocksPerCta - 1) / kBlocksPerCta;
+  if (k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta),
+                  (unsigned)nseg);
   cudaStream_t s = (cudaStream_t)stream;
   if (k == 1)
-    fdct_quant_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(
-        res, deq, inter, qout, dout, n);
+    fdct_quant_kernel<1><<<grid, kThreads, 0, s>>>(res, deq, inter, qout,
+                                                    dout, n);
   else if (k == 2)
-    fdct_quant_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(
-        res, deq, inter, qout, dout, n);
+    fdct_quant_kernel<2><<<grid, kThreads, 0, s>>>(res, deq, inter, qout,
+                                                    dout, n);
   else
-    fdct_quant_kernel<3><<<(unsigned)grid, kThreads, 0, s>>>(
-        res, deq, inter, qout, dout, n);
+    fdct_quant_kernel<3><<<grid, kThreads, 0, s>>>(res, deq, inter, qout,
+                                                    dout, n);
   return (int)cudaGetLastError();
 }

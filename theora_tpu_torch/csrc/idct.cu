@@ -25,8 +25,10 @@
 //            lam_b = lam * lam_sc[b] (lam alone without scales), float32,
 //            one rounding per operation, in that order
 // and the block keeps the row of least cost, the earlier row on a tie: its
-// reconstruction, SSD, row index, values and count. Plain PyTorch version:
-// transforms.idct_recon_choose. The float32 operations are plain operators;
+// reconstruction, SSD, row index, values and count. A launch may cover G
+// segments of n blocks (the mesh encoder's G GOPs at one frame step), each
+// with its own K dequant rows and lambda: block b takes segment b / n, which
+// is blockIdx.y. Plain PyTorch version: transforms.idct_recon_choose. The float32 operations are plain operators;
 // the library is built with -fmad=false (ops/idct_cuda.py:NVCC_FLAGS), so
 // nvcc contracts none of them, and the float-to-int conversion is
 // __float2int_rz (truncation, as the CPU's cast).
@@ -252,8 +254,12 @@ idct_recon_choose_kernel(const int16_t* __restrict__ q16,
   const int tid = threadIdx.x;
   const int c = tid & (kLanes - 1);
   const int lb = tid / kLanes;
-  const int64_t b = (int64_t)blockIdx.x * kBlocksPerCta + lb;
-  if (b >= n) return;  // the group's 8 lanes leave together
+  const int64_t local = (int64_t)blockIdx.x * kBlocksPerCta + lb;
+  if (local >= n) return;  // the group's 8 lanes leave together
+  const int64_t seg = blockIdx.y;
+  const int64_t b = seg * n + local;  // block of the launch
+  const int64_t total = n * gridDim.y;
+  deq += seg * (K * 2 * 64);
   const unsigned mask = group_mask(tid);
   const int it = inter[b] ? 1 : 0;
 
@@ -263,7 +269,7 @@ idct_recon_choose_kernel(const int16_t* __restrict__ q16,
   int32_t dco[K], ck[K];
 #pragma unroll
   for (int k = 0; k < K; k++) {
-    const int64_t kb = (int64_t)k * n + b;
+    const int64_t kb = (int64_t)k * total + b;
     qv[k] = __ldg(reinterpret_cast<const int4*>(q16) + kb * 8 + c);
     dv[k] = __ldg(reinterpret_cast<const int4*>(deq + (k * 2 + it) * 64) +
                   c);
@@ -279,7 +285,7 @@ idct_recon_choose_kernel(const int16_t* __restrict__ q16,
 #pragma unroll
   for (int j = 0; j < 8; j++)
     s[j] = ((j < 4 ? cu.x : cu.y) >> (8 * (j & 3))) & 0xFF;
-  float lam_b = *lam;
+  float lam_b = lam[seg];
   if (lam_sc != nullptr) lam_b = lam_b * lam_sc[b];
 
   int32_t best_cost = 0, best_ssd = 0, best_k = 0, best_cnt = 0;
@@ -351,30 +357,34 @@ extern "C" int th_dequant_idct(const int16_t* qz, const int16_t* dc,
   return (int)cudaGetLastError();
 }
 
-// q16 [K, n, 64] int16, dc_only [K, n] bool, cnt [K, n] int32, deq [K, 2,
-// 64] int16, inter [n] uint8, pred [n, 64] int32, cur [n, 64] uint8, lam
-// one float32, lam_sc [n] float32 or null; writes recon [n, 64] uint8, ssd
-// [n] int32, qii [n] uint8 and, for k > 1, qsel [n, 64] int16 and cnt_sel
-// [n] int32 (at k = 1 they are row 0 of q16 and cnt, and may be null).
+// q16 [k, nseg n, 64] int16, dc_only [k, nseg n] bool, cnt [k, nseg n]
+// int32, deq [nseg, k, 2, 64] int16, inter [nseg n] uint8, pred [nseg n,
+// 64] int32, cur [nseg n, 64] uint8, lam [nseg] float32, lam_sc [nseg n]
+// float32 or null; writes recon [nseg n, 64] uint8, ssd [nseg n] int32, qii
+// [nseg n] uint8 and, for k > 1, qsel [nseg n, 64] int16 and cnt_sel [nseg
+// n] int32 (at k = 1 they are row 0 of q16 and cnt, and may be null). n is
+// the blocks of one segment.
 extern "C" int th_idct_recon_choose(
     const int16_t* q16, const uint8_t* dc_only, const int32_t* cnt,
     const int16_t* deq, const uint8_t* inter, const int32_t* pred,
     const uint8_t* cur, const float* lam, const float* lam_sc,
     uint8_t* recon, int32_t* ssd, uint8_t* qii, int16_t* qsel,
-    int32_t* cnt_sel, int64_t n, int k, void* stream) {
+    int32_t* cnt_sel, int64_t n, int k, int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (k < 1 || k > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(grid_of(n), (unsigned)nseg);
   if (k == 1)
-    idct_recon_choose_kernel<1><<<grid_of(n), kThreads, 0, s>>>(
+    idct_recon_choose_kernel<1><<<grid, kThreads, 0, s>>>(
         q16, dc_only, cnt, deq, inter, pred, cur, lam, lam_sc, recon, ssd,
         qii, qsel, cnt_sel, n);
   else if (k == 2)
-    idct_recon_choose_kernel<2><<<grid_of(n), kThreads, 0, s>>>(
+    idct_recon_choose_kernel<2><<<grid, kThreads, 0, s>>>(
         q16, dc_only, cnt, deq, inter, pred, cur, lam, lam_sc, recon, ssd,
         qii, qsel, cnt_sel, n);
   else
-    idct_recon_choose_kernel<3><<<grid_of(n), kThreads, 0, s>>>(
+    idct_recon_choose_kernel<3><<<grid, kThreads, 0, s>>>(
         q16, dc_only, cnt, deq, inter, pred, cur, lam, lam_sc, recon, ssd,
         qii, qsel, cnt_sel, n);
   return (int)cudaGetLastError();

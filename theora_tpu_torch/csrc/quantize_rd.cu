@@ -50,6 +50,13 @@
 // 16-byte vector; lane 0 writes the count (a popcount) and the flag. The
 // dequant rows are staged in shared memory once per CTA.
 //
+// Segments: a launch may cover G segments of n blocks each (the mesh
+// encoder's G GOPs at one frame step: N = G n blocks of one plane), each
+// with its own K dequant rows ([G][K][2][64]) and lambdas lam[g][k][t];
+// block b takes segment b / n. The segment is blockIdx.y, so a CTA stages
+// one segment's rows; it reads the lambdas from the device's [G][K][2]
+// array.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 #include <cstdint>
@@ -103,20 +110,28 @@ __device__ __forceinline__ u64 or8(u64 x) {
 __global__ void __launch_bounds__(kThreads)
 qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
            const int16_t* __restrict__ deq, const uint8_t* __restrict__ inter,
-           float li0, float lp0, float li1, float lp1, float li2, float lp2,
-           int16_t* __restrict__ out, int32_t* __restrict__ cnt,
-           uint8_t* __restrict__ dc_only, int64_t n, int nrows) {
+           const float* __restrict__ lams, int16_t* __restrict__ out,
+           int32_t* __restrict__ cnt, uint8_t* __restrict__ dc_only,
+           int64_t n, int nrows) {
   __shared__ __align__(16) int16_t s_deq[kMaxRows * 2 * 64];
+  const int seg = blockIdx.y;
+  const int g = threadIdx.x & (kLanes - 1);
+  // The segment's (row, block) pairs, row-major; in the launch's [K, N]
+  // arrays pair (k, i) is k * N + seg * n + i.
+  const int64_t p =
+      (int64_t)blockIdx.x * kPairsPerCta + (threadIdx.x / kLanes);
+  // Lanes past the last pair take part in the shuffles with empty masks.
+  const bool live = p < n * nrows;
+  const int k = live ? (int)(p / n) : 0;
+  const int64_t b = live ? (int64_t)seg * n + (p - (int64_t)k * n) : 0;
+  const int64_t pair = (int64_t)k * n * gridDim.y + b;
+  // The row's two lambdas, loaded while the rows are staged.
+  const float2 lam2 =
+      reinterpret_cast<const float2*>(lams)[(int64_t)seg * nrows + k];
+  deq += (int64_t)seg * nrows * 128;
   for (int i = threadIdx.x; i < nrows * 128; i += kThreads) s_deq[i] = deq[i];
   __syncthreads();
 
-  const int g = threadIdx.x & (kLanes - 1);
-  const int64_t pair =
-      (int64_t)blockIdx.x * kPairsPerCta + (threadIdx.x / kLanes);
-  // Lanes past the last pair take part in the shuffles with empty masks.
-  const bool live = pair < n * nrows;
-  const int k = live ? (int)(pair / n) : 0;
-  const int64_t b = live ? pair - (int64_t)k * n : 0;
   int32_t q[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   int32_t dq[8] = {1, 1, 1, 1, 1, 1, 1, 1};
@@ -128,9 +143,7 @@ qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
     unpack8(*reinterpret_cast<const int4*>(s_deq + (k * 2 + t) * 64 + 8 * g),
             dq);
   }
-  const float lam = k == 0 ? (t ? lp0 : li0)
-                    : k == 1 ? (t ? lp1 : li1)
-                             : (t ? lp2 : li2);
+  const float lam = t ? lam2.y : lam2.x;
   const float lam11 = __fmul_rn(lam, 11.0f);
   const float lam14 = __fmul_rn(lam, 14.0f);
 
@@ -199,17 +212,22 @@ qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
 
 }  // namespace
 
+// qrtn [nrows, nseg n, 64], dct [nseg n, 64], deq [nseg, nrows, 2, 64]
+// int16, inter [nseg n] uint8, lam [nseg, nrows, 2] float32;
+// writes out [nrows, nseg n, 64] int16, cnt [nrows, nseg n] int32, dc_only
+// [nrows, nseg n] bool. n is the blocks of one segment.
 extern "C" int th_quantize_rd(const int16_t* qrtn, const int16_t* dct,
                               const int16_t* deq, const uint8_t* inter,
-                              float li0, float lp0, float li1, float lp1,
-                              float li2, float lp2, int16_t* out,
-                              int32_t* cnt, uint8_t* dc_only, int64_t n,
-                              int nrows, void* stream) {
+                              const float* lam, int16_t* out, int32_t* cnt,
+                              uint8_t* dc_only, int64_t n, int nrows,
+                              int nseg, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (nrows < 1 || nrows > kMaxRows) return (int)cudaErrorInvalidValue;
-  const int64_t grid = (n * nrows + kPairsPerCta - 1) / kPairsPerCta;
-  qrd_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      qrtn, dct, deq, inter, li0, lp0, li1, lp1, li2, lp2, out, cnt, dc_only,
-      n, nrows);
+  if (nrows < 1 || nrows > kMaxRows || nseg < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(
+      (unsigned)((n * nrows + kPairsPerCta - 1) / kPairsPerCta),
+      (unsigned)nseg);
+  qrd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      qrtn, dct, deq, inter, lam, out, cnt, dc_only, n, nrows);
   return (int)cudaGetLastError();
 }

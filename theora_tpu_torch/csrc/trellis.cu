@@ -26,12 +26,11 @@
 //   - the prefix sum of c^2 is taken in XLA's chunk-16 order: sequential
 //     inside each chunk of 16 positions, the chunk totals summed
 //     sequentially and added to each chunk (transforms.py:_xla_cumsum16);
-//   - XLA contracts the three cost sums that take a lambda into fused
-//     multiply-adds, each with its own product fused: the value's token
-//     cost __fmaf_rn(e, e, lam * bits), the next-lower value's
-//     __fmaf_rn(lam, bits, e * e) and the EOB cost
-//     __fmaf_rn(lam, bits, P[64] - P[i]) (transforms.py, the note above
-//     trellis_values);
+//   - XLA, in the JAX encoder's scan, contracts the three cost sums that
+//     take a lambda into fused multiply-adds of lam * bits: the value's
+//     and the next-lower value's token costs __fmaf_rn(lam, bits, e * e)
+//     and the EOB cost __fmaf_rn(lam, bits, P[64] - P[i]) (transforms.py,
+//     the note above trellis_values);
 //   - every other product and sum is a separate IEEE operation in the
 //     Python's left-to-right order, parenthesised as the Python groups it:
 //     the file is built with -fmad=false, so nvcc contracts nothing but the
@@ -73,6 +72,14 @@
 // walks the path from position 1, visiting only the positions where an
 // event happens, into a zeroed row, and the lanes store it as 16-byte
 // vectors.
+//
+// Segments: a launch may cover G segments of n blocks each (the mesh
+// encoder's G GOPs at one frame step: N = G n blocks of one plane), each
+// with its own K dequant rows ([G][K][2][64]) and K lambdas; block b takes
+// segment b / n. The segment is blockIdx.y: a CTA walks over the (row,
+// block) pairs of one segment only, so it stages that segment's rows once,
+// as the one-segment launch does, and reads its lambdas from the device's
+// [G][K] array.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns the first CUDA error.
@@ -157,8 +164,9 @@ __global__ void __launch_bounds__(kThreads, 4)
 trellis_kernel(const int16_t* __restrict__ qrtn,
                const int16_t* __restrict__ dct,
                const int16_t* __restrict__ deq_in,
-               const uint8_t* __restrict__ inter_in, float lam0, float lam1,
-               float lam2, const float* __restrict__ lam_sc,
+               const uint8_t* __restrict__ inter_in,
+               const float* __restrict__ lams,
+               const float* __restrict__ lam_sc,
                const float* __restrict__ nb_full, int16_t* __restrict__ out,
                int32_t* __restrict__ cnt_out, uint8_t* __restrict__ dc_only,
                int64_t n, int nrows) {
@@ -169,6 +177,8 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
   // and of the +-2/3 combo after a run of 1 and of 2 (tokens 30, 31).
   float4* s_step = reinterpret_cast<float4*>(s_nb + kNb);
   int16_t* s_deq = reinterpret_cast<int16_t*>(s_step + 64);
+  const int seg = blockIdx.y;
+  deq_in += (int64_t)seg * nrows * 2 * 64;
   {
     const float4* nb4 = reinterpret_cast<const float4*>(nb_full);
     float4* snb4 = reinterpret_cast<float4*>(s_nb);
@@ -188,15 +198,19 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
   const int g = lane & (kLanes - 1);  // lane within the block's group
   BlockArea& A = areas[warp * kGroups + lane / kLanes];
   const float inf = __int_as_float(0x7f800000);
-  const int64_t total = n * nrows;  // (row, block) pairs, row-major
+  // The segment's (row, block) pairs, row-major; in the launch's [K, N]
+  // arrays pair (row, i) is row * N + seg * n + i.
+  const int64_t total = n * nrows;
+  const int64_t N = n * gridDim.y;
   const int64_t ngroups = (total + kGroups - 1) / kGroups;
   for (int64_t wg = (int64_t)blockIdx.x * kWarps + warp; wg < ngroups;
        wg += (int64_t)gridDim.x * kWarps) {
-    const int64_t b = wg * kGroups + lane / kLanes;
-    const bool live = b < total;
-    // The pair's qi row and block.
-    const int row = (int)(b >= n) + (int)(b >= 2 * n);
-    const int64_t blk = b - row * n;
+    const int64_t p = wg * kGroups + lane / kLanes;
+    const bool live = p < total;
+    // The pair's qi row, block and place in [K, N].
+    const int row = (int)(p >= n) + (int)(p >= 2 * n);
+    const int64_t blk = (int64_t)seg * n + (p - row * n);
+    const int64_t b = row * N + blk;
     __syncwarp();  // the previous block's reads of A are done
     int q[8], cd[8];
     int inter = 0;
@@ -207,7 +221,7 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
         qv = reinterpret_cast<const int4*>(qrtn)[b * 8 + g];
         dv = reinterpret_cast<const int4*>(dct)[blk * 8 + g];
         inter = inter_in[blk] != 0;
-        lam = row == 0 ? lam0 : (row == 1 ? lam1 : lam2);
+        lam = lams[seg * nrows + row];
         if (lam_sc != nullptr) lam = lam * lam_sc[blk];
       }
       unpack8(qv, q);
@@ -294,7 +308,7 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
       const float eA = (float)(a_cl * sj) * df - cf;
       const float eB = (float)(altm * sj) * df - cf;
       const float cA =
-          __fmaf_rn(eA, eA, lamv * nbj[value_token(max(a_cl, 1), neg)]);
+          __fmaf_rn(lamv, nbj[value_token(max(a_cl, 1), neg)], eA * eA);
       const float cB =
           __fmaf_rn(lamv, nbj[value_token(max(altm, 1), neg)], eB * eB);
       const bool useB = altm >= 1 && cB < cA;
@@ -432,14 +446,20 @@ trellis_kernel(const int16_t* __restrict__ qrtn,
 
 }  // namespace
 
+// qrtn [nrows, nseg n, 64], dct [nseg n, 64], deq [nseg, nrows, 2, 64]
+// int16, inter [nseg n] uint8, lam [nseg, nrows] float32,
+// lam_sc [nseg n] float32 or null; writes out [nrows, nseg n, 64] int16,
+// cnt [nrows, nseg n] int32, dc_only [nrows, nseg n] bool. n is the blocks
+// of one segment.
 extern "C" int th_trellis(const int16_t* qrtn, const int16_t* dct,
                           const int16_t* deq, const uint8_t* inter,
-                          float lam0, float lam1, float lam2,
-                          const float* lam_sc, const float* nb_full,
-                          int16_t* out, int32_t* cnt, uint8_t* dc_only,
-                          int64_t n, int nrows, void* stream) {
+                          const float* lam, const float* lam_sc,
+                          const float* nb_full, int16_t* out, int32_t* cnt,
+                          uint8_t* dc_only, int64_t n, int nrows, int nseg,
+                          void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (nrows < 1 || nrows > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (nrows < 1 || nrows > kMaxRows || nseg < 1)
+    return (int)cudaErrorInvalidValue;
   // The CTAs the card holds at once (its first use sets the shared memory
   // limit and reads the SM count).
   static int resident = 0;
@@ -458,10 +478,12 @@ extern "C" int th_trellis(const int16_t* qrtn, const int16_t* dct,
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     resident = sms * per_sm;
   }
+  // Each segment takes an equal share of the resident CTAs.
   const int64_t need = (n * nrows + kBlocksPerCta - 1) / kBlocksPerCta;
-  const int grid = (int)(need < resident ? need : resident);
+  const int64_t share = resident / nseg > 0 ? resident / nseg : 1;
+  const dim3 grid((unsigned)(need < share ? need : share), (unsigned)nseg);
   trellis_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      qrtn, dct, deq, inter, lam0, lam1, lam2, lam_sc, nb_full, out, cnt,
-      dc_only, n, nrows);
+      qrtn, dct, deq, inter, lam, lam_sc, nb_full, out, cnt, dc_only, n,
+      nrows);
   return (int)cudaGetLastError();
 }

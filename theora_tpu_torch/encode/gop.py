@@ -36,7 +36,9 @@ chunk k-1's packing. GOPs are independent, so the overlap cannot change a
 byte. With a target bitrate each GOP is a chunk of its own and the chunks
 run in turn, since the qi moves between GOPs (WindowRateController); in a
 2-pass encode each frame has its own qi (`frame_qi`). transcode_device
-feeds the batch decoder's planes to the same stages on the card.
+feeds the batch decoder's planes to the same stages on the card, and the
+mesh encoder (parallel/gop.py) a chunk of G equal-length GOPs, which the
+plane scans run side by side on their GOP axis.
 """
 from __future__ import annotations
 
@@ -129,6 +131,10 @@ class _MeState:
         self.kf_flags = kf_flags
         self.plan = plan            # the ME plan's Download, or None
         self.keep = keep            # pinned sources of the uploads
+        # G > 1: the chunk is G GOPs of equal length, which the plane
+        # scans run side by side on their GOP axis (parallel/gop.py sets
+        # it); 1: one scan over the chunk's frames.
+        self.gop_axis = 1
 
 
 class _ChunkState:
@@ -452,13 +458,23 @@ class GopEncoder:
         frame_qi: each frame's base qi (rate control's per-frame
         quantizers); None: self.qi for every frame. A frame's base qi
         drives its qi list, lambdas, loop-filter limit and header; the
-        mode decision keeps self.qi's. Returns the state finish_gop
+        mode decision keeps self.qi's. With me_state.gop_axis G > 1 the
+        chunk is G GOPs of equal length F / G (kf_flags marking each one's
+        first frame), and the plane scans run them side by side on the
+        scan's GOP axis (parallel/gop.py), F / G frame steps of G GOPs
+        each, in place of one F-long scan. Returns the state finish_gop
         takes."""
         st = me_state
         g = self.g
         F, kf_flags, cur, keep = st.F, st.kf_flags, st.cur, st.keep
         if frame_qi is not None and len(frame_qi) != F:
             raise ValueError("frame_qi must give one qi per frame")
+        G = int(st.gop_axis)
+        Fg = F // G if G >= 1 else 0
+        if G < 1 or G > 1 and (Fg * G != F or kf_flags != (
+                [True] + [False] * (Fg - 1)) * G):
+            raise ValueError(f"gop_axis {G}: the chunk's {F} frames must "
+                             f"be that many GOPs of equal length")
         host = None
         if st.plan is not None:
             t0 = time.perf_counter()
@@ -498,38 +514,49 @@ class GopEncoder:
                        np.float32)
         span = self._span()
         plane_out = []
+
+        def by_gop(a):
+            """A per-frame array, [F, ...] -> [G, F / G, ...]."""
+            return a.reshape((G, Fg) + a.shape[1:])
+
         for pli in range(3):
             pl = g.planes[pli]
             vpad, hpad = g.plane_padding(pli)
             per = [self._plane_inputs(pli, *frame_frag[f]) for f in range(F)]
             with record_function("theora.enc.upload"):
-                frag = {k: transfer.upload(
-                    np.stack([p[k] for p in per]).astype(np.int64), dev, keep)
-                    for k in ("rs", "o1y", "o1x", "o2y", "o2x")}
+                frag = {k: transfer.upload(by_gop(
+                    np.stack([p[k] for p in per]).astype(np.int64)), dev,
+                    keep) for k in ("rs", "o1y", "o1x", "o2y", "o2x")}
                 for k in ("u2", "ms"):
-                    frag[k] = transfer.upload(np.stack([p[k] for p in per]),
-                                              dev, keep)
+                    frag[k] = transfer.upload(
+                        by_gop(np.stack([p[k] for p in per])), dev, keep)
                 # [F, K, 2, 64]: DC (slot 0) always quantizes with the base
                 # qi.
                 deq = dq[rows, pli].astype(np.int16)
                 deq[:, :, :, 0] = deq[:, :1, :, 0]
-                deq = transfer.upload(deq, dev, keep)
+                deq = transfer.upload(by_gop(deq), dev, keep)
                 sc = None
                 if pli == 0 and luma_sc is not None:
-                    sc = transfer.upload(luma_sc, dev, keep)
+                    sc = transfer.upload(by_gop(luma_sc), dev, keep)
             lam_q = None
             if not self.use_trellis:
                 # The R/D quantizer's lambda of each row for an intra and
                 # an inter block (tpu_gop.py:1151-1154).
-                lam_q = np.array(
+                lam_q = by_gop(np.array(
                     [[[rd_lambda(q, int(dq[q, pli, t, 1])) * self.rd_strength
                        for t in (0, 1)] for q in row] for row in rows],
-                    np.float32)
-            plane_out.append(encode_plane(
-                cur[pli], frag, kf_flags, deq, limits, lam, pl.nvfrags,
+                    np.float32))
+            h, w = g.plane_shape(pli)
+            qout, coded, qii, recon = encode_plane(
+                cur[pli].reshape(G, Fg, h, w), frag, kf_flags[:Fg], deq,
+                by_gop(np.asarray(limits)), by_gop(lam), pl.nvfrags,
                 pl.nhfrags, vpad, hpad, use_trellis=self.use_trellis,
-                lam_t=lam_t, nb=self._nb, lam_q=lam_q, lam_sc=sc,
-                emit_recon=want_recon))
+                lam_t=by_gop(lam_t), nb=self._nb, lam_q=lam_q, lam_sc=sc,
+                emit_recon=want_recon)
+            plane_out.append((qout.view(F, *qout.shape[2:]),
+                              coded.view(F, -1), qii.view(F, -1),
+                              None if recon is None
+                              else recon.view(F, *recon.shape[2:])))
         self._end_span(span)
         # The nonzero coefficients come down in finish_gop, once their
         # number is known.

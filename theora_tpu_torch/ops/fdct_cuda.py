@@ -19,7 +19,7 @@ import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _check
+from theora_tpu_torch.ops.idct_cuda import _check, segments
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -41,7 +41,7 @@ def _load():
         lib = ctypes.CDLL(build())
         lib.th_fdct_quant.restype = ctypes.c_int
         lib.th_fdct_quant.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         _lib = lib
     return _lib
@@ -54,18 +54,16 @@ def fdct_quantize(res, deq, inter):
     res: [N, 64] int16 residuals, raster order inside each block, 16-byte
     aligned; deq: [K, 2, 64] int16 zig-zag dequant rows (qi row, then
     intra/inter), values in [1, 32767], K in 1..3; inter: [N] uint8.
-    Returns ([K, N, 64] int16 zig-zag quantized, [N, 64] int16 zig-zag
-    unquantized DCT). Same contract as transforms.fdct_quantize, which is
-    the CPU path.
+    With G segments (the mesh encoder's GOPs at one frame step, idct_cuda.
+    segments): deq [G, K, 2, 64], block b quantized with segment b // (N /
+    G)'s rows. Returns ([K, N, 64] int16 zig-zag quantized, [N, 64] int16
+    zig-zag unquantized DCT). Same contract as transforms.fdct_quantize,
+    which is the CPU path.
     """
     n = res.shape[0]
     dev = res.device
     _check(res, "res", torch.int16, (n, 64), dev)
-    k = deq.shape[0] if deq.dim() == 3 else 0
-    if not 1 <= k <= MAX_ROWS:
-        raise ValueError(f"deq: expected [K, 2, 64] with K in 1..{MAX_ROWS},"
-                         f" got {tuple(deq.shape)}")
-    _check(deq, "deq", torch.int16, (k, 2, 64), dev)
+    deq4, g, k, nseg = segments(deq, n, dev)
     _check(inter, "inter", torch.uint8, (n,), dev)
     if res.data_ptr() % 16:  # the kernel loads 16-byte vectors
         raise ValueError("res: must be 16-byte aligned")
@@ -79,8 +77,9 @@ def fdct_quantize(res, deq, inter):
     if n == 0:
         return qout, dout
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.th_fdct_quant(res.data_ptr(), deq.data_ptr(), inter.data_ptr(),
-                            qout.data_ptr(), dout.data_ptr(), n, k, stream)
+    err = lib.th_fdct_quant(res.data_ptr(), deq4.data_ptr(),
+                            inter.data_ptr(), qout.data_ptr(),
+                            dout.data_ptr(), nseg, k, g, stream)
     if err != 0:
         raise RuntimeError(f"K2 fdct_quant launch failed: CUDA error {err}")
     fdct_quantize.launches += 1

@@ -29,6 +29,9 @@ _SO = os.path.join(_CSRC, "build", "libtheora_idct.so")
 NVCC_FLAGS = ("-fmad=false",)
 # The most qi rows one encode launch takes (a frame carries 1-3 qis).
 MAX_ROWS = 3
+# The most segments one encode-side launch takes (the mesh encoder's GOPs
+# per dispatch, parallel/gop.py): the segment is the grid's y index.
+MAX_SEGMENTS = 65535
 
 _lib = None
 
@@ -50,7 +53,7 @@ def bind(lib, recon: bool = True):
     if recon:
         lib.th_idct_recon_choose.restype = ctypes.c_int
         lib.th_idct_recon_choose.argtypes = [ctypes.c_void_p] * 14 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
     return lib
 
@@ -63,6 +66,8 @@ def _load():
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -78,6 +83,28 @@ def _aligned(t: torch.Tensor, name: str, nbytes: int) -> None:
     """The kernel loads t as vectors of nbytes."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name}: must be {nbytes}-byte aligned")
+
+
+def segments(deq: torch.Tensor, nblocks: int, device):
+    """The segments of an encode-side launch over nblocks blocks from its
+    dequant rows: deq [K, 2, 64] is one segment, deq [G, K, 2, 64] G
+    segments of nblocks / G blocks each (block b in segment b // n), each
+    with its own K rows. Returns (deq as [G, K, 2, 64], G, K, n)."""
+    if deq.dim() not in (3, 4):
+        raise ValueError(f"deq: expected [K, 2, 64] or [G, K, 2, 64], got "
+                         f"{tuple(deq.shape)}")
+    deq4 = deq[None] if deq.dim() == 3 else deq
+    g, k = deq4.shape[0], deq4.shape[1]
+    if not 1 <= k <= MAX_ROWS:
+        raise ValueError(f"deq: expected K in 1..{MAX_ROWS} qi rows, got "
+                         f"{tuple(deq.shape)}")
+    if not 1 <= g <= MAX_SEGMENTS:
+        raise ValueError(f"deq: expected G in 1..{MAX_SEGMENTS} segments, "
+                         f"got {tuple(deq.shape)}")
+    if nblocks % g:
+        raise ValueError(f"{nblocks} blocks do not split into {g} segments")
+    _check(deq4, "deq", torch.int16, (g, k, 2, 64), device)
+    return deq4, g, k, nblocks // g
 
 
 def dequantize_idct_frames(qz, dc, deq_tab, frame, qii, inter, dc_only):
@@ -146,7 +173,9 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
     64] int32 prediction and cur: [N, 64] uint8 source, raster order inside
     each block; lam: float32 0-d tensor, the chooser's lambda; lam_sc: None
     or [N] float32 lambda scales. K in 1..3; q16, deq and pred 16-byte
-    aligned, cur 8-byte aligned.
+    aligned, cur 8-byte aligned. With G segments (the mesh encoder's GOPs,
+    `segments`): deq [G, K, 2, 64] and lam [G], block b taking segment b //
+    (N / G)'s rows and lambda.
 
     Returns (recon [N, 64] uint8, ssd [N] int32, qii [N] uint8, q [N, 64]
     int16, cnt [N] int32) of each block's kept row (qii all 0 at K = 1).
@@ -161,11 +190,13 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
     _check(q16, "q16", torch.int16, (k, n, 64), dev)
     _check(dc_only, "dc_only", torch.bool, (k, n), dev)
     _check(cnt, "cnt", torch.int32, (k, n), dev)
-    _check(deq, "deq", torch.int16, (k, 2, 64), dev)
+    deq4, g, kd, _ = segments(deq, n, dev)
+    if kd != k:
+        raise ValueError(f"deq: {kd} qi rows for q16's {k}")
     _check(inter, "inter", torch.uint8, (n,), dev)
     _check(pred, "pred", torch.int32, (n, 64), dev)
     _check(cur, "cur", torch.uint8, (n, 64), dev)
-    _check(lam, "lam", torch.float32, (), dev)
+    _check(lam, "lam", torch.float32, deq.shape[:-3], dev)
     if lam_sc is not None:
         _check(lam_sc, "lam_sc", torch.float32, (n,), dev)
     for t, name in ((q16, "q16"), (deq, "deq"), (pred, "pred")):
@@ -176,7 +207,7 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
                                             pred, cur, lam, lam_sc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    out = launch_recon_choose(_load(), q16, dc_only, cnt, deq, inter, pred,
+    out = launch_recon_choose(_load(), q16, dc_only, cnt, deq4, inter, pred,
                               cur, lam, lam_sc)
     idct_recon_choose.launches += 1
     return out
@@ -184,10 +215,11 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
 
 def launch_recon_choose(lib, q16, dc_only, cnt, deq, inter, pred, cur, lam,
                         lam_sc=None):
-    """th_idct_recon_choose of lib on checked CUDA arguments; returns
-    (recon, ssd, qii, q, cnt). Counts nothing: the wrapper counts its
-    launches."""
+    """th_idct_recon_choose of lib on checked CUDA arguments (deq [G, K,
+    2, 64], lam [G] or 0-d for G = 1); returns (recon, ssd, qii, q, cnt).
+    Counts nothing: the wrapper counts its launches."""
     k, n = q16.shape[0], q16.shape[1]
+    g = deq.shape[0] if deq.dim() == 4 else 1
     dev = q16.device
     recon = torch.empty((n, 64), dtype=torch.uint8, device=dev)
     ssd = torch.empty(n, dtype=torch.int32, device=dev)
@@ -206,7 +238,7 @@ def launch_recon_choose(lib, q16, dc_only, cnt, deq, inter, pred, cur, lam,
         None if lam_sc is None else lam_sc.data_ptr(), recon.data_ptr(),
         ssd.data_ptr(), qii.data_ptr(),
         None if k == 1 else q.data_ptr(),
-        None if k == 1 else cnt_sel.data_ptr(), n, k, stream,
+        None if k == 1 else cnt_sel.data_ptr(), n // g, k, g, stream,
     )
     if err != 0:
         raise RuntimeError(f"K1 idct_recon_choose launch failed: CUDA error "

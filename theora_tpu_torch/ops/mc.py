@@ -12,28 +12,35 @@ import torch
 
 
 def block_index_grid(nv: int, nh: int, pad_y: int, pad_x: int, wp: int,
-                     device) -> torch.Tensor:
-    """[nv*nh, 8, 8] int64 flat indices into a padded [Hp, wp] plane of
-    each fragment's pixels at zero motion. Built once per plane
-    geometry (gathers need int64 indices)."""
+                     device, planes: int = 1, hp: int = 0) -> torch.Tensor:
+    """[planes*nv*nh, 8, 8] int64 flat indices into `planes` padded [hp,
+    wp] planes stacked as [planes, hp, wp] of each fragment's pixels at
+    zero motion (plane g's fragments follow plane g - 1's; hp is needed
+    for more than one plane). Built once per plane geometry (gathers need
+    int64 indices)."""
     i = torch.arange(8, device=device)
     y = pad_y + 8 * torch.arange(nv, device=device)[:, None, None, None] \
         + i[None, None, :, None]
     x = pad_x + 8 * torch.arange(nh, device=device)[None, :, None, None] \
         + i[None, None, None, :]
-    return (y * wp + x).reshape(nv * nh, 8, 8)
+    grid = (y * wp + x).reshape(nv * nh, 8, 8)
+    if planes == 1:
+        return grid
+    base = hp * wp * torch.arange(planes, device=device)
+    return (base[:, None, None, None] + grid).reshape(planes * nv * nh, 8, 8)
 
 
 def mc_predict(prev, gold, grid, refsel, o1y, o1x, o2y, o2x, use2):
     """Per-fragment 8x8 predictions [n, 8, 8] int32.
 
-    prev, gold: [Hp, Wp] uint8 padded reference planes; grid: from
-    block_index_grid; refsel: [n] 0 intra (predicts 128), 1 PREV,
-    2 GOLD; (o1y, o1x), (o2y, o2x): [n] full-pel offsets; use2: [n]
-    bool, half-pel average (p1 + p2) >> 1 of the two offsets.
+    prev, gold: [Hp, Wp] uint8 padded reference planes, or [G, Hp, Wp]
+    (G planes, the mesh encoder's GOPs); grid: from block_index_grid for
+    as many planes; refsel: [n] 0 intra (predicts 128), 1 PREV, 2 GOLD;
+    (o1y, o1x), (o2y, o2x): [n] full-pel offsets; use2: [n] bool, half-pel
+    average (p1 + p2) >> 1 of the two offsets.
     """
-    hw = prev.shape[0] * prev.shape[1]
-    wp = prev.shape[1]
+    hw = prev.numel()
+    wp = prev.shape[-1]
     refs = torch.stack((prev, gold)).reshape(-1)
     base = grid + ((refsel == 2).long() * hw)[:, None, None]
     off1 = (o1y.long() * wp + o1x.long())[:, None, None]
@@ -44,11 +51,14 @@ def mc_predict(prev, gold, grid, refsel, o1y, o1x, o2y, o2x, use2):
     return torch.where((refsel == 0)[:, None, None], 128, sel)
 
 
-def blocks_to_plane(blocks, nv: int, nh: int, pad_y: int, pad_x: int):
-    """[nv*nh, 8, 8] block grid -> [Hp, Wp] plane with zeroed padding."""
-    plane = blocks.new_zeros((nv * 8 + 2 * pad_y, nh * 8 + 2 * pad_x))
-    plane[pad_y:pad_y + nv * 8, pad_x:pad_x + nh * 8] = (
-        blocks.reshape(nv, nh, 8, 8).permute(0, 2, 1, 3)
-        .reshape(nv * 8, nh * 8)
+def blocks_to_plane(blocks, nv: int, nh: int, pad_y: int, pad_x: int,
+                    planes: int = 0):
+    """[nv*nh, 8, 8] block grid -> [Hp, Wp] plane with zeroed padding; with
+    planes = G > 0, [G*nv*nh, 8, 8] -> [G, Hp, Wp]."""
+    g = max(planes, 1)
+    plane = blocks.new_zeros((g, nv * 8 + 2 * pad_y, nh * 8 + 2 * pad_x))
+    plane[:, pad_y:pad_y + nv * 8, pad_x:pad_x + nh * 8] = (
+        blocks.reshape(g, nv, nh, 8, 8).permute(0, 1, 3, 2, 4)
+        .reshape(g, nv * 8, nh * 8)
     )
-    return plane
+    return plane if planes else plane[0]

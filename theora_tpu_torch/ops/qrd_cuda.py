@@ -30,8 +30,8 @@ import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _aligned, _check
-from theora_tpu_torch.ops.trellis_cuda import _lambdas
+from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _aligned, _check, \
+    segments
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -55,9 +55,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         lib.th_quantize_rd.restype = ctypes.c_int
-        lib.th_quantize_rd.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_float] * 6 + [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.th_quantize_rd.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -70,11 +69,14 @@ def quantize_rd(qout, dout, deq, inter, lam_q):
     64] int16 unquantized DCT (fdct_cuda.fdct_quantize's outputs); deq:
     [K, 2, 64] int16 dequant rows (per qi row intra, inter), as K2 takes
     them; inter: [N] uint8, nonzero for an inter block; lam_q: [K, 2]
-    float32 numpy array, per qi row the intra and the inter lambda, each
-    finite and >= 0 (block n takes lam_q[k, inter[n] != 0]). Returns ([K,
-    N, 64] int16 values, DC passed through; [K, N] int32 nonzero counts;
-    [K, N] bool, True where no AC value is nonzero). Same contract as
-    transforms.quantize_rd_rows, which is the CPU path.
+    float32, 8-byte aligned, per qi row the intra and the inter lambda
+    (block n takes lam_q[k, inter[n] != 0]). Returns ([K, N, 64] int16
+    values, DC passed through; [K, N] int32 nonzero counts; [K, N] bool,
+    True where no AC value is nonzero). With G segments (the
+    mesh encoder's GOPs at one frame step, idct_cuda.segments): deq [G, K,
+    2, 64] and lam_q [G, K, 2], block b taking segment b // (N / G)'s rows
+    and lambdas. Same contract as transforms.quantize_rd_rows, which is the
+    CPU path.
     """
     k, n = (qout.shape[0], qout.shape[1]) if qout.dim() == 3 else (0, 0)
     if not 1 <= k <= MAX_ROWS:
@@ -83,11 +85,14 @@ def quantize_rd(qout, dout, deq, inter, lam_q):
     dev = qout.device
     _check(qout, "qout", torch.int16, (k, n, 64), dev)
     _check(dout, "dout", torch.int16, (n, 64), dev)
-    _check(deq, "deq", torch.int16, (k, 2, 64), dev)
+    deq4, g, kd, nseg = segments(deq, n, dev)
+    if kd != k:
+        raise ValueError(f"deq: {kd} qi rows for qout's {k}")
     _check(inter, "inter", torch.uint8, (n,), dev)
     _aligned(qout, "qout", 16)
     _aligned(dout, "dout", 16)
-    lam_q = _lambdas(lam_q, (k, 2), "lam_q")
+    _check(lam_q, "lam_q", torch.float32, tuple(deq.shape[:-2]) + (2,), dev)
+    _aligned(lam_q, "lam_q", 8)  # one 8-byte load per (segment, row)
     if dev.type == "cpu":
         return transforms.quantize_rd_rows(qout, dout, deq, inter, lam_q)
     if dev.type != "cuda":
@@ -98,13 +103,12 @@ def quantize_rd(qout, dout, deq, inter, lam_q):
     dc_only = torch.empty((k, n), dtype=torch.bool, device=dev)
     if n == 0:
         return vals, cnt, dc_only
-    lams = [float(lam_q[min(i, k - 1), t]) for i in range(MAX_ROWS)
-            for t in (0, 1)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.th_quantize_rd(qout.data_ptr(), dout.data_ptr(),
-                             deq.data_ptr(), inter.data_ptr(), *lams,
-                             vals.data_ptr(), cnt.data_ptr(),
-                             dc_only.data_ptr(), n, k, stream)
+                             deq4.data_ptr(), inter.data_ptr(),
+                             lam_q.data_ptr(), vals.data_ptr(),
+                             cnt.data_ptr(), dc_only.data_ptr(), nseg, k, g,
+                             stream)
     if err != 0:
         raise RuntimeError(f"KR quantize_rd launch failed: CUDA error {err}")
     quantize_rd.launches += 1

@@ -12,7 +12,10 @@ wrap where the spec stores int16, so the results equal the C reference
 points (ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
 (ops/fdct_cuda.py) and `trellis_quantize` (`trellis_values` on K2's
 outputs) the one kernel KT computes (ops/trellis_cuda.py): the CPU paths
-of their wrappers and their oracles on the card.
+of their wrappers and their oracles on the card. The encode-side ones take
+the kernels' segment axis: dequant rows [G, K, 2, 64] (and lambdas with a
+leading G) for N = G n blocks, block b in segment b // n (the mesh
+encoder's G GOPs at one frame step); [K, 2, 64] is one segment.
 """
 from __future__ import annotations
 
@@ -33,6 +36,15 @@ from theora_tpu_torch.constants import (
 _ZZ = torch.from_numpy(ZIGZAG_TO_NAT)
 # The JAX package's float32 "infinite" cost (transforms_jax._BIG).
 _BIG = 1e30
+
+
+def _segments(deq: torch.Tensor, nblocks: int):
+    """(deq as [G, K, 2, 64], [nblocks] int64 segment of each block) for
+    dequant rows of one segment ([K, 2, 64]) or of G ([G, K, 2, 64])."""
+    deq4 = deq[None] if deq.dim() == 3 else deq
+    g = deq4.shape[0]
+    seg = torch.arange(nblocks, device=deq.device) // max(nblocks // g, 1)
+    return deq4, seg
 
 
 def _i16(x: torch.Tensor) -> torch.Tensor:
@@ -127,8 +139,9 @@ def choose_rows(ssd, cnt, lam, lam_sc):
     float32 and in that order, truncated toward zero; a tie keeps the
     earlier row.
 
-    ssd, cnt: [K, n] int32; lam: float32 0-d tensor; lam_sc: [n] float32
-    or None (all ones). Returns [n] uint8 row indices.
+    ssd, cnt: [K, n] int32; lam: float32 0-d tensor or [n] per block;
+    lam_sc: [n] float32 or None (all ones). Returns [n] uint8 row
+    indices.
     """
     lam_b = lam if lam_sc is None else lam * lam_sc
     cntf = cnt.to(torch.float32)
@@ -156,18 +169,22 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
     q16: [K, N, 64] int16 values; dc_only: [K, N] bool; cnt: [K, N] int32;
     deq: [K, 2, 64] int16 dequant rows (every row's slot 0 the base qi's
     DC factor); inter: [N] uint8; pred: [N, 64] int32; cur: [N, 64] uint8;
-    lam: float32 0-d tensor; lam_sc: None or [N] float32. Returns (recon
-    [N, 64] uint8, ssd [N] int32, qii [N] uint8, q [N, 64] int16, cnt [N]
-    int32) of each block's kept row; at K = 1, row 0 (q and cnt are views).
+    lam: float32 0-d tensor; lam_sc: None or [N] float32. With G segments:
+    deq [G, K, 2, 64] and lam [G], segment g's rows as frame g of the
+    dequant table and its lambda for its blocks. Returns (recon [N, 64]
+    uint8, ssd [N] int32, qii [N] uint8, q [N, 64] int16, cnt [N] int32)
+    of each block's kept row; at K = 1, row 0 (q and cnt are views).
     """
     K, n = q16.shape[0], q16.shape[1]
     dev = q16.device
+    deq4, seg = _segments(deq, n)
     flat = q16.reshape(K * n, 64)
-    deq_tab = torch.zeros((1, 3, 2, 64), dtype=torch.int16, device=dev)
-    deq_tab[0, :K] = deq
+    deq_tab = torch.zeros((deq4.shape[0], 3, 2, 64), dtype=torch.int16,
+                          device=dev)
+    deq_tab[:, :K] = deq4
     residual = dequantize_idct_frames(
         flat, flat[:, 0].contiguous(), deq_tab,
-        torch.zeros(K * n, dtype=torch.int32, device=dev),
+        seg.to(torch.int32).repeat(K),
         torch.arange(K, dtype=torch.uint8, device=dev).repeat_interleave(n),
         inter.repeat(K), dc_only.reshape(K * n))
     recon = torch.clamp(residual.to(torch.int32).reshape(K, n, 64) + pred,
@@ -177,7 +194,8 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
     if K == 1:
         return (recon[0].to(torch.uint8), ssd[0],
                 torch.zeros(n, dtype=torch.uint8, device=dev), q16[0], cnt[0])
-    qii = choose_rows(ssd, cnt, lam, lam_sc)
+    qii = choose_rows(ssd, cnt, lam if lam.dim() == 0 else lam[seg],
+                      lam_sc)
     sel, blk = qii.long(), torch.arange(n, device=dev)
     return (recon[sel, blk].to(torch.uint8), ssd[sel, blk], qii,
             q16[sel, blk], cnt[sel, blk])
@@ -253,12 +271,15 @@ def fdct_quantize(res, deq, inter):
 
     res: [N, 64] int16 residuals, raster order inside each block; deq:
     [K, 2, 64] int16 zig-zag dequant rows, per qi row the intra row, then
-    the inter row; inter: [N] uint8, the row each block uses. Returns
-    ([K, N, 64] int16 zig-zag quantized coefficients, [N, 64] int16
-    zig-zag unquantized DCT, the trellis' input).
+    the inter row; inter: [N] uint8, the row each block uses; with G
+    segments deq [G, K, 2, 64]. Returns ([K, N, 64] int16 zig-zag
+    quantized coefficients, [N, 64] int16 zig-zag unquantized DCT, the
+    trellis' input).
     """
     dct = fdct8x8(res.reshape(-1, 8, 8))
-    rows = deq.to(torch.int32)[:, inter.long()]
+    deq4, seg = _segments(deq, res.shape[0])
+    rows = deq4.to(torch.int32)[seg, :, inter.long()].transpose(0, 1) \
+        .contiguous()
     return quantize(dct[None], rows).to(torch.int16), dct.to(torch.int16)
 
 
@@ -280,16 +301,18 @@ def rd_lambda(qi: int, dequant_ac: int) -> float:
 #     added to each chunk (`_xla_cumsum16`); torch.cumsum adds in another
 #     order (and accumulates float32 in double on the CPU);
 #   - XLA's CPU compiler contracts a*b + c into one fused multiply-add
-#     where the product feeds the add directly, and the JAX program's
-#     three cost sums with a lambda each take a different product into
-#     the fma: the lone value's cost e*e + lam*bits as fma(e, e,
-#     lam*bits), the next-lower value's as fma(lam, bits, e*e), and the
-#     EOB cost (P[64] - P[i]) + lam*bits as fma(lam, bits, P[64] - P[i]).
-#     With the integer table lambdas lam*bits is exact and only the
-#     first matters (e*e is inexact above 2**12); adaptive quantization's
-#     per-block scales make lam fractional and all three matter. `_fma`
-#     computes them with one rounding. Every other product feeds no add
-#     or adds a 0 / 1e30 mask, where contraction changes nothing;
+#     where the product feeds the add directly, and which product of a
+#     sum of two it takes depends on the compiled context (ROADMAP.md §3,
+#     F4). In the JAX encoder's plane scan, whose steps carry the
+#     lambda's two factors, the three cost sums with a lambda all fuse
+#     lam * bits: the lone and the next-lower value's costs e*e +
+#     lam*bits as fma(lam, bits, e*e), the EOB cost (P[64] - P[i]) +
+#     lam*bits as fma(lam, bits, P[64] - P[i])
+#     (testdata/probe_trellis_fma_context.py). Adaptive quantization's
+#     per-block scales make lam fractional and lam * bits inexact, where
+#     the placement decides near-ties. `_fma` computes them with one
+#     rounding. Every other product feeds no add or adds a 0 / 1e30
+#     mask, where contraction changes nothing;
 #   - no other op may fuse (no addcmul), and nothing uses TF32.
 
 def _value_token_id(mag, neg):
@@ -385,7 +408,7 @@ def trellis_values(dct_zz, qdct_rtn, dequant_zz, lam, nb_full, acmin):
     nbB = nb_full[pos, tokB]
     eA = (a_cl * sj).to(f32) * df - cf
     eB = (altm * sj).to(f32) * df - cf
-    cA_s = _fma(eA, eA, lamv * nbA)
+    cA_s = _fma(lamv, nbA, eA * eA)
     cB_s = _fma(lamv, nbB, eB * eB)
     useB = (altm >= 1) & (cB_s < cA_s)
     c1_s = torch.where(aj >= 1, torch.where(useB, cB_s, cA_s), big)
@@ -511,18 +534,22 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     nb_full: [64, 32] float32; lam_sc: [N] float32 per-block lambda
     scales or None. Block n of row k takes the float32 product lam[k] *
     lam_sc[n] (theora_tpu/encode/tpu_gop.py:228), lam[k] without lam_sc.
-    Returns ([K, N, 64] int16 chosen values, [K, N] int32 nonzero counts,
-    [K, N] bool "no AC value is nonzero").
+    With G segments: deq [G, K, 2, 64] and lam [G, K], block n taking its
+    segment's rows and lambdas. Returns ([K, N, 64] int16 chosen values,
+    [K, N] int32 nonzero counts, [K, N] bool "no AC value is nonzero").
     """
     k, n = qout.shape[:2]
     dev = qout.device
     is_inter = inter != 0
-    lam_k = torch.as_tensor(np.asarray(lam, np.float32)).to(dev)[:, None]
-    lam_b = lam_k.expand(k, n) if lam_sc is None else lam_k * lam_sc[None]
+    deq4, seg = _segments(deq, n)
+    lam_gk = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    lam_k = lam_gk.reshape(-1, k)[seg].T              # [K, N]
+    lam_b = lam_k if lam_sc is None else lam_k * lam_sc[None]
     vals = trellis_values(
         dout.to(torch.int32).repeat(k, 1),
         qout.reshape(k * n, 64).to(torch.int32),
-        deq.to(torch.int32)[:, is_inter.long()].reshape(k * n, 64),
+        deq4.to(torch.int32)[seg, :, is_inter.long()].transpose(0, 1)
+        .reshape(k * n, 64),
         lam_b.reshape(k * n).contiguous(), nb_full,
         torch.where(is_inter, 0, 3).to(torch.int32).repeat(k))
     nzf = vals != 0
@@ -625,18 +652,21 @@ def quantize_rd_rows(qout, dout, deq, inter, lam_q):
     unquantized DCT (fdct_quantize's outputs); deq: [K, 2, 64] int16
     dequant rows (per qi row intra, inter); inter: [N] uint8; lam_q: [K, 2]
     float32 (per qi row the intra and the inter lambda; block n takes
-    lam_q[k, inter[n] != 0], keyed by the block, not the frame). Returns
-    ([K, N, 64] int16 values, DC passed through; [K, N] int32 nonzero
-    counts; [K, N] bool "no AC value is nonzero").
+    lam_q[k, inter[n] != 0], keyed by the block, not the frame). With G
+    segments: deq [G, K, 2, 64] and lam_q [G, K, 2], block n taking its
+    segment's. Returns ([K, N, 64] int16 values, DC passed through; [K, N]
+    int32 nonzero counts; [K, N] bool "no AC value is nonzero").
     """
     k, n = qout.shape[:2]
     dev = qout.device
     sel = (inter != 0).long()
-    lam = torch.as_tensor(np.asarray(lam_q, np.float32)).to(dev)[:, sel]
+    deq4, seg = _segments(deq, n)
+    lam_g = torch.as_tensor(lam_q, dtype=torch.float32, device=dev)
+    lam = lam_g.reshape(-1, k, 2)[seg, :, sel].T      # [K, N]
     vals = quantize_rd_values(
         qout.reshape(k * n, 64).to(torch.int32),
         dout.to(torch.int32).repeat(k, 1),
-        deq.to(torch.int32)[:, sel].reshape(k * n, 64),
+        deq4.to(torch.int32)[seg, :, sel].transpose(0, 1).reshape(k * n, 64),
         lam.reshape(k * n).contiguous())
     nzf = vals != 0
     cnt = nzf.sum(dim=1, dtype=torch.int32)

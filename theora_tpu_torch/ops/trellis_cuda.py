@@ -27,12 +27,11 @@ from __future__ import annotations
 import ctypes
 import os
 
-import numpy as np
 import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _check
+from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _check, segments
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -56,24 +55,10 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         lib.th_trellis.restype = ctypes.c_int
-        lib.th_trellis.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_float] * 3 + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.th_trellis.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
-
-
-def _lambdas(lam, shape: tuple, name: str = "lam") -> np.ndarray:
-    """lam as a float32 numpy array of `shape`, each value finite and
-    >= 0."""
-    if not isinstance(lam, np.ndarray) or lam.dtype != np.float32:
-        raise TypeError(f"{name}: expected a float32 numpy array, got "
-                        f"{type(lam).__name__} {getattr(lam, 'dtype', '')}")
-    if lam.shape != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {lam.shape}")
-    if not (np.isfinite(lam).all() and (lam >= 0).all()):
-        raise ValueError(f"{name}: expected finite values >= 0, got {lam}")
-    return lam
 
 
 def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
@@ -83,14 +68,16 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     qout: [K, N, 64] int16 zig-zag round-to-nearest values and dout: [N,
     64] int16 unquantized DCT (fdct_cuda.fdct_quantize's outputs); deq:
     [K, 2, 64] int16 dequant rows (per qi row intra, inter), as K2 takes
-    them; inter: [N] uint8, nonzero for an inter block; lam: [K] float32
-    numpy array, the frame's lambda per qi row, each finite and >= 0;
-    nb_full: [64, 32] float32 bits per (position, token); lam_sc: None or
+    them; inter: [N] uint8, nonzero for an inter block; lam: [K] float32,
+    the frame's lambda per qi row; nb_full: [64, 32] float32 bits per (position, token); lam_sc: None or
     [N] float32 lambda scales per block (block n of row k takes the
-    float32 product lam[k] * lam_sc[n]). Returns ([K, N, 64] int16 chosen
-    values, DC passed through; [K, N] int32 nonzero counts; [K, N] bool,
-    True where no AC value is nonzero). Same contract as
-    transforms.trellis_quantize, which is the CPU path.
+    float32 product lam[k] * lam_sc[n]). With G segments (the mesh
+    encoder's GOPs at one frame step, idct_cuda.segments): deq [G, K, 2,
+    64] and lam [G, K], block b taking segment b // (N / G)'s rows and
+    lambdas. Returns ([K, N, 64] int16 chosen values, DC passed through;
+    [K, N] int32 nonzero counts; [K, N] bool, True where no AC value is
+    nonzero). Same contract as transforms.trellis_quantize, which is the
+    CPU path.
     """
     k, n = (qout.shape[0], qout.shape[1]) if qout.dim() == 3 else (0, 0)
     if not 1 <= k <= MAX_ROWS:
@@ -99,7 +86,9 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     dev = qout.device
     _check(qout, "qout", torch.int16, (k, n, 64), dev)
     _check(dout, "dout", torch.int16, (n, 64), dev)
-    _check(deq, "deq", torch.int16, (k, 2, 64), dev)
+    deq4, g, kd, nseg = segments(deq, n, dev)
+    if kd != k:
+        raise ValueError(f"deq: {kd} qi rows for qout's {k}")
     _check(inter, "inter", torch.uint8, (n,), dev)
     _check(nb_full, "nb_full", torch.float32, (64, 32), dev)
     if lam_sc is not None:
@@ -107,7 +96,7 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     for t, name in ((qout, "qout"), (dout, "dout"), (nb_full, "nb_full")):
         if t.data_ptr() % 16:  # the kernel loads 16-byte vectors
             raise ValueError(f"{name}: must be 16-byte aligned")
-    lam = _lambdas(lam, (k,))
+    _check(lam, "lam", torch.float32, tuple(deq.shape[:-2]), dev)
     if dev.type == "cpu":
         return transforms.trellis_quantize(qout, dout, deq, inter, lam,
                                            nb_full, lam_sc)
@@ -119,13 +108,12 @@ def trellis_quantize(qout, dout, deq, inter, lam, nb_full, lam_sc=None):
     dc_only = torch.empty((k, n), dtype=torch.bool, device=dev)
     if n == 0:
         return vals, cnt, dc_only
-    lams = [float(lam[min(i, k - 1)]) for i in range(MAX_ROWS)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.th_trellis(qout.data_ptr(), dout.data_ptr(), deq.data_ptr(),
-                         inter.data_ptr(), *lams,
+    err = lib.th_trellis(qout.data_ptr(), dout.data_ptr(), deq4.data_ptr(),
+                         inter.data_ptr(), lam.data_ptr(),
                          None if lam_sc is None else lam_sc.data_ptr(),
                          nb_full.data_ptr(), vals.data_ptr(), cnt.data_ptr(),
-                         dc_only.data_ptr(), n, k, stream)
+                         dc_only.data_ptr(), nseg, k, g, stream)
     if err != 0:
         raise RuntimeError(f"KT trellis launch failed: CUDA error {err}")
     trellis_quantize.launches += 1

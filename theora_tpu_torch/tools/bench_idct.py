@@ -262,7 +262,7 @@ def kernel_chain_inputs(rng, n, k, device, scales):
     sc = (_t(rng.uniform(0.1, 8.0, n).astype(np.float32), device) if scales
           else None)
     q16, cnt, dc_only = trellis_cuda.trellis_quantize(
-        q, d, deq, inter, lam_tab[1, qis], _t(nb, device), sc)
+        q, d, deq, inter, _t(lam_tab[1, qis], device), _t(nb, device), sc)
     lam = np.float32(rd_lambda(QIS[0], int(dq[QIS[0], 0, 1, 1])) * 3.0 * 4.0)
     return (q16, dc_only, cnt, deq, inter, _t(pred, device),
             _t(cur.astype(np.uint8), device),

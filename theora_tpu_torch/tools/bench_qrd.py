@@ -69,7 +69,7 @@ def kr_args(rng, n: int, qis, pli: int, device):
     deq = t(bf.triple_rows(qis, pli))
     inter = t(rng.integers(0, 2, n).astype(np.uint8))
     q, d = fdct_cuda.fdct_quantize(t(res), deq, inter)
-    return (q, d, deq, inter, lam_q_rows(qis, pli))
+    return (q, d, deq, inter, t(lam_q_rows(qis, pli)))
 
 
 def kr_cases(device, sizes=((14400, 0), (3600, 1), (21600, 2))):
@@ -122,7 +122,7 @@ def edge_args(device):
 
     q0 = transforms.quantize(torch.from_numpy(dct), torch.from_numpy(d))
     return (t(q0.numpy().astype(np.int16)[None]), t(dct.astype(np.int16)),
-            t(rows), t(inter), lam_q_rows([qi], 0))
+            t(rows), t(inter), t(lam_q_rows([qi], 0)))
 
 
 def fma_args(path: str, device):
@@ -141,7 +141,7 @@ def fma_args(path: str, device):
         yield (t(q0.numpy().astype(np.int16)[None]), t(dct[None]),
                t(np.stack([row, row])[None]),
                torch.zeros(1, dtype=torch.uint8, device=device),
-               np.full((1, 2), lam, np.float32))
+               t(np.full((1, 2), lam, np.float32)))
 
 
 def kr_bound(args) -> dict:
@@ -154,7 +154,7 @@ def kr_bound(args) -> dict:
     qout, dout, deq, inter, lam_q = args
     k, n = qout.shape[:2]
     nbytes = (k * n * 64 * 2 + n * 64 * 2 + n + deq.numel() * 2
-              + lam_q.nbytes + k * n * 64 * 2 + 5 * k * n)
+              + lam_q.numel() * 4 + k * n * 64 * 2 + 5 * k * n)
     ops = k * n * (63 * OPS_PER_POSITION + 2)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = ops / FP32_OPS_S * 1e3
@@ -172,7 +172,8 @@ def time_case(args, qis, flush) -> dict:
 
     qout, dout, deq, inter, lam_q = args
     _, nb, lam_tab = kt_tables()
-    kt_args = (qout, dout, deq, inter, lam_tab[1, qis],
+    kt_args = (qout, dout, deq, inter,
+               torch.from_numpy(lam_tab[1, qis]).to(qout.device),
                torch.from_numpy(nb).to(qout.device), None)
     for fn, plain, a in ((qrd_cuda.quantize_rd, transforms.quantize_rd_rows,
                           args),

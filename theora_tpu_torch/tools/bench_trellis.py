@@ -79,7 +79,8 @@ def k2_cases(device, sizes=(14400, 3600, 21600)):
                                            t(inter))
             yield (f"K2 outputs, {n} blocks, qi {qi}, "
                    f"{('intra', 'inter')[qti]} frame",
-                   (q, d, deq, t(inter), lam_tab[qti, qi:qi + 1], nb, None))
+                   (q, d, deq, t(inter), t(lam_tab[qti, qi:qi + 1]), nb,
+                    None))
 
 
 def first_frame_cases(device):
@@ -104,7 +105,9 @@ def first_frame_cases(device):
         inter = torch.zeros(len(res), dtype=torch.uint8, device=device)
         q, d = fdct_cuda.fdct_quantize(res, deq, inter)
         yield (f"720p first frame {what}, {len(res)} blocks, q{QI_HD}",
-               (q, d, deq, inter, lam_tab[0, QI_HD:QI_HD + 1], nb, None))
+               (q, d, deq, inter,
+                torch.from_numpy(lam_tab[0, QI_HD:QI_HD + 1]).to(device), nb,
+                None))
 
 
 def nonzero_histogram(qout: np.ndarray) -> dict:

@@ -2,7 +2,7 @@
 
 Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
            [--qi Q] [--adaptive-quant {auto,on,off}] [--speed S]
-           [--bitrate B [--two-pass]] [--transcode | --staged]
+           [--bitrate B [--two-pass]] [--transcode | --staged | --mesh G]
 
 Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
 the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
@@ -24,8 +24,11 @@ testdata/hd720_q56_k12.ogv in decode batches of 8 at qi Q with the
 encoder's settings (adaptive quantization "auto" unless asked otherwise),
 whose encoder's host timers are not reported. With --staged the 8-frame
 GOPs go one after another through dispatch_me, complete_dispatch and
-finish_gop, where encode_clip runs them two deep. Needs a CUDA card.
-Prints one JSON summary as its last line.
+finish_gop, where encode_clip runs them two deep. With --mesh G the pass is
+the mesh encoder's encode_clip_mesh (parallel/gop.py) on a gop axis of G,
+G GOPs per dispatch, at the mesh's adaptive quantization "auto" (CBR with
+--bitrate B); its encoder's host timers are not reported. Needs a CUDA
+card. Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -55,6 +58,29 @@ def hd720_frames(n: int):
     return mod.source_frames()[:n]
 
 
+def traced(fn):
+    """fn() once under torch.profiler (CPU and CUDA activity), the card
+    synchronised after it: (its return value, the profiler's events, the
+    wall in seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, prof.events(), wall
+
+
+def device_launches(events) -> tuple[int, float]:
+    """(device kernels launched, their device seconds) among the events."""
+    kernels = _split(events)[1]
+    return (sum(c for _, c in kernels.values()),
+            sum(sec for sec, _ in kernels.values()))
+
+
 def _stage_kernels(events) -> dict:
     """{stage: device kernels launched by the PyTorch ops inside its
     record_function ranges} from the profiler's events."""
@@ -82,6 +108,7 @@ def main(argv=None) -> int:
     ap.add_argument("--two-pass", action="store_true")
     ap.add_argument("--transcode", action="store_true")
     ap.add_argument("--staged", action="store_true")
+    ap.add_argument("--mesh", type=int, default=0, metavar="G")
     args = ap.parse_args(argv)
     if args.two_pass and not args.bitrate:
         ap.error("--two-pass requires --bitrate")
@@ -89,17 +116,22 @@ def main(argv=None) -> int:
         ap.error("--transcode takes no --two-pass, --speed or --staged")
     if args.staged and (args.two_pass or args.bitrate):
         ap.error("--staged takes no --bitrate")
+    if args.mesh and (args.transcode or args.staged or args.two_pass
+                      or args.speed or args.adaptive_quant not in (None,
+                                                                   "auto")):
+        ap.error("--mesh takes no --transcode, --staged, --two-pass, "
+                 "--speed or --adaptive-quant other than auto")
     qi = args.qi
     aq = {"auto": "auto", "on": True, "off": False}[
-        args.adaptive_quant or ("auto" if args.transcode else "off")]
+        args.adaptive_quant or ("auto" if args.transcode or args.mesh
+                                else "off")]
     if not torch.cuda.is_available():
         print("profile_encode: needs a CUDA card", file=sys.stderr)
         return 2
 
-    from torch.profiler import ProfilerActivity, profile
-
     from theora_tpu_torch.encode.gop import GopEncoder, transcode_device
     from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
 
     if args.transcode:
         from theora_tpu_torch.headers import parse_info_header, \
@@ -121,13 +153,17 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     def make():
-        if args.transcode:
+        if args.transcode or args.mesh:
             return None
         enc = GopEncoder(info, qi=qi, adaptive_quant=aq)
         enc.set_splevel(args.speed)
         return enc
 
     def encode(enc):
+        if args.mesh:
+            return encode_clip_mesh(frames, info, make_mesh(args.mesh),
+                                    keyframe_freq=KF, qi=qi,
+                                    target_bitrate=args.bitrate)
         if args.transcode:
             return transcode_device(src_info, src_setup, frames,
                                     keyframe_freq=KF, qi=qi,
@@ -181,14 +217,7 @@ def main(argv=None) -> int:
 
     before = lib_counts()
     enc = make()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        encode(enc)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    events = prof.events()
+    _, events, traced_wall = traced(lambda: encode(enc))
     stages, kernels = _split(events)
     stage_kernels = _stage_kernels(events)
     lib_launches = {k: c - before[k] for k, c in lib_counts().items()}
@@ -224,7 +253,7 @@ def main(argv=None) -> int:
         "card": smi, "frames": nf, "qi": qi, "adaptive_quant": aq,
         "speed": args.speed, "bitrate": args.bitrate,
         "two_pass": args.two_pass, "transcode": args.transcode,
-        "staged": args.staged,
+        "staged": args.staged, "mesh_gop_axis": args.mesh,
         "keyframe_freq": KF,
         "clip_batch": BATCH, "median_wall_s": mid,
         "frames_per_s": nf / mid,
