@@ -142,6 +142,24 @@ and prints no result line):
    launches (24 against 72) and, from one traced pass each way, device
    kernels per plane per frame. No claim.
 
+11. the all-keyframe batch encoder and the pipeline cores: (a)
+   pipeline.intra_encode_core on 24 720p frames at qi 48, luma [24,
+   14400] blocks in one call and Cb+Cr [48, 3600] in another (as the JAX
+   package's bench.py times its compute core): each call equal to its
+   plain version on the card, one K2 and one K1 decode-entry launch per
+   call, the two calls timed with CUDA events as Mpix/s over 24 x
+   1,382,400 pixels beside K2 and K1 alone at those block counts and their
+   bounds; inter_encode_core and recon_core at 14,400 blocks against their
+   plain versions; (b) BatchIntraEncoder(device="cuda") on the 16 720p
+   frames at q48 as one batch: the 19 packets against
+   hd720_intra_q48_enc.sha256 (the JAX host Encoder's), a warm pass with
+   the counts reset (K2 3 launches, one per plane index; K1, KT, KR
+   none), its wall split into the device part and the host's per-frame
+   stages, PSNR through the port's decoder; (c) the test cases'
+   BatchIntraEncoder packets on the card against intra64x48_enc,
+   intra96x64_aq_enc and F5's intra64x48_f5_enc (rate control: K2 per
+   frame at its own qi).
+
 Then one JSON line listing the four kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
 transcode, the per-packet decode and the mesh; the one launch over 3
@@ -1561,6 +1579,281 @@ def mesh_vs_sequential(smi: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Within the block, the pipeline cores run the kernels' plain
+    PyTorch versions (ops/transforms.py) on the card's tensors."""
+    import types
+
+    from theora_tpu_torch import pipeline
+    from theora_tpu_torch.ops import transforms
+
+    plain = types.SimpleNamespace(
+        fdct_quantize=transforms.fdct_quantize,
+        dequantize_idct_frames=transforms.dequantize_idct_frames)
+    saved = pipeline.fdct_cuda, pipeline.idct_cuda
+    pipeline.fdct_cuda = pipeline.idct_cuda = plain
+    try:
+        yield
+    finally:
+        pipeline.fdct_cuda, pipeline.idct_cuda = saved
+
+
+def _k1_k2_counts() -> tuple:
+    """(K1's launches at both entries, K2's) since _reset_counts."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+
+    return (idct_cuda.dequantize_idct_frames.launches
+            + idct_cuda.idct_recon_choose.launches,
+            fdct_cuda.fdct_quantize.launches)
+
+
+def _to_blocks(plane: np.ndarray) -> np.ndarray:
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3) \
+        .reshape(-1, 8, 8)
+
+
+def intra_core_720p(smi: str, device) -> tuple:
+    """11 (a): pipeline.intra_encode_core on 24 720p frames
+    (tools/profile_encode.py:hd720_frames) at qi 48, batched as the JAX
+    package's bench.py batches its compute core: the luma blocks [24,
+    14400] in one call, Cb and Cr [48, 3600] in another. Each call equals
+    its plain version on the card (the same core with the kernels' plain
+    versions) exactly and launches K2 once and K1's decode entry once
+    (counts reset just before); the two calls timed with CUDA events,
+    Mpix/s over 24 x 1,382,400 pixels, beside K2 and K1 alone at those
+    block counts and their bounds (tools/bench_fdct.py:k2_bound,
+    tools/bench_idct.py:k1_bound). Then inter_encode_core (14,400 blocks,
+    a third intra) and recon_core (14,400 blocks of a padded 720p plane,
+    three dequant rows, every reference kind) once each against their
+    plain versions. Returns ((K1, K2) launches of the two timed-path
+    calls, {"K1": ..., "K2": ...} times and bounds)."""
+    from theora_tpu_torch import pipeline
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+    from theora_tpu_torch.quant import dequant_tables_init
+    from theora_tpu_torch.tables import DEF_QUANT_INFO
+    from theora_tpu_torch.tools import bench_fdct as bf, bench_idct as bi
+    from theora_tpu_torch.tools.bench_trellis import event_ms
+    from theora_tpu_torch.tools.profile_encode import hd720_frames
+
+    qi = 48
+    frames = hd720_frames(24)
+    dq = dequant_tables_init(DEF_QUANT_INFO)
+    yb = torch.from_numpy(np.stack([_to_blocks(f[0]) for f in frames])
+                          ).to(device)
+    cb = torch.from_numpy(np.stack([_to_blocks(f[1]) for f in frames]
+                                   + [_to_blocks(f[2]) for f in frames])
+                          ).to(device)
+    dq_y = torch.from_numpy(dq[qi, 0, 0].astype(np.int32)).to(device)
+    dq_c = torch.from_numpy(dq[qi, 1, 0].astype(np.int32)).to(device)
+    calls = (("luma", yb, dq_y), ("chroma", cb, dq_c))
+    err = 0
+    launches = (0, 0)
+    for what, blocks, d in calls:
+        _reset_counts()
+        got = pipeline.intra_encode_core(blocks, d)
+        torch.cuda.synchronize()
+        c = _k1_k2_counts()
+        if c != (1, 1):
+            raise AssertionError(f"intra core {what}: K1, K2 launches {c}; "
+                                 f"expected (1, 1)")
+        launches = (launches[0] + c[0], launches[1] + c[1])
+        with _plain_kernels():
+            want = pipeline.intra_encode_core(blocks, d)
+        for g, w in zip(got, want):
+            err = max(err, int((g.int() - w.int()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"intra core {what} != plain (max |d| "
+                                     f"{err})")
+        log(f"[intra core] {what} {tuple(blocks.shape[:2])} blocks at qi "
+            f"{qi}: qdct and recon == plain on the card (max |err| {err}, "
+            f"tolerance 0); launches K1 {c[0]}, K2 {c[1]}; "
+            f"{int((got[0][..., 1:] == 0).all(-1).sum())} DC-only blocks")
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def core():
+        for _, blocks, d in calls:
+            pipeline.intra_encode_core(blocks, d)
+
+    def core_plain():
+        with _plain_kernels():
+            core()
+
+    ms = event_ms(core, 20, flush)
+    plain_ms = event_ms(core_plain, 3, flush)
+    mpix = 24 * 1382400 / 1e6
+    kern = {"K1": {"ms": 0.0, "bound_ms": 0.0},
+            "K2": {"ms": 0.0, "bound_ms": 0.0}}
+    for _, blocks, d in calls:
+        n = blocks.shape[0] * blocks.shape[1]
+        res = (blocks.reshape(-1, 64).to(torch.int16) - 128).contiguous()
+        d16 = d.to(torch.int16)
+        k2_args = (res, d16.expand(1, 2, 64).contiguous(),
+                   torch.zeros(n, dtype=torch.uint8, device=device))
+        q16 = fdct_cuda.fdct_quantize(*k2_args)[0][0]
+        tab = torch.zeros((1, 3, 2, 64), dtype=torch.int16, device=device)
+        tab[0] = d16
+        zeros = torch.zeros(n, dtype=torch.int32, device=device)
+        k1_args = (q16, q16[:, 0].contiguous(), tab, zeros, k2_args[2],
+                   k2_args[2], (q16[:, 1:] == 0).all(dim=1))
+        for key, fn, b in (
+                ("K2", lambda: fdct_cuda.fdct_quantize(*k2_args),
+                 bf.k2_bound(k2_args)),
+                ("K1", lambda: idct_cuda.dequantize_idct_frames(*k1_args),
+                 bi.k1_bound("decode", k1_args))):
+            kern[key]["ms"] += event_ms(fn, 20, flush)
+            kern[key]["bound_ms"] += b["bound_ms"]
+            kern[key].setdefault("bound_by", []).append(b["bound_by"])
+    for key in kern:
+        kern[key]["blocks"] = [24 * 14400, 48 * 3600]
+    log(f"[intra core] 24 frames 1280x720 at qi {qi}, two calls (luma 24 x "
+        f"14400 blocks, Cb+Cr 48 x 3600): {ms:.4f} ms = "
+        f"{mpix / (ms * 1e-3):.2f} Mpix/s ({mpix:.4f} Mpix); plain "
+        f"{plain_ms:.4f} ms = {mpix / (plain_ms * 1e-3):.2f} Mpix/s; K2 "
+        f"alone {kern['K2']['ms']:.4f} ms beside its bound "
+        f"{kern['K2']['bound_ms']:.4f} ms ({kern['K2']['bound_by']}); K1's "
+        f"decode entry alone {kern['K1']['ms']:.4f} ms beside its bound "
+        f"{kern['K1']['bound_ms']:.4f} ms ({kern['K1']['bound_by']}) | {smi}")
+
+    rng = np.random.default_rng(20261017)
+    n = 14400
+    cur = torch.from_numpy(rng.integers(0, 256, (n, 8, 8), dtype=np.uint8))
+    pred = torch.from_numpy(rng.integers(0, 256, (n, 8, 8), dtype=np.uint8))
+    intra = torch.from_numpy(rng.random(n) < 0.3)
+    dq_e = torch.from_numpy(dq[qi, 0, 1].astype(np.int32))
+    iargs = [a.to(device) for a in (cur, pred, intra, dq_y.cpu(), dq_e)]
+    h, w, pad = 720, 1280, 32
+    hp, wp = h + 2 * pad, w + 2 * pad
+    planes = [torch.from_numpy(rng.integers(0, 256, (hp, wp),
+                                            dtype=np.uint8))
+              for _ in range(3)]
+    fr = rng.permutation((h // 8) * (w // 8))[:n]
+    by = torch.from_numpy((fr // (w // 8) * 8 + pad).astype(np.int32))
+    bx = torch.from_numpy((fr % (w // 8) * 8 + pad).astype(np.int32))
+    coeffs = rng.integers(-40, 41, (n, 64)).astype(np.int32)
+    coeffs[::5, 1:] = 0
+    rows = np.stack([dq[q, 0, t] for q, t in ((48, 0), (48, 1), (56, 1))]
+                    ).astype(np.int32)
+    deq = rows[rng.integers(0, 3, n)]
+    rargs = [a.to(device) for a in (
+        *planes, by, bx, torch.from_numpy(coeffs), torch.from_numpy(deq),
+        torch.from_numpy(rng.integers(-300, 300, n).astype(np.int32)),
+        torch.from_numpy(deq[:, 0].copy()),
+        torch.from_numpy((coeffs[:, 1:] == 0).all(axis=1)),
+        torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)),
+        *[torch.from_numpy(rng.integers(-16, 17, n).astype(np.int32))
+          for _ in range(4)],
+        torch.from_numpy(rng.random(n) < 0.5))]
+    for name, fn, args, want_c in (
+            ("inter_encode_core", pipeline.inter_encode_core, iargs, (0, 1)),
+            ("recon_core", pipeline.recon_core, rargs, (1, 0))):
+        _reset_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        c = _k1_k2_counts()
+        with _plain_kernels():
+            want = fn(*args)
+        if c != want_c or not torch.equal(got, want):
+            raise AssertionError(f"{name}: launches K1, K2 {c} (expected "
+                                 f"{want_c}) or kernel != plain")
+        log(f"[intra core] {name}, {n} blocks: == plain on the card "
+            f"(tolerance 0); launches K1 {c[0]}, K2 {c[1]}")
+    return launches, kern
+
+
+def intra_encode_720p(smi: str) -> tuple:
+    """11 (b): BatchIntraEncoder(device="cuda") on the 16 720p frames at
+    q48 (every frame one qi, so every frame takes K2's results) as one
+    batch: the 19 packets against hd720_intra_q48_enc.sha256 (the JAX
+    host Encoder's at keyframe_freq 1, which JAX's TpuBatchIntraEncoder
+    also gives: make_hd720_enc.py CHECKS), a warm pass with the counts
+    reset just before it (K2 3 launches, one per plane index; K1, KT, KR
+    none), timed as a wall, the frames' gates, the device part (upload,
+    K2, one download) and the host's per-frame stages; PSNR of the port's decode of the
+    packets against the source. Returns (K1, K2) launches."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.encode.intra import BatchIntraEncoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.info import TheoraInfo
+
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    name = "hd720_intra_q48_enc"
+    info = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=mk.HD_INTRA_QI)
+
+    def make():
+        return BatchIntraEncoder(info, device="cuda")
+
+    enc = make()
+    _check_hashes(enc.flush_headers() + enc.encode(frames), name,
+                  "first pass")
+    enc = make()
+    hdr = enc.flush_headers()
+    _reset_counts()
+    t0 = time.perf_counter()
+    pkts = enc.encode(frames)
+    wall = time.perf_counter() - t0
+    counts = _read_counts("intra 720p", (0, 3, 0, 0))
+    n = _check_hashes(hdr + pkts, name, "warm pass")
+    triple = sum(bool(p.data[1] & 0x80) for p in pkts)
+    if triple:
+        raise AssertionError(f"intra 720p q48: {triple} frames engage the "
+                             f"qi triple; the device path is not measured")
+    dec = BatchDecoder(parse_info_header(hdr[0].data),
+                       parse_setup_header(hdr[2].data), device="cuda")
+    psnr = _psnr(frames, dec.decode_clip([p.data for p in pkts], batch=8))
+    host = enc.timing["host_s"]
+    nf = len(frames)
+    log(f"[intra720p] q48, 16 frames as one batch: all {n} packet SHA-256 "
+        f"equal the JAX host Encoder's list; no frame engages the intra "
+        f"triple (q48 'auto' is in its saturation region only for noise-"
+        f"like or mixed frames), so every frame takes K2's results; warm "
+        f"pass {wall:.4f} s = {nf / wall:.2f} frames/s; adaptive-quant "
+        f"gates {enc.timing['gates_s']:.4f} s; device (upload, "
+        f"K2 x 3, one download) {enc.timing['device_s']:.4f} s; host "
+        f"stages {sum(host):.4f} s ({1e3 * sum(host) / nf:.2f} ms per frame"
+        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR {counts}; "
+        f"PSNR {psnr:.3f} dB; {sum(len(p.data) for p in pkts)} bytes | "
+        f"{smi}")
+    return counts[0], counts[1]
+
+
+def intra_small() -> None:
+    """11 (c): BatchIntraEncoder(device="cuda") on the test cases
+    (make_hd720_enc.py INTRA_CASES) against their lists, the F5 case
+    (a target bitrate: K2 per frame at its own qi) included."""
+    from theora_tpu_torch.encode.intra import BatchIntraEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    mk = _load_testdata("make_hd720_enc")
+
+    def run(case, rate=0):
+        kind, w, h, fmt, qi, mode, splevel = mk.INTRA_CASES[case]
+        b = BatchIntraEncoder(TheoraInfo(
+            frame_width=w, frame_height=h, pic_width=w, pic_height=h,
+            quality=qi, pixel_fmt=fmt, target_bitrate=rate), device="cuda")
+        b.enc.adaptive_quant = mode
+        if splevel:
+            b.enc.set_splevel(splevel)
+        return b.flush_headers() + b.encode(mk.intra_frames(kind))
+
+    for name, cases in (("intra64x48_enc", mk.INTRA_SMALL),
+                        ("intra96x64_aq_enc", mk.INTRA_AQ)):
+        n = _check_hashes([p for c in cases for p in run(c)], name,
+                          "cases")
+        log(f"[{name}] cases {list(cases)}: all {n} packets equal the JAX "
+            f"host Encoder's (SHA-256)")
+    pkts = run(mk.F5_CASE, mk.F5_RATE)
+    n = _check_hashes(pkts, "intra64x48_f5_enc", "F5")
+    log(f"[intra64x48_f5_enc] q40 at {mk.F5_RATE} bit/s: all {n} packets "
+        f"equal the JAX host Encoder's (JAX's batch differs: F5); frame "
+        f"qis {_frame_qis(pkts)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1595,9 +1888,17 @@ def main() -> int:
     paths["mesh"], paths["mesh speed 2"] = mesh_720p(smi)
     for way, c in mesh_vs_sequential(smi).items():
         paths[f"24 frames q48 {way}"] = c
+    # The batch intra encoder's slice: the compute core (K1's decode entry
+    # and K2) and the batch encoder on its main path (K2 only).
+    intra_core, intra_kern = intra_core_720p(smi, dev)
+    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0)
+    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0)
+    intra_small()
     # K1 runs on every main path: the decodes, the encode, the transcode,
-    # the mesh; K2 and KT on the encode, the transcode and the mesh.
-    main_paths = ("encode", "transcode", "decode per packet", "mesh")
+    # the mesh, the intra core; K2 on those encode paths and the batch
+    # intra encoder; KT on the encode, the transcode and the mesh.
+    main_paths = ("encode", "transcode", "decode per packet", "mesh",
+                  "intra core", "intra encode")
     k1["launches"] = k1_decode + sum(paths[p][0] for p in main_paths)
     k2["launches"] = sum(paths[p][1] for p in main_paths)
     kt["launches"] = sum(paths[p][2] for p in main_paths)
@@ -1610,6 +1911,8 @@ def main() -> int:
     for k, key in ((k1, "K1"), (k2, "K2"), (kt, "KT"), (kr, "KR")):
         k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
                                    "three_launches": segments[key][1]}
+    k1["intra_core"] = intra_kern["K1"]
+    k2["intra_core"] = intra_kern["K2"]
     print(json.dumps({"kernels": [k1, k2, kt, kr]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -95,6 +95,28 @@ gop axis as a batch dimension on one card, theora_tpu_torch.parallel.gop):
   GOPs of one batch (mixed_frames() at speed 0 is noise-like, so it never
   reaches the scales).
 
+Four hold the all-keyframe batch encoder
+(theora_tpu_torch.encode.intra.BatchIntraEncoder), made by the JAX host
+Encoder at keyframe_freq=1, each case also CHECKED against the JAX
+TpuBatchIntraEncoder except F5's (the generator raises where they
+differ); INTRA_CASES names each case's frames and settings:
+
+- intra64x48_enc.sha256: the 64x48 cases of INTRA_SMALL in that order,
+  headers and 6 packets each: clip64x48_frames() at q40 and q60 (the
+  intra triple [60, 50, 63]), adaptive_quant False at q60 and True at
+  q40, speed levels 2 (q40) and 3 (q60), and moving_frames() in pixel
+  formats 2 and 3 at q40;
+- intra96x64_aq_enc.sha256: mixed_frames() at q40 "auto" (noise-like
+  and mixed: the triple, the chooser at a quarter lambda, per-block
+  scales) and halftexture_frames() at q48 "auto" (the mixed window);
+- intra64x48_f5_enc.sha256: clip64x48_frames() at q40 with
+  target_bitrate=200_000, the host Encoder only: JAX's batch quantizes
+  every frame at the batch's first qi (fault F5) and differs on frames
+  1-4;
+- hd720_intra_q48_enc.sha256: the 16 720p frames at q48 (one qi on every
+  frame, so every frame takes the device's fDCT + quantization),
+  chip_smoke.py only.
+
 The 720p mesh is checked against the sequential lists (CHECKS): JAX's
 encode_clip_mesh of hd_frames() at q56 "auto", keyframe every 8, on
 make_mesh(2), and MeshGopEncoder(make_mesh(2)) at q48 with
@@ -150,6 +172,7 @@ HD_2PASS_RATE, HD_2PASS_BUF = 2_000_000, 16
 TC_SOURCE, TC_KF, TC_QI, TC_DUP_KF = "clip64x48_k8_q20.tpkt", 6, 40, 4
 TC_CBR_KF, TC_CBR_RATE = 2, 60_000
 HD_TC_SOURCE, HD_TC_KF, HD_TC_QI = "hd720_q56_k12.ogv", 8, 48
+INTRA_FRAMES, HD_INTRA_QI = 6, 48
 MESH_FRAMES, MESH_SEED, MESH_CBR_RATE, MESH_2PASS_RATE = 11, 7, 90_000, \
     120_000
 
@@ -206,6 +229,51 @@ def halftexture_frames():
     u0 = np.full((h // 2, w // 2), 90, np.uint8)
     v0 = np.full((h // 2, w // 2), 160, np.uint8)
     return [[np.roll(y0, f, 1), u0, v0] for f in range(MIXED_FRAMES)]
+
+
+def clip64x48_frames(n: int = INTRA_FRAMES):
+    """The first n frames of testdata/clip64x48.i420 (4:2:0)."""
+    raw = np.fromfile(os.path.join(HERE, "clip64x48.i420"), np.uint8)
+    w, h = 64, 48
+    fs = w * h * 3 // 2
+    out = []
+    for i in range(n):
+        f = raw[i * fs:(i + 1) * fs]
+        out.append([f[:w * h].reshape(h, w),
+                    f[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
+                    f[w * h * 5 // 4:].reshape(h // 2, w // 2)])
+    return out
+
+
+# The batch intra encoder's cases: name -> (frames, width, height, pixel
+# format, qi, adaptive_quant, speed level).
+INTRA_CASES = {
+    "q40": ("clip", 64, 48, 0, 40, "auto", 0),
+    "q60": ("clip", 64, 48, 0, 60, "auto", 0),
+    "aq_off_q60": ("clip", 64, 48, 0, 60, False, 0),
+    "aq_on_q40": ("clip", 64, 48, 0, 40, True, 0),
+    "sp2_q40": ("clip", 64, 48, 0, 40, "auto", 2),
+    "sp3_q60": ("clip", 64, 48, 0, 60, "auto", 3),
+    "fmt2_q40": ("moving2", 64, 48, 2, 40, "auto", 0),
+    "fmt3_q40": ("moving3", 64, 48, 3, 40, "auto", 0),
+    "mixed_q40": ("mixed", 96, 64, 0, 40, "auto", 0),
+    "halftex_q48": ("halftex", 96, 64, 0, 48, "auto", 0),
+    "hd720_q48": ("hd", 1280, 720, 0, HD_INTRA_QI, "auto", 0),
+}
+INTRA_SMALL = ("q40", "q60", "aq_off_q60", "aq_on_q40", "sp2_q40",
+               "sp3_q60", "fmt2_q40", "fmt3_q40")
+INTRA_AQ = ("mixed_q40", "halftex_q48")
+F5_CASE, F5_RATE = "q40", 200_000
+
+
+def intra_frames(kind: str):
+    if kind == "clip":
+        return clip64x48_frames()
+    if kind.startswith("moving"):
+        fmt = int(kind[-1])
+        return moving_frames(64, 48, fmt, INTRA_FRAMES, 11 + fmt)
+    return {"mixed": mixed_frames, "halftex": halftexture_frames,
+            "hd": hd_frames}[kind]()
 
 
 def cut_frames():
@@ -419,6 +487,42 @@ def _mesh_hd720_sp2():
     return [p.data for p in enc.base.flush_headers()] + pkts[0] + pkts[1]
 
 
+def _intra(case, target_bitrate=0, check_batch=True):
+    """Headers + packets of the JAX host Encoder at keyframe_freq=1 on an
+    INTRA_CASES case; with check_batch, JAX's TpuBatchIntraEncoder must
+    give the same list."""
+    from theora_tpu.encode.encoder import Encoder
+    from theora_tpu.encode.tpu_encoder import TpuBatchIntraEncoder
+    from theora_tpu.info import TheoraInfo
+
+    kind, w, h, fmt, qi, mode, splevel = INTRA_CASES[case]
+    frames = intra_frames(kind)
+
+    def info():
+        return TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
+                          pic_height=h, quality=qi, pixel_fmt=fmt,
+                          target_bitrate=target_bitrate)
+
+    def setup(enc):
+        enc.keyframe_freq = 1
+        enc.adaptive_quant = mode
+        if splevel:
+            enc.set_splevel(splevel)
+        return enc
+
+    enc = setup(Encoder(info()))
+    host = [p.data for p in enc.flush_headers()] + [
+        enc.encode_frame(f).data for f in frames]
+    if check_batch:
+        batch = TpuBatchIntraEncoder(info())
+        setup(batch.enc)
+        got = [p.data for p in batch.flush_headers() + batch.encode(frames)]
+        if got != host:
+            raise AssertionError(f"intra {case}: JAX's TpuBatchIntraEncoder "
+                                 "differs from its host Encoder")
+    return host
+
+
 def _write(name, pkts):
     datas = [p if isinstance(p, bytes) else p.data for p in pkts]
     lines = [hashlib.sha256(d).hexdigest() for d in datas]
@@ -503,6 +607,13 @@ LISTS = {
     "mesh64x48_twopass_enc.sha256": _mesh_twopass,
     "mesh96x64_sp2_enc.sha256": _mesh_sp2,
     "mesh96x64_halftex_q48_enc.sha256": _mesh_halftex,
+    "intra64x48_enc.sha256": lambda: [
+        p for c in INTRA_SMALL for p in _intra(c)],
+    "intra96x64_aq_enc.sha256": lambda: [
+        p for c in INTRA_AQ for p in _intra(c)],
+    "intra64x48_f5_enc.sha256": lambda: _intra(
+        F5_CASE, target_bitrate=F5_RATE, check_batch=False),
+    "hd720_intra_q48_enc.sha256": lambda: _intra("hd720_q48"),
 }
 
 

@@ -303,3 +303,71 @@ def test_mesh_on_card_equals_cpu(card):
                             keyframe_freq=4, qi=40)
            for dev in ("cuda", "cpu")]
     assert [p.data for p in out[0]] == [p.data for p in out[1]]
+
+
+def _intra_cases():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case,rate", [("q40", 0), ("q60", 0),
+                                       ("q40", 200_000)])
+def test_batch_intra_on_card_equals_cpu(card, case, rate):
+    """BatchIntraEncoder at 64x48 on the card and on the CPU: one qi (K2
+    over the batch), the intra triple (the host's quantizers) and rate
+    control (K2 per frame at its qi) give the same packets."""
+    from theora_tpu_torch.encode.intra import BatchIntraEncoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    mk = _intra_cases()
+    kind, w, h, fmt, qi, mode, _ = mk.INTRA_CASES[case]
+    frames = mk.intra_frames(kind)
+    out = []
+    for dev in ("cuda", "cpu"):
+        b = BatchIntraEncoder(TheoraInfo(
+            frame_width=w, frame_height=h, pic_width=w, pic_height=h,
+            quality=qi, pixel_fmt=fmt, target_bitrate=rate), device=dev)
+        b.enc.adaptive_quant = mode
+        out.append([p.data for p in b.flush_headers() + b.encode(frames)])
+    assert out[0] == out[1]
+
+
+def test_pipeline_cores_on_card_equal_cpu(card):
+    """The three cores on the card (K2, K1's decode entry) give the CPU
+    path's integers."""
+    from theora_tpu_torch import pipeline
+
+    rng = np.random.default_rng(31)
+    blocks = rng.integers(0, 256, (2, 300, 8, 8), dtype=np.uint8)
+    dq = rng.integers(4, 90, 64).astype(np.int32)
+    n = 300
+    inter = (blocks[0], blocks[1], rng.random(n) < 0.3, dq,
+             rng.integers(4, 90, 64).astype(np.int32))
+    h, w = 64, 80
+    pos = rng.choice((h // 8 - 2) * (w // 8 - 2), 30, replace=False)
+    coeffs = rng.integers(-40, 41, (30, 64)).astype(np.int32)
+    deq = rng.integers(4, 60, (3, 64)).astype(np.int32)[
+        rng.integers(0, 3, 30)]
+    recon = (*[rng.integers(0, 256, (h, w), dtype=np.uint8)
+               for _ in range(3)],
+             ((pos // (w // 8 - 2) + 1) * 8).astype(np.int32),
+             ((pos % (w // 8 - 2) + 1) * 8).astype(np.int32),
+             coeffs, deq, rng.integers(-300, 300, 30).astype(np.int32),
+             deq[:, 0].copy(), (coeffs[:, 1:] == 0).all(axis=1),
+             rng.integers(0, 3, 30).astype(np.int32),
+             *[rng.integers(-8, 9, 30).astype(np.int32) for _ in range(4)],
+             rng.random(30) < 0.5)
+    for fn, args in ((pipeline.intra_encode_core, (blocks, dq)),
+                     (pipeline.inter_encode_core, inter),
+                     (pipeline.recon_core, recon)):
+        cpu = fn(*map(torch.from_numpy, args))
+        gpu = fn(*[torch.from_numpy(np.asarray(a)).to(card) for a in args])
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        gpu = gpu if isinstance(gpu, tuple) else (gpu,)
+        for g, c in zip(gpu, cpu):
+            assert torch.equal(g.cpu(), c)

@@ -87,6 +87,9 @@ def _smoke_scripts():
 def test_port_imports_no_jax_and_no_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 10
+    for rel in ("encode/intra.py", "encode/encoder.py", "pipeline.py",
+                "debug.py"):
+        assert os.path.join(REPO_ROOT, "theora_tpu_torch", rel) in sources
     bad = []
     for path in sources:
         for mod in _imported_modules(path):
@@ -317,6 +320,47 @@ def test_gop_encoder_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GopEncoder(_small_info(), device="cuda")
     assert GopEncoder(_small_info(), device="cpu").device.type == "cpu"
+
+
+def test_batch_intra_encoder_without_card_raises(monkeypatch):
+    from theora_tpu_torch.encode.intra import BatchIntraEncoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchIntraEncoder(_small_info())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchIntraEncoder(_small_info(), device="cuda")
+    assert BatchIntraEncoder(_small_info(),
+                             device="cpu").device.type == "cpu"
+
+
+def test_pipeline_cores_take_plain_paths_only_for_cpu_tensors(monkeypatch):
+    """The cores reach K2's and K1's plain versions through the kernel
+    wrappers, which take them only for CPU tensors: a tensor on any other
+    device never gets there."""
+    from theora_tpu_torch import pipeline
+    from theora_tpu_torch.ops import fdct_cuda
+
+    calls = []
+
+    def plain(res, deq, inter):
+        calls.append(res.device.type)
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(transforms, "fdct_quantize", plain)
+    blocks = torch.zeros((2, 8, 8), dtype=torch.uint8, device="meta")
+    dq = torch.ones(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pipeline.intra_encode_core(blocks, dq)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pipeline.inter_encode_core(blocks, blocks, torch.zeros(
+            2, dtype=torch.bool, device="meta"), dq, dq)
+    assert calls == []
+    with pytest.raises(AssertionError, match="plain version reached"):
+        fdct_cuda.fdct_quantize(torch.zeros((2, 64), dtype=torch.int16),
+                                torch.ones((1, 2, 64), dtype=torch.int16),
+                                torch.zeros(2, dtype=torch.uint8))
+    assert calls == ["cpu"]
 
 
 def test_encoder_settings_that_are_ported():

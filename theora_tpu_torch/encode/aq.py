@@ -1,19 +1,26 @@
 """Adaptive quantization's host gates: the frame's qi list and the luma
 blocks' chooser lambda scales.
 
-Port of the gates the JAX device encoder runs on the host before its
-plane scans: theora_tpu/encode/encoder.py `Encoder._adaptive_qi_triple`
-(with its `find_qi` tie rule), `_luma_activity` (the numpy form; equal to
-the native `activity8_plane_native`), `_mixed_frame`, `_activity_iscale`
-and `_noise_like`, and theora_tpu/encode/tpu_gop.py
+Port of the gates the JAX encoders run on the host: theora_tpu/encode/
+encoder.py `Encoder._adaptive_qi_triple` (with its `find_qi` tie rule),
+`_luma_activity` (the numpy form; equal to the native
+`activity8_plane_native`), `_mixed_frame`, `_activity_iscale` and
+`_noise_like`, and theora_tpu/encode/tpu_gop.py
 `TpuGopEncoder._adaptive_qis` with the per-frame `frame_gates`
-(tpu_gop.py:1041-1123). The encoder's vp3_compatible flag and speed levels
-are not ported, so they stay at their defaults (off and 0).
+(tpu_gop.py:1041-1123). The vp3_compatible flag is not ported (it stays
+off); speed levels of 2 and more turn masking off in the callers.
 
 Modes: False never engages; True engages wherever the reference's spec
 allows it (log_qavg < 7); "auto", the default, only in the
 quality-saturation region, on noise-like frames at mid q, and on spatially
 mixed frames just above saturation (encoder.py:1012-1028).
+
+The host Encoder and the device encoder differ in two places, and both
+forms are here: the host keeps the per-block scales on a noise-like mixed
+frame (`frame_gates(..., keep_noise_scales=True)`, encoder.py:1137-1141),
+and its qii chooser runs at a quarter of the frame's lambda on noise-like
+frames in "auto"'s saturation region (`chooser_lambda_scale`,
+encoder.py:1011-1016).
 """
 from __future__ import annotations
 
@@ -129,13 +136,28 @@ def noise_like(y: np.ndarray, thresh: float = 0.10) -> bool:
     return ac < thresh
 
 
-def frame_gates(y: np.ndarray, mode):
+def frame_gates(y: np.ndarray, mode, keep_noise_scales: bool = False):
     """A frame's content gates from its luma plane in bitstream
     orientation (tpu_gop.py:1041-1069): (noise_like, mixed, the [n]
     float64 lambda scales of its luma blocks or None). The scales exist
-    only on a mixed frame that is not noise-like."""
+    only on a mixed frame that is not noise-like, or, with
+    keep_noise_scales (the host Encoder's rule, encoder.py:1137-1141), on
+    every mixed frame."""
     nl = noise_like(y)
     act = luma_activity(y)
     mixed = mixed_frame(act)
-    sc = activity_iscale(act) if (mixed and mode and not nl) else None
+    keep = mixed and mode and (keep_noise_scales or not nl)
+    sc = activity_iscale(act) if keep else None
     return nl, mixed, sc
+
+
+def chooser_lambda_scale(mode, base: int, qti: int, pixel_fmt: int,
+                         noise_like: bool, aq_lambda_scale: float = 1.0):
+    """The host Encoder's multiplier of the qii chooser's lambda
+    (encoder.py:1011-1016): 0.25 on a noise-like frame where "auto" is in
+    its saturation region (log_qavg at least 4.0 intra, 4.8 inter), else
+    aq_lambda_scale."""
+    lq = LOG_QAVG.get(int(pixel_fmt), LOG_QAVG[0])[qti][base]
+    if mode == "auto" and lq >= (4.0 if qti == 0 else 4.8) and noise_like:
+        return 0.25
+    return aq_lambda_scale

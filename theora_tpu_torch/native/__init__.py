@@ -5,7 +5,9 @@ the Huffman context and `NativeEntropy.decode_frame_tokens`,
 `dc_predict_native` and the argument types of the frame side-info
 parser. Encode: `NativeTokenPacker.pack_frame`, `dc_residuals_native`,
 `coded_flags_pack_native`, `mb_modes_pack_native` and
-`mode_decide_native`. The library is built with g++ from entropy.cpp at
+`mode_decide_native`; the host encoder's keyframe path:
+`fdct_quantize_rd_native`, `trellis_plan_blocks_native` and
+`NativeTokenPacker.pack_frame_trellis_perm`. The library is built with g++ from entropy.cpp at
 first use into ``native/build/``, with the JAX package's flags (the mode
 decision's double-precision costs then compile to the same instructions).
 A failed build or a missing symbol raises: the port has no pure-Python
@@ -92,6 +94,18 @@ def get_lib():
         [_I64] + [_P] * 16 + [_I64] * 3
         + [ctypes.c_double, ctypes.c_double, _I32] + [_P] * 3
     )
+    lib.th_fdct_quantize_rd.restype = None
+    lib.th_fdct_quantize_rd.argtypes = [
+        _I64, _P, _P, ctypes.c_double, ctypes.c_int, _P, _P, _P, _P,
+    ]
+    lib.th_trellis_plan_blocks.restype = None
+    lib.th_trellis_plan_blocks.argtypes = [_I64] + [_P] * 5 + [_I64] + [
+        _P] * 4
+    lib.th_trellis_plan_blocks_lam.restype = None
+    lib.th_trellis_plan_blocks_lam.argtypes = [_I64] + [_P] * 10
+    lib.th_encode_frame_trellis_perm.restype = _I64
+    lib.th_encode_frame_trellis_perm.argtypes = [_P] * 12 + [_I64, _P, _I64,
+                                                             _P]
     lib.th_parse_frame_sideinfo.restype = _I64
     lib.th_parse_frame_sideinfo.argtypes = [
         _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P,
@@ -203,6 +217,36 @@ class NativeTokenPacker:
             raise ValueError("native token pack failed")
         return out[:n].tobytes()
 
+    def pack_frame_trellis_perm(self, paths3, perm3, dc3, prefix: bytes,
+                                prefix_bits: int):
+        """Replay the trellis plans and pack the residual section:
+        per plane, the [n, 66, 4] int16 plans in quantize (raster) order,
+        the scan -> raster permutation and the scan-order DC residuals.
+        Returns (the whole packet, the chosen Huffman indices [dc_y, dc_c,
+        ac_y, ac_c])."""
+        paths = [np.ascontiguousarray(p, dtype=np.int16) for p in paths3]
+        perms = [np.ascontiguousarray(p, dtype=np.int32) for p in perm3]
+        dcs = [np.ascontiguousarray(d, dtype=np.int32) for d in dc3]
+        nc = np.asarray([len(p) for p in perms], dtype=np.int64)
+        cap = 64 + prefix_bits // 8 + max(int(nc.sum()) * 80, 512)
+        out = np.zeros(cap, dtype=np.uint8)
+        pre = (np.frombuffer(prefix, dtype=np.uint8) if prefix
+               else np.zeros(1, np.uint8))
+        chosen = np.zeros(4, dtype=np.int32)
+        # Empty planes still need valid pointers.
+        zp = np.zeros((1, 66, 4), np.int16)
+        zi = np.zeros(1, np.int32)
+        n = self._lib.th_encode_frame_trellis_perm(
+            *[(p if len(p) else zp).ctypes.data for p in paths],
+            *[(p if len(p) else zi).ctypes.data for p in perms],
+            *[(d if len(d) else zi).ctypes.data for d in dcs],
+            nc.ctypes.data, self._codes.ctypes.data, pre.ctypes.data,
+            prefix_bits, out.ctypes.data, cap, chosen.ctypes.data,
+        )
+        if n < 0:
+            raise ValueError("native trellis pack failed")
+        return out[:n].tobytes(), [int(x) for x in chosen]
+
 
 def coded_flags_pack_native(coded, scan_fragis, scan_sbi, nsbs):
     """Pack the coded-block-flags section. Returns (bit buffer bytes,
@@ -272,3 +316,63 @@ def mode_decide_native(mb_list, mb_row, mb_col, mb_all4, mb_birc,
         mb_modes.ctypes.data, mb_mvs.ctypes.data, mb_bmvs.ctypes.data,
     )
     return mb_modes, mb_mvs, mb_bmvs
+
+
+def fdct_quantize_rd_native(res_blocks, dequant_zz, lam, rd=True,
+                            want_dct=False):
+    """fDCT + (R/D) quantization of [n, 8, 8] residual blocks with one
+    [64] zig-zag dequant row. Returns (qz [n, 64] int16, err2 [n] int64,
+    res2 [n] int64), and the zig-zag DCT [n, 64] int16 as a fourth array
+    when want_dct (the trellis' input)."""
+    lib = get_lib()
+    n = len(res_blocks)
+    res32 = np.ascontiguousarray(np.asarray(res_blocks).reshape(n, 64),
+                                 dtype=np.int32)
+    dq32 = np.ascontiguousarray(dequant_zz, dtype=np.int32)
+    qz = np.empty((n, 64), dtype=np.int16)
+    err2 = np.empty(n, dtype=np.int64)
+    res2 = np.empty(n, dtype=np.int64)
+    dct = np.empty((n, 64), dtype=np.int16) if want_dct else None
+    lib.th_fdct_quantize_rd(
+        n, res32.ctypes.data, dq32.ctypes.data, float(lam), int(rd),
+        qz.ctypes.data, err2.ctypes.data, res2.ctypes.data,
+        dct.ctypes.data if want_dct else None,
+    )
+    if want_dct:
+        return qz, err2, res2, dct
+    return qz, err2, res2
+
+
+def trellis_plan_blocks_native(dct16, qdct, dq0, dq1, qti, lam, nbt):
+    """Phase-1 trellis planning (th_trellis_plan_blocks).
+
+    dct16 [n, 64] int16; qdct [n, 64] int16, C-contiguous, its AC values
+    rewritten in place; dq0/dq1 [64] intra/inter dequant rows; qti [n]
+    0/1; lam a number (truncated to an integer) or a float array of one
+    lambda per block (rounded to nearest); nbt [5, 32] int64 bit costs.
+    Returns (paths [n, 66, 4] int16, acbits [n] int64, err2 [n] int64).
+    """
+    lib = get_lib()
+    if qdct.dtype != np.int16 or not qdct.flags.c_contiguous:
+        raise ValueError("qdct must be a C-contiguous int16 array")
+    n = len(qdct)
+    dct_c = np.ascontiguousarray(dct16, dtype=np.int16)
+    dq0_c = np.ascontiguousarray(dq0, dtype=np.int32)
+    dq1_c = np.ascontiguousarray(dq1, dtype=np.int32)
+    qti_c = np.ascontiguousarray(qti, dtype=np.int32)
+    nbt_c = np.ascontiguousarray(nbt, dtype=np.int64)
+    paths = np.empty((n, 66, 4), dtype=np.int16)
+    acbits = np.empty(n, dtype=np.int64)
+    err2 = np.empty(n, dtype=np.int64)
+    args = (dct_c.ctypes.data, qdct.ctypes.data, dq0_c.ctypes.data,
+            dq1_c.ctypes.data, qti_c.ctypes.data)
+    outs = (nbt_c.ctypes.data, acbits.ctypes.data, err2.ctypes.data,
+            paths.ctypes.data)
+    if isinstance(lam, np.ndarray):
+        lam_c = np.ascontiguousarray(np.rint(lam).astype(np.int64))
+        if len(lam_c) != n:
+            raise ValueError("one lambda per block expected")
+        lib.th_trellis_plan_blocks_lam(n, *args, lam_c.ctypes.data, *outs)
+    else:
+        lib.th_trellis_plan_blocks(n, *args, int(lam), *outs)
+    return paths, acbits, err2

@@ -7,7 +7,9 @@
 // host stages): DC prediction residuals (tokenize.c:977-1074), the token
 // packer (tokenize + Huffman selection + residual section,
 // encode.c:816-863), the coded-flags and MB-mode packers
-// (encode.c:487-621) and the sequential mode decision of the GOP encoder.
+// (encode.c:487-621) and the sequential mode decision of the GOP encoder;
+// the host encoder's keyframe path: fDCT + R/D quantization, the trellis
+// planner (tokenize.c:457-744) and the packer of its plans.
 // Bit-serial work stays on the host; the pixel pipeline runs on the card.
 //
 // Pure C ABI (loaded via ctypes). No Python.h dependency.
@@ -15,6 +17,7 @@
 #include <cstdint>
 #include <cstring>
 #include <cstdlib>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -1344,3 +1347,601 @@ extern "C" void th_mode_decide(
     }
   }
 }
+
+// ===================================================================
+// The keyframe path of the host encoder (encode/encoder.py): forward DCT
+// + R/D quantization, the Viterbi trellis planner and the permuted plan
+// packer. Copied from theora_tpu/native/entropy.cpp.
+namespace {
+
+const int32_t C1 = 64277, C2 = 60547, C3 = 54491, C4 = 46341, C5 = 36410,
+              C6 = 25080, C7 = 12785;
+
+const int ZIGN[64] = {
+  0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+  12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+  35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+  58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+}  // namespace
+
+// Forward DCT + R/D quantization (the C++ twin of the JAX package's
+// ops/fdct_np.py).
+extern "C" {
+
+namespace {
+
+inline void fdct8_1d(const int32_t* x, int32_t* y, int xs, int ys) {
+  int32_t t0 = x[0 * xs] + x[7 * xs];
+  int32_t t7 = x[0 * xs] - x[7 * xs];
+  int32_t t1 = x[1 * xs] + x[6 * xs];
+  int32_t t6 = x[1 * xs] - x[6 * xs];
+  int32_t t2 = x[2 * xs] + x[5 * xs];
+  int32_t t5 = x[2 * xs] - x[5 * xs];
+  int32_t t3 = x[3 * xs] + x[4 * xs];
+  int32_t t4 = x[3 * xs] - x[4 * xs];
+  int32_t r = t0 + t3; t3 = t0 - t3; t0 = r;
+  r = t1 + t2; t2 = t1 - t2; t1 = r;
+  r = t6 + t5; t5 = t6 - t5; t6 = r;
+  int32_t s = (((27146 * t5 + 0xB500) >> 16) + t5 + (t5 != 0)) >> 1;
+  r = t4 + s; t5 = t4 - s; t4 = r;
+  s = (((27146 * t6 + 0xB500) >> 16) + t6 + (t6 != 0)) >> 1;
+  r = t7 + s; t6 = t7 - s; t7 = r;
+  r = ((27146 * t0 + 0x4000) >> 16) + t0 + (t0 != 0);
+  s = ((27146 * t1 + 0xB500) >> 16) + t1 + (t1 != 0);
+  int32_t u = (r + s) >> 1;
+  int32_t v = r - u;
+  y[0 * ys] = (int16_t)u;
+  y[4 * ys] = (int16_t)v;
+  u = ((C6 * t2 + C2 * t3 + 0x6CB7) >> 16) + (t3 != 0);
+  s = ((C6 * u) >> 16) - t2;
+  v = ((s * 21600 + 0x2800) >> 18) + s + (s != 0);
+  y[2 * ys] = (int16_t)u;
+  y[6 * ys] = (int16_t)v;
+  u = ((C5 * t6 + C3 * t5 + 0x0E3D) >> 16) + (t5 != 0);
+  s = t6 - ((C5 * u) >> 16);
+  v = ((s * 26568 + 0x3400) >> 17) + s + (s != 0);
+  y[5 * ys] = (int16_t)u;
+  y[3 * ys] = (int16_t)v;
+  u = ((C7 * t4 + C1 * t7 + 0x7B1B) >> 16) + (t7 != 0);
+  s = ((C7 * u) >> 16) - t4;
+  v = ((s * 20539 + 0x3000) >> 20) + s + (s != 0);
+  y[1 * ys] = (int16_t)u;
+  y[7 * ys] = (int16_t)v;
+}
+
+const double MAG_BITS[9] = {0.0, 4.5, 5.5, 6.5, 6.5, 7.5, 7.5, 8.5, 9.5};
+
+}  // namespace
+
+// res: [n, 64] int32 residual blocks (row-major); dq: [64] int32 zig-zag
+// dequant; lam: lambda. Outputs: qz [n,64] int16 zig-zag quantized;
+// err2/res2: [n] int64 (coding error and x16 pixel energy).
+static void fdct_quantize_rd_range(int64_t lo, int64_t hi,
+                                   const int32_t* res, const int32_t* dq,
+                                   double lam, int rd, int16_t* qz,
+                                   int64_t* err2, int64_t* res2,
+                                   int16_t* dct_out) {
+  for (int64_t i = lo; i < hi; i++) {
+    const int32_t* x = res + i * 64;
+    int32_t w[64], y[64];
+    int64_t r2 = 0;
+    for (int k = 0; k < 64; k++) {
+      w[k] = x[k] << 2;
+      r2 += (int64_t)x[k] * x[k];
+    }
+    w[0] += (w[0] != 0) + 1;
+    w[1] += 1;
+    w[8] -= 1;
+    // Columns of w -> rows of y, then columns of y -> rows of w
+    // (fdct.c:128-154): oc_fdct8 reads every 8th entry, writes 8
+    // consecutive.
+    for (int k = 0; k < 8; k++) fdct8_1d(w + k, y + 8 * k, 8, 1);
+    for (int k = 0; k < 8; k++) fdct8_1d(y + k, w + 8 * k, 8, 1);
+    int32_t dct[64];
+    for (int z = 0; z < 64; z++)
+      dct[z] = (int16_t)((w[ZIGN[z]] + 2) >> 2);
+    if (dct_out)
+      for (int z = 0; z < 64; z++) dct_out[i * 64 + z] = (int16_t)dct[z];
+    // Quantize (round-to-nearest, ties away from zero).
+    int16_t q[64];
+    for (int z = 0; z < 64; z++) {
+      int64_t d = dq[z];
+      int64_t v2 = (int64_t)2 * (dct[z] < 0 ? -dct[z] : dct[z]);
+      int64_t qq = v2 >= d ? (v2 + d) / (2 * d) : 0;
+      q[z] = (int16_t)(dct[z] < 0 ? -qq : qq);
+    }
+    if (rd) {
+      // Magnitude-step choice (AC only).
+      for (int z = 1; z < 64; z++) {
+        int a0 = q[z] < 0 ? -q[z] : q[z];
+        if (!a0) continue;
+        int a1 = a0 - 1;
+        int64_t d = dq[z];
+        int64_t av = dct[z] < 0 ? -dct[z] : dct[z];
+        double e0 = (double)(a0 * d - av) * (a0 * d - av);
+        double e1 = (double)(a1 * d - av) * (a1 * d - av);
+        double b0 = MAG_BITS[a0 > 8 ? 8 : a0];
+        double b1 = MAG_BITS[a1 > 8 ? 8 : a1];
+        if (e1 + lam * b1 <= e0 + lam * b0)
+          q[z] = (int16_t)(q[z] < 0 ? -a1 : a1);
+      }
+      // Isolated +-1 kill (2 sweeps).
+      for (int sweep = 0; sweep < 2; sweep++) {
+        bool any = false;
+        for (int z = 1; z < 64; z++) {
+          if (q[z] != 1 && q[z] != -1) continue;
+          bool lz = z < 2 || q[z - 1] == 0;
+          bool rz = z == 63 || q[z + 1] == 0;
+          if (!(lz && rz)) continue;
+          int64_t d = dq[z];
+          int64_t av = dct[z] < 0 ? -dct[z] : dct[z];
+          double ec = (double)(d - av) * (d - av);
+          double ez = (double)av * av;
+          if (ez - ec <= lam * 11.0) { q[z] = 0; any = true; }
+        }
+        if (!any) break;
+      }
+      // Tail kill (4 sweeps).
+      for (int sweep = 0; sweep < 4; sweep++) {
+        int last = -1;
+        for (int z = 63; z >= 1; z--)
+          if (q[z]) { last = z; break; }
+        if (last < 1) break;
+        if (q[last] != 1 && q[last] != -1) break;
+        int64_t d = dq[last];
+        int64_t av = dct[last] < 0 ? -dct[last] : dct[last];
+        double ec = (double)(1 * d - av) * (1 * d - av);
+        double ez = (double)av * av;
+        if (ez - ec > lam * 14.0) break;
+        q[last] = 0;
+      }
+    }
+    int64_t e2 = 0;
+    for (int z = 0; z < 64; z++) {
+      int64_t d = (int64_t)dct[z] - (int64_t)q[z] * dq[z];
+      e2 += d * d;
+      qz[i * 64 + z] = q[z];
+    }
+    err2[i] = e2;
+    res2[i] = r2 * 16;
+  }
+}
+
+void th_fdct_quantize_rd(int64_t n, const int32_t* res, const int32_t* dq,
+                         double lam, int rd, int16_t* qz, int64_t* err2,
+                         int64_t* res2, int16_t* dct_out) {
+  // Per-block independent: split large batches across cores (same
+  // disjoint-output argument as th_trellis_plan_blocks).
+  unsigned hw = std::thread::hardware_concurrency();
+  int nthreads = (int)(hw ? hw : 1);
+  if (nthreads > 4) nthreads = 4;
+  if (n < 4096 || nthreads < 2) {
+    fdct_quantize_rd_range(0, n, res, dq, lam, rd, qz, err2, res2, dct_out);
+    return;
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; t++) {
+    int64_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    ts.emplace_back(fdct_quantize_rd_range, lo, hi, res, dq, lam, rd, qz,
+                    err2, res2, dct_out);
+  }
+  for (auto& t : ts) t.join();
+}
+
+}  // extern "C"
+
+// ===================================================================
+// Viterbi trellis tokenizer (re-derivation of tokenize.c:457-744). Phase 1
+// plans per-block token paths with exact Huffman bit costs; phase 2
+// replays the plans into streams and packs them.
+namespace {
+
+const uint8_t ZZI_GROUP_T[64] = {
+    0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3,
+    3, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4};
+
+// Largest magnitude with a strictly cheaper value token (top of the
+// next-lower token category).
+inline int alt_mag(int a) {
+  if (a <= 7) return a - 1;
+  if (a <= 8) return 6;
+  if (a <= 12) return 8;
+  if (a <= 20) return 12;
+  if (a <= 36) return 20;
+  if (a <= 68) return 36;
+  return 68;
+}
+
+// One block's plan. path rows: (stream_zzi, token, eb, qc); a token < 7
+// marks the terminal EOB; a row with zzi < 0 terminates the list.
+// Returns the AC bits estimate (terminal EOB excluded) and fills
+// vals[64] with the chosen AC values (DC slot untouched).
+static int64_t trellis_block(const int16_t* dct, const int16_t* qdct,
+                             const int32_t* dq, int64_t lam, int acmin,
+                             const int64_t* nbt, int16_t* path,
+                             int16_t* vals) {
+  auto nb = [&](int zzi, int tok) -> int64_t {
+    return nbt[(int)ZZI_GROUP_T[zzi] * 32 + tok];
+  };
+  int zzi_max = 1;
+  for (int z = 63; z >= 1; z--)
+    if (qdct[z]) { zzi_max = z + 1 > 63 ? 63 : z + 1; break; }
+
+  uint8_t nxt[64][2] = {};
+  int8_t tokv[64][2] = {};
+  int16_t ebv[64][2] = {};
+  int64_t cost[64][2] = {};
+  int64_t bitsv[64][2] = {};
+  int16_t qcv[64][2] = {};
+  int64_t d2_accum[64] = {};
+  uint64_t zflags = 1, nzflags = 0, bflags = 0;
+  int zzj = 64;
+  int zzi = zzi_max;
+  while (zzi > 0) {
+    int qc = qdct[zzi];
+    int aqc = qc < 0 ? -qc : qc;
+    int64_t c = dct[zzi];
+    if (aqc <= 1) {
+      int64_t d2;
+      if (aqc == 0) {
+        while (zzi > 1 && !qdct[zzi - 1]) zzi--;
+        d2 = 0;
+      } else {
+        d2 = c * c;
+        c = c < 0 ? -c : c;
+      }
+      int nzeros = zzj - zzi;
+      zzj &= 63;
+      int64_t sum_d2 = d2 + d2_accum[zzj];
+      d2_accum[zzi] = sum_d2;
+      int dc_reserve = (zzi + 62) >> 6;
+      int64_t best_cost = INT64_MAX, best_bits = 0;
+      int best_next = 0, best_token = 0, best_eb = 0, best_qc = 0;
+      bool have_best = false;
+      for (;;) {
+        if ((nzflags >> zzj) & 1) {
+          int nx1 = nxt[zzj][1];
+          int tk = nx1 & 1;
+          int zzk = nx1 >> 1;
+          int token = 7 + ((nzeros + 55) >> 6);
+          int64_t b = nb(zzi, token);
+          int64_t cst = sum_d2 - d2_accum[zzj] + lam * b + cost[zzj][1];
+          if (cst <= best_cost) {
+            best_next = (zzj << 1) + 1;
+            best_token = token;
+            best_eb = nzeros - 1;
+            best_cost = cst;
+            best_bits = b + bitsv[zzj][1];
+            best_qc = 0;
+            have_best = true;
+          }
+          if (nzeros < 17 + dc_reserve) {
+            int val = qdct[zzj];
+            int va = val < 0 ? -val : val;
+            if (va <= 2) {
+              int sval = val < 0 ? -1 : 1;
+              int ctok, ceb;
+              combo_token(nzeros, sval, &ctok, &ceb);
+              int64_t e = (int64_t)dct[zzj] - (int64_t)sval * dq[zzj];
+              b = nb(zzi, ctok);
+              int64_t cst2 =
+                  e * e + sum_d2 - d2_accum[zzj] + lam * b + cost[zzk][tk];
+              if (cst2 <= best_cost) {
+                best_next = nx1;
+                best_token = ctok;
+                best_eb = ceb;
+                best_cost = cst2;
+                best_bits = b + bitsv[zzk][tk];
+                best_qc = sval;
+                have_best = true;
+              }
+            }
+            if (nzeros < 3 + dc_reserve && va >= 2 && va <= 4) {
+              int v2 = 2 + (va > 2);
+              int sval = val < 0 ? -v2 : v2;
+              int ctok, ceb;
+              combo_token(nzeros, sval, &ctok, &ceb);
+              int64_t e = (int64_t)dct[zzj] - (int64_t)sval * dq[zzj];
+              b = nb(zzi, ctok);
+              int64_t cst2 =
+                  e * e + sum_d2 - d2_accum[zzj] + lam * b + cost[zzk][tk];
+              if (cst2 <= best_cost) {
+                best_next = nx1;
+                best_token = ctok;
+                best_eb = ceb;
+                best_cost = cst2;
+                best_bits = b + bitsv[zzk][tk];
+                best_qc = sval;
+                have_best = true;
+              }
+            }
+          }
+          if (!((zflags >> zzj) & 1)) break;
+        }
+        zzj = ((nxt[zzj][0] >> 1) - (qcv[zzj][0] != 0)) & 63;
+        if (zzj == 0) {
+          // EOB terminal; pending-run hint is 0 at planning time.
+          int t1, e1;
+          make_eob(1, &t1, &e1);
+          int64_t b = nb(zzi, t1);
+          int64_t cst = sum_d2 + lam * b;
+          if (cst <= best_cost ||
+              (have_best && best_token <= 8 && zzi + best_eb == 63)) {
+            best_next = 0;
+            best_token = 0;
+            best_eb = 0;
+            best_cost = cst;
+            best_bits = b;
+            best_qc = 0;
+          }
+          break;
+        }
+        nzeros = zzj - zzi;
+      }
+      nxt[zzi][0] = (uint8_t)best_next;
+      tokv[zzi][0] = (int8_t)best_token;
+      ebv[zzi][0] = (int16_t)best_eb;
+      cost[zzi][0] = best_cost;
+      bitsv[zzi][0] = best_bits;
+      qcv[zzi][0] = (int16_t)best_qc;
+      zflags |= 1ull << zzi;
+      if (aqc) {
+        if (zzi < acmin) lam = 0;
+        int64_t dqz = dq[zzi];
+        int64_t e = dqz - c;
+        int token = qc > 0 ? 9 : 10;
+        int64_t b = nb(zzi, token);
+        int zzk = (zzi + 1) & 63;
+        int tk = (bflags >> zzk) & 1;
+        nxt[zzi][1] = (uint8_t)((zzk << 1) + tk);
+        tokv[zzi][1] = (int8_t)token;
+        ebv[zzi][1] = 0;
+        cost[zzi][1] = e * e + lam * b + cost[zzk][tk];
+        bitsv[zzi][1] = b + bitsv[zzk][tk];
+        qcv[zzi][1] = (int16_t)(qc > 0 ? 1 : -1);
+        nzflags |= 1ull << zzi;
+        if (cost[zzi][1] < cost[zzi][0]) bflags |= 1ull << zzi;
+      }
+    } else {
+      if (zzi < acmin) lam = 0;
+      int64_t dqz = dq[zzi];
+      d2_accum[zzi] = 0;
+      if (aqc > 580) {
+        qc = qc > 0 ? 580 : -580;
+        aqc = 580;
+      }
+      int64_t e = (int64_t)qc * dqz - c;
+      int btok, bebt;
+      value_token(qc, &btok, &bebt);
+      int64_t bbits = nb(zzi, btok);
+      int64_t bcost = e * e + lam * bbits;
+      int bqc = qc;
+      int alt = alt_mag(aqc);
+      int salt = qc < 0 ? -alt : alt;
+      e = (int64_t)salt * dqz - c;
+      int atok, aebt;
+      value_token(salt, &atok, &aebt);
+      int64_t ab = nb(zzi, atok);
+      int64_t acst = e * e + lam * ab;
+      if (acst < bcost) {
+        btok = atok;
+        bebt = aebt;
+        bbits = ab;
+        bcost = acst;
+        bqc = salt;
+      }
+      int zzk = (zzi + 1) & 63;
+      int tk = (bflags >> zzk) & 1;
+      nxt[zzi][1] = (uint8_t)((zzk << 1) + tk);
+      tokv[zzi][1] = (int8_t)btok;
+      ebv[zzi][1] = (int16_t)bebt;
+      cost[zzi][1] = bcost + cost[zzk][tk];
+      bitsv[zzi][1] = bbits + bitsv[zzk][tk];
+      qcv[zzi][1] = (int16_t)bqc;
+      nzflags |= 1ull << zzi;
+      bflags |= 1ull << zzi;
+    }
+    zzj = zzi;
+    zzi--;
+  }
+
+  // Walk the winning path forward.
+  int ti = (bflags >> 1) & 1;
+  int64_t ac_bits = bitsv[1][ti];
+  int zi = 1;
+  int np = 0;
+  for (int z = 1; z < 64; z++) vals[z] = 0;
+  while (zi) {
+    int token = tokv[zi][ti];
+    if (token < 7) {
+      ac_bits -= bitsv[zi][ti];
+      path[np * 4 + 0] = (int16_t)zi;
+      path[np * 4 + 1] = 0;
+      path[np * 4 + 2] = 0;
+      path[np * 4 + 3] = 0;
+      np++;
+      break;
+    }
+    int nx = nxt[zi][ti];
+    int qc = qcv[zi][ti];
+    path[np * 4 + 0] = (int16_t)zi;
+    path[np * 4 + 1] = (int16_t)token;
+    path[np * 4 + 2] = ebv[zi][ti];
+    path[np * 4 + 3] = (int16_t)qc;
+    np++;
+    if (qc) vals[((nx >> 1) - 1) & 63] = (int16_t)qc;
+    zi = nx >> 1;
+    ti = nx & 1;
+  }
+  if (np < 66) path[np * 4 + 0] = -1;
+  return ac_bits;
+}
+
+// Replays a plan into the streams, weaving in the DC slot (the
+// counterpart of TokenLog.emit_trellis; the reference instead rewrites
+// stacks after DC prediction, tokenize.c:1076-1309).
+static void emit_plan(EncStreams& es, int pli, int dc, const int16_t* path) {
+  bool first_ac = true;
+  if (dc != 0) {
+    int t, e;
+    value_token(dc, &t, &e);
+    log_token(es, pli, 0, t, e);
+    first_ac = false;
+  }
+  for (int np = 0; np < 66; np++) {
+    int zzi = path[np * 4 + 0];
+    if (zzi < 0) return;  // ran off the end (position 63 coded)
+    int token = path[np * 4 + 1];
+    int eb = path[np * 4 + 2];
+    int qc = path[np * 4 + 3];
+    if (token < 7) {
+      int stream = first_ac ? 0 : zzi;
+      int64_t run = es.eob_run[pli][stream] + 1;
+      if (run >= 4095) {
+        es.toks[pli][stream].push_back(6);
+        es.ebs[pli][stream].push_back((int)run);
+        run = 0;
+      }
+      es.eob_run[pli][stream] = run;
+      return;
+    }
+    if (first_ac) {
+      first_ac = false;
+      if (token == 7 || token == 8) {
+        int run = eb + 2;  // extend over the zero DC
+        log_token(es, pli, 0, run <= 8 ? 7 : 8, run - 1);
+      } else if (token >= 23) {
+        int nzeros;
+        if (token <= 27) nzeros = token - 23 + 1;
+        else if (token == 28) nzeros = 6 + (eb & 3);
+        else if (token == 29) nzeros = 10 + (eb & 7);
+        else if (token == 30) nzeros = 1;
+        else nzeros = 2 + (eb & 1);
+        int t, e;
+        combo_token(nzeros + 1, qc, &t, &e);
+        log_token(es, pli, 0, t, e);
+      } else {
+        int t, e;
+        if (combo_token(1, qc, &t, &e)) {
+          log_token(es, pli, 0, t, e);
+        } else {
+          log_token(es, pli, 0, 7, 0);  // ZRL run of 1
+          log_token(es, pli, zzi, token, eb);
+        }
+      }
+    } else {
+      log_token(es, pli, zzi, token, eb);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Phase 1: plan one plane's blocks. dct/qdct: [n][64] int16 (qdct
+// round-to-nearest in, AC rewritten to the chosen values out); dq0/dq1:
+// intra/inter dequant rows; qti: per-block 0/1; nbt: [5][32] bit costs;
+// outputs acbits[n], err2[n] (full-block coding error), paths [n][66][4].
+static void trellis_plan_range(int64_t lo, int64_t hi, const int16_t* dct,
+                               int16_t* qdct, const int32_t* dq0,
+                               const int32_t* dq1, const int32_t* qti,
+                               int64_t lam, const int64_t* nbt,
+                               int64_t* acbits, int64_t* err2,
+                               int16_t* paths, const int64_t* lam_b = nullptr) {
+  for (int64_t i = lo; i < hi; i++) {
+    const int32_t* dq = qti[i] ? dq1 : dq0;
+    int16_t* row = qdct + i * 64;
+    int16_t vals[64];
+    acbits[i] = trellis_block(dct + i * 64, row, dq,
+                              lam_b ? lam_b[i] : lam, qti[i] ? 0 : 3,
+                              nbt, paths + i * 66 * 4, vals);
+    int64_t e2 = 0;
+    const int16_t* drow = dct + i * 64;
+    for (int z = 1; z < 64; z++) row[z] = vals[z];
+    for (int z = 0; z < 64; z++) {
+      int64_t d = (int64_t)drow[z] - (int64_t)row[z] * dq[z];
+      e2 += d * d;
+    }
+    err2[i] = e2;
+  }
+}
+
+void th_trellis_plan_blocks(int64_t n, const int16_t* dct, int16_t* qdct,
+                            const int32_t* dq0, const int32_t* dq1,
+                            const int32_t* qti, int64_t lam,
+                            const int64_t* nbt, int64_t* acbits,
+                            int64_t* err2, int16_t* paths) {
+  // Blocks are independent (cross-block EOB-run coupling lives in the
+  // phase-2 replay): split large batches across cores.  Output ranges
+  // are disjoint, so no synchronization is needed.
+  unsigned hw = std::thread::hardware_concurrency();
+  int nthreads = (int)(hw ? hw : 1);
+  if (nthreads > 4) nthreads = 4;
+  if (n < 4096 || nthreads < 2) {
+    trellis_plan_range(0, n, dct, qdct, dq0, dq1, qti, lam, nbt, acbits,
+                       err2, paths);
+    return;
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; t++) {
+    int64_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    ts.emplace_back(trellis_plan_range, lo, hi, dct, qdct, dq0, dq1, qti,
+                    lam, nbt, acbits, err2, paths, nullptr);
+  }
+  for (auto& t : ts) t.join();
+}
+
+// Per-block-lambda variant: the activity-masking tier hands each block
+// its own R/D lambda (rd_iscale semantics, analyze.c:1256-1340 --
+// busy blocks prune harder, calm blocks keep more coefficients).
+void th_trellis_plan_blocks_lam(int64_t n, const int16_t* dct,
+                                int16_t* qdct, const int32_t* dq0,
+                                const int32_t* dq1, const int32_t* qti,
+                                const int64_t* lam_b, const int64_t* nbt,
+                                int64_t* acbits, int64_t* err2,
+                                int16_t* paths) {
+  unsigned hw = std::thread::hardware_concurrency();
+  int nthreads = (int)(hw ? hw : 1);
+  if (nthreads > 4) nthreads = 4;
+  if (n < 4096 || nthreads < 2) {
+    trellis_plan_range(0, n, dct, qdct, dq0, dq1, qti, 0, nbt, acbits,
+                       err2, paths, lam_b);
+    return;
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; t++) {
+    int64_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    ts.emplace_back(trellis_plan_range, lo, hi, dct, qdct, dq0, dq1, qti,
+                    (int64_t)0, nbt, acbits, err2, paths, lam_b);
+  }
+  for (auto& t : ts) t.join();
+}
+
+// Phase 2: replay the plans and pack the residual section.
+// Permuted variant: per-plane plan arrays stay in quantize (raster) order;
+// perm maps scan position -> raster index, and dc values come per plane in
+// scan order. Avoids the Python-side scatter/gather of the path tensors.
+int64_t th_encode_frame_trellis_perm(
+    const int16_t* paths0, const int16_t* paths1, const int16_t* paths2,
+    const int32_t* perm0, const int32_t* perm1, const int32_t* perm2,
+    const int32_t* dc0, const int32_t* dc1, const int32_t* dc2,
+    const int64_t* ncoded, const int32_t* huff_codes, const uint8_t* prefix,
+    int64_t prefix_bits, uint8_t* out, int64_t cap, int32_t* chosen_out) {
+  EncStreams es;
+  memset(es.eob_run, 0, sizeof(es.eob_run));
+  memset(es.offs, 0, sizeof(es.offs));
+  const int16_t* paths[3] = {paths0, paths1, paths2};
+  const int32_t* perm[3] = {perm0, perm1, perm2};
+  const int32_t* dc[3] = {dc0, dc1, dc2};
+  for (int pli = 0; pli < 3; pli++)
+    for (int64_t f = 0; f < ncoded[pli]; f++)
+      emit_plan(es, pli, dc[pli][f],
+                paths[pli] + (int64_t)perm[pli][f] * 66 * 4);
+  return finish_and_pack(es, huff_codes, prefix, prefix_bits, out, cap,
+                         chosen_out);
+}
+
+}  // extern "C"

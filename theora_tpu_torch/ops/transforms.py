@@ -32,6 +32,7 @@ from theora_tpu_torch.constants import (
     C7S1,
     ZIGZAG_TO_NAT,
 )
+from theora_tpu_torch.debug import DEBUG as _DBG
 
 _ZZ = torch.from_numpy(ZIGZAG_TO_NAT)
 # The JAX package's float32 "infinite" cost (transforms_jax._BIG).
@@ -48,8 +49,16 @@ def _segments(deq: torch.Tensor, nblocks: int):
 
 
 def _i16(x: torch.Tensor) -> torch.Tensor:
-    """int16 wraparound in the int32 domain."""
-    return ((x + 0x8000) & 0xFFFF) - 0x8000
+    """int16 wraparound in the int32 domain.
+
+    On legal streams the wrap is the identity; THEORA_TPU_DEBUG=1 arms an
+    assertion that it stayed one (theora_tpu_torch/debug.py)."""
+    w = ((x + 0x8000) & 0xFFFF) - 0x8000
+    if _DBG:
+        from theora_tpu_torch.debug import check_wrap
+
+        w = check_wrap(w, x, "transforms._i16")
+    return w
 
 
 def _mul16(c: int, x: torch.Tensor) -> torch.Tensor:
