@@ -160,10 +160,26 @@ and prints no result line):
    intra96x64_aq_enc and F5's intra64x48_f5_enc (rate control: K2 per
    frame at its own qi).
 
+12. the host Encoder (encode/encoder.py), its inter path with the closed
+   loop decoded on the card (PacketDecoder: K1's decode entry, MC, loop
+   filter, borders): (a) the 16 720p frames at q48 "auto", a keyframe
+   every 8, through Encoder(device="cuda"): the 19 packets against
+   hd720_host_q48_k8_enc.sha256 (the JAX host Encoder's), a warm pass with
+   the counts reset (K1's decode entry only, at most 3 launches per
+   decoded packet), its wall split into ME and mode decision, the closed
+   loop's decode and download, and transform, trellis and packing, PSNR;
+   (b) parallel/transcode.py on two threads over the same frames, against
+   the same list; (c) parallel/distributed.py in two local "gloo"
+   processes both on the card, rank 0's packets against the list, the
+   workers' K1 counts summed; (d) every 64x48 and 96x64 HOST_CASES case
+   against host64x48_enc and host96x64_aq_enc (q40 filters in the closed
+   loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
+   on the 64x48 clip against its lines of host64x48_enc.
+
 Then one JSON line listing the four kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
-transcode, the per-packet decode and the mesh; the one launch over 3
-segments beside 3 launches), the
+transcode, the per-packet decode, the mesh and the host Encoder's paths;
+the one launch over 3 segments beside 3 launches), the
 card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
@@ -1854,6 +1870,246 @@ def intra_small() -> None:
         f"qis {_frame_qis(pkts)}")
 
 
+def _host_info(mk, case: str):
+    from theora_tpu_torch.info import TheoraInfo
+
+    _, w, h, fmt, qi, *_ = mk.HOST_CASES[case]
+    return TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
+                      pic_height=h, quality=qi, pixel_fmt=fmt)
+
+
+def _host_encode(mk, case: str, device="cuda", frames=None):
+    """A HOST_CASES case (its frames unless given) through one host
+    Encoder on device: (headers + packets, the encoder)."""
+    from theora_tpu_torch.encode.encoder import Encoder
+
+    kind, *_, mode, splevel, kf = mk.HOST_CASES[case]
+    if frames is None:
+        frames = mk.host_frames(kind)
+    enc = Encoder(_host_info(mk, case), device=device)
+    enc.keyframe_freq = kf
+    enc.adaptive_quant = mode
+    if splevel:
+        enc.set_splevel(splevel)
+    pkts = enc.flush_headers() + [
+        enc.encode_frame(f, e_o_s=i == len(frames) - 1)
+        for i, f in enumerate(frames)]
+    return pkts, enc
+
+
+def _k1_decode_only(what: str) -> int:
+    """K1's decode-entry launches since _reset_counts; no other kernel may
+    have run (the host path quantizes and plans natively)."""
+    c = _counts_all()
+    others = {k: v for k, v in c.items() if k != "K1 decode" and v}
+    if others:
+        raise AssertionError(f"{what}: launches {others} besides K1's "
+                             f"decode entry")
+    return c["K1 decode"]
+
+
+def host_encode_720p(smi: str) -> int:
+    """12 (a): the host Encoder (encode/encoder.py) on the card, the 16
+    720p frames at q48 "auto", a keyframe every 8: the 19 packets against
+    hd720_host_q48_k8_enc.sha256 (the JAX host Encoder's), a warm pass
+    with the counts reset just before it (K1's decode entry in the closed
+    loop only: at most 3 per decoded packet, 14 packets), its wall split
+    into ME and mode decision, the closed loop's decode and download, and
+    the rest (transform, trellis, packing); PSNR of the port's decode of
+    the packets. Returns K1's launches."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+
+    mk = _load_testdata("make_hd720_enc")
+    name = "hd720_host_q48_k8_enc"
+    frames = mk.hd_frames()
+    pkts, _ = _host_encode(mk, "hd720_q48", frames=frames)
+    _check_hashes(pkts, name, "first pass")
+    _reset_counts()
+    t0 = time.perf_counter()
+    pkts, enc = _host_encode(mk, "hd720_q48", frames=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = _k1_decode_only("host encode 720p")
+    n = _check_hashes(pkts, name, "warm pass")
+    decoded = sum(1 for i in range(len(pkts) - 4) if (i + 1) % mk.HD_KF)
+    if not 0 < k1 <= 3 * decoded:
+        raise AssertionError(f"host encode 720p: K1 {k1} launches; expected "
+                             f"1 to {3 * decoded} ({decoded} decoded "
+                             f"packets)")
+    dec = BatchDecoder(parse_info_header(pkts[0].data),
+                       parse_setup_header(pkts[2].data), device="cuda")
+    psnr = _psnr(frames, dec.decode_clip([p.data for p in pkts[3:]],
+                                         batch=8))
+    tm = enc.timing
+    rest = tm["frame_s"] - tm["analysis_s"] - tm["decode_s"]
+    nf = len(frames)
+    log(f"[host720p] host Encoder, q48 'auto', keyframe every {mk.HD_KF}: "
+        f"all {n} packet SHA-256 equal the JAX host Encoder's list; warm "
+        f"pass {wall:.4f} s = {nf / wall:.2f} frames/s; ME and mode "
+        f"decision {tm['analysis_s']:.4f} s, closed-loop decode and "
+        f"download {tm['decode_s']:.4f} s ({decoded} packets), transform, "
+        f"trellis and packing {rest:.4f} s; K1 decode-entry launches {k1}, "
+        f"no other kernel; PSNR {psnr:.3f} dB; "
+        f"{sum(len(p.data) for p in pkts[3:])} bytes | {smi}")
+    return k1
+
+
+def host_transcode_720p(smi: str) -> int:
+    """12 (b): parallel/transcode.py on threads (max_workers=2, one GOP
+    each) over the same frames on the card, against the same list.
+    Returns K1's launches."""
+    from theora_tpu_torch.parallel.transcode import transcode
+
+    mk = _load_testdata("make_hd720_enc")
+    frames = mk.hd_frames()
+    info = _host_info(mk, "hd720_q48")
+    _reset_counts()
+    t0 = time.perf_counter()
+    pkts = transcode(frames, info, keyframe_freq=mk.HD_KF, max_workers=2,
+                     device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = _k1_decode_only("host transcode 720p")
+    n = _check_hashes(pkts, "hd720_host_q48_k8_enc", "threads")
+    log(f"[host transcode720p] transcode(max_workers=2), 2 GOPs on threads: "
+        f"all {n} packets equal the sequential list; {wall:.4f} s = "
+        f"{len(frames) / wall:.2f} frames/s (first call of the path); K1 "
+        f"decode-entry launches {k1} | {smi}")
+    return k1
+
+
+_DIST_WORKER = r"""
+import importlib.util, os, pickle, sys
+root, rank, world, port, out = sys.argv[1], int(sys.argv[2]), \
+    int(sys.argv[3]), sys.argv[4], sys.argv[5]
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+spec = importlib.util.spec_from_file_location(
+    "mk", os.path.join(root, "testdata", "make_hd720_enc.py"))
+mk = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mk)
+from theora_tpu_torch.info import TheoraInfo
+from theora_tpu_torch.ops import idct_cuda
+from theora_tpu_torch.parallel.distributed import distributed_transcode
+kind, w, h, fmt, qi, mode, splevel, kf = mk.HOST_CASES["hd720_q48"]
+frames = mk.hd_frames()
+info = TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
+                  pic_height=h, quality=qi, pixel_fmt=fmt)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=world, rank=rank)
+pkts = distributed_transcode(frames, info, keyframe_freq=kf, device="cuda")
+torch.cuda.synchronize()
+dist.barrier()
+dist.destroy_process_group()
+with open(f"{out}.{rank}", "wb") as f:
+    pickle.dump({"k1": idct_cuda.dequantize_idct_frames.launches,
+                 "pkts": [p.data for p in pkts]}, f)
+"""
+
+
+def distributed_720p(smi: str) -> int:
+    """12 (c): parallel/distributed.py in two local "gloo" processes, both
+    encoding on cuda:0, over the same frames: rank 0's packets against
+    the list; each worker reports its K1 count, and the phase sums them.
+    Every process it starts is waited for or killed."""
+    import pickle
+    import socket
+    import tempfile
+
+    from theora_tpu_torch.tpkt import Packet
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = os.path.join(tmp, "dist")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DIST_WORKER, ROOT, str(r), "2", port,
+             out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=240)[0].decode(errors="replace")
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"distributed workers failed: "
+                                 f"{[lg[-1500:] for lg in logs]}")
+        res = []
+        for r in range(2):
+            with open(f"{out}.{r}", "rb") as f:
+                res.append(pickle.load(f))
+    if res[1]["pkts"]:
+        raise AssertionError("distributed: rank 1 returned packets")
+    n = _check_hashes([Packet(d) for d in res[0]["pkts"]],
+                      "hd720_host_q48_k8_enc", "distributed")
+    k1 = [r["k1"] for r in res]
+    if not all(k1):
+        raise AssertionError(f"distributed: K1 launches per rank {k1}")
+    log(f"[distributed720p] 2 gloo processes on one card: all {n} packets "
+        f"of rank 0 equal the sequential list; K1 decode-entry launches "
+        f"per rank {k1}, sum {sum(k1)}; {wall:.2f} s with the processes' "
+        f"start | {smi}")
+    return sum(k1)
+
+
+def host_small() -> None:
+    """12 (d): every 64x48 and 96x64 HOST_CASES case through the host
+    Encoder on the card against host64x48_enc and host96x64_aq_enc (q40
+    filters in the closed loop on the card)."""
+    mk = _load_testdata("make_hd720_enc")
+    for name, cases in (("host64x48_enc", mk.HOST_SMALL),
+                        ("host96x64_aq_enc", mk.HOST_AQ)):
+        n = _check_hashes([p for c in cases for p in _host_encode(mk, c)[0]],
+                          name, "cases")
+        log(f"[{name}] cases {list(cases)}: all {n} packets equal the JAX "
+            f"host Encoder's (SHA-256)")
+
+
+def enc_cli_workers(smi: str) -> None:
+    """12 (e): `python -m theora_tpu_torch.tools.enc -j 2` on the card:
+    transcode over two spawned processes, each encoding on the card, of
+    the 64x48 clip at q40, a keyframe every 4 (HOST_CASES "q40"); the
+    Ogg stream's packets against the case's lines of host64x48_enc."""
+    import tempfile
+
+    from theora_tpu_torch.ogg import demux_stream
+    from theora_tpu_torch.tools.y4m import write_y4m
+
+    mk = _load_testdata("make_hd720_enc")
+    kind, _, _, _, qi, _, _, kf = mk.HOST_CASES["q40"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        src, out = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "out.ogv")
+        write_y4m(src, mk.host_frames(kind))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "theora_tpu_torch.tools.enc", "-j", "2",
+             "-q", str(qi), "-k", str(kf), src, out], cwd=ROOT,
+            capture_output=True, text=True, timeout=240)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"enc -j 2 failed: {r.stderr[-1500:]}")
+        with open(out, "rb") as f:
+            pkts = demux_stream(f.read())
+    with open(os.path.join(TESTDATA, "host64x48_enc.sha256")) as f:
+        want = f.read().split()[:len(pkts)]
+    if len(pkts) != 3 + len(mk.host_frames(kind)) or \
+            _packet_hashes(pkts) != want:
+        raise AssertionError("enc -j 2: packets differ from host64x48_enc")
+    log(f"[enc -j 2] 64x48 q{qi}, keyframe every {kf}, two spawned "
+        f"processes on the card: all {len(pkts)} packets equal the list; "
+        f"{wall:.2f} s with the processes' start ({r.stderr.strip()}) | "
+        f"{smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1894,11 +2150,18 @@ def main() -> int:
     paths["intra core"] = (intra_core[0], intra_core[1], 0, 0)
     paths["intra encode"] = (*intra_encode_720p(smi), 0, 0)
     intra_small()
+    # The host Encoder's slice: its inter path with the closed loop on the
+    # card (K1's decode entry), and the GOP-parallel transcodes over it.
+    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0)
+    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0)
+    paths["distributed"] = (distributed_720p(smi), 0, 0, 0)
+    host_small()
+    enc_cli_workers(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
     # the mesh, the intra core; K2 on those encode paths and the batch
     # intra encoder; KT on the encode, the transcode and the mesh.
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
-                  "intra core", "intra encode")
+                  "intra core", "intra encode", "host encode")
     k1["launches"] = k1_decode + sum(paths[p][0] for p in main_paths)
     k2["launches"] = sum(paths[p][1] for p in main_paths)
     kt["launches"] = sum(paths[p][2] for p in main_paths)

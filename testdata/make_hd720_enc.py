@@ -117,6 +117,31 @@ differ); INTRA_CASES names each case's frames and settings:
   frame, so every frame takes the device's fDCT + quantization),
   chip_smoke.py only.
 
+Three hold the host Encoder's inter path with its closed loop on the
+card (theora_tpu_torch.encode.encoder.Encoder, and through it
+theora_tpu_torch.parallel's GOP-parallel transcodes), made by the JAX
+host Encoder at each case's keyframe spacing; HOST_CASES names each
+case's frames and settings. Where a case runs at the JAX Encoder's
+defaults, JAX's parallel transcode over threads (max_workers=4) and over
+processes (max_workers=2) must give the same list (the generator raises
+where they differ):
+
+- host64x48_enc.sha256: the 64x48 cases of HOST_SMALL in that order,
+  headers and packets each: clip64x48_frames(8) at a keyframe every 4, at
+  q40 (the loop filter runs in the closed loop), q48 and q60 (where
+  "auto" engages the inter qi triple), adaptive_quant True at q40 and
+  False at q48, speed levels 1-4 at q40 (speed 4 fires the auto-keyframe
+  retry); moving_frames() in pixel formats 2 and 3 at q40, a keyframe
+  every 3; scene_cut_frames() at q40, keyframe_freq 64, where the retry
+  fires at two of its three cuts;
+- host96x64_aq_enc.sha256: mixed_frames() at q40 and halftexture_frames()
+  at q48, "auto", one GOP (per-block lambda scales on inter frames);
+- hd720_host_q48_k8_enc.sha256: the 16 720p frames at q48 "auto", a
+  keyframe every 8, chip_smoke.py only.
+
+cut_frames() is not among them: its inverted frame codes smaller than
+the keyframe at every qi, so the retry never fires there.
+
 The 720p mesh is checked against the sequential lists (CHECKS): JAX's
 encode_clip_mesh of hd_frames() at q56 "auto", keyframe every 8, on
 make_mesh(2), and MeshGopEncoder(make_mesh(2)) at q48 with
@@ -274,6 +299,59 @@ def intra_frames(kind: str):
         return moving_frames(64, 48, fmt, INTRA_FRAMES, 11 + fmt)
     return {"mixed": mixed_frames, "halftex": halftexture_frames,
             "hd": hd_frames}[kind]()
+
+
+# The host Encoder's cases: name -> (frames, width, height, pixel format,
+# qi, adaptive_quant, speed level, keyframe_freq).
+HOST_CASES = {
+    "q40": ("clip8", 64, 48, 0, 40, "auto", 0, 4),
+    "q48": ("clip8", 64, 48, 0, 48, "auto", 0, 4),
+    "q60": ("clip8", 64, 48, 0, 60, "auto", 0, 4),
+    "aq_on_q40": ("clip8", 64, 48, 0, 40, True, 0, 4),
+    "aq_off_q48": ("clip8", 64, 48, 0, 48, False, 0, 4),
+    "sp1_q40": ("clip8", 64, 48, 0, 40, "auto", 1, 4),
+    "sp2_q40": ("clip8", 64, 48, 0, 40, "auto", 2, 4),
+    "sp3_q40": ("clip8", 64, 48, 0, 40, "auto", 3, 4),
+    "sp4_q40": ("clip8", 64, 48, 0, 40, "auto", 4, 4),
+    "fmt2_q40": ("moving2", 64, 48, 2, 40, "auto", 0, 3),
+    "fmt3_q40": ("moving3", 64, 48, 3, 40, "auto", 0, 3),
+    "cut_q40": ("scenecut", 64, 48, 0, 40, "auto", 0, 64),
+    "mixed_q40": ("mixed", 96, 64, 0, 40, "auto", 0, 4),
+    "halftex_q48": ("halftex", 96, 64, 0, 48, "auto", 0, 4),
+    "hd720_q48": ("hd", 1280, 720, 0, HD_QI, "auto", 0, HD_KF),
+}
+HOST_SMALL = ("q40", "q48", "q60", "aq_on_q40", "aq_off_q48", "sp1_q40",
+              "sp2_q40", "sp3_q40", "sp4_q40", "fmt2_q40", "fmt3_q40",
+              "cut_q40")
+HOST_AQ = ("mixed_q40", "halftex_q48")
+SCENE_CUTS, SCENE_FRAMES = (0, 5, 8, 14), 18
+
+
+def host_frames(kind: str):
+    if kind == "clip8":
+        return clip64x48_frames(8)
+    if kind == "scenecut":
+        return scene_cut_frames()
+    return intra_frames(kind)
+
+
+def scene_cut_frames():
+    """The 64x48 clip of tests/test_distributed.py:
+    test_four_process_scene_cut_gops_with_killed_worker: four random
+    scenes cut at SCENE_CUTS, a flat bar moving across each, flat chroma
+    that changes at the cuts."""
+    w, h = 64, 48
+    rng = np.random.RandomState(5)
+    scenes = [rng.randint(0, 256, (h, w)).astype(np.uint8)
+              for _ in range(4)]
+    frames = []
+    for i in range(SCENE_FRAMES):
+        si = sum(1 for b in SCENE_CUTS if b <= i) - 1
+        y = scenes[si].copy()
+        y[:, (3 * i) % (w - 8):(3 * i) % (w - 8) + 8] = 128
+        frames.append([y, np.full((h // 2, w // 2), 90 + si, np.uint8),
+                       np.full((h // 2, w // 2), 160 - si, np.uint8)])
+    return frames
 
 
 def cut_frames():
@@ -523,6 +601,38 @@ def _intra(case, target_bitrate=0, check_batch=True):
     return host
 
 
+def _host(case):
+    """Headers + packets of the JAX host Encoder on a HOST_CASES case at
+    its keyframe spacing; where the case runs at the Encoder's defaults,
+    JAX's GOP-parallel transcode over threads and over processes must
+    give the same packets."""
+    from theora_tpu.encode.encoder import Encoder
+    from theora_tpu.info import TheoraInfo
+    from theora_tpu.parallel.transcode import transcode
+
+    kind, w, h, fmt, qi, mode, splevel, kf = HOST_CASES[case]
+    frames = host_frames(kind)
+    info = TheoraInfo(frame_width=w, frame_height=h, pic_width=w,
+                      pic_height=h, quality=qi, pixel_fmt=fmt)
+    enc = Encoder(info)
+    enc.keyframe_freq = kf
+    enc.adaptive_quant = mode
+    if splevel:
+        enc.set_splevel(splevel)
+    host = enc.flush_headers() + [
+        enc.encode_frame(f, e_o_s=i == len(frames) - 1)
+        for i, f in enumerate(frames)]
+    want = [(p.data, p.granulepos, p.e_o_s) for p in host]
+    if mode == "auto" and not splevel:
+        for kw in ({"max_workers": 4}, {"max_workers": 2,
+                                        "use_processes": True}):
+            got = transcode(frames, info, keyframe_freq=kf, **kw)
+            if [(p.data, p.granulepos, p.e_o_s) for p in got] != want:
+                raise AssertionError(f"host {case}: JAX's transcode {kw} "
+                                     "differs from its host Encoder")
+    return [p.data for p in host]
+
+
 def _write(name, pkts):
     datas = [p if isinstance(p, bytes) else p.data for p in pkts]
     lines = [hashlib.sha256(d).hexdigest() for d in datas]
@@ -614,6 +724,11 @@ LISTS = {
     "intra64x48_f5_enc.sha256": lambda: _intra(
         F5_CASE, target_bitrate=F5_RATE, check_batch=False),
     "hd720_intra_q48_enc.sha256": lambda: _intra("hd720_q48"),
+    "host64x48_enc.sha256": lambda: [
+        p for c in HOST_SMALL for p in _host(c)],
+    "host96x64_aq_enc.sha256": lambda: [
+        p for c in HOST_AQ for p in _host(c)],
+    "hd720_host_q48_k8_enc.sha256": lambda: _host("hd720_q48"),
 }
 
 

@@ -337,6 +337,62 @@ def test_batch_intra_on_card_equals_cpu(card, case, rate):
     assert out[0] == out[1]
 
 
+def test_host_encoder_on_card_equals_cpu(card):
+    """The host Encoder at 64x48 q40, a keyframe every 4 (the loop filter
+    runs in the closed loop): its references decoded on the card and on
+    the CPU give the same packets, and K1's decode entry runs on the
+    card."""
+    from theora_tpu_torch.encode.encoder import Encoder
+    from theora_tpu_torch.info import TheoraInfo
+
+    mk = _intra_cases()
+    kind, w, h, fmt, qi, mode, splevel, kf = mk.HOST_CASES["q40"]
+    frames = mk.host_frames(kind)
+    out = []
+    before = idct_cuda.dequantize_idct_frames.launches
+    for dev in ("cuda", "cpu"):
+        enc = Encoder(TheoraInfo(
+            frame_width=w, frame_height=h, pic_width=w, pic_height=h,
+            quality=qi, pixel_fmt=fmt), device=dev)
+        enc.keyframe_freq = kf
+        enc.adaptive_quant = mode
+        out.append([(p.data, p.granulepos) for p in enc.flush_headers() + [
+            enc.encode_frame(f) for f in frames]])
+    assert out[0] == out[1]
+    assert idct_cuda.dequantize_idct_frames.launches > before
+
+
+def test_threaded_transcode_counts_every_k1_launch(card):
+    """Eight threads of parallel/transcode.py on the card, with the
+    interpreter switching threads every microsecond: K1's launch count
+    (a read-modify-write under a lock) equals the sequential run's, and
+    the packets are the same."""
+    import sys
+
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.parallel.transcode import transcode
+
+    mk = _intra_cases()
+    frames = mk.moving_frames(64, 48, 0, 16, 11)
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=40)
+    runs = []
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for workers in (1, 8):
+            before = idct_cuda.dequantize_idct_frames.launches
+            pkts = transcode(frames, info, keyframe_freq=2,
+                             max_workers=workers, device="cuda")
+            torch.cuda.synchronize()
+            runs.append(([p.data for p in pkts],
+                         idct_cuda.dequantize_idct_frames.launches - before))
+    finally:
+        sys.setswitchinterval(saved)
+    assert runs[0] == runs[1]
+    assert runs[0][1] > 0
+
+
 def test_pipeline_cores_on_card_equal_cpu(card):
     """The three cores on the card (K2, K1's decode entry) give the CPU
     path's integers."""

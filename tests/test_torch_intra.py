@@ -156,14 +156,17 @@ def test_k2_runs_once_per_plane_per_batch_on_frames_that_use_it(
     assert calls == [48, 12, 12] * single
 
 
-def test_non_keyframe_raises():
+def test_inter_frame_under_target_bitrate_raises():
+    """An inter frame under a target bitrate (the host rate control's
+    frame drop is not ported); without one it encodes
+    (tests/test_torch_host_inter.py)."""
     from theora_tpu_torch.encode.encoder import Encoder
 
-    enc = Encoder(TheoraInfo(**_kw("q40")))
+    enc = Encoder(TheoraInfo(**_kw("q40", mk.F5_RATE)), device="cpu")
     enc.keyframe_freq = 4
     frames = mk.clip64x48_frames(2)
     enc.encode_frame(frames[0])
-    with pytest.raises(NotImplementedError, match="9c"):
+    with pytest.raises(NotImplementedError, match="target bitrate"):
         enc.encode_frame(frames[1])
 
 

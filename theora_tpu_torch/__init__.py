@@ -4,9 +4,12 @@ The decoders: the GOP-batch decoder (``decode/batch.py``) and the
 per-packet decoder on its references (``decode/scalar.py``). The device
 GOP encoder (``encode/gop.py``) with every setting of the JAX one (speed
 levels, adaptive quantization, scene cuts, CBR, 2-pass), its three
-stages and the device-resident transcode; and the mesh GOP encoder
+stages and the device-resident transcode; the mesh GOP encoder
 (``parallel/gop.py``), which runs a batch of GOPs side by side on one
-card. Their hand-written CUDA kernels (``csrc/``): K1, dequant + iDCT
+card; the all-keyframe batch encoder (``encode/intra.py``); and the host
+encoder (``encode/encoder.py``), whose closed loop decodes on the card,
+with the GOP-parallel transcodes over it (``parallel/transcode.py``,
+``parallel/distributed.py``). Their hand-written CUDA kernels (``csrc/``): K1, dequant + iDCT
 (the decode's, and the encode's through reconstruction and the qi
 chooser); K2, fDCT + quantization; KT, the trellis; KR, the R/D
 quantizer. The package imports neither JAX nor ``theora_tpu``: it keeps

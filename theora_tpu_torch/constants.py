@@ -112,3 +112,40 @@ HUFF_LIST_MAX = [1, 6, 15, 28, 64]
 # `_ZZI_GROUP`.
 ZZI_GROUP = np.searchsorted(np.asarray(HUFF_LIST_MAX), np.arange(64),
                             side="right")
+
+# Integer and half-pel components of MV offsets (state.c:901-928):
+# index by (precision, mv_component + 31).
+MVMAP = np.array(
+    [
+        [
+            -15, -15, -14, -14, -13, -13, -12, -12, -11, -11, -10, -10, -9,
+            -9, -8, -8, -7, -7, -6, -6, -5, -5, -4, -4, -3, -3, -2, -2, -1,
+            -1, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9,
+            9, 10, 10, 11, 11, 12, 12, 13, 13, 14, 14, 15, 15,
+        ],
+        [
+            -7, -7, -7, -7, -6, -6, -6, -6, -5, -5, -5, -5, -4, -4, -4, -4,
+            -3, -3, -3, -3, -2, -2, -2, -2, -1, -1, -1, -1, 0, 0, 0, 0, 0,
+            0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5,
+            5, 6, 6, 6, 6, 7, 7, 7, 7,
+        ],
+    ],
+    dtype=np.int32,
+)
+MVMAP2 = np.array(
+    [
+        [
+            -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0,
+            -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, 1, 0, 1, 0, 1,
+            0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0,
+            1, 0, 1, 0, 1,
+        ],
+        [
+            -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1,
+            -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, 1, 1,
+            1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1,
+            0, 1, 1, 1, 0, 1, 1, 1,
+        ],
+    ],
+    dtype=np.int32,
+)

@@ -29,8 +29,10 @@ import torch
 from torch.profiler import record_function
 
 from theora_tpu_torch import resolve_device, transfer
-from theora_tpu_torch.constants import FRAME_GOLD, FRAME_PREV, FRAME_SELF
-from theora_tpu_torch.decode.decoder import Decoder, _MVMAP, _MVMAP2
+from theora_tpu_torch.constants import (
+    FRAME_GOLD, FRAME_PREV, FRAME_SELF, MVMAP, MVMAP2,
+)
+from theora_tpu_torch.decode.decoder import Decoder
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME
 from theora_tpu_torch.native import dc_predict_native
 from theora_tpu_torch.ops import idct_cuda
@@ -145,8 +147,8 @@ class BatchDecoder(Decoder):
                           np.where(refi == FRAME_GOLD, 2, 1))
             dx = side["mv"][sl, 0] + 31
             dy = side["mv"][sl, 1] + 31
-            mx, mx2 = _MVMAP[qpx][dx], _MVMAP2[qpx][dx]
-            my, my2 = _MVMAP[qpy][dy], _MVMAP2[qpy][dy]
+            mx, mx2 = MVMAP[qpx][dx], MVMAP2[qpx][dx]
+            my, my2 = MVMAP[qpy][dy], MVMAP2[qpy][dy]
             coded = side["coded"][sl]
             frag[fi, _QII] = side["qii"][sl]
             frag[fi, _INTER] = refi != FRAME_SELF

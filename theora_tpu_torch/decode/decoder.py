@@ -2,8 +2,7 @@
 
 Port of the part of theora_tpu/decode/decoder.py that
 `theora_tpu.decode.tpu_batch.TpuBatchDecoder` inherits from `Decoder`: the
-MV offset tables (`_MVMAP`/`_MVMAP2`, state.c:901-928), the dequant
-tables, the reference slots and frame counters with `_update_granpos`,
+dequant tables, the reference slots and frame counters with `_update_granpos`,
 and the native side-info parse `_parse_sideinfo_native`
 (decode.c:442-981). The scalar `decode_packet`, postprocessing and
 telemetry are not in this slice. Frames are in bitstream orientation
@@ -19,44 +18,6 @@ from theora_tpu_torch.headers import SetupInfo
 from theora_tpu_torch.info import INTRA_FRAME, TheoraInfo
 from theora_tpu_torch.native import NativeEntropy, get_lib
 from theora_tpu_torch.quant import dequant_tables_init
-
-# Integer and half-pel components of MV offsets (state.c:901-928):
-# index by (precision, mv_component + 31).
-_MVMAP = np.array(
-    [
-        [
-            -15, -15, -14, -14, -13, -13, -12, -12, -11, -11, -10, -10, -9,
-            -9, -8, -8, -7, -7, -6, -6, -5, -5, -4, -4, -3, -3, -2, -2, -1,
-            -1, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9,
-            9, 10, 10, 11, 11, 12, 12, 13, 13, 14, 14, 15, 15,
-        ],
-        [
-            -7, -7, -7, -7, -6, -6, -6, -6, -5, -5, -5, -5, -4, -4, -4, -4,
-            -3, -3, -3, -3, -2, -2, -2, -2, -1, -1, -1, -1, 0, 0, 0, 0, 0,
-            0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5,
-            5, 6, 6, 6, 6, 7, 7, 7, 7,
-        ],
-    ],
-    dtype=np.int32,
-)
-_MVMAP2 = np.array(
-    [
-        [
-            -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0,
-            -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, 1, 0, 1, 0, 1,
-            0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0,
-            1, 0, 1, 0, 1,
-        ],
-        [
-            -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1,
-            -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, 1, 1,
-            1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1,
-            0, 1, 1, 1, 0, 1, 1, 1,
-        ],
-    ],
-    dtype=np.int32,
-)
-
 
 class Decoder:
     """Stream-level decoder state (th_dec_ctx analogue) without a pixel

@@ -65,10 +65,11 @@ from theora_tpu_torch.constants import (
     MODE_INTER_MV_LAST2,
     MODE_INTER_NOMV,
     MODE_INTRA,
+    MVMAP,
+    MVMAP2,
     ZZI_GROUP,
 )
 from theora_tpu_torch.decode.batch import BatchDecoder
-from theora_tpu_torch.decode.decoder import _MVMAP, _MVMAP2
 from theora_tpu_torch.encode import aq
 from theora_tpu_torch.encode.packer import FramePacker
 from theora_tpu_torch.encode.rate import RateControl, twopass_window_qvecs
@@ -378,8 +379,8 @@ class GopEncoder:
         rs = refsel[sl]
         dx = frag_mv[sl, 0] + 31
         dy = frag_mv[sl, 1] + 31
-        mx, mx2 = _MVMAP[qpx][dx], _MVMAP2[qpx][dx]
-        my, my2 = _MVMAP[qpy][dy], _MVMAP2[qpy][dy]
+        mx, mx2 = MVMAP[qpx][dx], MVMAP2[qpx][dx]
+        my, my2 = MVMAP[qpy][dy], MVMAP2[qpy][dy]
         return dict(rs=rs, o1y=my, o1x=mx, o2y=my + my2, o2x=mx + mx2,
                     u2=((mx2 != 0) | (my2 != 0)) & (rs != 0),
                     ms=may_skip[sl])

@@ -52,7 +52,7 @@ class BatchIntraEncoder:
     def __init__(self, info: TheoraInfo, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.info = info
-        self.enc = Encoder(info)
+        self.enc = Encoder(info, device=self.device)
         self.enc.keyframe_freq = 1
         self.timing = {}
 

@@ -7,7 +7,10 @@ parser. Encode: `NativeTokenPacker.pack_frame`, `dc_residuals_native`,
 `coded_flags_pack_native`, `mb_modes_pack_native` and
 `mode_decide_native`; the host encoder's keyframe path:
 `fdct_quantize_rd_native`, `trellis_plan_blocks_native` and
-`NativeTokenPacker.pack_frame_trellis_perm`. The library is built with g++ from entropy.cpp at
+`NativeTokenPacker.pack_frame_trellis_perm`; its inter path:
+`motion_estimate_native`, `me_block_refine_native`,
+`mode_decide_fill_native`, `sad_batch_native`, `enc_residuals_native` and
+`ssd8_plane_native`. The library is built with g++ from entropy.cpp at
 first use into ``native/build/``, with the JAX package's flags (the mode
 decision's double-precision costs then compile to the same instructions).
 A failed build or a missing symbol raises: the port has no pure-Python
@@ -106,6 +109,31 @@ def get_lib():
     lib.th_encode_frame_trellis_perm.restype = _I64
     lib.th_encode_frame_trellis_perm.argtypes = [_P] * 12 + [_I64, _P, _I64,
                                                              _P]
+    # The inter path (theora_tpu/native/__init__.py:434-452, 534-577,
+    # 665-719, 858-882).
+    me = [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P, _P, _I64]
+    for name, extra in (("th_me_fullpel", [_P, _P, ctypes.c_int]),
+                        ("th_me_propagate", [_P, _P, ctypes.c_int,
+                                             ctypes.c_int]),
+                        ("th_me_halfpel", [ctypes.c_int, _P, _P]),
+                        ("th_me_refine", [ctypes.c_int, _P, _P,
+                                          ctypes.c_int, ctypes.c_int])):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = me + extra
+    lib.th_mode_decide_fill.restype = None
+    lib.th_mode_decide_fill.argtypes = (
+        [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _I64] + [_P] * 11
+        + [ctypes.c_int, ctypes.c_double, ctypes.c_double] + [_P] * 5)
+    lib.th_sad_batch.restype = None
+    lib.th_sad_batch.argtypes = [_P, ctypes.c_int, _P, ctypes.c_int, _I64,
+                                 _P, _P, _P, _P, ctypes.c_int, _P]
+    lib.th_enc_residuals.restype = None
+    lib.th_enc_residuals.argtypes = (
+        [_P, ctypes.c_int, _P, _P, ctypes.c_int, _I64] + [_P] * 8
+        + [ctypes.c_int, ctypes.c_int, _P])
+    lib.th_ssd8_plane.restype = None
+    lib.th_ssd8_plane.argtypes = [_P, _P, _I64, _I64, _I64, _P]
     lib.th_parse_frame_sideinfo.restype = _I64
     lib.th_parse_frame_sideinfo.argtypes = [
         _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P,
@@ -376,3 +404,147 @@ def trellis_plan_blocks_native(dct16, qdct, dq0, dq1, qti, lam, nbt):
     else:
         lib.th_trellis_plan_blocks(n, *args, int(lam), *outs)
     return paths, acbits, err2
+
+
+# ----------------------------------------------------------------------
+# The host encoder's inter path.
+
+
+def _me_args(cur, ref_padded, by, bx):
+    """The leading arguments of the ME calls and the arrays they point
+    into (kept alive by the caller)."""
+    cur = np.ascontiguousarray(cur)
+    ref = np.ascontiguousarray(ref_padded)
+    h, w = cur.shape
+    by32 = np.ascontiguousarray(by, dtype=np.int32)
+    bx32 = np.ascontiguousarray(bx, dtype=np.int32)
+    keep = (cur, ref, by32, bx32)
+    return keep, (cur.ctypes.data, w, h, ref.ctypes.data,
+                  (ref.shape[0] - h) // 2, by32.ctypes.data,
+                  bx32.ctypes.data, len(by32))
+
+
+def motion_estimate_native(cur, ref_padded, mb_y, mb_x, max_mv=15, iters=2):
+    """Luma ME of 16x16 macroblocks: pyramid full-pel search, candidate
+    propagation, half-pel refinement. cur [H, W] uint8, ref_padded the
+    reference edge-padded by the same amount on every side, mb_y/mb_x the
+    blocks' pixel coordinates. Returns (mvs [n, 2] half-pel (dx, dy),
+    sads [n] int64)."""
+    lib = get_lib()
+    keep, args = _me_args(cur, ref_padded, mb_y, mb_x)
+    n = len(keep[2])
+    mvs = np.zeros((n, 2), dtype=np.int32)
+    sads = np.zeros(n, dtype=np.int64)
+    lib.th_me_fullpel(*args, mvs.ctypes.data, sads.ctypes.data, max_mv)
+    lib.th_me_propagate(*args, mvs.ctypes.data, sads.ctypes.data, max_mv,
+                        iters)
+    lib.th_me_halfpel(*args, 16, mvs.ctypes.data, sads.ctypes.data)
+    return mvs, sads
+
+
+def me_block_refine_native(cur, ref_padded, by, bx, seed_mvs, bs=8):
+    """Per-block +-1 full-pel refinement from the seed (the macroblock's
+    full-pel vector), then half-pel, for the 4MV mode. Returns (mvs [n, 2]
+    half-pel, sads [n] int64)."""
+    lib = get_lib()
+    keep, args = _me_args(cur, ref_padded, by, bx)
+    n = len(keep[2])
+    mvs = np.ascontiguousarray(seed_mvs, dtype=np.int32).copy()
+    sads = np.zeros(n, dtype=np.int64)
+    lib.th_me_refine(*args, bs, mvs.ctypes.data, sads.ctypes.data, 15, 1)
+    lib.th_me_halfpel(*args, bs, mvs.ctypes.data, sads.ctypes.data)
+    return mvs, sads
+
+
+def mode_decide_fill_native(cur, ref_padded, mb_list, mb_fy, mb_fx,
+                            sad_nomv, sad_gold, sad_intra, sad_mv, sad_4mv,
+                            mvs, bmvs, mb_maps, pixel_fmt, mv_bits_sad,
+                            nfrags, bias_scale=1.0):
+    """The host encoder's sequential mode decision over its SADs, with the
+    per-fragment fill (chroma vectors by pixel_fmt). Returns (mb_modes
+    [n], mb_mvs [n, 2], refi [nfrags], mode [nfrags], mv [nfrags, 2]),
+    int32; unfilled fragments keep refi 3 (FRAME_NONE)."""
+    lib = get_lib()
+    cur = np.ascontiguousarray(cur)
+    ref = np.ascontiguousarray(ref_padded)
+    h, w = cur.shape
+    n = len(mb_list)
+
+    def a(x, dt):
+        return np.ascontiguousarray(x, dtype=dt)
+
+    mb_modes = np.zeros(n, dtype=np.int32)
+    mb_mvs = np.zeros((n, 2), dtype=np.int32)
+    refi = np.full(nfrags, 3, dtype=np.int32)
+    fmode = np.zeros(nfrags, dtype=np.int32)
+    fmv = np.zeros((nfrags, 2), dtype=np.int32)
+    arrs = [
+        a(mb_list, np.int32), a(mb_fy, np.int32), a(mb_fx, np.int32),
+        a(sad_nomv, np.int64), a(sad_gold, np.int64),
+        a(sad_intra, np.int64), a(sad_mv, np.int64), a(sad_4mv, np.int64),
+        a(mvs, np.int32), a(bmvs, np.int32),
+        a(mb_maps.reshape(-1), np.int32),
+    ]
+    lib.th_mode_decide_fill(
+        cur.ctypes.data, w, h, ref.ctypes.data, (ref.shape[0] - h) // 2, n,
+        *[x.ctypes.data for x in arrs],
+        int(pixel_fmt), float(mv_bits_sad), float(bias_scale),
+        mb_modes.ctypes.data, mb_mvs.ctypes.data, refi.ctypes.data,
+        fmode.ctypes.data, fmv.ctypes.data,
+    )
+    return mb_modes, mb_mvs, refi, fmode, fmv
+
+
+def sad_batch_native(cur, ref_padded, fy, fx, mvx, mvy, bs=16):
+    """Half-pel SADs of bs x bs blocks at pixel coordinates (fy, fx)
+    against the padded reference at half-pel vectors (mvx, mvy). Returns
+    [n] int64."""
+    lib = get_lib()
+    cur = np.ascontiguousarray(cur)
+    ref = np.ascontiguousarray(ref_padded)
+    w = cur.shape[1]
+    arrs = [np.ascontiguousarray(x, dtype=np.int32)
+            for x in (fy, fx, mvx, mvy)]
+    out = np.empty(len(arrs[0]), dtype=np.int64)
+    lib.th_sad_batch(cur.ctypes.data, w, ref.ctypes.data,
+                     (ref.shape[1] - w) // 2, len(out),
+                     *[x.ctypes.data for x in arrs], int(bs),
+                     out.ctypes.data)
+    return out
+
+
+def enc_residuals_native(cur, prev_padded, gold_padded, fy, fx, refsel,
+                         o1y, o1x, o2y, o2x, use2, vpad, hpad):
+    """cur minus each block's prediction: 128 (refsel 0), or the MC read
+    from the padded previous (1) or golden (2) reconstruction at offsets
+    o1, averaged with o2 where use2. Returns [n, 8, 8] int32."""
+    lib = get_lib()
+    cur = np.ascontiguousarray(cur)
+    prev = np.ascontiguousarray(prev_padded)
+    gold = np.ascontiguousarray(gold_padded)
+    ints = [np.ascontiguousarray(x, dtype=np.int32)
+            for x in (fy, fx, refsel, o1y, o1x, o2y, o2x)]
+    u8 = np.ascontiguousarray(use2, dtype=np.uint8)
+    out = np.empty((len(ints[0]), 8, 8), dtype=np.int32)
+    lib.th_enc_residuals(
+        cur.ctypes.data, cur.shape[1], prev.ctypes.data, gold.ctypes.data,
+        prev.shape[1], len(out), *[x.ctypes.data for x in ints],
+        u8.ctypes.data, int(vpad), int(hpad), out.ctypes.data,
+    )
+    return out
+
+
+def ssd8_plane_native(cur, prev_padded, vpad, hpad):
+    """Per-8x8-block SSD, times 16, of cur [h, w] uint8 (h, w multiples
+    of 8) against the padded reconstruction prev_padded [h + 2 vpad,
+    w + 2 hpad]: the early skip's uncoded cost. Returns [h/8 * w/8]
+    int64 in raster order."""
+    lib = get_lib()
+    cur = np.ascontiguousarray(cur, dtype=np.uint8)
+    h, w = cur.shape
+    prev = np.ascontiguousarray(prev_padded, dtype=np.uint8)
+    out = np.empty((h // 8) * (w // 8), np.int64)
+    lib.th_ssd8_plane(cur.ctypes.data,
+                      prev.ctypes.data + vpad * prev.shape[1] + hpad,
+                      h, w, prev.shape[1], out.ctypes.data)
+    return out

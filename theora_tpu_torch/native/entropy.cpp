@@ -9,7 +9,9 @@
 // encode.c:816-863), the coded-flags and MB-mode packers
 // (encode.c:487-621) and the sequential mode decision of the GOP encoder;
 // the host encoder's keyframe path: fDCT + R/D quantization, the trellis
-// planner (tokenize.c:457-744) and the packer of its plans.
+// planner (tokenize.c:457-744) and the packer of its plans; its inter
+// path: luma motion estimation, the mode decision with its fragment fill,
+// the batch SAD, the MC residual gather and the uncoded SSD.
 // Bit-serial work stays on the host; the pixel pipeline runs on the card.
 //
 // Pure C ABI (loaded via ctypes). No Python.h dependency.
@@ -1945,3 +1947,596 @@ int64_t th_encode_frame_trellis_perm(
 }
 
 }  // extern "C"
+
+// ===================================================================
+// The host encoder's inter path (theora_tpu/native/entropy.cpp:1630-1968,
+// 2136-2260, 2829-2873, 3258-3283): luma motion estimation (pyramid
+// full-pel search, candidate propagation, half-pel and per-block
+// refinement), the sequential mode decision with its per-fragment fill,
+// the batch half-pel SAD, the MC residual gather against the
+// reconstructed references and the per-block uncoded SSD.
+
+// Split an independent per-block range across cores (outputs must be
+// disjoint per index).
+template <typename F>
+static void th_parallel_range(int64_t n, int64_t grain, F&& body) {
+  unsigned hw = std::thread::hardware_concurrency();
+  int nthreads = (int)(hw ? hw : 1);
+  if (nthreads > 4) nthreads = 4;
+  if (n < grain || nthreads < 2) {
+    body((int64_t)0, n);
+    return;
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; t++) {
+    int64_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    ts.emplace_back([&body, lo, hi] { body(lo, hi); });
+  }
+  for (auto& th : ts) th.join();
+}
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
+
+namespace {
+// MV offset tables (state.c:901-928).
+const int8_t MVMAP_C[2][64] = {
+    {-15, -15, -14, -14, -13, -13, -12, -12, -11, -11, -10, -10, -9, -9, -8,
+     -8, -7, -7, -6, -6, -5, -5, -4, -4, -3, -3, -2, -2, -1, -1, 0, 0, 0,
+     1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11,
+     12, 12, 13, 13, 14, 14, 15, 15, 0},
+    {-7, -7, -7, -7, -6, -6, -6, -6, -5, -5, -5, -5, -4, -4, -4, -4, -3, -3,
+     -3, -3, -2, -2, -2, -2, -1, -1, -1, -1, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1,
+     1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6, 6, 7, 7,
+     7, 7, 0}};
+const int8_t MVMAP2_C[2][64] = {
+    {-1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0,
+     -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, -1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+     0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0},
+    {-1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1,
+     0, -1, -1, -1, 0, -1, -1, -1, 0, -1, -1, -1, 0, 1, 1, 1, 0, 1, 1, 1,
+     0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1, 1, 0, 1, 1,
+     1, 0}};
+}  // namespace
+
+// Single-block half-pel SAD (for sequential MV-predictor evaluation).
+extern "C" int64_t th_sad_halfpel(const uint8_t* cur, int cur_stride,
+                                  const uint8_t* ref, int ref_stride, int y,
+                                  int x, int pad, int mvx, int mvy, int bs) {
+  int mx = MVMAP_C[0][mvx + 31];
+  int mx2 = MVMAP2_C[0][mvx + 31];
+  int my = MVMAP_C[0][mvy + 31];
+  int my2 = MVMAP2_C[0][mvy + 31];
+  const uint8_t* c = cur + (int64_t)y * cur_stride + x;
+  const uint8_t* s1 =
+      ref + (int64_t)(y + pad + my) * ref_stride + x + pad + mx;
+  int64_t sad = 0;
+  if (mx2 | my2) {
+    const uint8_t* s2 = s1 + (int64_t)my2 * ref_stride + mx2;
+#if defined(__SSE2__)
+    if (bs == 16) {
+      // VP3 averages with truncation; pavgb rounds up, corrected by
+      // subtracting (a ^ b) & 1 (the reference's frag_copy2 identity).
+      __m128i acc = _mm_setzero_si128();
+      const __m128i one = _mm_set1_epi8(1);
+      for (int r = 0; r < 16;
+           r++, c += cur_stride, s1 += ref_stride, s2 += ref_stride) {
+        __m128i a = _mm_loadu_si128((const __m128i*)s1);
+        __m128i b = _mm_loadu_si128((const __m128i*)s2);
+        __m128i avg = _mm_sub_epi8(
+            _mm_avg_epu8(a, b),
+            _mm_and_si128(_mm_xor_si128(a, b), one));
+        __m128i vc = _mm_loadu_si128((const __m128i*)c);
+        acc = _mm_add_epi64(acc, _mm_sad_epu8(vc, avg));
+      }
+      return _mm_cvtsi128_si64(acc) +
+             _mm_cvtsi128_si64(_mm_unpackhi_epi64(acc, acc));
+    }
+#endif
+    for (int r = 0; r < bs; r++, c += cur_stride, s1 += ref_stride, s2 += ref_stride)
+      for (int k = 0; k < bs; k++)
+        sad += abs((int)c[k] - (((int)s1[k] + s2[k]) >> 1));
+  } else {
+#if defined(__SSE2__)
+    if (bs == 16) {
+      __m128i acc = _mm_setzero_si128();
+      for (int r = 0; r < 16; r++, c += cur_stride, s1 += ref_stride) {
+        __m128i vc = _mm_loadu_si128((const __m128i*)c);
+        __m128i va = _mm_loadu_si128((const __m128i*)s1);
+        acc = _mm_add_epi64(acc, _mm_sad_epu8(vc, va));
+      }
+      return _mm_cvtsi128_si64(acc) +
+             _mm_cvtsi128_si64(_mm_unpackhi_epi64(acc, acc));
+    }
+#endif
+    for (int r = 0; r < bs; r++, c += cur_stride, s1 += ref_stride)
+      for (int k = 0; k < bs; k++) sad += abs((int)c[k] - s1[k]);
+  }
+  return sad;
+}
+
+// ===================================================================
+// Motion estimation: pyramid full-pel search + spatial candidate
+// propagation + half-pel refinement (the C++ twin of encode/mcenc.py; the
+// reference's analogue is the candidate/square search of mcenc.c).
+extern "C" {
+
+namespace {
+
+// SAD over an n x n block (n = 4, 8, or 16). The 8/16 paths use psadbw
+// (one instruction per 16 pixels), the scalar loop autovectorizes for
+// the rest -- the host-tier speed-of-light for the ME inner loop
+// (mcenc.c's oc_enc_frag_sad analogue).
+inline int64_t sad_block(const uint8_t* a, int as, const uint8_t* b, int bs_,
+                         int n) {
+#if defined(__SSE2__)
+  if (n == 16) {
+    __m128i acc = _mm_setzero_si128();
+    for (int r = 0; r < 16; r++, a += as, b += bs_) {
+      __m128i va = _mm_loadu_si128((const __m128i*)a);
+      __m128i vb = _mm_loadu_si128((const __m128i*)b);
+      acc = _mm_add_epi64(acc, _mm_sad_epu8(va, vb));
+    }
+    return _mm_cvtsi128_si64(acc) +
+           _mm_cvtsi128_si64(_mm_unpackhi_epi64(acc, acc));
+  }
+  if (n == 8) {
+    __m128i acc = _mm_setzero_si128();
+    for (int r = 0; r < 8; r += 2, a += 2 * as, b += 2 * bs_) {
+      __m128i va = _mm_unpacklo_epi64(
+          _mm_loadl_epi64((const __m128i*)a),
+          _mm_loadl_epi64((const __m128i*)(a + as)));
+      __m128i vb = _mm_unpacklo_epi64(
+          _mm_loadl_epi64((const __m128i*)b),
+          _mm_loadl_epi64((const __m128i*)(b + bs_)));
+      acc = _mm_add_epi64(acc, _mm_sad_epu8(va, vb));
+    }
+    return _mm_cvtsi128_si64(acc) +
+           _mm_cvtsi128_si64(_mm_unpackhi_epi64(acc, acc));
+  }
+#endif
+  int64_t s = 0;
+  for (int r = 0; r < n; r++, a += as, b += bs_)
+    for (int c = 0; c < n; c++) s += abs((int)a[c] - b[c]);
+  return s;
+}
+
+void downsample(const uint8_t* src, int sw, int sh, uint8_t* dst) {
+  int dw = sw / 2, dh = sh / 2;
+  for (int y = 0; y < dh; y++)
+    for (int x = 0; x < dw; x++) {
+      const uint8_t* p = src + (int64_t)(2 * y) * sw + 2 * x;
+      dst[(int64_t)y * dw + x] =
+          (uint8_t)((p[0] + p[1] + p[sw] + p[sw + 1] + 2) >> 2);
+    }
+}
+
+}  // namespace
+
+// cur: [H, W]; ref: [H+2p, W+2p] padded; mb coords: [n] (unpadded, 16x16).
+// Outputs: full-pel mvs [n][2] (dx, dy), sads [n].
+void th_me_fullpel(const uint8_t* cur, int W, int H, const uint8_t* ref,
+                   int pad, const int32_t* mby, const int32_t* mbx, int64_t n,
+                   int32_t* mvs, int64_t* sads, int max_mv) {
+  // Build pyramid level 1 (half) and 2 (quarter).
+  std::vector<uint8_t> cur1(W / 2 * (H / 2)), cur2(W / 4 * (H / 4));
+  int Wp = W + 2 * pad, Hp = H + 2 * pad;
+  std::vector<uint8_t> ref1(Wp / 2 * (Hp / 2)), ref2(Wp / 4 * (Hp / 4));
+  downsample(cur, W, H, cur1.data());
+  downsample(cur1.data(), W / 2, H / 2, cur2.data());
+  downsample(ref, Wp, Hp, ref1.data());
+  downsample(ref1.data(), Wp / 2, Hp / 2, ref2.data());
+  int pad2 = pad / 4, pad1 = pad / 2;
+  int W2 = W / 4, W1 = W / 2;
+  int Wp2 = Wp / 4, Wp1 = Wp / 2;
+  th_parallel_range(n, 16, [&](int64_t lo_, int64_t hi_) {
+  for (int64_t i = lo_; i < hi_; i++) {
+    // Early termination (mcenc.c OC_YSAD_THRESH1): a near-perfect zero-MV
+    // match skips the pyramid entirely.
+    {
+      const uint8_t* cb0 = cur + (int64_t)mby[i] * W + mbx[i];
+      int64_t sz0 = sad_block(
+          cb0, W, ref + (int64_t)(mby[i] + pad) * Wp + mbx[i] + pad, Wp, 16);
+      if (sz0 < 256) {
+        mvs[2 * i] = 0;
+        mvs[2 * i + 1] = 0;
+        sads[i] = sz0;
+        continue;
+      }
+    }
+    int y2 = mby[i] / 4, x2 = mbx[i] / 4;
+    // Level 2: exhaustive +-4 over 4x4 blocks.
+    int64_t best = INT64_MAX;
+    int bdy = 0, bdx = 0;
+    for (int dy = -4; dy <= 4; dy++)
+      for (int dx = -4; dx <= 4; dx++) {
+        int64_t s = sad_block(
+            cur2.data() + (int64_t)y2 * W2 + x2, W2,
+            ref2.data() + (int64_t)(y2 + pad2 + dy) * Wp2 + x2 + pad2 + dx,
+            Wp2, 4);
+        if (s < best) { best = s; bdy = dy; bdx = dx; }
+      }
+    int dy1 = bdy * 2, dx1 = bdx * 2;
+    // Level 1: +-1 refine over 8x8 blocks.
+    int y1 = mby[i] / 2, x1 = mbx[i] / 2;
+    best = INT64_MAX;
+    int rdy = dy1, rdx = dx1;
+    for (int ey = -1; ey <= 1; ey++)
+      for (int ex = -1; ex <= 1; ex++) {
+        int ndy = dy1 + ey, ndx = dx1 + ex;
+        if (ndy < -pad1 + 1 || ndy > pad1 - 1) continue;
+        int64_t s = sad_block(
+            cur1.data() + (int64_t)y1 * W1 + x1, W1,
+            ref1.data() + (int64_t)(y1 + pad1 + ndy) * Wp1 + x1 + pad1 + ndx,
+            Wp1, 8);
+        if (s < best) { best = s; rdy = ndy; rdx = ndx; }
+      }
+    int dy0 = rdy * 2, dx0 = rdx * 2;
+    if (dy0 > max_mv) dy0 = max_mv;
+    if (dy0 < -max_mv) dy0 = -max_mv;
+    if (dx0 > max_mv) dx0 = max_mv;
+    if (dx0 < -max_mv) dx0 = -max_mv;
+    // Level 0: compare against (0,0), then two refine passes (+-1, +-2).
+    const uint8_t* cb = cur + (int64_t)mby[i] * W + mbx[i];
+    int64_t s0 = sad_block(
+        cb, W, ref + (int64_t)(mby[i] + pad + dy0) * Wp + mbx[i] + pad + dx0,
+        Wp, 16);
+    int64_t sz = sad_block(cb, W,
+                           ref + (int64_t)(mby[i] + pad) * Wp + mbx[i] + pad,
+                           Wp, 16);
+    if (sz < s0) { s0 = sz; dy0 = 0; dx0 = 0; }
+    for (int radius = 1; radius <= 2; radius++) {
+      int bdy0 = dy0, bdx0 = dx0;
+      for (int ey = -radius; ey <= radius; ey++)
+        for (int ex = -radius; ex <= radius; ex++) {
+          int ndy = dy0 + ey, ndx = dx0 + ex;
+          if (ndy < -max_mv || ndy > max_mv || ndx < -max_mv || ndx > max_mv)
+            continue;
+          if (ndy == dy0 && ndx == dx0) continue;
+          int64_t s = sad_block(
+              cb, W,
+              ref + (int64_t)(mby[i] + pad + ndy) * Wp + mbx[i] + pad + ndx,
+              Wp, 16);
+          if (s < s0) { s0 = s; bdy0 = ndy; bdx0 = ndx; }
+        }
+      dy0 = bdy0; dx0 = bdx0;
+    }
+    mvs[2 * i] = dx0;
+    mvs[2 * i + 1] = dy0;
+    sads[i] = s0;
+  }
+  });
+}
+
+// Spatial candidate propagation over the MB grid (in place).
+void th_me_propagate(const uint8_t* cur, int W, int H, const uint8_t* ref,
+                     int pad, const int32_t* mby, const int32_t* mbx,
+                     int64_t n, int32_t* mvs, int64_t* sads, int max_mv,
+                     int iters) {
+  int Wp = W + 2 * pad;
+  int R = 0, C = 0;
+  for (int64_t i = 0; i < n; i++) {
+    if (mby[i] / 16 + 1 > R) R = mby[i] / 16 + 1;
+    if (mbx[i] / 16 + 1 > C) C = mbx[i] / 16 + 1;
+  }
+  std::vector<int64_t> grid((int64_t)R * C, -1);
+  for (int64_t i = 0; i < n; i++)
+    grid[(int64_t)(mby[i] / 16) * C + mbx[i] / 16] = i;
+  const int drs[5] = {0, -1, -1, 0, 1};
+  const int dcs[5] = {-1, 0, -1, 1, 0};
+  for (int it = 0; it < iters; it++) {
+    for (int64_t i = 0; i < n; i++) {
+      int r = mby[i] / 16, c = mbx[i] / 16;
+      const uint8_t* cb = cur + (int64_t)mby[i] * W + mbx[i];
+      for (int k = 0; k < 5; k++) {
+        int nr = r + drs[k], nc = c + dcs[k];
+        if (nr < 0 || nr >= R || nc < 0 || nc >= C) continue;
+        int64_t j = grid[(int64_t)nr * C + nc];
+        if (j < 0) continue;
+        int cdx = mvs[2 * j], cdy = mvs[2 * j + 1];
+        if (cdx == mvs[2 * i] && cdy == mvs[2 * i + 1]) continue;
+        int64_t s = sad_block(
+            cb, W,
+            ref + (int64_t)(mby[i] + pad + cdy) * Wp + mbx[i] + pad + cdx,
+            Wp, 16);
+        if (s < sads[i]) {
+          sads[i] = s;
+          mvs[2 * i] = cdx;
+          mvs[2 * i + 1] = cdy;
+        }
+      }
+      // +-1 refine.
+      int dy0 = mvs[2 * i + 1], dx0 = mvs[2 * i];
+      for (int ey = -1; ey <= 1; ey++)
+        for (int ex = -1; ex <= 1; ex++) {
+          int ndy = mvs[2 * i + 1] + ey, ndx = mvs[2 * i] + ex;
+          if ((ey == 0 && ex == 0) || ndy < -max_mv || ndy > max_mv ||
+              ndx < -max_mv || ndx > max_mv)
+            continue;
+          int64_t s = sad_block(
+              cb, W,
+              ref + (int64_t)(mby[i] + pad + ndy) * Wp + mbx[i] + pad + ndx,
+              Wp, 16);
+          if (s < sads[i]) { sads[i] = s; dy0 = ndy; dx0 = ndx; }
+        }
+      mvs[2 * i + 1] = dy0;
+      mvs[2 * i] = dx0;
+    }
+  }
+}
+
+// Half-pel refinement (bs x bs blocks); mvs in/out: full-pel in -> half-pel.
+void th_me_halfpel(const uint8_t* cur, int W, int H, const uint8_t* ref,
+                   int pad, const int32_t* by, const int32_t* bx, int64_t n,
+                   int bs, int32_t* mvs, int64_t* sads) {
+  int Wp = W + 2 * pad;
+  th_parallel_range(n, 64, [&](int64_t lo_, int64_t hi_) {
+  for (int64_t i = lo_; i < hi_; i++) {
+    int bdx = mvs[2 * i] * 2, bdy = mvs[2 * i + 1] * 2;
+    // Early termination: a near-perfect full-pel match skips the
+    // half-pel sites (mcenc.c OC_YSAD_THRESH1 scaled by area).
+    {
+      int64_t sf = th_sad_halfpel(cur, W, ref, Wp, by[i], bx[i], pad, bdx,
+                                  bdy, bs);
+      if (sf < (bs == 16 ? 256 : 64)) {
+        mvs[2 * i] = bdx;
+        mvs[2 * i + 1] = bdy;
+        sads[i] = sf;
+        continue;
+      }
+    }
+    int64_t best = INT64_MAX;
+    int fdx = bdx, fdy = bdy;
+    for (int ey = -1; ey <= 1; ey++)
+      for (int ex = -1; ex <= 1; ex++) {
+        int ndx = bdx + ex, ndy = bdy + ey;
+        if (ndx < -31 || ndx > 31 || ndy < -31 || ndy > 31) continue;
+        int64_t s = th_sad_halfpel(cur, W, ref, Wp, by[i], bx[i], pad, ndx,
+                                   ndy, bs);
+        if (s < best) { best = s; fdx = ndx; fdy = ndy; }
+      }
+    mvs[2 * i] = fdx;
+    mvs[2 * i + 1] = fdy;
+    sads[i] = best;
+  }
+  });
+}
+
+}  // extern "C"
+
+// +-radius full-pel refinement for arbitrary block size (in place).
+extern "C" void th_me_refine(const uint8_t* cur, int W, int H,
+                             const uint8_t* ref, int pad, const int32_t* by,
+                             const int32_t* bx, int64_t n, int bs,
+                             int32_t* mvs, int64_t* sads, int max_mv,
+                             int radius) {
+  int Wp = W + 2 * pad;
+  th_parallel_range(n, 64, [&](int64_t lo_, int64_t hi_) {
+  for (int64_t i = lo_; i < hi_; i++) {
+    const uint8_t* cb = cur + (int64_t)by[i] * W + bx[i];
+    int dx0 = mvs[2 * i], dy0 = mvs[2 * i + 1];
+    int64_t s0 = sad_block(
+        cb, W, ref + (int64_t)(by[i] + pad + dy0) * Wp + bx[i] + pad + dx0,
+        Wp, bs);
+    // Early termination on a near-perfect seed (mcenc.c OC_YSAD_THRESH1,
+    // scaled by block area).
+    if (s0 < (bs == 16 ? 256 : 64)) { sads[i] = s0; continue; }
+    for (int ey = -radius; ey <= radius; ey++)
+      for (int ex = -radius; ex <= radius; ex++) {
+        int ndy = mvs[2 * i + 1] + ey, ndx = mvs[2 * i] + ex;
+        if ((ey == 0 && ex == 0) || ndy < -max_mv || ndy > max_mv ||
+            ndx < -max_mv || ndx > max_mv)
+          continue;
+        int64_t s = sad_block(
+            cb, W, ref + (int64_t)(by[i] + pad + ndy) * Wp + bx[i] + pad + ndx,
+            Wp, bs);
+        if (s < s0) { s0 = s; dy0 = ndy; dx0 = ndx; }
+      }
+    mvs[2 * i] = dx0;
+    mvs[2 * i + 1] = dy0;
+    sads[i] = s0;
+  }
+  });
+}
+
+// ===================================================================
+// Encoder mode decision + per-fragment fill (the sequential MB loop of
+// encoder.py/_encode_inter; analyze.c:2288-2711 in spirit).
+extern "C" {
+
+// Inputs are per-valid-MB arrays of length n (mb order ascending):
+//   sads: nomv, gold, intra, mv, mv4; mvs [n][2] half-pel best;
+//   bmvs [n][4][2] per-block MVs; mb_fy/mb_fx pixel coords.
+// cur/ref for predictor SAD evaluation.
+// Outputs: mb_modes [n], mb_mvs [n][2], and per-fragment
+// refi/mode/mv via mb_maps fill.
+void th_mode_decide_fill(
+    const uint8_t* cur, int W, int H, const uint8_t* ref, int pad,
+    int64_t n, const int32_t* mb_list, const int32_t* mb_fy,
+    const int32_t* mb_fx, const int64_t* sad_nomv, const int64_t* sad_gold,
+    const int64_t* sad_intra, const int64_t* sad_mv, const int64_t* sad_4mv,
+    const int32_t* mvs, const int32_t* bmvs, const int32_t* mb_maps,
+    int pixel_fmt, double mv_bits_sad, double bias_scale,
+    int32_t* mb_modes_out, int32_t* mb_mvs_out, int32_t* refi,
+    int32_t* fmode, int32_t* fmv) {
+  int last_x = 0, last_y = 0, prior_x = 0, prior_y = 0;
+  const int* map_idxs = MB_MAP_IDXS_C[pixel_fmt];
+  int map_nidxs = MB_MAP_NIDXS_C[pixel_fmt];
+  for (int64_t i = 0; i < n; i++) {
+    int mvx = mvs[2 * i], mvy = mvs[2 * i + 1];
+    // Costs per candidate mode.
+    double best_cost = (double)sad_nomv[i];
+    int best_mode = 0;
+    double c;
+    c = (double)sad_intra[i] + 350 * bias_scale;
+    if (c < best_cost) { best_cost = c; best_mode = 1; }
+    c = (double)sad_gold[i] + 80 * bias_scale;
+    if (c < best_cost) { best_cost = c; best_mode = 5; }
+    c = (double)sad_4mv[i] + 640 * bias_scale + 4 * mv_bits_sad;
+    if (c < best_cost) { best_cost = c; best_mode = 7; }
+    if (mvx || mvy) {
+      c = (double)sad_mv[i] + mv_bits_sad;
+      if (c < best_cost) { best_cost = c; best_mode = 2; }
+    }
+    if (last_x || last_y) {
+      int64_t s = (mvx == last_x && mvy == last_y)
+                      ? sad_mv[i]
+                      : th_sad_halfpel(cur, W, ref, W + 2 * pad, mb_fy[i],
+                                       mb_fx[i], pad, last_x, last_y, 16);
+      c = (double)s + 16 * bias_scale;
+      if (c < best_cost) { best_cost = c; best_mode = 3; }
+    }
+    if ((prior_x || prior_y) && !(prior_x == last_x && prior_y == last_y)) {
+      int64_t s = (mvx == prior_x && mvy == prior_y)
+                      ? sad_mv[i]
+                      : th_sad_halfpel(cur, W, ref, W + 2 * pad, mb_fy[i],
+                                       mb_fx[i], pad, prior_x, prior_y, 16);
+      c = (double)s + 24 * bias_scale;
+      if (c < best_cost) { best_cost = c; best_mode = 4; }
+    }
+    int mbi = mb_list[i];
+    mb_modes_out[i] = best_mode;
+    int out_x = 0, out_y = 0;
+    switch (best_mode) {
+      case 2: out_x = mvx; out_y = mvy; prior_x = last_x; prior_y = last_y;
+              last_x = mvx; last_y = mvy; break;
+      case 3: out_x = last_x; out_y = last_y; break;
+      case 4: {
+        out_x = prior_x; out_y = prior_y;
+        int tx = last_x, ty = last_y;
+        last_x = prior_x; last_y = prior_y;
+        prior_x = tx; prior_y = ty;
+        break;
+      }
+      case 7: prior_x = last_x; prior_y = last_y;
+              last_x = bmvs[(i * 4 + 3) * 2]; last_y = bmvs[(i * 4 + 3) * 2 + 1];
+              break;
+      default: break;
+    }
+    mb_mvs_out[2 * i] = out_x;
+    mb_mvs_out[2 * i + 1] = out_y;
+    // Per-fragment fill.
+    const int32_t* mm = mb_maps + (int64_t)mbi * 12;
+    int rf = FRAME_FOR_MODE_C[best_mode];
+    if (best_mode == 7) {
+      int lbx[4], lby[4];
+      for (int bi = 0; bi < 4; bi++) {
+        lbx[bi] = bmvs[(i * 4 + bi) * 2];
+        lby[bi] = bmvs[(i * 4 + bi) * 2 + 1];
+        int32_t f = mm[bi];
+        if (f >= 0) {
+          refi[f] = rf; fmode[f] = 7;
+          fmv[2 * f] = lbx[bi]; fmv[2 * f + 1] = lby[bi];
+        }
+      }
+      int cbx[4] = {0, 0, 0, 0}, cby[4] = {0, 0, 0, 0};
+      if (pixel_fmt == 0) {
+        cbx[0] = div_round_pow2(lbx[0] + lbx[1] + lbx[2] + lbx[3], 2, 2);
+        cby[0] = div_round_pow2(lby[0] + lby[1] + lby[2] + lby[3], 2, 2);
+      } else if (pixel_fmt == 2) {
+        cbx[0] = div_round_pow2(lbx[0] + lbx[1], 1, 1);
+        cby[0] = div_round_pow2(lby[0] + lby[1], 1, 1);
+        cbx[2] = div_round_pow2(lbx[2] + lbx[3], 1, 1);
+        cby[2] = div_round_pow2(lby[2] + lby[3], 1, 1);
+      } else {
+        for (int k = 0; k < 4; k++) { cbx[k] = lbx[k]; cby[k] = lby[k]; }
+      }
+      for (int mi = 4; mi < map_nidxs; mi++) {
+        int mapi = map_idxs[mi];
+        int bi = mapi & 3;
+        int32_t f = mm[(mapi >> 2) * 4 + bi];
+        if (f >= 0) {
+          refi[f] = rf; fmode[f] = 7;
+          fmv[2 * f] = cbx[bi]; fmv[2 * f + 1] = cby[bi];
+        }
+      }
+    } else {
+      for (int mi = 0; mi < map_nidxs; mi++) {
+        int mapi = map_idxs[mi];
+        int32_t f = mm[(mapi >> 2) * 4 + (mapi & 3)];
+        if (f >= 0) {
+          refi[f] = rf; fmode[f] = best_mode;
+          fmv[2 * f] = out_x; fmv[2 * f + 1] = out_y;
+        }
+      }
+    }
+  }
+}
+
+}  // extern "C"
+
+// Encoder hot helpers: batch half-pel SAD and the MC residual gather.
+extern "C" {
+
+void th_sad_batch(const uint8_t* cur, int W, const uint8_t* ref, int pad,
+                  int64_t n, const int32_t* fy, const int32_t* fx,
+                  const int32_t* mvx, const int32_t* mvy, int bs,
+                  int64_t* out) {
+  for (int64_t i = 0; i < n; i++)
+    out[i] = th_sad_halfpel(cur, W, ref, W + 2 * pad, fy[i], fx[i], pad,
+                            mvx[i], mvy[i], bs);
+}
+
+// Residuals for the encoder's closed loop: cur - prediction, where the
+// prediction is 128 (intra), or a 1/2-pel MC read from the padded
+// prev/gold reconstruction (the counterpart of decode-side recon;
+// analyze.c:626-785 in spirit).
+void th_enc_residuals(const uint8_t* cur, int W, const uint8_t* prevp,
+                      const uint8_t* goldp, int Wp, int64_t n,
+                      const int32_t* fy, const int32_t* fx,
+                      const int32_t* refsel, const int32_t* o1y,
+                      const int32_t* o1x, const int32_t* o2y,
+                      const int32_t* o2x, const uint8_t* use2, int vpad,
+                      int hpad, int32_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    const uint8_t* c = cur + (int64_t)fy[i] * W + fx[i];
+    int32_t* o = out + i * 64;
+    if (refsel[i] == 0) {
+      for (int r = 0; r < 8; r++, c += W)
+        for (int k = 0; k < 8; k++) o[r * 8 + k] = (int32_t)c[k] - 128;
+      continue;
+    }
+    const uint8_t* refp = refsel[i] == 1 ? prevp : goldp;
+    const uint8_t* s1 = refp + (int64_t)(fy[i] + vpad + o1y[i]) * Wp +
+                        fx[i] + hpad + o1x[i];
+    if (use2[i]) {
+      const uint8_t* s2 = refp + (int64_t)(fy[i] + vpad + o2y[i]) * Wp +
+                          fx[i] + hpad + o2x[i];
+      for (int r = 0; r < 8; r++, c += W, s1 += Wp, s2 += Wp)
+        for (int k = 0; k < 8; k++)
+          o[r * 8 + k] = (int32_t)c[k] - (((int)s1[k] + s2[k]) >> 1);
+    } else {
+      for (int r = 0; r < 8; r++, c += W, s1 += Wp)
+        for (int k = 0; k < 8; k++) o[r * 8 + k] = (int32_t)c[k] - s1[k];
+    }
+  }
+}
+
+}  // extern "C"
+
+// ===================================================================
+// Per-8x8-block SSD of two planes (the uncoded-prediction skip cost,
+// analyze.c:529-531 skip_ssd): out[bv*nbh+bh] = 16 * sum of squared
+// differences over block (bv, bh).  cur is tightly packed [h, w];
+// prev has row stride pstride (a padded reconstruction plane).
+extern "C" void th_ssd8_plane(const uint8_t* cur, const uint8_t* prev,
+                              int64_t h, int64_t w, int64_t pstride,
+                              int64_t* out) {
+  const int64_t nbh = w / 8;
+  for (int64_t bv = 0; bv < h / 8; bv++) {
+    for (int64_t bh = 0; bh < nbh; bh++) {
+      int64_t acc = 0;
+      const uint8_t* c = cur + (bv * 8) * w + bh * 8;
+      const uint8_t* p = prev + (bv * 8) * pstride + bh * 8;
+      for (int r = 0; r < 8; r++) {
+        for (int k = 0; k < 8; k++) {
+          const int d = (int)c[k] - (int)p[k];
+          acc += d * d;
+        }
+        c += w;
+        p += pstride;
+      }
+      out[bv * nbh + bh] = acc * 16;
+    }
+  }
+}

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -34,6 +35,9 @@ MAX_ROWS = 3
 MAX_SEGMENTS = 65535
 
 _lib = None
+# The host encoder's closed loops decode on the card from several threads
+# at once (parallel/transcode.py): the launch counts go up under a lock.
+_COUNT_LOCK = threading.Lock()
 
 
 def build() -> str:
@@ -137,7 +141,8 @@ def dequantize_idct_frames(qz, dc, deq_tab, frame, qii, inter, dc_only):
         raise ValueError(f"unsupported device {dev}")
     out = launch_dequant_idct(_load(), qz, dc, deq_tab, frame, qii, inter,
                               dc_only)
-    dequantize_idct_frames.launches += 1
+    with _COUNT_LOCK:
+        dequantize_idct_frames.launches += 1
     return out
 
 
@@ -209,7 +214,8 @@ def idct_recon_choose(q16, dc_only, cnt, deq, inter, pred, cur, lam,
         raise ValueError(f"unsupported device {dev}")
     out = launch_recon_choose(_load(), q16, dc_only, cnt, deq4, inter, pred,
                               cur, lam, lam_sc)
-    idct_recon_choose.launches += 1
+    with _COUNT_LOCK:
+        idct_recon_choose.launches += 1
     return out
 
 

@@ -2,7 +2,8 @@
 
 Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [-z SPEED]
            [-b BITRATE [--two-pass [--two-pass-file F] [--rate-buffer N]]]
-           [--adaptive-quant {auto,on,off}] [--device D] in.y4m out.ogv
+           [--adaptive-quant {auto,on,off}] [-j N] [--device D]
+           in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
 TpuGopEncoder) with its device-branch options: the qi (with a bitrate, the
@@ -11,6 +12,14 @@ quality floor of the rate controller), the keyframe spacing, speed levels
 rate buffer) and adaptive quantization ("auto" by default, as there).
 Encodes on the card (``--device cuda``, the default); ``cpu`` runs the
 plain PyTorch versions of the kernels.
+
+``-j N`` (JAX ``tools/enc.py:38-40,204-220``) encodes GOP-parallel with N
+worker processes through the host Encoder, its closed loop decoded on
+the device (parallel/transcode.py), byte-identical to one sequential host
+Encoder. Fault of the reference not copied: JAX's -j silently drops -z
+and --adaptive-quant (its transcode builds default encoders); here -j
+with either set to anything but its default, or with -b, is a usage
+error.
 """
 from __future__ import annotations
 
@@ -62,11 +71,20 @@ def main(argv=None):
                          "and mixed frames; default), on (every qi the "
                          "spec allows), off; bare --adaptive-quant means "
                          "'on'")
+    ap.add_argument("-j", "--workers", type=int, default=0,
+                    help="GOP-parallel encode with N worker processes "
+                         "through the host encoder (VBR, speed 0, "
+                         "adaptive quant auto; byte-identical to "
+                         "sequential)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
     if args.two_pass and not args.bitrate:
         ap.error("--two-pass requires --bitrate")
+    if args.workers and (args.speed or args.adaptive_quant != "auto"
+                         or args.bitrate):
+        ap.error("-j encodes at speed 0 with adaptive quant 'auto' and no "
+                 "target bitrate; it takes no -z, --adaptive-quant or -b")
 
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
@@ -79,6 +97,22 @@ def main(argv=None):
                       pic_height=H, fps_numerator=fps[0],
                       fps_denominator=fps[1], quality=args.quality,
                       target_bitrate=args.bitrate, pixel_fmt=pixel_fmt)
+    if args.workers:
+        from theora_tpu_torch.parallel.transcode import transcode
+
+        t0 = time.perf_counter()
+        pkts = transcode(frames, info, keyframe_freq=args.keyframe_freq,
+                         max_workers=args.workers, use_processes=True,
+                         device=args.device)
+        dt = time.perf_counter() - t0
+        with open(args.output, "wb") as f:
+            f.write(mux_stream(pkts))
+        total = sum(len(p.data) for p in pkts[3:])
+        mpix = len(frames) * W * H * 1.5 / 1e6
+        print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "
+              f"({mpix / dt:.2f} Mpix/s, {args.workers} workers on "
+              f"{args.device})", file=sys.stderr)
+        return
     enc = GopEncoder(info, qi=args.quality, device=args.device,
                      adaptive_quant={"auto": "auto", "on": True,
                                      "off": False}[args.adaptive_quant])

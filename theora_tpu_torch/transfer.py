@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 # Byte counts of the device->host copies started by Download, appended
-# in order when this is set to a list (chip_smoke.py reads it).
+# in order when this is set to a list (chip_smoke.py reads it). A list
+# append is atomic, so under several threads (parallel/transcode.py) the
+# log holds every thread's copies, interleaved.
 copy_log: list[int] | None = None
 
 
