@@ -6,7 +6,7 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernels K1, K2, KT and KR
+2. build: the native host library (g++) and kernels K1, K2, KT, KR and KM
    (nvcc, sm_90a; K1, KT and KR with -fmad=false), all from the sources in
    the checkout, in parallel;
 3. K1 against its plain PyTorch versions on the card, exact equality. The
@@ -76,6 +76,20 @@ and prints no result line):
    each; CUDA-event times at K = 1 and 3 over 14,400 blocks beside the
    bound (tools/bench_qrd.py:kr_bound), the plain version, a device copy
    of the same bytes and KT on the same K2 outputs;
+6d. KM (the encoder's ME plan, three launches per plan call) against its
+   plain version (ops/me.py:plan_with_gold) on the card, all 11 outputs
+   exactly equal (tools/bench_me.py:cases): the 1280x720 luma as
+   encode_clip chunks it (8 frames, 7 rows, gold the keyframe) and the
+   mesh's 24 frames at gop axis 3 (23 rows, gold each GOP's keyframe);
+   720p synthetic frames built to tie (flat, period-4 stripes and their
+   one-pixel roll, noise and noise rolled by (2, -5)) and noise rolled by
+   (+-20, +-17), which saturates the MB search at +-15 and the 4MV blocks
+   at +-13; the same at 176x144 (an odd number of MB rows) and 64x48
+   (every MB touches an edge). CUDA-event times at 7 and 23 rows beside
+   the bound (bench_me.km_bound) and the plain version. Every encode path
+   below counts KM's launches: 3 per plan call (2 calls per 16-frame
+   encode_clip, 3 per 24-frame transcode, 1 per mesh batch), none on the
+   host Encoder's and the intra paths;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -176,10 +190,11 @@ and prints no result line):
    loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
    on the 64x48 clip against its lines of host64x48_enc.
 
-Then one JSON line listing the four kernels (times and bounds, K1's at both
+Then one JSON line listing the five kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
 transcode, the per-packet decode, the mesh and the host Encoder's paths;
-the one launch over 3 segments beside 3 launches), the
+for K1, K2, KT and KR the one launch over 3 segments beside 3 launches),
+the
 card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
@@ -223,15 +238,15 @@ def card() -> tuple[str, str]:
 
 def build() -> None:
     from theora_tpu_torch import native
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-        trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
@@ -239,12 +254,14 @@ def build() -> None:
                 "KT (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, trellis_cuda.build),
                 "KR (nvcc sm_90a, -fmad=false)": ex.submit(
-                    timed, qrd_cuda.build)}
+                    timed, qrd_cuda.build),
+                "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build)}
         for what, job in jobs.items():
             path, dt = job.result()
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
-                  ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO)):
+                  ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO),
+                  ("KM", me_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -472,9 +489,11 @@ def golden_streams() -> None:
             f".ref.yuv; K1 launches {launched}")
 
 
-def real_size(smi: str) -> int:
-    from theora_tpu_torch.ops import idct_cuda
-
+def real_size(smi: str) -> dict:
+    """The 720p batch decode against its SHA-256 list; a warm pass with
+    every kernel count reset just before it. Returns the counts read just
+    after (_counts_all): K1's decode entry, and 0 for every other
+    kernel."""
     with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
         want = f.read().split()
 
@@ -489,12 +508,11 @@ def real_size(smi: str) -> int:
     # Warm pass: a fresh decoder on the same process, K1 count from 0.
     dec, data = _open(f"{HD_NAME}.ogv")
     dec.device_spans = []
-    torch.cuda.synchronize()
-    idct_cuda.dequantize_idct_frames.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     outs = dec.decode_clip(data, batch=8)
     wall = time.perf_counter() - t0
-    launches = idct_cuda.dequantize_idct_frames.launches
+    launches = _k1_decode_only("720p decode")
     check(outs, "warm pass")
     if launches == 0:
         raise AssertionError("K1 was not launched on the main path")
@@ -506,8 +524,8 @@ def real_size(smi: str) -> int:
         f"{wall:.4f} s = {nf / wall:.2f} frames/s = {mpix / wall:.2f} "
         f"Mpix/s; host parse {dec.host_parse_s:.4f} s; device spans "
         f"(CUDA events) {dev_s:.4f} s over {len(dec.device_spans)} "
-        f"batches; K1 launches {launches} | {smi}")
-    return launches
+        f"batches; K1 launches {launches}, no other kernel | {smi}")
+    return _counts_all()
 
 
 def _load_testdata(name: str):
@@ -876,6 +894,63 @@ def kr_vs_plain(device) -> dict:
     }
 
 
+def km_vs_plain(device) -> dict:
+    """6d: KM (the ME plan, ops/me_cuda.py) against its plain version
+    (ops/me.py:plan_with_gold) on the card, all 11 outputs exactly equal,
+    on tools/bench_me.py:cases (the 720p encode chunk and mesh batch, the
+    synthetic frames that tie and that saturate the search at 720p,
+    176x144 and 64x48); CUDA-event times at 7 and 23 rows beside the
+    bound (bench_me.km_bound) and the plain version."""
+    from theora_tpu_torch.ops import me, me_cuda
+    from theora_tpu_torch.tools import bench_me as bm
+
+    hd = bm.hd720_luma(24)
+    err = 0
+    for label, ys, gold in bm.cases(device, hd):
+        got = me_cuda.plan_with_gold(ys, gold)
+        want = me.plan_with_gold(ys, gold)
+        torch.cuda.synchronize()
+        ok, e = bm.same(got, want)
+        err = max(err, e)
+        if not ok:
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if not torch.equal(g, w)]
+            raise AssertionError(f"KM != plain on {label}: outputs {bad} "
+                                 f"differ (max |d| {e})")
+        sat = int((want[0].abs() == 31).any(dim=-1).sum())
+        log(f"[km] {label}: kernel == plain (all 11 outputs; {sat} MB "
+            f"vectors at the +-15 limit; {int((want[5] != 0).any(-1).sum())}"
+            f" nonzero candidates)")
+    log(f"[km] max |err| {err} (tolerance 0: exact)")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    timed = {}
+    for nf in (bm.KF, 24):
+        ys = torch.from_numpy(hd[:nf]).to(device)
+        r = bm.time_case(ys, torch.from_numpy(bm.gop_gold(nf)).to(device),
+                         flush)
+        log(f"[km] time at 720p, {r['rows']} rows: kernel {r['ms']:.4f} ms "
+            f"(3 launches), plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['ops']} ops, "
+            f"byte SIMD counted as bench_me.km_ops -> {r['ops_ms']:.4f} ms "
+            f"at 33.5 T/s; {r['bytes']} B -> {r['bytes_ms']:.4f} ms at 3.35 "
+            f"TB/s); kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of its bound; no single "
+            f"PyTorch call computes the plan (library_ms null)")
+        timed[nf] = r
+    one = timed[bm.KF]
+    return {
+        "name": "me_plan", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/me.cu",
+        "replaces": "theora_tpu/ops/me_jax.py:527",
+        "launches": None, "max_abs_err": err, "ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"], "library_ms": None,
+        "timed_rows": one["rows"],
+        "mesh_batch": {key: timed[24][key] for key in (
+            "rows", "ms", "plain_ms", "bound_ms", "bound_by")},
+    }
+
+
 def _encoder(w, h, fmt, qi, adaptive_quant, quality=None, splevel=0):
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
@@ -1032,29 +1107,32 @@ def _psnr(frames, outs) -> float:
 
 
 def _reset_counts() -> None:
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-        trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
 
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
               fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
-              qrd_cuda.quantize_rd):
+              qrd_cuda.quantize_rd, me_cuda.plan_with_gold):
         w.launches = 0
 
 
 def _read_counts(what: str, want: tuple) -> tuple:
-    """(K1's encode entry, K2, KT, KR) launches since _reset_counts; they
-    must equal want, and K1's decode entry must not have run."""
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-        trellis_cuda
+    """(K1's encode entry, K2, KT, KR, KM) launches since _reset_counts;
+    they must equal want, and K1's decode entry must not have run. KM
+    launches three times per ME plan: one plan per chunk of encode_clip,
+    per GOP of a 2-pass encode's pass 2, per mesh batch."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
 
     counts = (idct_cuda.idct_recon_choose.launches,
               fdct_cuda.fdct_quantize.launches,
               trellis_cuda.trellis_quantize.launches,
-              qrd_cuda.quantize_rd.launches)
+              qrd_cuda.quantize_rd.launches,
+              me_cuda.plan_with_gold.launches)
     if counts != want:
         raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT, "
-                             f"KR {counts}; expected {want}")
+                             f"KR, KM {counts}; expected {want}")
     if idct_cuda.dequantize_idct_frames.launches:
         raise AssertionError(f"{what}: the encode launched K1's decode "
                              f"entry")
@@ -1069,7 +1147,7 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     KT and KR reset just before it: K1's encode entry, K2 and the
     quantizer (KT at speed levels 0-1, KR at 2-4) must each run once per
     plane per frame, the other quantizer and K1's decode entry not at all.
-    Returns the counts (K1 encode entry, K2, KT, KR)."""
+    Returns the counts (K1 encode entry, K2, KT, KR, KM)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -1097,7 +1175,8 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     wall = time.perf_counter() - t0
     per = 3 * len(frames)
     counts = _read_counts(what, (per, per) + ((per, 0) if splevel < 2
-                                              else (0, per)))
+                                              else (0, per))
+                          + (3 * (len(frames) // mk.HD_KF),))
     n = _check_hashes(pkts, name, "warm pass")
     if adaptive_quant and splevel < 2 and enc.nonbase_qi_blocks == 0:
         raise AssertionError(f"{what}: no block took a non-base qi")
@@ -1117,7 +1196,7 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
         f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
         f"ME and plane encodes) {dev_s:.4f} s; PSNR "
         f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
-        f"K2, KT, KR {counts} = {counts[1] / (3 * nf):.0f} per plane per "
+        f"K2, KT, KR, KM {counts} = {counts[1] / (3 * nf):.0f} per plane per "
         f"frame | {smi}")
     return counts
 
@@ -1129,7 +1208,7 @@ def real_size_twopass(smi: str):
     the frames, the first GOP's closed loop at its frames' qis, and a warm
     pass with the launch counts reset just before it (pass 1 and pass 2
     each launch K1's encode entry, K2 and KT once per plane per frame).
-    Returns the counts (K1 encode entry, K2, KT, KR)."""
+    Returns the counts (K1 encode entry, K2, KT, KR, KM)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -1162,7 +1241,9 @@ def real_size_twopass(smi: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per = 2 * 3 * len(frames)
-    counts = _read_counts(what, (per, per, per, 0))
+    # KM: pass 1's two 8-frame chunks and pass 2's two GOPs.
+    counts = _read_counts(what, (per, per, per, 0,
+                                 3 * (2 * len(frames) // mk.HD_KF)))
     n = _check_hashes(pkts, name, "warm run", blob)
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
     hdr = pkts[:3]
@@ -1179,8 +1260,9 @@ def real_size_twopass(smi: str):
         f"(pass 1 + pass 2) {wall:.4f} s; host mode decision and gates "
         f"{enc.host_decide_s:.4f} s, host packing {enc.host_pack_s:.4f} s; "
         f"device spans {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} dB; "
-        f"launches K1, K2, KT, KR {counts} = {counts[1] / (6 * nf):.0f} per "
-        f"plane per frame in each pass | {smi}")
+        f"launches K1, K2, KT, KR, KM {counts} = "
+        f"{counts[1] / (6 * nf):.0f} per plane per frame in each pass | "
+        f"{smi}")
     return counts
 
 
@@ -1221,14 +1303,15 @@ def _sync_debug_findings() -> bool:
 
 
 def _counts_all() -> dict:
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-        trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
 
     return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
             "K1 encode": idct_cuda.idct_recon_choose.launches,
             "K2": fdct_cuda.fdct_quantize.launches,
             "KT": trellis_cuda.trellis_quantize.launches,
-            "KR": qrd_cuda.quantize_rd.launches}
+            "KR": qrd_cuda.quantize_rd.launches,
+            "KM": me_cuda.plan_with_gold.launches}
 
 
 def transcode_720p(smi: str) -> dict:
@@ -1238,7 +1321,7 @@ def transcode_720p(smi: str) -> dict:
     warm pass with the launch counts reset just before it and every
     device->host copy counted at the port's own copy calls: none may be
     the size of a decoded frame. Returns the launch counts (K1 at both
-    entries, K2, KT, KR)."""
+    entries, K2, KT, KR, KM)."""
     from theora_tpu_torch import transfer
     from theora_tpu_torch.encode.gop import transcode_device
 
@@ -1263,7 +1346,7 @@ def transcode_720p(smi: str) -> dict:
     nf = len(datas)
     batches = -(-nf // mk.HD_TC_KF)
     want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
-            "KT": 3 * nf, "KR": 0}
+            "KT": 3 * nf, "KR": 0, "KM": 3 * batches}
     if counts != want:
         raise AssertionError(f"transcode launches {counts}; expected {want}")
     frame_bytes = 1280 * 720 * 3 // 2
@@ -1278,7 +1361,7 @@ def transcode_720p(smi: str) -> dict:
         f"{len(copies)} copies, {sum(copies)} bytes, largest {max(copies)} "
         f"(a decoded frame: {frame_bytes}) | {smi}")
     return (counts["K1 decode"] + counts["K1 encode"], counts["K2"],
-            counts["KT"], counts["KR"])
+            counts["KT"], counts["KR"], counts["KM"])
 
 
 def packet_decode_720p(smi: str) -> tuple:
@@ -1286,7 +1369,7 @@ def packet_decode_720p(smi: str) -> tuple:
     every frame's SHA-256 against the committed list, and a warm pass with
     the launch counts reset (K1's decode entry once per plane per frame)
     timed beside a warm decode_clip(batch=8) of the same stream. Returns
-    the launch counts (K1, K2, KT, KR)."""
+    the launch counts (K1, K2, KT, KR, KM)."""
     from theora_tpu_torch.decode.scalar import PacketDecoder
 
     with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
@@ -1317,7 +1400,7 @@ def packet_decode_720p(smi: str) -> tuple:
     check(outs, "per packet, warm pass")
     nf = len(datas)
     if counts != {"K1 decode": 3 * nf, "K1 encode": 0, "K2": 0, "KT": 0,
-                  "KR": 0}:
+                  "KR": 0, "KM": 0}:
         raise AssertionError(f"per-packet decode launches {counts}")
     dec, _ = _open(f"{HD_NAME}.ogv")
     torch.cuda.synchronize()
@@ -1329,7 +1412,7 @@ def packet_decode_720p(smi: str) -> tuple:
         f"frame (decode_packet + ycbcr_out), decode_clip(batch=8) "
         f"{1e3 * batch_wall / nf:.3f} ms per frame; K1 launches "
         f"{counts['K1 decode']} | {smi}")
-    return (counts["K1 decode"], 0, 0, 0)
+    return (counts["K1 decode"], 0, 0, 0, 0)
 
 
 def pipelined_vs_staged(smi: str) -> dict:
@@ -1341,7 +1424,8 @@ def pipelined_vs_staged(smi: str) -> dict:
     pairs: every run's 19 packets against the JAX list. Also the 720p
     decode's dispatch_batch under the mode, and one chunk's coefficient
     download sparse (finish_gop's) against a dense copy. Returns the last
-    stage-by-stage run's launch counts (K1 encode entry, K2, KT, KR)."""
+    stage-by-stage run's launch counts (K1 encode entry, K2, KT, KR,
+    KM)."""
     from theora_tpu_torch import transfer
 
     trips = _sync_debug_findings()
@@ -1384,7 +1468,9 @@ def pipelined_vs_staged(smi: str) -> dict:
             pkts = fn()
             torch.cuda.synchronize()
             walls[what].append(time.perf_counter() - t0)
-            launches = _read_counts(f"enc720p {what}", (per, per, per, 0))
+            launches = _read_counts(f"enc720p {what}",
+                                    (per, per, per, 0,
+                                     3 * (nf // mk.HD_KF)))
             _check_hashes(pkts, name, what)
     log(f"[pipelined] 720p q56 auto, {nf} frames: 19/19 packets both ways "
         f"in all runs; walls in turns pipelined "
@@ -1485,8 +1571,9 @@ def mesh_720p(smi: str) -> tuple:
     and KT once per plane per frame step: 3 x 8 = 24 each, KR none).
     Then KR's path: the two GOPs at q48 through MeshGopEncoder.encode_gops
     at speed level 2 against hd720_q48_k8_sp2_enc.sha256, counts reset
-    just before it (K1's encode entry, K2 and KR 24 each, KT none).
-    Returns the two runs' counts (K1 encode entry, K2, KT, KR)."""
+    just before it (K1's encode entry, K2 and KR 24 each, KT none). KM
+    runs 3 times in each (one plan call per batch). Returns the two runs'
+    counts (K1 encode entry, K2, KT, KR, KM)."""
     import types
 
     from theora_tpu_torch.info import TheoraInfo
@@ -1510,12 +1597,12 @@ def mesh_720p(smi: str) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per = 3 * mk.HD_KF
-    counts = _read_counts("mesh 720p", (per, per, per, 0))
+    counts = _read_counts("mesh 720p", (per, per, per, 0, 3))
     n = _check_hashes(pkts, name, "mesh, gop axis 2, warm pass")
     log(f"[mesh720p] q56 auto, 16 frames, keyframe every 8, gop axis 2: "
         f"all {n} packet SHA-256 equal the JAX encoder's list; warm pass "
-        f"{wall:.4f} s; launches K1, K2, KT, KR {counts} (one per plane per "
-        f"frame step of the 2 GOPs) | {smi}")
+        f"{wall:.4f} s; launches K1, K2, KT, KR, KM {counts} (one per plane "
+        f"per frame step of the 2 GOPs; KM 3 for the one plan) | {smi}")
     info48 = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
                         pic_height=720, quality=mk.HD_QI)
     enc = MeshGopEncoder(make_mesh(2), info48, qi=mk.HD_QI)
@@ -1523,13 +1610,13 @@ def mesh_720p(smi: str) -> tuple:
     _reset_counts()
     datas = enc.encode_gops([frames[:mk.HD_KF], frames[mk.HD_KF:]])
     torch.cuda.synchronize()
-    sp2 = _read_counts("mesh 720p speed 2", (per, per, 0, per))
+    sp2 = _read_counts("mesh 720p speed 2", (per, per, 0, per, 3))
     n = _check_hashes(enc.base.flush_headers() + [
         types.SimpleNamespace(data=d) for gop in datas for d in gop],
         "hd720_q48_k8_sp2_enc", "mesh, gop axis 2, speed 2")
     log(f"[mesh720p] q48 speed 2 (KR over 2 segments), the two GOPs in one "
         f"encode_gops batch: all {n} packet SHA-256 equal the JAX encoder's "
-        f"list; launches K1, K2, KT, KR {sp2} | {smi}")
+        f"list; launches K1, K2, KT, KR, KM {sp2} | {smi}")
     return counts, sp2
 
 
@@ -1541,7 +1628,7 @@ def mesh_vs_sequential(smi: str) -> dict:
     packets of every run equal, each run's kernel launches counted from
     0, then one traced pass each way for the device kernels launched per
     plane per frame. No claim. Returns {way: launch counts (K1 encode
-    entry, K2, KT, KR)}."""
+    entry, K2, KT, KR, KM)}."""
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
     from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
@@ -1555,10 +1642,10 @@ def mesh_vs_sequential(smi: str) -> dict:
     ways = {
         "mesh": (lambda: encode_clip_mesh(frames, info, make_mesh(3),
                                           keyframe_freq=kf, qi=qi),
-                 (3 * kf, 3 * kf, 3 * kf, 0)),
+                 (3 * kf, 3 * kf, 3 * kf, 0, 3)),
         "sequential": (lambda: GopEncoder(info, qi=qi).encode_clip(
             frames, keyframe_freq=kf, clip_batch=8),
-            (3 * nf, 3 * nf, 3 * nf, 0)),
+            (3 * nf, 3 * nf, 3 * nf, 0, 3 * (nf // kf))),
     }
     ref = [p.data for p in ways["sequential"][0]()]
     if len(ref) != 3 + nf:
@@ -1589,7 +1676,8 @@ def mesh_vs_sequential(smi: str) -> dict:
         f"walls in turns mesh (gop axis 3) "
         f"{[round(w, 4) for w in walls['mesh']]} s, sequential "
         f"{[round(w, 4) for w in walls['sequential']]} s; launches K1, K2, "
-        f"KT, KR mesh {counts['mesh']}, sequential {counts['sequential']}; "
+        f"KT, KR, KM mesh {counts['mesh']}, sequential "
+        f"{counts['sequential']}; "
         f"device kernels per plane per frame mesh {per_ppf['mesh']:.1f}, "
         f"sequential {per_ppf['sequential']:.1f} (no claim) | {smi}")
     return counts
@@ -1671,9 +1759,9 @@ def intra_core_720p(smi: str, device) -> tuple:
         got = pipeline.intra_encode_core(blocks, d)
         torch.cuda.synchronize()
         c = _k1_k2_counts()
-        if c != (1, 1):
+        if c != (1, 1) or _counts_all()["KM"]:
             raise AssertionError(f"intra core {what}: K1, K2 launches {c}; "
-                                 f"expected (1, 1)")
+                                 f"expected (1, 1) and no KM launch")
         launches = (launches[0] + c[0], launches[1] + c[1])
         with _plain_kernels():
             want = pipeline.intra_encode_core(blocks, d)
@@ -1813,7 +1901,7 @@ def intra_encode_720p(smi: str) -> tuple:
     t0 = time.perf_counter()
     pkts = enc.encode(frames)
     wall = time.perf_counter() - t0
-    counts = _read_counts("intra 720p", (0, 3, 0, 0))
+    counts = _read_counts("intra 720p", (0, 3, 0, 0, 0))
     n = _check_hashes(hdr + pkts, name, "warm pass")
     triple = sum(bool(p.data[1] & 0x80) for p in pkts)
     if triple:
@@ -1832,7 +1920,8 @@ def intra_encode_720p(smi: str) -> tuple:
         f"gates {enc.timing['gates_s']:.4f} s; device (upload, "
         f"K2 x 3, one download) {enc.timing['device_s']:.4f} s; host "
         f"stages {sum(host):.4f} s ({1e3 * sum(host) / nf:.2f} ms per frame"
-        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR {counts}; "
+        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR, KM "
+        f"{counts}; "
         f"PSNR {psnr:.3f} dB; {sum(len(p.data) for p in pkts)} bytes | "
         f"{smi}")
     return counts[0], counts[1]
@@ -2120,10 +2209,11 @@ def main() -> int:
     dev = torch.device("cuda")
     k1 = kernel_vs_plain(dev)
     golden_streams()
-    k1_decode = real_size(smi)
+    decode = real_size(smi)
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
     kr = kr_vs_plain(dev)
+    km = km_vs_plain(dev)
     small_encodes()
     paths = {"encode q48 aq off": real_size_encode(
         smi, "hd720_q48_k8_enc", 48, False)}
@@ -2147,14 +2237,14 @@ def main() -> int:
     # The batch intra encoder's slice: the compute core (K1's decode entry
     # and K2) and the batch encoder on its main path (K2 only).
     intra_core, intra_kern = intra_core_720p(smi, dev)
-    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0)
-    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0)
+    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0, 0)
+    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0, 0)
     intra_small()
     # The host Encoder's slice: its inter path with the closed loop on the
     # card (K1's decode entry), and the GOP-parallel transcodes over it.
-    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0)
-    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0)
-    paths["distributed"] = (distributed_720p(smi), 0, 0, 0)
+    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0, 0)
+    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0, 0)
+    paths["distributed"] = (distributed_720p(smi), 0, 0, 0, 0)
     host_small()
     enc_cli_workers(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
@@ -2162,21 +2252,23 @@ def main() -> int:
     # intra encoder; KT on the encode, the transcode and the mesh.
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
                   "intra core", "intra encode", "host encode")
-    k1["launches"] = k1_decode + sum(paths[p][0] for p in main_paths)
+    k1["launches"] = (decode["K1 decode"]
+                      + sum(paths[p][0] for p in main_paths))
     k2["launches"] = sum(paths[p][1] for p in main_paths)
     kt["launches"] = sum(paths[p][2] for p in main_paths)
     kr["launches"] = (paths["encode q48 speed 2"][3]
                       + paths["mesh speed 2"][3])
-    k1["launches_by_path"] = {"decode": k1_decode}
-    for i, k in enumerate((k1, k2, kt, kr)):
-        k.setdefault("launches_by_path", {}).update(
-            {p: c[i] for p, c in paths.items()})
+    km["launches"] = sum(paths[p][4] for p in main_paths)
+    for i, (k, key) in enumerate(((k1, "K1 decode"), (k2, "K2"),
+                                  (kt, "KT"), (kr, "KR"), (km, "KM"))):
+        k["launches_by_path"] = {"decode": decode[key],
+                                 **{p: c[i] for p, c in paths.items()}}
     for k, key in ((k1, "K1"), (k2, "K2"), (kt, "KT"), (kr, "KR")):
         k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
                                    "three_launches": segments[key][1]}
     k1["intra_core"] = intra_kern["K1"]
     k2["intra_core"] = intra_kern["K2"]
-    print(json.dumps({"kernels": [k1, k2, kt, kr]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, kt, kr, km]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -23,7 +23,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2, KT, KR and the device "
+        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM and the device "
                     "decode and encode paths have no CPU mode")
     return torch.device("cuda")
 
@@ -226,6 +226,62 @@ def test_kr_kernel_matches_plain(card):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert qrd_cuda.quantize_rd.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (144, 176), (720, 1280)])
+def test_km_kernel_matches_plain(card, h, w):
+    """KM on the frames of tools/bench_me.py:synthetic (frames that tie,
+    and motion past the +-15 MB and +-13 block clamps) and, at 64x48 and
+    176x144, on the rolled clip of test_me_plan_at_the_search_limits (a
+    keyframe row included): all 11 outputs equal the plain version's,
+    three launches per call."""
+    from theora_tpu_torch.ops import me, me_cuda
+    from theora_tpu_torch.tools import bench_me
+
+    cases = []
+    for ys in bench_me.synthetic(h, w, h).values():
+        rows = len(ys) - 1
+        cases.append((ys, np.where(np.arange(rows) < rows // 2, 0, 2)))
+    if h < 720:
+        rng = np.random.default_rng(h)
+        noise = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        ys = np.stack([noise] + [np.roll(noise, sh, (0, 1)) for sh in (
+            (20, 17), (-20, -17), (14, -14), (13, 13), (1, 0))])
+        cases.append((ys, np.array([0, 0, 0, 4, 4])))
+    before = me_cuda.plan_with_gold.launches
+    for ys, gold in cases:
+        ys = torch.from_numpy(np.ascontiguousarray(ys)).to(card)
+        gold = torch.from_numpy(gold.astype(np.int64)).to(card)
+        got = me_cuda.plan_with_gold(ys, gold)
+        want = me.plan_with_gold(ys, gold)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, x)
+    assert me_cuda.plan_with_gold.launches == before + 3 * len(cases)
+
+
+@pytest.mark.parametrize("bad", [-1, 3])
+def test_km_traps_a_gold_index_outside_the_frames(card, bad):
+    """gold_idx outside [0, F) traps KM's search instead of reading past
+    the frames; the error surfaces by the next synchronisation. In a child
+    process, since a trap leaves the CUDA context unusable."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from theora_tpu_torch.ops import me_cuda\n"
+            "ys = torch.zeros((3, 32, 48), dtype=torch.uint8, "
+            "device='cuda')\n"
+            f"gold = torch.tensor([0, {bad}], device='cuda')\n"
+            "try:\n"
+            "    me_cuda.plan_with_gold(ys, gold)\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError:\n"
+            "    raise SystemExit(7)\n")
+    r = subprocess.run([sys.executable, "-c", code],
+                       cwd=os.path.dirname(TESTDATA), capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 7, r.stderr[-2000:]
 
 
 @pytest.mark.parametrize("setting", ["speed 2", "cbr"])

@@ -443,6 +443,69 @@ def test_me_plan_equals_jax_including_ties(h, w):
                               g.numpy().astype(np.int64)), name
 
 
+def _limit_clip(h, w):
+    """Frames whose vectors reach the search's limits: noise and a cif.i420
+    crop, each followed by copies rolled by (+-20, +-17) (past the +-15
+    MB clamp, so the 4MV base is clamped to +-13), by (14, -14) and by
+    (13, 13) (at the block clamp), and a frame rolled by one pixel."""
+    W, H = 352, 288
+    raw = np.fromfile(os.path.join(TESTDATA, "cif.i420"), np.uint8)
+    real = raw[:W * H].reshape(H, W)[100:100 + h, 120:120 + w]
+    noise = np.random.default_rng(h * w).integers(0, 256, (h, w)).astype(
+        np.uint8)
+    frames = []
+    for base in (noise, real):
+        frames.append(base)
+        frames += [np.roll(base, s, (0, 1)) for s in
+                   ((20, 17), (-20, -17), (20, -17), (-20, 17), (14, -14),
+                    (13, 13), (1, 0))]
+    return np.ascontiguousarray(np.stack(frames))
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (144, 176)])
+def test_me_plan_at_the_search_limits_equals_jax(h, w):
+    """Kernel KM's wrapper on the CPU (its plain path) against JAX, all 11
+    outputs exact, where the MB vectors saturate at +-15 full-pel and the
+    4MV blocks at +-13; the rows whose cur frame is a keyframe (8) too."""
+    from theora_tpu_torch.ops import me_cuda
+
+    ys = _limit_clip(h, w)
+    gidx = np.array([0] * 7 + [8] * 8, np.int64)
+    ref = jax.device_get(me_jax.plan_with_gold(jnp.asarray(ys),
+                                               jnp.asarray(gidx)))
+    got = me_cuda.plan_with_gold(_t(ys), _t(gidx))
+    for name, r, g in zip(_PLAN_NAMES, ref, got):
+        assert g.dtype == torch.int32, name
+        assert np.array_equal(np.asarray(r).astype(np.int64),
+                              g.numpy().astype(np.int64)), name
+    mv, bmv = got[0].numpy(), got[9].numpy()
+    assert np.abs(mv).max() == 31 and np.abs(bmv).max() >= 26
+    assert me_cuda.plan_with_gold.launches == 0
+
+
+def test_km_source_tables_are_the_radius_order():
+    """csrc/me.cu's candidate table is ops/me.py:_radius_order(7); its
+    first 25 and 9 entries are the full-pel refine's and the half-pel
+    step's orders, which the kernel keys by position."""
+    import re
+
+    from theora_tpu_torch.ops import me_cuda
+
+    with open(me_cuda._SRC) as f:
+        src = f.read()
+    body = src[src.index("kOrder[kCoarse][2] = {"):]
+    body = body[:body.index("};")]
+    table = [(int(a), int(b))
+             for a, b in re.findall(r"\{(-?\d+), (-?\d+)\}", body)]
+    order = [tuple(d) for d in me._radius_order(7).tolist()]
+    assert table == order
+    assert table[:25] == [tuple(d) for d in me._radius_order(2).tolist()]
+    assert table[:9] == [tuple(d) for d in me._radius_order(1).tolist()]
+    rank = me._refine_rank()
+    for k, (dy, dx) in enumerate(table[:25]):
+        assert rank[(dy + 2) * 5 + (dx + 2)] == k
+
+
 # ------------------------------------------------------------------ packer
 
 def _random_plan(g, rng):

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1 at both entries, K2, KT, KR) take their plain paths
+kernel wrappers (K1 at both entries, K2, KT, KR, KM) take their plain paths
 only for CPU tensors and K1's have no fallback, K1, KT and KR are built
 without floating-point contraction, and the encoder takes every setting of
 the JAX encoder, with its defaults, and its stages and the device
@@ -739,6 +739,139 @@ def test_kr_wrapper_output_on_cpu():
     vals, cnt, dc_only = qrd_cuda.quantize_rd(*args)
     assert vals.shape == (3, 5, 64) and cnt.shape == dc_only.shape == (3, 5)
     assert qrd_cuda.quantize_rd.launches == 0
+
+
+# ------------------------------------------------------------- kernel KM
+
+def _km_args(device):
+    ys = torch.zeros((3, 32, 48), dtype=torch.uint8, device=device)
+    return ys, torch.zeros(2, dtype=torch.int64, device=device)
+
+
+def test_km_plain_path_only_for_cpu_tensors(monkeypatch):
+    from theora_tpu_torch.ops import me, me_cuda
+
+    calls = []
+
+    def plain(ys, gold_idx):
+        calls.append(ys.device.type)
+        return ()
+
+    monkeypatch.setattr(me, "plan_with_gold", plain)
+    me_cuda.plan_with_gold(*_km_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        me_cuda.plan_with_gold(*_km_args("meta"))
+    assert calls == ["cpu"]
+    assert me_cuda.plan_with_gold.launches == 0
+    tree = _parse(me_cuda.__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((3, 32, 48), dtype=torch.int16)),
+    (0, torch.zeros((3, 32, 48), dtype=torch.int32)),
+    (0, torch.zeros((1, 32, 48), dtype=torch.uint8)),
+    (0, torch.zeros((3, 40, 48), dtype=torch.uint8)),
+    (0, torch.zeros((3, 32, 50), dtype=torch.uint8)),
+    (0, torch.zeros((3, 8, 48), dtype=torch.uint8)),
+    (0, torch.zeros((32, 48), dtype=torch.uint8)),
+    (0, torch.zeros((3, 48, 32), dtype=torch.uint8).transpose(1, 2)),
+    (0, torch.zeros((3, 32, 64), dtype=torch.uint8)[:, :, :48]),
+    (0, np.zeros((3, 32, 48), np.uint8)),
+    (1, torch.zeros(2, dtype=torch.int32)),
+    (1, torch.zeros(3, dtype=torch.int64)),
+    (1, torch.zeros((2, 1), dtype=torch.int64)),
+    (1, torch.zeros(4, dtype=torch.int64)[::2]),
+    (1, torch.zeros(2, dtype=torch.int64, device="meta")),
+    (1, np.zeros(2, np.int64)),
+])
+def test_km_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import me_cuda
+
+    args = list(_km_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        me_cuda.plan_with_gold(*args)
+
+
+def test_km_build_is_sm90a(monkeypatch, tmp_path):
+    """KM's library is built by nvcc_build from csrc/me.cu for sm_90a,
+    without fast math (its arithmetic is integer). Nothing is compiled:
+    subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, me_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(me_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_me.so"))
+    so = me_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == me_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "me.cu"))
+    assert so == me_cuda._SO and os.path.exists(so)
+    with open(so + ".log") as f:
+        assert f.read() == "ptxas info"
+
+
+def test_dispatch_me_reaches_km_and_nothing_calls_the_plain_plan(
+        monkeypatch):
+    """GopEncoder.dispatch_me takes its plan from me_cuda.plan_with_gold
+    (the mesh and the transcode reach the ME through it), and no module of
+    the port but the wrapper calls ops/me.py's plan functions (the tools
+    and chip_smoke.py call them to hold the kernel against them)."""
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.ops import me_cuda
+
+    calls = []
+    real = me_cuda.plan_with_gold
+
+    def spy(ys, gold_idx):
+        calls.append((tuple(ys.shape), gold_idx.tolist()))
+        return real(ys, gold_idx)
+
+    monkeypatch.setattr(me_cuda, "plan_with_gold", spy)
+    rng = np.random.default_rng(3)
+    frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8)]
+              for _ in range(3)]
+    enc = GopEncoder(_small_info(), device="cpu")
+    enc.dispatch_me(frames, kf_flags=[True, False, True])
+    assert calls == [((3, 48, 64), [0, 2])]
+
+    plain = {"plan", "plan_with_gold", "plan_from_gop"}
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO_ROOT)
+        if rel in (os.path.join("theora_tpu_torch", "ops", "me_cuda.py"),
+                   os.path.join("theora_tpu_torch", "ops", "me.py"),
+                   "chip_smoke.py") or \
+                rel.startswith(os.path.join("theora_tpu_torch", "tools")):
+            continue
+        tree = _parse(path)
+        me_names = {a.asname or a.name for n in ast.walk(tree)
+                    if isinstance(n, ast.ImportFrom) and n.module and
+                    n.module.endswith("ops") for a in n.names
+                    if a.name == "me"}
+        for n in ast.walk(tree):
+            if isinstance(n, ast.ImportFrom) and n.module and \
+                    n.module.endswith("ops.me"):
+                assert not plain & {a.name for a in n.names}, path
+            if isinstance(n, ast.Attribute) and n.attr in plain and \
+                    isinstance(n.value, ast.Name) and n.value.id in me_names:
+                raise AssertionError(f"{path}:{n.lineno} calls me.{n.attr}")
 
 
 # ------------------------------------------------- the mesh GOP encoder

@@ -18,8 +18,9 @@ its 2-pass metrics, are byte-identical to the JAX encoder's.
 A chunk of frames (consecutive GOPs, `clip_batch` frames at most) goes
 through three stages, none of which waits for work queued after its own:
   1. dispatch_me: upload the planes from pinned memory (or take planes
-     already on the card); the ME plan (ops/me.py) on the device; start
-     the plan's copy to the host;
+     already on the card); the ME plan on the device (kernel KM,
+     ops/me_cuda.py; ops/me.py on the CPU); start the plan's copy to the
+     host;
   2. complete_dispatch: wait for that copy; the host's sequential mode
      decision (native `mode_decide_native`) and per-fragment plan; per
      frame the adaptive-quantization gates and qi list (encode/aq.py),
@@ -76,7 +77,7 @@ from theora_tpu_torch.encode.rate import RateControl, twopass_window_qvecs
 from theora_tpu_torch.encode.scan import encode_plane
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME, TheoraInfo
 from theora_tpu_torch.native import mode_decide_native
-from theora_tpu_torch.ops import me
+from theora_tpu_torch.ops import me_cuda
 from theora_tpu_torch.ops.transforms import rd_lambda
 from theora_tpu_torch.tables import RD_LAMBDA
 from theora_tpu_torch.tpkt import Packet
@@ -440,7 +441,7 @@ class GopEncoder:
                     last = f
                 gidx[f - 1] = last
             with record_function("theora.enc.me"):
-                outs = me.plan_with_gold(
+                outs = me_cuda.plan_with_gold(
                     cur[0], transfer.upload(gidx, self.device, keep))
             with record_function("theora.enc.download"):
                 plan = transfer.Download(_narrow_plan(outs))

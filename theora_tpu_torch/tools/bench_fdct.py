@@ -51,7 +51,7 @@ def k2_bound(args) -> dict:
     dequant rows read once, the DCT and the K quantized rows written once,
     over the memory rate; k2_ops over the int32 rate. The larger binds."""
     res, deq, inter = args
-    n, k = res.shape[0], deq.shape[0]
+    n, k = res.shape[0], deq.shape[-3]  # deq [K, 2, 64] or [G, K, 2, 64]
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + n * 128 * (1 + k))
     ops = k2_ops(n, k)

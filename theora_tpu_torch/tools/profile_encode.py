@@ -9,26 +9,30 @@ the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
 adaptive_quant=False unless asked otherwise, a keyframe every 8 frames,
 clip_batch 8; at speed level S; with B > 0 in CBR at B bit/s, or with
 --two-pass an encode_clip_twopass at B with a 16-frame rate buffer and
-no quality floor) once to warm up, then R
-more times: untraced passes timed on the host clock (wall, host mode
-decision, host packing, host waits for the device's copies, device spans
-from CUDA events), and one pass
-under torch.profiler, which reports device time per codec stage (the
-record_function labels in encode/gop.py and encode/scan.py) with the
-PyTorch kernels each launches, per kernel, the launches of the kernel
-libraries (K1 at both entries, K2, KT, KR) and of K1 in the
+no quality floor) once to warm up, then R more times: untraced passes
+timed on the host clock (wall, host mode decision, host packing, host
+waits for the device's copies, device spans from CUDA events), and one
+pass under torch.profiler, which reports device time per codec stage
+(the record_function labels in encode/gop.py and encode/scan.py) with
+the PyTorch kernels each launches, per kernel, the launches of the
+kernel libraries (K1 at both entries, K2, KT, KR, KM) and of K1 in the
 theora.enc.idct_recon scope, and the device's busy and idle share of the
-traced pass. With --transcode the pass is instead the device-resident
-transcode (encode/gop.py:transcode_device) of the first N data packets of
-testdata/hd720_q56_k12.ogv in decode batches of 8 at qi Q with the
-encoder's settings (adaptive quantization "auto" unless asked otherwise),
-whose encoder's host timers are not reported. With --staged the 8-frame
-GOPs go one after another through dispatch_me, complete_dispatch and
-finish_gop, where encode_clip runs them two deep. With --mesh G the pass is
-the mesh encoder's encode_clip_mesh (parallel/gop.py) on a gop axis of G,
-G GOPs per dispatch, at the mesh's adaptive quantization "auto" (CBR with
---bitrate B); its encoder's host timers are not reported. Needs a CUDA
-card. Prints one JSON summary as its last line.
+traced pass. Then one speed-of-light line per hand-kernel stage (KM, K2,
+KT, KR, K1's two entries): its kernels' device time in the traced pass
+beside the bound of the same calls (tools/bench_me.py, bench_fdct.py,
+bench_trellis.py, bench_qrd.py, bench_idct.py), which one more, untraced
+pass records at the run's shapes and data. With --transcode the pass is
+instead the device-resident transcode (encode/gop.py:transcode_device)
+of the first N data packets of testdata/hd720_q56_k12.ogv in decode
+batches of 8 at qi Q with the encoder's settings (adaptive quantization
+"auto" unless asked otherwise), whose encoder's host timers are not
+reported. With --staged the 8-frame GOPs go one after another through
+dispatch_me, complete_dispatch and finish_gop, where encode_clip runs
+them two deep. With --mesh G the pass is the mesh encoder's
+encode_clip_mesh (parallel/gop.py) on a gop axis of G, G GOPs per
+dispatch, at the mesh's adaptive quantization "auto" (CBR with --bitrate
+B); its encoder's host timers are not reported. Needs a CUDA card.
+Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -94,6 +98,96 @@ def _stage_kernels(events) -> dict:
         if e.device_type == DeviceType.CPU and e.name.startswith("theora."):
             out[e.name] = out.get(e.name, 0) + count(e)
     return out
+
+
+def _kernel_stages() -> list:
+    """(stage, wrapper module, wrapper name, device kernel names, bound of
+    one call's arguments) for each hand kernel an encode may launch."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
+    from theora_tpu_torch.tools import bench_fdct, bench_idct, bench_me, \
+        bench_qrd, bench_trellis
+
+    return [
+        ("ME plan (KM)", me_cuda, "plan_with_gold",
+         ("me_search_kernel", "me_cands_kernel", "me_cand_sads_kernel"),
+         lambda a: bench_me.km_bound(a[0])),
+        ("fDCT + quantization (K2)", fdct_cuda, "fdct_quantize",
+         ("fdct_quant_kernel",), bench_fdct.k2_bound),
+        ("trellis (KT)", trellis_cuda, "trellis_quantize",
+         ("trellis_kernel",), bench_trellis.kt_bound),
+        ("R/D quantizer (KR)", qrd_cuda, "quantize_rd", ("qrd_kernel",),
+         bench_qrd.kr_bound),
+        ("recon + qi chooser (K1 encode entry)", idct_cuda,
+         "idct_recon_choose", ("idct_recon_choose_kernel",),
+         lambda a: bench_idct.k1_bound("encode", a)),
+        ("dequant + iDCT (K1 decode entry)", idct_cuda,
+         "dequantize_idct_frames", ("dequant_idct_kernel",),
+         lambda a: bench_idct.k1_bound("decode", a)),
+    ]
+
+
+def stage_bounds(fn) -> dict:
+    """fn() once with each hand kernel's wrapper replaced by one that
+    calls it and adds the bound of its arguments (tools/bench_*.py; a
+    bound may copy its inputs to the host). Returns {stage: (bound
+    seconds, calls, what binds)}. The wrappers are restored after."""
+    import inspect
+
+    out = {}
+    saved = []
+
+    def recorder(stage, real, bound):
+        sig = inspect.signature(real)
+
+        def call(*args, **kwargs):
+            res = real(*args, **kwargs)
+            ba = sig.bind(*args, **kwargs)
+            ba.apply_defaults()
+            b = bound(tuple(ba.arguments.values()))
+            sec, calls, by = out.get(stage, (0.0, 0, set()))
+            out[stage] = (sec + b["bound_ms"] / 1e3, calls + 1,
+                          by | {b["bound_by"]})
+            return res
+
+        call.launches = 0
+        return call
+
+    try:
+        for stage, mod, attr, _, bound in _kernel_stages():
+            real = getattr(mod, attr)
+            saved.append((mod, attr, real))
+            setattr(mod, attr, recorder(stage, real, bound))
+        fn()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return {k: (sec, calls, "/".join(sorted(by)))
+            for k, (sec, calls, by) in out.items()}
+
+
+def speed_of_light(kernels: dict, bounds: dict) -> dict:
+    """{stage: {traced device seconds of its kernels, their launches, the
+    bound of the same calls, what binds, the share of the bound}} for each
+    hand-kernel stage the encode ran, printed one line each."""
+    rows = {}
+    for stage, _, _, names, _ in _kernel_stages():
+        if stage not in bounds:
+            continue
+        sec = sum(v[0] for k, v in kernels.items()
+                  if any(nm in k for nm in names))
+        launches = sum(v[1] for k, v in kernels.items()
+                       if any(nm in k for nm in names))
+        bsec, calls, by = bounds[stage]
+        rows[stage] = {"traced_s": sec, "launches": launches,
+                       "bound_s": bsec, "bound_by": by, "calls": calls,
+                       "share_of_bound": bsec / sec if sec else None}
+        share = f"{100 * bsec / sec:.1f}%" if sec else "not measured"
+        print(f"[speed of light] {stage}: traced {1e3 * sec:.4f} ms device "
+              f"in {launches} launches ({calls} calls); bound "
+              f"{1e3 * bsec:.4f} ms by {by}; at {share} of its bound",
+              flush=True)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -202,15 +296,16 @@ def main(argv=None) -> int:
         print("[run] " + ", ".join(f"{k} {v:.4f}" for k, v in run.items()),
               flush=True)
 
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-        trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
+        qrd_cuda, trellis_cuda
 
     # K1 counts both entries; the encode launches its encode entry.
     wrappers = {"K1": (idct_cuda.dequantize_idct_frames,
                        idct_cuda.idct_recon_choose),
                 "K2": (fdct_cuda.fdct_quantize,),
                 "KT": (trellis_cuda.trellis_quantize,),
-                "KR": (qrd_cuda.quantize_rd,)}
+                "KR": (qrd_cuda.quantize_rd,),
+                "KM": (me_cuda.plan_with_gold,)}
 
     def lib_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -227,9 +322,10 @@ def main(argv=None) -> int:
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device, "
               f"{stage_kernels.get(name, 0)} PyTorch kernels", flush=True)
-    # K1, K2, KT and KR are launched from their own libraries, outside any
-    # PyTorch op, so the profiler does not attribute them to their scopes;
-    # list them by name, and their launches by their wrappers' counts.
+    # K1, K2, KT, KR and KM are launched from their own libraries, outside
+    # any PyTorch op, so the profiler does not attribute them to their
+    # scopes; list them by name, and their launches by their wrappers'
+    # counts.
     print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
           flush=True)
     print(f"[launches] theora.enc.idct_recon: "
@@ -240,10 +336,14 @@ def main(argv=None) -> int:
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis",
-                                             "qrd"))]
+                                             "qrd", "me_"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
+    # The hand kernels' device time (KM's is theora.enc.me's) beside
+    # their bounds.
+    sol = speed_of_light(_split(events)[1], stage_bounds(
+        lambda: encode(make())))
     launches = sum(k[2] for k in kernels)
     per_plane_frame = launches / (3 * nf)
     print(f"[launches] {launches} device kernels in the traced pass, "
@@ -267,6 +367,7 @@ def main(argv=None) -> int:
         "stages_device_s": stages,
         "stages_pytorch_kernels": stage_kernels,
         "library_launches": lib_launches,
+        "speed_of_light": sol,
         "kernel_launches": launches,
         "launches_per_plane_frame": per_plane_frame,
     }
