@@ -7,8 +7,9 @@ and prints no result line):
 
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2, KT, KR and KM
-   (nvcc, sm_90a; K1, KT and KR with -fmad=false), all from the sources in
-   the checkout, in parallel;
+   (nvcc, sm_90a; K1, KT and KR with -fmad=false) and the byte-SIMD rate
+   measurement (csrc/simd_rate.cu), all from the sources in the checkout,
+   in parallel;
 3. K1 against its plain PyTorch versions on the card, exact equality. The
    decode entry (dequantize_idct_frames): random blocks at the decode
    path's per-plane shapes (115,200 and 28,800 at 1280x720 4:2:0, batch
@@ -84,9 +85,14 @@ and prints no result line):
    720p synthetic frames built to tie (flat, period-4 stripes and their
    one-pixel roll, noise and noise rolled by (2, -5)) and noise rolled by
    (+-20, +-17), which saturates the MB search at +-15 and the 4MV blocks
-   at +-13; the same at 176x144 (an odd number of MB rows) and 64x48
-   (every MB touches an edge). CUDA-event times at 7 and 23 rows beside
-   the bound (bench_me.km_bound) and the plain version. Every encode path
+   at +-13; byte extremes (a 0/255 checkerboard then its inverse, an
+   all-0 frame then an all-255 one) and noise rolled to every residue of
+   dx mod 4 in both directions (word alignment); the same at 176x144 (an
+   odd number of MB rows) and 64x48 (every MB touches an edge). The issue
+   rates of the byte SIMD instructions (bench_me.simd_rates, per SM per
+   clock). CUDA-event times at 7 and 23 rows, each launch alone too,
+   beside the bound (bench_me.km_bound), the bound at the measured rates
+   (bench_me.km_bound_at) and the plain version. Every encode path
    below counts KM's launches: 3 per plan call (2 calls per 16-frame
    encode_clip, 3 per 24-frame transcode, 1 per mesh batch), none on the
    host Encoder's and the intra paths;
@@ -240,13 +246,14 @@ def build() -> None:
     from theora_tpu_torch import native
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
         qrd_cuda, trellis_cuda
+    from theora_tpu_torch.tools import bench_me
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(6) as ex:
+    with concurrent.futures.ThreadPoolExecutor(7) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
@@ -255,7 +262,9 @@ def build() -> None:
                     timed, trellis_cuda.build),
                 "KR (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, qrd_cuda.build),
-                "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build)}
+                "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build),
+                "byte-SIMD rates (nvcc sm_90a)": ex.submit(
+                    timed, bench_me.simd_build)}
         for what, job in jobs.items():
             path, dt = job.result()
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
@@ -898,9 +907,12 @@ def km_vs_plain(device) -> dict:
     """6d: KM (the ME plan, ops/me_cuda.py) against its plain version
     (ops/me.py:plan_with_gold) on the card, all 11 outputs exactly equal,
     on tools/bench_me.py:cases (the 720p encode chunk and mesh batch, the
-    synthetic frames that tie and that saturate the search at 720p,
-    176x144 and 64x48); CUDA-event times at 7 and 23 rows beside the
-    bound (bench_me.km_bound) and the plain version."""
+    synthetic frames that tie, saturate the search, reach the byte
+    extremes and every word alignment, at 720p, 176x144 and 64x48); the
+    byte SIMD issue rates (bench_me.simd_rates); CUDA-event times at 7
+    and 23 rows, each launch alone too, beside the bound
+    (bench_me.km_bound), the bound at the measured rates and the plain
+    version."""
     from theora_tpu_torch.ops import me, me_cuda
     from theora_tpu_torch.tools import bench_me as bm
 
@@ -922,19 +934,30 @@ def km_vs_plain(device) -> dict:
             f"vectors at the +-15 limit; {int((want[5] != 0).any(-1).sum())}"
             f" nonzero candidates)")
     log(f"[km] max |err| {err} (tolerance 0: exact)")
+    rates = bm.simd_rates(device)
+    for op, r in rates.items():
+        log(f"[km] issue rate of {op}: {r['per_sm_clock']:.2f} per SM per "
+            f"clock, {r['per_s'] / 1e12:.3f} T/s (bench_me.simd_rates)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     timed = {}
     for nf in (bm.KF, 24):
         ys = torch.from_numpy(hd[:nf]).to(device)
-        r = bm.time_case(ys, torch.from_numpy(bm.gop_gold(nf)).to(device),
-                         flush)
+        gold = torch.from_numpy(bm.gop_gold(nf)).to(device)
+        r = bm.time_case(ys, gold, flush)
+        r["stages_ms"] = bm.stage_ms(me_cuda._load(), ys, gold, flush)
+        at = bm.km_bound_at(ys, rates)
+        r["bound_at_measured_rates_ms"] = at["bound_ms"]
         log(f"[km] time at 720p, {r['rows']} rows: kernel {r['ms']:.4f} ms "
-            f"(3 launches), plain {r['plain_ms']:.4f} ms; bound "
+            f"(3 launches: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["stages_ms"].items())
+            + f" ms alone), plain {r['plain_ms']:.4f} ms; bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['ops']} ops, "
             f"byte SIMD counted as bench_me.km_ops -> {r['ops_ms']:.4f} ms "
             f"at 33.5 T/s; {r['bytes']} B -> {r['bytes_ms']:.4f} ms at 3.35 "
-            f"TB/s); kernel at "
-            f"{100 * r['bound_ms'] / r['ms']:.2f}% of its bound; no single "
+            f"TB/s), {at['bound_ms']:.4f} ms at the measured issue rates "
+            f"(bench_me.km_bound_at); kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% / "
+            f"{100 * at['bound_ms'] / r['ms']:.2f}% of them; no single "
             f"PyTorch call computes the plan (library_ms null)")
         timed[nf] = r
     one = timed[bm.KF]
@@ -945,9 +968,13 @@ def km_vs_plain(device) -> dict:
         "launches": None, "max_abs_err": err, "ms": one["ms"],
         "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
         "bound_by": one["bound_by"], "library_ms": None,
-        "timed_rows": one["rows"],
+        "timed_rows": one["rows"], "stages_ms": one["stages_ms"],
+        "bound_at_measured_rates_ms": one["bound_at_measured_rates_ms"],
+        "simd_rates_per_sm_clock": {
+            op: r["per_sm_clock"] for op, r in rates.items()},
         "mesh_batch": {key: timed[24][key] for key in (
-            "rows", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "rows", "ms", "plain_ms", "bound_ms", "bound_by", "stages_ms",
+            "bound_at_measured_rates_ms")},
     }
 
 

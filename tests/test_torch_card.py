@@ -260,6 +260,29 @@ def test_km_kernel_matches_plain(card, h, w):
     assert me_cuda.plan_with_gold.launches == before + 3 * len(cases)
 
 
+def test_km_frames_off_the_vector_alignment_match_plain(card):
+    """Frames whose storage starts one byte past a 16-byte boundary (a
+    contiguous view at an odd offset): KM stages them byte by byte instead
+    of with vector loads, and its 11 outputs still equal the plain
+    version's, on noise rolled past the search limits and by one pixel."""
+    from theora_tpu_torch.ops import me, me_cuda
+
+    rng = np.random.default_rng(9)
+    noise = rng.integers(0, 256, (80, 96)).astype(np.uint8)
+    frames = np.stack([noise] + [np.roll(noise, sh, (0, 1)) for sh in (
+        (20, 17), (1, -1), (-3, 2))])
+    store = torch.zeros(frames.size + 1, dtype=torch.uint8, device=card)
+    ys = store[1:].view(frames.shape)
+    ys.copy_(torch.from_numpy(frames))
+    assert ys.data_ptr() % 16 == 1
+    gold = torch.tensor([0, 0, 2], dtype=torch.int64, device=card)
+    got = me_cuda.plan_with_gold(ys, gold)
+    want = me.plan_with_gold(ys.contiguous(), gold)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
 @pytest.mark.parametrize("bad", [-1, 3])
 def test_km_traps_a_gold_index_outside_the_frames(card, bad):
     """gold_idx outside [0, F) traps KM's search instead of reading past

@@ -483,6 +483,38 @@ def test_me_plan_at_the_search_limits_equals_jax(h, w):
     assert me_cuda.plan_with_gold.launches == 0
 
 
+@pytest.mark.parametrize("h,w", [(48, 64), (144, 176)])
+def test_me_plan_on_byte_extremes_and_word_alignment_equals_jax(h, w):
+    """The plain plan against JAX, all 11 outputs exact, on the frames of
+    tools/bench_me.py:synthetic that reach kernel KM's packed-byte hazards:
+    a 0/255 checkerboard then its inverse and an all-0 frame then an
+    all-255 one (MB SADs near 65,280, pyramid differences of 1,020), and
+    noise rolled so that the vectors and candidates take every residue of
+    dx mod 4, in both directions. The card test holds KM to the plain plan
+    on the same frames."""
+    from theora_tpu_torch.tools import bench_me
+
+    frames = bench_me.synthetic(h, w, h)
+    plans = {}
+    for label in ("extremes", "alignment"):
+        ys = frames[label]
+        rows = len(ys) - 1
+        gidx = np.where(np.arange(rows) < rows // 2, 0, 2).astype(np.int64)
+        ref = jax.device_get(me_jax.plan_with_gold(jnp.asarray(ys),
+                                                   jnp.asarray(gidx)))
+        got = me.plan_with_gold(_t(ys), _t(gidx))
+        for name, r, g in zip(_PLAN_NAMES, ref, got):
+            assert np.array_equal(np.asarray(r).astype(np.int64),
+                                  g.numpy().astype(np.int64)), (label, name)
+        plans[label] = [g.numpy() for g in got]
+    # The hazards are reached: SADs near the 16-bit limit, full-pel
+    # vectors and candidates at every residue of dx mod 4.
+    assert plans["extremes"][2].max() >= 60000
+    mv, cands = plans["alignment"][0], plans["alignment"][5]
+    assert set((mv[..., 0] // 2 % 4).ravel()) == {0, 1, 2, 3}
+    assert set((cands[..., 0] // 2 % 4).ravel()) == {0, 1, 2, 3}
+
+
 def test_km_source_tables_are_the_radius_order():
     """csrc/me.cu's candidate table is ops/me.py:_radius_order(7); its
     first 25 and 9 entries are the full-pel refine's and the half-pel

@@ -826,6 +826,57 @@ def test_km_build_is_sm90a(monkeypatch, tmp_path):
         assert f.read() == "ptxas info"
 
 
+def test_simd_rate_build_is_sm90a(monkeypatch, tmp_path):
+    """The byte-SIMD rate measurement of tools/bench_me.py is built by
+    nvcc_build from csrc/simd_rate.cu for sm_90a beside KM's library.
+    Nothing is compiled: subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, me_cuda
+    from theora_tpu_torch.tools import bench_me
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(me_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_me.so"))
+    so = bench_me.simd_build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert cmd[-1].endswith(os.path.join("csrc", "simd_rate.cu"))
+    assert so == str(tmp_path / "build" / "libtheora_simd_rate.so")
+    assert os.path.exists(so)
+
+
+def test_km_bound_counts_byte_simd_and_the_measured_rates():
+    """bench_me.km_ops, the bound every KM design is held to, is the sum
+    of km_op_mix: 677,383,056 instructions for 7 rows of 720p luma,
+    2,225,687,184 for 23. km_bound_at takes each kind at its own measured
+    rate and a pyramid pair at the best of its three forms."""
+    from theora_tpu_torch.tools import bench_me as bm
+
+    for rows, ops in ((7, 677383056), (23, 2225687184)):
+        assert bm.km_ops(rows, 720, 1280) == ops == sum(
+            bm.km_op_mix(rows, 720, 1280).values())
+    ys = np.zeros((8, 720, 1280), np.uint8)
+    mix = bm.km_op_mix(7, 720, 1280)
+    rates = {k: {"per_s": 1e12, "per_sm_clock": 1.0} for k in bm.SIMD_OPS}
+    flat = sum(mix.values()) / 1e12 * 1e3
+    assert bm.km_bound_at(ys, rates)["ops_ms"] == pytest.approx(flat)
+    rates["vsadu2"]["per_s"] = 1e11  # the min form takes the pairs
+    assert bm.km_bound_at(ys, rates)["ops_ms"] == pytest.approx(flat)
+    rates["min_u16x2"]["per_s"] = 1e11  # two scalar vabsdiff a pair
+    slow = flat + mix["vsadu2"] / 1e12 * 1e3
+    assert bm.km_bound_at(ys, rates)["ops_ms"] == pytest.approx(slow)
+    assert bm.km_bound_at(ys, rates)["bound_by"] == "operations"
+
+
 def test_dispatch_me_reaches_km_and_nothing_calls_the_plain_plan(
         monkeypatch):
     """GopEncoder.dispatch_me takes its plan from me_cuda.plan_with_gold

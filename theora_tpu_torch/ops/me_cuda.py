@@ -8,8 +8,9 @@ candidate vectors of each frame and their SADs. Three launches per plan
 call (search, candidates, candidate SADs) in place of the plain
 version's thousands of PyTorch ops. Its bound is its instructions at
 the int32 rate, byte SIMD counted four differences to one
-(tools/bench_me.py:km_bound); one warp searches one macroblock and takes
-every minimum over an integer key (see the source's note).
+(tools/bench_me.py:km_bound); one warp searches one macroblock against
+one reference on packed bytes in shared memory and takes every minimum
+over an integer key (see the source's note).
 
 Its 11 outputs must equal the plain version's (ops/me.py:plan_with_gold)
 bit for bit, tie order included. The library is compiled with nvcc for
@@ -45,19 +46,64 @@ def build() -> str:
     return nvcc_build(_SRC, _SO)
 
 
+def bind(path: str):
+    """The KM library at path (built from csrc/me.cu or an earlier
+    version of it with the same C interface), its entries typed."""
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.th_me_search.restype = i32
+    lib.th_me_search.argtypes = [ptr, ptr, i32, i32, i32] + [ptr] * 10
+    lib.th_me_cands.restype = i32
+    lib.th_me_cands.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.th_me_cand_sads.restype = i32
+    lib.th_me_cand_sads.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.th_me_search.restype = i32
-        lib.th_me_search.argtypes = [ptr, ptr, i32, i32, i32] + [ptr] * 10
-        lib.th_me_cands.restype = i32
-        lib.th_me_cands.argtypes = [ptr, i32, i32, ptr, ptr]
-        lib.th_me_cand_sads.restype = i32
-        lib.th_me_cand_sads.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
-        _lib = lib
+        _lib = bind(build())
     return _lib
+
+
+def outputs(B: int, nv: int, nh: int, dev) -> tuple:
+    """Empty int32 tensors for the plan's 11 outputs, in me.plan's order."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    return (empty(B, nv, nh, 2), empty(B, nv, nh), empty(B, nv, nh),
+            empty(B, nv, nh), empty(B, nv, nh), empty(B, me.N_CANDS, 2),
+            empty(B, me.N_CANDS, nv, nh), empty(B, nv, nh, 2),
+            empty(B, nv, nh), empty(B, 2 * nv, 2 * nh, 2), empty(B, nv, nh))
+
+
+# The three launches of a plan call, in order.
+STAGES = ("search", "candidates", "candidate SADs")
+
+
+def launch(lib, stage: str, ys, gold_idx, out) -> int:
+    """Launch one stage of the plan of ys [F, H, W], gold_idx [F-1] on the
+    current stream into out (outputs()); returns the entry's CUDA error.
+    The stages read what the earlier ones wrote."""
+    (mv, sad_mv, sad_nomv, sad_gold, sad_intra, cands, cand_sads, gmv,
+     sad_gmv, bmv, bsad4) = out
+    F, H, W = ys.shape
+    B = F - 1
+    stream = torch.cuda.current_stream(ys.device).cuda_stream
+    if stage == "search":
+        return lib.th_me_search(
+            ys.data_ptr(), gold_idx.data_ptr(), B, H, W, mv.data_ptr(),
+            sad_mv.data_ptr(), sad_nomv.data_ptr(), gmv.data_ptr(),
+            sad_gmv.data_ptr(), sad_gold.data_ptr(), sad_intra.data_ptr(),
+            bmv.data_ptr(), bsad4.data_ptr(), stream)
+    if stage == "candidates":
+        return lib.th_me_cands(mv.data_ptr(), B, (H // 16) * (W // 16),
+                               cands.data_ptr(), stream)
+    if stage == "candidate SADs":
+        return lib.th_me_cand_sads(ys.data_ptr(), cands.data_ptr(), B, H, W,
+                                   cand_sads.data_ptr(), stream)
+    raise ValueError(f"unknown KM stage {stage!r}")
 
 
 def _launched(err: int, what: str) -> None:
@@ -99,28 +145,10 @@ def plan_with_gold(ys, gold_idx):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _load()
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    mv, gmv = empty(B, nv, nh, 2), empty(B, nv, nh, 2)
-    sad_mv, sad_nomv, sad_gold, sad_intra, sad_gmv, bsad4 = (
-        empty(B, nv, nh) for _ in range(6))
-    bmv = empty(B, 2 * nv, 2 * nh, 2)
-    cands, cand_sads = empty(B, me.N_CANDS, 2), empty(B, me.N_CANDS, nv, nh)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launched(lib.th_me_search(
-        ys.data_ptr(), gold_idx.data_ptr(), B, H, W, mv.data_ptr(),
-        sad_mv.data_ptr(), sad_nomv.data_ptr(), gmv.data_ptr(),
-        sad_gmv.data_ptr(), sad_gold.data_ptr(), sad_intra.data_ptr(),
-        bmv.data_ptr(), bsad4.data_ptr(), stream), "search")
-    _launched(lib.th_me_cands(mv.data_ptr(), B, n, cands.data_ptr(), stream),
-              "candidates")
-    _launched(lib.th_me_cand_sads(ys.data_ptr(), cands.data_ptr(), B, H, W,
-                                  cand_sads.data_ptr(), stream),
-              "candidate SADs")
-    return (mv, sad_mv, sad_nomv, sad_gold, sad_intra, cands, cand_sads, gmv,
-            sad_gmv, bmv, bsad4)
+    out = outputs(B, nv, nh, dev)
+    for stage in STAGES:
+        _launched(launch(lib, stage, ys, gold_idx, out), stage)
+    return out
 
 
 # Kernel launches made through the wrapper, three per plan call on the card
