@@ -7,7 +7,8 @@ and prints no result line):
 
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2, KT, KR and KM
-   (nvcc, sm_90a; K1, KT and KR with -fmad=false) and the byte-SIMD rate
+   (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
+   csrc/fdct_core.cuh, K2's block core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
    in parallel;
 3. K1 against its plain PyTorch versions on the card, exact equality. The
@@ -66,17 +67,26 @@ and prints no result line):
    first frame's planes and of the launch without nonzero AC values, each
    beside its bound and its histogram of nonzero AC values per block
    (tools/bench_trellis.py), and of the plain version at 3 x 14,400;
-6c. KR (the R/D quantizer of speed levels 2-4 and use_trellis=False)
-   against its plain version (transforms.quantize_rd_rows) on the card,
-   exact equality of the values, nonzero counts and DC-only flags: K2's
-   outputs on random residuals at K = 1, 2 and 3 real qi lists over
-   14,400, 3,600 and 21,600 blocks, intra and inter blocks mixed (each
-   block takes its row's intra or inter lambda); the edge classes (a lone
-   +-1 at position 1 and at position 63, +-1 pairs, no nonzero AC value,
-   +-32767); the blocks of testdata/vectors/qrd_fma_cases.npz, one launch
-   each; CUDA-event times at K = 1 and 3 over 14,400 blocks beside the
-   bound (tools/bench_qrd.py:kr_bound), the plain version, a device copy
-   of the same bytes and KT on the same K2 outputs;
+6c. KR (the R/D quantizer of speed levels 2-4 and use_trellis=False) on
+   the card, exact equality of the values, nonzero counts and DC-only
+   flags. Its standalone entry (quantize_rd, the test hook) against its
+   plain version (transforms.quantize_rd_rows): K2's outputs on random
+   residuals at K = 1, 2 and 3 real qi lists over 14,400, 3,600 and
+   21,600 blocks, intra and inter blocks mixed (each block takes its row's
+   intra or inter lambda); the edge classes (a lone +-1 at position 1 and
+   at position 63, +-1 pairs, no nonzero AC value, +-32767); the blocks of
+   testdata/vectors/qrd_fma_cases.npz, one launch each. Its fused entry
+   (fdct_quantize_rd, K2's block core and the same row step in one launch:
+   the encode scan's) against its plain version (transforms.
+   fdct_quantize_rd) and the K2 -> KR chain, on the same random residuals
+   at K = 1, 2, 3 over 14,400, 3,600 (a partial CTA) and 21,600 blocks, and
+   over 3 mesh segments of 14,400 blocks at K = 1, 2, 3
+   (tools/bench_segments.py:segment_case). CUDA-event times
+   (tools/bench_qrd.py): the fused entry at 14,400 blocks, K = 1 and 3, and
+   3 segments x 14,400 at K = 3 beside the chain and K2 alone in turns,
+   its bound (kr_fused_bound) and its plain version; the standalone entry
+   at K = 1 and 3 beside its bound (kr_bound), its plain version, a device
+   copy of the same bytes and KT on the same K2 outputs;
 6d. KM (the encoder's ME plan, three launches per plan call) against its
    plain version (ops/me.py:plan_with_gold) on the card, all 11 outputs
    exactly equal (tools/bench_me.py:cases): the 1280x720 luma as
@@ -118,7 +128,8 @@ and prints no result line):
    encode entry, K2 and KT must each launch once per plane per frame, 48
    times, and K1's decode entry not at all), blocks at a non-base qi at
    q56, and its PSNR against the source; the same at q48 and speed level
-   2 (the R/D quantizer: KR 48 launches, KT none); and a 2-pass encode
+   2 (the R/D quantizer: KR's fused entry 48 launches, K2 and KT none,
+   KR's standalone entry none); and a 2-pass encode
    of the 16 frames at 2 Mbit/s with a 16-frame rate buffer: packets and
    metrics blob against the list, more than one qi among the frames, the
    first GOP's closed loop at its frames' qis, and a warm pass timed with
@@ -144,9 +155,9 @@ and prints no result line):
    decode_clip's, K1's decode entry once per plane per frame.
 
 10. the mesh GOP encoder (parallel/gop.py, the gop axis as a batch
-   dimension on one card): (a) K2, KT, KR and K1's encode entry over 3
-   segments of 14,400 blocks (a 720p luma plane per GOP), a distinct qi
-   triple, lambdas and lambda scales per segment
+   dimension on one card): (a) K2, KT, KR's fused entry and K1's encode
+   entry over 3 segments of 14,400 blocks (a 720p luma plane per GOP), a
+   distinct qi triple, lambdas and lambda scales per segment
    (tools/bench_segments.py), each kernel's one launch equal to its plain
    version and to 3 launches of one segment, exactly, and timed beside
    them; (b) the slice's main path, encode_clip_mesh of the 16 720p frames
@@ -155,7 +166,8 @@ and prints no result line):
    mesh at gop axis 2 also gives: testdata/make_hd720_enc.py CHECKS), a
    warm pass with the counts reset (K1's encode entry, K2, KT 24 each),
    and KR's path: the two GOPs at q48 speed 2 in one encode_gops batch
-   against hd720_q48_k8_sp2_enc.sha256 (K1, K2, KR 24 each);
+   against hd720_q48_k8_sp2_enc.sha256 (K1 and KR 24 each, K2 and KT
+   none);
    (c) 24 720p frames at q48 "auto", keyframe every 8, through
    encode_clip_mesh on a gop axis of 3 and the sequential encode_clip in
    turns, 3 pairs: 27 packets equal both ways, walls, each kernel's
@@ -838,8 +850,18 @@ def kt_vs_plain(device) -> dict:
 
 
 def kr_vs_plain(device) -> dict:
+    """6c: KR's two entries on the card, exact equality of the values,
+    nonzero counts and DC-only flags. The standalone entry
+    (qrd_cuda.quantize_rd, the test hook) against its plain version on
+    K2's outputs, the edge classes and the FMA near-ties, which only DCT
+    values reach; the fused entry (qrd_cuda.fdct_quantize_rd, the encode
+    scan's) against its plain version and the K2 -> KR chain on random
+    residuals and over 3 mesh segments. Times (tools/bench_qrd.py): the
+    fused entry beside the chain and K2 alone in turns, and the standalone
+    entry beside KT."""
     from theora_tpu_torch.ops import qrd_cuda, transforms
     from theora_tpu_torch.tools import bench_qrd as bq
+    from theora_tpu_torch.tools import bench_segments as bs
 
     err = 0
 
@@ -859,47 +881,86 @@ def kr_vs_plain(device) -> dict:
     for label, args in bq.kr_cases(device):
         want = check(label, args)
         moved = int((want[0] != args[0]).any(dim=2).sum())
-        log(f"[kr] {label}: kernel == plain (values, counts, DC-only "
-            f"flags); {moved} of {want[0].numel() // 64} (row, block) pairs "
-            f"moved off round-to-nearest; {int(want[2].sum())} DC-only")
+        log(f"[kr] standalone entry, {label}: kernel == plain (values, "
+            f"counts, DC-only flags); {moved} of {want[0].numel() // 64} "
+            f"(row, block) pairs moved off round-to-nearest; "
+            f"{int(want[2].sum())} DC-only")
     want = check("edge classes", bq.edge_args(device))
-    log(f"[kr] edge classes (lone +-1 at positions 1 and 63, +-1 pairs, no "
-        f"nonzero AC value, +-32767), {want[0].shape[1]} blocks: kernel == "
-        f"plain")
+    log(f"[kr] standalone entry, edge classes (lone +-1 at positions 1 and "
+        f"63, +-1 pairs, no nonzero AC value, +-32767), "
+        f"{want[0].shape[1]} blocks: kernel == plain")
     path = os.path.join(TESTDATA, "vectors", "qrd_fma_cases.npz")
     n = 0
     for n, args in enumerate(bq.fma_args(path, device), 1):
         check(f"qrd_fma_cases.npz block {n - 1}", args)
-    log(f"[kr] qrd_fma_cases.npz: {n} blocks, one launch each, kernel == "
-        f"plain; max |err| {err} (tolerance 0: exact)")
+    log(f"[kr] standalone entry, qrd_fma_cases.npz: {n} blocks, one launch "
+        f"each, kernel == plain; max |err| {err} (tolerance 0: exact)")
+
+    # The fused entry: K2's block core and the same row step in one launch.
+    # 3,600 blocks end in a partial CTA.
+    for label, args in bq.kr_cases(device, fused=True):
+        got = bq.check_fused(args)
+        torch.cuda.synchronize()
+        log(f"[kr] fused entry, {label}: kernel == plain == K2 -> KR chain "
+            f"(values, counts, DC-only flags); {int(got[2].sum())} DC-only")
+    c = bs.segment_case(np.random.default_rng(bs.SEED + 1), 14400, 3, device)
+    for k in (1, 2, 3):
+        bq.check_fused((c["res"], c["deq"][:, :k].contiguous(), c["inter"],
+                        c["lam_q"][:, :k].contiguous()))
+    torch.cuda.synchronize()
+    log(f"[kr] fused entry, 3 mesh segments x 14400 blocks at K = 1, 2, 3 "
+        f"(qi triples {c['qis']}, lambdas per segment): kernel == plain == "
+        f"3-segment chain; tolerance 0: exact")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    fused = {}
+    for label, args in bq.fused_shapes(device):
+        r = bq.time_fused(args, flush)
+
+        def ms(key):
+            return " / ".join(f"{x:.4f}" for x in r[key])
+
+        log(f"[kr] time, fused entry, {label}: fused {ms('fused_ms')} ms, "
+            f"K2 -> KR chain {ms('chain_ms')} ms, K2 alone {ms('k2_ms')} ms "
+            f"(in turns: chain, fused, K2, K2, fused, chain), plain "
+            f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.4f} ms at "
+            f"3.35 TB/s; {r['int32_ops']} int32 + {r['float32_ops']} "
+            f"float32 ops -> {r['ops_ms']:.4f} ms); fused at "
+            f"{100 * r['bound_ms'] / min(r['fused_ms']):.2f}% of its bound; "
+            f"no single PyTorch call computes this (library_ms null)")
+        fused[label] = r
     rng = np.random.default_rng(20261023)
-    timed = {}
+    alone = {}
     for k in (1, 3):
         qis = bq.qi_lists()[k]
         r = bq.time_case(bq.kr_args(rng, 14400, qis, 0, device), qis, flush)
-        log(f"[kr] time at K = {k}, 14400 blocks: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.4f} ms at "
-            f"3.35 TB/s; {r['ops']} float32 ops -> {r['ops_ms']:.4f} ms at "
-            f"67 TFLOP/s); kernel at {100 * r['bound_ms'] / r['ms']:.2f}% of "
-            f"its bound; a device copy of the same bytes takes "
-            f"{r['copy_ms']:.4f} ms; KT on the same K2 outputs "
-            f"{r['kt_ms']:.4f} ms; no single PyTorch call computes this "
-            f"quantizer (library_ms null)")
-        timed[k] = r
-    one = timed[1]
+        log(f"[kr] time, standalone entry at K = {k}, 14400 blocks: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} B); a "
+            f"device copy of the same bytes takes {r['copy_ms']:.4f} ms; KT "
+            f"on the same K2 outputs {r['kt_ms']:.4f} ms")
+        alone[k] = {key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "kt_ms")}
+    one = fused["14400 blocks, K = 1"]
+
+    def mean(v):
+        return sum(v) / len(v)
+
     return {
         "name": "quantize_rd", "route": "cuda",
         "source": "theora_tpu_torch/csrc/quantize_rd.cu",
         "replaces": "theora_tpu/ops/transforms_jax.py:185",
-        "launches": None, "max_abs_err": err, "ms": one["ms"],
+        "launches": None, "max_abs_err": err, "ms": mean(one["fused_ms"]),
         "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
         "bound_by": one["bound_by"], "library_ms": None,
-        "timed_blocks": 14400, "timed_rows": 1, "kt_ms": one["kt_ms"],
-        "three_rows": {key: timed[3][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "kt_ms")},
+        "timed_entry": "fdct_quantize_rd", "timed_blocks": 14400,
+        "timed_rows": 1, "chain_ms": mean(one["chain_ms"]),
+        "k2_ms": mean(one["k2_ms"]),
+        "fused_shapes": {label: {key: r[key] for key in (
+            "fused_ms", "chain_ms", "k2_ms", "plain_ms", "bound_ms",
+            "bound_by")} for label, r in fused.items()},
+        "standalone_entry": {f"{k} rows": v for k, v in alone.items()},
     }
 
 
@@ -1140,28 +1201,33 @@ def _reset_counts() -> None:
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
               fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
-              qrd_cuda.quantize_rd, me_cuda.plan_with_gold):
+              qrd_cuda.fdct_quantize_rd, qrd_cuda.quantize_rd,
+              me_cuda.plan_with_gold):
         w.launches = 0
 
 
 def _read_counts(what: str, want: tuple) -> tuple:
-    """(K1's encode entry, K2, KT, KR, KM) launches since _reset_counts;
-    they must equal want, and K1's decode entry must not have run. KM
-    launches three times per ME plan: one plan per chunk of encode_clip,
-    per GOP of a 2-pass encode's pass 2, per mesh batch."""
+    """(K1's encode entry, K2, KT, KR's fused entry, KM) launches since
+    _reset_counts; they must equal want, and neither K1's decode entry nor
+    KR's standalone entry must have run. KM launches three times per ME
+    plan: one plan per chunk of encode_clip, per GOP of a 2-pass encode's
+    pass 2, per mesh batch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
         qrd_cuda, trellis_cuda
 
     counts = (idct_cuda.idct_recon_choose.launches,
               fdct_cuda.fdct_quantize.launches,
               trellis_cuda.trellis_quantize.launches,
-              qrd_cuda.quantize_rd.launches,
+              qrd_cuda.fdct_quantize_rd.launches,
               me_cuda.plan_with_gold.launches)
     if counts != want:
         raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT, "
                              f"KR, KM {counts}; expected {want}")
     if idct_cuda.dequantize_idct_frames.launches:
         raise AssertionError(f"{what}: the encode launched K1's decode "
+                             f"entry")
+    if qrd_cuda.quantize_rd.launches:
+        raise AssertionError(f"{what}: the encode launched KR's standalone "
                              f"entry")
     return counts
 
@@ -1171,10 +1237,11 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     """16 frames of the 1280x720 clip, a keyframe every 8, clip_batch 8:
     packets against the JAX encoder's list `name`, the first GOP's closed
     loop, and a warm pass with the launch counts of K1 (both entries), K2,
-    KT and KR reset just before it: K1's encode entry, K2 and the
-    quantizer (KT at speed levels 0-1, KR at 2-4) must each run once per
-    plane per frame, the other quantizer and K1's decode entry not at all.
-    Returns the counts (K1 encode entry, K2, KT, KR, KM)."""
+    KT and KR (both entries) reset just before it: K1's encode entry and
+    the quantizer (K2 and KT at speed levels 0-1, KR's fused entry alone
+    at 2-4) must each run once per plane per frame, the other kernels, K1's
+    decode entry and KR's standalone entry not at all. Returns the counts
+    (K1 encode entry, K2, KT, KR, KM)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -1201,8 +1268,8 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per = 3 * len(frames)
-    counts = _read_counts(what, (per, per) + ((per, 0) if splevel < 2
-                                              else (0, per))
+    counts = _read_counts(what, (per,) + ((per, per, 0) if splevel < 2
+                                          else (0, 0, per))
                           + (3 * (len(frames) // mk.HD_KF),))
     n = _check_hashes(pkts, name, "warm pass")
     if adaptive_quant and splevel < 2 and enc.nonbase_qi_blocks == 0:
@@ -1223,7 +1290,7 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
         f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
         f"ME and plane encodes) {dev_s:.4f} s; PSNR "
         f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
-        f"K2, KT, KR, KM {counts} = {counts[1] / (3 * nf):.0f} per plane per "
+        f"K2, KT, KR, KM {counts} = {counts[0] / (3 * nf):.0f} per plane per "
         f"frame | {smi}")
     return counts
 
@@ -1337,7 +1404,8 @@ def _counts_all() -> dict:
             "K1 encode": idct_cuda.idct_recon_choose.launches,
             "K2": fdct_cuda.fdct_quantize.launches,
             "KT": trellis_cuda.trellis_quantize.launches,
-            "KR": qrd_cuda.quantize_rd.launches,
+            "KR": (qrd_cuda.fdct_quantize_rd.launches
+                   + qrd_cuda.quantize_rd.launches),
             "KM": me_cuda.plan_with_gold.launches}
 
 
@@ -1598,7 +1666,8 @@ def mesh_720p(smi: str) -> tuple:
     and KT once per plane per frame step: 3 x 8 = 24 each, KR none).
     Then KR's path: the two GOPs at q48 through MeshGopEncoder.encode_gops
     at speed level 2 against hd720_q48_k8_sp2_enc.sha256, counts reset
-    just before it (K1's encode entry, K2 and KR 24 each, KT none). KM
+    just before it (K1's encode entry and KR's fused entry 24 each, K2 and
+    KT none). KM
     runs 3 times in each (one plan call per batch). Returns the two runs'
     counts (K1 encode entry, K2, KT, KR, KM)."""
     import types
@@ -1637,7 +1706,7 @@ def mesh_720p(smi: str) -> tuple:
     _reset_counts()
     datas = enc.encode_gops([frames[:mk.HD_KF], frames[mk.HD_KF:]])
     torch.cuda.synchronize()
-    sp2 = _read_counts("mesh 720p speed 2", (per, per, 0, per, 3))
+    sp2 = _read_counts("mesh 720p speed 2", (per, 0, 0, per, 3))
     n = _check_hashes(enc.base.flush_headers() + [
         types.SimpleNamespace(data=d) for gop in datas for d in gop],
         "hd720_q48_k8_sp2_enc", "mesh, gop axis 2, speed 2")

@@ -228,6 +228,24 @@ def test_kr_kernel_matches_plain(card):
     assert qrd_cuda.quantize_rd.launches == before + len(cases)
 
 
+def test_kr_fused_entry_matches_plain_and_chain(card):
+    """KR's fused entry on random residuals at K = 1, 2 and 3 (3,600
+    blocks: a partial CTA, intra and inter mixed) and over 3 segments of
+    600 blocks at K = 3: values, counts and DC-only flags equal the plain
+    version's and the K2 -> KR chain's, one launch each."""
+    from theora_tpu_torch.ops import qrd_cuda
+    from theora_tpu_torch.tools import bench_qrd, bench_segments
+
+    cases = [a for _, a in bench_qrd.kr_cases(card, ((3600, 1),), True)]
+    c = bench_segments.segment_case(np.random.default_rng(7), 600, 3, card)
+    cases.append((c["res"], c["deq"], c["inter"], c["lam_q"]))
+    before = qrd_cuda.fdct_quantize_rd.launches
+    for args in cases:
+        bench_qrd.check_fused(args)
+    torch.cuda.synchronize()
+    assert qrd_cuda.fdct_quantize_rd.launches == before + len(cases)
+
+
 @pytest.mark.parametrize("h,w", [(48, 64), (144, 176), (720, 1280)])
 def test_km_kernel_matches_plain(card, h, w):
     """KM on the frames of tools/bench_me.py:synthetic (frames that tie,

@@ -741,6 +741,173 @@ def test_kr_wrapper_output_on_cpu():
     assert qrd_cuda.quantize_rd.launches == 0
 
 
+def _fused_args(device):
+    n = 5
+    return (
+        torch.zeros((n, 64), dtype=torch.int16, device=device),
+        torch.full((1, 2, 64), 8, dtype=torch.int16, device=device),
+        torch.zeros(n, dtype=torch.uint8, device=device),
+        torch.tensor([[10.0, 12.0]], device=device),
+    )
+
+
+def test_kr_fused_plain_path_only_for_cpu_tensors(monkeypatch):
+    """KR's fused entry runs its plain version (transforms.
+    fdct_quantize_rd) for CPU tensors only; for any other device it
+    raises before calling it, and nothing counts as a launch."""
+    from theora_tpu_torch.ops import qrd_cuda
+
+    calls = []
+
+    def plain(*args):
+        calls.append(args[0].device.type)
+        n = args[0].shape[0]
+        return (torch.zeros((1, n, 64), dtype=torch.int16),
+                torch.zeros((1, n), dtype=torch.int32),
+                torch.ones((1, n), dtype=torch.bool))
+
+    monkeypatch.setattr(transforms, "fdct_quantize_rd", plain)
+    qrd_cuda.fdct_quantize_rd(*_fused_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        qrd_cuda.fdct_quantize_rd(*_fused_args("meta"))
+    assert calls == ["cpu"]
+    assert qrd_cuda.fdct_quantize_rd.launches == 0
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((5, 63), dtype=torch.int16)),
+    (0, torch.zeros((5, 64), dtype=torch.int32)),
+    (0, torch.zeros((64, 5), dtype=torch.int16).T),
+    (0, torch.zeros(5 * 64 + 1, dtype=torch.int16)[1:].view(5, 64)),
+    (0, torch.zeros((5, 64), dtype=torch.int16, device="meta")),
+    (1, torch.full((2, 64), 8, dtype=torch.int16)),
+    (1, torch.full((4, 2, 64), 8, dtype=torch.int16)),
+    (1, torch.full((1, 2, 64), 8, dtype=torch.int32)),
+    (1, torch.full((2, 1, 2, 64), 8, dtype=torch.int16)),
+    (2, torch.zeros(5, dtype=torch.bool)),
+    (2, torch.zeros(6, dtype=torch.uint8)),
+    (3, np.array([[10.0, 12.0]], np.float32)),
+    (3, torch.tensor([10.0, 12.0])),
+    (3, torch.tensor([[10.0, 12.0]], dtype=torch.float64)),
+    (3, torch.tensor([[10.0, 12.0], [1.0, 2.0]])),
+    (3, torch.tensor([[[10.0, 12.0]]])),
+    (3, torch.tensor([[10.0, 12.0]], device="meta")),
+    (3, torch.tensor([[10.0, 0.0], [12.0, 0.0]]).T[:1]),
+])
+def test_kr_fused_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import qrd_cuda
+
+    args = list(_fused_args("cpu"))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        qrd_cuda.fdct_quantize_rd(*args)
+
+
+def test_kr_fused_wrapper_output_on_cpu():
+    """Shapes and types at K = 1 and 3 and over 5 one-block segments, each
+    equal to K2's wrapper followed by KR's standalone wrapper on the same
+    CPU tensors; nothing counts as a launch."""
+    from theora_tpu_torch.ops import fdct_cuda, qrd_cuda
+
+    rng = np.random.default_rng(5)
+    args = list(_fused_args("cpu"))
+    args[0] = torch.from_numpy(rng.integers(-60, 60, (5, 64)).astype(
+        np.int16))
+    args[2] = torch.tensor([0, 1, 1, 0, 1], dtype=torch.uint8)
+    for deq, lam in ((args[1], args[3]),
+                     (torch.full((3, 2, 64), 8, dtype=torch.int16),
+                      torch.ones((3, 2))),
+                     (torch.full((5, 2, 2, 64), 6, dtype=torch.int16),
+                      torch.full((5, 2, 2), 40.0))):
+        k = deq.shape[-3]
+        got = qrd_cuda.fdct_quantize_rd(args[0], deq, args[2], lam)
+        assert got[0].dtype == torch.int16 and got[0].shape == (k, 5, 64)
+        assert got[1].dtype == torch.int32 and got[1].shape == (k, 5)
+        assert got[2].dtype == torch.bool and got[2].shape == (k, 5)
+        q, d = fdct_cuda.fdct_quantize(args[0], deq, args[2])
+        want = qrd_cuda.quantize_rd(q, d, deq, args[2], lam)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert qrd_cuda.fdct_quantize_rd.launches == 0
+    assert fdct_cuda.fdct_quantize.launches == 0
+
+
+@pytest.mark.parametrize("wrapper,lib", [
+    ("fdct_cuda", "libtheora_fdct_quant.so"),
+    ("qrd_cuda", "libtheora_qrd.so"),
+])
+def test_k2_and_kr_rebuild_when_the_block_core_changes(monkeypatch,
+                                                       tmp_path, wrapper,
+                                                       lib):
+    """K2's and KR's libraries depend on csrc/fdct_core.cuh as well as on
+    their own sources: nvcc_build rebuilds a library that is older than
+    the header, and only then. Nothing is compiled: subprocess.run is
+    replaced, and a copy of the header stands for it."""
+    import importlib
+    import subprocess
+    import time
+
+    from theora_tpu_torch.ops import cuda_build
+
+    mod = importlib.import_module(f"theora_tpu_torch.ops.{wrapper}")
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    core = tmp_path / "fdct_core.cuh"
+    core.write_text("// header\n")
+    old = time.time() - 3600
+    os.utime(core, (old, old))
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(mod, "_SO", str(tmp_path / "build" / lib))
+    monkeypatch.setattr(mod, "CORE", str(core))
+    assert mod.build() == mod._SO and len(calls) == 1
+    assert mod.build() == mod._SO and len(calls) == 1   # up to date
+    # The library built half an hour ago, the header edited since.
+    os.utime(mod._SO, (old + 1800, old + 1800))
+    os.utime(core, (old + 3000, old + 3000))
+    assert mod.build() == mod._SO and len(calls) == 2
+    assert calls[1][-1] == mod._SRC
+    assert mod.build() == mod._SO and len(calls) == 2
+
+
+def test_nvcc_build_checks_every_dependency(monkeypatch, tmp_path):
+    """nvcc_build compiles when the library is missing, or older than the
+    source or any of deps, and not otherwise."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    src, a, b = (tmp_path / n for n in ("k.cu", "a.cuh", "b.cuh"))
+    for f in (src, a, b):
+        f.write_text("")
+        os.utime(f, (1000, 1000))
+    so = str(tmp_path / "build" / "libk.so")
+    cuda_build.nvcc_build(str(src), so, deps=(str(a), str(b)))
+    os.utime(so, (2000, 2000))
+    cuda_build.nvcc_build(str(src), so, deps=(str(a), str(b)))
+    assert len(calls) == 1
+    for f, t in ((b, 3000), (src, 4000)):
+        os.utime(f, (t, t))
+        cuda_build.nvcc_build(str(src), so, deps=(str(a), str(b)))
+        os.utime(so, (t + 1, t + 1))
+    assert len(calls) == 3
+    os.utime(a, (9000, 9000))
+    cuda_build.nvcc_build(str(src), so)   # a is not among its deps
+    assert len(calls) == 3
+
+
 # ------------------------------------------------------------- kernel KM
 
 def _km_args(device):

@@ -6,9 +6,12 @@
 // (theora_tpu/encode/tpu_gop.py:230-236), once per qi row. It is not a
 // Pallas kernel; XLA fuses it on the TPU. Plain PyTorch version:
 // theora_tpu_torch/ops/transforms.py:quantize_rd_rows (quantize_rd_values
-// behind the casts of this interface).
+// behind the casts of this interface); of the fused entry,
+// transforms.fdct_quantize_rd (fdct_quantize, then quantize_rd_rows).
 //
-// Interface: kernel K2's outputs as K2 writes them ([K, N, 64] int16
+// Interface (the standalone entry; the fused entry takes K2's inputs in
+// place of its outputs and writes the same): kernel K2's outputs as K2
+// writes them ([K, N, 64] int16
 // round-to-nearest values at K <= 3 qi rows and the [N, 64] unquantized
 // DCT, zig-zag), K2's [K, 2, 64] int16 dequant rows (per qi row intra,
 // inter), the [N] uint8 inter flags and the float32 lambdas lam[k][t], per
@@ -35,79 +38,228 @@
 // __fmaf_rn; the file is built with -fmad=false, so nvcc contracts
 // nothing else. Every product that rounds is an explicit __fmul_rn.
 //
-// Bound: memory. Per pair the kernel reads 128 B of values, 128 B of DCT
-// (shared by the K rows) and a flag, and writes 128 B of values, a count
-// and a flag; its float32 work is ~20 operations per position. Design:
-// 8 lanes per pair (K2's layout), 4 pairs per warp, 16 per CTA. Lane g
-// loads positions 8g..8g+7 of the value and DCT rows as one 16-byte vector
-// each, decides the magnitude step and the two kill conditions of its
-// positions (they depend only on the inputs), and the lanes OR their
-// 8-bit masks (nonzero, |value| == 1, isolated kill, tail kill) into
-// 64-bit masks with three __shfl_xor_sync steps. The sweeps then are bit
-// operations on those masks, the same on every lane of the pair: the
-// neighbour tests are shifts, the tail's last nonzero AC position is a
-// count of leading zeros. Each lane clears its killed values and stores its
-// 16-byte vector; lane 0 writes the count (a popcount) and the flag. The
-// dequant rows are staged in shared memory once per CTA.
+// Two entries, one row step (rd_row below: the magnitude step, the kill
+// masks and the sweeps of one (row, block) pair on 8 lanes):
+//
+// th_fdct_quant_rd, the main path's entry: kernel K2's fDCT and
+// round-to-nearest quantization (csrc/fdct_core.cuh, K2's block core)
+// with KR's row step on the quantized values while they are in registers,
+// in K2's CTA shape (8 lanes per block, 4 blocks per warp, 8 warps). The
+// CTA stages its segment's dequant rows, their reciprocals and the K x 2
+// lambdas in shared memory; per qi row k each lane quantizes its 8
+// positions, runs the row step and stores its 16-byte vector, and lane 0
+// of the block stores the count and the flag. Bytes per block: 128 B of
+// residuals and 1 B of flag in, K x (128 + 4 + 1) B out; K2's K x 128 B
+// of values and 128 B of DCT never reach device memory. What binds on
+// the card is the integer pipe (64 lanes per clock per SM, half the float
+// rate): each qi row adds ~350 integer, logic, compare, select and
+// byte-permute instructions per lane, against ~90 float ones (static
+// counts, tools/bench_qrd.py:sass_counts). A dead block at the grid's tail
+// transforms zeros and runs the row step with the live lanes (its
+// shuffles take the whole warp); only its stores are skipped.
+//
+// th_quantize_rd, the standalone entry, kept as the test hook: the row
+// step on round-to-nearest values and DCT rows given as K2 writes them, so
+// that DCT values no residual can be chosen to reach (the FMA near-ties of
+// testdata/vectors/qrd_fma_cases.npz, the edge classes) reach the same
+// row step. 8 lanes per pair, 4 pairs per warp, 16 per CTA; lanes past
+// the last pair take part in the shuffles with empty masks.
+//
+// The row step: lane g holds positions 8g..8g+7 (K2's layout) and
+// decides the magnitude step of its positions (the lone-value bits looked
+// up with one byte permute) and which kept +-1 values each sweep may kill
+// (the tests depend only on the inputs). The lanes' three 8-bit masks
+// (nonzero, killable by the isolated sweeps, killable by the tail sweeps)
+// become 64-bit masks on every lane of the pair in three xor-shuffle
+// rounds. The sweeps then are branch-free bit operations on those masks:
+// the neighbour tests are shifts, the tail's last nonzero AC position is
+// a count of leading zeros. Each lane clears its killed values.
 //
 // Segments: a launch may cover G segments of n blocks each (the mesh
 // encoder's G GOPs at one frame step: N = G n blocks of one plane), each
 // with its own K dequant rows ([G][K][2][64]) and lambdas lam[g][k][t];
 // block b takes segment b / n. The segment is blockIdx.y, so a CTA stages
-// one segment's rows; it reads the lambdas from the device's [G][K][2]
-// array.
+// one segment's rows and lambdas.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fdct_core.cuh"
+
 namespace {
 
 using u64 = unsigned long long;
-constexpr int kMaxRows = 3;                      // qi rows per launch
-constexpr int kLanes = 8;                        // lanes per pair
-constexpr int kThreads = 128;
-constexpr int kPairsPerCta = kThreads / kLanes;  // 16
+constexpr int kQrdThreads = 128;                    // standalone entry
+constexpr int kPairsPerCta = kQrdThreads / kLanes;  // 16
 
-__device__ __forceinline__ void unpack8(int4 v, int32_t x[8]) {
-  const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
-                         (uint32_t)v.w};
+// Twice the bits of a lone value of magnitude a (transforms_jax.
+// _MAG_BITS_J): bytes a = 0..7 of kBits2Lo, kBits2Hi, picked by one byte
+// permute, and 19 from a = 8 on.
+constexpr uint32_t kBits2Lo = 0x0D0B0900u;  // a = 0..3: 0, 9, 11, 13
+constexpr uint32_t kBits2Hi = 0x110F0F0Du;  // a = 4..7: 13, 15, 15, 17
+constexpr int kBits2Max = 19;               // a >= 8
+
+__device__ __forceinline__ float mag_bits2(int a) {
+  return (float)(a >= 8 ? kBits2Max
+                        : (int)__byte_perm(kBits2Lo, kBits2Hi, (unsigned)a));
+}
+
+// The 64-bit masks of a pair from its lanes' 8-bit ones: lane g's bytes
+// nz, c1, c2 become byte g of NZ, C1, C2 on every lane of the pair. An
+// all-gather in three xor-shuffle rounds (1, 2, then 3 words), the bytes
+// put in place by byte permutes whose selectors depend on g alone.
+__device__ __forceinline__ void gather8(uint32_t nz, uint32_t c1, uint32_t c2,
+                                        int g, u64& NZ, u64& C1, u64& C2) {
+  constexpr unsigned kAll = 0xffffffffu;
+  // Round 1, lanes g and g ^ 1: p = [nz, c1] and r = [c2] of the two, the
+  // even lane's byte first.
+  const uint32_t w = nz | c1 << 8 | c2 << 16;
+  const uint32_t w1 = __shfl_xor_sync(kAll, w, 1);
+  const bool odd = g & 1;
+  const uint32_t p = __byte_perm(w, w1, odd ? 0x1504 : 0x5140);
+  const uint32_t r = __byte_perm(w, w1, odd ? 0x3326 : 0x3362);
+  // Round 2, lanes g and g ^ 2: the four lanes' bytes of each mask.
+  const uint32_t p2 = __shfl_xor_sync(kAll, p, 2);
+  const uint32_t r2 = __shfl_xor_sync(kAll, r, 2);
+  const bool second = g & 2;
+  const uint32_t nzq = __byte_perm(p, p2, second ? 0x1054 : 0x5410);
+  const uint32_t c1q = __byte_perm(p, p2, second ? 0x3276 : 0x7632);
+  const uint32_t c2q = __byte_perm(r, r2, second ? 0x1054 : 0x5410);
+  // Round 3, lanes g and g ^ 4: lanes 0-3 give the low word.
+  const uint32_t nzo = __shfl_xor_sync(kAll, nzq, 4);
+  const uint32_t c1o = __shfl_xor_sync(kAll, c1q, 4);
+  const uint32_t c2o = __shfl_xor_sync(kAll, c2q, 4);
+  const bool high = g & 4;
+  NZ = high ? (u64)nzo | (u64)nzq << 32 : (u64)nzq | (u64)nzo << 32;
+  C1 = high ? (u64)c1o | (u64)c1q << 32 : (u64)c1q | (u64)c1o << 32;
+  C2 = high ? (u64)c2o | (u64)c2q << 32 : (u64)c2q | (u64)c2o << 32;
+}
+
+// What the row step keeps of one (row, block) pair.
+struct RowKept {
+  u64 mask;      // bit p: position p is nonzero (the same on every lane)
+  int count;     // nonzero values, DC included
+  bool dc_only;  // no AC value is nonzero
+};
+
+// KR's row step on lane g's positions 8g..8g+7 of one pair: q the
+// round-to-nearest values, av the DCT's magnitudes and d the dequant
+// factors in float32, lam the pair's lambda. Writes the kept values to o.
+// Every lane of the warp must call it (full-warp shuffles).
+__device__ __forceinline__ RowKept rd_row(const int32_t q[8],
+                                          const float av[8],
+                                          const float d[8], float lam,
+                                          int g, int32_t o[8]) {
+  // fma(lam, bits, e) == fma(lam / 2, 2 bits, e): halving is exact.
+  const float lamh = __fmul_rn(lam, 0.5f);
+  const float lam11 = __fmul_rn(lam, 11.0f);
+  const float lam14 = __fmul_rn(lam, 14.0f);
+
+  // The magnitude step, then which kept +-1 values the isolated (c1) and
+  // the tail (c2) sweeps may kill. A kill zeroes a value in both masks, so
+  // each sweep's test of |value| == 1 is the same on the masks it starts
+  // from.
+  uint32_t nzm = 0, c1 = 0, c2 = 0;
 #pragma unroll
-  for (int j = 0; j < 4; j++) {
-    x[2 * j] = (int32_t)(int16_t)(w[j] & 0xFFFF);
-    x[2 * j + 1] = (int32_t)(int16_t)(w[j] >> 16);
+  for (int j = 0; j < 8; j++) {
+    const int a0 = q[j] < 0 ? -q[j] : q[j];
+    const int a1 = a0 > 0 ? a0 - 1 : 0;
+    const float t0 = __fsub_rn(__fmul_rn((float)a0, d[j]), av[j]);
+    const float t1 = __fsub_rn(__fmul_rn((float)a1, d[j]), av[j]);
+    const bool take1 =
+        __fmaf_rn(lamh, mag_bits2(a1), __fmul_rn(t1, t1)) <=
+        __fmaf_rn(lamh, mag_bits2(a0), __fmul_rn(t0, t0));
+    // DC (position 0 of lane 0) is never degraded.
+    o[j] = (take1 && (g | j)) ? (q[j] < 0 ? -a1 : a1) : q[j];
+    const float tc = __fsub_rn(d[j], av[j]);
+    const float gain = __fmaf_rn(av[j], av[j], -__fmul_rn(tc, tc));
+    const bool one = (o[j] == 1 || o[j] == -1) && (g | j);
+    nzm |= (uint32_t)(o[j] != 0) << j;
+    c1 |= (uint32_t)(one && gain <= lam11) << j;
+    c2 |= (uint32_t)(one && gain <= lam14) << j;
+  }
+  u64 M, C1, C2;
+  gather8(nzm, c1, c2, g, M, C1, C2);
+
+  // Two isolated sweeps: bit p of M << 1 is position p - 1 (position 1's
+  // left neighbour, the DC, counts as zero); of M >> 1, position p + 1.
+#pragma unroll
+  for (int s = 0; s < 2; s++)
+    M &= ~(C1 & ~(((M << 1) & ~2ull) | (M >> 1)));
+  // Four tail sweeps: the last nonzero AC value goes where C2 allows; a
+  // sweep that kills nothing leaves the next ones nothing new to see.
+#pragma unroll
+  for (int s = 0; s < 4; s++) {
+    const u64 ac = M & ~1ull;
+    const u64 top = ac ? 1ull << (63 - __clzll((long long)ac)) : 0ull;
+    M &= ~(top & C2);
+  }
+
+  const uint32_t keep = (uint32_t)(M >> (8 * g)) & 0xFF;
+#pragma unroll
+  for (int j = 0; j < 8; j++)
+    if (!((keep >> j) & 1)) o[j] = 0;
+  return {M, __popcll(M), (M & ~1ull) == 0};
+}
+
+// At least 3 CTAs per SM: with no minimum ptxas held K = 2 and 3 to 64
+// registers and spilled at K = 2; this way they take 72, no spill.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 3)
+fdct_qrd_kernel(const int16_t* __restrict__ res,
+                const int16_t* __restrict__ deq,
+                const uint8_t* __restrict__ inter,
+                const float* __restrict__ lams, int16_t* __restrict__ out,
+                int32_t* __restrict__ cnt, uint8_t* __restrict__ dc_only,
+                int64_t n) {
+  __shared__ BlockArea areas[kBlocksPerCta];
+  // The segment's K qi rows [k][inter][z], their reciprocals and lambdas
+  // [k][inter].
+  __shared__ __align__(16) int16_t s_deq[K * 2 * 64];
+  __shared__ __align__(16) uint32_t s_rcp[K * 2 * 64];
+  __shared__ float s_lam[K * 2];
+
+  const int tid = threadIdx.x;
+  const int64_t seg = blockIdx.y;
+  stage_rows<K>(deq + seg * (K * 2 * 64), s_deq, s_rcp);
+  if (tid < K * 2) s_lam[tid] = lams[seg * (K * 2) + tid];
+  __syncthreads();
+
+  const int c = tid & (kLanes - 1);
+  const int lb = tid / kLanes;
+  const int64_t local = (int64_t)blockIdx.x * kBlocksPerCta + lb;
+  const bool live = local < n;
+  const int64_t b = seg * n + local;  // block of the launch
+  const int64_t total = n * gridDim.y;
+
+  int32_t v[8];
+  block_dct(res, areas[lb], b, c, live, v);
+  const int t = (live && inter[b]) ? 1 : 0;
+  float av[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) av[j] = (float)(v[j] < 0 ? -v[j] : v[j]);
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    int32_t d[8], q[8], o[8];
+    quantize8(v, s_deq, s_rcp, (k * 2 + t) * 64 + 8 * c, d, q);
+    float df[8];
+#pragma unroll
+    for (int j = 0; j < 8; j++) df[j] = (float)d[j];
+    const RowKept r = rd_row(q, av, df, s_lam[k * 2 + t], c, o);
+    if (live) {
+      const int64_t pair = (int64_t)k * total + b;
+      reinterpret_cast<int4*>(out)[pair * 8 + c] = pack8(o);
+      if (c == 0) {
+        cnt[pair] = r.count;
+        dc_only[pair] = r.dc_only;
+      }
+    }
   }
 }
 
-__device__ __forceinline__ int4 pack8(const int32_t x[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; j++)
-    w[j] = ((uint32_t)x[2 * j] & 0xFFFF) | ((uint32_t)x[2 * j + 1] << 16);
-  return make_int4(w[0], w[1], w[2], w[3]);
-}
-
-// Bits of a lone value of magnitude a (transforms_jax._MAG_BITS_J).
-__device__ __forceinline__ float mag_bits(int a) {
-  return a == 0 ? 0.0f
-         : a == 1 ? 4.5f
-         : a == 2 ? 5.5f
-         : a <= 4 ? 6.5f
-         : a <= 6 ? 7.5f
-         : a == 7 ? 8.5f
-                  : 9.5f;
-}
-
-// OR of a 64-bit mask over the 8 lanes of a pair.
-__device__ __forceinline__ u64 or8(u64 x) {
-#pragma unroll
-  for (int s = 1; s < kLanes; s <<= 1)
-    x |= __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQrdThreads)
 qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
            const int16_t* __restrict__ deq, const uint8_t* __restrict__ inter,
            const float* __restrict__ lams, int16_t* __restrict__ out,
@@ -129,7 +281,8 @@ qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
   const float2 lam2 =
       reinterpret_cast<const float2*>(lams)[(int64_t)seg * nrows + k];
   deq += (int64_t)seg * nrows * 128;
-  for (int i = threadIdx.x; i < nrows * 128; i += kThreads) s_deq[i] = deq[i];
+  for (int i = threadIdx.x; i < nrows * 128; i += kQrdThreads)
+    s_deq[i] = deq[i];
   __syncthreads();
 
   int32_t q[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -143,74 +296,52 @@ qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
     unpack8(*reinterpret_cast<const int4*>(s_deq + (k * 2 + t) * 64 + 8 * g),
             dq);
   }
-  const float lam = t ? lam2.y : lam2.x;
-  const float lam11 = __fmul_rn(lam, 11.0f);
-  const float lam14 = __fmul_rn(lam, 14.0f);
-
-  // The magnitude step and the kill conditions of lane g's positions.
-  int32_t o[8];
-  uint32_t nz = 0, one = 0, kiso = 0, ktail = 0;
+  float av[8], df[8];
 #pragma unroll
   for (int j = 0; j < 8; j++) {
-    const int a0 = q[j] < 0 ? -q[j] : q[j];
-    const int a1 = a0 > 0 ? a0 - 1 : 0;
-    const float d = (float)dq[j];
-    const float av = (float)(v[j] < 0 ? -v[j] : v[j]);
-    const float t0 = __fsub_rn(__fmul_rn((float)a0, d), av);
-    const float t1 = __fsub_rn(__fmul_rn((float)a1, d), av);
-    const bool take1 =
-        __fmaf_rn(lam, mag_bits(a1 < 8 ? a1 : 8), __fmul_rn(t1, t1)) <=
-        __fmaf_rn(lam, mag_bits(a0 < 8 ? a0 : 8), __fmul_rn(t0, t0));
-    // DC (position 0 of lane 0) is never degraded.
-    o[j] = (take1 && (g | j)) ? (q[j] < 0 ? -a1 : a1) : q[j];
-    const float tc = __fsub_rn(d, av);
-    const float gain = __fmaf_rn(av, av, -__fmul_rn(tc, tc));
-    nz |= (uint32_t)(o[j] != 0) << j;
-    one |= (uint32_t)(o[j] == 1 || o[j] == -1) << j;
-    kiso |= (uint32_t)(gain <= lam11) << j;
-    ktail |= (uint32_t)(gain <= lam14) << j;
+    av[j] = (float)(v[j] < 0 ? -v[j] : v[j]);
+    df[j] = (float)dq[j];
   }
-  const int sh = 8 * g;
-  u64 M = or8((u64)nz << sh);
-  u64 ONE = or8((u64)one << sh);
-  const u64 KISO = or8((u64)kiso << sh);
-  const u64 KTAIL = or8((u64)ktail << sh);
-
-  // Two isolated sweeps: bit p of M << 1 is position p - 1 (position 1's
-  // left neighbour, the DC, counts as zero); of M >> 1, position p + 1.
-#pragma unroll
-  for (int s = 0; s < 2; s++) {
-    const u64 left = (M << 1) & ~2ull;
-    const u64 iso = M & ONE & ~left & ~(M >> 1) & ~1ull;
-    const u64 kill = iso & KISO;
-    M &= ~kill;
-    ONE &= ~kill;
-  }
-  // Four tail sweeps; a sweep that kills nothing leaves the next ones
-  // nothing new to see.
-  for (int s = 0; s < 4; s++) {
-    const u64 ac = M & ~1ull;
-    if (ac == 0) break;
-    const u64 bit = 1ull << (63 - __clzll((long long)ac));
-    if (!(ONE & KTAIL & bit)) break;
-    M &= ~bit;
-    ONE &= ~bit;
-  }
-
+  int32_t o[8];
+  const RowKept r = rd_row(q, av, df, t ? lam2.y : lam2.x, g, o);
   if (live) {
-    const uint32_t keep = (uint32_t)(M >> sh) & 0xFF;
-#pragma unroll
-    for (int j = 0; j < 8; j++)
-      if (!((keep >> j) & 1)) o[j] = 0;
     reinterpret_cast<int4*>(out)[pair * 8 + g] = pack8(o);
     if (g == 0) {
-      cnt[pair] = __popcll(M);
-      dc_only[pair] = (M & ~1ull) == 0;
+      cnt[pair] = r.count;
+      dc_only[pair] = r.dc_only;
     }
   }
 }
 
 }  // namespace
+
+// res [nseg n, 64] int16, deq [nseg, k, 2, 64] int16, inter [nseg n]
+// uint8, lam [nseg, k, 2] float32; writes out [k, nseg n, 64] int16, cnt
+// [k, nseg n] int32, dc_only [k, nseg n] bool: kernel K2's function
+// followed by th_quantize_rd's, in one launch. n is the blocks of one
+// segment.
+extern "C" int th_fdct_quant_rd(const int16_t* res, const int16_t* deq,
+                                const uint8_t* inter, const float* lam,
+                                int16_t* out, int32_t* cnt,
+                                uint8_t* dc_only, int64_t n, int k, int nseg,
+                                void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta),
+                  (unsigned)nseg);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1)
+    fdct_qrd_kernel<1><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
+                                                  cnt, dc_only, n);
+  else if (k == 2)
+    fdct_qrd_kernel<2><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
+                                                  cnt, dc_only, n);
+  else
+    fdct_qrd_kernel<3><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
+                                                  cnt, dc_only, n);
+  return (int)cudaGetLastError();
+}
 
 // qrtn [nrows, nseg n, 64], dct [nseg n, 64], deq [nseg, nrows, 2, 64]
 // int16, inter [nseg n] uint8, lam [nseg, nrows, 2] float32;
@@ -227,7 +358,7 @@ extern "C" int th_quantize_rd(const int16_t* qrtn, const int16_t* dct,
   const dim3 grid(
       (unsigned)((n * nrows + kPairsPerCta - 1) / kPairsPerCta),
       (unsigned)nseg);
-  qrd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  qrd_kernel<<<grid, kQrdThreads, 0, (cudaStream_t)stream>>>(
       qrtn, dct, deq, inter, lam, out, cnt, dc_only, n, nrows);
   return (int)cudaGetLastError();
 }

@@ -14,12 +14,13 @@ Per frame step, over the G GOPs' blocks at once:
 
   MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
   (fDCT + quantization with each qi row, also returning the unquantized
-  DCT) -> kernel KT (the trellis) or kernel KR (the R/D quantizer) at every
-  qi row, on K2's outputs as they are; each also returns the nonzero
-  counts and DC-only flags -> kernel K1's encode entry (dequant + iDCT of
-  every row, reconstruction, SSD, and with K > 1 rows the chooser, which
-  keeps each block's cheapest row) -> the R/D skip test against the
-  uncoded copy -> loop filter -> borders.
+  DCT) -> kernel KT (the trellis) at every qi row, on K2's outputs as they
+  are; or, without the trellis, kernel KR's fused entry (K2's fDCT and
+  quantization and the R/D quantizer in one launch); each returns the
+  values, nonzero counts and DC-only flags -> kernel K1's encode entry
+  (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
+  the chooser, which keeps each block's cheapest row) -> the R/D skip
+  test against the uncoded copy -> loop filter -> borders.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -128,16 +129,16 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
             curi = cur[f].to(torch.int32)
             inter = (rs != 0).to(torch.uint8)
             res = (curi - pred).to(torch.int16)
-        with record_function("theora.enc.fdct_quant"):
-            qdct0, dct = fdct_cuda.fdct_quantize(res, deq[f], inter)
         if use_trellis:
+            with record_function("theora.enc.fdct_quant"):
+                qdct0, dct = fdct_cuda.fdct_quantize(res, deq[f], inter)
             with record_function("theora.enc.trellis"):
                 q16, cnt, dc_only = trellis_cuda.trellis_quantize(
                     qdct0, dct, deq[f], inter, lam_t_dev[f], nb, sc)
         else:
-            with record_function("theora.enc.quantize_rd"):
-                q16, cnt, dc_only = qrd_cuda.quantize_rd(
-                    qdct0, dct, deq[f], inter, lam_q_dev[f])
+            with record_function("theora.enc.fdct_quant_rd"):
+                q16, cnt, dc_only = qrd_cuda.fdct_quantize_rd(
+                    res, deq[f], inter, lam_q_dev[f])
         lam_f = lam_dev[f]
         with record_function("theora.enc.idct_recon"):
             recon, ssd_rec, qii, q16, cnt = idct_cuda.idct_recon_choose(

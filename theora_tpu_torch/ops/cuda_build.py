@@ -3,7 +3,8 @@
 Each kernel (csrc/*.cu) has a plain C interface and is compiled with nvcc
 for sm_90a at first use into the git-ignored ``csrc/build/``, then bound
 with ctypes by its wrapper (ops/idct_cuda.py, ops/fdct_cuda.py,
-ops/trellis_cuda.py). A failed build raises.
+ops/trellis_cuda.py, ops/qrd_cuda.py, ops/me_cuda.py). A failed build
+raises.
 """
 from __future__ import annotations
 
@@ -23,13 +24,17 @@ def _nvcc() -> str:
     return path
 
 
-def nvcc_build(src: str, so: str, flags: tuple[str, ...] = ()) -> str:
-    """Compile src into so when so is missing or older than src; returns
-    so. flags are the source's own nvcc options, added to the common
-    ones. ptxas' report (registers, shared memory and spills of each
-    kernel) is kept beside it as so + ".log". Concurrent builders each
-    write a private file and rename it into place."""
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+def nvcc_build(src: str, so: str, flags: tuple[str, ...] = (),
+               deps: tuple[str, ...] = ()) -> str:
+    """Compile src into so when so is missing or older than src or any of
+    deps (the headers src includes); returns so. flags are the source's
+    own nvcc options, added to the common ones. ptxas' report (registers,
+    shared memory and spills of each kernel) is kept beside it as so +
+    ".log". Concurrent builders each write a private file and rename it
+    into place."""
+    if os.path.exists(so) and all(
+            os.path.getmtime(so) >= os.path.getmtime(f)
+            for f in (src, *deps)):
         return so
     os.makedirs(os.path.dirname(so), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))

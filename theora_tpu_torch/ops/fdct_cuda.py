@@ -9,6 +9,9 @@ unquantized DCT the trellis reads. The library is compiled with nvcc for
 sm_90a at first use into ``csrc/build/`` and bound with ctypes. The
 wrapper runs the plain PyTorch version (ops/transforms.py) only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The encode scan runs it before the trellis (kernel KT); at speed levels
+2-4 its block core runs inside kernel KR's fused entry instead
+(ops/qrd_cuda.py:fdct_quantize_rd).
 """
 from __future__ import annotations
 
@@ -25,14 +28,16 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _SRC = os.path.join(_CSRC, "fdct_quant.cu")
 _SO = os.path.join(_CSRC, "build", "libtheora_fdct_quant.so")
+# K2's block core, which kernel KR's fused entry shares.
+CORE = os.path.join(_CSRC, "fdct_core.cuh")
 
 _lib = None
 
 
 def build() -> str:
     """Compile csrc/fdct_quant.cu when the library is missing or older
-    than its source; returns the library path."""
-    return nvcc_build(_SRC, _SO)
+    than its source or csrc/fdct_core.cuh; returns the library path."""
+    return nvcc_build(_SRC, _SO, deps=(CORE,))
 
 
 def _load():

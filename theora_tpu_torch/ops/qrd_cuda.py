@@ -3,23 +3,30 @@
 Replaces the encoder's R/D quantizer, theora_tpu/ops/transforms_jax.py:
 quantize_rd (:185), which the JAX encode scan runs in place of the trellis
 at speed levels 2-4 and with use_trellis=False (theora_tpu/encode/
-tpu_gop.py:230-236); XLA compiles it, it is not a Pallas kernel. It sits
-in kernel KT's slot with KT's output contract: it reads kernel K2's
-outputs as K2 writes them (int16 rows at each of K qi rows, the [K, 2,
-64] dequant rows and the inter flags) with each row's intra and inter
-lambda, and writes the values with their nonzero counts and DC-only
-flags, which K1's encode entry reads: one launch per plane per frame
-whatever K is. Its bound is its ~390 B of memory traffic per (row, block)
-pair; 8 lanes per pair decide their positions, and the kill sweeps run on
-64-bit masks (see the source's note).
+tpu_gop.py:230-236); XLA compiles it, it is not a Pallas kernel. Two
+entries share one row step (8 lanes per (row, block) pair, the kill
+sweeps on 64-bit masks; see the source's note):
 
-Its results must equal the plain version's (transforms.quantize_rd_rows)
-bit for bit: XLA's three fused multiply-adds are written out as
-__fmaf_rn and the source is compiled with ``-fmad=false``, so nvcc
-contracts nothing else. The library is compiled with nvcc for sm_90a at
-first use into ``csrc/build/`` and bound with ctypes. The wrapper runs the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
+- fdct_quantize_rd, the encode scan's: kernel K2's fDCT and
+  round-to-nearest quantization (csrc/fdct_core.cuh) with the row step on
+  the quantized values in registers, one launch per plane per frame
+  whatever K is. It reads the residuals and writes the values with their
+  nonzero counts and DC-only flags, which K1's encode entry reads; K2's
+  values and DCT never reach device memory (~133 B per (row, block) pair
+  and 129 B per block).
+- quantize_rd, the standalone entry and test hook: the row step on K2's
+  outputs as K2 writes them, so that DCT values no residual reaches (the
+  FMA near-ties of qrd_fma_cases.npz, the edge classes) test the same
+  row step. Off the encode path.
+
+Their results must equal the plain versions' (transforms.fdct_quantize_rd
+and transforms.quantize_rd_rows) bit for bit: XLA's three fused
+multiply-adds are written out as __fmaf_rn and the source is compiled
+with ``-fmad=false``, so nvcc contracts nothing else. The library is
+compiled with nvcc for sm_90a at first use into ``csrc/build/`` (again
+when the source or csrc/fdct_core.cuh is newer) and bound with ctypes.
+The wrappers run the plain versions only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from theora_tpu_torch.ops import transforms
 from theora_tpu_torch.ops.cuda_build import nvcc_build
+from theora_tpu_torch.ops.fdct_cuda import CORE
 from theora_tpu_torch.ops.idct_cuda import MAX_ROWS, _aligned, _check, \
     segments
 
@@ -46,8 +54,8 @@ _lib = None
 
 def build() -> str:
     """Compile csrc/quantize_rd.cu when the library is missing or older
-    than its source; returns the library path."""
-    return nvcc_build(_SRC, _SO, NVCC_FLAGS)
+    than its source or csrc/fdct_core.cuh; returns the library path."""
+    return nvcc_build(_SRC, _SO, NVCC_FLAGS, deps=(CORE,))
 
 
 def _load():
@@ -57,13 +65,23 @@ def _load():
         lib.th_quantize_rd.restype = ctypes.c_int
         lib.th_quantize_rd.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.th_fdct_quant_rd.restype = ctypes.c_int
+        lib.th_fdct_quant_rd.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
+def _outputs(k, n, dev):
+    return (torch.empty((k, n, 64), dtype=torch.int16, device=dev),
+            torch.empty((k, n), dtype=torch.int32, device=dev),
+            torch.empty((k, n), dtype=torch.bool, device=dev))
+
+
 def quantize_rd(qout, dout, deq, inter, lam_q):
     """The R/D quantizer's values for [N] blocks of one plane of one frame
-    at each of K qi rows, from kernel K2's outputs.
+    at each of K qi rows, from kernel K2's outputs (the standalone entry;
+    the encode scan runs fdct_quantize_rd).
 
     qout: [K, N, 64] int16 zig-zag round-to-nearest values and dout: [N,
     64] int16 unquantized DCT (fdct_cuda.fdct_quantize's outputs); deq:
@@ -98,9 +116,7 @@ def quantize_rd(qout, dout, deq, inter, lam_q):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _load()
-    vals = torch.empty((k, n, 64), dtype=torch.int16, device=dev)
-    cnt = torch.empty((k, n), dtype=torch.int32, device=dev)
-    dc_only = torch.empty((k, n), dtype=torch.bool, device=dev)
+    vals, cnt, dc_only = _outputs(k, n, dev)
     if n == 0:
         return vals, cnt, dc_only
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -117,3 +133,49 @@ def quantize_rd(qout, dout, deq, inter, lam_q):
 
 # Kernel launches made through the wrapper (CPU calls do not count).
 quantize_rd.launches = 0
+
+
+def fdct_quantize_rd(res, deq, inter, lam_q):
+    """Kernel K2's fDCT and quantization of [N] blocks of one plane of one
+    frame at each of K qi rows, then the R/D quantizer on them, in one
+    launch.
+
+    res: [N, 64] int16 residuals, raster order inside each block, 16-byte
+    aligned; deq: [K, 2, 64] int16 zig-zag dequant rows (per qi row intra,
+    inter), values in [1, 32767], K in 1..3; inter: [N] uint8; lam_q: [K,
+    2] float32, per qi row the intra and the inter lambda (block n takes
+    lam_q[k, inter[n] != 0]). With G segments (idct_cuda.segments): deq
+    [G, K, 2, 64] and lam_q [G, K, 2], block b taking segment b // (N /
+    G)'s rows and lambdas. Returns quantize_rd's ([K, N, 64] int16 values,
+    [K, N] int32 nonzero counts, [K, N] bool DC-only flags). Same
+    contract as transforms.fdct_quantize_rd, which is the CPU path.
+    """
+    n = res.shape[0]
+    dev = res.device
+    _check(res, "res", torch.int16, (n, 64), dev)
+    deq4, g, k, nseg = segments(deq, n, dev)
+    _check(inter, "inter", torch.uint8, (n,), dev)
+    _aligned(res, "res", 16)
+    _check(lam_q, "lam_q", torch.float32, tuple(deq.shape[:-2]) + (2,), dev)
+    if dev.type == "cpu":
+        return transforms.fdct_quantize_rd(res, deq, inter, lam_q)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _load()
+    vals, cnt, dc_only = _outputs(k, n, dev)
+    if n == 0:
+        return vals, cnt, dc_only
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.th_fdct_quant_rd(res.data_ptr(), deq4.data_ptr(),
+                               inter.data_ptr(), lam_q.data_ptr(),
+                               vals.data_ptr(), cnt.data_ptr(),
+                               dc_only.data_ptr(), nseg, k, g, stream)
+    if err != 0:
+        raise RuntimeError(f"KR fdct_quantize_rd launch failed: CUDA error "
+                           f"{err}")
+    fdct_quantize_rd.launches += 1
+    return vals, cnt, dc_only
+
+
+# Kernel launches made through the wrapper (CPU calls do not count).
+fdct_quantize_rd.launches = 0

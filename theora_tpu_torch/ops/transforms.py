@@ -10,9 +10,12 @@ wrap where the spec stores int16, so the results equal the C reference
 `dequantize_idct_frames` and `idct_recon_choose` (with the qi chooser
 `choose_rows`) are the functions kernel K1 computes at its two entry
 points (ops/idct_cuda.py), `fdct_quantize` the one kernel K2 computes
-(ops/fdct_cuda.py) and `trellis_quantize` (`trellis_values` on K2's
-outputs) the one kernel KT computes (ops/trellis_cuda.py): the CPU paths
-of their wrappers and their oracles on the card. The encode-side ones take
+(ops/fdct_cuda.py), `trellis_quantize` (`trellis_values` on K2's
+outputs) the one kernel KT computes (ops/trellis_cuda.py), and
+`quantize_rd_rows` and `fdct_quantize_rd` (K2's function, then
+`quantize_rd_rows`) the ones kernel KR computes at its standalone and its
+fused entry (ops/qrd_cuda.py): the CPU paths of their wrappers and their
+oracles on the card. The encode-side ones take
 the kernels' segment axis: dequant rows [G, K, 2, 64] (and lambdas with a
 leading G) for N = G n blocks, block b in segment b // n (the mesh
 encoder's G GOPs at one frame step); [K, 2, 64] is one segment.
@@ -682,3 +685,13 @@ def quantize_rd_rows(qout, dout, deq, inter, lam_q):
     dc_only = (cnt - nzf[:, 0].to(torch.int32)) == 0
     return (vals.to(torch.int16).reshape(k, n, 64), cnt.reshape(k, n),
             dc_only.reshape(k, n))
+
+
+def fdct_quantize_rd(res, deq, inter, lam_q):
+    """fdct_quantize, then quantize_rd_rows on its outputs (kernel KR's
+    fused entry's function): res [N, 64] int16 residuals, deq [K, 2, 64]
+    (or [G, K, 2, 64]) int16, inter [N] uint8, lam_q [K, 2] (or [G, K,
+    2]) float32. Returns quantize_rd_rows' ([K, N, 64] int16 values, [K,
+    N] int32 counts, [K, N] bool DC-only flags)."""
+    qout, dout = fdct_quantize(res, deq, inter)
+    return quantize_rd_rows(qout, dout, deq, inter, lam_q)

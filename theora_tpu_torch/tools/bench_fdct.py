@@ -1,6 +1,7 @@
 """Kernel K2's inputs, bound and time on the card, beside an earlier build.
 
-Usage: python -m theora_tpu_torch.tools.bench_fdct [--old-src PATH] [--warps W,...]
+Usage: python -m theora_tpu_torch.tools.bench_fdct [--old-src PATH]
+           [--parent-src PATH] [--warps W,...]
 
 Times K2 (csrc/fdct_quant.cu) with CUDA events over 50 launches, L2
 flushed before each, on 21,600 random residual blocks (the three planes of
@@ -11,10 +12,15 @@ each it prints the bound (bytes moved and int32 operations). With
 --old-src, a fdct_quant.cu of the one-row interface (th_fdct_quant(res,
 deq [2, 64], inter, qout, dout, n, stream)) is built beside it; its
 outputs must equal the new kernel's at K = 1, and both are timed at K = 1
-in turns, old, new, new, old. With --warps, the tree's source is also
-built with each of those warps per CTA (-DK2_WARPS=W; the tree's is 8)
-and timed at K = 1 and 3 in turns with the tree's build. Needs a CUDA
-card. Prints one JSON summary as its last line.
+in turns, old, new, new, old. With --parent-src, a fdct_quant.cu of the
+tree's interface (th_fdct_quant(res, deq [G, K, 2, 64], inter, qout,
+dout, n, k, nseg, stream), e.g. a parent commit's, with the fdct_core.cuh
+beside it if it includes one) is built beside it; its outputs must equal
+the tree's at K = 1, 2 and 3, and both are timed at each K in turns,
+parent, tree, tree, parent. With --warps, the tree's source is also built
+with each of those warps per CTA (-DK2_WARPS=W; the tree's is 8) and
+timed at K = 1 and 3 in turns with the tree's build. Needs a CUDA card.
+Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -120,17 +126,24 @@ def _old_kernel(src: str):
     return so, prepare
 
 
-def _shape_kernel(warps: int):
-    """K2 built from the tree's source with `warps` warps per CTA: returns
-    launch(args) -> (qout, dout), the wrapper's contract."""
-    from theora_tpu_torch.ops.cuda_build import nvcc_build
-    from theora_tpu_torch.ops.fdct_cuda import _SO, _SRC
+def _build_kernel(src: str, tag: str, flags=()):
+    """K2 built from src, a fdct_quant.cu of the tree's interface (with
+    the fdct_core.cuh beside it, if any, as its header): returns
+    launch(args) -> (qout, dout) for one-segment arguments, the wrapper's
+    contract."""
+    import os
 
-    lib = ctypes.CDLL(nvcc_build(_SRC, _SO.replace(".so", f"_w{warps}.so"),
-                                 (f"-DK2_WARPS={warps}",)))
+    from theora_tpu_torch.ops.cuda_build import nvcc_build
+    from theora_tpu_torch.ops.fdct_cuda import _SO
+
+    core = os.path.join(os.path.dirname(os.path.abspath(src)),
+                        "fdct_core.cuh")
+    lib = ctypes.CDLL(nvcc_build(src, _SO.replace(".so", f"_{tag}.so"),
+                                 tuple(flags),
+                                 (core,) if os.path.exists(core) else ()))
     lib.th_fdct_quant.restype = ctypes.c_int
     lib.th_fdct_quant.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
     def launch(args):
         res, deq, inter = args
@@ -139,11 +152,10 @@ def _shape_kernel(warps: int):
         dout = torch.empty((n, 64), dtype=torch.int16, device=res.device)
         err = lib.th_fdct_quant(res.data_ptr(), deq.data_ptr(),
                                 inter.data_ptr(), qout.data_ptr(),
-                                dout.data_ptr(), n, k,
+                                dout.data_ptr(), n, k, 1,
                                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
-            raise RuntimeError(f"K2 ({warps} warps) launch failed: CUDA "
-                               f"error {err}")
+            raise RuntimeError(f"K2 ({tag}) launch failed: CUDA error {err}")
         return qout, dout
 
     return launch
@@ -152,6 +164,7 @@ def _shape_kernel(warps: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--old-src", default=None)
+    ap.add_argument("--parent-src", default=None)
     ap.add_argument("--warps", default="",
                     help="comma-separated warps per CTA to build and time")
     args = ap.parse_args(argv)
@@ -170,8 +183,11 @@ def main(argv=None) -> int:
     if args.old_src:
         so, prepare = _old_kernel(args.old_src)
         print(f"[old] {args.old_src} -> {so}", flush=True)
-    shapes = {int(w): _shape_kernel(int(w))
+    shapes = {int(w): _build_kernel(fdct_cuda._SRC, f"w{w}",
+                                    (f"-DK2_WARPS={w}",))
               for w in args.warps.split(",") if w}
+    parent = (_build_kernel(args.parent_src, "parent")
+              if args.parent_src else None)
     rng = np.random.default_rng(SEED)
     n = 21600
     res = torch.from_numpy(random_residuals(rng, n)).to(dev)
@@ -204,6 +220,16 @@ def main(argv=None) -> int:
                 row.setdefault(f"{who}_ms", []).append(
                     event_ms(fn, ITERS, flush))
             row["ms"] = row.pop("new_ms")
+        if parent is not None:
+            if not all(torch.equal(g, x)
+                       for g, x in zip(parent(kargs), got)):
+                raise AssertionError(f"K2 from {args.parent_src} != the "
+                                     f"tree's at K = {k}")
+            for who, fn in (("parent", lambda: parent(kargs)), ("new", new),
+                            ("new", new), ("parent", lambda: parent(kargs))):
+                row.setdefault(f"{who}_ms", []).append(
+                    event_ms(fn, ITERS, flush))
+            row["ms"] += row.pop("new_ms")
         for w, launch in shapes.items():
             if not all(torch.equal(g, x) for g, x in zip(launch(kargs), got)):
                 raise AssertionError(f"K2 with {w} warps != the tree's")

@@ -1,5 +1,5 @@
-"""Kernels K2, KT, KR and K1's encode entry over G segments, against G
-launches of one segment each.
+"""Kernels K2, KT, KR (its fused entry) and K1's encode entry over G
+segments, against G launches of one segment each.
 
 Usage: python -m theora_tpu_torch.tools.bench_segments [--blocks N]
            [--segments G] [--old-src DIR]
@@ -10,17 +10,18 @@ one frame step, segment g's blocks quantized with its own K qi rows and
 lambdas (deq [G, K, 2, 64], KT's lam [G, K], KR's lam_q [G, K, 2], K1's
 lam [G]). On the card, with n blocks per segment (14,400 by default, a
 1280x720 luma plane) and G segments (3), each with its own qi triple,
-lambdas and per-block lambda scales: the chain K2 -> KT -> K1 and K2 -> KR
-as one launch of each kernel over the G segments must equal the plain
-versions on the same inputs and the chain run as G launches of one
-segment each, exactly, and each kernel's one launch
-is timed (CUDA events over 50 launches, L2 flushed before each) beside
-its G launches. With --old-src, a directory holding the parent's
-fdct_quant.cu, trellis.cu, quantize_rd.cu and idct.cu (the interfaces
-without the segment axis), each kernel at G = 1 must equal the parent's
-build of it and is timed beside it on the same inputs, in turns (old,
-new, new, old). Needs a CUDA card; prints one JSON summary as its last
-line.
+lambdas and per-block lambda scales: the chain K2 -> KT -> K1, and KR's
+fused entry on the residuals (K2's function and the R/D quantizer in one
+launch, the speed levels' path), as one launch of each kernel over the G
+segments must equal the plain versions on the same inputs and the chain
+run as G launches of one segment each, exactly, and each kernel's one
+launch is timed (CUDA events over 50 launches, L2 flushed before each)
+beside its G launches. With --old-src, a directory holding commit
+7c30ac9's fdct_quant.cu, trellis.cu, quantize_rd.cu and idct.cu (the
+interfaces without the segment axis; KR's slot there is that K2 and that
+KR in a row), each kernel at G = 1 must equal the old build of it and is timed
+beside it on the same inputs, in turns (old, new, new, old). Needs a
+CUDA card; prints one JSON summary as its last line.
 
 segment_case(), run_chain() and run_separately() build and run the same
 chain on CPU tensors, where every wrapper runs its plain version
@@ -112,8 +113,7 @@ def kernel_args(c: dict) -> dict:
     q, d = fdct_cuda.fdct_quantize(*k2)
     kt = (q, d, c["deq"], c["inter"], c["lam_t"], c["nb"], c["lam_sc"])
     vals, cnt, dc_only = trellis_cuda.trellis_quantize(*kt)
-    return {"K2": k2, "KT": kt,
-            "KR": (q, d, c["deq"], c["inter"], c["lam_q"]),
+    return {"K2": k2, "KT": kt, "KR": k2 + (c["lam_q"],),
             "K1": (vals, dc_only, cnt, c["deq"], c["inter"], c["pred"],
                    c["cur"], c["lam"], c["lam_sc"])}
 
@@ -124,7 +124,8 @@ def wrappers() -> dict:
 
     return {"K2": fdct_cuda.fdct_quantize,
             "KT": trellis_cuda.trellis_quantize,
-            "KR": qrd_cuda.quantize_rd, "K1": idct_cuda.idct_recon_choose}
+            "KR": qrd_cuda.fdct_quantize_rd,
+            "K1": idct_cuda.idct_recon_choose}
 
 
 def plains() -> dict:
@@ -133,14 +134,15 @@ def plains() -> dict:
 
     return {"K2": transforms.fdct_quantize,
             "KT": transforms.trellis_quantize,
-            "KR": transforms.quantize_rd_rows,
+            "KR": transforms.fdct_quantize_rd,
             "K1": transforms.idct_recon_choose}
 
 
 def run_chain(c: dict, args: dict | None = None, fns: dict | None = None):
-    """K2, then KT and KR on K2's outputs, then K1's encode entry on KT's,
-    one launch each over the case's segments (or fns, e.g. plains(), on
-    the same arguments): {kernel: outputs}."""
+    """K2, then KT on K2's outputs, KR's fused entry on the residuals and
+    K1's encode entry on KT's outputs, one launch each over the case's
+    segments (or fns, e.g. plains(), on the same arguments): {kernel:
+    outputs}."""
     args = kernel_args(c) if args is None else args
     return {k: tuple(w(*args[k])) for k, w in (fns or wrappers()).items()}
 
@@ -176,11 +178,12 @@ def time_segments(c: dict, flush) -> dict:
 
 
 # ------------------------------------------------------------------------
-# The parent's builds (no segment axis), for the cost at G = 1.
+# The one-segment builds (commit 7c30ac9), for the cost at G = 1.
 
 def _old_libs(src_dir: str) -> dict:
-    """The parent's four kernels built from src_dir, bound with their own
-    interfaces: {kernel: launcher(args) for one-segment arguments}."""
+    """The one-segment kernels built from src_dir, bound with their own
+    interfaces: {kernel: launcher(args) for one-segment arguments}; KR's
+    takes the fused entry's arguments and runs that K2, then that KR."""
     from theora_tpu_torch.ops.cuda_build import nvcc_build
 
     out_dir = os.path.join(src_dir, "build")
@@ -230,7 +233,8 @@ def _old_libs(src_dir: str) -> dict:
             stream())
         return v, c, dc
 
-    def kr(q, d, deq, inter, lam_q):
+    def kr(res, deq, inter, lam_q):
+        q, d = k2(res, deq, inter)
         k, n = q.shape[:2]
         v, c, dc = outs(q)
         lams = [float(lam_q[0, min(i, k - 1), t]) for i in range(3)
@@ -263,11 +267,11 @@ def _old_libs(src_dir: str) -> dict:
 
 def compare_old(c: dict, src_dir: str, flush) -> dict:
     """Each kernel at G = 1 on segment 0 of the case: its outputs against
-    the parent's build's (K > 1, so K1's kept values are its own arrays),
-    then both timed in turns. Returns {kernel: [old, new, new, old] ms}
-    and, under "KT_pairs_changed", the (row, block) pairs whose trellis
-    values differ from the parent's: the lone value's cost now fuses lam
-    * bits as the JAX encoder's scan does (ROADMAP.md §3, F4), which
+    the old build's (K > 1, so K1's kept values are its own arrays), then
+    both timed in turns. Returns {kernel: [old, new, new, old] ms} and,
+    under "KT_pairs_changed", the (row, block) pairs whose trellis values
+    differ from the old build's: the lone value's cost now fuses lam *
+    bits as the JAX encoder's scan does (ROADMAP.md §3, F4), which
     decides near-ties at fractional lambdas. Any other difference
     raises."""
     from theora_tpu_torch.tools.bench_trellis import event_ms
@@ -277,15 +281,17 @@ def compare_old(c: dict, src_dir: str, flush) -> dict:
     out = {}
     for k, w in wrappers().items():
         a = args[k]
-        # The parent's KT and KR take their lambdas by value: from a host
+        # The old KT and KR take their lambdas by value: from a host
         # copy, so no launch waits for a device read.
-        a_old = (a[:4] + (a[4].cpu(),) + a[5:]) if k in ("KT", "KR") else a
+        a_old = (a[:4] + (a[4].cpu(),) + a[5:] if k == "KT"
+                 else a[:3] + (a[3].cpu(),) if k == "KR" else a)
         got, want = w(*a), old[k](*a_old)
         if k == "KT":
             out["KT_pairs_changed"] = int(
                 (got[0] != want[0]).any(dim=2).sum())
         elif not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{k} at G = 1 differs from the parent's")
+            raise AssertionError(f"{k} at G = 1 differs from the old "
+                                 f"build's")
         fns = (lambda f=old[k], a=a_old: f(*a), lambda w=w, a=a: w(*a))
         out[k] = [event_ms(fns[i], ITERS, flush) for i in (0, 1, 1, 0)]
     return out
@@ -331,9 +337,9 @@ def main(argv=None) -> int:
         for k, v in summary["g1_old_new_new_old_ms"].items():
             if k == "KT_pairs_changed":
                 print(f"[G = 1] KT: {v} (row, block) pairs differ from the "
-                      f"parent's", flush=True)
+                      f"old build's", flush=True)
                 continue
-            print(f"[G = 1] {k}: parent / this / this / parent "
+            print(f"[G = 1] {k}: old / this / this / old "
                   f"{' / '.join(f'{x:.4f}' for x in v)} ms | {smi}",
                   flush=True)
     print(json.dumps(summary), flush=True)

@@ -18,12 +18,13 @@ the PyTorch kernels each launches, per kernel, the launches of the
 kernel libraries (K1 at both entries, K2, KT, KR, KM) and of K1 in the
 theora.enc.idct_recon scope, and the device's busy and idle share of the
 traced pass. Then one speed-of-light line per hand-kernel stage (KM, K2,
-KT, KR, K1's two entries): its kernels' device time in the traced pass
-beside the bound of the same calls (tools/bench_me.py, bench_fdct.py,
-bench_trellis.py, bench_qrd.py, bench_idct.py), which one more, untraced
-pass records at the run's shapes and data. With --transcode the pass is
-instead the device-resident transcode (encode/gop.py:transcode_device)
-of the first N data packets of testdata/hd720_q56_k12.ogv in decode
+KT, KR's fused entry, K1's two entries): its kernels' device time in the
+traced pass beside the bound of the same calls (tools/bench_me.py,
+bench_fdct.py, bench_trellis.py, bench_qrd.py, bench_idct.py), which one
+more, untraced pass records at the run's shapes and data. With
+--transcode the pass is instead the device-resident transcode
+(encode/gop.py:transcode_device) of the first N data packets of
+testdata/hd720_q56_k12.ogv in decode
 batches of 8 at qi Q with the encoder's settings (adaptive quantization
 "auto" unless asked otherwise), whose encoder's host timers are not
 reported. With --staged the 8-frame GOPs go one after another through
@@ -116,8 +117,8 @@ def _kernel_stages() -> list:
          ("fdct_quant_kernel",), bench_fdct.k2_bound),
         ("trellis (KT)", trellis_cuda, "trellis_quantize",
          ("trellis_kernel",), bench_trellis.kt_bound),
-        ("R/D quantizer (KR)", qrd_cuda, "quantize_rd", ("qrd_kernel",),
-         bench_qrd.kr_bound),
+        ("fDCT + R/D quantizer (KR)", qrd_cuda, "fdct_quantize_rd",
+         ("fdct_qrd_kernel",), bench_qrd.kr_fused_bound),
         ("recon + qi chooser (K1 encode entry)", idct_cuda,
          "idct_recon_choose", ("idct_recon_choose_kernel",),
          lambda a: bench_idct.k1_bound("encode", a)),
@@ -299,12 +300,13 @@ def main(argv=None) -> int:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
         qrd_cuda, trellis_cuda
 
-    # K1 counts both entries; the encode launches its encode entry.
+    # K1 counts both entries; the encode launches its encode entry. KR is
+    # its fused entry, the one the encode runs.
     wrappers = {"K1": (idct_cuda.dequantize_idct_frames,
                        idct_cuda.idct_recon_choose),
                 "K2": (fdct_cuda.fdct_quantize,),
                 "KT": (trellis_cuda.trellis_quantize,),
-                "KR": (qrd_cuda.quantize_rd,),
+                "KR": (qrd_cuda.fdct_quantize_rd,),
                 "KM": (me_cuda.plan_with_gold,)}
 
     def lib_counts():
