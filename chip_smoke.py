@@ -173,6 +173,18 @@ and prints no result line):
    turns, 3 pairs: 27 packets equal both ways, walls, each kernel's
    launches (24 against 72) and, from one traced pass each way, device
    kernels per plane per frame. No claim.
+   (d) the mesh over torch.distributed ranks (parallel/ranks.py): two
+   local "gloo" processes, both on cuda:0, at {gop 1, frag 2} (each rank
+   encodes half of every frame's fragments and the ranks gather the
+   reconstructed blocks at every frame step) on the 16 720p frames at q56
+   "auto" against hd720_q56_k8_aq_enc.sha256 and at q48 speed 2 against
+   hd720_q48_k8_sp2_enc.sha256, and at {2, 1} (one GOP per rank) at q48
+   "off" against hd720_q48_k8_enc.sha256: every packet on every rank;
+   per rank the launches of a warm pass (K1's encode entry, K2, KT, KR
+   and KM, exact and above 0 where the path runs them), the walls, the
+   gather's time per plane per frame step and its route (pinned host
+   buffers: gloo takes no card tensors), and its transport alone on one
+   luma step's bytes.
 
 11. the all-keyframe batch encoder and the pipeline cores: (a)
    pipeline.intra_encode_core on 24 720p frames at qi 48, luma [24,
@@ -210,7 +222,8 @@ and prints no result line):
 
 Then one JSON line listing the five kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
-transcode, the per-packet decode, the mesh and the host Encoder's paths;
+transcode, the per-packet decode, the mesh, the mesh over ranks (per
+path and per rank) and the host Encoder's paths;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches),
 the
 card's name and power limit from nvidia-smi, and {"ok": true,
@@ -1059,11 +1072,16 @@ def _packet_hashes(pkts) -> list[str]:
 def _check_hashes(pkts, name: str, what: str, blob=None) -> int:
     """Packets (and a 2-pass encode's metrics blob, the list's last line)
     against the JAX encoder's list."""
-    with open(os.path.join(TESTDATA, f"{name}.sha256")) as f:
-        want = f.read().split()
     got = _packet_hashes(pkts)
     if blob is not None:
         got.append(hashlib.sha256(blob).hexdigest())
+    return _check_listed(got, name, what)
+
+
+def _check_listed(got: list[str], name: str, what: str) -> int:
+    """SHA-256 hex digests against the list `name`."""
+    with open(os.path.join(TESTDATA, f"{name}.sha256")) as f:
+        want = f.read().split()
     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
     if len(got) != len(want) or bad:
         raise AssertionError(f"{name} {what}: packets {bad} differ from the "
@@ -1779,6 +1797,204 @@ def mesh_vs_sequential(smi: str) -> dict:
     return counts
 
 
+_MESH_RANKS_WORKER = r"""
+import hashlib, importlib.util, json, os, sys, time
+root, rank, world, port, out = sys.argv[1], int(sys.argv[2]), \
+    int(sys.argv[3]), sys.argv[4], sys.argv[5]
+sys.path.insert(0, root)
+import torch
+import torch.distributed as dist
+spec = importlib.util.spec_from_file_location(
+    "mk", os.path.join(root, "testdata", "make_hd720_enc.py"))
+mk = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mk)
+from theora_tpu_torch.info import TheoraInfo
+from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, qrd_cuda, \
+    trellis_cuda
+from theora_tpu_torch.parallel.gop import MeshGopEncoder, \
+    encode_clip_mesh, make_mesh
+WRAPPERS = (idct_cuda.idct_recon_choose, fdct_cuda.fdct_quantize,
+            trellis_cuda.trellis_quantize, qrd_cuda.fdct_quantize_rd,
+            me_cuda.plan_with_gold, idct_cuda.dequantize_idct_frames,
+            qrd_cuda.quantize_rd)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=world, rank=rank)
+frames = mk.hd_frames()
+kf = mk.HD_KF
+gops = [frames[:kf], frames[kf:]]
+
+
+def info(qi):
+    return TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
+                      pic_height=720, quality=qi)
+
+
+def q56_auto(mesh):
+    return [p.data for p in encode_clip_mesh(frames, info(mk.AQ_QI), mesh,
+                                             keyframe_freq=kf, qi=mk.AQ_QI)]
+
+
+def batches(mesh, qi, setup):
+    enc = MeshGopEncoder(mesh, info(qi), qi=qi)
+    setup(enc.base)
+    G = mesh.shape["gop"]
+    return [p.data for p in enc.base.flush_headers()] + [
+        d for b0 in range(0, len(gops), G)
+        for pk in enc.encode_gops(gops[b0:b0 + G]) for d in pk]
+
+
+CASES = (
+    ("hd720_q56_k8_aq_enc", 2, 2, q56_auto),
+    ("hd720_q48_k8_sp2_enc", 2, 2,
+     lambda m: batches(m, mk.HD_QI, lambda b: b.set_splevel(2))),
+    ("hd720_q48_k8_enc", 2, 1,
+     lambda m: batches(m, mk.HD_QI,
+                       lambda b: setattr(b, "adaptive_quant", False))),
+)
+res = {"device": None, "cases": []}
+for name, n, frag, run in CASES:
+    mesh = make_mesh(n, frag_axis=frag)
+    res["device"] = str(mesh.device)
+    t0 = time.perf_counter()
+    first = run(mesh)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    for c in (mesh.ranks.frag, mesh.ranks.everyone):
+        c.stats.clear()
+    torch.cuda.synchronize()
+    for w in WRAPPERS:
+        w.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    warm = run(mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res["cases"].append({
+        "name": name, "shape": mesh.shape, "cold": cold, "wall": wall,
+        "same": first == warm,
+        "hashes": [hashlib.sha256(d).hexdigest() for d in warm],
+        "counts": [w.launches for w in WRAPPERS],
+        "route": mesh.ranks.frag.route, "frag": mesh.ranks.frag.stats,
+        "everyone": mesh.ranks.everyone.stats})
+# The frag gather's transport alone: one 720p luma step's [7200, 65]
+# uint8 card tensor through the {1, 2} mesh's frag group, both ranks
+# entering together after a barrier, 20 times.
+frag = make_mesh(2, frag_axis=2).ranks.frag
+step = torch.zeros((7200, 65), dtype=torch.uint8, device=frag.device)
+times = []
+for _ in range(21):
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    frag.all_gather(step)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+res["transport_ms"] = sorted(1e3 * t for t in times[1:])
+dist.barrier()
+dist.destroy_process_group()
+with open(f"{out}.{rank}", "w") as f:
+    json.dump(res, f)
+"""
+
+
+def mesh_ranks_720p(smi: str) -> dict:
+    """10d: the mesh over torch.distributed ranks (parallel/gop.py with
+    parallel/ranks.py) in two local "gloo" processes, both on cuda:0 (the
+    default device of each rank): the 16 720p frames at q56 "auto" at
+    {gop 1, frag 2} (encode_clip_mesh, each rank half of every frame's
+    fragments) against hd720_q56_k8_aq_enc.sha256, at q48 speed 2 at {1,
+    2} (encode_gops per GOP, KR's fused entry on the slices) against
+    hd720_q48_k8_sp2_enc.sha256, and at q48 "off" at {2, 1} (one GOP per
+    rank in one encode_gops batch) against hd720_q48_k8_enc.sha256: every
+    packet on every rank, a first pass and a warm one with the launch
+    counts reset just before it. Per rank: launches of K1 (encode entry),
+    K2, KT, KR (fused entry) and KM, each above 0 where the path runs it
+    and exact (3 x 8 per GOP per plane per frame step, KM 3 per plan), K1's
+    decode entry and KR's standalone entry 0; the wall of each case; the
+    gather's time per plane per frame step and its route (the gloo group
+    takes the card's tensors through pinned host buffers), and that
+    gather's transport alone on one luma step's bytes, both ranks entering
+    after a barrier. Every process
+    it starts is waited for or killed. Returns {path: [per-rank counts (K1
+    encode entry, K2, KT, KR, KM)]}."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    world = 2
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = os.path.join(tmp, "ranks")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MESH_RANKS_WORKER, ROOT, str(r),
+             str(world), port, out], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=420)[0].decode(errors="replace")
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        span = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"mesh rank workers failed: "
+                                 f"{[lg[-2500:] for lg in logs]}")
+        res = []
+        for r in range(world):
+            with open(f"{out}.{r}") as f:
+                res.append(json.load(f))
+    per = 3 * 8
+    want = {"hd720_q56_k8_aq_enc": (2 * per, 2 * per, 2 * per, 0, 6),
+            "hd720_q48_k8_sp2_enc": (2 * per, 0, 0, 2 * per, 6),
+            "hd720_q48_k8_enc": (per, per, per, 0, 3)}
+    paths = {}
+    for i, name in enumerate(want):
+        by_rank = []
+        for r, rr in enumerate(res):
+            c = rr["cases"][i]
+            _check_listed(c["hashes"], name,
+                          f"mesh over ranks {c['shape']}, rank {r}")
+            if not c["same"]:
+                raise AssertionError(f"{name} rank {r}: the two passes "
+                                     f"differ")
+            counts = tuple(c["counts"][:5])
+            if counts != want[name] or any(c["counts"][5:]):
+                raise AssertionError(
+                    f"{name} rank {r}: launches K1 (encode entry), K2, KT, "
+                    f"KR, KM, K1 decode, KR standalone {c['counts']}; "
+                    f"expected {want[name]} and 0, 0")
+            step = c["frag"].get("step", [0, 0.0, 0])
+            chunk = c["frag"].get("chunk", [0, 0.0, 0])
+            exch = c["everyone"].get("exchange", [0, 0.0, 0])
+            gather = (f"frag gather per plane per frame step "
+                      f"{1e3 * step[1] / step[0]:.4f} ms over {step[0]} "
+                      f"steps ({step[2] // max(step[0], 1)} B per rank "
+                      f"each), chunk gathers {chunk[0]} in "
+                      f"{1e3 * chunk[1]:.3f} ms ({chunk[2]} B)"
+                      if step[0] else "no frag gather (frag axis 1)")
+            log(f"[mesh ranks] {name} at {c['shape']}, rank {r} on "
+                f"{rr['device']}, route {c['route']}: all "
+                f"{len(c['hashes'])} packets equal the list in both passes; "
+                f"first pass {c['cold']:.4f} s, warm {c['wall']:.4f} s; "
+                f"launches K1, K2, KT, KR, KM {counts}; {gather}; packet "
+                f"exchanges {exch[0]} in {1e3 * exch[1]:.3f} ms | {smi}")
+            by_rank.append(counts)
+        paths[name] = by_rank
+    for r, rr in enumerate(res):
+        t = rr["transport_ms"]
+        log(f"[mesh ranks] frag gather transport alone, rank {r} "
+            f"({res[0]['cases'][0]['route']}): 7200 x 65 B per rank after a "
+            f"barrier, 20 calls: median {t[len(t) // 2]:.4f} ms, min "
+            f"{t[0]:.4f}, max {t[-1]:.4f} | {smi}")
+    log(f"[mesh ranks] 2 gloo ranks on one card, three cases: {span:.2f} s "
+        f"with the processes' start | {smi}")
+    return paths
+
+
 @contextlib.contextmanager
 def _plain_kernels():
     """Within the block, the pipeline cores run the kernels' plain
@@ -2330,6 +2546,15 @@ def main() -> int:
     paths["mesh"], paths["mesh speed 2"] = mesh_720p(smi)
     for way, c in mesh_vs_sequential(smi).items():
         paths[f"24 frames q48 {way}"] = c
+    # The mesh over ranks: two gloo ranks on the card, each launching the
+    # path's kernels on its share; per path the two ranks' sum.
+    ranks = mesh_ranks_720p(smi)
+    rank_paths = {"mesh ranks q56 auto {1,2}": "hd720_q56_k8_aq_enc",
+                  "mesh ranks q48 speed 2 {1,2}": "hd720_q48_k8_sp2_enc",
+                  "mesh ranks q48 off {2,1}": "hd720_q48_k8_enc"}
+    for label, listed in rank_paths.items():
+        paths[label] = tuple(sum(c[i] for c in ranks[listed])
+                             for i in range(5))
     # The batch intra encoder's slice: the compute core (K1's decode entry
     # and K2) and the batch encoder on its main path (K2 only).
     intra_core, intra_kern = intra_core_720p(smi, dev)
@@ -2347,18 +2572,22 @@ def main() -> int:
     # the mesh, the intra core; K2 on those encode paths and the batch
     # intra encoder; KT on the encode, the transcode and the mesh.
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
-                  "intra core", "intra encode", "host encode")
+                  "intra core", "intra encode", "host encode",
+                  "mesh ranks q56 auto {1,2}")
     k1["launches"] = (decode["K1 decode"]
                       + sum(paths[p][0] for p in main_paths))
     k2["launches"] = sum(paths[p][1] for p in main_paths)
     kt["launches"] = sum(paths[p][2] for p in main_paths)
     kr["launches"] = (paths["encode q48 speed 2"][3]
-                      + paths["mesh speed 2"][3])
+                      + paths["mesh speed 2"][3]
+                      + paths["mesh ranks q48 speed 2 {1,2}"][3])
     km["launches"] = sum(paths[p][4] for p in main_paths)
     for i, (k, key) in enumerate(((k1, "K1 decode"), (k2, "K2"),
                                   (kt, "KT"), (kr, "KR"), (km, "KM"))):
         k["launches_by_path"] = {"decode": decode[key],
                                  **{p: c[i] for p, c in paths.items()}}
+        k["launches_by_rank"] = {label: [c[i] for c in ranks[listed]]
+                                 for label, listed in rank_paths.items()}
     for k, key in ((k1, "K1"), (k2, "K2"), (kt, "KT"), (kr, "KR")):
         k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
                                    "three_launches": segments[key][1]}

@@ -7,7 +7,8 @@ port's own pass-1 blob, speed level 2, per-block lambda scales) and
 against the sequential encoder; the encode-side kernels' plain versions with a segment axis against one call
 per segment, exactly; the scan's pixel ops with a GOP axis against one
 call per GOP; the ME plan over a GOP-major stack against JAX's
-concatenated per-GOP plans; and the mesh shapes the port does not take.
+concatenated per-GOP plans; and the one-card mesh shapes the port does not
+take.
 JAX's own mesh is not run here (tests/test_tpu_gop.py runs it)."""
 import hashlib
 import importlib.util
@@ -118,8 +119,18 @@ def test_mesh_packets_equal_jax_lists(name, gop, request):
     assert _hashes(CASES[name](gop, blob)) == _want(name)
 
 
+@pytest.fixture(scope="module")
+def halftex_sequential():
+    """The half-texture clip's packets from the sequential GopEncoder,
+    once for the module."""
+    return GopEncoder(_info(mk.MIXED_W, mk.MIXED_H, mk.HALFTEX_QI),
+                      qi=mk.HALFTEX_QI, device="cpu").encode_clip(
+        mk.halftexture_frames(), keyframe_freq=2)
+
+
 @pytest.mark.parametrize("gop", [1, 2, 3, 4])
-def test_mesh_with_lambda_scales_equals_sequential_encoder(gop):
+def test_mesh_with_lambda_scales_equals_sequential_encoder(
+        gop, halftex_sequential):
     """The half-texture clip at q48 "auto" in 2-frame GOPs (the qi triple
     with per-block lambda scales on both GOPs): the mesh's packets equal
     the sequential GopEncoder's at every gop axis, and both equal JAX's
@@ -127,13 +138,10 @@ def test_mesh_with_lambda_scales_equals_sequential_encoder(gop):
     also gives). The second keyframe holds a trellis near-tie that the
     placement of XLA's fused multiply-adds decides (ROADMAP.md §3, F4)."""
     info = _info(mk.MIXED_W, mk.MIXED_H, mk.HALFTEX_QI)
-    frames = mk.halftexture_frames()
-    seq = GopEncoder(info, qi=mk.HALFTEX_QI, device="cpu").encode_clip(
-        frames, keyframe_freq=2)
-    mesh = encode_clip_mesh(frames, info, _mesh(gop), keyframe_freq=2,
-                            qi=mk.HALFTEX_QI)
+    mesh = encode_clip_mesh(mk.halftexture_frames(), info, _mesh(gop),
+                            keyframe_freq=2, qi=mk.HALFTEX_QI)
     want = _want("mesh96x64_halftex_q48_enc.sha256")
-    assert _hashes(mesh) == _hashes(seq) == want
+    assert _hashes(mesh) == _hashes(halftex_sequential) == want
 
 
 def test_mesh_vbr_equals_sequential_encoder():
@@ -241,12 +249,14 @@ def test_me_plan_of_a_gop_major_stack_equals_jax_per_gop_plans():
 
 
 def test_mesh_shapes_the_port_does_not_take():
-    """A frag axis and a gop axis over several cards raise
-    NotImplementedError naming their ROADMAP item; the mesh's shape and
-    the CBR collective."""
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    """Without a process group a frag axis has no ranks to span, and a
+    mesh over several devices is a process group of one rank per device:
+    both raise ValueError saying so, as does an empty gop axis (the mesh
+    over ranks: tests/test_torch_mesh_ranks.py); the one-card mesh's shape
+    and the CBR collective."""
+    with pytest.raises(ValueError, match="process group"):
         make_mesh(4, frag_axis=2, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(ValueError, match="one rank each"):
         make_mesh(2, devices=["cpu", "cpu"])
     with pytest.raises(ValueError):
         make_mesh(0, devices=["cpu"])

@@ -6,7 +6,8 @@ GOP encoder (``encode/gop.py``) with every setting of the JAX one (speed
 levels, adaptive quantization, scene cuts, CBR, 2-pass), its three
 stages and the device-resident transcode; the mesh GOP encoder
 (``parallel/gop.py``), which runs a batch of GOPs side by side on one
-card; the all-keyframe batch encoder (``encode/intra.py``); and the host
+card, and over torch.distributed ranks, one per device, splits the batch's
+GOPs and each frame's fragments between them (``parallel/ranks.py``); the all-keyframe batch encoder (``encode/intra.py``); and the host
 encoder (``encode/encoder.py``), whose closed loop decodes on the card,
 with the GOP-parallel transcodes over it (``parallel/transcode.py``,
 ``parallel/distributed.py``). Their hand-written CUDA kernels (``csrc/``): K1, dequant + iDCT

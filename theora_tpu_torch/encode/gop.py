@@ -39,7 +39,9 @@ run in turn, since the qi moves between GOPs (WindowRateController); in a
 2-pass encode each frame has its own qi (`frame_qi`). transcode_device
 feeds the batch decoder's planes to the same stages on the card, and the
 mesh encoder (parallel/gop.py) a chunk of G equal-length GOPs, which the
-plane scans run side by side on their GOP axis.
+plane scans run side by side on their GOP axis; over the ranks of a frag
+group each rank encodes its share of every frame's fragments, and the
+group's first rank packs.
 """
 from __future__ import annotations
 
@@ -137,6 +139,10 @@ class _MeState:
         # scans run side by side on their GOP axis (parallel/gop.py sets
         # it); 1: one scan over the chunk's frames.
         self.gop_axis = 1
+        # None, or this rank's frag group of more than one rank
+        # (parallel/ranks.py FragGroup, set by parallel/gop.py): the plane
+        # scans encode the rank's share of every frame's fragments.
+        self.frag = None
 
 
 class _ChunkState:
@@ -144,6 +150,8 @@ class _ChunkState:
 
     def __init__(self, F, plan_pf, frame_frag, fqis, kf_flags, qout,
                  download, K, want_recon, keep):
+        # qout None: a frag rank other than its group's first, which
+        # packs nothing.
         self.F = F
         self.plan_pf = plan_pf
         self.frame_frag = frame_frag
@@ -464,8 +472,14 @@ class GopEncoder:
         chunk is G GOPs of equal length F / G (kf_flags marking each one's
         first frame), and the plane scans run them side by side on the
         scan's GOP axis (parallel/gop.py), F / G frame steps of G GOPs
-        each, in place of one F-long scan. Returns the state finish_gop
-        takes."""
+        each, in place of one F-long scan. With me_state.frag, a frag group
+        of Fr > 1 ranks, the inputs of each plane are cut to this rank's
+        fragments before their upload and the scans encode those only;
+        afterwards the group's first rank gathers every rank's coefficients,
+        coded flags and qi indices (JAX's out_specs P("gop", None, "frag"),
+        parallel/gop.py:130-137) and alone copies and packs them: on the
+        other ranks finish_gop returns no packets. Returns the state
+        finish_gop takes."""
         st = me_state
         g = self.g
         F, kf_flags, cur, keep = st.F, st.kf_flags, st.cur, st.keep
@@ -521,10 +535,19 @@ class GopEncoder:
             """A per-frame array, [F, ...] -> [G, F / G, ...]."""
             return a.reshape((G, Fg) + a.shape[1:])
 
+        fr = st.frag
         for pli in range(3):
             pl = g.planes[pli]
             vpad, hpad = g.plane_padding(pli)
             per = [self._plane_inputs(pli, *frame_frag[f]) for f in range(F)]
+            cut = None
+            if fr is not None:
+                # This rank's fragments ([F, n] -> [F, nl]); pads may skip.
+                _, cut, pads = fr.shard(pl.nfrags)
+                for p in per:
+                    for k in p:
+                        p[k] = p[k][cut]
+                    p["ms"] = p["ms"] | pads
             with record_function("theora.enc.upload"):
                 frag = {k: transfer.upload(by_gop(
                     np.stack([p[k] for p in per]).astype(np.int64)), dev,
@@ -539,7 +562,9 @@ class GopEncoder:
                 deq = transfer.upload(by_gop(deq), dev, keep)
                 sc = None
                 if pli == 0 and luma_sc is not None:
-                    sc = transfer.upload(by_gop(luma_sc), dev, keep)
+                    sc = transfer.upload(by_gop(
+                        luma_sc if cut is None else luma_sc[:, cut]), dev,
+                        keep)
             lam_q = None
             if not self.use_trellis:
                 # The R/D quantizer's lambda of each row for an intra and
@@ -554,12 +579,17 @@ class GopEncoder:
                 by_gop(np.asarray(limits)), by_gop(lam), pl.nvfrags,
                 pl.nhfrags, vpad, hpad, use_trellis=self.use_trellis,
                 lam_t=by_gop(lam_t), nb=self._nb, lam_q=lam_q, lam_sc=sc,
-                emit_recon=want_recon)
+                emit_recon=want_recon, frag_group=fr)
             plane_out.append((qout.view(F, *qout.shape[2:]),
                               coded.view(F, -1), qii.view(F, -1),
                               None if recon is None
                               else recon.view(F, *recon.shape[2:])))
+        if fr is not None:
+            plane_out = self._gather_first(fr, plane_out)
         self._end_span(span)
+        if plane_out is None:
+            return _ChunkState(F, plan_pf, frame_frag, fqis, kf_flags, None,
+                               None, K, want_recon, keep)
         # The nonzero coefficients come down in finish_gop, once their
         # number is known.
         copies = []
@@ -580,8 +610,11 @@ class GopEncoder:
         nonzero coefficients (on a side stream that waits for this chunk
         only), place them and pack the packets on the host. Returns
         (packet data list, recon {pli: [F, Hp, Wp] uint8 padded planes}
-        or None)."""
+        or None); the packets are None on a frag rank that packs
+        nothing."""
         st = state
+        if st.qout is None:
+            return None, None
         g = self.g
         t0 = time.perf_counter()
         host = iter(st.download.wait())
@@ -603,6 +636,30 @@ class GopEncoder:
                               coded_pl, st.kf_flags, st.fqis, qii_pl)
         self.host_pack_s += time.perf_counter() - t0
         return pkts, (recon_pl if st.want_recon else None)
+
+    def _gather_first(self, fr, plane_out):
+        """A chunk's per-plane (qout [F, nl, 64] int16, coded [F, nl] bool,
+        qii [F, nl] uint8, recon) of every rank of the frag group fr, whole
+        ([F, n, ...]) on its first rank, as one gather of each rank's bytes;
+        None on the other ranks."""
+        mine = torch.cat([torch.cat((q.view(torch.uint8),
+                                     c[..., None].to(torch.uint8),
+                                     i[..., None]), 2)
+                          for q, c, i, _ in plane_out], 1)
+        with record_function("theora.enc.frag_gather"):
+            parts = fr.gather_first(mine, "chunk")
+        if parts is None:
+            return None
+        out, off = [], 0
+        for pli, (q, _, _, recon) in enumerate(plane_out):
+            nl = q.shape[1]
+            whole = fr.whole(parts[:, :, off:off + nl], self.g.planes[
+                pli].nfrags, 1)
+            off += nl
+            out.append((whole[..., :128].contiguous().view(torch.int16),
+                        whole[..., 128].bool(), whole[..., 129].contiguous(),
+                        recon))
+        return out
 
     def _coefficients(self, qouts, after) -> list[tuple]:
         """Per plane, the nonzero entries of its [F, n, 64] int16

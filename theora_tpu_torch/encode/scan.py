@@ -6,7 +6,11 @@ Port of theora_tpu/encode/tpu_gop.py `make_plane_scan` and
 for one qi row (n_qis == 1) or for adaptive quantization's K <= 3 rows per
 frame (n_qis > 1), with JAX's mesh GOP axis (theora_tpu/parallel/gop.py,
 `jax.vmap(one_gop)` over a shard's GOPs) as a batch dimension on one
-device; the frag axis is not ported (frag_axis None). The quantizer inputs
+device, and its frag axis (frag_axis) over the ranks of a frag group
+(parallel/ranks.py): each rank encodes its share of every frame's
+fragments, and the reconstructed blocks and coded flags are all-gathered
+at every frame step to rebuild the whole carried plane on every rank
+(tpu_gop.py:160-166,185-192,294-309). The quantizer inputs
 are per GOP and frame, as there: rate control changes the qi from frame
 to frame and from GOP to GOP. The JAX scan over frames becomes a loop; the
 carried (prev, gold) reference planes of every GOP stay on the device.
@@ -20,7 +24,8 @@ Per frame step, over the G GOPs' blocks at once:
   values, nonzero counts and DC-only flags -> kernel K1's encode entry
   (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
   the chooser, which keeps each block's cheapest row) -> the R/D skip
-  test against the uncoded copy -> loop filter -> borders.
+  test against the uncoded copy -> (over a frag group: the gather of
+  every rank's blocks and coded flags) -> loop filter -> borders.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -60,7 +65,7 @@ def _frames_major(t: torch.Tensor) -> torch.Tensor:
 def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
                  nh: int, pad_y: int, pad_x: int, use_trellis: bool = True,
                  lam_t=None, nb=None, lam_q=None, lam_sc=None,
-                 emit_recon: bool = False):
+                 emit_recon: bool = False, frag_group=None):
     """Closed-loop encode of one plane over F frames of G GOPs at K qi
     rows.
 
@@ -81,22 +86,38 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     block's lambda. lam_sc: None or [G, F, n] float32 per-block lambda
     scales on the device (the trellis' and the chooser's; KR takes none).
 
+    frag_group: None, or this rank's parallel/ranks.py FragGroup of size
+    Fr > 1: the rank encodes nl = ceil(n / Fr) fragments of each GOP
+    (FragGroup.shard), and frag and lam_sc give those fragments' values,
+    [G, F, nl] in place of [G, F, n]; its kernels launch on G * nl blocks
+    (segment b / nl). The carried planes are whole on every rank.
+
     Returns (qout [G, F, n, 64] int16 quantized coefficients, zero for
     uncoded blocks; coded [G, F, n] bool; qii [G, F, n] uint8 each block's
     qi row; recon [G, F, Hp, Wp] uint8 padded planes when emit_recon, else
-    None).
+    None), with nl in place of n over a frag group.
     """
     dev = cur_planes.device
     G, F = cur_planes.shape[:2]
     K = deq.shape[2]
     n = nv * nh
-    N = G * n
+    fr = frag_group
     h, w = nv * 8, nh * 8
     hp, wp = h + 2 * pad_y, w + 2 * pad_x
     grid = block_index_grid(nv, nh, pad_y, pad_x, wp, dev, G, hp)
     # Per frame step the G GOPs' blocks in one row of N: [F, N, 64].
-    cur = _frames_major(cur_planes.reshape(G, F, nv, 8, nh, 8)
-                        .permute(0, 1, 2, 4, 3, 5).reshape(G, F, n, 64))
+    cur = cur_planes.reshape(G, F, nv, 8, nh, 8).permute(
+        0, 1, 2, 4, 3, 5).reshape(G, F, n, 64)
+    nl = n
+    if fr is not None:
+        # This rank's fragments of every GOP: the MC grid, the uncoded
+        # copy (through the grid) and cur, taken by fragment index.
+        nl, idx, _ = fr.shard(n)
+        idx = transfer.upload(idx, dev)
+        grid = grid.view(G, n, 8, 8)[:, idx].reshape(G * nl, 8, 8)
+        cur = cur[:, :, idx]
+    N = G * nl
+    cur = _frames_major(cur)
     frag = {k: _frames_major(v) for k, v in frag.items()}
     deq = deq.transpose(0, 1).contiguous()             # [F, G, K, 2, 64]
     sc_f = None if lam_sc is None else _frames_major(lam_sc)
@@ -149,19 +170,29 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
             du = unc - curi
             ssd_unc = (du * du).sum(dim=1, dtype=torch.int32)
             lamterm = (lam_f[:, None] * (
-                6.0 * cnt.view(G, n).to(torch.float32) + 2.0)).to(
+                6.0 * cnt.view(G, nl).to(torch.float32) + 2.0)).to(
                     torch.int32).view(N)
             coded = ~(frag["ms"][f]
                       & (16 * ssd_unc <= 16 * ssd_rec + lamterm))
             if ik:
                 coded = torch.ones_like(coded)
             blocks = torch.where(coded[:, None], recon, unc)
-            plane = blocks_to_plane(blocks.reshape(N, 8, 8), nv, nh, pad_y,
-                                    pad_x, planes=G)
+        coded_all = coded
+        if fr is not None:
+            with record_function("theora.enc.frag_gather"):
+                # One gather of every rank's blocks and coded flags,
+                # [Fr, G * nl, 65] -> [G * n, 65].
+                mine = torch.cat((blocks, coded[:, None].to(torch.uint8)), 1)
+                both = fr.whole(fr.all_gather(mine, "step").view(
+                    fr.size, G, nl, 65), n, 1).reshape(G * n, 65)
+                blocks, coded_all = both[:, :64], both[:, 64].bool()
+        with record_function("theora.enc.skip"):
+            plane = blocks_to_plane(blocks.reshape(G * n, 8, 8), nv, nh,
+                                    pad_y, pad_x, planes=G)
         if limit[:, f].any():
             with record_function("theora.enc.loopfilter"):
                 plane = loop_filter_plane(
-                    plane, coded.reshape(G, nv, nh), lim_dev[f], nv, nh,
+                    plane, coded_all.reshape(G, nv, nh), lim_dev[f], nv, nh,
                     pad_y, pad_x)
         with record_function("theora.enc.borders"):
             fill_borders(plane, h, w, pad_y, pad_x)
@@ -175,7 +206,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     recon = (torch.stack(recon_out, dim=1) if emit_recon else None)
 
     def gop_major(t):
-        return t.view(F, G, n, *t.shape[2:]).transpose(0, 1).contiguous()
+        return t.view(F, G, nl, *t.shape[2:]).transpose(0, 1).contiguous()
 
     return (gop_major(qout), gop_major(coded_out), gop_major(qii_out),
             recon)

@@ -2,24 +2,27 @@
 
 Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [-z SPEED]
            [-b BITRATE [--two-pass [--two-pass-file F] [--rate-buffer N]]]
-           [--adaptive-quant {auto,on,off}] [-j N] [--device D]
-           in.y4m out.ogv
+           [--adaptive-quant {auto,on,off}] [--rd-strength S] [-j N]
+           [--device D] in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
 TpuGopEncoder) with its device-branch options: the qi (with a bitrate, the
 quality floor of the rate controller), the keyframe spacing, speed levels
 0-4, CBR (-b), 2-pass (--two-pass with -b, the pass-1 metrics file and the
-rate buffer) and adaptive quantization ("auto" by default, as there).
+rate buffer), adaptive quantization ("auto" by default, as there) and
+the rate-distortion strength (--rd-strength, JAX tools/enc.py:28; 3.0 by
+default, GopEncoder's).
 Encodes on the card (``--device cuda``, the default); ``cpu`` runs the
 plain PyTorch versions of the kernels.
 
 ``-j N`` (JAX ``tools/enc.py:38-40,204-220``) encodes GOP-parallel with N
 worker processes through the host Encoder, its closed loop decoded on
 the device (parallel/transcode.py), byte-identical to one sequential host
-Encoder. Fault of the reference not copied: JAX's -j silently drops -z
-and --adaptive-quant (its transcode builds default encoders); here -j
-with either set to anything but its default, or with -b, is a usage
-error.
+Encoder; it takes --rd-strength (JAX :209). Faults of the reference not
+copied: JAX's -j silently drops -z and --adaptive-quant (its transcode
+builds default encoders); here -j with either set to anything but its
+default, or with -b, is a usage error. JAX's --device drops
+--rd-strength (:147); here the device encoder takes it.
 """
 from __future__ import annotations
 
@@ -71,6 +74,10 @@ def main(argv=None):
                          "and mixed frames; default), on (every qi the "
                          "spec allows), off; bare --adaptive-quant means "
                          "'on'")
+    ap.add_argument("--rd-strength", type=float, default=None,
+                    help="scale of the rate-distortion lambdas (the skip "
+                         "test, the qi chooser, the R/D quantizer, the "
+                         "mode decision's MV bias); default 3.0")
     ap.add_argument("-j", "--workers", type=int, default=0,
                     help="GOP-parallel encode with N worker processes "
                          "through the host encoder (VBR, speed 0, "
@@ -102,7 +109,8 @@ def main(argv=None):
 
         t0 = time.perf_counter()
         pkts = transcode(frames, info, keyframe_freq=args.keyframe_freq,
-                         max_workers=args.workers, use_processes=True,
+                         max_workers=args.workers,
+                         rd_strength=args.rd_strength, use_processes=True,
                          device=args.device)
         dt = time.perf_counter() - t0
         with open(args.output, "wb") as f:
@@ -113,9 +121,10 @@ def main(argv=None):
               f"({mpix / dt:.2f} Mpix/s, {args.workers} workers on "
               f"{args.device})", file=sys.stderr)
         return
+    rd = {} if args.rd_strength is None else {"rd_strength": args.rd_strength}
     enc = GopEncoder(info, qi=args.quality, device=args.device,
                      adaptive_quant={"auto": "auto", "on": True,
-                                     "off": False}[args.adaptive_quant])
+                                     "off": False}[args.adaptive_quant], **rd)
     if args.speed:
         enc.set_splevel(args.speed)
     t0 = time.perf_counter()
