@@ -6,8 +6,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernels K1, K2, KT, KR and KM
-   (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
+2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM
+   and KL (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
    csrc/fdct_core.cuh, K2's block core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
    in parallel;
@@ -34,7 +34,9 @@ and prints no result line):
    chain it replaced (the decode entry over K x N pairs and the PyTorch
    ops after it, tools/bench_idct.py:parent_chain);
 4. golden streams: BatchDecoder(device="cuda").decode_clip must equal
-   libtheora's .ref.yuv output byte for byte;
+   libtheora's .ref.yuv output byte for byte; every frame of the six is
+   coded below q47, so its planes filter through KL, three launches per
+   frame whose limit is above 0, counted;
 5. real-size decode: decode_clip(batch=8) of the 1280x720 test stream,
    every frame's SHA-256 against the committed list, a warm pass timed
    with K1's launch count reset just before it;
@@ -106,6 +108,20 @@ and prints no result line):
    below counts KM's launches: 3 per plan call (2 calls per 16-frame
    encode_clip, 3 per 24-frame transcode, 1 per mesh batch), none on the
    host Encoder's and the intra paths;
+6e. KL (the loop filter, one launch per plane or plane stack per frame
+   step) against its plain version (ops/loopfilter.py:loop_filter_plane)
+   on the card, byte for byte, on tools/bench_loopfilter.py:cases: the
+   1280x720 4:2:0 luma and chroma planes, a 4:2:2 and a 4:4:4 chroma
+   plane, a one-row and a one-column grid, limits 1, 2, 15 and 63, coded
+   densities 0, 0.3, 0.6 and 1 and the patterns built for the corner
+   writes (vE beside vL, one coded block at each corner and all four, a
+   checkerboard, stairs), low-contrast, uniform and 0/255 pixels, and
+   three chroma planes in one launch with limits [5, 0, 31]; the input
+   left as it was. CUDA-event times at the 720p luma and chroma planes
+   and a frame's three planes, each beside the bound (bench_loopfilter.
+   kl_bound), the plain version and a device copy of the same bytes.
+   Every path below counts KL's launches: one per plane (stack) per
+   frame step whose limit is above 0, none at q >= 47;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -117,7 +133,9 @@ and prints no result line):
    their lists: speed levels 2 and 4 at 64x48, use_trellis=False on both
    96x64 clips (KR at three qi rows), auto_keyframe on a clip with a
    scene cut, CBR at 60 kbit/s (the qi must move) and a 2-pass encode
-   (packets and the pass-1 metrics blob);
+   (packets and the pass-1 metrics blob); the mesh at gop axis 4 on the
+   scene-cut clip under CBR (mesh64x48_cut_cbr_enc, qi 40 and below): KL
+   launched over the 4 GOPs' planes with limits above 0;
 8. real-size encodes: 16 frames of the 1280x720 clip, a keyframe every 8
    frames, clip_batch 8, at q48 with adaptive_quant=False and, the main
    path, at q56 with the default adaptive_quant="auto" (the qi triple on
@@ -134,7 +152,9 @@ and prints no result line):
    metrics blob against the list, more than one qi among the frames, the
    first GOP's closed loop at its frames' qis, and a warm pass timed with
    the launch counts reset (pass 1 and pass 2: 96 launches of K1's
-   encode entry, K2 and KT, none of KR).
+   encode entry, K2 and KT, none of KR; KL three per frame whose qi's
+   limit is above 0, in each pass, from the frame qis the two passes
+   report); its packets decoded on the card, through KL.
 
 9. the paths of the stages: (a) the device-resident transcode
    (transcode_device) of the 1280x720 test stream's 24 data packets,
@@ -220,10 +240,11 @@ and prints no result line):
    loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
    on the 64x48 clip against its lines of host64x48_enc.
 
-Then one JSON line listing the five kernels (times and bounds, K1's at both
+Then one JSON line listing the six kernels (times and bounds, K1's at both
 entries; launches on the 720p decode, each 720p encode path, the
 transcode, the per-packet decode, the mesh, the mesh over ranks (per
-path and per rank) and the host Encoder's paths;
+path and per rank) and the host Encoder's paths, KL's also on the golden
+decodes, the 2-pass packets' decode and the small mesh;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches),
 the
 card's name and power limit from nvidia-smi, and {"ok": true,
@@ -269,8 +290,8 @@ def card() -> tuple[str, str]:
 
 def build() -> None:
     from theora_tpu_torch import native
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
     from theora_tpu_torch.tools import bench_me
 
     def timed(fn):
@@ -278,7 +299,7 @@ def build() -> None:
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(7) as ex:
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
@@ -288,6 +309,7 @@ def build() -> None:
                 "KR (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, qrd_cuda.build),
                 "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build),
+                "KL (nvcc sm_90a)": ex.submit(timed, loopfilter_cuda.build),
                 "byte-SIMD rates (nvcc sm_90a)": ex.submit(
                     timed, bench_me.simd_build)}
         for what, job in jobs.items():
@@ -295,7 +317,7 @@ def build() -> None:
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
                   ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO),
-                  ("KM", me_cuda._SO)):
+                  ("KM", me_cuda._SO), ("KL", loopfilter_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -503,14 +525,25 @@ def _frame_bytes(frame) -> bytes:
     return b"".join(np.ascontiguousarray(p).tobytes() for p in frame)
 
 
-def golden_streams() -> None:
-    from theora_tpu_torch.ops import idct_cuda
+def _kl_frames(setup, datas) -> int:
+    """The data packets whose frame filters: not a dup, and its qi's
+    loop-filter limit above 0 (KL launches once per plane of each)."""
+    lfl = setup.qinfo["loop_filter_limits"]
+    return sum(1 for d in datas if d and lfl[d[0] & 0x3F] > 0)
 
+
+def golden_streams() -> int:
+    """Phase 4; returns KL's launches over the six streams."""
+    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
+
+    total = 0
     for name in GOLDEN:
         dec, data = _open(f"{name}.tpkt")
         before = idct_cuda.dequantize_idct_frames.launches
+        kl0 = loopfilter_cuda.loop_filter_plane.launches
         outs = dec.decode_clip(data, batch=8)
         launched = idct_cuda.dequantize_idct_frames.launches - before
+        kl = loopfilter_cuda.loop_filter_plane.launches - kl0
         ref = np.fromfile(os.path.join(TESTDATA, f"{name}.ref.yuv"),
                           np.uint8).reshape(len(data), -1)
         bad = [i for i, o in enumerate(outs)
@@ -519,8 +552,15 @@ def golden_streams() -> None:
             raise AssertionError(f"{name}: frames {bad} differ from .ref.yuv")
         if launched == 0:
             raise AssertionError(f"{name}: K1 was not launched")
+        filtered = _kl_frames(dec.setup, data)
+        if kl != 3 * filtered or kl == 0:
+            raise AssertionError(f"{name}: KL launches {kl}; expected 3 per "
+                                 f"filtered frame, {filtered} frames")
+        total += kl
         log(f"[golden] {name}: {len(outs)} frames byte-identical to "
-            f".ref.yuv; K1 launches {launched}")
+            f".ref.yuv; K1 launches {launched}; KL launches {kl} ({filtered} "
+            f"frames below q47)")
+    return total
 
 
 def real_size(smi: str) -> dict:
@@ -1052,6 +1092,47 @@ def km_vs_plain(device) -> dict:
     }
 
 
+def kl_vs_plain(device) -> dict:
+    """6e: KL (the loop filter, ops/loopfilter_cuda.py) against its plain
+    version (ops/loopfilter.py:loop_filter_plane) on the card, byte for
+    byte, on tools/bench_loopfilter.py:cases (the 720p planes, 4:2:2 and
+    4:4:4 chroma, one row, one column, limits 1-63, the densities and the
+    built corner patterns, 0/255 pixels, three planes in one launch with
+    limits [5, 0, 31]; bench_loopfilter.check), one launch per call, the
+    input left as it was; CUDA-event times at the
+    720p luma and chroma planes and a frame's three planes beside the
+    bound (bench_loopfilter.kl_bound), the plain version and a device
+    copy of the same bytes."""
+    from theora_tpu_torch.tools import bench_loopfilter as bl
+
+    n, err = bl.check(device)
+    log(f"[kl] {n} cases: kernel == plain byte for byte, one launch each, "
+        f"input untouched; max |err| {err} (tolerance 0: exact)")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = bl.timed_shapes(device, flush)
+    for label, r in rows.items():
+        log(f"[kl] time, {label}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, device copy of the same bytes "
+            f"{r['copy_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.4f} ms, "
+            f"{r['ops']} int32 ops -> {r['ops_ms']:.4f} ms); kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; no single PyTorch "
+            f"call computes the filter (library_ms null)")
+    one = rows["720p luma"]
+    return {
+        "name": "loop_filter", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/loopfilter.cu",
+        "replaces": "theora_tpu/ops/loopfilter_jax.py:71",
+        "launches": None, "max_abs_err": err, "ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"], "library_ms": None,
+        "timed": "720p luma plane, one launch", "copy_ms": one["copy_ms"],
+        "shapes": {label: {k: r[k] for k in (
+            "ms", "plain_ms", "copy_ms", "bound_ms", "bound_by")}
+            for label, r in rows.items()},
+    }
+
+
 def _encoder(w, h, fmt, qi, adaptive_quant, quality=None, splevel=0):
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
@@ -1202,6 +1283,50 @@ def small_encodes() -> None:
         f"frame qis {_frame_qis(pkts)}")
 
 
+def mesh_filter_small() -> int:
+    """7 (end): encode_clip_mesh of the scene-cut clip under CBR at gop
+    axis 4 on the card (the 8-, 1- and 5-frame GOPs in one batch, qi 40
+    and below): every packet against mesh64x48_cut_cbr_enc, JAX's mesh's
+    list; KL, counted from 0, must run once per plane per frame step over
+    a stack of more than one plane with a limit above 0. Returns KL's
+    launches."""
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.ops import loopfilter_cuda
+    from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
+
+    mk = _load_testdata("make_hd720_enc")
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=mk.SMALL_QI)
+    real = loopfilter_cuda.loop_filter_plane
+    stacks = []
+
+    def spy(plane, coded, limit, *rest):
+        out = real(plane, coded, limit, *rest)
+        stacks.append((plane.shape[0] if plane.dim() == 3 else 1,
+                       int(limit.max()) if plane.dim() == 3 else limit))
+        return out
+
+    spy.launches = 0  # the wrapper counts on the name it is bound to
+    _reset_counts()
+    loopfilter_cuda.loop_filter_plane = spy
+    try:
+        pkts = encode_clip_mesh(
+            mk.cut_frames(), info, make_mesh(4), keyframe_freq=mk.CUT_KF,
+            qi=mk.SMALL_QI, target_bitrate=mk.MESH_CBR_RATE, rate_window=3,
+            auto_keyframe=True)
+    finally:
+        loopfilter_cuda.loop_filter_plane = real
+    n = _check_hashes(pkts, "mesh64x48_cut_cbr_enc", "mesh, gop axis 4")
+    kl = spy.launches
+    if kl != len(stacks) or not any(g > 1 and lim > 0 for g, lim in stacks):
+        raise AssertionError(f"mesh 64x48 CBR: KL launches {kl} over "
+                             f"(planes, largest limit) {stacks}")
+    log(f"[mesh64x48_cut_cbr_enc] gop axis 4, CBR: all {n} packets equal "
+        f"JAX's mesh's; KL launches {kl}, (planes, largest limit) of each "
+        f"{sorted(set(stacks))}")
+    return kl
+
+
 def _psnr(frames, outs) -> float:
     se = n = 0
     for src, dec in zip(frames, outs):
@@ -1213,34 +1338,37 @@ def _psnr(frames, outs) -> float:
 
 
 def _reset_counts() -> None:
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
 
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
               fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
               qrd_cuda.fdct_quantize_rd, qrd_cuda.quantize_rd,
-              me_cuda.plan_with_gold):
+              me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane):
         w.launches = 0
 
 
-def _read_counts(what: str, want: tuple) -> tuple:
-    """(K1's encode entry, K2, KT, KR's fused entry, KM) launches since
-    _reset_counts; they must equal want, and neither K1's decode entry nor
-    KR's standalone entry must have run. KM launches three times per ME
-    plan: one plan per chunk of encode_clip, per GOP of a 2-pass encode's
-    pass 2, per mesh batch."""
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
+def _read_counts(what: str, want: tuple, kl: int = 0) -> tuple:
+    """(K1's encode entry, K2, KT, KR's fused entry, KM, KL) launches since
+    _reset_counts; the first five must equal want and KL's kl (one per
+    plane per frame step whose limit is above 0: none at q >= 47), and
+    neither K1's decode entry nor KR's standalone entry must have run. KM
+    launches three times per ME plan: one plan per chunk of encode_clip,
+    per GOP of a 2-pass encode's pass 2, per mesh batch."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
 
     counts = (idct_cuda.idct_recon_choose.launches,
               fdct_cuda.fdct_quantize.launches,
               trellis_cuda.trellis_quantize.launches,
               qrd_cuda.fdct_quantize_rd.launches,
-              me_cuda.plan_with_gold.launches)
-    if counts != want:
+              me_cuda.plan_with_gold.launches,
+              loopfilter_cuda.loop_filter_plane.launches)
+    if counts != tuple(want) + (kl,):
         raise AssertionError(f"{what} launches: K1 (encode entry), K2, KT, "
-                             f"KR, KM {counts}; expected {want}")
+                             f"KR, KM, KL {counts}; expected {want} and KL "
+                             f"{kl}")
     if idct_cuda.dequantize_idct_frames.launches:
         raise AssertionError(f"{what}: the encode launched K1's decode "
                              f"entry")
@@ -1259,7 +1387,7 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     the quantizer (K2 and KT at speed levels 0-1, KR's fused entry alone
     at 2-4) must each run once per plane per frame, the other kernels, K1's
     decode entry and KR's standalone entry not at all. Returns the counts
-    (K1 encode entry, K2, KT, KR, KM)."""
+    (K1 encode entry, K2, KT, KR, KM, KL)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -1308,8 +1436,8 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
         f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
         f"ME and plane encodes) {dev_s:.4f} s; PSNR "
         f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
-        f"K2, KT, KR, KM {counts} = {counts[0] / (3 * nf):.0f} per plane per "
-        f"frame | {smi}")
+        f"K2, KT, KR, KM, KL {counts} = {counts[0] / (3 * nf):.0f} per "
+        f"plane per frame | {smi}")
     return counts
 
 
@@ -1319,11 +1447,15 @@ def real_size_twopass(smi: str):
     metrics blob against the JAX encoder's list, more than one qi among
     the frames, the first GOP's closed loop at its frames' qis, and a warm
     pass with the launch counts reset just before it (pass 1 and pass 2
-    each launch K1's encode entry, K2 and KT once per plane per frame).
-    Returns the counts (K1 encode entry, K2, KT, KR, KM)."""
+    each launch K1's encode entry, K2 and KT once per plane per frame, KL
+    once per plane per frame whose qi's limit is above 0, from the frame
+    qis of the two passes); the packets decoded on the card, KL once per
+    plane per frame whose limit is above 0. Returns the counts (K1 encode
+    entry, K2, KT, KR, KM, KL) and KL's launches in the decode."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
+    from theora_tpu_torch.ops import loopfilter_cuda
 
     mk = _load_testdata("make_hd720_enc")
     frames = mk.hd_frames()
@@ -1337,11 +1469,23 @@ def real_size_twopass(smi: str):
     def make():
         return _encoder(1280, 720, 0, mk.HD_QI, "auto", quality=0)
 
-    pkts, blob = encode(make())
+    # The first run as encode_clip_twopass runs it, its passes called one
+    # by one for pass 1's packets.
+    enc = make()
+    pass1, blob = enc.encode_clip_pass1(frames, keyframe_freq=mk.HD_KF,
+                                        target_bitrate=mk.HD_2PASS_RATE)
+    pkts = enc.encode_clip_pass2(frames, blob, keyframe_freq=mk.HD_KF,
+                                 target_bitrate=mk.HD_2PASS_RATE,
+                                 buf_delay=mk.HD_2PASS_BUF)
     _check_hashes(pkts, name, "first run", blob)
-    qis = _frame_qis(pkts)
+    qis, qis1 = _frame_qis(pkts), _frame_qis(pass1)
     if len(set(qis)) < 2:
         raise AssertionError(f"{what}: every frame at qi {qis[0]}")
+    setup = parse_setup_header(pkts[2].data)
+    filtered = [_kl_frames(setup, [p.data for p in pp[3:]])
+                for pp in (pass1, pkts)]
+    if not all(filtered):
+        raise AssertionError(f"{what}: a pass filters no frame ({filtered})")
     _closed_loop(make(), frames[:mk.HD_KF], what, qis[:mk.HD_KF],
                  [p.data for p in pkts[3:3 + mk.HD_KF]])
 
@@ -1355,27 +1499,33 @@ def real_size_twopass(smi: str):
     per = 2 * 3 * len(frames)
     # KM: pass 1's two 8-frame chunks and pass 2's two GOPs.
     counts = _read_counts(what, (per, per, per, 0,
-                                 3 * (2 * len(frames) // mk.HD_KF)))
+                                 3 * (2 * len(frames) // mk.HD_KF)),
+                          kl=3 * sum(filtered))
     n = _check_hashes(pkts, name, "warm run", blob)
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
     hdr = pkts[:3]
-    outs = BatchDecoder(parse_info_header(hdr[0].data),
-                        parse_setup_header(hdr[2].data),
+    kl0 = loopfilter_cuda.loop_filter_plane.launches
+    outs = BatchDecoder(parse_info_header(hdr[0].data), setup,
                         device="cuda").decode_clip(
         [p.data for p in pkts[3:]], batch=8)
+    kl_dec = loopfilter_cuda.loop_filter_plane.launches - kl0
+    if kl_dec != 3 * filtered[1]:
+        raise AssertionError(f"{what}: the decode's KL launches {kl_dec}; "
+                             f"expected {3 * filtered[1]}")
     nf = len(frames)
     nbytes = sum(len(p.data) for p in pkts[3:])
     log(f"[{what}] {nf} frames at {mk.HD_2PASS_RATE} bit/s: all {n} lines "
         f"(packets and the pass-1 metrics blob) equal the JAX encoder's; "
-        f"frame qis {qis}; {nbytes} bytes = "
+        f"frame qis {qis} (pass 1 {qis1}; frames filtered {filtered}); "
+        f"{nbytes} bytes = "
         f"{8 * nbytes * 30 / nf / 1e6:.3f} Mbit/s at 30 frames/s; warm run "
         f"(pass 1 + pass 2) {wall:.4f} s; host mode decision and gates "
         f"{enc.host_decide_s:.4f} s, host packing {enc.host_pack_s:.4f} s; "
         f"device spans {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} dB; "
-        f"launches K1, K2, KT, KR, KM {counts} = "
-        f"{counts[1] / (6 * nf):.0f} per plane per frame in each pass | "
-        f"{smi}")
-    return counts
+        f"launches K1, K2, KT, KR, KM, KL {counts} = "
+        f"{counts[1] / (6 * nf):.0f} per plane per frame in each pass; the "
+        f"decode's KL launches {kl_dec} | {smi}")
+    return counts, kl_dec
 
 
 @contextlib.contextmanager
@@ -1415,8 +1565,8 @@ def _sync_debug_findings() -> bool:
 
 
 def _counts_all() -> dict:
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
 
     return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
             "K1 encode": idct_cuda.idct_recon_choose.launches,
@@ -1424,7 +1574,8 @@ def _counts_all() -> dict:
             "KT": trellis_cuda.trellis_quantize.launches,
             "KR": (qrd_cuda.fdct_quantize_rd.launches
                    + qrd_cuda.quantize_rd.launches),
-            "KM": me_cuda.plan_with_gold.launches}
+            "KM": me_cuda.plan_with_gold.launches,
+            "KL": loopfilter_cuda.loop_filter_plane.launches}
 
 
 def transcode_720p(smi: str) -> dict:
@@ -1434,7 +1585,7 @@ def transcode_720p(smi: str) -> dict:
     warm pass with the launch counts reset just before it and every
     device->host copy counted at the port's own copy calls: none may be
     the size of a decoded frame. Returns the launch counts (K1 at both
-    entries, K2, KT, KR, KM)."""
+    entries, K2, KT, KR, KM, KL)."""
     from theora_tpu_torch import transfer
     from theora_tpu_torch.encode.gop import transcode_device
 
@@ -1459,7 +1610,7 @@ def transcode_720p(smi: str) -> dict:
     nf = len(datas)
     batches = -(-nf // mk.HD_TC_KF)
     want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
-            "KT": 3 * nf, "KR": 0, "KM": 3 * batches}
+            "KT": 3 * nf, "KR": 0, "KM": 3 * batches, "KL": 0}
     if counts != want:
         raise AssertionError(f"transcode launches {counts}; expected {want}")
     frame_bytes = 1280 * 720 * 3 // 2
@@ -1474,7 +1625,7 @@ def transcode_720p(smi: str) -> dict:
         f"{len(copies)} copies, {sum(copies)} bytes, largest {max(copies)} "
         f"(a decoded frame: {frame_bytes}) | {smi}")
     return (counts["K1 decode"] + counts["K1 encode"], counts["K2"],
-            counts["KT"], counts["KR"], counts["KM"])
+            counts["KT"], counts["KR"], counts["KM"], counts["KL"])
 
 
 def packet_decode_720p(smi: str) -> tuple:
@@ -1482,7 +1633,7 @@ def packet_decode_720p(smi: str) -> tuple:
     every frame's SHA-256 against the committed list, and a warm pass with
     the launch counts reset (K1's decode entry once per plane per frame)
     timed beside a warm decode_clip(batch=8) of the same stream. Returns
-    the launch counts (K1, K2, KT, KR, KM)."""
+    the launch counts (K1, K2, KT, KR, KM, KL)."""
     from theora_tpu_torch.decode.scalar import PacketDecoder
 
     with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
@@ -1513,7 +1664,7 @@ def packet_decode_720p(smi: str) -> tuple:
     check(outs, "per packet, warm pass")
     nf = len(datas)
     if counts != {"K1 decode": 3 * nf, "K1 encode": 0, "K2": 0, "KT": 0,
-                  "KR": 0, "KM": 0}:
+                  "KR": 0, "KM": 0, "KL": 0}:
         raise AssertionError(f"per-packet decode launches {counts}")
     dec, _ = _open(f"{HD_NAME}.ogv")
     torch.cuda.synchronize()
@@ -1525,7 +1676,7 @@ def packet_decode_720p(smi: str) -> tuple:
         f"frame (decode_packet + ycbcr_out), decode_clip(batch=8) "
         f"{1e3 * batch_wall / nf:.3f} ms per frame; K1 launches "
         f"{counts['K1 decode']} | {smi}")
-    return (counts["K1 decode"], 0, 0, 0, 0)
+    return (counts["K1 decode"], 0, 0, 0, 0, 0)
 
 
 def pipelined_vs_staged(smi: str) -> dict:
@@ -1687,7 +1838,7 @@ def mesh_720p(smi: str) -> tuple:
     just before it (K1's encode entry and KR's fused entry 24 each, K2 and
     KT none). KM
     runs 3 times in each (one plan call per batch). Returns the two runs'
-    counts (K1 encode entry, K2, KT, KR, KM)."""
+    counts (K1 encode entry, K2, KT, KR, KM, KL)."""
     import types
 
     from theora_tpu_torch.info import TheoraInfo
@@ -1715,8 +1866,8 @@ def mesh_720p(smi: str) -> tuple:
     n = _check_hashes(pkts, name, "mesh, gop axis 2, warm pass")
     log(f"[mesh720p] q56 auto, 16 frames, keyframe every 8, gop axis 2: "
         f"all {n} packet SHA-256 equal the JAX encoder's list; warm pass "
-        f"{wall:.4f} s; launches K1, K2, KT, KR, KM {counts} (one per plane "
-        f"per frame step of the 2 GOPs; KM 3 for the one plan) | {smi}")
+        f"{wall:.4f} s; launches K1, K2, KT, KR, KM, KL {counts} (one per "
+        f"plane per frame step of the 2 GOPs; KM 3 for the one plan) | {smi}")
     info48 = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
                         pic_height=720, quality=mk.HD_QI)
     enc = MeshGopEncoder(make_mesh(2), info48, qi=mk.HD_QI)
@@ -1730,7 +1881,7 @@ def mesh_720p(smi: str) -> tuple:
         "hd720_q48_k8_sp2_enc", "mesh, gop axis 2, speed 2")
     log(f"[mesh720p] q48 speed 2 (KR over 2 segments), the two GOPs in one "
         f"encode_gops batch: all {n} packet SHA-256 equal the JAX encoder's "
-        f"list; launches K1, K2, KT, KR, KM {sp2} | {smi}")
+        f"list; launches K1, K2, KT, KR, KM, KL {sp2} | {smi}")
     return counts, sp2
 
 
@@ -1742,7 +1893,7 @@ def mesh_vs_sequential(smi: str) -> dict:
     packets of every run equal, each run's kernel launches counted from
     0, then one traced pass each way for the device kernels launched per
     plane per frame. No claim. Returns {way: launch counts (K1 encode
-    entry, K2, KT, KR, KM)}."""
+    entry, K2, KT, KR, KM, KL)}."""
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
     from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
@@ -1790,7 +1941,7 @@ def mesh_vs_sequential(smi: str) -> dict:
         f"walls in turns mesh (gop axis 3) "
         f"{[round(w, 4) for w in walls['mesh']]} s, sequential "
         f"{[round(w, 4) for w in walls['sequential']]} s; launches K1, K2, "
-        f"KT, KR, KM mesh {counts['mesh']}, sequential "
+        f"KT, KR, KM, KL mesh {counts['mesh']}, sequential "
         f"{counts['sequential']}; "
         f"device kernels per plane per frame mesh {per_ppf['mesh']:.1f}, "
         f"sequential {per_ppf['sequential']:.1f} (no claim) | {smi}")
@@ -1809,14 +1960,14 @@ spec = importlib.util.spec_from_file_location(
 mk = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mk)
 from theora_tpu_torch.info import TheoraInfo
-from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, qrd_cuda, \
-    trellis_cuda
+from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+    me_cuda, qrd_cuda, trellis_cuda
 from theora_tpu_torch.parallel.gop import MeshGopEncoder, \
     encode_clip_mesh, make_mesh
 WRAPPERS = (idct_cuda.idct_recon_choose, fdct_cuda.fdct_quantize,
             trellis_cuda.trellis_quantize, qrd_cuda.fdct_quantize_rd,
-            me_cuda.plan_with_gold, idct_cuda.dequantize_idct_frames,
-            qrd_cuda.quantize_rd)
+            me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane,
+            idct_cuda.dequantize_idct_frames, qrd_cuda.quantize_rd)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=world, rank=rank)
 frames = mk.hd_frames()
@@ -1909,14 +2060,14 @@ def mesh_ranks_720p(smi: str) -> dict:
     packet on every rank, a first pass and a warm one with the launch
     counts reset just before it. Per rank: launches of K1 (encode entry),
     K2, KT, KR (fused entry) and KM, each above 0 where the path runs it
-    and exact (3 x 8 per GOP per plane per frame step, KM 3 per plan), K1's
-    decode entry and KR's standalone entry 0; the wall of each case; the
-    gather's time per plane per frame step and its route (the gloo group
-    takes the card's tensors through pinned host buffers), and that
-    gather's transport alone on one luma step's bytes, both ranks entering
-    after a barrier. Every process
-    it starts is waited for or killed. Returns {path: [per-rank counts (K1
-    encode entry, K2, KT, KR, KM)]}."""
+    and exact (3 x 8 per GOP per plane per frame step, KM 3 per plan), KL,
+    K1's decode entry and KR's standalone entry 0 (no filter at q >=
+    47); the wall of each case; the gather's time per plane per frame
+    step and its route (the gloo group takes the card's tensors through
+    pinned host buffers), and that gather's transport alone on one luma
+    step's bytes, both ranks entering after a barrier. Every process it
+    starts is waited for or killed. Returns {path: [per-rank counts (K1
+    encode entry, K2, KT, KR, KM, KL)]}."""
     import socket
     import tempfile
 
@@ -1948,9 +2099,9 @@ def mesh_ranks_720p(smi: str) -> dict:
             with open(f"{out}.{r}") as f:
                 res.append(json.load(f))
     per = 3 * 8
-    want = {"hd720_q56_k8_aq_enc": (2 * per, 2 * per, 2 * per, 0, 6),
-            "hd720_q48_k8_sp2_enc": (2 * per, 0, 0, 2 * per, 6),
-            "hd720_q48_k8_enc": (per, per, per, 0, 3)}
+    want = {"hd720_q56_k8_aq_enc": (2 * per, 2 * per, 2 * per, 0, 6, 0),
+            "hd720_q48_k8_sp2_enc": (2 * per, 0, 0, 2 * per, 6, 0),
+            "hd720_q48_k8_enc": (per, per, per, 0, 3, 0)}
     paths = {}
     for i, name in enumerate(want):
         by_rank = []
@@ -1961,11 +2112,11 @@ def mesh_ranks_720p(smi: str) -> dict:
             if not c["same"]:
                 raise AssertionError(f"{name} rank {r}: the two passes "
                                      f"differ")
-            counts = tuple(c["counts"][:5])
-            if counts != want[name] or any(c["counts"][5:]):
+            counts = tuple(c["counts"][:6])
+            if counts != want[name] or any(c["counts"][6:]):
                 raise AssertionError(
                     f"{name} rank {r}: launches K1 (encode entry), K2, KT, "
-                    f"KR, KM, K1 decode, KR standalone {c['counts']}; "
+                    f"KR, KM, KL, K1 decode, KR standalone {c['counts']}; "
                     f"expected {want[name]} and 0, 0")
             step = c["frag"].get("step", [0, 0.0, 0])
             chunk = c["frag"].get("chunk", [0, 0.0, 0])
@@ -1980,8 +2131,9 @@ def mesh_ranks_720p(smi: str) -> dict:
                 f"{rr['device']}, route {c['route']}: all "
                 f"{len(c['hashes'])} packets equal the list in both passes; "
                 f"first pass {c['cold']:.4f} s, warm {c['wall']:.4f} s; "
-                f"launches K1, K2, KT, KR, KM {counts}; {gather}; packet "
-                f"exchanges {exch[0]} in {1e3 * exch[1]:.3f} ms | {smi}")
+                f"launches K1, K2, KT, KR, KM, KL {counts}; {gather}; "
+                f"packet exchanges {exch[0]} in {1e3 * exch[1]:.3f} ms | "
+                f"{smi}")
             by_rank.append(counts)
         paths[name] = by_rank
     for r, rr in enumerate(res):
@@ -2071,9 +2223,9 @@ def intra_core_720p(smi: str, device) -> tuple:
         got = pipeline.intra_encode_core(blocks, d)
         torch.cuda.synchronize()
         c = _k1_k2_counts()
-        if c != (1, 1) or _counts_all()["KM"]:
+        if c != (1, 1) or _counts_all()["KM"] or _counts_all()["KL"]:
             raise AssertionError(f"intra core {what}: K1, K2 launches {c}; "
-                                 f"expected (1, 1) and no KM launch")
+                                 f"expected (1, 1) and no KM or KL launch")
         launches = (launches[0] + c[0], launches[1] + c[1])
         with _plain_kernels():
             want = pipeline.intra_encode_core(blocks, d)
@@ -2232,7 +2384,7 @@ def intra_encode_720p(smi: str) -> tuple:
         f"gates {enc.timing['gates_s']:.4f} s; device (upload, "
         f"K2 x 3, one download) {enc.timing['device_s']:.4f} s; host "
         f"stages {sum(host):.4f} s ({1e3 * sum(host) / nf:.2f} ms per frame"
-        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR, KM "
+        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR, KM, KL "
         f"{counts}; "
         f"PSNR {psnr:.3f} dB; {sum(len(p.data) for p in pkts)} bytes | "
         f"{smi}")
@@ -2393,7 +2545,7 @@ spec = importlib.util.spec_from_file_location(
 mk = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mk)
 from theora_tpu_torch.info import TheoraInfo
-from theora_tpu_torch.ops import idct_cuda
+from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
 from theora_tpu_torch.parallel.distributed import distributed_transcode
 kind, w, h, fmt, qi, mode, splevel, kf = mk.HOST_CASES["hd720_q48"]
 frames = mk.hd_frames()
@@ -2407,6 +2559,7 @@ dist.barrier()
 dist.destroy_process_group()
 with open(f"{out}.{rank}", "wb") as f:
     pickle.dump({"k1": idct_cuda.dequantize_idct_frames.launches,
+                 "kl": loopfilter_cuda.loop_filter_plane.launches,
                  "pkts": [p.data for p in pkts]}, f)
 """
 
@@ -2453,8 +2606,9 @@ def distributed_720p(smi: str) -> int:
     n = _check_hashes([Packet(d) for d in res[0]["pkts"]],
                       "hd720_host_q48_k8_enc", "distributed")
     k1 = [r["k1"] for r in res]
-    if not all(k1):
-        raise AssertionError(f"distributed: K1 launches per rank {k1}")
+    if not all(k1) or any(r["kl"] for r in res):
+        raise AssertionError(f"distributed: K1 launches per rank {k1}, KL "
+                             f"{[r['kl'] for r in res]} (q48: none)")
     log(f"[distributed720p] 2 gloo processes on one card: all {n} packets "
         f"of rank 0 equal the sequential list; K1 decode-entry launches "
         f"per rank {k1}, sum {sum(k1)}; {wall:.2f} s with the processes' "
@@ -2520,13 +2674,15 @@ def main() -> int:
     build()
     dev = torch.device("cuda")
     k1 = kernel_vs_plain(dev)
-    golden_streams()
+    kl_golden = golden_streams()
     decode = real_size(smi)
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
     kr = kr_vs_plain(dev)
     km = km_vs_plain(dev)
+    kl = kl_vs_plain(dev)
     small_encodes()
+    kl_mesh_small = mesh_filter_small()
     paths = {"encode q48 aq off": real_size_encode(
         smi, "hd720_q48_k8_enc", 48, False)}
     # The main encode path: the JAX encoder's default, adaptive
@@ -2536,7 +2692,9 @@ def main() -> int:
     # KR's path: speed level 2, the R/D quantizer in the trellis' place.
     paths["encode q48 speed 2"] = real_size_encode(
         smi, "hd720_q48_k8_sp2_enc", 48, "auto", splevel=2)
-    paths["encode 2-pass 2 Mbit/s"] = real_size_twopass(smi)
+    # The loop filter's path: qis 30-42 filter every frame of both passes.
+    paths["encode 2-pass 2 Mbit/s"], kl_twopass_decode = real_size_twopass(
+        smi)
     paths["transcode"] = transcode_720p(smi)
     paths["encode stage by stage"] = pipelined_vs_staged(smi)
     paths["decode per packet"] = packet_decode_720p(smi)
@@ -2554,18 +2712,18 @@ def main() -> int:
                   "mesh ranks q48 off {2,1}": "hd720_q48_k8_enc"}
     for label, listed in rank_paths.items():
         paths[label] = tuple(sum(c[i] for c in ranks[listed])
-                             for i in range(5))
+                             for i in range(6))
     # The batch intra encoder's slice: the compute core (K1's decode entry
     # and K2) and the batch encoder on its main path (K2 only).
     intra_core, intra_kern = intra_core_720p(smi, dev)
-    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0, 0)
-    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0, 0)
+    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0, 0, 0)
+    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0, 0, 0)
     intra_small()
     # The host Encoder's slice: its inter path with the closed loop on the
     # card (K1's decode entry), and the GOP-parallel transcodes over it.
-    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0, 0)
-    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0, 0)
-    paths["distributed"] = (distributed_720p(smi), 0, 0, 0, 0)
+    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0, 0, 0)
+    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0, 0, 0)
+    paths["distributed"] = (distributed_720p(smi), 0, 0, 0, 0, 0)
     host_small()
     enc_cli_workers(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
@@ -2582,8 +2740,16 @@ def main() -> int:
                       + paths["mesh speed 2"][3]
                       + paths["mesh ranks q48 speed 2 {1,2}"][3])
     km["launches"] = sum(paths[p][4] for p in main_paths)
+    # KL runs where a frame's qi is below 47: the 2-pass encode and the
+    # decode of its packets, the golden decodes and the small mesh.
+    kl_extra = {"golden decodes": kl_golden,
+                "decode of the 2-pass packets": kl_twopass_decode,
+                "mesh 64x48 CBR gop axis 4": kl_mesh_small}
+    kl["launches"] = paths["encode 2-pass 2 Mbit/s"][5] + sum(
+        kl_extra.values())
     for i, (k, key) in enumerate(((k1, "K1 decode"), (k2, "K2"),
-                                  (kt, "KT"), (kr, "KR"), (km, "KM"))):
+                                  (kt, "KT"), (kr, "KR"), (km, "KM"),
+                                  (kl, "KL"))):
         k["launches_by_path"] = {"decode": decode[key],
                                  **{p: c[i] for p, c in paths.items()}}
         k["launches_by_rank"] = {label: [c[i] for c in ranks[listed]]
@@ -2591,9 +2757,10 @@ def main() -> int:
     for k, key in ((k1, "K1"), (k2, "K2"), (kt, "KT"), (kr, "KR")):
         k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
                                    "three_launches": segments[key][1]}
+    kl["launches_by_path"].update(kl_extra)
     k1["intra_core"] = intra_kern["K1"]
     k2["intra_core"] = intra_kern["K2"]
-    print(json.dumps({"kernels": [k1, k2, kt, kr, km]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

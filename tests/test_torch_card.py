@@ -23,8 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM and the device "
-                    "decode and encode paths have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM, KL and the "
+                    "device decode and encode paths have no CPU mode")
     return torch.device("cuda")
 
 
@@ -109,7 +109,13 @@ def test_golden_stream_on_card(card, name):
     pkts = read_tpkt(os.path.join(TESTDATA, f"{name}.tpkt"))
     dec = BatchDecoder(parse_info_header(pkts[0].data),
                        parse_setup_header(pkts[2].data))
+    from theora_tpu_torch.ops import loopfilter_cuda
+
+    before = loopfilter_cuda.loop_filter_plane.launches
     outs = dec.decode_clip([p.data for p in pkts[3:]], batch=3)
+    # Both are coded below q47: every frame's planes filter, through KL.
+    assert loopfilter_cuda.loop_filter_plane.launches == before + 3 * len(
+        outs)
     ref = np.fromfile(os.path.join(TESTDATA, f"{name}.ref.yuv"),
                       np.uint8).reshape(len(outs), -1)
     for i, o in enumerate(outs):
@@ -524,3 +530,15 @@ def test_pipeline_cores_on_card_equal_cpu(card):
         gpu = gpu if isinstance(gpu, tuple) else (gpu,)
         for g, c in zip(gpu, cpu):
             assert torch.equal(g.cpu(), c)
+
+
+def test_kl_kernel_matches_plain(card):
+    """KL against its plain version byte for byte on every case of
+    tools/bench_loopfilter.py:cases (the 720p planes, 4:2:2 and 4:4:4
+    chroma, one row and one column, limits 1-63, the built corner
+    patterns, three planes in one launch with a zero limit), one launch
+    per call, the input left as it was (bench_loopfilter.check raises on
+    any difference)."""
+    from theora_tpu_torch.tools.bench_loopfilter import check
+
+    assert check(card) == (275, 0)

@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1 at both entries, K2, KT, KR, KM) take their plain paths
-only for CPU tensors and K1's have no fallback, K1, KT and KR are built
+kernel wrappers (K1 at both entries, K2, KT, KR, KM, KL) take their plain
+paths only for CPU tensors and K1's have no fallback, K1, KT and KR are built
 without floating-point contraction, and the encoder takes every setting of
 the JAX encoder, with its defaults, and its stages and the device
 transcode take JAX's signatures."""
@@ -1147,3 +1147,156 @@ def test_segment_forms_the_wrappers_reject(kernel, which, bad):
     args[which] = bad
     with pytest.raises((TypeError, ValueError)):
         fn(*args)
+
+
+# ------------------------------------------------------------- kernel KL
+
+def _kl_args(device, g=0):
+    nv, nh, pad = 2, 3, 8
+    shape = (8 * nv + 2 * pad, 8 * nh + 2 * pad)
+    if g:
+        return (torch.zeros((g,) + shape, dtype=torch.uint8, device=device),
+                torch.zeros((g, nv, nh), dtype=torch.bool, device=device),
+                torch.ones(g, dtype=torch.int32, device=device), nv, nh, pad,
+                pad)
+    return (torch.zeros(shape, dtype=torch.uint8, device=device),
+            torch.zeros((nv, nh), dtype=torch.bool, device=device), 5, nv,
+            nh, pad, pad)
+
+
+@pytest.mark.parametrize("g", [0, 3])
+def test_kl_plain_path_only_for_cpu_tensors(monkeypatch, g):
+    from theora_tpu_torch.ops import loopfilter, loopfilter_cuda
+
+    calls = []
+
+    def plain(plane, *args):
+        calls.append(plane.device.type)
+        return plane
+
+    monkeypatch.setattr(loopfilter, "loop_filter_plane", plain)
+    loopfilter_cuda.loop_filter_plane(*_kl_args("cpu", g))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        loopfilter_cuda.loop_filter_plane(*_kl_args("meta", g))
+    assert calls == ["cpu"]
+    assert loopfilter_cuda.loop_filter_plane.launches == 0
+    tree = _parse(loopfilter_cuda.__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("g,which,bad", [
+    (0, 0, torch.zeros((32, 40), dtype=torch.int16)),
+    (0, 0, torch.zeros((40, 32), dtype=torch.uint8).t()),
+    (0, 0, torch.zeros((32, 48), dtype=torch.uint8)[:, :40]),
+    (0, 0, torch.zeros((25, 40), dtype=torch.uint8)),
+    (0, 0, torch.zeros((32, 36), dtype=torch.uint8)),
+    (0, 0, torch.zeros((32,), dtype=torch.uint8)),
+    (0, 0, np.zeros((32, 40), np.uint8)),
+    (0, 1, torch.zeros((2, 3), dtype=torch.uint8)),
+    (0, 1, torch.zeros((3, 2), dtype=torch.bool)),
+    (0, 1, torch.zeros((2, 6), dtype=torch.bool)[:, ::2]),
+    (0, 1, torch.zeros((2, 3), dtype=torch.bool, device="meta")),
+    (0, 2, torch.tensor(5, dtype=torch.int32)),
+    (0, 3, 4),
+    (0, 4, 5),
+    (0, 5, 1),
+    (0, 6, 4),
+    (0, 6, 12),
+    (3, 0, torch.zeros((2, 32, 40), dtype=torch.uint8)),
+    (3, 1, torch.zeros((2, 3), dtype=torch.bool)),
+    (3, 2, 5),
+    (3, 2, torch.ones(3, dtype=torch.int64)),
+    (3, 2, torch.ones(2, dtype=torch.int32)),
+    (3, 2, torch.ones(6, dtype=torch.int32)[::2]),
+])
+def test_kl_wrapper_rejects_what_the_kernel_does_not_take(g, which, bad):
+    from theora_tpu_torch.ops import loopfilter_cuda
+
+    args = list(_kl_args("cpu", g))
+    args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        loopfilter_cuda.loop_filter_plane(*args)
+
+
+def test_kl_build_is_sm90a(monkeypatch, tmp_path):
+    """KL's library is built by nvcc_build from csrc/loopfilter.cu for
+    sm_90a, without fast math (its arithmetic is integer). Nothing is
+    compiled: subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, loopfilter_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(loopfilter_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_loopfilter.so"))
+    so = loopfilter_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == loopfilter_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "loopfilter.cu"))
+    assert so == loopfilter_cuda._SO and os.path.exists(so)
+
+
+def test_scan_and_decode_reach_kl_and_nothing_calls_the_plain_filter(
+        monkeypatch):
+    """The encode scan filters through loopfilter_cuda.loop_filter_plane
+    with [G, Hp, Wp] planes and a [G] limit tensor, once per plane per
+    frame step whose limit is above 0; the decode step with one plane and
+    an int limit. No module of the port but the wrapper calls
+    ops/loopfilter.py's filter (the tools and chip_smoke.py call it to
+    hold the kernel against it)."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import loopfilter_cuda
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    calls = []
+    real = loopfilter_cuda.loop_filter_plane
+
+    def spy(plane, coded, limit, *rest):
+        calls.append((plane.dim(), isinstance(limit, torch.Tensor)))
+        return real(plane, coded, limit, *rest)
+
+    monkeypatch.setattr(loopfilter_cuda, "loop_filter_plane", spy)
+    rng = np.random.default_rng(5)
+    frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8)]
+              for _ in range(3)]
+    enc = GopEncoder(_small_info(), qi=40, device="cpu")
+    enc.encode_clip(frames, keyframe_freq=8)
+    assert calls == [(3, True)] * 9
+    calls.clear()
+    pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
+    dec = BatchDecoder(parse_info_header(pkts[0].data),
+                       parse_setup_header(pkts[2].data), device="cpu")
+    n = len(dec.decode_clip([p.data for p in pkts[3:]], batch=8))
+    assert calls == [(2, False)] * (3 * n)
+
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO_ROOT)
+        if rel in (os.path.join("theora_tpu_torch", "ops",
+                                "loopfilter_cuda.py"),
+                   "chip_smoke.py") or \
+                rel.startswith(os.path.join("theora_tpu_torch", "tools")):
+            continue
+        for n in ast.walk(_parse(path)):
+            if isinstance(n, ast.ImportFrom) and n.module:
+                names = {a.name for a in n.names}
+                assert not (n.module.endswith("ops.loopfilter")
+                            and "loop_filter_plane" in names), rel
+                assert not (n.module.endswith("ops")
+                            and "loopfilter" in names), rel

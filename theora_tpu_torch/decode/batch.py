@@ -1,7 +1,8 @@
 """GOP-batch decode on the card: host entropy for all frames of a batch up
 front, then per plane one dequant + iDCT launch (kernel K1) over every
-frame's blocks and a Python loop over frames for MC, reconstruction, loop
-filter and borders, with the reference planes carried on the device.
+frame's blocks and a Python loop over frames for MC, reconstruction, the
+loop filter (kernel KL, one launch per plane of a frame whose limit is
+above 0) and borders, with the reference planes carried on the device.
 
 Port of theora_tpu/decode/tpu_batch.py (`TpuBatchDecoder`). The JAX scan
 over frames becomes a loop; dequant + iDCT reads no carried plane, so it
@@ -35,8 +36,7 @@ from theora_tpu_torch.constants import (
 from theora_tpu_torch.decode.decoder import Decoder
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME
 from theora_tpu_torch.native import dc_predict_native
-from theora_tpu_torch.ops import idct_cuda
-from theora_tpu_torch.ops.loopfilter import loop_filter_plane
+from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
 from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
     mc_predict
 from theora_tpu_torch.pipeline import fill_borders
@@ -232,7 +232,7 @@ class BatchDecoder(Decoder):
                                         vpad, hpad)
             if inp["limits"][f]:
                 with record_function("theora.loopfilter"):
-                    plane = loop_filter_plane(
+                    plane = loopfilter_cuda.loop_filter_plane(
                         plane, fs[_CODED].bool().reshape(nv, nh),
                         inp["limits"][f], nv, nh, vpad, hpad,
                     )

@@ -25,7 +25,9 @@ Per frame step, over the G GOPs' blocks at once:
   (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
   the chooser, which keeps each block's cheapest row) -> the R/D skip
   test against the uncoded copy -> (over a frag group: the gather of
-  every rank's blocks and coded flags) -> loop filter -> borders.
+  every rank's blocks and coded flags) -> kernel KL (the loop filter, one
+  launch over the G planes, skipped when no GOP's limit is above 0) ->
+  borders.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -40,9 +42,8 @@ import torch
 from torch.profiler import record_function
 
 from theora_tpu_torch import transfer
-from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda, \
-    trellis_cuda
-from theora_tpu_torch.ops.loopfilter import loop_filter_plane
+from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+    qrd_cuda, trellis_cuda
 from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
     mc_predict
 from theora_tpu_torch.pipeline import fill_borders
@@ -191,7 +192,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
                                     pad_y, pad_x, planes=G)
         if limit[:, f].any():
             with record_function("theora.enc.loopfilter"):
-                plane = loop_filter_plane(
+                plane = loopfilter_cuda.loop_filter_plane(
                     plane, coded_all.reshape(G, nv, nh), lim_dev[f], nv, nh,
                     pad_y, pad_x)
         with record_function("theora.enc.borders"):

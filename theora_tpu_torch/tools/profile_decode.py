@@ -6,9 +6,14 @@ Counterpart of `--mode decode` in theora_tpu/tools/profile.py. Decodes
 the stream once to warm up, then R more times: untraced passes timed on
 the host clock (wall, host parse, device spans from CUDA events), and one
 pass under torch.profiler, which reports device time per codec stage
-(the record_function labels in decode/batch.py), per kernel, and the
-device's busy and idle share of the traced pass. Needs a CUDA card.
-Prints one JSON summary as its last line.
+(the record_function labels in decode/batch.py), per kernel, the
+launches of K1 and of the loop filter KL, and the device's busy and idle
+share of the traced pass. Then one speed-of-light line per hand kernel
+the decode ran (K1's decode entry; KL where a frame's qi is below 47):
+its kernels' device time in the traced pass beside the bound of the same
+calls (tools/bench_idct.py, bench_loopfilter.py), which one more,
+untraced pass records (profile_encode.py:stage_bounds). Needs a CUDA
+card. Prints one JSON summary as its last line.
 """
 from __future__ import annotations
 
@@ -62,6 +67,9 @@ def main(argv=None) -> int:
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
     from theora_tpu_torch.ogg import demux_stream
+    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
+    from theora_tpu_torch.tools.profile_encode import speed_of_light, \
+        stage_bounds
 
     with open(args.input, "rb") as f:
         pkts = demux_stream(f.read())
@@ -89,6 +97,9 @@ def main(argv=None) -> int:
         print(f"[run] wall {wall:.4f} s, host parse {dec.host_parse_s:.4f}"
               f" s, device spans {spans:.4f} s", flush=True)
 
+    wrappers = {"K1": idct_cuda.dequantize_idct_frames,
+                "KL": loopfilter_cuda.loop_filter_plane}
+    before = {k: w.launches for k, w in wrappers.items()}
     dec = BatchDecoder(info, setup)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -98,14 +109,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     stages, kernels = _split(prof.events())
+    lib_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+    sol = speed_of_light(kernels, stage_bounds(
+        lambda: BatchDecoder(info, setup).decode_clip(data, batch=BATCH)))
     kernels = sorted(((k, sec, c) for k, (sec, c) in kernels.items()),
                      key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device", flush=True)
-    # K1 is launched from its own library, outside any PyTorch op, so the
-    # profiler does not attribute it to its scope; list it by name.
-    shown = kernels[:15] + [k for k in kernels[15:] if "dequant_idct" in k[0]]
+    # K1 and KL are launched from their own libraries, outside any PyTorch
+    # op, so the profiler does not attribute them to their scopes; list
+    # them by name, and their launches by their wrappers' counts.
+    print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
+          flush=True)
+    shown = kernels[:15] + [k for k in kernels[15:]
+                            if "dequant_idct" in k[0] or "loop_filter" in k[0]]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(data)
@@ -119,6 +137,8 @@ def main(argv=None) -> int:
         "traced_device_busy_s": busy,
         "traced_idle_share": 1.0 - busy / traced_wall,
         "stages_device_s": stages,
+        "library_launches": lib_launches,
+        "speed_of_light": sol,
     }
     print(json.dumps(summary), flush=True)
     return 0

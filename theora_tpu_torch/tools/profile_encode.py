@@ -3,6 +3,7 @@
 Usage: python -m theora_tpu_torch.tools.profile_encode [--repeat R] [--frames N]
            [--qi Q] [--adaptive-quant {auto,on,off}] [--speed S]
            [--bitrate B [--two-pass]] [--transcode | --staged | --mesh G]
+           [--save-ogv PATH]
 
 Counterpart of `--mode encode` in theora_tpu/tools/profile.py. Encodes
 the 1280x720 test clip (testdata/make_hd720.py's source frames, q48 and
@@ -15,13 +16,16 @@ waits for the device's copies, device spans from CUDA events), and one
 pass under torch.profiler, which reports device time per codec stage
 (the record_function labels in encode/gop.py and encode/scan.py) with
 the PyTorch kernels each launches, per kernel, the launches of the
-kernel libraries (K1 at both entries, K2, KT, KR, KM) and of K1 in the
-theora.enc.idct_recon scope, and the device's busy and idle share of the
-traced pass. Then one speed-of-light line per hand-kernel stage (KM, K2,
-KT, KR's fused entry, K1's two entries): its kernels' device time in the
+kernel libraries (K1 at both entries, K2, KT, KR, KM, KL) and of K1 in
+the theora.enc.idct_recon scope, and the device's busy and idle share of
+the traced pass. Then one speed-of-light line per hand-kernel stage (KM,
+K2, KT, KR's fused entry, K1's two entries, the loop filter KL, which
+runs where a frame's qi is below 47): its kernels' device time in the
 traced pass beside the bound of the same calls (tools/bench_me.py,
-bench_fdct.py, bench_trellis.py, bench_qrd.py, bench_idct.py), which one
-more, untraced pass records at the run's shapes and data. With
+bench_fdct.py, bench_trellis.py, bench_qrd.py, bench_idct.py,
+bench_loopfilter.py), which one more, untraced pass records at the run's
+shapes and data. With --save-ogv PATH the last timed pass's packets are
+written to PATH as an Ogg stream (profile_decode.py reads it). With
 --transcode the pass is instead the device-resident transcode
 (encode/gop.py:transcode_device) of the first N data packets of
 testdata/hd720_q56_k12.ogv in decode
@@ -104,10 +108,10 @@ def _stage_kernels(events) -> dict:
 def _kernel_stages() -> list:
     """(stage, wrapper module, wrapper name, device kernel names, bound of
     one call's arguments) for each hand kernel an encode may launch."""
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
-    from theora_tpu_torch.tools import bench_fdct, bench_idct, bench_me, \
-        bench_qrd, bench_trellis
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
+    from theora_tpu_torch.tools import bench_fdct, bench_idct, \
+        bench_loopfilter, bench_me, bench_qrd, bench_trellis
 
     return [
         ("ME plan (KM)", me_cuda, "plan_with_gold",
@@ -125,6 +129,8 @@ def _kernel_stages() -> list:
         ("dequant + iDCT (K1 decode entry)", idct_cuda,
          "dequantize_idct_frames", ("dequant_idct_kernel",),
          lambda a: bench_idct.k1_bound("decode", a)),
+        ("loop filter (KL)", loopfilter_cuda, "loop_filter_plane",
+         ("loop_filter_kernel",), bench_loopfilter.kl_bound),
     ]
 
 
@@ -204,13 +210,14 @@ def main(argv=None) -> int:
     ap.add_argument("--transcode", action="store_true")
     ap.add_argument("--staged", action="store_true")
     ap.add_argument("--mesh", type=int, default=0, metavar="G")
+    ap.add_argument("--save-ogv", default=None, metavar="PATH")
     args = ap.parse_args(argv)
     if args.two_pass and not args.bitrate:
         ap.error("--two-pass requires --bitrate")
     if args.transcode and (args.two_pass or args.speed or args.staged):
         ap.error("--transcode takes no --two-pass, --speed or --staged")
-    if args.staged and (args.two_pass or args.bitrate):
-        ap.error("--staged takes no --bitrate")
+    if args.staged and (args.two_pass or args.bitrate or args.save_ogv):
+        ap.error("--staged takes no --bitrate or --save-ogv")
     if args.mesh and (args.transcode or args.staged or args.two_pass
                       or args.speed or args.adaptive_quant not in (None,
                                                                    "auto")):
@@ -283,7 +290,7 @@ def main(argv=None) -> int:
             enc.device_spans = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        encode(enc)
+        pkts = encode(enc)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         run = {"wall_s": wall}
@@ -296,9 +303,15 @@ def main(argv=None) -> int:
         runs.append(run)
         print("[run] " + ", ".join(f"{k} {v:.4f}" for k, v in run.items()),
               flush=True)
+    if args.save_ogv:
+        from theora_tpu_torch.ogg import mux_stream
 
-    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, me_cuda, \
-        qrd_cuda, trellis_cuda
+        with open(args.save_ogv, "wb") as f:
+            f.write(mux_stream(pkts))
+        print(f"[save] {len(pkts)} packets -> {args.save_ogv}", flush=True)
+
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
+        me_cuda, qrd_cuda, trellis_cuda
 
     # K1 counts both entries; the encode launches its encode entry. KR is
     # its fused entry, the one the encode runs.
@@ -307,7 +320,8 @@ def main(argv=None) -> int:
                 "K2": (fdct_cuda.fdct_quantize,),
                 "KT": (trellis_cuda.trellis_quantize,),
                 "KR": (qrd_cuda.fdct_quantize_rd,),
-                "KM": (me_cuda.plan_with_gold,)}
+                "KM": (me_cuda.plan_with_gold,),
+                "KL": (loopfilter_cuda.loop_filter_plane,)}
 
     def lib_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -324,10 +338,10 @@ def main(argv=None) -> int:
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device, "
               f"{stage_kernels.get(name, 0)} PyTorch kernels", flush=True)
-    # K1, K2, KT, KR and KM are launched from their own libraries, outside
-    # any PyTorch op, so the profiler does not attribute them to their
-    # scopes; list them by name, and their launches by their wrappers'
-    # counts.
+    # K1, K2, KT, KR, KM and KL are launched from their own libraries,
+    # outside any PyTorch op, so the profiler does not attribute them to
+    # their scopes; list them by name, and their launches by their
+    # wrappers' counts.
     print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
           flush=True)
     print(f"[launches] theora.enc.idct_recon: "
@@ -335,10 +349,13 @@ def main(argv=None) -> int:
           f"+ {lib_launches['K1']} K1 launches = "
           f"{lib_launches['K1'] / (3 * len(frames)):.2f} per plane per "
           f"frame", flush=True)
+    print(f"[launches] theora.enc.loopfilter: "
+          f"{stage_kernels.get('theora.enc.loopfilter', 0)} PyTorch kernels "
+          f"+ {lib_launches['KL']} KL launches", flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis",
-                                             "qrd", "me_"))]
+                                             "qrd", "me_", "loop_filter"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
