@@ -108,20 +108,26 @@ and prints no result line):
    below counts KM's launches: 3 per plan call (2 calls per 16-frame
    encode_clip, 3 per 24-frame transcode, 1 per mesh batch), none on the
    host Encoder's and the intra paths;
-6e. KL (the loop filter, one launch per plane or plane stack per frame
-   step) against its plain version (ops/loopfilter.py:loop_filter_plane)
-   on the card, byte for byte, on tools/bench_loopfilter.py:cases: the
-   1280x720 4:2:0 luma and chroma planes, a 4:2:2 and a 4:4:4 chroma
-   plane, a one-row and a one-column grid, limits 1, 2, 15 and 63, coded
-   densities 0, 0.3, 0.6 and 1 and the patterns built for the corner
-   writes (vE beside vL, one coded block at each corner and all four, a
-   checkerboard, stairs), low-contrast, uniform and 0/255 pixels, and
-   three chroma planes in one launch with limits [5, 0, 31]; the input
-   left as it was. CUDA-event times at the 720p luma and chroma planes
-   and a frame's three planes, each beside the bound (bench_loopfilter.
-   kl_bound), the plain version and a device copy of the same bytes.
-   Every path below counts KL's launches: one per plane (stack) per
-   frame step whose limit is above 0, none at q >= 47;
+6e. KL (the loop filter and the UMV borders, one launch per plane or
+   plane stack per frame step) against its plain version
+   (ops/loopfilter.py:loop_filter_plane, then fill_borders) on the card,
+   byte for byte over the whole padded plane, on tools/
+   bench_loopfilter.py:cases: the 1280x720 4:2:0 luma and chroma planes,
+   a 4:2:2 and a 4:4:4 chroma plane, a one-row and a one-column grid,
+   limits 1, 2, 15 and 63, coded densities 0, 0.3, 0.6 and 1 and the
+   patterns built for the corner writes (vE beside vL, one coded block at
+   each corner and all four, a checkerboard, stairs), the same at the
+   kernel's tile seams (columns 29-32, 59-61 and the last tile's) on the
+   720p planes and a 61-column grid, low-contrast, uniform and 0/255
+   pixels, and three chroma planes in one launch with limits [5, 0, 31];
+   the input left as it was. CUDA-event times at the 720p luma and
+   chroma planes and a frame's three planes, each beside the bound
+   (bench_loopfilter.kl_bound), the plain version, a device copy of the
+   same bytes and an empty kernel's launch, and in turns with the
+   earlier design (tools/kl_row_ctas.cu) alone and followed by
+   fill_borders, the work KL replaces. Every path below counts KL's
+   launches: one per plane (stack) per frame step whose limit is above
+   0, none at q >= 47;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -1093,31 +1099,34 @@ def km_vs_plain(device) -> dict:
 
 
 def kl_vs_plain(device) -> dict:
-    """6e: KL (the loop filter, ops/loopfilter_cuda.py) against its plain
-    version (ops/loopfilter.py:loop_filter_plane) on the card, byte for
-    byte, on tools/bench_loopfilter.py:cases (the 720p planes, 4:2:2 and
-    4:4:4 chroma, one row, one column, limits 1-63, the densities and the
-    built corner patterns, 0/255 pixels, three planes in one launch with
-    limits [5, 0, 31]; bench_loopfilter.check), one launch per call, the
-    input left as it was; CUDA-event times at the
-    720p luma and chroma planes and a frame's three planes beside the
-    bound (bench_loopfilter.kl_bound), the plain version and a device
-    copy of the same bytes."""
+    """6e: KL (the loop filter and the borders, ops/loopfilter_cuda.py)
+    against its plain version (ops/loopfilter.py:loop_filter_plane, then
+    ops/loopfilter.py:fill_borders) on the card, byte for byte over the
+    whole padded plane, on tools/bench_loopfilter.py:cases (the 720p
+    planes, 4:2:2 and 4:4:4 chroma, one row, one column, limits 1-63, the
+    densities and the built corner patterns, the same at the kernel's
+    tile seams, 0/255 pixels, three planes in one launch with limits [5,
+    0, 31]; bench_loopfilter.check), one launch per call, the input left
+    as it was; CUDA-event times at the 720p luma and chroma planes and a
+    frame's three planes beside the bound (bench_loopfilter.kl_bound), the
+    plain version, a device copy of the same bytes and one launch's floor
+    (an empty kernel), and in turns with the earlier design
+    (tools/kl_row_ctas.cu, one CTA per fragment row) alone and followed
+    by fill_borders, the work KL replaces."""
     from theora_tpu_torch.tools import bench_loopfilter as bl
 
+    parent = bl.parent_kernel()
+    for line in bl.ptxas(parent.so):
+        log(f"[kl] ptxas, the earlier design: {line}")
     n, err = bl.check(device)
-    log(f"[kl] {n} cases: kernel == plain byte for byte, one launch each, "
-        f"input untouched; max |err| {err} (tolerance 0: exact)")
+    log(f"[kl] {n} cases: kernel == plain (filter, then borders) byte for "
+        f"byte, one launch each, input untouched; max |err| {err} "
+        f"(tolerance 0: exact)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    rows = bl.timed_shapes(device, flush)
+    rows = bl.timed_shapes(device, flush, parent)
     for label, r in rows.items():
-        log(f"[kl] time, {label}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, device copy of the same bytes "
-            f"{r['copy_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.4f} ms, "
-            f"{r['ops']} int32 ops -> {r['ops_ms']:.4f} ms); kernel at "
-            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; no single PyTorch "
-            f"call computes the filter (library_ms null)")
+        log(f"[kl] time, {bl.describe(label, r)}; no single PyTorch call "
+            f"computes the filter (library_ms null)")
     one = rows["720p luma"]
     return {
         "name": "loop_filter", "route": "cuda",
@@ -1126,9 +1135,11 @@ def kl_vs_plain(device) -> dict:
         "launches": None, "max_abs_err": err, "ms": one["ms"],
         "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
         "bound_by": one["bound_by"], "library_ms": None,
-        "timed": "720p luma plane, one launch", "copy_ms": one["copy_ms"],
+        "timed": "720p luma plane, one launch (filter and borders)",
+        "copy_ms": one["copy_ms"], "floor_ms": one["floor_ms"],
         "shapes": {label: {k: r[k] for k in (
-            "ms", "plain_ms", "copy_ms", "bound_ms", "bound_by")}
+            "ms", "ms_runs", "parent_ms", "chain_ms", "plain_ms", "copy_ms",
+            "floor_ms", "bound_ms", "bound_by")}
             for label, r in rows.items()},
     }
 

@@ -1203,6 +1203,15 @@ def test_kl_plain_path_only_for_cpu_tensors(monkeypatch, g):
     (0, 5, 1),
     (0, 6, 4),
     (0, 6, 12),
+    # The image must fill the plane but for the padding: Hp = 8 nv +
+    # 2 pad_y, Wp = 8 nh + 2 pad_x.
+    (0, 0, torch.zeros((34, 40), dtype=torch.uint8)),
+    (0, 0, torch.zeros((32, 48), dtype=torch.uint8)),
+    (0, 3, 1),
+    (0, 4, 2),
+    (0, 5, 4),
+    (0, 6, 16),
+    (3, 0, torch.zeros((3, 32, 48), dtype=torch.uint8)),
     (3, 0, torch.zeros((2, 32, 40), dtype=torch.uint8)),
     (3, 1, torch.zeros((2, 3), dtype=torch.bool)),
     (3, 2, 5),
@@ -1217,6 +1226,46 @@ def test_kl_wrapper_rejects_what_the_kernel_does_not_take(g, which, bad):
     args[which] = bad
     with pytest.raises((TypeError, ValueError)):
         loopfilter_cuda.loop_filter_plane(*args)
+
+
+def test_borders_run_only_on_steps_kl_skips(monkeypatch):
+    """KL fills the borders of the planes it filters, so the encode scan
+    and the decode step run fill_borders only on frame steps whose limit
+    is 0 (qi 47 and above): none at qi 40, one per plane per frame at qi
+    56; and the decode of a q5 clip none."""
+    from theora_tpu_torch.decode import batch
+    from theora_tpu_torch.encode import scan
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    calls = []
+
+    def spy(plane, *args):
+        calls.append(plane.dim())
+        return real(plane, *args)
+
+    real = scan.fill_borders
+    monkeypatch.setattr(scan, "fill_borders", spy)
+    monkeypatch.setattr(batch, "fill_borders", spy)
+    rng = np.random.default_rng(5)
+    frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8)]
+              for _ in range(3)]
+    GopEncoder(_small_info(), qi=40, device="cpu").encode_clip(
+        frames, keyframe_freq=8)
+    assert calls == []
+    GopEncoder(_small_info(), qi=56, device="cpu").encode_clip(
+        frames, keyframe_freq=8)
+    assert calls == [3] * 9
+    calls.clear()
+    pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
+    dec = batch.BatchDecoder(parse_info_header(pkts[0].data),
+                             parse_setup_header(pkts[2].data), device="cpu")
+    assert dec.decode_clip([p.data for p in pkts[3:]], batch=8)
+    assert calls == []
 
 
 def test_kl_build_is_sm90a(monkeypatch, tmp_path):

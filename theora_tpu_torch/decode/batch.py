@@ -1,8 +1,9 @@
 """GOP-batch decode on the card: host entropy for all frames of a batch up
 front, then per plane one dequant + iDCT launch (kernel K1) over every
 frame's blocks and a Python loop over frames for MC, reconstruction, the
-loop filter (kernel KL, one launch per plane of a frame whose limit is
-above 0) and borders, with the reference planes carried on the device.
+loop filter and borders (kernel KL, one launch per plane of a frame whose
+limit is above 0; the borders alone for the others), with the reference
+planes carried on the device.
 
 Port of theora_tpu/decode/tpu_batch.py (`TpuBatchDecoder`). The JAX scan
 over frames becomes a loop; dequant + iDCT reads no carried plane, so it
@@ -230,14 +231,17 @@ class BatchDecoder(Decoder):
                                      0, 255)
                 plane = blocks_to_plane(blocks.to(torch.uint8), nv, nh,
                                         vpad, hpad)
-            if inp["limits"][f]:
+            # KL fills the borders of the planes it filters.
+            filtered = bool(inp["limits"][f])
+            if filtered:
                 with record_function("theora.loopfilter"):
                     plane = loopfilter_cuda.loop_filter_plane(
                         plane, fs[_CODED].bool().reshape(nv, nh),
                         inp["limits"][f], nv, nh, vpad, hpad,
                     )
             with record_function("theora.borders"):
-                fill_borders(plane, h, w, vpad, hpad)
+                if not filtered:
+                    fill_borders(plane, h, w, vpad, hpad)
                 out[f] = plane[vpad:vpad + h, hpad:hpad + w]
             if inp["intra"][f]:
                 gold = plane

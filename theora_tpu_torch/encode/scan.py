@@ -25,9 +25,9 @@ Per frame step, over the G GOPs' blocks at once:
   (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
   the chooser, which keeps each block's cheapest row) -> the R/D skip
   test against the uncoded copy -> (over a frag group: the gather of
-  every rank's blocks and coded flags) -> kernel KL (the loop filter, one
-  launch over the G planes, skipped when no GOP's limit is above 0) ->
-  borders.
+  every rank's blocks and coded flags) -> kernel KL (the loop filter and
+  the borders, one launch over the G planes), or, when no GOP's limit is
+  above 0, the borders alone.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -190,13 +190,16 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
         with record_function("theora.enc.skip"):
             plane = blocks_to_plane(blocks.reshape(G * n, 8, 8), nv, nh,
                                     pad_y, pad_x, planes=G)
-        if limit[:, f].any():
+        # KL fills the borders of the planes it filters.
+        filtered = bool(limit[:, f].any())
+        if filtered:
             with record_function("theora.enc.loopfilter"):
                 plane = loopfilter_cuda.loop_filter_plane(
                     plane, coded_all.reshape(G, nv, nh), lim_dev[f], nv, nh,
                     pad_y, pad_x)
         with record_function("theora.enc.borders"):
-            fill_borders(plane, h, w, pad_y, pad_x)
+            if not filtered:
+                fill_borders(plane, h, w, pad_y, pad_x)
             qout[f] = torch.where(coded[:, None], q16, 0)
             coded_out[f] = coded
         if ik:

@@ -13,6 +13,10 @@ axis of G planes (the mesh encoder's GOPs at one frame step) rides
 through every phase, each plane with its own limit; a limit of 0 filters
 nothing (every response clamps to 0), as the JAX scan's all-zero
 bounding table does.
+
+`fill_borders` is the UMV border replication (theora_tpu/pipeline.py:
+fill_borders, state.c:770-835) that follows the filter: kernel KL's plain
+version is the two in turn (ops/loopfilter_cuda.py).
 """
 from __future__ import annotations
 
@@ -217,3 +221,22 @@ def _filter(plane, coded, limit, nv: int, nh: int, pad_y: int, pad_x: int):
     # I is this function's own int32 copy of the planes: write in place.
     I[:, pad_y:pad_y + 8 * nv] = R.reshape(G, 8 * nv, W)
     return I.to(torch.uint8)
+
+
+def fill_borders(plane: torch.Tensor, h: int, w: int, vpad: int,
+                 hpad: int) -> torch.Tensor:
+    """Replicate the picture edges of a padded [h+2*vpad, w+2*hpad] plane
+    (or of each of a [G, h+2*vpad, w+2*hpad] stack) into its border, in
+    place (saves a plane copy per frame); returns the plane."""
+    lead = plane.shape[:-2]
+    wp = plane.shape[-1]
+    rows = slice(vpad, vpad + h)
+    plane[..., rows, :hpad] = plane[..., rows, hpad:hpad + 1].expand(
+        *lead, h, hpad)
+    plane[..., rows, hpad + w:] = plane[..., rows, hpad + w - 1:hpad + w
+                                        ].expand(*lead, h, hpad)
+    plane[..., :vpad, :] = plane[..., vpad:vpad + 1, :].expand(
+        *lead, vpad, wp)
+    plane[..., vpad + h:, :] = plane[..., vpad + h - 1:vpad + h, :].expand(
+        *lead, vpad, wp)
+    return plane

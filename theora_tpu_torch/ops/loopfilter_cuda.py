@@ -2,18 +2,21 @@
 
 Replaces the in-loop deblocking filter, theora_tpu/ops/loopfilter_jax.py:
 loop_filter_plane_jax (:71), which XLA compiles on the TPU (no Pallas
-kernel): one launch per plane, or per stack of G planes (the mesh
+kernel), and the UMV border replication after it (theora_tpu/pipeline.py:
+fill_borders): one launch per plane, or per stack of G planes (the mesh
 encoder's GOPs at one frame step), in place of the plain version's ~260
-PyTorch launches. One CTA per (fragment row, plane) computes the plain
-version's phases B and A for its rows from the pre-filter rows it stages
-(see the source's note); a launch's latency, not its bytes, bounds it
-(tools/bench_loopfilter.py:kl_bound).
+PyTorch launches and the borders' four. One warp per 30-column tile of a
+fragment row, a lane per block column, computes the plain version's
+phases B and A for its rows in registers, its neighbours' values by
+shuffles (see the source's note); a launch's latency, not its bytes,
+bounds it (tools/bench_loopfilter.py:kl_bound).
 
-Its output must equal the plain version's (ops/loopfilter.py:
-loop_filter_plane) byte for byte. The library is compiled with nvcc for
-sm_90a at first use into ``csrc/build/`` and bound with ctypes. The
-wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+Its output must equal the plain version's, ops/loopfilter.py:
+loop_filter_plane followed by ops/loopfilter.py:fill_borders, byte for
+byte. The library is compiled with nvcc for sm_90a at first use into
+``csrc/build/`` and bound with ctypes. The wrapper runs the plain version
+only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -53,22 +56,24 @@ def _load():
 
 def loop_filter_plane(plane, coded, limit, nv: int, nh: int, pad_y: int,
                       pad_x: int):
-    """The filtered plane, a new tensor: plane [Hp, Wp] uint8, coded [nv,
-    nh] bool, limit an int (the frame's loop-filter limit; 0 filters
-    nothing); or G planes [G, Hp, Wp], coded [G, nv, nh] and limit a [G]
-    int32 tensor on the planes' device, one per plane. The image starts
-    at (pad_y, pad_x): pad_x a multiple of 8 from 8 on, pad_y >= 2, Wp a
-    multiple of 8 with Wp >= pad_x + 8 nh, Hp >= pad_y + 8 nv + 2. Same
-    contract as loopfilter.loop_filter_plane, which is the CPU path."""
+    """The filtered plane with its borders filled, a new tensor: plane [Hp,
+    Wp] uint8, coded [nv, nh] bool, limit an int (the frame's loop-filter
+    limit; 0 filters nothing, and the borders are still filled); or G
+    planes [G, Hp, Wp], coded [G, nv, nh] and limit a [G] int32 tensor on
+    the planes' device, one per plane. The image is the 8 nv x 8 nh
+    pixels at (pad_y, pad_x): Hp = 8 nv + 2 pad_y, Wp = 8 nh + 2 pad_x,
+    pad_x a multiple of 8 from 8 on, pad_y >= 2. Equals
+    loopfilter.fill_borders(loopfilter.loop_filter_plane(...), 8 nv, 8 nh,
+    pad_y, pad_x), which is the CPU path."""
     if not isinstance(plane, torch.Tensor) or plane.dim() not in (2, 3):
         raise ValueError("plane: expected an [Hp, Wp] or [G, Hp, Wp] tensor")
     dev = plane.device
     G = plane.shape[0] if plane.dim() == 3 else 1
     hp, wp = plane.shape[-2:]
-    if (nv < 1 or nh < 1 or pad_y < 2 or pad_x < 8 or pad_x % 8 or wp % 8
-            or wp < pad_x + 8 * nh or hp < pad_y + 8 * nv + 2):
-        raise ValueError(f"plane {tuple(plane.shape)} does not hold a {nv} x "
-                         f"{nh} fragment grid at padding ({pad_y}, {pad_x})")
+    if (nv < 1 or nh < 1 or pad_y < 2 or pad_x < 8 or pad_x % 8
+            or hp != 8 * nv + 2 * pad_y or wp != 8 * nh + 2 * pad_x):
+        raise ValueError(f"plane {tuple(plane.shape)} is not a {nv} x {nh} "
+                         f"fragment grid padded by ({pad_y}, {pad_x})")
     _check(plane, "plane", torch.uint8, tuple(plane.shape), dev)
     if plane.dim() == 2:
         _check(coded, "coded", torch.bool, (nv, nh), dev)
@@ -79,11 +84,12 @@ def loop_filter_plane(plane, coded, limit, nv: int, nh: int, pad_y: int,
         _check(coded, "coded", torch.bool, (G, nv, nh), dev)
         _check(limit, "limit", torch.int32, (G,), dev)
     if dev.type == "cpu":
-        return loopfilter.loop_filter_plane(plane, coded, limit, nv, nh,
-                                            pad_y, pad_x)
+        return loopfilter.fill_borders(loopfilter.loop_filter_plane(
+            plane, coded, limit, nv, nh, pad_y, pad_x), 8 * nv, 8 * nh,
+            pad_y, pad_x)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _aligned(plane, "plane", 4)
+    _aligned(plane, "plane", 8)
     out = torch.empty_like(plane)
     by_tensor = plane.dim() == 3
     err = _load().th_loop_filter(
@@ -91,7 +97,7 @@ def loop_filter_plane(plane, coded, limit, nv: int, nh: int, pad_y: int,
         limit.data_ptr() if by_tensor else None,
         0 if by_tensor else limit, G, hp, wp, nv, nh, pad_y, pad_x,
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:  # also more than 65535 planes, or rows too wide to stage
+    if err != 0:  # also more than 65535 planes
         raise RuntimeError(f"KL launch failed: CUDA error {err}")
     loop_filter_plane.launches += 1
     return out

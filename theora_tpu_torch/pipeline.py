@@ -1,7 +1,8 @@
 """Frame-level compute cores.
 
 Port of theora_tpu/pipeline.py: the three encode and reconstruction
-cores and `fill_borders` (state.c:770-835).
+cores, and `fill_borders` (state.c:770-835), whose body lives beside the
+loop filter in ops/loopfilter.py (kernel KL writes the borders too).
 
   - intra_encode_core: keyframe blocks -> zig-zag quantized coefficients
     and their reconstruction, for any leading batch dims (the JAX
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+from theora_tpu_torch.ops.loopfilter import fill_borders  # noqa: F401
 
 
 def _dequant_tab(rows: torch.Tensor, dc_quant: torch.Tensor):
@@ -145,22 +147,3 @@ def recon_core(self_plane, prev_plane, gold_plane, by, bx, coeffs_zz,
     ay, ax = _block_index(by, bx)
     out[ay, ax] = blocks
     return out
-
-
-def fill_borders(plane: torch.Tensor, h: int, w: int, vpad: int,
-                 hpad: int) -> torch.Tensor:
-    """Replicate the picture edges of a padded [h+2*vpad, w+2*hpad] plane
-    (or of each of a [G, h+2*vpad, w+2*hpad] stack) into its border, in
-    place (saves a plane copy per frame); returns the plane."""
-    lead = plane.shape[:-2]
-    wp = plane.shape[-1]
-    rows = slice(vpad, vpad + h)
-    plane[..., rows, :hpad] = plane[..., rows, hpad:hpad + 1].expand(
-        *lead, h, hpad)
-    plane[..., rows, hpad + w:] = plane[..., rows, hpad + w - 1:hpad + w
-                                        ].expand(*lead, h, hpad)
-    plane[..., :vpad, :] = plane[..., vpad:vpad + 1, :].expand(
-        *lead, vpad, wp)
-    plane[..., vpad + h:, :] = plane[..., vpad + h - 1:vpad + h, :].expand(
-        *lead, vpad, wp)
-    return plane
