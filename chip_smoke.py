@@ -6,8 +6,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. card: name and power limit;
-2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM
-   and KL (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
+2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM,
+   KL and KS (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
    csrc/fdct_core.cuh, K2's block core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
    in parallel;
@@ -128,6 +128,27 @@ and prints no result line):
    fill_borders, the work KL replaces. Every path below counts KL's
    launches: one per plane (stack) per frame step whose limit is above
    0, none at q >= 47;
+6f. KS (MC, the skip test and the plane's assembly with its borders:
+   ops/mc_cuda.py, csrc/mc.cu) against its plain versions (ops/mc.py)
+   on the card, every output byte for byte, the planes' padding
+   included, on tools/bench_mc.py:cases: mc_residual, skip_place (its
+   split form skip_rows / place_rows over a frag group) and mc_recon on
+   the 1280x720 4:2:0 luma and chroma planes, a 4:2:2 and a 4:4:4 chroma
+   plane, G = 1 and 3 mesh segments, a frag group's fragment-id subset
+   (clamped pads), MVs at the padding's extremes in every corner, every
+   reference and half-pel flag, prev and gold one buffer, skip ties and
+   lambdas one float32 ulp from an integer product, key and inter steps,
+   unfiltered (borders) and filtered (zero padding) steps, and the split
+   form over 2 ranks against skip_place; one launch per call, the inputs
+   left as they were. CUDA-event times of each entry at the 720p luma and
+   4:2:0 chroma shapes beside its bound (bench_mc.ks_bound), the plain
+   chain, a device copy moving the same bytes and an empty kernel's
+   launch. Every path below counts KS's launches: mc_residual and
+   skip_place once each per plane per frame step of an encode (so equal
+   to K1's encode entry), mc_residual, skip_rows and place_rows on a
+   frag group's ranks, mc_recon once per plane per decoded frame (the
+   decodes, the transcode's decode, the per-packet decoder, the host
+   Encoder's closed loop), none on the intra paths;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -206,8 +227,11 @@ and prints no result line):
    "auto" against hd720_q56_k8_aq_enc.sha256 and at q48 speed 2 against
    hd720_q48_k8_sp2_enc.sha256, and at {2, 1} (one GOP per rank) at q48
    "off" against hd720_q48_k8_enc.sha256: every packet on every rank;
-   per rank the launches of a warm pass (K1's encode entry, K2, KT, KR
-   and KM, exact and above 0 where the path runs them), the walls, the
+   per rank the launches of a warm pass (K1's encode entry, K2, KT, KR,
+   KM and KS's entries, exact and above 0 where the path runs them: at
+   {1, 2} KS's mc_residual, skip_rows and place_rows, at {2, 1} its
+   mc_residual and skip_place, once per plane per frame step), the walls,
+   the
    gather's time per plane per frame step and its route (pinned host
    buffers: gloo takes no card tensors), and its transport alone on one
    luma step's bytes.
@@ -235,9 +259,10 @@ and prints no result line):
    filter, borders): (a) the 16 720p frames at q48 "auto", a keyframe
    every 8, through Encoder(device="cuda"): the 19 packets against
    hd720_host_q48_k8_enc.sha256 (the JAX host Encoder's), a warm pass with
-   the counts reset (K1's decode entry only, at most 3 launches per
-   decoded packet), its wall split into ME and mode decision, the closed
-   loop's decode and download, and transform, trellis and packing, PSNR;
+   the counts reset (K1's decode entry, at most 3 launches per decoded
+   packet, and KS's, 3 per decoded packet), its wall split into ME and
+   mode decision, the closed loop's decode and download, and transform,
+   trellis and packing, PSNR;
    (b) parallel/transcode.py on two threads over the same frames, against
    the same list; (c) parallel/distributed.py in two local "gloo"
    processes both on the card, rank 0's packets against the list, the
@@ -246,11 +271,12 @@ and prints no result line):
    loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
    on the 64x48 clip against its lines of host64x48_enc.
 
-Then one JSON line listing the six kernels (times and bounds, K1's at both
-entries; launches on the 720p decode, each 720p encode path, the
-transcode, the per-packet decode, the mesh, the mesh over ranks (per
-path and per rank) and the host Encoder's paths, KL's also on the golden
-decodes, the 2-pass packets' decode and the small mesh;
+Then one JSON line listing the seven kernels (times and bounds, K1's at
+both entries, KS's at its three; launches on the 720p decode, each 720p
+encode path, the transcode, the per-packet decode, the mesh, the mesh
+over ranks (per path and per rank) and the host Encoder's paths, KL's
+and KS's also on the golden decodes and the 2-pass packets' decode, KL's
+on the small mesh;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches),
 the
 card's name and power limit from nvidia-smi, and {"ok": true,
@@ -297,7 +323,7 @@ def card() -> tuple[str, str]:
 def build() -> None:
     from theora_tpu_torch import native
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
     from theora_tpu_torch.tools import bench_me
 
     def timed(fn):
@@ -316,6 +342,7 @@ def build() -> None:
                     timed, qrd_cuda.build),
                 "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build),
                 "KL (nvcc sm_90a)": ex.submit(timed, loopfilter_cuda.build),
+                "KS (nvcc sm_90a)": ex.submit(timed, mc_cuda.build),
                 "byte-SIMD rates (nvcc sm_90a)": ex.submit(
                     timed, bench_me.simd_build)}
         for what, job in jobs.items():
@@ -323,7 +350,8 @@ def build() -> None:
             log(f"[build] {what}: {dt:.2f}s -> {os.path.relpath(path, ROOT)}")
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
                   ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO),
-                  ("KM", me_cuda._SO), ("KL", loopfilter_cuda._SO)):
+                  ("KM", me_cuda._SO), ("KL", loopfilter_cuda._SO),
+                  ("KS", mc_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -538,18 +566,26 @@ def _kl_frames(setup, datas) -> int:
     return sum(1 for d in datas if d and lfl[d[0] & 0x3F] > 0)
 
 
-def golden_streams() -> int:
-    """Phase 4; returns KL's launches over the six streams."""
-    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
+def _live(datas) -> int:
+    """The data packets that decode a frame (not a dup): KS's decode
+    entry launches once per plane of each."""
+    return sum(1 for d in datas if d)
 
-    total = 0
+
+def golden_streams() -> tuple:
+    """Phase 4; returns KL's and KS's launches over the six streams."""
+    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda
+
+    total = ks_total = 0
     for name in GOLDEN:
         dec, data = _open(f"{name}.tpkt")
         before = idct_cuda.dequantize_idct_frames.launches
         kl0 = loopfilter_cuda.loop_filter_plane.launches
+        ks0 = mc_cuda.mc_recon.launches
         outs = dec.decode_clip(data, batch=8)
         launched = idct_cuda.dequantize_idct_frames.launches - before
         kl = loopfilter_cuda.loop_filter_plane.launches - kl0
+        ks = mc_cuda.mc_recon.launches - ks0
         ref = np.fromfile(os.path.join(TESTDATA, f"{name}.ref.yuv"),
                           np.uint8).reshape(len(data), -1)
         bad = [i for i, o in enumerate(outs)
@@ -562,18 +598,23 @@ def golden_streams() -> int:
         if kl != 3 * filtered or kl == 0:
             raise AssertionError(f"{name}: KL launches {kl}; expected 3 per "
                                  f"filtered frame, {filtered} frames")
+        live = _live(data)
+        if ks != 3 * live:
+            raise AssertionError(f"{name}: KS decode-entry launches {ks}; "
+                                 f"expected 3 per decoded frame, {live}")
         total += kl
+        ks_total += ks
         log(f"[golden] {name}: {len(outs)} frames byte-identical to "
             f".ref.yuv; K1 launches {launched}; KL launches {kl} ({filtered} "
-            f"frames below q47)")
-    return total
+            f"frames below q47); KS launches {ks} ({live} decoded frames)")
+    return total, ks_total
 
 
 def real_size(smi: str) -> dict:
     """The 720p batch decode against its SHA-256 list; a warm pass with
     every kernel count reset just before it. Returns the counts read just
-    after (_counts_all): K1's decode entry, and 0 for every other
-    kernel."""
+    after (_counts_all): K1's decode entry, KS's decode entry (3 per
+    frame), and 0 for every other kernel."""
     with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
         want = f.read().split()
 
@@ -593,6 +634,7 @@ def real_size(smi: str) -> dict:
     outs = dec.decode_clip(data, batch=8)
     wall = time.perf_counter() - t0
     launches = _k1_decode_only("720p decode")
+    ks = _ks_decode_only("720p decode", 3 * _live(data))
     check(outs, "warm pass")
     if launches == 0:
         raise AssertionError("K1 was not launched on the main path")
@@ -604,7 +646,8 @@ def real_size(smi: str) -> dict:
         f"{wall:.4f} s = {nf / wall:.2f} frames/s = {mpix / wall:.2f} "
         f"Mpix/s; host parse {dec.host_parse_s:.4f} s; device spans "
         f"(CUDA events) {dev_s:.4f} s over {len(dec.device_spans)} "
-        f"batches; K1 launches {launches}, no other kernel | {smi}")
+        f"batches; K1 launches {launches}, KS launches {ks} (decode entry), "
+        f"no other kernel | {smi}")
     return _counts_all()
 
 
@@ -1348,25 +1391,106 @@ def _psnr(frames, outs) -> float:
     return 10 * np.log10(255.0 ** 2 * n / max(se, 1))
 
 
+def ks_vs_plain(device) -> dict:
+    """6f: KS (MC, the skip test and the plane's assembly with its
+    borders, ops/mc_cuda.py) against its plain versions (ops/mc.py) on the
+    card, every output byte for byte with the planes' padding, one launch
+    per call and the inputs untouched, on tools/bench_mc.py:cases and the
+    split form (bench_mc.check); CUDA-event times of each entry at the
+    720p luma and 4:2:0 chroma shapes beside the bound (bench_mc.
+    ks_bound), the plain chain, a device copy moving the same bytes and
+    an empty kernel's launch (bench_mc.timed_entries). The kernel line's
+    times are one encode frame step of the 720p luma plane: mc_residual
+    and skip_place."""
+    from theora_tpu_torch.ops import mc_cuda
+    from theora_tpu_torch.tools import bench_mc as bm
+
+    for line in bm.ptxas(mc_cuda._SO):
+        log(f"[ks] ptxas: {line}")
+    n, err = bm.check(device)
+    log(f"[ks] {n} calls of mc_residual, skip_place, skip_rows, place_rows "
+        f"and mc_recon: kernel == plain byte for byte (every output, the "
+        f"planes' padding), one launch each, inputs untouched; max |err| "
+        f"{err} (tolerance 0: exact)")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = bm.timed_entries(device, flush)
+    for label, r in rows.items():
+        log(f"[ks] time, {bm.describe(label, r)}; no single PyTorch call "
+            f"computes it (library_ms null)")
+    step = [rows[f"{e}, {bm.HD_PLANES[0][0]} (14400 blocks)"]
+            for e in ("mc_residual", "skip_place")]
+    return {
+        "name": "mc_skip_place", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/mc.cu",
+        "replaces": "theora_tpu/encode/tpu_gop.py:182",
+        "also_replaces": ["theora_tpu/encode/tpu_gop.py:286",
+                          "theora_tpu/decode/tpu_batch.py:114"],
+        "launches": None, "max_abs_err": err,
+        "ms": sum(r["ms"] for r in step),
+        "plain_ms": sum(r["plain_ms"] for r in step),
+        "bound_ms": sum(r["bound_ms"] for r in step), "bound_by": "bytes",
+        "library_ms": None,
+        "timed": "720p luma plane, one encode frame step: mc_residual and "
+                 "skip_place (two launches)",
+        "entries": {label: {k: r[k] for k in (
+            "ms", "ms_runs", "plain_ms", "copy_ms", "floor_ms", "bound_ms",
+            "bound_by", "bytes")} for label, r in rows.items()},
+    }
+
+
 def _reset_counts() -> None:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
               fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
               qrd_cuda.fdct_quantize_rd, qrd_cuda.quantize_rd,
-              me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane):
+              me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane,
+              *mc_cuda.ENTRIES):
         w.launches = 0
 
 
+def _ks_counts() -> dict:
+    """KS's launches since _reset_counts, by entry."""
+    from theora_tpu_torch.ops import mc_cuda
+
+    return {w.__name__: w.launches for w in mc_cuda.ENTRIES}
+
+
+def _ks_encode(what: str, steps: int) -> int:
+    """KS on an encode path since _reset_counts: mc_residual and
+    skip_place once each per plane per frame step (steps: K1's encode
+    entry's launches), no split form, no decode entry. Returns their
+    sum."""
+    c = _ks_counts()
+    want = {"mc_residual": steps, "skip_place": steps, "skip_rows": 0,
+            "place_rows": 0, "mc_recon": 0}
+    if c != want:
+        raise AssertionError(f"{what}: KS launches {c}; expected {want}")
+    return 2 * steps
+
+
+def _ks_decode_only(what: str, want: int) -> int:
+    """KS's decode entry since _reset_counts: want launches (3 per decoded
+    frame), no encode-side entry. Returns them."""
+    c = _ks_counts()
+    if c["mc_recon"] != want or any(v for k, v in c.items()
+                                    if k != "mc_recon"):
+        raise AssertionError(f"{what}: KS launches {c}; expected mc_recon "
+                             f"{want} and nothing else")
+    return want
+
+
 def _read_counts(what: str, want: tuple, kl: int = 0) -> tuple:
-    """(K1's encode entry, K2, KT, KR's fused entry, KM, KL) launches since
-    _reset_counts; the first five must equal want and KL's kl (one per
-    plane per frame step whose limit is above 0: none at q >= 47), and
-    neither K1's decode entry nor KR's standalone entry must have run. KM
-    launches three times per ME plan: one plan per chunk of encode_clip,
-    per GOP of a 2-pass encode's pass 2, per mesh batch."""
+    """(K1's encode entry, K2, KT, KR's fused entry, KM, KL, KS) launches
+    since _reset_counts; the first five must equal want and KL's kl (one
+    per plane per frame step whose limit is above 0: none at q >= 47),
+    KS's mc_residual and skip_place K1's encode entry's each
+    (_ks_encode), and neither K1's decode entry nor KR's standalone entry
+    must have run. KM launches three times per ME plan: one plan per
+    chunk of encode_clip, per GOP of a 2-pass encode's pass 2, per mesh
+    batch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
         me_cuda, qrd_cuda, trellis_cuda
 
@@ -1386,7 +1510,7 @@ def _read_counts(what: str, want: tuple, kl: int = 0) -> tuple:
     if qrd_cuda.quantize_rd.launches:
         raise AssertionError(f"{what}: the encode launched KR's standalone "
                              f"entry")
-    return counts
+    return counts + (_ks_encode(what, counts[0]),)
 
 
 def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
@@ -1398,7 +1522,7 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
     the quantizer (K2 and KT at speed levels 0-1, KR's fused entry alone
     at 2-4) must each run once per plane per frame, the other kernels, K1's
     decode entry and KR's standalone entry not at all. Returns the counts
-    (K1 encode entry, K2, KT, KR, KM, KL)."""
+    (K1 encode entry, K2, KT, KR, KM, KL, KS)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -1447,8 +1571,8 @@ def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
         f"host packing {enc.host_pack_s:.4f} s; device spans (CUDA events, "
         f"ME and plane encodes) {dev_s:.4f} s; PSNR "
         f"{_psnr(frames, outs):.3f} dB against the source; launches K1, "
-        f"K2, KT, KR, KM, KL {counts} = {counts[0] / (3 * nf):.0f} per "
-        f"plane per frame | {smi}")
+        f"K2, KT, KR, KM, KL, KS {counts} = {counts[0] / (3 * nf):.0f} per "
+        f"plane per frame (KS {counts[6] / (3 * nf):.0f}) | {smi}")
     return counts
 
 
@@ -1462,11 +1586,12 @@ def real_size_twopass(smi: str):
     once per plane per frame whose qi's limit is above 0, from the frame
     qis of the two passes); the packets decoded on the card, KL once per
     plane per frame whose limit is above 0. Returns the counts (K1 encode
-    entry, K2, KT, KR, KM, KL) and KL's launches in the decode."""
+    entry, K2, KT, KR, KM, KL, KS) and KL's and KS's launches in the
+    decode."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
-    from theora_tpu_torch.ops import loopfilter_cuda
+    from theora_tpu_torch.ops import loopfilter_cuda, mc_cuda
 
     mk = _load_testdata("make_hd720_enc")
     frames = mk.hd_frames()
@@ -1516,13 +1641,19 @@ def real_size_twopass(smi: str):
     dev_s = sum(a.elapsed_time(b) for a, b in enc.device_spans) / 1e3
     hdr = pkts[:3]
     kl0 = loopfilter_cuda.loop_filter_plane.launches
+    ks0 = mc_cuda.mc_recon.launches
     outs = BatchDecoder(parse_info_header(hdr[0].data), setup,
                         device="cuda").decode_clip(
         [p.data for p in pkts[3:]], batch=8)
     kl_dec = loopfilter_cuda.loop_filter_plane.launches - kl0
+    ks_dec = mc_cuda.mc_recon.launches - ks0
     if kl_dec != 3 * filtered[1]:
         raise AssertionError(f"{what}: the decode's KL launches {kl_dec}; "
                              f"expected {3 * filtered[1]}")
+    live = _live([p.data for p in pkts[3:]])
+    if ks_dec != 3 * live:
+        raise AssertionError(f"{what}: the decode's KS launches {ks_dec}; "
+                             f"expected 3 per decoded frame, {live}")
     nf = len(frames)
     nbytes = sum(len(p.data) for p in pkts[3:])
     log(f"[{what}] {nf} frames at {mk.HD_2PASS_RATE} bit/s: all {n} lines "
@@ -1533,10 +1664,10 @@ def real_size_twopass(smi: str):
         f"(pass 1 + pass 2) {wall:.4f} s; host mode decision and gates "
         f"{enc.host_decide_s:.4f} s, host packing {enc.host_pack_s:.4f} s; "
         f"device spans {dev_s:.4f} s; PSNR {_psnr(frames, outs):.3f} dB; "
-        f"launches K1, K2, KT, KR, KM, KL {counts} = "
+        f"launches K1, K2, KT, KR, KM, KL, KS {counts} = "
         f"{counts[1] / (6 * nf):.0f} per plane per frame in each pass; the "
-        f"decode's KL launches {kl_dec} | {smi}")
-    return counts, kl_dec
+        f"decode's KL launches {kl_dec}, KS launches {ks_dec} | {smi}")
+    return counts, kl_dec, ks_dec
 
 
 @contextlib.contextmanager
@@ -1577,7 +1708,7 @@ def _sync_debug_findings() -> bool:
 
 def _counts_all() -> dict:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 
     return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
             "K1 encode": idct_cuda.idct_recon_choose.launches,
@@ -1586,7 +1717,8 @@ def _counts_all() -> dict:
             "KR": (qrd_cuda.fdct_quantize_rd.launches
                    + qrd_cuda.quantize_rd.launches),
             "KM": me_cuda.plan_with_gold.launches,
-            "KL": loopfilter_cuda.loop_filter_plane.launches}
+            "KL": loopfilter_cuda.loop_filter_plane.launches,
+            "KS": sum(w.launches for w in mc_cuda.ENTRIES)}
 
 
 def transcode_720p(smi: str) -> dict:
@@ -1596,7 +1728,7 @@ def transcode_720p(smi: str) -> dict:
     warm pass with the launch counts reset just before it and every
     device->host copy counted at the port's own copy calls: none may be
     the size of a decoded frame. Returns the launch counts (K1 at both
-    entries, K2, KT, KR, KM, KL)."""
+    entries, K2, KT, KR, KM, KL, KS)."""
     from theora_tpu_torch import transfer
     from theora_tpu_torch.encode.gop import transcode_device
 
@@ -1621,9 +1753,15 @@ def transcode_720p(smi: str) -> dict:
     nf = len(datas)
     batches = -(-nf // mk.HD_TC_KF)
     want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
-            "KT": 3 * nf, "KR": 0, "KM": 3 * batches, "KL": 0}
+            "KT": 3 * nf, "KR": 0, "KM": 3 * batches, "KL": 0,
+            "KS": 9 * nf}
     if counts != want:
         raise AssertionError(f"transcode launches {counts}; expected {want}")
+    # KS: the decode's entry once per plane per frame, the encode's two.
+    ks = _ks_counts()
+    if ks != {"mc_residual": 3 * nf, "skip_place": 3 * nf, "skip_rows": 0,
+              "place_rows": 0, "mc_recon": 3 * nf}:
+        raise AssertionError(f"transcode KS launches {ks}")
     frame_bytes = 1280 * 720 * 3 // 2
     if max(copies) >= frame_bytes:
         raise AssertionError(f"transcode: a device->host copy of "
@@ -1636,7 +1774,8 @@ def transcode_720p(smi: str) -> dict:
         f"{len(copies)} copies, {sum(copies)} bytes, largest {max(copies)} "
         f"(a decoded frame: {frame_bytes}) | {smi}")
     return (counts["K1 decode"] + counts["K1 encode"], counts["K2"],
-            counts["KT"], counts["KR"], counts["KM"], counts["KL"])
+            counts["KT"], counts["KR"], counts["KM"], counts["KL"],
+            counts["KS"])
 
 
 def packet_decode_720p(smi: str) -> tuple:
@@ -1644,7 +1783,7 @@ def packet_decode_720p(smi: str) -> tuple:
     every frame's SHA-256 against the committed list, and a warm pass with
     the launch counts reset (K1's decode entry once per plane per frame)
     timed beside a warm decode_clip(batch=8) of the same stream. Returns
-    the launch counts (K1, K2, KT, KR, KM, KL)."""
+    the launch counts (K1, K2, KT, KR, KM, KL, KS)."""
     from theora_tpu_torch.decode.scalar import PacketDecoder
 
     with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
@@ -1675,8 +1814,9 @@ def packet_decode_720p(smi: str) -> tuple:
     check(outs, "per packet, warm pass")
     nf = len(datas)
     if counts != {"K1 decode": 3 * nf, "K1 encode": 0, "K2": 0, "KT": 0,
-                  "KR": 0, "KM": 0, "KL": 0}:
+                  "KR": 0, "KM": 0, "KL": 0, "KS": 3 * nf}:
         raise AssertionError(f"per-packet decode launches {counts}")
+    _ks_decode_only("per-packet decode", 3 * nf)
     dec, _ = _open(f"{HD_NAME}.ogv")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1686,8 +1826,8 @@ def packet_decode_720p(smi: str) -> tuple:
         f"match; warm pass {wall:.4f} s = {1e3 * wall / nf:.3f} ms per "
         f"frame (decode_packet + ycbcr_out), decode_clip(batch=8) "
         f"{1e3 * batch_wall / nf:.3f} ms per frame; K1 launches "
-        f"{counts['K1 decode']} | {smi}")
-    return (counts["K1 decode"], 0, 0, 0, 0, 0)
+        f"{counts['K1 decode']}, KS launches {counts['KS']} | {smi}")
+    return (counts["K1 decode"], 0, 0, 0, 0, 0, counts["KS"])
 
 
 def pipelined_vs_staged(smi: str) -> dict:
@@ -1849,7 +1989,7 @@ def mesh_720p(smi: str) -> tuple:
     just before it (K1's encode entry and KR's fused entry 24 each, K2 and
     KT none). KM
     runs 3 times in each (one plan call per batch). Returns the two runs'
-    counts (K1 encode entry, K2, KT, KR, KM, KL)."""
+    counts (K1 encode entry, K2, KT, KR, KM, KL, KS)."""
     import types
 
     from theora_tpu_torch.info import TheoraInfo
@@ -1877,8 +2017,9 @@ def mesh_720p(smi: str) -> tuple:
     n = _check_hashes(pkts, name, "mesh, gop axis 2, warm pass")
     log(f"[mesh720p] q56 auto, 16 frames, keyframe every 8, gop axis 2: "
         f"all {n} packet SHA-256 equal the JAX encoder's list; warm pass "
-        f"{wall:.4f} s; launches K1, K2, KT, KR, KM, KL {counts} (one per "
-        f"plane per frame step of the 2 GOPs; KM 3 for the one plan) | {smi}")
+        f"{wall:.4f} s; launches K1, K2, KT, KR, KM, KL, KS {counts} (one "
+        f"per plane per frame step of the 2 GOPs, KS two; KM 3 for the one "
+        f"plan) | {smi}")
     info48 = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
                         pic_height=720, quality=mk.HD_QI)
     enc = MeshGopEncoder(make_mesh(2), info48, qi=mk.HD_QI)
@@ -1892,7 +2033,7 @@ def mesh_720p(smi: str) -> tuple:
         "hd720_q48_k8_sp2_enc", "mesh, gop axis 2, speed 2")
     log(f"[mesh720p] q48 speed 2 (KR over 2 segments), the two GOPs in one "
         f"encode_gops batch: all {n} packet SHA-256 equal the JAX encoder's "
-        f"list; launches K1, K2, KT, KR, KM, KL {sp2} | {smi}")
+        f"list; launches K1, K2, KT, KR, KM, KL, KS {sp2} | {smi}")
     return counts, sp2
 
 
@@ -1904,7 +2045,7 @@ def mesh_vs_sequential(smi: str) -> dict:
     packets of every run equal, each run's kernel launches counted from
     0, then one traced pass each way for the device kernels launched per
     plane per frame. No claim. Returns {way: launch counts (K1 encode
-    entry, K2, KT, KR, KM, KL)}."""
+    entry, K2, KT, KR, KM, KL, KS)}."""
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
     from theora_tpu_torch.parallel.gop import encode_clip_mesh, make_mesh
@@ -1952,7 +2093,7 @@ def mesh_vs_sequential(smi: str) -> dict:
         f"walls in turns mesh (gop axis 3) "
         f"{[round(w, 4) for w in walls['mesh']]} s, sequential "
         f"{[round(w, 4) for w in walls['sequential']]} s; launches K1, K2, "
-        f"KT, KR, KM, KL mesh {counts['mesh']}, sequential "
+        f"KT, KR, KM, KL, KS mesh {counts['mesh']}, sequential "
         f"{counts['sequential']}; "
         f"device kernels per plane per frame mesh {per_ppf['mesh']:.1f}, "
         f"sequential {per_ppf['sequential']:.1f} (no claim) | {smi}")
@@ -1972,13 +2113,14 @@ mk = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mk)
 from theora_tpu_torch.info import TheoraInfo
 from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-    me_cuda, qrd_cuda, trellis_cuda
+    mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 from theora_tpu_torch.parallel.gop import MeshGopEncoder, \
     encode_clip_mesh, make_mesh
 WRAPPERS = (idct_cuda.idct_recon_choose, fdct_cuda.fdct_quantize,
             trellis_cuda.trellis_quantize, qrd_cuda.fdct_quantize_rd,
             me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane,
-            idct_cuda.dequantize_idct_frames, qrd_cuda.quantize_rd)
+            idct_cuda.dequantize_idct_frames, qrd_cuda.quantize_rd,
+            *mc_cuda.ENTRIES)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=world, rank=rank)
 frames = mk.hd_frames()
@@ -2078,7 +2220,7 @@ def mesh_ranks_720p(smi: str) -> dict:
     pinned host buffers), and that gather's transport alone on one luma
     step's bytes, both ranks entering after a barrier. Every process it
     starts is waited for or killed. Returns {path: [per-rank counts (K1
-    encode entry, K2, KT, KR, KM, KL)]}."""
+    encode entry, K2, KT, KR, KM, KL, KS)]}."""
     import socket
     import tempfile
 
@@ -2124,11 +2266,21 @@ def mesh_ranks_720p(smi: str) -> dict:
                 raise AssertionError(f"{name} rank {r}: the two passes "
                                      f"differ")
             counts = tuple(c["counts"][:6])
-            if counts != want[name] or any(c["counts"][6:]):
+            # KS (mc_residual, skip_place, skip_rows, place_rows,
+            # mc_recon): over a frag group the split form, else the fused
+            # skip entry, once per plane per frame step each.
+            steps = counts[0]
+            frag = c["shape"]["frag"] > 1
+            ks_want = [steps, 0 if frag else steps, steps if frag else 0,
+                       steps if frag else 0, 0]
+            if counts != want[name] or any(c["counts"][6:8]) or \
+                    c["counts"][8:] != ks_want:
                 raise AssertionError(
                     f"{name} rank {r}: launches K1 (encode entry), K2, KT, "
-                    f"KR, KM, KL, K1 decode, KR standalone {c['counts']}; "
-                    f"expected {want[name]} and 0, 0")
+                    f"KR, KM, KL, K1 decode, KR standalone, KS entries "
+                    f"{c['counts']}; expected {want[name]}, 0, 0 and KS "
+                    f"{ks_want}")
+            counts += (sum(ks_want),)
             step = c["frag"].get("step", [0, 0.0, 0])
             chunk = c["frag"].get("chunk", [0, 0.0, 0])
             exch = c["everyone"].get("exchange", [0, 0.0, 0])
@@ -2142,7 +2294,7 @@ def mesh_ranks_720p(smi: str) -> dict:
                 f"{rr['device']}, route {c['route']}: all "
                 f"{len(c['hashes'])} packets equal the list in both passes; "
                 f"first pass {c['cold']:.4f} s, warm {c['wall']:.4f} s; "
-                f"launches K1, K2, KT, KR, KM, KL {counts}; {gather}; "
+                f"launches K1, K2, KT, KR, KM, KL, KS {counts}; {gather}; "
                 f"packet exchanges {exch[0]} in {1e3 * exch[1]:.3f} ms | "
                 f"{smi}")
             by_rank.append(counts)
@@ -2234,9 +2386,10 @@ def intra_core_720p(smi: str, device) -> tuple:
         got = pipeline.intra_encode_core(blocks, d)
         torch.cuda.synchronize()
         c = _k1_k2_counts()
-        if c != (1, 1) or _counts_all()["KM"] or _counts_all()["KL"]:
+        if c != (1, 1) or any(_counts_all()[k] for k in ("KM", "KL", "KS")):
             raise AssertionError(f"intra core {what}: K1, K2 launches {c}; "
-                                 f"expected (1, 1) and no KM or KL launch")
+                                 f"expected (1, 1) and no KM, KL or KS "
+                                 f"launch")
         launches = (launches[0] + c[0], launches[1] + c[1])
         with _plain_kernels():
             want = pipeline.intra_encode_core(blocks, d)
@@ -2395,7 +2548,8 @@ def intra_encode_720p(smi: str) -> tuple:
         f"gates {enc.timing['gates_s']:.4f} s; device (upload, "
         f"K2 x 3, one download) {enc.timing['device_s']:.4f} s; host "
         f"stages {sum(host):.4f} s ({1e3 * sum(host) / nf:.2f} ms per frame"
-        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR, KM, KL "
+        f", max {1e3 * max(host):.2f}); launches K1, K2, KT, KR, KM, KL, "
+        f"KS "
         f"{counts}; "
         f"PSNR {psnr:.3f} dB; {sum(len(p.data) for p in pkts)} bytes | "
         f"{smi}")
@@ -2462,13 +2616,16 @@ def _host_encode(mk, case: str, device="cuda", frames=None):
 
 
 def _k1_decode_only(what: str) -> int:
-    """K1's decode-entry launches since _reset_counts; no other kernel may
-    have run (the host path quantizes and plans natively)."""
+    """K1's decode-entry launches since _reset_counts; no other kernel but
+    KS (whose entries the caller checks: _ks_decode_only) may have run
+    (the host path quantizes and plans natively; at q48 nothing filters).
+    """
     c = _counts_all()
-    others = {k: v for k, v in c.items() if k != "K1 decode" and v}
+    others = {k: v for k, v in c.items() if k not in ("K1 decode", "KS")
+              and v}
     if others:
         raise AssertionError(f"{what}: launches {others} besides K1's "
-                             f"decode entry")
+                             f"and KS's decode entries")
     return c["K1 decode"]
 
 
@@ -2480,7 +2637,7 @@ def host_encode_720p(smi: str) -> int:
     loop only: at most 3 per decoded packet, 14 packets), its wall split
     into ME and mode decision, the closed loop's decode and download, and
     the rest (transform, trellis, packing); PSNR of the port's decode of
-    the packets. Returns K1's launches."""
+    the packets. Returns K1's and KS's launches."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -2498,6 +2655,7 @@ def host_encode_720p(smi: str) -> int:
     k1 = _k1_decode_only("host encode 720p")
     n = _check_hashes(pkts, name, "warm pass")
     decoded = sum(1 for i in range(len(pkts) - 4) if (i + 1) % mk.HD_KF)
+    ks = _ks_decode_only("host encode 720p", 3 * decoded)
     if not 0 < k1 <= 3 * decoded:
         raise AssertionError(f"host encode 720p: K1 {k1} launches; expected "
                              f"1 to {3 * decoded} ({decoded} decoded "
@@ -2515,15 +2673,15 @@ def host_encode_720p(smi: str) -> int:
         f"decision {tm['analysis_s']:.4f} s, closed-loop decode and "
         f"download {tm['decode_s']:.4f} s ({decoded} packets), transform, "
         f"trellis and packing {rest:.4f} s; K1 decode-entry launches {k1}, "
-        f"no other kernel; PSNR {psnr:.3f} dB; "
-        f"{sum(len(p.data) for p in pkts[3:])} bytes | {smi}")
-    return k1
+        f"KS decode-entry launches {ks}, no other kernel; PSNR {psnr:.3f} "
+        f"dB; {sum(len(p.data) for p in pkts[3:])} bytes | {smi}")
+    return k1, ks
 
 
 def host_transcode_720p(smi: str) -> int:
     """12 (b): parallel/transcode.py on threads (max_workers=2, one GOP
     each) over the same frames on the card, against the same list.
-    Returns K1's launches."""
+    Returns K1's and KS's launches."""
     from theora_tpu_torch.parallel.transcode import transcode
 
     mk = _load_testdata("make_hd720_enc")
@@ -2536,12 +2694,15 @@ def host_transcode_720p(smi: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1 = _k1_decode_only("host transcode 720p")
+    # Each GOP's closed loop decodes its frames but the last.
+    ks = _ks_decode_only("host transcode 720p",
+                         3 * (len(frames) - len(frames) // mk.HD_KF))
     n = _check_hashes(pkts, "hd720_host_q48_k8_enc", "threads")
     log(f"[host transcode720p] transcode(max_workers=2), 2 GOPs on threads: "
         f"all {n} packets equal the sequential list; {wall:.4f} s = "
         f"{len(frames) / wall:.2f} frames/s (first call of the path); K1 "
-        f"decode-entry launches {k1} | {smi}")
-    return k1
+        f"decode-entry launches {k1}, KS {ks} | {smi}")
+    return k1, ks
 
 
 _DIST_WORKER = r"""
@@ -2556,7 +2717,7 @@ spec = importlib.util.spec_from_file_location(
 mk = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mk)
 from theora_tpu_torch.info import TheoraInfo
-from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
+from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda
 from theora_tpu_torch.parallel.distributed import distributed_transcode
 kind, w, h, fmt, qi, mode, splevel, kf = mk.HOST_CASES["hd720_q48"]
 frames = mk.hd_frames()
@@ -2571,6 +2732,7 @@ dist.destroy_process_group()
 with open(f"{out}.{rank}", "wb") as f:
     pickle.dump({"k1": idct_cuda.dequantize_idct_frames.launches,
                  "kl": loopfilter_cuda.loop_filter_plane.launches,
+                 "ks": [w.launches for w in mc_cuda.ENTRIES],
                  "pkts": [p.data for p in pkts]}, f)
 """
 
@@ -2586,6 +2748,7 @@ def distributed_720p(smi: str) -> int:
 
     from theora_tpu_torch.tpkt import Packet
 
+    mk = _load_testdata("make_hd720_enc")
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = str(sk.getsockname()[1])
@@ -2620,11 +2783,18 @@ def distributed_720p(smi: str) -> int:
     if not all(k1) or any(r["kl"] for r in res):
         raise AssertionError(f"distributed: K1 launches per rank {k1}, KL "
                              f"{[r['kl'] for r in res]} (q48: none)")
+    # KS's decode entry in each rank's closed loop: 3 per decoded frame,
+    # each GOP's frames but the last; no encode-side entry.
+    ks = [r["ks"][-1] for r in res]
+    if any(sum(r["ks"][:-1]) for r in res) or sum(ks) != 3 * (
+            len(mk.hd_frames()) - len(mk.hd_frames()) // mk.HD_KF):
+        raise AssertionError(f"distributed: KS launches per rank "
+                             f"{[r['ks'] for r in res]}")
     log(f"[distributed720p] 2 gloo processes on one card: all {n} packets "
         f"of rank 0 equal the sequential list; K1 decode-entry launches "
-        f"per rank {k1}, sum {sum(k1)}; {wall:.2f} s with the processes' "
-        f"start | {smi}")
-    return sum(k1)
+        f"per rank {k1}, sum {sum(k1)}; KS decode-entry launches per rank "
+        f"{ks}; {wall:.2f} s with the processes' start | {smi}")
+    return sum(k1), sum(ks)
 
 
 def host_small() -> None:
@@ -2685,13 +2855,14 @@ def main() -> int:
     build()
     dev = torch.device("cuda")
     k1 = kernel_vs_plain(dev)
-    kl_golden = golden_streams()
+    kl_golden, ks_golden = golden_streams()
     decode = real_size(smi)
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
     kr = kr_vs_plain(dev)
     km = km_vs_plain(dev)
     kl = kl_vs_plain(dev)
+    ks = ks_vs_plain(dev)
     small_encodes()
     kl_mesh_small = mesh_filter_small()
     paths = {"encode q48 aq off": real_size_encode(
@@ -2704,8 +2875,8 @@ def main() -> int:
     paths["encode q48 speed 2"] = real_size_encode(
         smi, "hd720_q48_k8_sp2_enc", 48, "auto", splevel=2)
     # The loop filter's path: qis 30-42 filter every frame of both passes.
-    paths["encode 2-pass 2 Mbit/s"], kl_twopass_decode = real_size_twopass(
-        smi)
+    (paths["encode 2-pass 2 Mbit/s"], kl_twopass_decode,
+     ks_twopass_decode) = real_size_twopass(smi)
     paths["transcode"] = transcode_720p(smi)
     paths["encode stage by stage"] = pipelined_vs_staged(smi)
     paths["decode per packet"] = packet_decode_720p(smi)
@@ -2723,18 +2894,21 @@ def main() -> int:
                   "mesh ranks q48 off {2,1}": "hd720_q48_k8_enc"}
     for label, listed in rank_paths.items():
         paths[label] = tuple(sum(c[i] for c in ranks[listed])
-                             for i in range(6))
+                             for i in range(7))
     # The batch intra encoder's slice: the compute core (K1's decode entry
     # and K2) and the batch encoder on its main path (K2 only).
     intra_core, intra_kern = intra_core_720p(smi, dev)
-    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0, 0, 0)
-    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0, 0, 0)
+    paths["intra core"] = (intra_core[0], intra_core[1], 0, 0, 0, 0, 0)
+    paths["intra encode"] = (*intra_encode_720p(smi), 0, 0, 0, 0, 0)
     intra_small()
     # The host Encoder's slice: its inter path with the closed loop on the
-    # card (K1's decode entry), and the GOP-parallel transcodes over it.
-    paths["host encode"] = (host_encode_720p(smi), 0, 0, 0, 0, 0)
-    paths["host transcode"] = (host_transcode_720p(smi), 0, 0, 0, 0, 0)
-    paths["distributed"] = (distributed_720p(smi), 0, 0, 0, 0, 0)
+    # card (K1's and KS's decode entries), and the GOP-parallel transcodes
+    # over it.
+    for label, fn in (("host encode", host_encode_720p),
+                      ("host transcode", host_transcode_720p),
+                      ("distributed", distributed_720p)):
+        k1_host, ks_host = fn(smi)
+        paths[label] = (k1_host, 0, 0, 0, 0, 0, ks_host)
     host_small()
     enc_cli_workers(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
@@ -2758,9 +2932,14 @@ def main() -> int:
                 "mesh 64x48 CBR gop axis 4": kl_mesh_small}
     kl["launches"] = paths["encode 2-pass 2 Mbit/s"][5] + sum(
         kl_extra.values())
+    # KS runs on every path that decodes or encodes inter frames: twice
+    # per plane per encode frame step, once per plane per decoded frame.
+    ks_extra = {"golden decodes": ks_golden,
+                "decode of the 2-pass packets": ks_twopass_decode}
+    ks["launches"] = decode["KS"] + sum(paths[p][6] for p in main_paths)
     for i, (k, key) in enumerate(((k1, "K1 decode"), (k2, "K2"),
                                   (kt, "KT"), (kr, "KR"), (km, "KM"),
-                                  (kl, "KL"))):
+                                  (kl, "KL"), (ks, "KS"))):
         k["launches_by_path"] = {"decode": decode[key],
                                  **{p: c[i] for p, c in paths.items()}}
         k["launches_by_rank"] = {label: [c[i] for c in ranks[listed]]
@@ -2769,9 +2948,10 @@ def main() -> int:
         k["mesh_3_segments_ms"] = {"one_launch": segments[key][0],
                                    "three_launches": segments[key][1]}
     kl["launches_by_path"].update(kl_extra)
+    ks["launches_by_path"].update(ks_extra)
     k1["intra_core"] = intra_kern["K1"]
     k2["intra_core"] = intra_kern["K2"]
-    print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl, ks]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -23,7 +23,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM, KL and the "
+        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM, KL, KS and the "
                     "device decode and encode paths have no CPU mode")
     return torch.device("cuda")
 
@@ -543,3 +543,18 @@ def test_kl_kernel_matches_plain(card):
     from theora_tpu_torch.tools.bench_loopfilter import check
 
     assert check(card) == (407, 0)
+
+
+def test_ks_kernels_match_plain(card):
+    """Each KS entry (mc_residual, skip_place, skip_rows, place_rows,
+    mc_recon) against its plain version (ops/mc.py) byte for byte, every
+    output and the planes' padding, on every case of
+    tools/bench_mc.py:cases (the 720p planes, 4:2:2 and 4:4:4 chroma, 3
+    segments, frag subsets, MVs at the padding's extremes in every corner,
+    skip ties and ulp lambdas, key and inter steps, unfiltered and
+    filtered) and the split form over 2 ranks, one launch per call, the
+    inputs left as they were (bench_mc.check raises on any difference)."""
+    from theora_tpu_torch.tools.bench_mc import check
+
+    n, err = check(card)
+    assert n > 40 and err == 0

@@ -1230,25 +1230,28 @@ def test_kl_wrapper_rejects_what_the_kernel_does_not_take(g, which, bad):
 
 def test_borders_run_only_on_steps_kl_skips(monkeypatch):
     """KL fills the borders of the planes it filters, so the encode scan
-    and the decode step run fill_borders only on frame steps whose limit
-    is 0 (qi 47 and above): none at qi 40, one per plane per frame at qi
-    56; and the decode of a q5 clip none."""
-    from theora_tpu_torch.decode import batch
-    from theora_tpu_torch.encode import scan
+    and the decode step ask KS for the borders (its skip and decode
+    entries' borders flag) only on frame steps whose limit is 0 (qi 47
+    and above): none at qi 40, one per plane per frame at qi 56; and the
+    decode of a q5 clip none."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
+    from theora_tpu_torch.ops import mc_cuda
     from theora_tpu_torch.tpkt import read_tpkt
 
     calls = []
 
-    def spy(plane, *args):
-        calls.append(plane.dim())
-        return real(plane, *args)
+    def spy(real):
+        def call(*args, borders, **kwargs):
+            if borders:
+                calls.append(args[0].dim())
+            return real(*args, borders=borders, **kwargs)
+        return call
 
-    real = scan.fill_borders
-    monkeypatch.setattr(scan, "fill_borders", spy)
-    monkeypatch.setattr(batch, "fill_borders", spy)
+    for entry in ("skip_place", "mc_recon"):
+        monkeypatch.setattr(mc_cuda, entry, spy(getattr(mc_cuda, entry)))
     rng = np.random.default_rng(5)
     frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
                rng.integers(0, 256, (24, 32), dtype=np.uint8),
@@ -1262,8 +1265,8 @@ def test_borders_run_only_on_steps_kl_skips(monkeypatch):
     assert calls == [3] * 9
     calls.clear()
     pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
-    dec = batch.BatchDecoder(parse_info_header(pkts[0].data),
-                             parse_setup_header(pkts[2].data), device="cpu")
+    dec = BatchDecoder(parse_info_header(pkts[0].data),
+                       parse_setup_header(pkts[2].data), device="cpu")
     assert dec.decode_clip([p.data for p in pkts[3:]], batch=8)
     assert calls == []
 
@@ -1349,3 +1352,227 @@ def test_scan_and_decode_reach_kl_and_nothing_calls_the_plain_filter(
                             and "loop_filter_plane" in names), rel
                 assert not (n.module.endswith("ops")
                             and "loopfilter" in names), rel
+
+
+# ------------------------------------------------------------- kernel KS
+
+def _ks_args(entry, device, fid=False):
+    """Small valid arguments of a KS entry (2 x 3 fragments padded by 16
+    and 8, G = 2 planes on the encode side)."""
+    nv, nh, py, px = 2, 3, 16, 8
+    n, G = nv * nh, 2
+    hp, wp = 8 * nv + 2 * py, 8 * nh + 2 * px
+    geom = (nv, nh, py, px)
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if entry == "mc_recon":
+        return (z((hp, wp), torch.uint8), z((hp, wp), torch.uint8),
+                z((n, 64), torch.int16), z((6, n), torch.int8), *geom, True,
+                z((8 * nv, 8 * nh), torch.uint8))
+    if entry == "place_rows":
+        return (z((G * n, 65), torch.uint8), G, *geom, True)
+    nl = 4 if fid else n
+    N = G * nl
+    ids = (torch.arange(nl, dtype=torch.int32, device=device),) if fid \
+        else ()
+    if entry == "mc_residual":
+        return (z((G, hp, wp), torch.uint8), z((G, hp, wp), torch.uint8),
+                z((N, 64), torch.uint8), z((6, N), torch.int8), *geom, *ids)
+    head = (z((G, hp, wp), torch.uint8), z((N, 64), torch.uint8),
+            z((N, 64), torch.int16), z((N,), torch.int32),
+            z((N,), torch.int32), z((N,), torch.int32), z((N,), torch.bool),
+            z((G,), torch.float32), False, z((N, 64), torch.int16),
+            z((N,), torch.bool), *geom)
+    return head + (ids if entry == "skip_rows" else (True,))
+
+
+KS_ENTRIES = ("mc_residual", "skip_place", "skip_rows", "place_rows",
+              "mc_recon")
+
+
+@pytest.mark.parametrize("entry", KS_ENTRIES)
+def test_ks_plain_path_only_for_cpu_tensors(monkeypatch, entry):
+    """Each KS wrapper runs its plain version (ops/mc.py, the entry of the
+    same name) for CPU tensors only, raises for another device, counts no
+    launch on the CPU, and has no try that could fall back."""
+    from theora_tpu_torch.ops import mc, mc_cuda
+
+    calls = []
+    real = getattr(mc, entry)
+
+    def plain(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mc, entry, plain)
+    wrapper = getattr(mc_cuda, entry)
+    wrapper(*_ks_args(entry, "cpu", fid=entry == "skip_rows"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*_ks_args(entry, "meta", fid=entry == "skip_rows"))
+    assert calls == ["cpu"]
+    assert wrapper.launches == 0
+    tree = _parse(mc_cuda.__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+@pytest.mark.parametrize("entry,which,bad", [
+    # The planes: type, dtype, layout, geometry, device.
+    ("mc_residual", 0, np.zeros((2, 48, 40), np.uint8)),
+    ("mc_residual", 0, torch.zeros((2, 48, 40), dtype=torch.int16)),
+    ("mc_residual", 0, torch.zeros((48, 40), dtype=torch.uint8)),
+    ("mc_residual", 0, torch.zeros((2, 40, 48), dtype=torch.uint8)
+     .transpose(1, 2)),
+    ("mc_residual", 0, torch.zeros((2, 50, 40), dtype=torch.uint8)),
+    ("mc_residual", 1, torch.zeros((2, 48, 48), dtype=torch.uint8)),
+    ("mc_residual", 1, torch.zeros((2, 48, 40), dtype=torch.uint8,
+                                   device="meta")),
+    ("mc_residual", 2, torch.zeros((12, 64), dtype=torch.int16)),
+    ("mc_residual", 2, torch.zeros((11, 64), dtype=torch.uint8)),
+    ("mc_residual", 3, torch.zeros((6, 12), dtype=torch.int64)),
+    ("mc_residual", 3, torch.zeros((12, 6), dtype=torch.int8).t()),
+    ("mc_residual", 7, 4),   # pad_x not a multiple of 8
+    ("mc_residual", 6, 1),   # pad_y below 2
+    ("mc_residual", 4, 3),   # nv does not match the plane
+    ("mc_residual", 8, torch.arange(4)),   # fid int64
+    ("mc_residual", 8, torch.arange(7, dtype=torch.int32)),  # > n ids
+    ("skip_place", 1, torch.zeros((12, 64), dtype=torch.int16)),
+    ("skip_place", 2, torch.zeros((12, 64), dtype=torch.uint8)),
+    ("skip_place", 3, torch.zeros((12,), dtype=torch.int64)),
+    ("skip_place", 5, torch.zeros((11,), dtype=torch.int32)),
+    ("skip_place", 6, torch.zeros((12,), dtype=torch.uint8)),
+    ("skip_place", 7, torch.zeros((3,), dtype=torch.float32)),
+    ("skip_place", 7, torch.zeros((2,), dtype=torch.float64)),
+    ("skip_place", 9, torch.zeros((12, 128), dtype=torch.int16)[:, ::2]),
+    ("skip_place", 10, torch.zeros((12,), dtype=torch.uint8)),
+    ("skip_rows", 15, torch.zeros((5,), dtype=torch.int32)),
+    ("place_rows", 0, torch.zeros((12, 64), dtype=torch.uint8)),
+    ("place_rows", 0, torch.zeros((12, 66), dtype=torch.uint8)[:, :65]),
+    ("place_rows", 1, 3),
+    ("place_rows", 5, 12),
+    ("mc_recon", 0, torch.zeros((2, 48, 40), dtype=torch.uint8)),
+    ("mc_recon", 1, torch.zeros((48, 48), dtype=torch.uint8)),
+    ("mc_recon", 2, torch.zeros((6, 64), dtype=torch.int32)),
+    ("mc_recon", 2, torch.zeros((5, 64), dtype=torch.int16)),
+    ("mc_recon", 3, torch.zeros((10, 6), dtype=torch.int8)),
+    ("mc_recon", 9, torch.zeros((16, 16), dtype=torch.uint8)),
+    ("mc_recon", 9, torch.zeros((16, 24), dtype=torch.int16)),
+])
+def test_ks_wrappers_reject_what_the_kernel_does_not_take(entry, which,
+                                                          bad):
+    from theora_tpu_torch.ops import mc_cuda
+
+    fn = getattr(mc_cuda, entry)
+    args = list(_ks_args(entry, "cpu", fid=entry == "skip_rows"))
+    fn(*args)  # the valid arguments are taken
+    if which == len(args):
+        args.append(bad)
+    else:
+        args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        fn(*args)
+
+
+def test_ks_build_is_sm90a(monkeypatch, tmp_path):
+    """KS's library is built by nvcc_build from csrc/mc.cu for sm_90a,
+    without fast math (its one float product rounds by the intrinsics
+    __fmul_rn and __float2int_rz). Nothing is compiled: subprocess.run is
+    replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, mc_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(mc_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_mc.so"))
+    so = mc_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == mc_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "mc.cu"))
+    assert so == mc_cuda._SO and os.path.exists(so)
+    with open(mc_cuda._SRC) as f:
+        src = f.read()
+    assert "__fmul_rn(" in src and "__float2int_rz(" in src
+
+
+def test_scan_and_decode_reach_ks_and_nothing_calls_the_plain_chain(
+        monkeypatch):
+    """A 3-frame 64x48 encode_clip calls KS's mc_residual and skip_place
+    once per plane per frame step (9 each) with [G, Hp, Wp] planes, and
+    its split form never; the decode of clip64x48_k8_q5 calls mc_recon
+    once per plane per frame with [Hp, Wp] planes. No module of the port
+    but the wrapper imports ops/mc.py's plain entries or its gathers,
+    blocks_to_plane or fill_borders for a step (the tools and
+    chip_smoke.py import the plain entries to hold the kernel against
+    them)."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import mc_cuda
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    calls = []
+
+    def spy(entry):
+        real = getattr(mc_cuda, entry)
+
+        def call(*args, **kwargs):
+            calls.append((entry, args[0].dim()))
+            return real(*args, **kwargs)
+        return call
+
+    for entry in KS_ENTRIES:
+        monkeypatch.setattr(mc_cuda, entry, spy(entry))
+    rng = np.random.default_rng(5)
+    frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8),
+               rng.integers(0, 256, (24, 32), dtype=np.uint8)]
+              for _ in range(3)]
+    GopEncoder(_small_info(), qi=40, device="cpu").encode_clip(
+        frames, keyframe_freq=8)
+    assert sorted(calls) == [("mc_residual", 3)] * 9 + [
+        ("skip_place", 3)] * 9
+    assert calls[:2] == [("mc_residual", 3), ("skip_place", 3)]
+    calls.clear()
+    pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
+    dec = BatchDecoder(parse_info_header(pkts[0].data),
+                       parse_setup_header(pkts[2].data), device="cpu")
+    n = len(dec.decode_clip([p.data for p in pkts[3:]], batch=8))
+    assert calls == [("mc_recon", 2)] * (3 * n)
+
+    plain = {"mc_residual", "skip_place", "skip_rows", "place_rows",
+             "mc_recon", "mc_predict", "blocks_to_plane", "fill_borders",
+             "block_index_grid"}
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO_ROOT)
+        if rel in (os.path.join("theora_tpu_torch", "ops", "mc_cuda.py"),
+                   os.path.join("theora_tpu_torch", "ops", "mc.py"),
+                   os.path.join("theora_tpu_torch", "ops",
+                                "loopfilter_cuda.py"),
+                   os.path.join("theora_tpu_torch", "ops", "loopfilter.py"),
+                   os.path.join("theora_tpu_torch", "pipeline.py"),
+                   "chip_smoke.py") or \
+                rel.startswith(os.path.join("theora_tpu_torch", "tools")):
+            continue
+        for node in ast.walk(_parse(path)):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names = {a.name for a in node.names}
+                assert not (node.module.endswith((".mc", ".loopfilter",
+                                                  ".pipeline"))
+                            and names & plain), rel
+                assert not (node.module.endswith("ops")
+                            and "mc" in names), rel

@@ -1,9 +1,11 @@
 """GOP-batch decode on the card: host entropy for all frames of a batch up
 front, then per plane one dequant + iDCT launch (kernel K1) over every
-frame's blocks and a Python loop over frames for MC, reconstruction, the
-loop filter and borders (kernel KL, one launch per plane of a frame whose
-limit is above 0; the borders alone for the others), with the reference
-planes carried on the device.
+frame's blocks and a Python loop over frames for MC and reconstruction
+(kernel KS's decode entry, one launch per plane of a frame, which also
+fills the borders and the output frame of a frame whose limit is 0) and
+the loop filter and borders (kernel KL, one launch per plane of a frame
+whose limit is above 0), with the reference planes carried on the
+device.
 
 Port of theora_tpu/decode/tpu_batch.py (`TpuBatchDecoder`). The JAX scan
 over frames becomes a loop; dequant + iDCT reads no carried plane, so it
@@ -37,12 +39,10 @@ from theora_tpu_torch.constants import (
 from theora_tpu_torch.decode.decoder import Decoder
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME
 from theora_tpu_torch.native import dc_predict_native
-from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
-from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
-    mc_predict
-from theora_tpu_torch.pipeline import fill_borders
+from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda
 
-# Rows of the per-fragment int8 side array uploaded per plane and batch.
+# Rows of the per-fragment int8 side array uploaded per plane and batch;
+# rows _RS .. _U2 are KS's side rows (ops/mc.py:SIDE_ROWS).
 _QII, _INTER, _RS, _Y1, _X1, _Y2, _X2, _U2, _CODED, _DONLY = range(10)
 
 
@@ -60,14 +60,6 @@ class BatchDecoder(Decoder):
         self._refs: dict[int, tuple[torch.Tensor, torch.Tensor]] | None = None
         self._scan_by_plane = [g.scan_fragis[g.scan_pli == pli]
                                for pli in range(3)]
-        self._grids = {}
-        for pli in range(3):
-            pl = g.planes[pli]
-            vpad, hpad = g.plane_padding(pli)
-            self._grids[pli] = block_index_grid(
-                pl.nvfrags, pl.nhfrags, vpad, hpad,
-                pl.nhfrags * 8 + 2 * hpad, self.device,
-            )
         # Host seconds spent parsing packets. A caller that sets
         # device_spans to a list gets a (start, end) CUDA event pair
         # around each batch's device work appended to it.
@@ -217,32 +209,28 @@ class BatchDecoder(Decoder):
             )
         with record_function("theora.dequant_idct"):
             residual = idct_cuda.dequantize_idct_frames(*k1_args)
-        residual = residual.reshape(F, n, 8, 8)
+        residual = residual.reshape(F, n, 64)
 
         prev, gold = self._initial_refs(pli)
-        grid = self._grids[pli]
         out = torch.empty((F, h, w), dtype=torch.uint8, device=dev)
         for f in range(F):
             fs = frag[f]
-            with record_function("theora.mc_recon"):
-                pred = mc_predict(prev, gold, grid, fs[_RS], fs[_Y1],
-                                  fs[_X1], fs[_Y2], fs[_X2], fs[_U2].bool())
-                blocks = torch.clamp(residual[f].to(torch.int32) + pred,
-                                     0, 255)
-                plane = blocks_to_plane(blocks.to(torch.uint8), nv, nh,
-                                        vpad, hpad)
-            # KL fills the borders of the planes it filters.
+            # KL fills the borders and the output of the planes it
+            # filters; KS those of the others.
             filtered = bool(inp["limits"][f])
+            with record_function("theora.mc_recon"):
+                plane = mc_cuda.mc_recon(
+                    prev, gold, residual[f], fs[_RS:_U2 + 1], nv, nh, vpad,
+                    hpad, borders=not filtered,
+                    pic=None if filtered else out[f])
             if filtered:
                 with record_function("theora.loopfilter"):
                     plane = loopfilter_cuda.loop_filter_plane(
                         plane, fs[_CODED].bool().reshape(nv, nh),
                         inp["limits"][f], nv, nh, vpad, hpad,
                     )
-            with record_function("theora.borders"):
-                if not filtered:
-                    fill_borders(plane, h, w, vpad, hpad)
-                out[f] = plane[vpad:vpad + h, hpad:hpad + w]
+                with record_function("theora.borders"):
+                    out[f] = plane[vpad:vpad + h, hpad:hpad + w]
             if inp["intra"][f]:
                 gold = plane
             prev = plane

@@ -16,18 +16,20 @@ to frame and from GOP to GOP. The JAX scan over frames becomes a loop; the
 carried (prev, gold) reference planes of every GOP stay on the device.
 Per frame step, over the G GOPs' blocks at once:
 
-  MC prediction by direct gathers (ops/mc.py) -> residual -> kernel K2
+  kernel KS's MC entry (the prediction by direct gathers, the residual and
+  the uncoded copy's SSD) -> kernel K2
   (fDCT + quantization with each qi row, also returning the unquantized
   DCT) -> kernel KT (the trellis) at every qi row, on K2's outputs as they
   are; or, without the trellis, kernel KR's fused entry (K2's fDCT and
   quantization and the R/D quantizer in one launch); each returns the
   values, nonzero counts and DC-only flags -> kernel K1's encode entry
   (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
-  the chooser, which keeps each block's cheapest row) -> the R/D skip
-  test against the uncoded copy -> (over a frag group: the gather of
-  every rank's blocks and coded flags) -> kernel KL (the loop filter and
-  the borders, one launch over the G planes), or, when no GOP's limit is
-  above 0, the borders alone.
+  the chooser, which keeps each block's cheapest row) -> kernel KS's skip
+  entry (the R/D skip test against the uncoded copy and the new carried
+  plane, with its borders when no GOP's limit is above 0; over a frag
+  group its decision form, the gather of every rank's blocks and coded
+  flags, then its place form) -> kernel KL (the loop filter and the
+  borders, one launch over the G planes) where a GOP's limit is above 0.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -43,10 +45,7 @@ from torch.profiler import record_function
 
 from theora_tpu_torch import transfer
 from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-    qrd_cuda, trellis_cuda
-from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
-    mc_predict
-from theora_tpu_torch.pipeline import fill_borders
+    mc_cuda, qrd_cuda, trellis_cuda
 
 
 def plane_blocks(planes: torch.Tensor, nv: int, nh: int) -> torch.Tensor:
@@ -103,23 +102,25 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     K = deq.shape[2]
     n = nv * nh
     fr = frag_group
-    h, w = nv * 8, nh * 8
-    hp, wp = h + 2 * pad_y, w + 2 * pad_x
-    grid = block_index_grid(nv, nh, pad_y, pad_x, wp, dev, G, hp)
+    hp, wp = nv * 8 + 2 * pad_y, nh * 8 + 2 * pad_x
     # Per frame step the G GOPs' blocks in one row of N: [F, N, 64].
     cur = cur_planes.reshape(G, F, nv, 8, nh, 8).permute(
         0, 1, 2, 4, 3, 5).reshape(G, F, n, 64)
-    nl = n
+    nl, fid = n, None
     if fr is not None:
-        # This rank's fragments of every GOP: the MC grid, the uncoded
-        # copy (through the grid) and cur, taken by fragment index.
+        # This rank's fragments of every GOP: KS's MC and skip entries
+        # take them by fragment id, cur by index.
         nl, idx, _ = fr.shard(n)
-        idx = transfer.upload(idx, dev)
-        grid = grid.view(G, n, 8, 8)[:, idx].reshape(G * nl, 8, 8)
-        cur = cur[:, :, idx]
+        fid = transfer.upload(idx.astype(np.int32), dev)
+        cur = cur[:, :, fid.long()]
     N = G * nl
     cur = _frames_major(cur)
     frag = {k: _frames_major(v) for k, v in frag.items()}
+    # KS's side rows (ops/mc.py:SIDE_ROWS) of every frame step, [F, 6, N]
+    # int8, and K2's, KR's and K1's inter flags, [F, N] uint8.
+    side = torch.stack([frag[k] for k in ("rs", "o1y", "o1x", "o2y", "o2x",
+                                          "u2")], 1).to(torch.int8)
+    inter_all = (frag["rs"] != 0).to(torch.uint8)
     deq = deq.transpose(0, 1).contiguous()             # [F, G, K, 2, 64]
     sc_f = None if lam_sc is None else _frames_major(lam_sc)
     prev = torch.full((G, hp, wp), 0x80, dtype=torch.uint8, device=dev)
@@ -140,17 +141,12 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     # record_function labels group profiler time by codec stage
     # (tools/profile_encode.py).
     for f in range(F):
-        rs = frag["rs"][f]
         ik = bool(is_intra[f])
         sc = None if sc_f is None else sc_f[f]
+        inter = inter_all[f]
         with record_function("theora.enc.mc"):
-            pred = mc_predict(prev, gold, grid, rs, frag["o1y"][f],
-                              frag["o1x"][f], frag["o2y"][f],
-                              frag["o2x"][f], frag["u2"][f]).reshape(N, 64)
-            unc = prev.reshape(-1)[grid].reshape(N, 64)
-            curi = cur[f].to(torch.int32)
-            inter = (rs != 0).to(torch.uint8)
-            res = (curi - pred).to(torch.int16)
+            pred, res, ssd_unc = mc_cuda.mc_residual(
+                prev, gold, cur[f], side[f], nv, nh, pad_y, pad_x, fid)
         if use_trellis:
             with record_function("theora.enc.fdct_quant"):
                 qdct0, dct = fdct_cuda.fdct_quantize(res, deq[f], inter)
@@ -167,41 +163,33 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
                 q16, dc_only, cnt, deq[f], inter, pred, cur[f], lam_f, sc)
         if K > 1:
             qii_out[f] = qii
-        with record_function("theora.enc.skip"):
-            du = unc - curi
-            ssd_unc = (du * du).sum(dim=1, dtype=torch.int32)
-            lamterm = (lam_f[:, None] * (
-                6.0 * cnt.view(G, nl).to(torch.float32) + 2.0)).to(
-                    torch.int32).view(N)
-            coded = ~(frag["ms"][f]
-                      & (16 * ssd_unc <= 16 * ssd_rec + lamterm))
-            if ik:
-                coded = torch.ones_like(coded)
-            blocks = torch.where(coded[:, None], recon, unc)
-        coded_all = coded
-        if fr is not None:
+        # KL fills the borders of the planes it filters; KS those of the
+        # others.
+        filtered = bool(limit[:, f].any())
+        skip_args = (recon, q16, ssd_rec, ssd_unc, cnt, frag["ms"][f],
+                     lam_f, ik, qout[f], coded_out[f], nv, nh, pad_y, pad_x)
+        if fr is None:
+            with record_function("theora.enc.skip"):
+                plane = mc_cuda.skip_place(prev, *skip_args,
+                                           borders=not filtered)
+            coded_all = coded_out[f]
+        else:
+            with record_function("theora.enc.skip"):
+                mine = mc_cuda.skip_rows(prev, *skip_args, fid=fid)
             with record_function("theora.enc.frag_gather"):
                 # One gather of every rank's blocks and coded flags,
                 # [Fr, G * nl, 65] -> [G * n, 65].
-                mine = torch.cat((blocks, coded[:, None].to(torch.uint8)), 1)
                 both = fr.whole(fr.all_gather(mine, "step").view(
                     fr.size, G, nl, 65), n, 1).reshape(G * n, 65)
-                blocks, coded_all = both[:, :64], both[:, 64].bool()
-        with record_function("theora.enc.skip"):
-            plane = blocks_to_plane(blocks.reshape(G * n, 8, 8), nv, nh,
-                                    pad_y, pad_x, planes=G)
-        # KL fills the borders of the planes it filters.
-        filtered = bool(limit[:, f].any())
+            with record_function("theora.enc.borders"):
+                plane, coded_all = mc_cuda.place_rows(
+                    both.contiguous(), G, nv, nh, pad_y, pad_x,
+                    borders=not filtered)
         if filtered:
             with record_function("theora.enc.loopfilter"):
                 plane = loopfilter_cuda.loop_filter_plane(
-                    plane, coded_all.reshape(G, nv, nh), lim_dev[f], nv, nh,
+                    plane, coded_all.view(G, nv, nh), lim_dev[f], nv, nh,
                     pad_y, pad_x)
-        with record_function("theora.enc.borders"):
-            if not filtered:
-                fill_borders(plane, h, w, pad_y, pad_x)
-            qout[f] = torch.where(coded[:, None], q16, 0)
-            coded_out[f] = coded
         if ik:
             gold = plane
         prev = plane

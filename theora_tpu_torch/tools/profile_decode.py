@@ -7,12 +7,15 @@ the stream once to warm up, then R more times: untraced passes timed on
 the host clock (wall, host parse, device spans from CUDA events), and one
 pass under torch.profiler, which reports device time per codec stage
 (the record_function labels in decode/batch.py), per kernel, the
-launches of K1 and of the loop filter KL, and the device's busy and idle
-share of the traced pass. Then one speed-of-light line per hand kernel
-the decode ran (K1's decode entry; KL where a frame's qi is below 47):
-its kernels' device time in the traced pass beside the bound of the same
-calls (tools/bench_idct.py, bench_loopfilter.py), which one more,
-untraced pass records (profile_encode.py:stage_bounds). Needs a CUDA
+launches of K1, of the loop filter KL and of KS's decode entry (MC and
+reconstruction, and the borders of the frames KL does not filter) with
+the PyTorch kernels of the theora.mc_recon and theora.borders scopes per
+plane per frame, and the device's busy and idle share of the traced
+pass. Then one speed-of-light line per hand kernel the decode ran (K1's
+decode entry; KL where a frame's qi is below 47; KS's decode entry): its
+kernels' device time in the traced pass beside the bound of the same
+calls (tools/bench_idct.py, bench_loopfilter.py, bench_mc.py), which one
+more, untraced pass records (profile_encode.py:stage_bounds). Needs a CUDA
 card. Prints one JSON summary as its last line.
 """
 from __future__ import annotations
@@ -67,9 +70,9 @@ def main(argv=None) -> int:
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
     from theora_tpu_torch.ogg import demux_stream
-    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda
-    from theora_tpu_torch.tools.profile_encode import speed_of_light, \
-        stage_bounds
+    from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda
+    from theora_tpu_torch.tools.profile_encode import _stage_kernels, \
+        speed_of_light, stage_bounds
 
     with open(args.input, "rb") as f:
         pkts = demux_stream(f.read())
@@ -98,7 +101,8 @@ def main(argv=None) -> int:
               f" s, device spans {spans:.4f} s", flush=True)
 
     wrappers = {"K1": idct_cuda.dequantize_idct_frames,
-                "KL": loopfilter_cuda.loop_filter_plane}
+                "KL": loopfilter_cuda.loop_filter_plane,
+                "KS": mc_cuda.mc_recon}
     before = {k: w.launches for k, w in wrappers.items()}
     dec = BatchDecoder(info, setup)
     torch.cuda.synchronize()
@@ -109,6 +113,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     stages, kernels = _split(prof.events())
+    stage_kernels = _stage_kernels(prof.events())
     lib_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
     sol = speed_of_light(kernels, stage_bounds(
         lambda: BatchDecoder(info, setup).decode_clip(data, batch=BATCH)))
@@ -117,16 +122,23 @@ def main(argv=None) -> int:
     busy = sum(k[1] for k in kernels)
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device", flush=True)
-    # K1 and KL are launched from their own libraries, outside any PyTorch
-    # op, so the profiler does not attribute them to their scopes; list
-    # them by name, and their launches by their wrappers' counts.
+    # K1, KL and KS are launched from their own libraries, outside any
+    # PyTorch op, so the profiler does not attribute them to their scopes;
+    # list them by name, and their launches by their wrappers' counts.
     print(f"[launches] kernel libraries in the traced pass: {lib_launches}",
           flush=True)
+    nf = len(data)
+    mc_torch = sum(stage_kernels.get(k, 0)
+                   for k in ("theora.mc_recon", "theora.borders"))
+    print(f"[launches] theora.mc_recon + theora.borders: {mc_torch} PyTorch "
+          f"kernels + {lib_launches['KS']} KS launches = "
+          f"{(mc_torch + lib_launches['KS']) / (3 * nf):.2f} per plane per "
+          f"frame", flush=True)
     shown = kernels[:15] + [k for k in kernels[15:]
-                            if "dequant_idct" in k[0] or "loop_filter" in k[0]]
+                            if any(w in k[0] for w in (
+                                "dequant_idct", "loop_filter", "mc_recon"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
-    nf = len(data)
     mid = sorted(r["wall_s"] for r in runs)[len(runs) // 2]
     summary = {
         "card": smi, "frames": nf, "batch": BATCH,
@@ -138,6 +150,8 @@ def main(argv=None) -> int:
         "traced_idle_share": 1.0 - busy / traced_wall,
         "stages_device_s": stages,
         "library_launches": lib_launches,
+        "mc_borders_launches_per_plane_frame":
+            (mc_torch + lib_launches["KS"]) / (3 * nf),
         "speed_of_light": sol,
     }
     print(json.dumps(summary), flush=True)

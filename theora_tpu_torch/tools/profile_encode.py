@@ -16,15 +16,16 @@ waits for the device's copies, device spans from CUDA events), and one
 pass under torch.profiler, which reports device time per codec stage
 (the record_function labels in encode/gop.py and encode/scan.py) with
 the PyTorch kernels each launches, per kernel, the launches of the
-kernel libraries (K1 at both entries, K2, KT, KR, KM, KL) and of K1 in
-the theora.enc.idct_recon scope, and the device's busy and idle share of
-the traced pass. Then one speed-of-light line per hand-kernel stage (KM,
-K2, KT, KR's fused entry, K1's two entries, the loop filter KL, which
-runs where a frame's qi is below 47): its kernels' device time in the
+kernel libraries (K1 at both entries, K2, KT, KR, KM, KL, KS) and of K1
+in the theora.enc.idct_recon scope and KS in the MC, skip and borders
+scopes, and the device's busy and idle share of the traced pass. Then
+one speed-of-light line per hand-kernel stage (KM, K2, KT, KR's fused
+entry, K1's two entries, the loop filter KL, which runs where a frame's
+qi is below 47, KS's three entries): its kernels' device time in the
 traced pass beside the bound of the same calls (tools/bench_me.py,
 bench_fdct.py, bench_trellis.py, bench_qrd.py, bench_idct.py,
-bench_loopfilter.py), which one more, untraced pass records at the run's
-shapes and data. With --save-ogv PATH the last timed pass's packets are
+bench_loopfilter.py, bench_mc.py), which one more, untraced pass
+records at the run's shapes and data. With --save-ogv PATH the last timed pass's packets are
 written to PATH as an Ogg stream (profile_decode.py reads it). With
 --transcode the pass is instead the device-resident transcode
 (encode/gop.py:transcode_device) of the first N data packets of
@@ -92,11 +93,18 @@ def device_launches(events) -> tuple[int, float]:
 
 def _stage_kernels(events) -> dict:
     """{stage: device kernels launched by the PyTorch ops inside its
-    record_function ranges} from the profiler's events."""
+    record_function ranges} from the profiler's events. A CUDA runtime
+    call right under a range is a kernel library's launch (a PyTorch op
+    launches under its own event), which its wrapper counts; it is left
+    out, with whatever kernels the profiler ties to it (it has tied other
+    ops' kernels to such a launch)."""
     from torch.autograd import DeviceType
 
     def count(e):
-        return len(e.kernels) + sum(count(c) for c in e.cpu_children)
+        return len(e.kernels) + sum(
+            count(c) for c in e.cpu_children
+            if not (e.name.startswith("theora.")
+                    and c.name.startswith("cuda")))
 
     out = {}
     for e in events:
@@ -109,9 +117,9 @@ def _kernel_stages() -> list:
     """(stage, wrapper module, wrapper name, device kernel names, bound of
     one call's arguments) for each hand kernel an encode may launch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
     from theora_tpu_torch.tools import bench_fdct, bench_idct, \
-        bench_loopfilter, bench_me, bench_qrd, bench_trellis
+        bench_loopfilter, bench_mc, bench_me, bench_qrd, bench_trellis
 
     return [
         ("ME plan (KM)", me_cuda, "plan_with_gold",
@@ -131,6 +139,13 @@ def _kernel_stages() -> list:
          lambda a: bench_idct.k1_bound("decode", a)),
         ("loop filter (KL)", loopfilter_cuda, "loop_filter_plane",
          ("loop_filter_kernel",), bench_loopfilter.kl_bound),
+        ("MC + residual (KS mc_residual)", mc_cuda, "mc_residual",
+         ("mc_residual_kernel",),
+         lambda a: bench_mc.ks_bound("mc_residual", a)),
+        ("skip test + plane (KS skip_place)", mc_cuda, "skip_place",
+         ("skip_kernel",), lambda a: bench_mc.ks_bound("skip_place", a)),
+        ("MC + recon (KS mc_recon)", mc_cuda, "mc_recon",
+         ("mc_recon_kernel",), lambda a: bench_mc.ks_bound("mc_recon", a)),
     ]
 
 
@@ -311,7 +326,7 @@ def main(argv=None) -> int:
         print(f"[save] {len(pkts)} packets -> {args.save_ogv}", flush=True)
 
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 
     # K1 counts both entries; the encode launches its encode entry. KR is
     # its fused entry, the one the encode runs.
@@ -321,7 +336,8 @@ def main(argv=None) -> int:
                 "KT": (trellis_cuda.trellis_quantize,),
                 "KR": (qrd_cuda.fdct_quantize_rd,),
                 "KM": (me_cuda.plan_with_gold,),
-                "KL": (loopfilter_cuda.loop_filter_plane,)}
+                "KL": (loopfilter_cuda.loop_filter_plane,),
+                "KS": mc_cuda.ENTRIES}
 
     def lib_counts():
         return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -338,7 +354,7 @@ def main(argv=None) -> int:
     for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"[stage] {name}: {sec:.6f} s device, "
               f"{stage_kernels.get(name, 0)} PyTorch kernels", flush=True)
-    # K1, K2, KT, KR, KM and KL are launched from their own libraries,
+    # K1, K2, KT, KR, KM, KL and KS are launched from their own libraries,
     # outside any PyTorch op, so the profiler does not attribute them to
     # their scopes; list them by name, and their launches by their
     # wrappers' counts.
@@ -352,10 +368,17 @@ def main(argv=None) -> int:
     print(f"[launches] theora.enc.loopfilter: "
           f"{stage_kernels.get('theora.enc.loopfilter', 0)} PyTorch kernels "
           f"+ {lib_launches['KL']} KL launches", flush=True)
+    ks_scopes = ("theora.enc.mc", "theora.enc.skip", "theora.enc.borders")
+    ks_torch = sum(stage_kernels.get(k, 0) for k in ks_scopes)
+    print(f"[launches] {' + '.join(ks_scopes)}: {ks_torch} PyTorch kernels "
+          f"+ {lib_launches['KS']} KS launches = "
+          f"{(ks_torch + lib_launches['KS']) / (3 * len(frames)):.2f} per "
+          f"plane per frame", flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis",
-                                             "qrd", "me_", "loop_filter"))]
+                                             "qrd", "me_", "loop_filter",
+                                             "mc_re", "skip_kernel"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
