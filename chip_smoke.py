@@ -8,7 +8,8 @@ and prints no result line):
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM,
    KL and KS (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
-   csrc/fdct_core.cuh, K2's block core) and the byte-SIMD rate
+   csrc/fdct_core.cuh, K2's block core; K1, K2, KR and KS include
+   csrc/mc_core.cuh, KS's row core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
    in parallel;
 3. K1 against its plain PyTorch versions on the card, exact equality. The
@@ -140,15 +141,29 @@ and prints no result line):
    lambdas one float32 ulp from an integer product, key and inter steps,
    unfiltered (borders) and filtered (zero padding) steps, and the split
    form over 2 ranks against skip_place; one launch per call, the inputs
-   left as they were. CUDA-event times of each entry at the 720p luma and
-   4:2:0 chroma shapes beside its bound (bench_mc.ks_bound), the plain
-   chain, a device copy moving the same bytes and an empty kernel's
-   launch. Every path below counts KS's launches: mc_residual and
-   skip_place once each per plane per frame step of an encode (so equal
-   to K1's encode entry), mc_residual, skip_rows and place_rows on a
-   frag group's ranks, mc_recon once per plane per decoded frame (the
-   decodes, the transcode's decode, the per-packet decoder, the host
-   Encoder's closed loop), none on the intra paths;
+   left as they were. Then KS fused into the encode scan's kernels
+   (bench_mc.check_fused): K2's entry with KS's MC as its head
+   (fdct_cuda.mc_fdct_quantize), KR's (qrd_cuda.mc_fdct_quantize_rd) and
+   K1's entry with KS's MC, skip test and plane assembly around the
+   chooser (idct_cuda.mc_idct_recon_skip), each against its plain chain
+   (mc_residual, then K2 / KR / K1 and skip_place or skip_rows, as plain
+   versions) and its kernel chain, every output byte for byte (the plane
+   and its padding, or the rows; qout, coded, qii), on
+   bench_mc.fused_cases: the same planes, G = 1, 3 with prev and gold one
+   buffer, and a frag group's share, K = 1, 2 and 3, the trellis and the
+   R/D path, key and inter steps, borders on and off, engineered blocks
+   whose skip test ties at lambda 8 and turns on one float32 ulp of it.
+   CUDA-event times of each entry at the 720p luma and 4:2:0 chroma
+   shapes beside its bound (bench_mc.ks_bound), the plain chain, a device
+   copy moving the same bytes and an empty kernel's launch; the fused
+   entries in turns with the chains they replaced (bench_mc.timed_fused,
+   beside bench_mc.fused_bound). Every path below counts KS's launches:
+   none of its own on an encode without a frag group (its work runs in
+   the fused entries, which count once per plane per frame step), its
+   place entry once per plane per frame step on a frag group's ranks,
+   mc_recon once per plane per decoded frame (the decodes, the
+   transcode's decode, the per-packet decoder, the host Encoder's closed
+   loop), none on the intra paths;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -227,10 +242,10 @@ and prints no result line):
    "auto" against hd720_q56_k8_aq_enc.sha256 and at q48 speed 2 against
    hd720_q48_k8_sp2_enc.sha256, and at {2, 1} (one GOP per rank) at q48
    "off" against hd720_q48_k8_enc.sha256: every packet on every rank;
-   per rank the launches of a warm pass (K1's encode entry, K2, KT, KR,
-   KM and KS's entries, exact and above 0 where the path runs them: at
-   {1, 2} KS's mc_residual, skip_rows and place_rows, at {2, 1} its
-   mc_residual and skip_place, once per plane per frame step), the walls,
+   per rank the launches of a warm pass (K1's, K2's and KR's fused
+   entries, KT, KM and KS's entries, exact and above 0 where the path
+   runs them: at {1, 2} KS's place_rows once per plane per frame step, at
+   {2, 1} none of KS's), the walls,
    the
    gather's time per plane per frame step and its route (pinned host
    buffers: gloo takes no card tensors), and its transport alone on one
@@ -272,7 +287,7 @@ and prints no result line):
    on the 64x48 clip against its lines of host64x48_enc.
 
 Then one JSON line listing the seven kernels (times and bounds, K1's at
-both entries, KS's at its three; launches on the 720p decode, each 720p
+both entries, KS's at its three and in the fused entries; launches on the 720p decode, each 720p
 encode path, the transcode, the per-packet decode, the mesh, the mesh
 over ranks (per path and per rank) and the host Encoder's paths, KL's
 and KS's also on the golden decodes and the 2-pass packets' decode, KL's
@@ -1396,45 +1411,66 @@ def ks_vs_plain(device) -> dict:
     borders, ops/mc_cuda.py) against its plain versions (ops/mc.py) on the
     card, every output byte for byte with the planes' padding, one launch
     per call and the inputs untouched, on tools/bench_mc.py:cases and the
-    split form (bench_mc.check); CUDA-event times of each entry at the
-    720p luma and 4:2:0 chroma shapes beside the bound (bench_mc.
-    ks_bound), the plain chain, a device copy moving the same bytes and
-    an empty kernel's launch (bench_mc.timed_entries). The kernel line's
-    times are one encode frame step of the 720p luma plane: mc_residual
-    and skip_place."""
-    from theora_tpu_torch.ops import mc_cuda
+    split form (bench_mc.check); KS fused into K2's, KR's and K1's encode
+    entries against their plain and kernel chains (bench_mc.check_fused);
+    CUDA-event times of each entry at the 720p luma and 4:2:0 chroma
+    shapes beside the bound (bench_mc.ks_bound), the plain chain, a device
+    copy moving the same bytes and an empty kernel's launch
+    (bench_mc.timed_entries), and of the fused entries in turns with the
+    chains they replaced (bench_mc.timed_fused). The kernel line's times
+    are KS's one launch of its own on the main path, mc_recon on a 720p
+    luma decode step; "fused" holds the encode step's entries."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, mc_cuda, \
+        qrd_cuda
     from theora_tpu_torch.tools import bench_mc as bm
 
-    for line in bm.ptxas(mc_cuda._SO):
-        log(f"[ks] ptxas: {line}")
+    for so in (mc_cuda._SO, fdct_cuda._SO, qrd_cuda._SO, idct_cuda._SO):
+        for line in bm.ptxas(so):
+            log(f"[ks] ptxas {os.path.basename(so)}: {line}")
     n, err = bm.check(device)
     log(f"[ks] {n} calls of mc_residual, skip_place, skip_rows, place_rows "
         f"and mc_recon: kernel == plain byte for byte (every output, the "
         f"planes' padding), one launch each, inputs untouched; max |err| "
         f"{err} (tolerance 0: exact)")
+    nf, errf = bm.check_fused(device)
+    log(f"[ks] {nf} fused cases: mc_fdct_quantize, mc_fdct_quantize_rd and "
+        f"mc_idct_recon_skip == their plain and kernel chains byte for byte "
+        f"(the plane and its padding or the rows, qout, coded, qii), one "
+        f"launch each, inputs untouched; the engineered blocks skip at "
+        f"lambda 8 and one ulp above, are coded one ulp below; max |err| "
+        f"{errf} (tolerance 0: exact)")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     rows = bm.timed_entries(device, flush)
     for label, r in rows.items():
         log(f"[ks] time, {bm.describe(label, r)}; no single PyTorch call "
             f"computes it (library_ms null)")
-    step = [rows[f"{e}, {bm.HD_PLANES[0][0]} (14400 blocks)"]
-            for e in ("mc_residual", "skip_place")]
+    fused = bm.timed_fused(device, flush)
+    for label, r in fused.items():
+        log(f"[ks] time, {bm.describe_fused(label, r)}; no single PyTorch "
+            f"call computes it (library_ms null)")
+    dec = rows[f"mc_recon, {bm.HD_PLANES[0][0]} (14400 blocks)"]
     return {
         "name": "mc_skip_place", "route": "cuda",
         "source": "theora_tpu_torch/csrc/mc.cu",
+        "also_sources": ["theora_tpu_torch/csrc/mc_core.cuh"],
         "replaces": "theora_tpu/encode/tpu_gop.py:182",
         "also_replaces": ["theora_tpu/encode/tpu_gop.py:286",
                           "theora_tpu/decode/tpu_batch.py:114"],
-        "launches": None, "max_abs_err": err,
-        "ms": sum(r["ms"] for r in step),
-        "plain_ms": sum(r["plain_ms"] for r in step),
-        "bound_ms": sum(r["bound_ms"] for r in step), "bound_by": "bytes",
+        "launches": None, "max_abs_err": max(err, errf),
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None,
-        "timed": "720p luma plane, one encode frame step: mc_residual and "
-                 "skip_place (two launches)",
+        "timed": "720p luma plane, one decode frame step: mc_recon, KS's "
+                 "one launch of its own on the main path; on an encode "
+                 "step KS runs inside K2's, KR's and K1's fused entries "
+                 "(fused)",
         "entries": {label: {k: r[k] for k in (
             "ms", "ms_runs", "plain_ms", "copy_ms", "floor_ms", "bound_ms",
             "bound_by", "bytes")} for label, r in rows.items()},
+        "fused": {label: {k: r[k] for k in (
+            "ms", "ms_runs", "chain_ms", "chain_ms_runs", "plain_ms",
+            "floor_ms", "bound_ms", "bound_by", "bytes")}
+            for label, r in fused.items()},
     }
 
 
@@ -1444,10 +1480,11 @@ def _reset_counts() -> None:
 
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
-              fdct_cuda.fdct_quantize, trellis_cuda.trellis_quantize,
-              qrd_cuda.fdct_quantize_rd, qrd_cuda.quantize_rd,
-              me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane,
-              *mc_cuda.ENTRIES):
+              idct_cuda.mc_idct_recon_skip, fdct_cuda.fdct_quantize,
+              fdct_cuda.mc_fdct_quantize, trellis_cuda.trellis_quantize,
+              qrd_cuda.fdct_quantize_rd, qrd_cuda.mc_fdct_quantize_rd,
+              qrd_cuda.quantize_rd, me_cuda.plan_with_gold,
+              loopfilter_cuda.loop_filter_plane, *mc_cuda.ENTRIES):
         w.launches = 0
 
 
@@ -1458,17 +1495,15 @@ def _ks_counts() -> dict:
     return {w.__name__: w.launches for w in mc_cuda.ENTRIES}
 
 
-def _ks_encode(what: str, steps: int) -> int:
-    """KS on an encode path since _reset_counts: mc_residual and
-    skip_place once each per plane per frame step (steps: K1's encode
-    entry's launches), no split form, no decode entry. Returns their
-    sum."""
+def _ks_encode(what: str) -> int:
+    """KS on an encode path without a frag group since _reset_counts: no
+    launch of its own (its MC, skip test and plane assembly run inside
+    K2's or KR's and K1's fused entries), no decode entry. Returns 0."""
     c = _ks_counts()
-    want = {"mc_residual": steps, "skip_place": steps, "skip_rows": 0,
-            "place_rows": 0, "mc_recon": 0}
-    if c != want:
-        raise AssertionError(f"{what}: KS launches {c}; expected {want}")
-    return 2 * steps
+    if any(c.values()):
+        raise AssertionError(f"{what}: KS launches {c}; expected none (an "
+                             f"encode step launches no KS kernel)")
+    return 0
 
 
 def _ks_decode_only(what: str, want: int) -> int:
@@ -1482,22 +1517,39 @@ def _ks_decode_only(what: str, want: int) -> int:
     return want
 
 
-def _read_counts(what: str, want: tuple, kl: int = 0) -> tuple:
-    """(K1's encode entry, K2, KT, KR's fused entry, KM, KL, KS) launches
-    since _reset_counts; the first five must equal want and KL's kl (one
-    per plane per frame step whose limit is above 0: none at q >= 47),
-    KS's mc_residual and skip_place K1's encode entry's each
-    (_ks_encode), and neither K1's decode entry nor KR's standalone entry
-    must have run. KM launches three times per ME plan: one plan per
-    chunk of encode_clip, per GOP of a 2-pass encode's pass 2, per mesh
-    batch."""
+# The fused entries' launches (K1's, K2's and KR's, KS's work inside them)
+# per encode path, as _read_counts reads them.
+KS_FUSED = {}
+
+
+def _read_counts(what: str, want: tuple, kl: int = 0,
+                 fused: bool = True) -> tuple:
+    """(K1's encode entry, K2, KT, KR, KM, KL, KS) launches since
+    _reset_counts; the first five must equal want and KL's kl (one per
+    plane per frame step whose limit is above 0: none at q >= 47). With
+    fused (the encode scan's paths), K1's, K2's and KR's entries are the
+    fused ones (idct_cuda.mc_idct_recon_skip, fdct_cuda.mc_fdct_quantize,
+    qrd_cuda.mc_fdct_quantize_rd), their standalone entries must not have
+    run, and KS must have launched nothing of its own (_ks_encode);
+    without (the batch intra encoder), the standalone entries and no fused
+    one. Neither K1's decode entry nor KR's standalone entry may have run.
+    KM launches three times per ME plan: one plan per chunk of
+    encode_clip, per GOP of a 2-pass encode's pass 2, per mesh batch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
         me_cuda, qrd_cuda, trellis_cuda
 
-    counts = (idct_cuda.idct_recon_choose.launches,
-              fdct_cuda.fdct_quantize.launches,
-              trellis_cuda.trellis_quantize.launches,
-              qrd_cuda.fdct_quantize_rd.launches,
+    entries = ((idct_cuda.mc_idct_recon_skip, idct_cuda.idct_recon_choose),
+               (fdct_cuda.mc_fdct_quantize, fdct_cuda.fdct_quantize),
+               (qrd_cuda.mc_fdct_quantize_rd, qrd_cuda.fdct_quantize_rd))
+    used = [e[0] if fused else e[1] for e in entries]
+    unused = {w.__name__: w.launches for e in entries
+              for w in (e[1] if fused else e[0],) if w.launches}
+    if unused:
+        raise AssertionError(f"{what}: launches of {unused}; expected "
+                             f"{'the fused' if fused else 'the standalone'}"
+                             f" entries alone")
+    counts = (used[0].launches, used[1].launches,
+              trellis_cuda.trellis_quantize.launches, used[2].launches,
               me_cuda.plan_with_gold.launches,
               loopfilter_cuda.loop_filter_plane.launches)
     if counts != tuple(want) + (kl,):
@@ -1510,7 +1562,10 @@ def _read_counts(what: str, want: tuple, kl: int = 0) -> tuple:
     if qrd_cuda.quantize_rd.launches:
         raise AssertionError(f"{what}: the encode launched KR's standalone "
                              f"entry")
-    return counts + (_ks_encode(what, counts[0]),)
+    if not fused:
+        return counts + (_ks_decode_only(what, 0),)
+    KS_FUSED[what] = counts[0] + counts[1] + counts[3]
+    return counts + (_ks_encode(what),)
 
 
 def real_size_encode(smi: str, name: str, qi: int, adaptive_quant,
@@ -1711,10 +1766,13 @@ def _counts_all() -> dict:
         mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 
     return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
-            "K1 encode": idct_cuda.idct_recon_choose.launches,
-            "K2": fdct_cuda.fdct_quantize.launches,
+            "K1 encode": (idct_cuda.idct_recon_choose.launches
+                          + idct_cuda.mc_idct_recon_skip.launches),
+            "K2": (fdct_cuda.fdct_quantize.launches
+                   + fdct_cuda.mc_fdct_quantize.launches),
             "KT": trellis_cuda.trellis_quantize.launches,
             "KR": (qrd_cuda.fdct_quantize_rd.launches
+                   + qrd_cuda.mc_fdct_quantize_rd.launches
                    + qrd_cuda.quantize_rd.launches),
             "KM": me_cuda.plan_with_gold.launches,
             "KL": loopfilter_cuda.loop_filter_plane.launches,
@@ -1754,14 +1812,19 @@ def transcode_720p(smi: str) -> dict:
     batches = -(-nf // mk.HD_TC_KF)
     want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
             "KT": 3 * nf, "KR": 0, "KM": 3 * batches, "KL": 0,
-            "KS": 9 * nf}
+            "KS": 3 * nf}
     if counts != want:
         raise AssertionError(f"transcode launches {counts}; expected {want}")
-    # KS: the decode's entry once per plane per frame, the encode's two.
-    ks = _ks_counts()
-    if ks != {"mc_residual": 3 * nf, "skip_place": 3 * nf, "skip_rows": 0,
-              "place_rows": 0, "mc_recon": 3 * nf}:
-        raise AssertionError(f"transcode KS launches {ks}")
+    # KS: the decode's entry once per plane per frame; on the encode side
+    # it runs inside the fused entries, whose launches these are.
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda
+
+    _ks_decode_only("transcode", 3 * nf)
+    if (idct_cuda.mc_idct_recon_skip.launches,
+            fdct_cuda.mc_fdct_quantize.launches) != (3 * nf, 3 * nf):
+        raise AssertionError("transcode: the encode ran standalone K1 or "
+                             "K2 entries")
+    KS_FUSED["transcode"] = 6 * nf
     frame_bytes = 1280 * 720 * 3 // 2
     if max(copies) >= frame_bytes:
         raise AssertionError(f"transcode: a device->host copy of "
@@ -2018,8 +2081,8 @@ def mesh_720p(smi: str) -> tuple:
     log(f"[mesh720p] q56 auto, 16 frames, keyframe every 8, gop axis 2: "
         f"all {n} packet SHA-256 equal the JAX encoder's list; warm pass "
         f"{wall:.4f} s; launches K1, K2, KT, KR, KM, KL, KS {counts} (one "
-        f"per plane per frame step of the 2 GOPs, KS two; KM 3 for the one "
-        f"plan) | {smi}")
+        f"per plane per frame step of the 2 GOPs, KS none of its own; KM 3 "
+        f"for the one plan) | {smi}")
     info48 = TheoraInfo(frame_width=1280, frame_height=720, pic_width=1280,
                         pic_height=720, quality=mk.HD_QI)
     enc = MeshGopEncoder(make_mesh(2), info48, qi=mk.HD_QI)
@@ -2116,11 +2179,12 @@ from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
     mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 from theora_tpu_torch.parallel.gop import MeshGopEncoder, \
     encode_clip_mesh, make_mesh
-WRAPPERS = (idct_cuda.idct_recon_choose, fdct_cuda.fdct_quantize,
-            trellis_cuda.trellis_quantize, qrd_cuda.fdct_quantize_rd,
+WRAPPERS = (idct_cuda.mc_idct_recon_skip, fdct_cuda.mc_fdct_quantize,
+            trellis_cuda.trellis_quantize, qrd_cuda.mc_fdct_quantize_rd,
             me_cuda.plan_with_gold, loopfilter_cuda.loop_filter_plane,
             idct_cuda.dequantize_idct_frames, qrd_cuda.quantize_rd,
-            *mc_cuda.ENTRIES)
+            *mc_cuda.ENTRIES, idct_cuda.idct_recon_choose,
+            fdct_cuda.fdct_quantize, qrd_cuda.fdct_quantize_rd)
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=world, rank=rank)
 frames = mk.hd_frames()
@@ -2267,20 +2331,25 @@ def mesh_ranks_720p(smi: str) -> dict:
                                      f"differ")
             counts = tuple(c["counts"][:6])
             # KS (mc_residual, skip_place, skip_rows, place_rows,
-            # mc_recon): over a frag group the split form, else the fused
-            # skip entry, once per plane per frame step each.
+            # mc_recon): over a frag group its place entry after the
+            # gather, once per plane per frame step; else nothing of its
+            # own (its work runs in K1's, K2's and KR's fused entries,
+            # the first, second and fourth counts). The standalone K1,
+            # K2 and KR entries (the last three) never.
             steps = counts[0]
             frag = c["shape"]["frag"] > 1
-            ks_want = [steps, 0 if frag else steps, steps if frag else 0,
-                       steps if frag else 0, 0]
+            ks_want = [0, 0, 0, steps if frag else 0, 0]
             if counts != want[name] or any(c["counts"][6:8]) or \
-                    c["counts"][8:] != ks_want:
+                    c["counts"][8:13] != ks_want or any(c["counts"][13:]):
                 raise AssertionError(
-                    f"{name} rank {r}: launches K1 (encode entry), K2, KT, "
-                    f"KR, KM, KL, K1 decode, KR standalone, KS entries "
-                    f"{c['counts']}; expected {want[name]}, 0, 0 and KS "
-                    f"{ks_want}")
+                    f"{name} rank {r}: launches K1 (fused encode entry), K2 "
+                    f"(fused), KT, KR (fused), KM, KL, K1 decode, KR "
+                    f"standalone, KS entries, K1, K2 and KR standalone "
+                    f"{c['counts']}; expected {want[name]}, 0, 0, KS "
+                    f"{ks_want} and 0, 0, 0")
             counts += (sum(ks_want),)
+            KS_FUSED[f"{name} rank {r}"] = (counts[0] + counts[1]
+                                            + counts[3])
             step = c["frag"].get("step", [0, 0.0, 0])
             chunk = c["frag"].get("chunk", [0, 0.0, 0])
             exch = c["everyone"].get("exchange", [0, 0.0, 0])
@@ -2529,7 +2598,7 @@ def intra_encode_720p(smi: str) -> tuple:
     t0 = time.perf_counter()
     pkts = enc.encode(frames)
     wall = time.perf_counter() - t0
-    counts = _read_counts("intra 720p", (0, 3, 0, 0, 0))
+    counts = _read_counts("intra 720p", (0, 3, 0, 0, 0), fused=False)
     n = _check_hashes(hdr + pkts, name, "warm pass")
     triple = sum(bool(p.data[1] & 0x80) for p in pkts)
     if triple:
@@ -2932,11 +3001,18 @@ def main() -> int:
                 "mesh 64x48 CBR gop axis 4": kl_mesh_small}
     kl["launches"] = paths["encode 2-pass 2 Mbit/s"][5] + sum(
         kl_extra.values())
-    # KS runs on every path that decodes or encodes inter frames: twice
-    # per plane per encode frame step, once per plane per decoded frame.
+    # KS launches on its own once per plane per decoded frame, and once
+    # per plane per frame step on a frag group's ranks (its place entry);
+    # on an encode step its work runs inside K1's, K2's and KR's fused
+    # entries, whose launches are listed by path too.
     ks_extra = {"golden decodes": ks_golden,
                 "decode of the 2-pass packets": ks_twopass_decode}
     ks["launches"] = decode["KS"] + sum(paths[p][6] for p in main_paths)
+    ks["launches_in_fused_entries_by_path"] = dict(KS_FUSED)
+    for k, entry in ((k1, "mc_idct_recon_skip"), (k2, "mc_fdct_quantize"),
+                     (kr, "mc_fdct_quantize_rd")):
+        k["fused_with_ks_ms"] = {label: r for label, r in ks["fused"].items()
+                                 if label.startswith(f"{entry},")}
     for i, (k, key) in enumerate(((k1, "K1 decode"), (k2, "K2"),
                                   (kt, "KT"), (kr, "KR"), (km, "KM"),
                                   (kl, "KL"), (ks, "KS"))):

@@ -142,6 +142,32 @@ where they differ):
 cut_frames() is not among them: its inverted frame codes smaller than
 the keyframe at every qi, so the retry never fires there.
 
+Two packet records hold the port's CPU tests to the JAX TpuGopEncoder
+without a JAX encode in the test run (PKT_RECORDS): one line per packet,
+"<case> <SHA-256> <granulepos> <packetno> <b_o_s> <e_o_s>" (flags 0 or
+1), the three headers first:
+
+- enc64x48_cases.pkts: tests/test_torch_encode.py's cases, ENC_CASES
+  (moving_frames() in pixel formats 0, 2 and 3 at q40 and
+  clip64x48_frames(8) at q32, a keyframe every 4), by TpuGopEncoder with
+  adaptive_quant False as an attribute, clip_batch=8;
+- aq_cases.pkts: tests/test_torch_adaptive.py's cases, AQ_CASES
+  (_jax_packets at adaptive_quant "auto" or True: the q56 triple on
+  moving frames, the 96x64 mixed clip at True, noise_frames() at q24,
+  smooth_frames() at q36, the 96x64 half-texture clip at q48), and that
+  half-texture case again as TpuGopEncoder(rd_strength=rd) with
+  delta_upload False at rd 3.0 and 1.5 (cases "rd3.0", "rd1.5").
+
+cli_cases.sha256 holds the JAX encoder CLI's output for the CLI tests of
+tests/test_torch_encode.py and tests/test_torch_adaptive.py, one line
+"<case> <SHA-256 of the .ogv>" per CLI_CASES case: `python -m
+theora_tpu.tools.enc --device FLAGS in.y4m out.ogv` on the case's frames
+cropped to a 60x44 picture (an edge-padded frame and a crop rectangle),
+written by theora_tpu_torch.tools.y4m.write_y4m as the tests write them:
+clip64x48_frames(8) and its first frame again at -q 36 -k 8 with
+adaptive quantization off (9 frames end on a one-frame chunk), and
+noise_frames(5) at the CLI's defaults.
+
 The 720p mesh is checked against the sequential lists (CHECKS): JAX's
 encode_clip_mesh of hd_frames() at q56 "auto", keyframe every 8, on
 make_mesh(2), and MeshGopEncoder(make_mesh(2)) at q48 with
@@ -254,6 +280,23 @@ def halftexture_frames():
     u0 = np.full((h // 2, w // 2), 90, np.uint8)
     v0 = np.full((h // 2, w // 2), 160, np.uint8)
     return [[np.roll(y0, f, 1), u0, v0] for f in range(MIXED_FRAMES)]
+
+
+def noise_frames(n: int):
+    """n 64x48 4:2:0 frames of uniform noise (seed 47): the noise gate."""
+    rng = np.random.default_rng(47)
+    return [[rng.integers(0, 256, s).astype(np.uint8)
+             for s in ((48, 64), (24, 32), (24, 32))] for _ in range(n)]
+
+
+def smooth_frames(n: int):
+    """n 64x48 4:2:0 frames of smooth ramps moving two pixels a frame:
+    no adaptive-quantization gate engages."""
+    yy, xx = np.indices((48, 64))
+    return [[((xx + 2 * f) * 2 + yy).astype(np.uint8),
+             np.full((24, 32), 100 + f, np.uint8),
+             ((np.indices((24, 32))[1] + f) * 3).astype(np.uint8)]
+            for f in range(n)]
 
 
 def clip64x48_frames(n: int = INTRA_FRAMES):
@@ -732,6 +775,143 @@ LISTS = {
 }
 
 
+# tests/test_torch_encode.py's cases: name -> (pixel format, qi,
+# keyframe_freq, frames), adaptive quantization off.
+ENC_CASES = {
+    **{f"fmt{fmt}": (fmt, SMALL_QI, SMALL_KF,
+                     lambda fmt=fmt: moving_frames(64, 48, fmt, SMALL_FRAMES,
+                                                   11 + fmt))
+       for fmt in SMALL_FORMATS},
+    "clip64x48": (0, 32, 4, lambda: clip64x48_frames(8)),
+}
+# tests/test_torch_adaptive.py's cases: name -> (frames, width, height,
+# qi, keyframe_freq, adaptive_quant).
+AQ_CASES = {
+    "auto_q56_moving": (lambda: moving_frames(64, 48, 0, 5, 51), 64, 48,
+                        56, 4, "auto"),
+    "true_q40_mixed": (mixed_frames, MIXED_W, MIXED_H, MIXED_QI,
+                       MIXED_FRAMES, True),
+    "auto_q24_noise": (lambda: noise_frames(5), 64, 48, 24, 4, "auto"),
+    "auto_q36_smooth": (lambda: smooth_frames(5), 64, 48, 36, 4, "auto"),
+    "auto_q48_halftexture": (halftexture_frames, MIXED_W, MIXED_H,
+                             HALFTEX_QI, MIXED_FRAMES, "auto"),
+}
+RD_STRENGTHS = (3.0, 1.5)
+
+
+def _enc_cases():
+    from theora_tpu.encode.tpu_gop import TpuGopEncoder
+    from theora_tpu.info import TheoraInfo
+
+    out = {}
+    for name, (fmt, qi, kf, frames) in ENC_CASES.items():
+        enc = TpuGopEncoder(TheoraInfo(
+            frame_width=64, frame_height=48, pic_width=64, pic_height=48,
+            quality=qi, pixel_fmt=fmt), qi=qi)
+        enc.adaptive_quant = False
+        out[name] = enc.encode_clip(frames(), keyframe_freq=kf,
+                                    clip_batch=8)
+    return out
+
+
+def _aq_cases():
+    from theora_tpu.encode.tpu_gop import TpuGopEncoder
+    from theora_tpu.info import TheoraInfo
+
+    out = {name: _jax_packets(frames(), w, h, 0, qi, kf,
+                              adaptive_quant=mode)
+           for name, (frames, w, h, qi, kf, mode) in AQ_CASES.items()}
+    frames, w, h, qi, kf, _ = AQ_CASES["auto_q48_halftexture"]
+    for rd in RD_STRENGTHS:
+        enc = TpuGopEncoder(TheoraInfo(frame_width=w, frame_height=h,
+                                       pic_width=w, pic_height=h,
+                                       quality=qi), qi=qi, rd_strength=rd)
+        enc.delta_upload = False
+        out[f"rd{rd}"] = enc.encode_clip(frames(), keyframe_freq=kf,
+                                         clip_batch=8)
+    return out
+
+
+def _write_records(name, cases):
+    """Write {case: packets} as the packet record `name`."""
+    lines = [f"{case} {hashlib.sha256(p.data).hexdigest()} {p.granulepos} "
+             f"{p.packetno} {int(p.b_o_s)} {int(p.e_o_s)}"
+             for case, pkts in cases.items() for p in pkts]
+    with open(os.path.join(HERE, name), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"{name}: {len(cases)} cases, {len(lines)} packets")
+
+
+def read_records(name: str) -> dict:
+    """A packet record as {case: [(SHA-256, granulepos, packetno, b_o_s,
+    e_o_s)]}, in order."""
+    out = {}
+    with open(os.path.join(HERE, name)) as f:
+        for line in f:
+            case, sha, gp, pno, bos, eos = line.split()
+            out.setdefault(case, []).append(
+                (sha, int(gp), int(pno), bos == "1", eos == "1"))
+    return out
+
+
+def record_of(pkts) -> list:
+    """The record lines' fields of a packet list, as read_records gives
+    them."""
+    return [(hashlib.sha256(p.data).hexdigest(), p.granulepos, p.packetno,
+             bool(p.b_o_s), bool(p.e_o_s)) for p in pkts]
+
+
+PKT_RECORDS = {"enc64x48_cases.pkts": _enc_cases,
+               "aq_cases.pkts": _aq_cases}
+
+
+def cropped60x44(frames):
+    """The frames cut to a 60x44 4:2:0 picture."""
+    return [[p[:44, :60] if i == 0 else p[:22, :30]
+             for i, p in enumerate(fr)] for fr in frames]
+
+
+# The CLI tests' cases: name -> (frames, the encoder CLI's flags after
+# --device).
+CLI_CASES = {
+    "clip60x44_q36_k8_aq_off": (
+        lambda: cropped60x44(clip64x48_frames(8) + clip64x48_frames(1)),
+        ["--adaptive-quant", "off", "-q", "36", "-k", "8"]),
+    "noise60x44_defaults": (lambda: cropped60x44(noise_frames(5)), []),
+}
+
+
+def _cli_hashes():
+    """{case: SHA-256 of the JAX CLI's .ogv} for CLI_CASES."""
+    import tempfile
+
+    from theora_tpu.tools import enc as jenc
+    from theora_tpu_torch.tools.y4m import write_y4m
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (frames, flags) in CLI_CASES.items():
+            y4m, ogv = (os.path.join(tmp, f"{name}.{e}")
+                        for e in ("y4m", "ogv"))
+            write_y4m(y4m, frames())
+            jenc.main(["--device", *flags, y4m, ogv])
+            with open(ogv, "rb") as f:
+                out[name] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _write_cli(name, hashes):
+    with open(os.path.join(HERE, name), "w") as f:
+        f.write("".join(f"{k} {v}\n" for k, v in hashes.items()))
+    print(f"{name}: {len(hashes)} cases")
+
+
+def read_cli(name: str = "cli_cases.sha256") -> dict:
+    """{case: SHA-256} of the JAX CLI's outputs."""
+    with open(os.path.join(HERE, name)) as f:
+        return dict(line.split() for line in f if line.strip())
+
+
 # Mesh list -> (its packets, the sequential list they are checked against).
 CHECKS = {
     "hd720_mesh_q56_k8_enc.sha256": (_mesh_hd720_q56,
@@ -754,9 +934,14 @@ def main(names=None) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    for name in names or [*LISTS, *CHECKS]:
+    for name in names or [*LISTS, *PKT_RECORDS, "cli_cases.sha256",
+                          *CHECKS]:
         t0 = time.perf_counter()
-        if name in CHECKS:
+        if name == "cli_cases.sha256":
+            _write_cli(name, _cli_hashes())
+        elif name in PKT_RECORDS:
+            _write_records(name, PKT_RECORDS[name]())
+        elif name in CHECKS:
             fn, seq_name = CHECKS[name]
             _check(name, fn(), seq_name)
         else:

@@ -4,7 +4,9 @@ activity, mixed-frame and noise gates, activity scales), the block-qi
 packing, kernel K2's and KT's plain versions at K qi rows with per-block
 lambda scales, and whole encodes with `GopEncoder(device="cpu")` at its
 default adaptive_quant="auto" (and True) against the JAX
-`TpuGopEncoder`, packets byte for byte; the encoder CLI at default flags;
+`TpuGopEncoder`, packets byte for byte (the JAX encodes as the committed
+record testdata/aq_cases.pkts); the encoder CLI at default flags (the
+JAX CLI's output as its SHA-256, testdata/cli_cases.sha256);
 rd_strength."""
 import importlib.util
 import os
@@ -268,37 +270,23 @@ def test_kt_rows_equal_jax_trellis(scaled):
 
 # ---------------------------------------------------------- whole encodes
 
-def _noise_frames(n):
-    rng = np.random.default_rng(47)
-    return [[rng.integers(0, 256, s).astype(np.uint8)
-             for s in ((48, 64), (24, 32), (24, 32))] for _ in range(n)]
-
-
-def _smooth_frames(n):
-    yy, xx = np.indices((48, 64))
-    return [[((xx + 2 * f) * 2 + yy).astype(np.uint8),
-             np.full((24, 32), 100 + f, np.uint8),
-             ((np.indices((24, 32))[1] + f) * 3).astype(np.uint8)]
-            for f in range(n)]
-
-
-# name -> (frames, w, h, qi, keyframe_freq, mode, K the gates must reach)
-CASES = {
-    "auto_q56_moving": (make_enc.moving_frames(64, 48, 0, 5, 51), 64, 48,
-                        56, 4, "auto", 3),
-    "true_q40_mixed": (make_enc.mixed_frames(), make_enc.MIXED_W,
-                       make_enc.MIXED_H, make_enc.MIXED_QI,
-                       make_enc.MIXED_FRAMES, True, 3),
-    "auto_q24_noise": (_noise_frames(5), 64, 48, 24, 4, "auto", 3),
-    "auto_q36_smooth": (_smooth_frames(5), 64, 48, 36, 4, "auto", 1),
-    "auto_q48_halftexture": (make_enc.halftexture_frames(),
-                             make_enc.MIXED_W, make_enc.MIXED_H,
-                             make_enc.HALFTEX_QI, make_enc.MIXED_FRAMES,
-                             "auto", 3),
-}
+# name -> (frames, w, h, qi, keyframe_freq, mode, K the gates must reach):
+# the generator's cases, whose JAX encodes are the committed record
+# testdata/aq_cases.pkts (testdata/make_hd720_enc.py).
+GATE_ROWS = {"auto_q56_moving": 3, "true_q40_mixed": 3, "auto_q24_noise": 3,
+             "auto_q36_smooth": 1, "auto_q48_halftexture": 3}
+CASES = {name: (frames(), w, h, qi, kf, mode, GATE_ROWS[name])
+         for name, (frames, w, h, qi, kf, mode)
+         in make_enc.AQ_CASES.items()}
 # The cases with a committed list, which chip_smoke.py holds the card to.
 LISTS = {"true_q40_mixed": "mixed96x64_q40_aq_enc.sha256",
          "auto_q48_halftexture": "halftex96x64_q48_aq_enc.sha256"}
+
+
+def _jax_records():
+    """The JAX encodes of CASES and of the rd_strength cases:
+    {case: [(SHA-256, granulepos, packetno, b_o_s, e_o_s)]}."""
+    return make_enc.read_records("aq_cases.pkts")
 
 
 def _port(frames, w, h, qi, kf, mode, **kw):
@@ -325,12 +313,10 @@ def test_encode_packets_equal_jax(name):
 
     frames, w, h, qi, kf, mode, k = CASES[name]
     enc, got = _port(frames, w, h, qi, kf, mode)
-    want = make_enc._jax_packets(frames, w, h, 0, qi, kf,
-                                 adaptive_quant=mode)
+    want = _jax_records()[name]
     assert len(got) == len(want) == 3 + len(frames)
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert a.data == b.data, f"packet {i}"
-        assert (a.granulepos, a.packetno) == (b.granulepos, b.packetno)
+    for i, (a, b) in enumerate(zip(make_enc.record_of(got), want)):
+        assert a[:3] == b[:3], f"packet {i}"
     planes = [np.ascontiguousarray(fr[0][::-1]) for fr in frames]
     lens = {len(aq.frame_qis(mode, qi, 0, False,
                              *_gate_args(y, mode))) for y in planes}
@@ -390,16 +376,13 @@ def test_closed_loop_equals_port_decoder(name):
 def test_rd_strength_equals_jax(rd):
     """rd_strength as a constructor argument: the half-texture clip (the
     triple with lambda scales) at the default 3.0 and at 1.5, against
-    TpuGopEncoder with the same rd_strength; 1.5 changes the bytes."""
-    from theora_tpu import info as jinfo
-    from theora_tpu.encode.tpu_gop import TpuGopEncoder
-
+    TpuGopEncoder with the same rd_strength (the record's "rd3.0" and
+    "rd1.5" cases); 1.5 changes the bytes."""
+    assert rd in make_enc.RD_STRENGTHS
     frames, w, h, qi, kf, mode, _ = CASES["auto_q48_halftexture"]
     _, got = _port(frames, w, h, qi, kf, mode, rd_strength=rd)
-    jenc = TpuGopEncoder(_info(jinfo, w, h, qi), qi=qi, rd_strength=rd)
-    jenc.delta_upload = False
-    want = jenc.encode_clip(frames, keyframe_freq=kf, clip_batch=8)
-    assert [p.data for p in got] == [p.data for p in want]
+    want = _jax_records()[f"rd{rd}"]
+    assert [r[0] for r in make_enc.record_of(got)] == [r[0] for r in want]
     if rd != 3.0:
         _, base = _port(frames, w, h, qi, kf, mode)
         assert [p.data for p in base] != [p.data for p in got]
@@ -408,23 +391,24 @@ def test_rd_strength_equals_jax(rd):
 def test_encoder_cli_default_flags_equal_jax_cli(tmp_path):
     """python -m theora_tpu_torch.tools.enc --device cpu at its default
     flags (q48, keyframes every 64, adaptive quantization "auto") writes
-    the JAX CLI's device-tier .ogv, for the noise clip cropped to 60x44
+    the JAX CLI's device-tier .ogv (its SHA-256, the committed
+    testdata/cli_cases.sha256), for the noise clip cropped to 60x44
     (edge-padded frame, crop rectangle), where the noise gate engages the
-    triple."""
-    from theora_tpu.tools import enc as jenc
+    triple; with adaptive quantization off the bytes differ."""
+    import hashlib
+
     from theora_tpu_torch.tools import enc as tenc
     from theora_tpu_torch.tools.y4m import write_y4m
 
-    frames = [[p[:44, :60] if i == 0 else p[:22, :30]
-               for i, p in enumerate(fr)] for fr in _noise_frames(5)]
+    name = "noise60x44_defaults"
+    frames, flags = make_enc.CLI_CASES[name]
+    assert flags == []
     y4m = str(tmp_path / "in.y4m")
-    write_y4m(y4m, frames)
-    a, b = str(tmp_path / "jax.ogv"), str(tmp_path / "port.ogv")
-    jenc.main(["--device", y4m, a])
+    write_y4m(y4m, frames())
+    b, off = str(tmp_path / "port.ogv"), str(tmp_path / "off.ogv")
     tenc.main(["--device", "cpu", y4m, b])
-    off = str(tmp_path / "off.ogv")
     tenc.main(["--device", "cpu", "--adaptive-quant", "off", y4m, off])
-    with open(a, "rb") as fa, open(b, "rb") as fb, open(off, "rb") as fo:
+    with open(b, "rb") as fb, open(off, "rb") as fo:
         port = fb.read()
-        assert fa.read() == port
+        assert hashlib.sha256(port).hexdigest() == make_enc.read_cli()[name]
         assert fo.read() != port

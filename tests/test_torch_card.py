@@ -558,3 +558,18 @@ def test_ks_kernels_match_plain(card):
 
     n, err = check(card)
     assert n > 40 and err == 0
+
+
+def test_ks_fused_entries_match_their_chains(card):
+    """K2's and KR's entries with KS's MC as their head and K1's entry with
+    KS's MC, skip test and plane assembly around the chooser, against
+    their plain chains and the kernel chains they replaced, byte for byte
+    (the plane and its padding or the rows; qout, coded, qii), on every
+    case of tools/bench_mc.py:fused_cases (the 720p planes, 4:2:2 and
+    4:4:4 chroma, G = 1 and 3, prev and gold one buffer, a frag group's
+    share, K = 1-3, the trellis and the R/D path, key and inter steps,
+    borders on and off, skip ties and ulp lambdas), one launch each
+    (bench_mc.check_fused raises on any difference)."""
+    from theora_tpu_torch.tools.bench_mc import check_fused
+
+    assert check_fused(card) == (72, 0)

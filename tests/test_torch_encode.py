@@ -1,9 +1,13 @@
 """The device GOP encoder of the PyTorch port as a whole, on the CPU:
 `GopEncoder(device="cpu")` against the JAX `TpuGopEncoder` at a fixed qi
 with the trellis and adaptive_quant=False on both sides, byte-identical
-packets, headers included; its closed-loop reconstruction against the
-port's own decoder; the encoder CLI against the JAX package's; the port's
-tables. Adaptive quantization, the default, is held to JAX in
+packets, headers included (the JAX encodes' packets, granule positions,
+packet numbers and flags are the committed record
+testdata/enc64x48_cases.pkts, which testdata/make_hd720_enc.py makes from
+the same cases); its closed-loop reconstruction against the port's own
+decoder; the encoder CLI against the JAX package's (its output's
+SHA-256, testdata/cli_cases.sha256); the port's tables.
+Adaptive quantization, the default, is held to JAX in
 tests/test_torch_adaptive.py."""
 import hashlib
 import importlib.util
@@ -20,10 +24,6 @@ _spec = importlib.util.spec_from_file_location(
 make_enc = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(make_enc)
 
-SMALL = [(fmt, make_enc.moving_frames(64, 48, fmt, 5, 11 + fmt))
-         for fmt in (0, 2, 3)]
-
-
 @pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
     """The suite runs in several worker processes on shared cores; these
@@ -34,19 +34,9 @@ def _few_torch_threads():
     torch.set_num_threads(saved)
 
 
-def _clip64x48(n):
-    raw = np.fromfile(os.path.join(TESTDATA, "clip64x48.i420"), np.uint8)
-    w, h = 64, 48
-    fsz = w * h * 3 // 2
-    return [[raw[i * fsz:i * fsz + w * h].reshape(h, w),
-             raw[i * fsz + w * h:i * fsz + w * h * 5 // 4].reshape(24, 32),
-             raw[i * fsz + w * h * 5 // 4:(i + 1) * fsz].reshape(24, 32)]
-            for i in range(n)]
-
-
-# name -> (pixel_fmt, qi, keyframe_freq, frames)
-CASES = {f"fmt{fmt}": (fmt, 40, 4, fr) for fmt, fr in SMALL}
-CASES["clip64x48"] = (0, 32, 4, _clip64x48(8))
+# name -> (pixel_fmt, qi, keyframe_freq, frames): the generator's cases.
+CASES = {name: (fmt, qi, kf, frames())
+         for name, (fmt, qi, kf, frames) in make_enc.ENC_CASES.items()}
 
 
 def _info(mod, fmt, qi):
@@ -56,17 +46,9 @@ def _info(mod, fmt, qi):
 
 @pytest.fixture(scope="module")
 def jax_packets():
-    """One JAX encode per case, shared by the module's tests."""
-    from theora_tpu import info as jinfo
-    from theora_tpu.encode.tpu_gop import TpuGopEncoder
-
-    out = {}
-    for name, (fmt, qi, kf, frames) in CASES.items():
-        enc = TpuGopEncoder(_info(jinfo, fmt, qi), qi=qi)
-        enc.adaptive_quant = False
-        out[name] = [p for p in enc.encode_clip(frames, keyframe_freq=kf,
-                                                 clip_batch=8)]
-    return out
+    """The JAX encode of each case, as the committed record gives it:
+    {case: [(SHA-256, granulepos, packetno, b_o_s, e_o_s)]}."""
+    return make_enc.read_records("enc64x48_cases.pkts")
 
 
 def _port_encoder(fmt, qi, **kw):
@@ -86,10 +68,8 @@ def test_encode_clip_packets_equal_jax(jax_packets, name):
                                              clip_batch=8)
     want = jax_packets[name]
     assert len(got) == len(want) == 3 + len(frames)
-    for i, (a, b) in enumerate(zip(got, want)):
-        assert a.data == b.data, f"packet {i}"
-        assert (a.granulepos, a.packetno, a.b_o_s, a.e_o_s) == (
-            b.granulepos, b.packetno, b.b_o_s, b.e_o_s), f"packet {i}"
+    for i, (a, b) in enumerate(zip(make_enc.record_of(got), want)):
+        assert a == b, f"packet {i}"
     if name == "fmt0":
         # The committed list chip_smoke.py holds the card to.
         with open(os.path.join(TESTDATA, "enc64x48.sha256")) as f:
@@ -107,7 +87,8 @@ def test_encode_clip_with_passed_tables(jax_packets):
     enc = _port_encoder(fmt, qi, qinfo=jtables.DEF_QUANT_INFO,
                         huff_codes=jtables.VP31_HUFF_CODES)
     got = enc.encode_clip(frames, keyframe_freq=kf)
-    assert [p.data for p in got] == [p.data for p in jax_packets["fmt2"]]
+    assert [r[0] for r in make_enc.record_of(got)] == \
+        [r[0] for r in jax_packets["fmt2"]]
 
 
 @pytest.mark.parametrize("name", ["fmt0", "fmt2", "fmt3", "clip64x48"])
@@ -136,25 +117,23 @@ def test_closed_loop_equals_port_decoder(name):
 
 def test_encoder_cli_equals_jax_cli(tmp_path):
     """python -m theora_tpu_torch.tools.enc --device cpu writes the same
-    .ogv as the JAX CLI's device tier, for a picture that is not a
-    multiple of 16 (edge-padded frame, crop rectangle); 9 frames at -k 8
-    end on a one-frame chunk, which runs no ME."""
-    from theora_tpu.tools import enc as jenc
+    .ogv as the JAX CLI's device tier (its SHA-256, the committed
+    testdata/cli_cases.sha256), for a picture that is not a multiple of
+    16 (edge-padded frame, crop rectangle); 9 frames at -k 8 end on a
+    one-frame chunk, which runs no ME."""
+    import hashlib
+
     from theora_tpu_torch.tools import enc as tenc
     from theora_tpu_torch.tools.y4m import write_y4m
 
-    clip = _clip64x48(8)
-    frames = [[p[:44, :60] if i == 0 else p[:22, :30]
-               for i, p in enumerate(fr)] for fr in clip + clip[:1]]
-    y4m = str(tmp_path / "in.y4m")
-    write_y4m(y4m, frames)
-    a, b = str(tmp_path / "jax.ogv"), str(tmp_path / "port.ogv")
-    jenc.main(["--device", "--adaptive-quant", "off", "-q", "36", "-k", "8",
-               y4m, a])
-    tenc.main(["--device", "cpu", "--adaptive-quant", "off", "-q", "36",
-               "-k", "8", y4m, b])
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-        assert fa.read() == fb.read()
+    name = "clip60x44_q36_k8_aq_off"
+    frames, flags = make_enc.CLI_CASES[name]
+    y4m, b = str(tmp_path / "in.y4m"), str(tmp_path / "port.ogv")
+    write_y4m(y4m, frames())
+    tenc.main(["--device", "cpu", *flags, y4m, b])
+    with open(b, "rb") as fb:
+        assert hashlib.sha256(fb.read()).hexdigest() == \
+            make_enc.read_cli()[name]
 
 
 def test_tables_equal_jax_package():

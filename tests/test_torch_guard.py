@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX
 package (nor do the testdata scripts chip_smoke.py runs, at import), it
 never falls back to the CPU when a card is missing, the
-kernel wrappers (K1 at both entries, K2, KT, KR, KM, KL) take their plain
-paths only for CPU tensors and K1's have no fallback, K1, KT and KR are built
+kernel wrappers (K1 at both entries, K2, KT, KR, KM, KL, KS and KS's
+fused entries in K2, KR and K1) take their plain paths only for CPU
+tensors and K1's have no fallback, K1, KT and KR are built
 without floating-point contraction, and the encoder takes every setting of
 the JAX encoder, with its defaults, and its stages and the device
 transcode take JAX's signatures."""
@@ -1230,10 +1231,11 @@ def test_kl_wrapper_rejects_what_the_kernel_does_not_take(g, which, bad):
 
 def test_borders_run_only_on_steps_kl_skips(monkeypatch):
     """KL fills the borders of the planes it filters, so the encode scan
-    and the decode step ask KS for the borders (its skip and decode
-    entries' borders flag) only on frame steps whose limit is 0 (qi 47
-    and above): none at qi 40, one per plane per frame at qi 56; and the
-    decode of a q5 clip none."""
+    and the decode step ask for the borders (the borders flag of K1's
+    fused encode entry, which runs KS's plane assembly, and of KS's
+    decode entry) only on frame steps whose limit is 0 (qi 47 and above):
+    none at qi 40, one per plane per frame at qi 56, each on [G, Hp, Wp]
+    reference planes; and the decode of a q5 clip none."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.headers import parse_info_header, \
@@ -1243,15 +1245,16 @@ def test_borders_run_only_on_steps_kl_skips(monkeypatch):
 
     calls = []
 
-    def spy(real):
+    def spy(real, plane):
         def call(*args, borders, **kwargs):
             if borders:
-                calls.append(args[0].dim())
+                calls.append(args[plane].dim())
             return real(*args, borders=borders, **kwargs)
         return call
 
-    for entry in ("skip_place", "mc_recon"):
-        monkeypatch.setattr(mc_cuda, entry, spy(getattr(mc_cuda, entry)))
+    monkeypatch.setattr(idct_cuda, "mc_idct_recon_skip",
+                        spy(idct_cuda.mc_idct_recon_skip, 5))
+    monkeypatch.setattr(mc_cuda, "mc_recon", spy(mc_cuda.mc_recon, 0))
     rng = np.random.default_rng(5)
     frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
                rng.integers(0, 256, (24, 32), dtype=np.uint8),
@@ -1510,33 +1513,38 @@ def test_ks_build_is_sm90a(monkeypatch, tmp_path):
 
 def test_scan_and_decode_reach_ks_and_nothing_calls_the_plain_chain(
         monkeypatch):
-    """A 3-frame 64x48 encode_clip calls KS's mc_residual and skip_place
-    once per plane per frame step (9 each) with [G, Hp, Wp] planes, and
-    its split form never; the decode of clip64x48_k8_q5 calls mc_recon
-    once per plane per frame with [Hp, Wp] planes. No module of the port
-    but the wrapper imports ops/mc.py's plain entries or its gathers,
-    blocks_to_plane or fill_borders for a step (the tools and
-    chip_smoke.py import the plain entries to hold the kernel against
-    them)."""
+    """A 3-frame 64x48 encode_clip runs KS inside the scan's fused
+    entries: K2's (mc_fdct_quantize) and K1's (mc_idct_recon_skip) once
+    per plane per frame step (9 each, K2's before K1's) with [G, Hp, Wp]
+    planes, and none of KS's own encode entries (mc_residual, skip_place,
+    skip_rows, place_rows: the step has no frag group); the decode of
+    clip64x48_k8_q5 calls mc_recon once per plane per frame with [Hp,
+    Wp] planes. No module of the port but KS's wrapper and the fused
+    wrappers (whose CPU paths compose the plain versions) imports
+    ops/mc.py's plain entries or its gathers, blocks_to_plane or
+    fill_borders for a step (the tools and chip_smoke.py import the plain
+    entries to hold the kernels against them)."""
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
-    from theora_tpu_torch.ops import mc_cuda
+    from theora_tpu_torch.ops import fdct_cuda, mc_cuda
     from theora_tpu_torch.tpkt import read_tpkt
 
     calls = []
 
-    def spy(entry):
-        real = getattr(mc_cuda, entry)
+    def spy(mod, entry, plane):
+        real = getattr(mod, entry)
 
         def call(*args, **kwargs):
-            calls.append((entry, args[0].dim()))
+            calls.append((entry, args[plane].dim()))
             return real(*args, **kwargs)
-        return call
+        monkeypatch.setattr(mod, entry, call)
 
     for entry in KS_ENTRIES:
-        monkeypatch.setattr(mc_cuda, entry, spy(entry))
+        spy(mc_cuda, entry, 0)
+    spy(fdct_cuda, "mc_fdct_quantize", 0)
+    spy(idct_cuda, "mc_idct_recon_skip", 5)
     rng = np.random.default_rng(5)
     frames = [[rng.integers(0, 256, (48, 64), dtype=np.uint8),
                rng.integers(0, 256, (24, 32), dtype=np.uint8),
@@ -1544,9 +1552,9 @@ def test_scan_and_decode_reach_ks_and_nothing_calls_the_plain_chain(
               for _ in range(3)]
     GopEncoder(_small_info(), qi=40, device="cpu").encode_clip(
         frames, keyframe_freq=8)
-    assert sorted(calls) == [("mc_residual", 3)] * 9 + [
-        ("skip_place", 3)] * 9
-    assert calls[:2] == [("mc_residual", 3), ("skip_place", 3)]
+    assert sorted(calls) == [("mc_fdct_quantize", 3)] * 9 + [
+        ("mc_idct_recon_skip", 3)] * 9
+    assert calls[:2] == [("mc_fdct_quantize", 3), ("mc_idct_recon_skip", 3)]
     calls.clear()
     pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
     dec = BatchDecoder(parse_info_header(pkts[0].data),
@@ -1557,22 +1565,146 @@ def test_scan_and_decode_reach_ks_and_nothing_calls_the_plain_chain(
     plain = {"mc_residual", "skip_place", "skip_rows", "place_rows",
              "mc_recon", "mc_predict", "blocks_to_plane", "fill_borders",
              "block_index_grid"}
+    ops = os.path.join("theora_tpu_torch", "ops")
     for path in _port_sources():
         rel = os.path.relpath(path, REPO_ROOT)
-        if rel in (os.path.join("theora_tpu_torch", "ops", "mc_cuda.py"),
-                   os.path.join("theora_tpu_torch", "ops", "mc.py"),
-                   os.path.join("theora_tpu_torch", "ops",
-                                "loopfilter_cuda.py"),
-                   os.path.join("theora_tpu_torch", "ops", "loopfilter.py"),
+        if rel in (*(os.path.join(ops, f) for f in (
+                "mc_cuda.py", "mc.py", "loopfilter_cuda.py",
+                "loopfilter.py")),
                    os.path.join("theora_tpu_torch", "pipeline.py"),
                    "chip_smoke.py") or \
                 rel.startswith(os.path.join("theora_tpu_torch", "tools")):
             continue
+        fused = rel in (os.path.join(ops, f) for f in (
+            "fdct_cuda.py", "qrd_cuda.py", "idct_cuda.py"))
         for node in ast.walk(_parse(path)):
             if isinstance(node, ast.ImportFrom) and node.module:
                 names = {a.name for a in node.names}
                 assert not (node.module.endswith((".mc", ".loopfilter",
                                                   ".pipeline"))
                             and names & plain), rel
-                assert not (node.module.endswith("ops")
-                            and "mc" in names), rel
+                assert not (node.module.endswith("ops") and "mc" in names
+                            and not fused), rel
+
+
+# ------------------------------------------------- KS fused into K2, KR, K1
+
+KS_FUSED = ("mc_fdct_quantize", "mc_fdct_quantize_rd", "mc_idct_recon_skip")
+
+
+def _ks_fused(entry):
+    from theora_tpu_torch.ops import fdct_cuda, qrd_cuda
+
+    return {"mc_fdct_quantize": fdct_cuda.mc_fdct_quantize,
+            "mc_fdct_quantize_rd": qrd_cuda.mc_fdct_quantize_rd,
+            "mc_idct_recon_skip": idct_cuda.mc_idct_recon_skip}[entry]
+
+
+def _ks_fused_args(entry, device, fid=False, k=2):
+    """Small valid arguments of a fused entry (mc_residual's planes of
+    _ks_args, G = 2 segments of k qi rows)."""
+    prev, gold, cur, side, *geom = _ks_args("mc_residual", device, fid)[:8]
+    ids = _ks_args("mc_residual", device, fid)[8:]
+    N, G = cur.shape[0], prev.shape[0]
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    deq = torch.full((G, k, 2, 64), 8, dtype=torch.int16, device=device)
+    inter = z((N,), torch.uint8)
+    if entry == "mc_fdct_quantize":
+        return (prev, gold, cur, side, deq, inter, *geom, *ids)
+    if entry == "mc_fdct_quantize_rd":
+        return (prev, gold, cur, side, deq, inter, z((G, k, 2), torch.float32),
+                *geom, *ids)
+    return (z((k, N, 64), torch.int16), torch.ones((k, N), dtype=torch.bool,
+                                                   device=device),
+            z((k, N), torch.int32), deq, inter, prev, gold, cur, side,
+            z((N,), torch.bool), torch.ones(G, device=device), None, False,
+            z((N, 64), torch.int16), z((N,), torch.bool), z((N,), torch.uint8),
+            *geom, True, *ids)
+
+
+@pytest.mark.parametrize("entry", KS_FUSED)
+def test_ks_fused_plain_path_only_for_cpu_tensors(monkeypatch, entry):
+    """Each fused wrapper runs its plain chain (ops/mc.py's mc_residual
+    first) for CPU tensors only, raises for another device before any
+    plain step, counts no launch on the CPU, and its module has no try
+    that could fall back."""
+    from theora_tpu_torch.ops import mc
+
+    calls = []
+    real = mc.mc_residual
+
+    def plain(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mc, "mc_residual", plain)
+    wrapper = _ks_fused(entry)
+    out = wrapper(*_ks_fused_args(entry, "cpu"))
+    assert calls == ["cpu"] and out is not None
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*_ks_fused_args(entry, "meta"))
+    assert calls == ["cpu"]
+    assert wrapper.launches == 0
+    tree = _parse(__import__(wrapper.__module__, fromlist=["_"]).__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def _misaligned(t):
+    """A tensor like t whose data start one element past an aligned
+    allocation."""
+    raw = torch.zeros(t.numel() + 8, dtype=t.dtype)[1:t.numel() + 1]
+    return raw.view(t.shape)
+
+
+@pytest.mark.parametrize("entry,which,bad", [
+    # The planes: geometry, dtype, layout, segments.
+    ("mc_fdct_quantize", 0, torch.zeros((2, 48, 40), dtype=torch.int16)),
+    ("mc_fdct_quantize", 0, torch.zeros((2, 50, 40), dtype=torch.uint8)),
+    ("mc_fdct_quantize", 1, torch.zeros((2, 48, 48), dtype=torch.uint8)),
+    ("mc_fdct_quantize", 2, torch.zeros((12, 64), dtype=torch.int16)),
+    ("mc_fdct_quantize", 2, _misaligned(torch.zeros((12, 64),
+                                                    dtype=torch.uint8))),
+    ("mc_fdct_quantize", 3, torch.zeros((6, 12), dtype=torch.int64)),
+    ("mc_fdct_quantize", 4, torch.full((3, 2, 2, 64), 8, dtype=torch.int16)),
+    ("mc_fdct_quantize", 5, torch.zeros((11,), dtype=torch.uint8)),
+    ("mc_fdct_quantize", 9, 4),    # pad_x not a multiple of 8
+    ("mc_fdct_quantize_rd", 0, _misaligned(torch.zeros((2, 48, 40),
+                                                       dtype=torch.uint8))),
+    ("mc_fdct_quantize_rd", 6, torch.zeros((2, 2, 2), dtype=torch.float64)),
+    ("mc_fdct_quantize_rd", 6, torch.zeros((2, 3, 2), dtype=torch.float32)),
+    ("mc_fdct_quantize_rd", 8, 1),  # nh does not match the plane
+    ("mc_fdct_quantize_rd", 11, torch.arange(4)),   # fid int64
+    ("mc_idct_recon_skip", 0, torch.zeros((4, 12, 64), dtype=torch.int16)),
+    ("mc_idct_recon_skip", 0, torch.zeros((2, 10, 64), dtype=torch.int16)),
+    ("mc_idct_recon_skip", 3, torch.full((2, 1, 2, 64), 8,
+                                         dtype=torch.int16)),
+    ("mc_idct_recon_skip", 5, torch.zeros((3, 48, 40), dtype=torch.uint8)),
+    ("mc_idct_recon_skip", 7, _misaligned(torch.zeros((12, 64),
+                                                      dtype=torch.uint8))),
+    ("mc_idct_recon_skip", 9, torch.zeros((12,), dtype=torch.uint8)),
+    ("mc_idct_recon_skip", 10, torch.ones(3)),
+    ("mc_idct_recon_skip", 11, torch.ones(12, dtype=torch.float64)),
+    ("mc_idct_recon_skip", 13, _misaligned(torch.zeros((12, 64),
+                                                       dtype=torch.int16))),
+    ("mc_idct_recon_skip", 15, torch.zeros((12,), dtype=torch.int32)),
+    ("mc_idct_recon_skip", 19, 3),   # pad_x below 8
+    ("mc_idct_recon_skip", 21, torch.arange(7, dtype=torch.int32)),
+])
+def test_ks_fused_wrappers_reject_what_the_kernel_does_not_take(entry, which,
+                                                                bad):
+    """The fused wrappers refuse, for CPU tensors as for the card's,
+    whatever their kernels do not take: a plane geometry, a dtype, a
+    shape, a segment count, a misaligned source or plane, a fragment id
+    list."""
+    fn = _ks_fused(entry)
+    args = list(_ks_fused_args(entry, "cpu"))
+    fn(*args)  # the valid arguments are taken
+    if which == len(args):
+        args.append(bad)
+    else:
+        args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        fn(*args)

@@ -12,7 +12,11 @@ tpu_batch.py:114-128). Inputs come from tools/bench_mc.py's generators
 at the padding's extremes in every corner, every reference and half-pel
 flag, 3 segments with their own lambdas, frag subsets with clamped pads,
 skip ties and lambdas one ulp from an integer product, unfiltered and
-filtered steps. The kernel itself runs on the card
+filtered steps. And the entries that fuse KS into the scan's kernels
+(fdct_cuda.mc_fdct_quantize, qrd_cuda.mc_fdct_quantize_rd,
+idct_cuda.mc_idct_recon_skip), whose CPU paths compose the plain
+versions, against the JAX scan step from MC to the plane, on
+bench_mc.fused_inputs. The kernels themselves run on the card
 (tests/test_torch_card.py, chip_smoke.py phase 6f)."""
 import functools
 
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from theora_tpu.ops import mc_jax
+from theora_tpu.ops import transforms_jax as tj
 from theora_tpu.ops.loopfilter_jax import loop_filter_plane_jax
 from theora_tpu.ops.loopfilter_np import build_bounding_values
 from theora_tpu.pipeline import fill_borders as fill_borders_jax
@@ -345,3 +350,122 @@ def test_kl_output_does_not_depend_on_input_padding(geom):
             b = loopfilter_cuda.loop_filter_plane(_t(zero), coded, limit,
                                                   nv, nh, pad_y, pad_x)
             assert torch.equal(a, b), (limit, density)
+
+
+# ------------------------------------------- KS fused into K2, KR and K1
+
+_jax_fdct = jax.jit(tj.fdct8x8)
+_jax_quant = jax.jit(tj.quantize)
+_jax_qrd = jax.jit(tj.quantize_rd)
+
+
+def _per_block(rows, inter, fi_n, G):
+    """[G, K, 2, 64] segment rows -> [K, N, 64] per block by segment and
+    type."""
+    seg = np.arange(G * fi_n) // fi_n
+    return rows[seg, :, (inter != 0).astype(np.int64)].transpose(1, 0, 2)
+
+
+def _jax_head(d, G, path, fi, geom):
+    """The JAX scan step before the quantizer's output (tpu_gop.py:
+    182-236 per segment): MC and the residual, fdct8x8, then quantize (the
+    trellis path's K2 outputs: values at each row and the DCT) or
+    quantize_rd at each row (the R/D path: values, counts, DC-only
+    flags); and each segment's prediction and uncoded SSD."""
+    nl = len(fi)
+    preds, res, uncs = [], [], []
+    for g in range(G):
+        sl = slice(g * nl, (g + 1) * nl)
+        p, r, u = _jax_mc(d["prev"][g], d["gold"][g], d["side"][:, sl], fi,
+                          d["cur"][sl], *geom)
+        preds.append(np.asarray(p).reshape(nl, 64))
+        res.append(np.asarray(r))
+        uncs.append(np.asarray(u))
+    dct = np.asarray(_jax_fdct(jnp.asarray(np.concatenate(res))))
+    rows = _per_block(d["deq"], d["inter"], nl, G).astype(np.int32)
+    if path == "trellis":
+        q = np.stack([np.asarray(_jax_quant(dct, r)) for r in rows])
+        head = (q.astype(np.int16), dct.astype(np.int16))
+    else:
+        lam = _per_block(d["lam_q"][..., None], d["inter"], nl, G)[..., 0]
+        q = np.stack([np.asarray(_jax_qrd(dct, r, lam_k))
+                      for r, lam_k in zip(rows, lam)])
+        nz = q != 0
+        head = (q.astype(np.int16), nz.sum(axis=2).astype(np.int32),
+                ~nz[:, :, 1:].any(axis=2))
+    return head, np.concatenate(preds), np.concatenate(uncs)
+
+
+@pytest.mark.parametrize("geom,G,frag,K,path,intra,limit", [
+    ("luma 64x48", 1, None, 1, "trellis", False, 0),
+    ("luma 96x64", 3, None, 3, "rd", False, LIMIT),
+    ("4:2:0 chroma", 3, (2, 1), 3, "trellis", False, 0),
+    ("luma 64x48", 3, None, 1, "trellis", True, 0),
+])
+def test_fused_entries_match_jax(geom, G, frag, K, path, intra, limit):
+    """The fused head (fdct_cuda.mc_fdct_quantize on the trellis path,
+    qrd_cuda.mc_fdct_quantize_rd on the R/D path) and K1's fused entry
+    (idct_cuda.mc_idct_recon_skip) on their CPU paths against the JAX
+    scan step on bench_mc.fused_inputs: MC, fdct8x8 and quantize or
+    quantize_rd (tpu_gop.py:182-236), then dequant + iDCT, the chooser,
+    the skip test and the plane (tpu_gop.py:231-316, through KL where the
+    step filters; its rows over a frag group's share), exactly. The
+    engineered blocks decide the skip test on one float32 ulp of the
+    lambda: skipped at 8 (a tie) and one ulp above, coded one ulp
+    below."""
+    from tests.test_torch_idct_recon import _jax_step
+    from theora_tpu_torch.ops import idct_cuda
+
+    nv, nh, pad_y, pad_x = GEOMS[geom]
+    g4 = (nv, nh, pad_y, pad_x)
+    n = nv * nh
+    fid = None if frag is None else bm.shard(n, *frag)
+    fi = _segments(n, fid)
+    nl = len(fi)
+    d = bm.fused_inputs(np.random.default_rng(_seed(geom, G, K, path)), G,
+                        *g4, K, fid, scales=K == 3)
+    t = bm.fused_tensors(d, "cpu")
+    head, pred, unc = _jax_head(d, G, path, fi, g4)
+    got = bm.head(t, g4, path)
+    for a, b in zip(got, head):
+        assert np.array_equal(a.numpy(), b)
+    q = bm.quantized(t, g4, path)
+    out = bm.tail_outputs(t)
+    kept = idct_cuda.mc_idct_recon_skip(*bm.tail_args(
+        t, g4, q, intra, limit == 0, out))
+    q16, cnt, _ = (x.numpy() for x in q)
+    sc = np.ones(G * nl, np.float32) if d["lam_sc"] is None else d["lam_sc"]
+    for g in range(G):
+        sl = slice(g * nl, (g + 1) * nl)
+        recon, ssd, qii, qsel, csel = jax.jit(_jax_step)(
+            q16[:, sl], d["deq"][g], d["inter"][sl], pred[sl],
+            d["cur"][sl], jnp.float32(d["lam"][g]), sc[sl])
+        assert np.array_equal(out[2][sl].numpy(), np.asarray(qii)), g
+        coded, blocks, qout = (np.asarray(x) for x in _jax_skip_one(
+            d["prev"][g], recon.astype(jnp.uint8), qsel, ssd, unc[sl],
+            csel, d["ms"][sl], d["lam"][g], fi, intra, *g4))
+        assert np.array_equal(out[0][sl].numpy(), qout), g
+        assert np.array_equal(out[1][sl].numpy(), coded), g
+        if fid is not None:
+            assert np.array_equal(kept[sl, :64].numpy(), blocks), g
+            assert np.array_equal(kept[sl, 64].numpy(), coded), g
+            continue
+        want = _plane(blocks, coded, limit, *g4)
+        plane = kept[g]
+        if limit:
+            assert np.array_equal(plane.numpy(), np.asarray(
+                mc_jax.blocks_to_plane(jnp.asarray(blocks).reshape(
+                    n, 8, 8), *g4))), g
+            plane = loopfilter_cuda.loop_filter_plane(
+                plane, torch.tensor(coded.reshape(nv, nh)), limit, *g4)
+        assert np.array_equal(plane.numpy(), want), g
+    if intra:
+        assert out[1].all()
+    elif fid is None:
+        seg = np.arange(G * nl) // nl % 3
+        coded = out[1].numpy()
+        tie = d["tie"]
+        assert tie[seg != 1].any() and not coded[tie & (seg != 1)].any()
+        assert (tie[seg == 1].any() or G == 1) and coded[tie & (seg == 1)].all()
+    if K == 3:
+        assert len(np.unique(out[2].numpy())) > 1

@@ -2,7 +2,11 @@
 // lanes and its round-to-nearest quantization, shared by K2's own kernel
 // (csrc/fdct_quant.cu) and by the fused entry of kernel KR
 // (csrc/quantize_rd.cu: th_fdct_quant_rd), which runs KR's row step on
-// the quantized values while they are still in registers.
+// the quantized values while they are still in registers. Its input is
+// each lane's raster row of the residual (block_dct_row): loaded from
+// memory (block_dct), or made in registers by kernel KS's MC row
+// (csrc/mc_core.cuh: mc_residual_row) in the entries that fuse it,
+// th_mc_fdct_quant and th_mc_fdct_quant_rd.
 //
 // Per 8x8 block b (raster index r = 8*row + col, zig-zag index z):
 //   x[r]  = res[b][r] << 2; x[0] += (x[0] != 0) + 1; x[1] += 1; x[8] -= 1
@@ -153,15 +157,13 @@ __device__ __forceinline__ void stage_rows(const int16_t* __restrict__ deq,
   }
 }
 
-// Lane c's zig-zag positions 8c..8c+7 of block b's DCT (b's residual
-// read only where live; a dead block transforms zeros). Every lane of the
-// warp must call it.
-__device__ __forceinline__ void block_dct(const int16_t* __restrict__ res,
-                                          BlockArea& A, int64_t b, int c,
-                                          bool live, int32_t v[8]) {
+// Lane c's zig-zag positions 8c..8c+7 of the DCT of the block whose
+// raster row c (8 int16 in memory order) lane c holds in `row`. Every
+// lane of the warp must call it.
+__device__ __forceinline__ void block_dct_row(int4 row, BlockArea& A, int c,
+                                              int32_t v[8]) {
   int32_t x[8];
-  A.rows[c] = live ? reinterpret_cast<const int4*>(res)[b * 8 + c]
-                   : make_int4(0, 0, 0, 0);
+  A.rows[c] = row;
   __syncwarp();
   const int16_t* in = reinterpret_cast<const int16_t*>(A.rows);
 #pragma unroll
@@ -189,6 +191,16 @@ __device__ __forceinline__ void block_dct(const int16_t* __restrict__ res,
 
 #pragma unroll
   for (int t = 0; t < 8; t++) v[t] = in[kZigToNat[8 * c + t]];
+}
+
+// block_dct_row on raster row c of block b of res (read only where live;
+// a dead block transforms zeros).
+__device__ __forceinline__ void block_dct(const int16_t* __restrict__ res,
+                                          BlockArea& A, int64_t b, int c,
+                                          bool live, int32_t v[8]) {
+  block_dct_row(live ? reinterpret_cast<const int4*>(res)[b * 8 + c]
+                     : make_int4(0, 0, 0, 0),
+                A, c, v);
 }
 
 // Round-to-nearest quantization of lane c's 8 DCT values v with the

@@ -58,10 +58,34 @@
 // the 8 lanes with __shfl_xor_sync, and the kept row's reconstruction
 // (8 bytes a lane) and values (16 bytes a lane) are written once.
 //
+// th_mc_idct_recon_skip, the encode scan's entry since kernel KS was
+// fused into it: the same chooser (choose_row) with KS's row core
+// (csrc/mc_core.cuh) around it. Lane c makes its prediction row with KS's
+// MC (8 bytes from the reference planes) in place of loading 32 B of the
+// int32 prediction, loads prev's row c at zero motion and sums the
+// uncoded copy's SSD over the block's 8 lanes, and after the chooser runs
+// KS's skip test on the kept row (JAX tpu_gop.py:286-293: the frame's
+// lambda without the per-block scale, __fmul_rn then __float2int_rz, ties
+// skip, a key step codes every block), writes qout (the kept values where
+// coded, else 0), coded and qii in place, and puts the kept row (the
+// reconstruction, or prev's row) into a new padded plane with KS's
+// put_row (the UMV borders where the step is not filtered, else zeros),
+// or, over a frag group, into the all-gather's [N][65] rows. The first
+// and last rows for the borders come by shuffles inside the block's
+// 8-lane group mask, since a group past the launch's last block leaves
+// early. It writes no reconstruction, SSD, kept values or count of its
+// own: per block K x 128 B of values, K x 5 B of flags and counts, 64 B
+// of source, the reference rows its MC reads and (on an inter step)
+// prev's 64 B in; 128 B of qout, 2 B of flags and the plane's bytes out
+// (tools/bench_mc.py:fused_bound). Plain version: ops/mc.py:mc_residual,
+// transforms.idct_recon_choose, then ops/mc.py:skip_place or skip_rows.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "mc_core.cuh"
 
 namespace {
 
@@ -234,6 +258,84 @@ dequant_idct_kernel(const int16_t* __restrict__ qz,
   reinterpret_cast<int4*>(out)[b * 8 + c] = pack8(res);
 }
 
+// The kept row of one block: its reconstruction (lane c's raster row c,
+// 8 bytes), values (zig-zag 8c..8c+7), SSD, row index and count.
+struct Kept {
+  uint2 rec;
+  int4 q;
+  int32_t ssd, k, cnt;
+};
+
+// The chooser of block b (segment seg of the launch's total blocks) on
+// lane c of its 8-lane group (mask): each of the K rows dequantized and
+// transformed, reconstructed on the prediction row p and held against the
+// source row s; the row of least cost, the earlier on a tie.
+template <int K>
+__device__ __forceinline__ Kept choose_row(
+    const int16_t* __restrict__ q16, const uint8_t* __restrict__ dc_only,
+    const int32_t* __restrict__ cnt, const int16_t* __restrict__ deq,
+    int it, int64_t b, int64_t total, int c, unsigned mask, BlockArea& A,
+    const int32_t p[8], const int32_t s[8], float lam_b) {
+  // Every load of the block's rows up front: values, flags, counts and
+  // dequant rows.
+  int4 qv[K], dv[K];
+  int32_t dco[K], ck[K];
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    const int64_t kb = (int64_t)k * total + b;
+    qv[k] = __ldg(reinterpret_cast<const int4*>(q16) + kb * 8 + c);
+    dv[k] = __ldg(reinterpret_cast<const int4*>(deq + (k * 2 + it) * 64) +
+                  c);
+    dco[k] = dc_only[kb];
+    ck[k] = cnt[kb];
+  }
+  int32_t best_cost = 0;
+  Kept best{make_uint2(0, 0), make_int4(0, 0, 0, 0), 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < K; k++) {
+    int32_t q[8], d[8], res[8];
+    unpack8(qv[k], q);
+    unpack8(dv[k], d);
+    if (dco[k]) {
+      // Slot 0 of lane 0 holds the row's DC value and its factor.
+      const int32_t dcv = __shfl_sync(mask, q[0], 0, kLanes);
+      const int32_t dcq = __shfl_sync(mask, d[0], 0, kLanes);
+      fill8(res, i16((dcv * dcq + 15) >> 5));
+    } else {
+      int32_t x[8];
+#pragma unroll
+      for (int j = 0; j < 8; j++) x[j] = i16(q[j] * d[j]);
+      idct_block(A, c, mask, x, res);
+    }
+    int32_t e2 = 0;
+    uint32_t rw[2] = {0, 0};
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      const int32_t r = min(max(res[j] + p[j], 0), 255);
+      const int32_t e = r - s[j];
+      e2 += e * e;
+      rw[j >> 2] |= (uint32_t)r << (8 * (j & 3));
+    }
+    e2 += __shfl_xor_sync(mask, e2, 1);
+    e2 += __shfl_xor_sync(mask, e2, 2);
+    e2 += __shfl_xor_sync(mask, e2, 4);
+    const float ckf = (float)ck[k];
+    const float m = k == 0 ? 6.0f * ckf + 2.0f : 6.0f * ckf + 2.0f + 6.0f;
+    const int32_t cost = 16 * e2 + __float2int_rz(lam_b * m);
+    if (k == 0 || cost < best_cost) {
+      best_cost = cost;
+      best = {make_uint2(rw[0], rw[1]), qv[k], e2, k, ck[k]};
+    }
+  }
+  return best;
+}
+
+// The 8 bytes of a raster row as 8 int32.
+__device__ __forceinline__ void bytes8(uint64_t w, int32_t s[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) s[j] = (int32_t)((w >> (8 * j)) & 0xFF);
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 idct_recon_choose_kernel(const int16_t* __restrict__ q16,
@@ -259,85 +361,120 @@ idct_recon_choose_kernel(const int16_t* __restrict__ q16,
   const int64_t seg = blockIdx.y;
   const int64_t b = seg * n + local;  // block of the launch
   const int64_t total = n * gridDim.y;
-  deq += seg * (K * 2 * 64);
-  const unsigned mask = group_mask(tid);
   const int it = inter[b] ? 1 : 0;
 
-  // Every load of the block up front: the K rows' values, flags, counts
-  // and dequant rows, raster row c of the prediction and of the source.
-  int4 qv[K], dv[K];
-  int32_t dco[K], ck[K];
-#pragma unroll
-  for (int k = 0; k < K; k++) {
-    const int64_t kb = (int64_t)k * total + b;
-    qv[k] = __ldg(reinterpret_cast<const int4*>(q16) + kb * 8 + c);
-    dv[k] = __ldg(reinterpret_cast<const int4*>(deq + (k * 2 + it) * 64) +
-                  c);
-    dco[k] = dc_only[kb];
-    ck[k] = cnt[kb];
-  }
+  // Raster row c of the prediction and of the source.
   const int4 p0 = __ldg(reinterpret_cast<const int4*>(pred) + b * 16 + 2 * c);
   const int4 p1 =
       __ldg(reinterpret_cast<const int4*>(pred) + b * 16 + 2 * c + 1);
   const uint2 cu = __ldg(reinterpret_cast<const uint2*>(cur) + b * 8 + c);
   const int32_t p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
   int32_t s[8];
-#pragma unroll
-  for (int j = 0; j < 8; j++)
-    s[j] = ((j < 4 ? cu.x : cu.y) >> (8 * (j & 3))) & 0xFF;
+  bytes8((uint64_t)cu.x | (uint64_t)cu.y << 32, s);
   float lam_b = lam[seg];
   if (lam_sc != nullptr) lam_b = lam_b * lam_sc[b];
 
-  int32_t best_cost = 0, best_ssd = 0, best_k = 0, best_cnt = 0;
-  int4 best_q = make_int4(0, 0, 0, 0);
-  uint2 best_rec = make_uint2(0, 0);
-#pragma unroll
-  for (int k = 0; k < K; k++) {
-    int32_t q[8], d[8], res[8];
-    unpack8(qv[k], q);
-    unpack8(dv[k], d);
-    if (dco[k]) {
-      // Slot 0 of lane 0 holds the row's DC value and its factor.
-      const int32_t dcv = __shfl_sync(mask, q[0], 0, kLanes);
-      const int32_t dcq = __shfl_sync(mask, d[0], 0, kLanes);
-      fill8(res, i16((dcv * dcq + 15) >> 5));
-    } else {
-      int32_t x[8];
-#pragma unroll
-      for (int j = 0; j < 8; j++) x[j] = i16(q[j] * d[j]);
-      idct_block(areas[lb], c, mask, x, res);
-    }
-    int32_t e2 = 0;
-    uint32_t rw[2] = {0, 0};
+  const Kept kept =
+      choose_row<K>(q16, dc_only, cnt, deq + seg * (K * 2 * 64), it, b, total,
+                    c, group_mask(tid), areas[lb], p, s, lam_b);
+  reinterpret_cast<uint2*>(recon)[b * 8 + c] = kept.rec;
+  if (K > 1) reinterpret_cast<int4*>(qsel)[b * 8 + c] = kept.q;
+  if (c == 0) {
+    ssd[b] = kept.ssd;
+    qii[b] = (uint8_t)kept.k;
+    if (K > 1) cnt_sel[b] = kept.cnt;
+  }
+}
+
+// The encode scan's step after the quantizer with KS's MC, skip test and
+// plane assembly fused: the prediction row made by KS's MC row, the
+// chooser, the uncoded copy's SSD, the skip test on the kept row and the
+// kept block put into the new plane (or, over a frag group, the gather's
+// rows).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+mc_idct_recon_skip_kernel(const int16_t* __restrict__ q16,
+                          const uint8_t* __restrict__ dc_only,
+                          const int32_t* __restrict__ cnt,
+                          const int16_t* __restrict__ deq,
+                          const uint8_t* __restrict__ inter, McSrc mc,
+                          const bool* __restrict__ ms,
+                          const float* __restrict__ lam,
+                          const float* __restrict__ lam_sc, int intra,
+                          int16_t* __restrict__ qout,
+                          bool* __restrict__ coded,
+                          uint8_t* __restrict__ qii,
+                          uint8_t* __restrict__ plane,
+                          uint8_t* __restrict__ rows, int borders,
+                          int64_t n) {
+  __shared__ BlockArea areas[kBlocksPerCta];
+  const int tid = threadIdx.x;
+  const int c = tid & (kLanes - 1);
+  const int lb = tid / kLanes;
+  const int64_t local = (int64_t)blockIdx.x * kBlocksPerCta + lb;
+  if (local >= n) return;  // the group's 8 lanes leave together
+  const int64_t seg = blockIdx.y;
+  const int64_t b = seg * n + local;  // block of the launch
+  const int64_t total = n * gridDim.y;
+  const unsigned mask = group_mask(tid);
+  const int it = inter[b] ? 1 : 0;
+
+  // Raster row c of the source, of the prediction and, on an inter step,
+  // of prev's block at zero motion (the uncoded copy).
+  const McFrag fr = mc_frag(mc, seg, local);
+  const uint64_t cw = load8a(mc.cur + b * 64 + 8 * c);
+  const uint64_t pw = predict_row(fr.prev, fr.gold, mc.side, (int)total,
+                                  (int)b, mc.q, fr.r, fr.c, c);
+  const uint64_t uw =
+      intra ? 0
+            : load8a(fr.prev + (size_t)(mc.q.pad_y + 8 * fr.r + c) * mc.q.Wp +
+                     mc.q.pad_x + 8 * fr.c);
+  int32_t p[8], s[8];
+  bytes8(pw, p);
+  bytes8(cw, s);
+  float lam_b = lam[seg];
+  if (lam_sc != nullptr) lam_b = lam_b * lam_sc[b];
+
+  const Kept kept =
+      choose_row<K>(q16, dc_only, cnt, deq + seg * (K * 2 * 64), it, b, total,
+                    c, mask, areas[lb], p, s, lam_b);
+
+  // The skip test (JAX tpu_gop.py:286-293): coded = intra or !(ms and
+  // 16 ssd_unc <= 16 ssd_rec + lamterm), lamterm = trunc(lam * (6 cnt +
+  // 2)) in float32 with the kept row's count and the frame's lambda (no
+  // per-block scale); 6 cnt + 2 is exact, the product rounds once.
+  bool cd = true;
+  if (!intra) {
+    int32_t u2 = 0;
 #pragma unroll
     for (int j = 0; j < 8; j++) {
-      const int32_t r = min(max(res[j] + p[j], 0), 255);
-      const int32_t e = r - s[j];
-      e2 += e * e;
-      rw[j >> 2] |= (uint32_t)r << (8 * (j & 3));
+      const int32_t e = (int32_t)((uw >> (8 * j)) & 0xFF) - s[j];
+      u2 += e * e;
     }
-    e2 += __shfl_xor_sync(mask, e2, 1);
-    e2 += __shfl_xor_sync(mask, e2, 2);
-    e2 += __shfl_xor_sync(mask, e2, 4);
-    const float ckf = (float)ck[k];
-    const float m = k == 0 ? 6.0f * ckf + 2.0f : 6.0f * ckf + 2.0f + 6.0f;
-    const int32_t cost = 16 * e2 + __float2int_rz(lam_b * m);
-    if (k == 0 || cost < best_cost) {
-      best_cost = cost;
-      best_ssd = e2;
-      best_k = k;
-      best_cnt = ck[k];
-      best_q = qv[k];
-      best_rec = make_uint2(rw[0], rw[1]);
-    }
+    u2 += __shfl_xor_sync(mask, u2, 1);
+    u2 += __shfl_xor_sync(mask, u2, 2);
+    u2 += __shfl_xor_sync(mask, u2, 4);
+    const int32_t lt = __float2int_rz(
+        __fmul_rn(lam[seg], __int2float_rn(6 * kept.cnt + 2)));
+    cd = !(ms[b] && 16 * u2 <= 16 * kept.ssd + lt);
   }
-  reinterpret_cast<uint2*>(recon)[b * 8 + c] = best_rec;
-  if (K > 1) reinterpret_cast<int4*>(qsel)[b * 8 + c] = best_q;
+  reinterpret_cast<int4*>(qout)[b * 8 + c] =
+      cd ? kept.q : make_int4(0, 0, 0, 0);
   if (c == 0) {
-    ssd[b] = best_ssd;
-    qii[b] = (uint8_t)best_k;
-    if (K > 1) cnt_sel[b] = best_cnt;
+    coded[b] = cd;
+    qii[b] = (uint8_t)kept.k;
   }
+  const uint64_t v =
+      cd ? (uint64_t)kept.rec.x | (uint64_t)kept.rec.y << 32 : uw;
+  if (rows) {
+    put_gather_row(rows + b * 65, c, v, cd);
+    return;
+  }
+  // The group's first and last rows for the top and bottom borders.
+  const uint64_t top = __shfl_sync(mask, v, 0, kLanes);
+  const uint64_t bot = __shfl_sync(mask, v, 7, kLanes);
+  put_row(plane + seg * plane_bytes(mc.q), mc.q, fr.r, fr.c, c, v, top, bot,
+          borders != 0);
 }
 
 unsigned grid_of(int64_t n) {
@@ -387,5 +524,51 @@ extern "C" int th_idct_recon_choose(
     idct_recon_choose_kernel<3><<<grid, kThreads, 0, s>>>(
         q16, dc_only, cnt, deq, inter, pred, cur, lam, lam_sc, recon, ssd,
         qii, qsel, cnt_sel, n);
+  return (int)cudaGetLastError();
+}
+
+// th_idct_recon_choose with KS's MC before it and KS's skip test and plane
+// assembly after it (csrc/mc_core.cuh), in one launch: the prediction made
+// from prev, gold [nseg][Hp][Wp] uint8 (8-byte aligned; may be one
+// buffer), cur [nseg n][64] uint8 and side [6][nseg n] int8 as
+// th_mc_residual makes it; ms [nseg n] bool, lam [nseg] float32 (the
+// chooser's and the skip test's), lam_sc [nseg n] float32 or null (the
+// chooser's only), intra. Writes qout [nseg n, 64] int16 (the kept row's
+// values where coded, else 0), coded [nseg n] bool, qii [nseg n] uint8
+// and exactly one of: plane [nseg][Hp][Wp] (new, 8-byte aligned; fid
+// null: n = nv nh, every fragment), its padding the UMV borders when
+// borders, else zeros; rows [nseg n][65] uint8, each kept block's pixels
+// and coded flag (the frag group's all-gather input; fid [n] int32 or
+// null: block b of segment g is fragment fid[b % n] (or b % n)).
+extern "C" int th_mc_idct_recon_skip(
+    const int16_t* q16, const uint8_t* dc_only, const int32_t* cnt,
+    const int16_t* deq, const uint8_t* inter, const uint8_t* prev,
+    const uint8_t* gold, const uint8_t* cur, const int8_t* side,
+    const int32_t* fid, const bool* ms, const float* lam,
+    const float* lam_sc, int intra, int16_t* qout, bool* coded, uint8_t* qii,
+    uint8_t* plane, uint8_t* rows, int borders, int64_t n, int k, int nseg,
+    int Hp, int Wp, int nv, int nh, int pad_y, int pad_x, void* stream) {
+  const Geo q{nv, nh, pad_y, pad_x, Hp, Wp};
+  if (n <= 0 || k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535 ||
+      bad_geometry(nseg, q) || (!fid && n != (int64_t)nv * nh) ||
+      n * nseg > (1L << 27) || (plane == nullptr) == (rows == nullptr) ||
+      (plane && fid) || misaligned(prev, 8) || misaligned(gold, 8) ||
+      misaligned(cur, 8) || misaligned(plane, 8) || misaligned(qout, 16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(grid_of(n), (unsigned)nseg);
+  const McSrc mc{prev, gold, cur, side, fid, q};
+  if (k == 1)
+    mc_idct_recon_skip_kernel<1><<<grid, kThreads, 0, s>>>(
+        q16, dc_only, cnt, deq, inter, mc, ms, lam, lam_sc, intra, qout,
+        coded, qii, plane, rows, borders, n);
+  else if (k == 2)
+    mc_idct_recon_skip_kernel<2><<<grid, kThreads, 0, s>>>(
+        q16, dc_only, cnt, deq, inter, mc, ms, lam, lam_sc, intra, qout,
+        coded, qii, plane, rows, borders, n);
+  else
+    mc_idct_recon_skip_kernel<3><<<grid, kThreads, 0, s>>>(
+        q16, dc_only, cnt, deq, inter, mc, ms, lam, lam_sc, intra, qout,
+        coded, qii, plane, rows, borders, n);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,15 @@
 // blocks_to_plane and fill_borders. The outputs must equal theirs byte
 // for byte.
 //
+// The encode scan launches none of th_mc_residual, th_skip and th_place
+// on a step without a frag group: KS's row core (csrc/mc_core.cuh) runs
+// inside K2's and KR's entries (th_mc_fdct_quant, th_mc_fdct_quant_rd:
+// the MC row where their block core loads its residual row) and K1's
+// (th_mc_idct_recon_skip: the MC row, the skip test and put_row around
+// the chooser). th_mc_residual and th_skip stay as the chain those
+// entries replaced and the test hooks; over a frag group the scan runs
+// th_place after the all-gather; the decode runs th_mc_recon.
+//
 // Entries (one launch each):
 //   th_mc_residual: N = G nl blocks of one plane at one frame step (block
 //     b in segment g = b / nl, the mesh encoder's GOPs), fragment fid[b %
@@ -75,124 +84,12 @@
 
 #include <cuda_runtime.h>
 
+#include "mc_core.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // 16 fragments of 8 lanes
 constexpr unsigned kAll = 0xffffffffu;
-constexpr uint64_t kLow7 = 0xfefefefefefefefeull;
-
-struct Geo {
-  int nv, nh, pad_y, pad_x, Hp, Wp;
-};
-
-__device__ __forceinline__ size_t plane_bytes(const Geo& q) {
-  return (size_t)q.Hp * q.Wp;
-}
-
-// The 8 bytes at p, any alignment, inside a buffer whose size is a
-// multiple of 8: the aligned word around p and, off alignment, the next.
-__device__ __forceinline__ uint64_t load8(const uint8_t* p) {
-  const uintptr_t a = (uintptr_t)p;
-  const unsigned long long* w =
-      reinterpret_cast<const unsigned long long*>(a & ~(uintptr_t)7);
-  const int s = (int)(a & 7) * 8;
-  const uint64_t lo = __ldg(w);
-  return s == 0 ? lo : (lo >> s) | ((uint64_t)__ldg(w + 1) << (64 - s));
-}
-
-__device__ __forceinline__ uint64_t load8a(const uint8_t* p) {
-  return __ldg(reinterpret_cast<const unsigned long long*>(p));
-}
-
-__device__ __forceinline__ void store8(uint8_t* p, uint64_t v) {
-  *reinterpret_cast<unsigned long long*>(p) = v;
-}
-
-__device__ __forceinline__ int byte_at(uint64_t v, int j) {
-  return (int)((v >> (8 * j)) & 0xff);
-}
-
-__device__ __forceinline__ uint64_t splat(uint64_t byte) {
-  return byte * 0x0101010101010101ull;
-}
-
-// Row i of fragment (r, c)'s prediction as 8 bytes: 128 where rs == 0,
-// else from ref (prev's or gold's plane) at (y1, x1), averaged with (y2,
-// x2) where u2. side holds the six int8 rows rs, y1, x1, y2, x2, u2 of
-// `stride` entries each, entry e for this fragment.
-__device__ __forceinline__ uint64_t predict_row(
-    const uint8_t* prev, const uint8_t* gold, const int8_t* side,
-    int stride, int e, const Geo& q, int r, int c, int i) {
-  const int rs = side[e];
-  if (rs == 0) return splat(128);
-  const int y1 = side[stride + e], x1 = side[2 * stride + e];
-  const int y2 = side[3 * stride + e], x2 = side[4 * stride + e];
-  const bool u2 = side[5 * stride + e] != 0;
-  const uint8_t* ref = rs == 2 ? gold : prev;
-  const int y = q.pad_y + 8 * r, x = q.pad_x + 8 * c;
-  const int ya = y + y1, xa = x + x1, yb = y + y2, xb = x + x2;
-  if (ya < 0 || ya + 8 > q.Hp || xa < 0 || xa + 8 > q.Wp ||
-      (u2 && (yb < 0 || yb + 8 > q.Hp || xb < 0 || xb + 8 > q.Wp)))
-    __trap();
-  const uint64_t a = load8(ref + (size_t)(ya + i) * q.Wp + xa);
-  if (!u2) return a;
-  const uint64_t b = load8(ref + (size_t)(yb + i) * q.Wp + xb);
-  return (a & b) + (((a ^ b) & kLow7) >> 1);
-}
-
-// Row i of fragment (r, c) into the padded plane pl, and the padding this
-// lane owns: the side borders of its row where c is 0 or nh-1, and where
-// r is 0 or nv-1 the padding rows i, i + 8, ... above or below its
-// columns (top: row 0 of the fragment; bot: its row 7), with the corners.
-// With borders 0 the padding is zeros.
-__device__ __forceinline__ void put_row(uint8_t* pl, const Geo& q, int r,
-                                        int c, int i, uint64_t v,
-                                        uint64_t top, uint64_t bot,
-                                        bool borders) {
-  const int Wp = q.Wp;
-  const int x = q.pad_x + 8 * c;
-  const int xr = q.pad_x + 8 * q.nh;  // the right border's first byte
-  const int nw = q.pad_x / 8;
-  const bool left = c == 0, right = c == q.nh - 1;
-  auto side_words = [&](uint8_t* row, uint64_t w) {
-    if (left) {
-      const uint64_t s = borders ? splat(w & 0xff) : 0;
-      for (int k = 0; k < nw; k++) store8(row + 8 * k, s);
-    }
-    if (right) {
-      const uint64_t s = borders ? splat(w >> 56) : 0;
-      for (int k = 0; k < nw; k++) store8(row + xr + 8 * k, s);
-    }
-  };
-  uint8_t* row = pl + (size_t)(q.pad_y + 8 * r + i) * Wp;
-  store8(row + x, v);
-  side_words(row, v);
-  if (r == 0) {
-    const uint64_t w = borders ? top : 0;
-    for (int y = i; y < q.pad_y; y += 8) {
-      uint8_t* pr = pl + (size_t)y * Wp;
-      store8(pr + x, w);
-      side_words(pr, top);
-    }
-  }
-  if (r == q.nv - 1) {
-    const uint64_t w = borders ? bot : 0;
-    for (int y = i; y < q.pad_y; y += 8) {
-      uint8_t* pr = pl + (size_t)(q.pad_y + 8 * q.nv + y) * Wp;
-      store8(pr + x, w);
-      side_words(pr, bot);
-    }
-  }
-}
-
-// The fragment of block b: (segment g, fragment index f), checked.
-__device__ __forceinline__ void locate(int b, int nl, int n,
-                                       const int32_t* fid, int& g, int& f) {
-  g = b / nl;
-  const int j = b - g * nl;
-  f = fid ? __ldg(fid + j) : j;
-  if (f < 0 || f >= n) __trap();
-}
 
 __global__ void __launch_bounds__(kThreads)
 mc_residual_kernel(const uint8_t* __restrict__ prev,
@@ -285,12 +182,7 @@ skip_kernel(const uint8_t* __restrict__ prev,
   if (!live) return;
   if (plane) put_row(plane + g * plane_bytes(q), q, r, c, i, v, top, bot,
                      borders != 0);
-  if (rows) {
-    uint8_t* o = rows + (size_t)b * 65;
-#pragma unroll
-    for (int j = 0; j < 8; j++) o[8 * i + j] = (uint8_t)byte_at(v, j);
-    if (i == 0) o[64] = cd;
-  }
+  if (rows) put_gather_row(rows + (size_t)b * 65, i, v, cd);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -347,14 +239,6 @@ mc_recon_kernel(const uint8_t* __restrict__ prev,
   put_row(plane, q, r, c, i, v, top, bot, borders != 0);
   if (pic) store8(pic + (size_t)(8 * r + i) * (8 * q.nh) + 8 * c, v);
 }
-
-bool bad_geometry(int G, const Geo& q) {
-  return G < 1 || q.nv < 1 || q.nh < 1 || q.pad_y < 2 || q.pad_x < 8 ||
-         q.pad_x % 8 || q.Hp != 8 * q.nv + 2 * q.pad_y ||
-         q.Wp != 8 * q.nh + 2 * q.pad_x;
-}
-
-bool misaligned(const void* p, int n) { return (uintptr_t)p % n != 0; }
 
 unsigned ctas(long lanes) {
   return (unsigned)((lanes + kThreads - 1) / kThreads);

@@ -38,8 +38,8 @@
 // __fmaf_rn; the file is built with -fmad=false, so nvcc contracts
 // nothing else. Every product that rounds is an explicit __fmul_rn.
 //
-// Two entries, one row step (rd_row below: the magnitude step, the kill
-// masks and the sweeps of one (row, block) pair on 8 lanes):
+// Three entries, one row step (rd_row below: the magnitude step, the
+// kill masks and the sweeps of one (row, block) pair on 8 lanes):
 //
 // th_fdct_quant_rd, the main path's entry: kernel K2's fDCT and
 // round-to-nearest quantization (csrc/fdct_core.cuh, K2's block core)
@@ -57,6 +57,12 @@
 // counts, tools/bench_qrd.py:sass_counts). A dead block at the grid's tail
 // transforms zeros and runs the row step with the live lanes (its
 // shuffles take the whole warp); only its stores are skipped.
+//
+// th_mc_fdct_quant_rd, the encode scan's entry at speed levels 2-4:
+// th_fdct_quant_rd with kernel KS's MC as its head (csrc/mc_core.cuh:
+// mc_residual_row makes each lane's residual row in registers where K2's
+// core would load it, as in csrc/fdct_quant.cu's th_mc_fdct_quant);
+// th_fdct_quant_rd stays as the chain it replaced and its test hook.
 //
 // th_quantize_rd, the standalone entry, kept as the test hook: the row
 // step on round-to-nearest values and DCT rows given as K2 writes them, so
@@ -87,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "fdct_core.cuh"
+#include "mc_core.cuh"
 
 namespace {
 
@@ -206,9 +213,9 @@ __device__ __forceinline__ RowKept rd_row(const int32_t q[8],
 
 // At least 3 CTAs per SM: with no minimum ptxas held K = 2 and 3 to 64
 // registers and spilled at K = 2; this way they take 72, no spill.
-template <int K>
+template <int K, bool MC>
 __global__ void __launch_bounds__(kThreads, 3)
-fdct_qrd_kernel(const int16_t* __restrict__ res,
+fdct_qrd_kernel(const int16_t* __restrict__ res, McSrc mc,
                 const int16_t* __restrict__ deq,
                 const uint8_t* __restrict__ inter,
                 const float* __restrict__ lams, int16_t* __restrict__ out,
@@ -235,7 +242,12 @@ fdct_qrd_kernel(const int16_t* __restrict__ res,
   const int64_t total = n * gridDim.y;
 
   int32_t v[8];
-  block_dct(res, areas[lb], b, c, live, v);
+  if (MC)
+    block_dct_row(live ? mc_residual_row(mc, seg, local, b, total, c)
+                       : make_int4(0, 0, 0, 0),
+                  areas[lb], c, v);
+  else
+    block_dct(res, areas[lb], b, c, live, v);
   const int t = (live && inter[b]) ? 1 : 0;
   float av[8];
 #pragma unroll
@@ -313,6 +325,29 @@ qrd_kernel(const int16_t* __restrict__ qrtn, const int16_t* __restrict__ dct,
   }
 }
 
+template <bool MC>
+int launch_fused(const int16_t* res, const McSrc& mc, const int16_t* deq,
+                 const uint8_t* inter, const float* lam, int16_t* out,
+                 int32_t* cnt, uint8_t* dc_only, int64_t n, int k, int nseg,
+                 void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta),
+                  (unsigned)nseg);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1)
+    fdct_qrd_kernel<1, MC><<<grid, kThreads, 0, s>>>(
+        res, mc, deq, inter, lam, out, cnt, dc_only, n);
+  else if (k == 2)
+    fdct_qrd_kernel<2, MC><<<grid, kThreads, 0, s>>>(
+        res, mc, deq, inter, lam, out, cnt, dc_only, n);
+  else
+    fdct_qrd_kernel<3, MC><<<grid, kThreads, 0, s>>>(
+        res, mc, deq, inter, lam, out, cnt, dc_only, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // res [nseg n, 64] int16, deq [nseg, k, 2, 64] int16, inter [nseg n]
@@ -325,22 +360,32 @@ extern "C" int th_fdct_quant_rd(const int16_t* res, const int16_t* deq,
                                 int16_t* out, int32_t* cnt,
                                 uint8_t* dc_only, int64_t n, int k, int nseg,
                                 void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (k < 1 || k > kMaxRows || nseg < 1 || nseg > 65535)
+  return launch_fused<false>(res, McSrc{}, deq, inter, lam, out, cnt,
+                             dc_only, n, k, nseg, stream);
+}
+
+// th_fdct_quant_rd with the residual made in the kernel by KS's MC
+// (csrc/mc_core.cuh), as th_mc_residual makes it: prev, gold [nseg][Hp]
+// [Wp] uint8 (8-byte aligned; may be one buffer), cur [nseg n][64] uint8
+// (8-byte aligned), side [6][nseg n] int8, fid [n] int32 or null (then
+// n = nv nh): block b of segment g is fragment fid[b % n] (or b % n) of
+// plane g.
+extern "C" int th_mc_fdct_quant_rd(const uint8_t* prev, const uint8_t* gold,
+                                   const uint8_t* cur, const int8_t* side,
+                                   const int32_t* fid, const int16_t* deq,
+                                   const uint8_t* inter, const float* lam,
+                                   int16_t* out, int32_t* cnt,
+                                   uint8_t* dc_only, int64_t n, int k,
+                                   int nseg, int Hp, int Wp, int nv, int nh,
+                                   int pad_y, int pad_x, void* stream) {
+  const Geo q{nv, nh, pad_y, pad_x, Hp, Wp};
+  if (bad_geometry(nseg, q) || (!fid && n != (int64_t)nv * nh) ||
+      n * nseg > (1L << 27) || misaligned(prev, 8) || misaligned(gold, 8) ||
+      misaligned(cur, 8))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kBlocksPerCta - 1) / kBlocksPerCta),
-                  (unsigned)nseg);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1)
-    fdct_qrd_kernel<1><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
-                                                  cnt, dc_only, n);
-  else if (k == 2)
-    fdct_qrd_kernel<2><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
-                                                  cnt, dc_only, n);
-  else
-    fdct_qrd_kernel<3><<<grid, kThreads, 0, s>>>(res, deq, inter, lam, out,
-                                                  cnt, dc_only, n);
-  return (int)cudaGetLastError();
+  return launch_fused<true>(nullptr, McSrc{prev, gold, cur, side, fid, q},
+                            deq, inter, lam, out, cnt, dc_only, n, k, nseg,
+                            stream);
 }
 
 // qrtn [nrows, nseg n, 64], dct [nseg n, 64], deq [nseg, nrows, 2, 64]

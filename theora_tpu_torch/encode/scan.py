@@ -16,20 +16,21 @@ to frame and from GOP to GOP. The JAX scan over frames becomes a loop; the
 carried (prev, gold) reference planes of every GOP stay on the device.
 Per frame step, over the G GOPs' blocks at once:
 
-  kernel KS's MC entry (the prediction by direct gathers, the residual and
-  the uncoded copy's SSD) -> kernel K2
-  (fDCT + quantization with each qi row, also returning the unquantized
-  DCT) -> kernel KT (the trellis) at every qi row, on K2's outputs as they
-  are; or, without the trellis, kernel KR's fused entry (K2's fDCT and
+  kernel K2 with kernel KS's MC as its head (mc_fdct_quantize: each
+  block's prediction from the carried planes and its residual made in
+  registers, the fDCT and the quantization with each qi row, also
+  returning the unquantized DCT) -> kernel KT (the trellis) at every qi
+  row, on K2's outputs as they are; or, without the trellis, kernel KR's
+  fused entry with the same head (mc_fdct_quantize_rd: MC, K2's fDCT and
   quantization and the R/D quantizer in one launch); each returns the
-  values, nonzero counts and DC-only flags -> kernel K1's encode entry
-  (dequant + iDCT of every row, reconstruction, SSD, and with K > 1 rows
-  the chooser, which keeps each block's cheapest row) -> kernel KS's skip
-  entry (the R/D skip test against the uncoded copy and the new carried
+  values, nonzero counts and DC-only flags -> kernel K1's fused encode
+  entry (mc_idct_recon_skip: the prediction again in registers, dequant +
+  iDCT of every row, reconstruction, SSD, with K > 1 rows the chooser,
+  then KS's R/D skip test against the uncoded copy and the new carried
   plane, with its borders when no GOP's limit is above 0; over a frag
-  group its decision form, the gather of every rank's blocks and coded
-  flags, then its place form) -> kernel KL (the loop filter and the
-  borders, one launch over the G planes) where a GOP's limit is above 0.
+  group the kept blocks' rows, the gather of every rank's rows and KS's
+  place entry) -> kernel KL (the loop filter and the borders, one launch
+  over the G planes) where a GOP's limit is above 0.
 
 Each kernel runs once per plane per frame step whatever K and G are: the
 G GOPs are the kernels' segments (a GOP's quantizer rows and lambdas for
@@ -108,16 +109,16 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
         0, 1, 2, 4, 3, 5).reshape(G, F, n, 64)
     nl, fid = n, None
     if fr is not None:
-        # This rank's fragments of every GOP: KS's MC and skip entries
-        # take them by fragment id, cur by index.
+        # This rank's fragments of every GOP: the fused entries take them
+        # by fragment id, cur by index.
         nl, idx, _ = fr.shard(n)
         fid = transfer.upload(idx.astype(np.int32), dev)
         cur = cur[:, :, fid.long()]
     N = G * nl
     cur = _frames_major(cur)
     frag = {k: _frames_major(v) for k, v in frag.items()}
-    # KS's side rows (ops/mc.py:SIDE_ROWS) of every frame step, [F, 6, N]
-    # int8, and K2's, KR's and K1's inter flags, [F, N] uint8.
+    # KS's MC side rows (ops/mc.py:SIDE_ROWS) of every frame step, [F, 6,
+    # N] int8, and K2's, KR's and K1's inter flags, [F, N] uint8.
     side = torch.stack([frag[k] for k in ("rs", "o1y", "o1x", "o2y", "o2x",
                                           "u2")], 1).to(torch.int8)
     inter_all = (frag["rs"] != 0).to(torch.uint8)
@@ -136,7 +137,7 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
     lim_dev = transfer.upload(limit.T, dev)
     qout = torch.empty((F, N, 64), dtype=torch.int16, device=dev)
     coded_out = torch.empty((F, N), dtype=torch.bool, device=dev)
-    qii_out = torch.zeros((F, N), dtype=torch.uint8, device=dev)
+    qii_out = torch.empty((F, N), dtype=torch.uint8, device=dev)
     recon_out = [] if emit_recon else None
     # record_function labels group profiler time by codec stage
     # (tools/profile_encode.py).
@@ -144,42 +145,34 @@ def encode_plane(cur_planes, frag, is_intra, deq, limit, lam, nv: int,
         ik = bool(is_intra[f])
         sc = None if sc_f is None else sc_f[f]
         inter = inter_all[f]
-        with record_function("theora.enc.mc"):
-            pred, res, ssd_unc = mc_cuda.mc_residual(
-                prev, gold, cur[f], side[f], nv, nh, pad_y, pad_x, fid)
+        mc_in = (prev, gold, cur[f], side[f])
+        geom = (nv, nh, pad_y, pad_x)
         if use_trellis:
             with record_function("theora.enc.fdct_quant"):
-                qdct0, dct = fdct_cuda.fdct_quantize(res, deq[f], inter)
+                qdct0, dct = fdct_cuda.mc_fdct_quantize(
+                    *mc_in, deq[f], inter, *geom, fid)
             with record_function("theora.enc.trellis"):
                 q16, cnt, dc_only = trellis_cuda.trellis_quantize(
                     qdct0, dct, deq[f], inter, lam_t_dev[f], nb, sc)
         else:
             with record_function("theora.enc.fdct_quant_rd"):
-                q16, cnt, dc_only = qrd_cuda.fdct_quantize_rd(
-                    res, deq[f], inter, lam_q_dev[f])
-        lam_f = lam_dev[f]
-        with record_function("theora.enc.idct_recon"):
-            recon, ssd_rec, qii, q16, cnt = idct_cuda.idct_recon_choose(
-                q16, dc_only, cnt, deq[f], inter, pred, cur[f], lam_f, sc)
-        if K > 1:
-            qii_out[f] = qii
-        # KL fills the borders of the planes it filters; KS those of the
-        # others.
+                q16, cnt, dc_only = qrd_cuda.mc_fdct_quantize_rd(
+                    *mc_in, deq[f], inter, lam_q_dev[f], *geom, fid)
+        # KL fills the borders of the planes it filters; K1's fused entry
+        # those of the others.
         filtered = bool(limit[:, f].any())
-        skip_args = (recon, q16, ssd_rec, ssd_unc, cnt, frag["ms"][f],
-                     lam_f, ik, qout[f], coded_out[f], nv, nh, pad_y, pad_x)
+        with record_function("theora.enc.idct_recon"):
+            kept = idct_cuda.mc_idct_recon_skip(
+                q16, dc_only, cnt, deq[f], inter, *mc_in, frag["ms"][f],
+                lam_dev[f], sc, ik, qout[f], coded_out[f], qii_out[f],
+                *geom, borders=not filtered, fid=fid)
         if fr is None:
-            with record_function("theora.enc.skip"):
-                plane = mc_cuda.skip_place(prev, *skip_args,
-                                           borders=not filtered)
-            coded_all = coded_out[f]
+            plane, coded_all = kept, coded_out[f]
         else:
-            with record_function("theora.enc.skip"):
-                mine = mc_cuda.skip_rows(prev, *skip_args, fid=fid)
             with record_function("theora.enc.frag_gather"):
                 # One gather of every rank's blocks and coded flags,
                 # [Fr, G * nl, 65] -> [G * n, 65].
-                both = fr.whole(fr.all_gather(mine, "step").view(
+                both = fr.whole(fr.all_gather(kept, "step").view(
                     fr.size, G, nl, 65), n, 1).reshape(G * n, 65)
             with record_function("theora.enc.borders"):
                 plane, coded_all = mc_cuda.place_rows(

@@ -4,7 +4,12 @@ Replaces the Pallas kernel theora_tpu/ops/pallas_kernels.py:idct8x8_soa
 and the steps around it, through two entry points over one block core:
 `dequantize_idct_frames`, the decode scan's dequant + iDCT, and
 `idct_recon_choose`, the encode scan's step after the trellis (dequant +
-iDCT of each of K qi rows, reconstruction, SSD and the qi chooser). The
+iDCT of each of K qi rows, reconstruction, SSD and the qi chooser), on
+the prediction kernel KS's MC entry wrote, and `mc_idct_recon_skip`, the
+scan's step since KS's MC, skip test and plane assembly were fused into
+it: one launch makes each block's prediction row in registers
+(csrc/mc_core.cuh), runs the chooser, the uncoded copy's SSD and the skip
+test, and puts the kept block into the new plane. The
 library is compiled with nvcc for sm_90a (``-fmad=false``) at first use
 into ``csrc/build/`` and bound with ctypes (plain C interface). Each
 wrapper runs its plain PyTorch version (ops/transforms.py) only for
@@ -25,6 +30,9 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _SRC = os.path.join(_CSRC, "idct.cu")
 _SO = os.path.join(_CSRC, "build", "libtheora_idct.so")
+# Kernel KS's row core (MC, the plane's assembly), which K1's, K2's and
+# KR's fused encode entries and KS's own source include.
+MC_CORE = os.path.join(_CSRC, "mc_core.cuh")
 # The chooser's float32 costs round once per operation, as on the CPU: no
 # contraction of a*b + c into a fused multiply-add.
 NVCC_FLAGS = ("-fmad=false",)
@@ -42,14 +50,15 @@ _COUNT_LOCK = threading.Lock()
 
 def build() -> str:
     """Compile csrc/idct.cu when the library is missing or older than its
-    source; returns the library path."""
-    return nvcc_build(_SRC, _SO, NVCC_FLAGS)
+    source or csrc/mc_core.cuh; returns the library path."""
+    return nvcc_build(_SRC, _SO, NVCC_FLAGS, deps=(MC_CORE,))
 
 
 def bind(lib, recon: bool = True):
     """Set the ctypes signatures of a K1 library's entry points (recon:
-    also th_idct_recon_choose, which builds of the one-entry interface
-    lack); returns lib."""
+    also th_idct_recon_choose and, where the build has it,
+    th_mc_idct_recon_skip, which builds of the one-entry interface lack);
+    returns lib."""
     lib.th_dequant_idct.restype = ctypes.c_int
     lib.th_dequant_idct.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int64, ctypes.c_void_p,
@@ -59,6 +68,12 @@ def bind(lib, recon: bool = True):
         lib.th_idct_recon_choose.argtypes = [ctypes.c_void_p] * 14 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        if hasattr(lib, "th_mc_idct_recon_skip"):
+            lib.th_mc_idct_recon_skip.restype = ctypes.c_int
+            lib.th_mc_idct_recon_skip.argtypes = [ctypes.c_void_p] * 13 + [
+                ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+                ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p]
     return lib
 
 
@@ -255,3 +270,102 @@ def launch_recon_choose(lib, q16, dc_only, cnt, deq, inter, pred, cur, lam,
 # Kernel launches made through the wrappers (CPU calls do not count).
 dequantize_idct_frames.launches = 0
 idct_recon_choose.launches = 0
+
+
+def mc_idct_recon_skip(q16, dc_only, cnt, deq, inter, prev, gold, cur, side,
+                       ms, lam, lam_sc, intra: bool, qout, coded, qii,
+                       nv: int, nh: int, pad_y: int, pad_x: int,
+                       borders: bool = False, fid=None):
+    """The encode scan's step after the quantizer with kernel KS's MC,
+    skip test and plane assembly, in one launch: idct_recon_choose on the
+    prediction that mc_cuda.mc_residual makes from (prev, gold, cur, side,
+    fid), then mc_cuda.skip_place (fid None) or skip_rows (fid given, a
+    frag group's share) on its kept rows, with the same lam (the
+    chooser's, times lam_sc where given, and the skip test's, alone).
+
+    q16 [K, N, 64] int16, dc_only [K, N] bool, cnt [K, N] int32 (the
+    quantizer's outputs), deq [G, K, 2, 64] (or [K, 2, 64] at G = 1) and
+    inter [N] uint8 as idct_recon_choose takes them; prev, gold [G, Hp,
+    Wp] uint8 (gold may be prev), cur [N, 64] uint8, side [6, N] int8 and
+    fid None or [nl] int32 (N = G nl) as mc_residual takes them; ms [N]
+    bool, lam [G] float32, lam_sc None or [N] float32; intra. Writes qout
+    [N, 64] int16 (the kept row's values where coded, else 0), coded [N]
+    bool and qii [N] uint8 (the kept row) in place. Returns the new [G,
+    Hp, Wp] plane of the kept blocks, its padding the UMV borders when
+    borders, else zeros (fid None: N = G nv nh); with fid, the [N, 65]
+    uint8 rows of the kept blocks and their coded flags (the frag group's
+    all-gather input). The CPU path is that plain chain: ops/mc.py:
+    mc_residual, transforms.idct_recon_choose, then ops/mc.py:skip_place
+    or skip_rows.
+    """
+    from theora_tpu_torch.ops import mc, mc_cuda
+
+    k, n = (q16.shape[0], q16.shape[1]) if q16.dim() == 3 else (0, 0)
+    if not 1 <= k <= MAX_ROWS:
+        raise ValueError(f"q16: expected [K, N, 64] with K in 1..{MAX_ROWS},"
+                         f" got {tuple(q16.shape)}")
+    G, hp, wp, dev = mc_cuda._planes(prev, gold, nv, nh, pad_y, pad_x, 3)
+    nl = mc_cuda._fragments(fid, G, nv * nh, dev)
+    if n != G * nl:
+        raise ValueError(f"q16: {n} blocks for {G} planes of {nl}")
+    _check(q16, "q16", torch.int16, (k, n, 64), dev)
+    _check(dc_only, "dc_only", torch.bool, (k, n), dev)
+    _check(cnt, "cnt", torch.int32, (k, n), dev)
+    deq4, g, kd, _ = segments(deq, n, dev)
+    if (g, kd) != (G, k):
+        raise ValueError(f"deq: {g} segments of {kd} qi rows for {G} planes"
+                         f" of q16's {k}")
+    for t, name, dtype, shape in (
+            (inter, "inter", torch.uint8, (n,)),
+            (cur, "cur", torch.uint8, (n, 64)),
+            (side, "side", torch.int8, (6, n)),
+            (ms, "ms", torch.bool, (n,)),
+            (lam, "lam", torch.float32, (G,)),
+            (qout, "qout", torch.int16, (n, 64)),
+            (coded, "coded", torch.bool, (n,)),
+            (qii, "qii", torch.uint8, (n,))):
+        _check(t, name, dtype, shape, dev)
+    if lam_sc is not None:
+        _check(lam_sc, "lam_sc", torch.float32, (n,), dev)
+    for t, name, a in ((q16, "q16", 16), (deq, "deq", 16), (qout, "qout", 16),
+                       (prev, "prev", 8), (gold, "gold", 8), (cur, "cur", 8)):
+        _aligned(t, name, a)
+    if dev.type == "cpu":
+        pred, _, ssd_unc = mc.mc_residual(prev, gold, cur, side, nv, nh,
+                                          pad_y, pad_x, fid)
+        recon, ssd, kept, q, c = transforms.idct_recon_choose(
+            q16, dc_only, cnt, deq, inter, pred, cur, lam, lam_sc)
+        qii.copy_(kept)
+        skip = (prev, recon, q, ssd, ssd_unc, c, ms, lam, intra, qout, coded,
+                nv, nh, pad_y, pad_x)
+        if fid is None:
+            return mc.skip_place(*skip, borders)
+        return mc.skip_rows(*skip, fid)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    plane = rows = None
+    if fid is None:
+        plane = torch.empty_like(prev)
+    else:
+        rows = torch.empty((n, 65), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _load().th_mc_idct_recon_skip(
+        q16.data_ptr(), dc_only.data_ptr(), cnt.data_ptr(), deq4.data_ptr(),
+        inter.data_ptr(), prev.data_ptr(), gold.data_ptr(), cur.data_ptr(),
+        side.data_ptr(), None if fid is None else fid.data_ptr(),
+        ms.data_ptr(), lam.data_ptr(),
+        None if lam_sc is None else lam_sc.data_ptr(), int(bool(intra)),
+        qout.data_ptr(), coded.data_ptr(), qii.data_ptr(),
+        None if plane is None else plane.data_ptr(),
+        None if rows is None else rows.data_ptr(), int(bool(borders)), nl,
+        k, G, hp, wp, nv, nh, pad_y, pad_x, stream)
+    if err != 0:
+        raise RuntimeError(f"K1 mc_idct_recon_skip launch failed: CUDA "
+                           f"error {err}")
+    with _COUNT_LOCK:
+        mc_idct_recon_skip.launches += 1
+    return plane if rows is None else rows
+
+
+# Kernel launches made through the wrapper (CPU calls do not count).
+mc_idct_recon_skip.launches = 0

@@ -8,12 +8,18 @@ block_neighborhoods, :72 mc_select2), its R/D skip test and the plane's
 assembly with the UMV borders (tpu_gop.py:286-313, mc_jax.py:107
 blocks_to_plane, theora_tpu/pipeline.py:122 fill_borders), and the decode
 step's reconstruction (theora_tpu/decode/tpu_batch.py:114-128). Entries,
-one launch each: `mc_residual` before K2 (or KR) and `skip_place` after
-K1 per plane per encode frame step (over a frag group `skip_rows` before
-the all-gather and `place_rows` after it), `mc_recon` per plane per
-decoded frame, in place of the ~50 PyTorch launches of the plain chains.
+one launch each: `mc_residual` (MC before K2 or KR), `skip_place` (the
+skip test and the plane after K1; over a frag group `skip_rows` before
+the all-gather and `place_rows` after it) and `mc_recon` (per plane per
+decoded frame), in place of the ~50 PyTorch launches of the plain chains.
 8 lanes per fragment, a lane per row; bytes bound it
-(tools/bench_mc.py:ks_bound; see the source's note).
+(tools/bench_mc.py:ks_bound; see the source's note). The encode scan
+launches only `place_rows` of them, after a frag group's gather: KS's row
+core (csrc/mc_core.cuh) runs inside K2's and KR's fused entries
+(fdct_cuda.mc_fdct_quantize, qrd_cuda.mc_fdct_quantize_rd) and K1's
+(idct_cuda.mc_idct_recon_skip, which writes the skip_rows form over a
+frag group); `mc_residual`, `skip_place` and `skip_rows` stay as the
+chain those entries replaced and its test hooks.
 
 Each output must equal the plain version's (ops/mc.py, the entry of the
 same name) byte for byte, the planes' padding included. The library is
@@ -31,7 +37,8 @@ import torch
 
 from theora_tpu_torch.ops import mc
 from theora_tpu_torch.ops.cuda_build import nvcc_build
-from theora_tpu_torch.ops.idct_cuda import _COUNT_LOCK, _aligned, _check
+from theora_tpu_torch.ops.idct_cuda import MC_CORE, _COUNT_LOCK, _aligned, \
+    _check
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -45,8 +52,8 @@ _lib = None
 
 def build() -> str:
     """Compile csrc/mc.cu when the library is missing or older than its
-    source; returns the library path."""
-    return nvcc_build(_SRC, _SO)
+    source or csrc/mc_core.cuh; returns the library path."""
+    return nvcc_build(_SRC, _SO, deps=(MC_CORE,))
 
 
 def _load():

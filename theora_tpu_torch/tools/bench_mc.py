@@ -17,7 +17,17 @@ and filtered ones (zero padding), prev and gold one buffer. Then times
 with CUDA events over 50 launches, L2 flushed before each, at the 720p
 luma and 4:2:0 chroma shapes: each entry, its plain version, a device copy
 moving the same bytes and an empty kernel's launch, beside its bound
-(ks_bound). Needs a CUDA card. Prints one JSON summary as its last line.
+(ks_bound). Then KS fused into the encode scan's kernels: K2's and KR's
+entries with KS's MC as their head (fdct_cuda.mc_fdct_quantize,
+qrd_cuda.mc_fdct_quantize_rd) and K1's with KS's MC, skip test and plane
+assembly (idct_cuda.mc_idct_recon_skip) against their plain chains and
+the kernel chains they replaced, byte for byte (check_fused, on
+fused_cases: the same planes, G = 1 and 3, prev and gold one buffer, a
+frag group's share, K = 1-3, the trellis and the R/D path, key and inter
+steps, borders on and off, blocks whose skip test ties and turns on one
+float32 ulp), and timed at the 720p luma and chroma shapes in turns with
+those chains beside fused_bound (timed_fused). Needs a CUDA card. Prints
+one JSON summary as its last line.
 
 The generators (side_rows, residual_inputs, skip_inputs, recon_inputs)
 return numpy arrays from a seed; the CPU tests feed the same arrays to
@@ -267,6 +277,26 @@ def _outputs(entry: str, args: tuple, fn) -> list:
         args[i] for i in inplace]
 
 
+def _same(got, want, what: str, label: str) -> int:
+    """Every tensor of got equal to want's; returns the largest
+    |difference| (0)."""
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = max(err, int((g.int() - w.int()).abs().max()) if g.numel()
+                  else 0)
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:4].tolist()
+            raise AssertionError(f"{label}: != {what}, output {i} at {bad}")
+    return err
+
+
+def _refs(side) -> int:
+    """Reference rows the data make MC read: one per block with rs != 0,
+    a second where u2."""
+    s = side.cpu().numpy()
+    return int((s[0] != 0).sum() + ((s[0] != 0) & (s[5] != 0)).sum())
+
+
 def check_one(label: str, entry: str, args: tuple) -> int:
     """One KS entry against its plain version on args: every output equal,
     one launch, the inputs untouched; returns the largest |difference|."""
@@ -278,13 +308,7 @@ def check_one(label: str, entry: str, args: tuple) -> int:
     got = _outputs(entry, args, wrapper)
     want = _outputs(entry, args, getattr(mc, entry))
     torch.cuda.synchronize()
-    err = 0
-    for i, (g, w) in enumerate(zip(got, want)):
-        err = max(err, int((g.int() - w.int()).abs().max()))
-        if not torch.equal(g, w):
-            bad = (g != w).nonzero()[:4].tolist()
-            raise AssertionError(f"KS {entry} != plain on {label}: output "
-                                 f"{i} at {bad}")
+    err = _same(got, want, "plain", f"KS {entry} on {label}")
     for a, b in zip(args, before):
         if isinstance(a, torch.Tensor) and not torch.equal(a, b):
             raise AssertionError(f"KS {entry} wrote an input on {label}")
@@ -362,10 +386,8 @@ def ks_bound(entry: str, args) -> dict:
     one, and its decision inputs only on an inter step. Bytes bind. Copies
     the side rows and coded flags to the host."""
     if entry in ("mc_residual", "mc_recon"):
-        side = args[3].cpu().numpy()
-        refs = int((side[0] != 0).sum() + ((side[0] != 0) & (side[5] != 0))
-                   .sum())
-        n = side.shape[1]
+        refs = _refs(args[3])
+        n = args[3].shape[1]
         if entry == "mc_residual":
             fid = args[8]
             nbytes = n * (6 + 64 + 64 + 256 + 128 + 4) + 64 * refs + (
@@ -446,6 +468,429 @@ def describe(label: str, r: dict) -> str:
             f"{100 * r['bound_ms'] / r['ms']:.2f}% of it")
 
 
+# ----------------------------------------------------------------------
+# KS fused into the encode scan's kernels: K2's and KR's entries with its
+# MC as their head (fdct_cuda.mc_fdct_quantize, qrd_cuda.
+# mc_fdct_quantize_rd) and K1's entry with its MC, skip test and plane
+# assembly around the chooser (idct_cuda.mc_idct_recon_skip).
+
+# The skip test's lambda on the engineered blocks of fused_inputs: a
+# multiple of 8, so that lam * (6 * 0 + 2) is the integer 16.
+TIE_LAM = np.float32(8.0)
+
+
+def fused_inputs(rng, G: int, nv: int, nh: int, pad_y: int, pad_x: int,
+                 K: int, fid=None, same_gold: bool = False,
+                 scales: bool = True) -> dict:
+    """The fused entries' inputs as numpy for N = G nl blocks of one
+    plane at one frame step: residual_inputs' planes, source and side rows
+    (MVs at the padding's far corners), then per segment g the qi rows of
+    bench_segments.QIS[g % 4][:K] (dequant rows deq [G, K, 2, 64] int16 of
+    plane 0 where pad_x is 16, else 1; the trellis' lambdas lam_t [G, K]
+    and the R/D quantizer's lam_q [G, K, 2]; the bit table nb), the
+    chooser's and skip test's lambda lam [G]: TIE_LAM, one float32 ulp
+    below it and one above, by g % 3, per-block lambda scales lam_sc [N]
+    in [0.1, 8] with `scales`, the may-skip flags ms [N] and the inter
+    flags (rs != 0). About a fifth of the blocks whose fragment appears
+    once and is no corner are engineered ("tie" [N] bool): gold's block
+    there is the source block, which the block predicts from gold at zero
+    motion, so that its residual and every qi row's values are 0, and
+    prev's block there is the source with one pixel one level off (with
+    same_gold, the source itself), so that the skip test compares 16 x 1
+    with lamterm = trunc(lam * 2): a tie that skips at TIE_LAM, a block
+    that is coded one ulp below and skips one ulp above."""
+    from theora_tpu_torch.tools import bench_fdct as bf
+    from theora_tpu_torch.tools import bench_segments as bs
+    from theora_tpu_torch.tools.bench_qrd import lam_q_rows
+    from theora_tpu_torch.tools.bench_trellis import kt_tables
+
+    d = residual_inputs(rng, G, nv, nh, pad_y, pad_x, fid, same_gold)
+    prev, gold, side, cur = d["prev"], d["gold"], d["side"], d["cur"]
+    n = nv * nh
+    frags = np.arange(n) if fid is None else np.asarray(fid)
+    nl = len(frags)
+    N = G * nl
+    r, c = frags // nh, frags % nh
+    corner = ((r == 0) | (r == nv - 1)) & ((c == 0) | (c == nh - 1))
+    once = np.zeros(nl, bool)
+    once[np.unique(frags, return_index=True)[1]] = True
+    once &= np.bincount(frags, minlength=n)[frags] == 1
+    tie = np.zeros(N, bool)
+    for g in range(G):
+        for j in np.nonzero(once & ~corner & (rng.random(nl) < 0.2))[0]:
+            b = g * nl + j
+            y, x = pad_y + 8 * r[j], pad_x + 8 * c[j]
+            blk = cur[b].reshape(8, 8)
+            gold[g, y:y + 8, x:x + 8] = blk
+            if gold is not prev:
+                prev[g, y:y + 8, x:x + 8] = blk
+                prev[g, y + rng.integers(8), x + rng.integers(8)] ^= 1
+            side[:, b] = (2, 0, 0, 0, 0, 0)
+            tie[b] = True
+    pli = 0 if pad_x >= 16 else 1
+    qis = [bs.QIS[g % len(bs.QIS)][:K] for g in range(G)]
+    _, nb, rdl = kt_tables()
+    ms = rng.random(N) < 0.7
+    ms[tie] = True
+    ulp = (TIE_LAM, np.nextafter(TIE_LAM, np.float32(0)),
+           np.nextafter(TIE_LAM, np.float32(np.inf)))
+    return dict(
+        d, tie=tie, inter=(side[0] != 0).astype(np.uint8), ms=ms,
+        deq=np.stack([bf.triple_rows(q, pli) for q in qis]),
+        lam_t=np.array([[rdl[1][q] for q in qs] for qs in qis], np.float32),
+        lam_q=np.stack([lam_q_rows(qs, pli) for qs in qis]), nb=nb,
+        lam=np.array([ulp[g % 3] for g in range(G)], np.float32),
+        lam_sc=(rng.uniform(0.1, 8.0, N).astype(np.float32) if scales
+                else None))
+
+
+def fused_tensors(d: dict, device) -> dict:
+    """fused_inputs' arrays as tensors on device (gold is prev where
+    d["gold"] is d["prev"])."""
+    prev, gold = _planes(d, device)
+    out = {k: _t(v, device) if isinstance(v, np.ndarray) else v
+           for k, v in d.items() if k not in ("prev", "gold")}
+    return dict(out, prev=prev, gold=gold)
+
+
+def _mc_in(t: dict) -> tuple:
+    return t["prev"], t["gold"], t["cur"], t["side"]
+
+
+def head_args(t: dict, geom: tuple, path: str) -> tuple:
+    """The fused head's arguments: mc_fdct_quantize's (path "trellis")
+    or mc_fdct_quantize_rd's (path "rd")."""
+    lam = () if path == "trellis" else (t["lam_q"],)
+    return (*_mc_in(t), t["deq"], t["inter"], *lam, *geom, t["fid"])
+
+
+def head_chain(t: dict, geom: tuple, path: str, plain: bool):
+    """What the fused head replaced on the same inputs: KS's mc_residual,
+    then K2 (trellis) or KR's fused entry (rd), as kernels or (plain) as
+    their plain versions."""
+    from theora_tpu_torch.ops import fdct_cuda, mc, mc_cuda, qrd_cuda, \
+        transforms
+
+    _, res, _ = (mc.mc_residual if plain else mc_cuda.mc_residual)(
+        *_mc_in(t), *geom, t["fid"])
+    if path == "trellis":
+        fn = transforms.fdct_quantize if plain else fdct_cuda.fdct_quantize
+        return fn(res, t["deq"], t["inter"])
+    fn = transforms.fdct_quantize_rd if plain else qrd_cuda.fdct_quantize_rd
+    return fn(res, t["deq"], t["inter"], t["lam_q"])
+
+
+def head(t: dict, geom: tuple, path: str):
+    """The fused head (a launch on the card)."""
+    from theora_tpu_torch.ops import fdct_cuda, qrd_cuda
+
+    fn = (fdct_cuda.mc_fdct_quantize if path == "trellis"
+          else qrd_cuda.mc_fdct_quantize_rd)
+    return fn(*head_args(t, geom, path))
+
+
+def quantized(t: dict, geom: tuple, path: str) -> tuple:
+    """The quantizer's outputs (values, counts, DC-only flags) K1's fused
+    entry reads: the fused head's, then the trellis (kernel KT, by its
+    wrapper) on the trellis path."""
+    from theora_tpu_torch.ops import trellis_cuda
+
+    out = head(t, geom, path)
+    if path == "rd":
+        return out
+    return trellis_cuda.trellis_quantize(out[0], out[1], t["deq"],
+                                         t["inter"], t["lam_t"], t["nb"],
+                                         t["lam_sc"])
+
+
+def tail_outputs(t: dict) -> tuple:
+    """Fresh in-place outputs of K1's fused entry (qout, coded, qii),
+    filled with values no step writes."""
+    N = t["cur"].shape[0]
+    dev = t["cur"].device
+    return (torch.full((N, 64), 7, dtype=torch.int16, device=dev),
+            torch.zeros(N, dtype=torch.bool, device=dev),
+            torch.full((N,), 9, dtype=torch.uint8, device=dev))
+
+
+def tail_args(t: dict, geom: tuple, q: tuple, intra: bool, borders: bool,
+              out: tuple) -> tuple:
+    """mc_idct_recon_skip's positional arguments on the quantizer's
+    outputs q and the in-place outputs out."""
+    q16, cnt, dc_only = q
+    return (q16, dc_only, cnt, t["deq"], t["inter"], *_mc_in(t), t["ms"],
+            t["lam"], t["lam_sc"], intra, *out, *geom, borders, t["fid"])
+
+
+def tail_chain(t: dict, geom: tuple, q: tuple, intra: bool, borders: bool,
+               out: tuple, plain: bool):
+    """What K1's fused entry replaced on the same inputs, writing out in
+    place: KS's mc_residual, K1's encode entry, then KS's skip_place (or
+    skip_rows with fid), as kernels or (plain) as their plain versions.
+    Returns the plane (or rows)."""
+    from theora_tpu_torch.ops import idct_cuda, mc, mc_cuda, transforms
+
+    q16, cnt, dc_only = q
+    ks = mc if plain else mc_cuda
+    choose = (transforms.idct_recon_choose if plain
+              else idct_cuda.idct_recon_choose)
+    pred, _, unc = ks.mc_residual(*_mc_in(t), *geom, t["fid"])
+    recon, ssd, qii, qk, ck = choose(q16, dc_only, cnt, t["deq"],
+                                     t["inter"], pred, t["cur"], t["lam"],
+                                     t["lam_sc"])
+    qout, coded, qii_out = out
+    qii_out.copy_(qii)
+    skip = (t["prev"], recon, qk, ssd, unc, ck, t["ms"], t["lam"], intra,
+            qout, coded, *geom)
+    if t["fid"] is None:
+        return ks.skip_place(*skip, borders)
+    return ks.skip_rows(*skip, t["fid"])
+
+
+def fused_cases(device, seed: int = SEED) -> list:
+    """[(label, tensors, geom, K, path, intra, borders)] for check_fused:
+    the 1280x720 4:2:0 planes and a 4:2:2 and a 4:4:4 chroma plane; on
+    each G = 1, 3 segments with prev and gold one buffer, and 3 segments
+    of a frag group's share (rank 1 of 2: rows in place of the plane); K
+    = 1, 2 and 3 on each, on the trellis and on the R/D path; key and
+    inter steps, borders on and off (the frag share writes rows: no
+    borders) in turn."""
+    rng = np.random.default_rng(seed + 3)
+    out = []
+    turn = 0
+    for label, *geom in HD_PLANES + (HD_422, HD_444):
+        geom = tuple(geom)
+        nv, nh = geom[:2]
+        n = nv * nh
+        for G, fid, same in ((1, None, False), (3, None, True),
+                             (3, shard(n, 2, 1), False)):
+            for K in (1, 2, 3):
+                t = fused_tensors(fused_inputs(
+                    rng, G, *geom, K, fid, same, scales=K != 2), device)
+                for path in ("trellis", "rd"):
+                    intra = turn % 3 == 2
+                    borders = fid is None and turn % 2 == 0
+                    turn += 1
+                    what = (f"{label}, G {G}"
+                            + ("" if fid is None else
+                               f", fragments {len(fid)} of {n}")
+                            + (", gold = prev" if same else "")
+                            + f", K {K}, {path}, "
+                            + ("key" if intra else "inter")
+                            + f" step, borders {borders}")
+                    out.append((what, t, geom, K, path, intra, borders))
+    return out
+
+
+def check_fused_one(label: str, t: dict, geom: tuple, path: str,
+                    intra: bool, borders: bool) -> tuple:
+    """One case: the fused head against its plain chain and its kernel
+    chain, every output; the quantizer on the head's outputs; K1's fused
+    entry against its plain chain and its kernel chain, every output (the
+    plane with its padding, or the rows; qout, coded, qii); one launch
+    each on the card, the inputs untouched. Returns (largest |difference|, coded
+    flags)."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda
+
+    inputs = [v for v in (*_mc_in(t), t["deq"], t["inter"]) if v is not None]
+    before = [v.clone() for v in inputs]
+    step = 1 if t["cur"].is_cuda else 0  # the CPU path launches nothing
+    fused = (fdct_cuda.mc_fdct_quantize if path == "trellis"
+             else qrd_cuda.mc_fdct_quantize_rd)
+    launches = fused.launches
+    got = head(t, geom, path)
+    if fused.launches != launches + step:
+        raise AssertionError(f"{label}: the fused head did not launch once")
+    err = 0
+    for plain in (True, False):
+        err = max(err, _same(got, head_chain(t, geom, path, plain),
+                             "its plain chain" if plain
+                             else "its kernel chain", f"{label}, head"))
+    q = quantized(t, geom, path)
+    launches = idct_cuda.mc_idct_recon_skip.launches
+    out = tail_outputs(t)
+    kept = idct_cuda.mc_idct_recon_skip(*tail_args(t, geom, q, intra,
+                                                   borders, out))
+    if idct_cuda.mc_idct_recon_skip.launches != launches + step:
+        raise AssertionError(f"{label}: K1's fused entry did not launch "
+                             f"once")
+    for plain in (True, False):
+        ref = tail_outputs(t)
+        want = tail_chain(t, geom, q, intra, borders, ref, plain)
+        err = max(err, _same((kept, *out), (want, *ref),
+                             "its plain chain" if plain
+                             else "its kernel chain", f"{label}, tail"))
+    for a, b in zip(inputs, before):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: a fused entry wrote an input")
+    return err, out[1]
+
+
+def check_fused(device) -> tuple[int, int]:
+    """Every case of fused_cases; raises on a difference. Returns (cases
+    checked, largest |difference|)."""
+    err = n = 0
+    for label, t, geom, _, path, intra, borders in fused_cases(device):
+        e, coded = check_fused_one(label, t, geom, path, intra, borders)
+        err = max(err, e)
+        n += 1
+        if not intra and t["fid"] is None and t["gold"] is not t["prev"]:
+            # The engineered blocks: skipped at TIE_LAM (a tie) and one
+            # ulp above, coded one ulp below.
+            G = t["lam"].shape[0]
+            seg = torch.arange(coded.numel(), device=device) // (
+                coded.numel() // G) % 3
+            tie = t["tie"]
+            if coded[tie & (seg != 1)].any() or not coded[
+                    tie & (seg == 1)].all():
+                raise AssertionError(f"{label}: the skip test's ties and "
+                                     f"ulp lambdas did not decide")
+    return n, err
+
+
+def fused_bound(entry: str, args) -> dict:
+    """The least time of one call of a fused entry with the wrapper's
+    arguments, after the call (K1's coded flags are read), with
+    mc_residual's and skip_place's counting rules (ks_bound): each input
+    read once where the data need it (a reference row only for rs != 0, a
+    second where u2; prev's uncoded block on an inter step), each output
+    written once (qout, coded, qii and the plane or the rows); nothing
+    in between (the prediction, the residual, the reconstruction) reaches
+    memory. Operations: the kernel's own (bench_fdct.k2_ops, bench_qrd's
+    R/D count, bench_idct.k1_ops) plus OPS_PER_PIXEL per pixel of MC, at
+    the int32 and float32 rates. Entries: "mc_fdct_quantize",
+    "mc_fdct_quantize_rd", "mc_idct_recon_skip"."""
+    from theora_tpu_torch.tools.bench_fdct import k2_ops
+    from theora_tpu_torch.tools.bench_idct import FP32_OPS_S, k1_ops
+    from theora_tpu_torch.tools.bench_qrd import OPS_PER_POSITION
+
+    def nb(*ts):
+        return sum(x.numel() * x.element_size() for x in ts
+                   if isinstance(x, torch.Tensor))
+
+    if entry == "mc_idct_recon_skip":
+        (q16, dc_only, cnt, deq, inter, prev, gold, cur, side, ms, lam,
+         lam_sc, intra, qout, coded, qii) = args[:16]
+        fid = args[21] if len(args) > 21 else None
+        k, n = q16.shape[:2]
+        nbytes = (nb(q16, dc_only, cnt, deq, inter, cur, side, ms, lam,
+                      lam_sc, fid, qout, coded, qii) + 64 * _refs(side)
+                  + (0 if intra else 64 * n)
+                  + (prev.numel() if fid is None else 65 * n))
+        iops, fops = k1_ops("encode", (q16, dc_only, cnt, deq, inter, None,
+                                       cur, lam, lam_sc))
+        fops += 2 * n  # the skip test's product and conversion
+    else:
+        prev, gold, cur, side, deq, inter = args[:6]
+        rd = entry == "mc_fdct_quantize_rd"
+        fid = args[11 if rd else 10]
+        n, k = cur.shape[0], deq.shape[-3]
+        nbytes = (nb(cur, side, deq, inter, fid, *(args[6:7] if rd else ()))
+                  + 64 * _refs(side)
+                  + (k * n * (128 + 4 + 1) if rd else n * 128 * (1 + k)))
+        iops = k2_ops(n, k)
+        fops = k * n * (63 * OPS_PER_POSITION + 2) if rd else 0
+    iops += OPS_PER_PIXEL * 64 * n
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = max(iops / INT32_OPS_S, (iops + fops) / FP32_OPS_S) * 1e3
+    return {"bytes": int(nbytes), "bytes_ms": bytes_ms, "int32_ops": iops,
+            "float32_ops": fops, "ops": iops + fops, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def timed_fused(device, flush, seed: int = SEED) -> dict:
+    """{label: row} at the 720p luma and 4:2:0 chroma shapes, G = 1, K =
+    1 (the q48 encode's), an inter step with borders: each fused entry
+    and the chain it replaced, timed in turns (fused, chain, chain, fused;
+    CUDA-event means over ITERS, L2 flushed before each): mc_fdct_quantize
+    against mc_residual -> K2, mc_fdct_quantize_rd against mc_residual ->
+    KR's fused entry, mc_idct_recon_skip against K1's encode entry ->
+    skip_place (their inputs made once, outside the timing); beside
+    fused_bound, an empty kernel's launch and the plain chain."""
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, mc_cuda, \
+        qrd_cuda
+
+    rng = np.random.default_rng(seed + 4)
+    rows = {}
+    for label, *geom in HD_PLANES:
+        geom = tuple(geom)
+        nv, nh = geom[:2]
+        t = fused_tensors(fused_inputs(rng, 1, *geom, 1, scales=False),
+                          device)
+        mc_in = (*_mc_in(t), *geom, None)
+        pred, res, unc = mc_cuda.mc_residual(*mc_in)
+        q = quantized(t, geom, "trellis")
+        out = tail_outputs(t)
+        targs = tail_args(t, geom, q, False, True, out)
+
+        def k1_chain():
+            recon, ssd, _, qk, ck = idct_cuda.idct_recon_choose(
+                q[0], q[2], q[1], t["deq"], t["inter"], pred, t["cur"],
+                t["lam"], t["lam_sc"])
+            return mc_cuda.skip_place(t["prev"], recon, qk, ssd, unc, ck,
+                                      t["ms"], t["lam"], False, *out[:2],
+                                      *geom, borders=True)
+
+        entries = {
+            "mc_fdct_quantize": (
+                head_args(t, geom, "trellis"),
+                lambda: fdct_cuda.mc_fdct_quantize(
+                    *head_args(t, geom, "trellis")),
+                lambda: fdct_cuda.fdct_quantize(
+                    mc_cuda.mc_residual(*mc_in)[1], t["deq"], t["inter"]),
+                lambda: head_chain(t, geom, "trellis", True)),
+            "mc_fdct_quantize_rd": (
+                head_args(t, geom, "rd"),
+                lambda: qrd_cuda.mc_fdct_quantize_rd(
+                    *head_args(t, geom, "rd")),
+                lambda: qrd_cuda.fdct_quantize_rd(
+                    mc_cuda.mc_residual(*mc_in)[1], t["deq"], t["inter"],
+                    t["lam_q"]),
+                lambda: head_chain(t, geom, "rd", True)),
+            "mc_idct_recon_skip": (
+                targs,
+                lambda: idct_cuda.mc_idct_recon_skip(*targs),
+                k1_chain,
+                lambda: tail_chain(t, geom, q, False, True, tail_outputs(t),
+                                   True)),
+        }
+        for entry, (args, fused, chain, plain) in entries.items():
+            counts = {w: w.launches for w in (
+                fdct_cuda.mc_fdct_quantize, fdct_cuda.fdct_quantize,
+                qrd_cuda.mc_fdct_quantize_rd, qrd_cuda.fdct_quantize_rd,
+                idct_cuda.mc_idct_recon_skip, idct_cuda.idct_recon_choose,
+                *mc_cuda.ENTRIES)}
+            fused()
+            torch.cuda.synchronize()
+            row = {"ms_runs": [], "chain_ms_runs": []}
+            for who in ("fused", "chain", "chain", "fused"):
+                fn = fused if who == "fused" else chain
+                row["ms_runs" if who == "fused" else "chain_ms_runs"].append(
+                    event_ms(fn, ITERS, flush))
+            row["ms"] = sum(row["ms_runs"]) / 2
+            row["chain_ms"] = sum(row["chain_ms_runs"]) / 2
+            row["plain_ms"] = event_ms(plain, 3, flush)
+            row["floor_ms"] = event_ms(lambda: torch.cuda._sleep(0), ITERS,
+                                       flush)
+            row.update(fused_bound(entry, args))
+            for w, c in counts.items():
+                w.launches = c
+            rows[f"{entry}, {label} ({nv * nh} blocks)"] = row
+    return rows
+
+
+def describe_fused(label: str, r: dict) -> str:
+    """One line of a timed_fused row."""
+    return (f"{label}: fused {[round(x, 5) for x in r['ms_runs']]} ms, the "
+            f"chain it replaced {[round(x, 5) for x in r['chain_ms_runs']]}"
+            f" ms (in turns); plain {r['plain_ms']:.4f} ms, empty launch "
+            f"{r['floor_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} B -> {r['bytes_ms']:.5f} ms, "
+            f"{r['ops']} ops -> {r['ops_ms']:.5f} ms); fused at "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it")
+
+
 def ptxas(so: str) -> list[str]:
     """The registers and spills lines of a build's ptxas report."""
     with open(so + ".log") as f:
@@ -465,16 +910,28 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    for line in ptxas(mc_cuda.build()):
-        print(f"[ks] ptxas: {line}", flush=True)
+    from theora_tpu_torch.ops import fdct_cuda, idct_cuda, qrd_cuda
+
+    for so in (mc_cuda.build(), fdct_cuda.build(), qrd_cuda.build(),
+               idct_cuda.build()):
+        for line in ptxas(so):
+            print(f"[ks] ptxas {so.rsplit('/', 1)[-1]}: {line}", flush=True)
     n, err = check(dev)
     print(f"[ks] {n} calls: kernel == plain byte for byte (max |err| "
           f"{err}) | {smi}", flush=True)
+    nf, errf = check_fused(dev)
+    print(f"[ks] {nf} fused cases: mc_fdct_quantize, mc_fdct_quantize_rd "
+          f"and mc_idct_recon_skip == their plain and kernel chains byte "
+          f"for byte (max |err| {errf}) | {smi}", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = timed_entries(dev, flush)
     for label, r in rows.items():
         print(f"[ks] {describe(label, r)} | {smi}", flush=True)
-    print(json.dumps({"card": smi, "calls": n, "timed": rows}), flush=True)
+    fused = timed_fused(dev, flush)
+    for label, r in fused.items():
+        print(f"[ks] {describe_fused(label, r)} | {smi}", flush=True)
+    print(json.dumps({"card": smi, "calls": n, "fused_cases": nf,
+                      "timed": rows, "timed_fused": fused}), flush=True)
     return 0
 
 

@@ -16,13 +16,16 @@ waits for the device's copies, device spans from CUDA events), and one
 pass under torch.profiler, which reports device time per codec stage
 (the record_function labels in encode/gop.py and encode/scan.py) with
 the PyTorch kernels each launches, per kernel, the launches of the
-kernel libraries (K1 at both entries, K2, KT, KR, KM, KL, KS) and of K1
-in the theora.enc.idct_recon scope and KS in the MC, skip and borders
-scopes, and the device's busy and idle share of the traced pass. Then
-one speed-of-light line per hand-kernel stage (KM, K2, KT, KR's fused
-entry, K1's two entries, the loop filter KL, which runs where a frame's
-qi is below 47, KS's three entries): its kernels' device time in the
-traced pass beside the bound of the same calls (tools/bench_me.py,
+kernel libraries (K1 at all its entries, K2, KT, KR, KM, KL, KS) and of
+K1 in the theora.enc.idct_recon scope, the launches of the fused entries
+that run KS's MC, skip test and plane assembly (theora.enc.fdct_quant or
+fdct_quant_rd, and theora.enc.idct_recon) and KS's own, and the device's
+busy and idle share of the traced pass. Then one speed-of-light line per
+hand-kernel stage (KM; K2 and KR's entries with KS's MC as their head;
+KT; K1's fused encode entry with KS's skip test and plane assembly and
+its decode entry; the loop filter KL, which runs where a frame's qi is
+below 47; KS's place and decode entries): its kernels' device time in
+the traced pass beside the bound of the same calls (tools/bench_me.py,
 bench_fdct.py, bench_trellis.py, bench_qrd.py, bench_idct.py,
 bench_loopfilter.py, bench_mc.py), which one more, untraced pass
 records at the run's shapes and data. With --save-ogv PATH the last timed pass's packets are
@@ -118,32 +121,32 @@ def _kernel_stages() -> list:
     one call's arguments) for each hand kernel an encode may launch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
         mc_cuda, me_cuda, qrd_cuda, trellis_cuda
-    from theora_tpu_torch.tools import bench_fdct, bench_idct, \
-        bench_loopfilter, bench_mc, bench_me, bench_qrd, bench_trellis
+    from theora_tpu_torch.tools import bench_idct, bench_loopfilter, \
+        bench_mc, bench_me, bench_trellis
 
     return [
         ("ME plan (KM)", me_cuda, "plan_with_gold",
          ("me_search_kernel", "me_cands_kernel", "me_cand_sads_kernel"),
          lambda a: bench_me.km_bound(a[0])),
-        ("fDCT + quantization (K2)", fdct_cuda, "fdct_quantize",
-         ("fdct_quant_kernel",), bench_fdct.k2_bound),
+        ("MC + fDCT + quantization (K2 with KS's MC)", fdct_cuda,
+         "mc_fdct_quantize", ("fdct_quant_kernel",),
+         lambda a: bench_mc.fused_bound("mc_fdct_quantize", a)),
         ("trellis (KT)", trellis_cuda, "trellis_quantize",
          ("trellis_kernel",), bench_trellis.kt_bound),
-        ("fDCT + R/D quantizer (KR)", qrd_cuda, "fdct_quantize_rd",
-         ("fdct_qrd_kernel",), bench_qrd.kr_fused_bound),
-        ("recon + qi chooser (K1 encode entry)", idct_cuda,
-         "idct_recon_choose", ("idct_recon_choose_kernel",),
-         lambda a: bench_idct.k1_bound("encode", a)),
+        ("MC + fDCT + R/D quantizer (KR with KS's MC)", qrd_cuda,
+         "mc_fdct_quantize_rd", ("fdct_qrd_kernel",),
+         lambda a: bench_mc.fused_bound("mc_fdct_quantize_rd", a)),
+        ("MC + recon + qi chooser + skip test + plane (K1 with KS)",
+         idct_cuda, "mc_idct_recon_skip", ("mc_idct_recon_skip_kernel",),
+         lambda a: bench_mc.fused_bound("mc_idct_recon_skip", a)),
         ("dequant + iDCT (K1 decode entry)", idct_cuda,
          "dequantize_idct_frames", ("dequant_idct_kernel",),
          lambda a: bench_idct.k1_bound("decode", a)),
         ("loop filter (KL)", loopfilter_cuda, "loop_filter_plane",
          ("loop_filter_kernel",), bench_loopfilter.kl_bound),
-        ("MC + residual (KS mc_residual)", mc_cuda, "mc_residual",
-         ("mc_residual_kernel",),
-         lambda a: bench_mc.ks_bound("mc_residual", a)),
-        ("skip test + plane (KS skip_place)", mc_cuda, "skip_place",
-         ("skip_kernel",), lambda a: bench_mc.ks_bound("skip_place", a)),
+        ("plane of the gathered rows (KS place_rows)", mc_cuda,
+         "place_rows", ("place_kernel",),
+         lambda a: bench_mc.ks_bound("place_rows", a)),
         ("MC + recon (KS mc_recon)", mc_cuda, "mc_recon",
          ("mc_recon_kernel",), lambda a: bench_mc.ks_bound("mc_recon", a)),
     ]
@@ -328,19 +331,27 @@ def main(argv=None) -> int:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
         mc_cuda, me_cuda, qrd_cuda, trellis_cuda
 
-    # K1 counts both entries; the encode launches its encode entry. KR is
-    # its fused entry, the one the encode runs.
+    # K1 counts all its entries; the encode launches its fused encode
+    # entry, K2 and KR theirs (KS's MC, skip test and plane assembly run
+    # inside them).
     wrappers = {"K1": (idct_cuda.dequantize_idct_frames,
-                       idct_cuda.idct_recon_choose),
-                "K2": (fdct_cuda.fdct_quantize,),
+                       idct_cuda.idct_recon_choose,
+                       idct_cuda.mc_idct_recon_skip),
+                "K2": (fdct_cuda.fdct_quantize, fdct_cuda.mc_fdct_quantize),
                 "KT": (trellis_cuda.trellis_quantize,),
-                "KR": (qrd_cuda.fdct_quantize_rd,),
+                "KR": (qrd_cuda.fdct_quantize_rd,
+                       qrd_cuda.mc_fdct_quantize_rd),
                 "KM": (me_cuda.plan_with_gold,),
                 "KL": (loopfilter_cuda.loop_filter_plane,),
                 "KS": mc_cuda.ENTRIES}
 
+    fused = (fdct_cuda.mc_fdct_quantize, qrd_cuda.mc_fdct_quantize_rd,
+             idct_cuda.mc_idct_recon_skip)
+
     def lib_counts():
-        return {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+        return {**{k: sum(w.launches for w in ws)
+                   for k, ws in wrappers.items()},
+                "fused": sum(w.launches for w in fused)}
 
     before = lib_counts()
     enc = make()
@@ -368,17 +379,20 @@ def main(argv=None) -> int:
     print(f"[launches] theora.enc.loopfilter: "
           f"{stage_kernels.get('theora.enc.loopfilter', 0)} PyTorch kernels "
           f"+ {lib_launches['KL']} KL launches", flush=True)
-    ks_scopes = ("theora.enc.mc", "theora.enc.skip", "theora.enc.borders")
-    ks_torch = sum(stage_kernels.get(k, 0) for k in ks_scopes)
-    print(f"[launches] {' + '.join(ks_scopes)}: {ks_torch} PyTorch kernels "
-          f"+ {lib_launches['KS']} KS launches = "
-          f"{(ks_torch + lib_launches['KS']) / (3 * len(frames)):.2f} per "
-          f"plane per frame", flush=True)
+    fused_scopes = ("theora.enc.fdct_quant", "theora.enc.fdct_quant_rd",
+                    "theora.enc.idct_recon")
+    fused_torch = sum(stage_kernels.get(k, 0) for k in fused_scopes)
+    print(f"[launches] KS fused into K2 or KR and K1 "
+          f"({' + '.join(fused_scopes)}): {fused_torch} PyTorch kernels + "
+          f"{lib_launches['fused']} fused-entry launches = "
+          f"{(fused_torch + lib_launches['fused']) / (3 * len(frames)):.2f}"
+          f" per plane per frame; KS's own launches {lib_launches['KS']} "
+          f"(a transcode's decode, a frag group's place entry)", flush=True)
     shown = kernels[:20] + [k for k in kernels[20:]
                             if any(w in k[0]
                                    for w in ("idct", "fdct", "trellis",
                                              "qrd", "me_", "loop_filter",
-                                             "mc_re", "skip_kernel"))]
+                                             "mc_re", "place_kernel"))]
     for name, sec, count in shown:
         print(f"[kernel] {sec:.6f} s x{count} {name[:100]}", flush=True)
     nf = len(frames)
