@@ -7,7 +7,7 @@ and prints no result line):
 
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM,
-   KL and KS (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
+   KL, KS and KP (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
    csrc/fdct_core.cuh, K2's block core; K1, K2, KR and KS include
    csrc/mc_core.cuh, KS's row core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
@@ -41,6 +41,17 @@ and prints no result line):
 5. real-size decode: decode_clip(batch=8) of the 1280x720 test stream,
    every frame's SHA-256 against the committed list, a warm pass timed
    with K1's launch count reset just before it;
+5b. postprocessing (pp_goldens, real_size_pp7): clip64x48_k8_q5 at pp 2
+   and pp 7 through decode_clip and PacketDecoder(device="cuda") against
+   libtheora's .pp2.yuv / .pp7.yuv byte for byte (KP once per frame at
+   pp 2, six times at pp 7); the slice's main path, the 1280x720 stream
+   at pp 7 through decode_clip(batch=8) and PacketDecoder, every frame's
+   SHA-256 against testdata/hd720_q56_k12_pp7.sha256 (the JAX host
+   Decoder's at level 7), warm decode_clip passes at pp 0 and pp 7 in
+   turns with the counts reset before each (KP two launches per plane
+   per frame at pp 7, none at pp 0; the other kernels' counts equal),
+   their walls, host parse and device busy time, and KP's share of the
+   device time in one traced pp 7 pass;
 6. K2 against its plain version on the card: random residuals with the
    int16-safe extremes and random frame types at the encode path's
    per-plane shapes (14,400 and 3,600 blocks at 1280x720 4:2:0) and their
@@ -164,6 +175,25 @@ and prints no result line):
    mc_recon once per plane per decoded frame (the decodes, the
    transcode's decode, the per-packet decoder, the host Encoder's closed
    loop), none on the intra paths;
+6g. KP (the decoder's out-of-loop postprocessor, deblock + dering:
+   ops/postproc_cuda.py, csrc/postproc.cu; two launches per postprocessed
+   plane) against its plain version (ops/postproc.py:postprocess_plane, on
+   the same inputs on the CPU) byte for byte on tools/bench_pp.py:cases:
+   random 720p luma, 4:2:0, 4:2:2 and 4:4:4 chroma planes at every pp
+   level's plane and strength choice, one-row and one-column planes,
+   grids with variances on each dering threshold and one either side of
+   it; each call contiguous and into a padded plane's strided image, the
+   inputs left as they were; and the long-chain frame (frame 0 of the JAX
+   package's 720p benchmark clip, bench.py:gen_frames, as a qi-5
+   keyframe from GopEncoder on the card, decoded by PacketDecoder at pp 7
+   against the plain version on its pp 0 planes), with its count of
+   three-pass blocks, its longest chain of filtered neighbours, its path
+   in the kernel's block order and its dependency chain. CUDA-event times
+   of the deblock and the dering launches at its 720p luma and chroma
+   beside the bound (bench_pp.kp_bound: the call's own bytes, or the
+   dependency chain at one pixel update's latency as the kernel's step
+   probe measures it, whichever is longer), the plain version and a
+   device copy of the plane;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -286,15 +316,15 @@ and prints no result line):
    loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
    on the 64x48 clip against its lines of host64x48_enc.
 
-Then one JSON line listing the seven kernels (times and bounds, K1's at
+Then one JSON line listing the eight kernels (times and bounds, K1's at
 both entries, KS's at its three and in the fused entries; launches on the 720p decode, each 720p
 encode path, the transcode, the per-packet decode, the mesh, the mesh
 over ranks (per path and per rank) and the host Encoder's paths, KL's
 and KS's also on the golden decodes and the 2-pass packets' decode, KL's
 on the small mesh;
-for K1, K2, KT and KR the one launch over 3 segments beside 3 launches),
-the
-card's name and power limit from nvidia-smi, and {"ok": true,
+for K1, K2, KT and KR the one launch over 3 segments beside 3 launches;
+KP's on the 720p decode at pp 7, by batch and per packet, and the pp
+goldens), the card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
@@ -338,7 +368,7 @@ def card() -> tuple[str, str]:
 def build() -> None:
     from theora_tpu_torch import native
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, postproc_cuda, qrd_cuda, trellis_cuda
     from theora_tpu_torch.tools import bench_me
 
     def timed(fn):
@@ -346,7 +376,7 @@ def build() -> None:
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+    with concurrent.futures.ThreadPoolExecutor(10) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
@@ -358,6 +388,7 @@ def build() -> None:
                 "KM (nvcc sm_90a)": ex.submit(timed, me_cuda.build),
                 "KL (nvcc sm_90a)": ex.submit(timed, loopfilter_cuda.build),
                 "KS (nvcc sm_90a)": ex.submit(timed, mc_cuda.build),
+                "KP (nvcc sm_90a)": ex.submit(timed, postproc_cuda.build),
                 "byte-SIMD rates (nvcc sm_90a)": ex.submit(
                     timed, bench_me.simd_build)}
         for what, job in jobs.items():
@@ -366,7 +397,7 @@ def build() -> None:
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
                   ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO),
                   ("KM", me_cuda._SO), ("KL", loopfilter_cuda._SO),
-                  ("KS", mc_cuda._SO)):
+                  ("KS", mc_cuda._SO), ("KP", postproc_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
@@ -1476,7 +1507,7 @@ def ks_vs_plain(device) -> dict:
 
 def _reset_counts() -> None:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, postproc_cuda, qrd_cuda, trellis_cuda
 
     torch.cuda.synchronize()
     for w in (idct_cuda.dequantize_idct_frames, idct_cuda.idct_recon_choose,
@@ -1484,7 +1515,8 @@ def _reset_counts() -> None:
               fdct_cuda.mc_fdct_quantize, trellis_cuda.trellis_quantize,
               qrd_cuda.fdct_quantize_rd, qrd_cuda.mc_fdct_quantize_rd,
               qrd_cuda.quantize_rd, me_cuda.plan_with_gold,
-              loopfilter_cuda.loop_filter_plane, *mc_cuda.ENTRIES):
+              loopfilter_cuda.loop_filter_plane, *mc_cuda.ENTRIES,
+              postproc_cuda.postprocess_plane):
         w.launches = 0
 
 
@@ -1763,7 +1795,7 @@ def _sync_debug_findings() -> bool:
 
 def _counts_all() -> dict:
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, postproc_cuda, qrd_cuda, trellis_cuda
 
     return {"K1 decode": idct_cuda.dequantize_idct_frames.launches,
             "K1 encode": (idct_cuda.idct_recon_choose.launches
@@ -1776,7 +1808,8 @@ def _counts_all() -> dict:
                    + qrd_cuda.quantize_rd.launches),
             "KM": me_cuda.plan_with_gold.launches,
             "KL": loopfilter_cuda.loop_filter_plane.launches,
-            "KS": sum(w.launches for w in mc_cuda.ENTRIES)}
+            "KS": sum(w.launches for w in mc_cuda.ENTRIES),
+            "KP": postproc_cuda.postprocess_plane.launches}
 
 
 def transcode_720p(smi: str) -> dict:
@@ -1812,7 +1845,7 @@ def transcode_720p(smi: str) -> dict:
     batches = -(-nf // mk.HD_TC_KF)
     want = {"K1 decode": 3 * batches, "K1 encode": 3 * nf, "K2": 3 * nf,
             "KT": 3 * nf, "KR": 0, "KM": 3 * batches, "KL": 0,
-            "KS": 3 * nf}
+            "KS": 3 * nf, "KP": 0}
     if counts != want:
         raise AssertionError(f"transcode launches {counts}; expected {want}")
     # KS: the decode's entry once per plane per frame; on the encode side
@@ -1877,7 +1910,7 @@ def packet_decode_720p(smi: str) -> tuple:
     check(outs, "per packet, warm pass")
     nf = len(datas)
     if counts != {"K1 decode": 3 * nf, "K1 encode": 0, "K2": 0, "KT": 0,
-                  "KR": 0, "KM": 0, "KL": 0, "KS": 3 * nf}:
+                  "KR": 0, "KM": 0, "KL": 0, "KS": 3 * nf, "KP": 0}:
         raise AssertionError(f"per-packet decode launches {counts}")
     _ks_decode_only("per-packet decode", 3 * nf)
     dec, _ = _open(f"{HD_NAME}.ogv")
@@ -2914,6 +2947,261 @@ def enc_cli_workers(smi: str) -> None:
         f"{wall:.2f} s with the processes' start ({r.stderr.strip()}) | "
         f"{smi}")
 
+# ------------------------------------------------ kernel KP: postprocessing
+
+def _kp_launches() -> int:
+    from theora_tpu_torch.ops import postproc_cuda
+
+    return postproc_cuda.postprocess_plane.launches
+
+
+def kp_vs_plain(device, smi: str) -> dict:
+    """6g: KP (the decoder's postprocessor, ops/postproc_cuda.py,
+    csrc/postproc.cu) against its plain version (ops/postproc.py:
+    postprocess_plane, on the same inputs on the CPU) byte for byte, on
+    tools/bench_pp.py:cases (random 720p luma, 4:2:0, 4:2:2 and 4:4:4
+    chroma planes at every pp level's plane and strength choice, one-row
+    and one-column planes, variances on each dering threshold and one
+    either side) and on the long-chain frame: frame 0 of the JAX
+    package's 720p benchmark clip (bench_pp.gen_frames, a copy of
+    bench.py:gen_frames) encoded on the card by GopEncoder at qi 5 as a
+    keyframe and decoded by PacketDecoder(device="cuda"), whose pp 7
+    output must equal the plain version on its pp 0 planes; its count of
+    three-pass blocks, the longest chain of filtered neighbours, the path
+    in the kernel's block order and the dependency chain. CUDA-event times
+    at that frame's luma and 4:2:0 chroma (the deblock launch, the dering
+    launch, both; the plain version, one call; a device copy of the
+    plane) beside the bound (bench_pp.kp_bound, the chain at
+    bench_pp.measure_step_ns)."""
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import postproc_cuda
+    from theora_tpu_torch.tools import bench_pp as bp
+
+    t0 = time.perf_counter()
+    with open(postproc_cuda._SO + ".log") as f:
+        for line in f.read().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[kp] ptxas: {line.strip()}")
+    y, u, v = bp.gen_frames(1)[0]
+    pkts = _encoder(1280, 720, 0, 5, False).encode_clip([[y, u, v]],
+                                                        keyframe_freq=1)
+    info = parse_info_header(pkts[0].data)
+    setup = parse_setup_header(pkts[2].data)
+    outs = {}
+    for level in (0, 7):
+        dec = PacketDecoder(info, setup, device="cuda")
+        dec.set_pplevel(level)
+        if dec.decode_packet(pkts[3].data) != 0:
+            raise AssertionError("the qi-5 keyframe did not decode")
+        outs[level] = dec.ycbcr_out()
+    if dec.qis != [5]:
+        raise AssertionError(f"the keyframe's qis {dec.qis}, expected [5]")
+    tabs = (dec._pp_dc_scale, dec._pp_sharp_mod)
+    long_cases = []
+    for pli, label in enumerate(("luma", "Cb", "Cr")):
+        plane = np.ascontiguousarray(outs[0][pli][::-1])
+        q = np.full((plane.shape[0] >> 3, plane.shape[1] >> 3), 5)
+        args = bp._args(plane, q, q, tabs, True, True, pli, device)
+        long_cases.append((f"long-chain frame {label}", args))
+    todo = bp.cases(device) + long_cases
+    wants = bp.plain_all([a for _, a in todo])
+    for pli, want in enumerate(wants[-3:]):
+        if not np.array_equal(outs[7][pli][::-1], want.numpy()):
+            raise AssertionError(f"PacketDecoder at pp 7, plane {pli}: != "
+                                 f"the plain version on its pp 0 planes")
+    n, err = bp.check(device, todo, wants)
+    log(f"[kp] {n} cases: kernel == plain (deblock, then dering) byte for "
+        f"byte, contiguous and into a padded plane's strided image, one "
+        f"launch each for the deblock and the dering, inputs untouched; max "
+        f"|err| {err} (tolerance 0: exact)")
+    log("[kp] long-chain frame (1280x720 keyframe at qi 5, GopEncoder on "
+        "the card): PacketDecoder pp 7 == plain on its pp 0 planes")
+    step = bp.measure_step_ns(device)
+    if not 0.1 < step < 1000:
+        raise AssertionError(f"KP step probe: {step} ns per update")
+    log(f"[kp] one dering pixel update on the chain (th_pp_step_probe): "
+        f"{step:.3f} ns | {smi}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows = {"720p luma": bp.time_call(long_cases[0][1], flush, step),
+            "720p 4:2:0 chroma": bp.time_call(long_cases[1][1], flush, step)}
+    for label, r in rows.items():
+        log(f"[kp] time, long-chain frame, {bp.describe(label, r)} | {smi}")
+    log(f"[kp] phase 6g took {time.perf_counter() - t0:.1f} s")
+    one = rows["720p luma"]
+    return {
+        "name": "postprocess", "route": "cuda",
+        "source": "theora_tpu_torch/csrc/postproc.cu",
+        "replaces": "theora_tpu/ops/postproc_np.py:273",
+        "launches": None, "max_abs_err": err, "ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"], "library_ms": None,
+        "timed": "720p luma plane of the qi-5 keyframe at pp 7: the "
+                 "deblock and the dering launch",
+        "copy_ms": one["copy_ms"],
+        "shapes": {label: {k: r[k] for k in (
+            "ms", "deblock_ms", "dering_ms", "plain_ms", "copy_ms",
+            "bound_ms", "bound_by", "bytes", "bytes_ms", "chain_steps",
+            "step_ns", "chain_ms", "launch_bytes", "wavefront")}
+            for label, r in rows.items()},
+    }
+
+
+def pp_goldens() -> int:
+    """The pp 2 and pp 7 goldens: clip64x48_k8_q5 through
+    PacketDecoder(device="cuda") and decode_clip at each level against
+    libtheora's .pp2.yuv / .pp7.yuv byte for byte, KP launched once per
+    frame at level 2 (luma deblock) and six times at level 7 (deblock and
+    dering of each plane). Returns KP's launches."""
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+
+    t0 = time.perf_counter()
+    total = 0
+    for level, per_frame in ((2, 1), (7, 6)):
+        bd, data = _open("clip64x48_k8_q5.tpkt")
+        ref = np.fromfile(os.path.join(
+            TESTDATA, f"clip64x48_k8_q5.pp{level}.yuv"),
+            np.uint8).reshape(len(data), -1)
+        before = _kp_launches()
+        bd.set_pplevel(level)
+        got = [_frame_bytes(o) for o in bd.decode_clip(data, batch=8)]
+        pd = PacketDecoder(bd.info, bd.setup, device="cuda")
+        pd.set_pplevel(level)
+        for d in data:
+            pd.decode_packet(d)
+            got.append(_frame_bytes(pd.ycbcr_out()))
+        kp = _kp_launches() - before
+        bad = [i for i, g in enumerate(got)
+               if g != ref[i % len(data)].tobytes()]
+        if bad:
+            raise AssertionError(f"pp {level}: frames {bad} differ from "
+                                 f"the golden (decode_clip, then per packet)")
+        if kp != 2 * per_frame * len(data):
+            raise AssertionError(f"pp {level}: KP launches {kp}")
+        total += kp
+        log(f"[pp golden] clip64x48_k8_q5 pp {level}: decode_clip and "
+            f"PacketDecoder, {len(data)} frames each, byte-identical to "
+            f".pp{level}.yuv; KP launches {kp}")
+    log(f"[pp golden] took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def real_size_pp7(smi: str) -> dict:
+    """The 720p stream at pp 7 (the slice's main path): decode_clip(batch=
+    8) and PacketDecoder, every frame's SHA-256 against
+    testdata/hd720_q56_k12_pp7.sha256 (the JAX host Decoder's at level 7,
+    testdata/make_hd720.py pp7); warm passes with the counts reset just
+    before each: decode_clip at pp 7 and at pp 0 in turns (pp 0, 7, 7, 0),
+    KP's launches (two per plane per frame at pp 7, none at pp 0; K1,
+    KS and KL as at pp 0), walls, host parse and device busy time (CUDA
+    events around each batch's device work); one pass under torch.profiler
+    for KP's share of the device time. Returns KP's launches by path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+    from theora_tpu_torch.tools.profile_decode import _split
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(TESTDATA, f"{HD_NAME}_pp7.sha256")) as f:
+        want = f.read().split()
+
+    def check(outs, what):
+        got = [hashlib.sha256(_frame_bytes(o)).hexdigest() for o in outs]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"{HD_NAME} pp 7 {what}: frames {bad} "
+                                 f"differ")
+
+    def clip(level):
+        dec, data = _open(f"{HD_NAME}.ogv")
+        dec.set_pplevel(level)
+        dec.device_spans = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        outs = dec.decode_clip(data, batch=8)
+        wall = time.perf_counter() - t0
+        counts = _counts_all()
+        torch.cuda.synchronize()
+        busy = sum(a.elapsed_time(b) for a, b in dec.device_spans) / 1e3
+        return outs, {"wall_s": wall, "host_parse_s": dec.host_parse_s,
+                      "device_busy_s": busy, "launches": counts}
+
+    outs, _ = clip(7)
+    check(outs, "decode_clip, first pass")
+    nf = len(want)
+    runs = {0: [], 7: []}
+    for level in (0, 7, 7, 0):
+        outs, r = clip(level)
+        if level:
+            check(outs, "decode_clip, warm pass")
+        runs[level].append(r)
+    base = {k: v for k, v in runs[0][0]["launches"].items()}
+    for level, rs in runs.items():
+        for r in rs:
+            c = dict(r["launches"])
+            kp = c.pop("KP")
+            if kp != (6 * nf if level else 0) or c != {
+                    k: v for k, v in base.items() if k != "KP"}:
+                raise AssertionError(f"pp {level} launches {r['launches']}"
+                                     f" (pp 0: {base})")
+    dec, data = _open(f"{HD_NAME}.ogv")
+    pd = PacketDecoder(dec.info, dec.setup, device="cuda")
+    pd.set_pplevel(7)
+    _reset_counts()
+    t0 = time.perf_counter()
+    pouts = []
+    for d in data:
+        pd.decode_packet(d)
+        pouts.append(pd.ycbcr_out())
+    pwall = time.perf_counter() - t0
+    pcounts = _counts_all()
+    check(pouts, "per packet")
+    if pcounts["KP"] != 6 * nf:
+        raise AssertionError(f"per-packet pp 7 launches {pcounts}")
+    dec.set_pplevel(7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec.decode_clip(data, batch=8)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    _, kernels = _split(prof.events())
+    busy = sum(sec for sec, _ in kernels.values())
+    kp_s = {k: v for k, v in kernels.items() if "th_pp_" in k}
+    kp_sum = sum(sec for sec, _ in kp_s.values())
+    if not kp_s:
+        raise AssertionError("the traced pp 7 pass shows no KP kernel")
+
+    def mean(rs, key):
+        return sum(r[key] for r in rs) / len(rs)
+
+    log(f"[720p pp7] {nf} frames at pp 7, all SHA-256 equal the JAX host "
+        f"Decoder's (decode_clip and PacketDecoder); warm decode_clip "
+        f"walls pp 7 {[r['wall_s'] for r in runs[7]]} s against pp 0 "
+        f"{[r['wall_s'] for r in runs[0]]} s (in turns 0, 7, 7, 0); host "
+        f"parse pp 7 {mean(runs[7], 'host_parse_s'):.4f} s, pp 0 "
+        f"{mean(runs[0], 'host_parse_s'):.4f} s; device busy (CUDA events "
+        f"per batch) pp 7 {mean(runs[7], 'device_busy_s'):.4f} s, pp 0 "
+        f"{mean(runs[0], 'device_busy_s'):.4f} s; KP launches "
+        f"{runs[7][0]['launches']['KP']} = {runs[7][0]['launches']['KP'] / (3 * nf):.0f} "
+        f"per plane per frame, the other kernels' as at pp 0 {base}; per "
+        f"packet {pwall:.4f} s = {1e3 * pwall / nf:.3f} ms per frame, KP "
+        f"{pcounts['KP']} | {smi}")
+    log(f"[720p pp7] traced decode_clip pass: wall {traced_wall:.4f} s, "
+        f"device kernels {busy:.6f} s, KP {kp_sum:.6f} s = "
+        f"{100 * kp_sum / busy:.1f}% of it "
+        f"({ {k[:40]: (round(v[0], 6), v[1]) for k, v in kp_s.items()} }) "
+        f"| {smi}")
+    log(f"[720p pp7] took {time.perf_counter() - t_phase:.1f} s")
+    return {"decode pp7": runs[7][0]["launches"]["KP"],
+            "decode per packet pp7": pcounts["KP"],
+            "pp7 warm walls_s": {str(k): [r["wall_s"] for r in rs]
+                                 for k, rs in runs.items()},
+            "pp7 traced share": kp_sum / busy}
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2926,12 +3214,15 @@ def main() -> int:
     k1 = kernel_vs_plain(dev)
     kl_golden, ks_golden = golden_streams()
     decode = real_size(smi)
+    kp_golden = pp_goldens()
+    decode_pp = real_size_pp7(smi)
     k2 = k2_vs_plain(dev)
     kt = kt_vs_plain(dev)
     kr = kr_vs_plain(dev)
     km = km_vs_plain(dev)
     kl = kl_vs_plain(dev)
     ks = ks_vs_plain(dev)
+    kp = kp_vs_plain(dev, smi)
     small_encodes()
     kl_mesh_small = mesh_filter_small()
     paths = {"encode q48 aq off": real_size_encode(
@@ -3027,7 +3318,19 @@ def main() -> int:
     ks["launches_by_path"].update(ks_extra)
     k1["intra_core"] = intra_kern["K1"]
     k2["intra_core"] = intra_kern["K2"]
-    print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl, ks]}), flush=True)
+    # KP runs where a pp level is set: the 720p decode at pp 7 (the
+    # slice's main path, by batch and per packet) and the pp goldens;
+    # every pp 0 path launched none (checked where their counts are read).
+    kp["launches"] = (decode_pp["decode pp7"]
+                      + decode_pp["decode per packet pp7"])
+    kp["launches_by_path"] = {
+        "decode pp7": decode_pp["decode pp7"],
+        "decode per packet pp7": decode_pp["decode per packet pp7"],
+        "pp goldens (pp 2, pp 7)": kp_golden, "decode (pp 0)": decode["KP"]}
+    kp["pp7_warm_walls_s"] = decode_pp["pp7 warm walls_s"]
+    kp["pp7_traced_device_share"] = decode_pp["pp7 traced share"]
+    print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl, ks, kp]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

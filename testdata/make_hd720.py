@@ -12,6 +12,10 @@ This is a one-off generator, run on the CPU from the repository root:
 
     python testdata/make_hd720.py
 
+``python testdata/make_hd720.py pp7`` writes hd720_q56_k12_pp7.sha256
+instead: the same stream decoded by the host ``Decoder`` at
+postprocessing level 7 (pp_list).
+
 It is not part of the PyTorch port and pytest does not collect it.
 """
 from __future__ import annotations
@@ -93,5 +97,32 @@ def main() -> None:
     print(f"{len(lines)} frames, {os.path.getsize(ogv)} bytes -> {ogv}")
 
 
+def pp_list(level: int = 7) -> None:
+    """hd720_q56_k12_pp<level>.sha256: one SHA-256 per frame of the
+    committed stream as the host Decoder gives it at the postprocessing
+    level (set_pplevel), the planes as in main()."""
+    from theora_tpu.decode.decoder import Decoder
+    from theora_tpu.headers import parse_info_header, parse_setup_header
+    from theora_tpu.ogg import demux_stream
+
+    pkts = demux_stream(open(os.path.join(HERE, f"{NAME}.ogv"), "rb").read())
+    dec = Decoder(parse_info_header(pkts[0].data),
+                  parse_setup_header(pkts[2].data))
+    dec.set_pplevel(level)
+    lines = []
+    for p in pkts[3:]:
+        dec.decode_packet(p.data)
+        frame = b"".join(np.ascontiguousarray(x).tobytes()
+                         for x in dec.ycbcr_out())
+        lines.append(hashlib.sha256(frame).hexdigest())
+    out = os.path.join(HERE, f"{NAME}_pp{level}.sha256")
+    with open(out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print(f"{len(lines)} frames at pp level {level} -> {out}")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["pp7"]:
+        pp_list(7)
+    else:
+        main()

@@ -23,8 +23,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM, KL, KS and the "
-                    "device decode and encode paths have no CPU mode")
+        pytest.skip("needs a CUDA card: K1, K2, KT, KR, KM, KL, KS, KP and "
+                    "the device decode and encode paths have no CPU mode")
     return torch.device("cuda")
 
 
@@ -573,3 +573,30 @@ def test_ks_fused_entries_match_their_chains(card):
     from theora_tpu_torch.tools.bench_mc import check_fused
 
     assert check_fused(card) == (72, 0)
+
+
+def test_kp_kernel_matches_plain(card):
+    """KP's deblock and dering launches against the plain version on the
+    same inputs (on the CPU), byte for byte, on small planes at every pp
+    level's plane and strength choice, into a padded plane's image."""
+    from theora_tpu_torch.ops import postproc, postproc_cuda
+
+    rng = np.random.default_rng(31)
+    for nv, nh in ((1, 9), (7, 1), (6, 10)):
+        src = rng.integers(0, 256, (8 * nv, 8 * nh), dtype=np.uint8)
+        dcq = rng.integers(0, 64, (nv, nh), dtype=np.uint8)
+        qi = rng.integers(0, 64, (nv, nh), dtype=np.uint8)
+        tabs = (rng.integers(0, 300, 64, dtype=np.int32),
+                -rng.integers(0, 200, 64, dtype=np.int32))
+        for dering, strong, pli in ((False, False, 0), (True, False, 0),
+                                    (True, True, 0), (True, True, 1)):
+            args = [torch.from_numpy(a) for a in (src, dcq, qi, *tabs)]
+            want = postproc.postprocess_plane(*args, dering, strong, pli)
+            big = torch.zeros((8 * nv + 16, 8 * nh + 16), dtype=torch.uint8,
+                              device=card)
+            out = postproc_cuda.postprocess_plane(
+                *[a.to(card) for a in args], dering, strong, pli,
+                out=big[8:-8, 8:-8])
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want)
+            assert not big[:8].any() and not big[:, :8].any()

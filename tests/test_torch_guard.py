@@ -1708,3 +1708,184 @@ def test_ks_fused_wrappers_reject_what_the_kernel_does_not_take(entry, which,
         args[which] = bad
     with pytest.raises((TypeError, ValueError)):
         fn(*args)
+
+
+# ------------------------------------------------------------- kernel KP
+
+def _kp_args(device, nv=2, nh=3):
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.from_numpy(a).to(device)
+    return (t(rng.integers(0, 256, (8 * nv, 8 * nh), dtype=np.uint8)),
+            t(rng.integers(0, 64, (nv, nh), dtype=np.uint8)),
+            t(rng.integers(0, 64, (nv, nh), dtype=np.uint8)),
+            t(rng.integers(0, 300, 64, dtype=np.int32)),
+            t(-rng.integers(0, 30, 64, dtype=np.int32)), True, True, 0)
+
+
+def test_kp_plain_path_only_for_cpu_tensors(monkeypatch):
+    from theora_tpu_torch.ops import postproc, postproc_cuda
+
+    calls = []
+
+    def plain(src, *args):
+        calls.append(src.device.type)
+        return src.clone()
+
+    monkeypatch.setattr(postproc, "postprocess_plane", plain)
+    postproc_cuda.postprocess_plane(*_kp_args("cpu"))
+    assert calls == ["cpu"]
+    with pytest.raises(ValueError, match="unsupported device"):
+        postproc_cuda.postprocess_plane(*_kp_args("meta"))
+    assert calls == ["cpu"]
+    assert postproc_cuda.postprocess_plane.launches == 0
+    tree = _parse(postproc_cuda.__file__)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_kp_wrapper_output_on_cpu():
+    """The CPU path is the plain version; with out given it writes there,
+    a padded plane's row-strided image is taken as it is."""
+    from theora_tpu_torch.ops import postproc, postproc_cuda
+
+    args = _kp_args("cpu")
+    want = postproc.postprocess_plane(*args)
+    assert torch.equal(postproc_cuda.postprocess_plane(*args), want)
+    big = torch.zeros((32, 56), dtype=torch.uint8)
+    big[8:24, 16:40] = args[0]
+    out = torch.zeros((20, 30), dtype=torch.uint8)
+    got = postproc_cuda.postprocess_plane(big[8:24, 16:40], *args[1:],
+                                          out=out[2:18, 3:27])
+    assert torch.equal(got, want) and torch.equal(out[2:18, 3:27], want)
+    assert not out[:2].any() and not out[:, :3].any()
+
+
+@pytest.mark.parametrize("which,bad", [
+    (0, torch.zeros((16, 24), dtype=torch.int16)),
+    (0, torch.zeros((16, 20), dtype=torch.uint8)),
+    (0, torch.zeros((12, 24), dtype=torch.uint8)),
+    (0, torch.zeros((24, 16), dtype=torch.uint8).t()),
+    (0, torch.zeros((16, 48), dtype=torch.uint8)[:, ::2]),
+    (0, torch.zeros((16,), dtype=torch.uint8)),
+    (0, torch.zeros((8, 16392), dtype=torch.uint8)),
+    (0, np.zeros((16, 24), np.uint8)),
+    (1, torch.zeros((2, 3), dtype=torch.int32)),
+    (1, torch.zeros((3, 2), dtype=torch.uint8)),
+    (1, torch.zeros((2, 6), dtype=torch.uint8)[:, ::2]),
+    (2, torch.zeros((2, 4), dtype=torch.uint8)),
+    (2, torch.zeros((2, 3), dtype=torch.uint8, device="meta")),
+    (3, torch.zeros(64, dtype=torch.int64)),
+    (3, torch.zeros(63, dtype=torch.int32)),
+    (4, torch.zeros(64, dtype=torch.float32)),
+    (8, torch.zeros((16, 24), dtype=torch.int16)),
+    (8, torch.zeros((16, 32), dtype=torch.uint8)),
+    (8, torch.zeros((24, 16), dtype=torch.uint8).t()),
+])
+def test_kp_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
+    from theora_tpu_torch.ops import postproc_cuda
+
+    args = list(_kp_args("cpu"))
+    if which == len(args):
+        args.append(bad)
+    else:
+        args[which] = bad
+    with pytest.raises((TypeError, ValueError)):
+        postproc_cuda.postprocess_plane(*args)
+
+
+def test_kp_build_is_sm90a(monkeypatch, tmp_path):
+    """KP's library is built by nvcc_build from csrc/postproc.cu for
+    sm_90a, without fast math (its arithmetic is integer). Nothing is
+    compiled: subprocess.run is replaced."""
+    import subprocess
+
+    from theora_tpu_torch.ops import cuda_build, postproc_cuda
+
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "ptxas info")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(postproc_cuda, "_SO",
+                        str(tmp_path / "build" / "libtheora_postproc.so"))
+    so = postproc_cuda.build()
+    assert len(calls) == 1
+    cmd = calls[0]
+    assert cmd[0] == "nvcc"
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-1] == postproc_cuda._SRC
+    assert cmd[-1].endswith(os.path.join("csrc", "postproc.cu"))
+    assert so == postproc_cuda._SO and os.path.exists(so)
+
+
+def test_decoders_reach_kp_and_nothing_calls_the_plain_postprocessor(
+        monkeypatch):
+    """With a pp level set, the decoders postprocess through
+    postproc_cuda.postprocess_plane: at level 7 once per plane of every
+    frame from the first keyframe, with the dering on and strong, into the
+    output frame, from the padded reference plane's image; at level 4
+    luma only; at level 0 never. No module of the port but the wrapper
+    calls ops/postproc.py's filter (the tools and chip_smoke.py call it
+    to hold the kernel against it). The new modules import neither JAX
+    nor the JAX package."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import postproc_cuda
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    calls = []
+    real = postproc_cuda.postprocess_plane
+
+    def spy(src, dcq, qi, scale, sharp, dering, strong, pli, out=None):
+        calls.append((pli, dering, strong, out is not None,
+                      src.stride(0) > src.shape[1]))
+        return real(src, dcq, qi, scale, sharp, dering, strong, pli, out)
+
+    monkeypatch.setattr(postproc_cuda, "postprocess_plane", spy)
+    pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
+    info = parse_info_header(pkts[0].data)
+    setup = parse_setup_header(pkts[2].data)
+    datas = [p.data for p in pkts[3:]]
+    for level, want in ((7, [(0, True, True), (1, True, True),
+                             (2, True, True)]), (4, [(0, True, True)]),
+                        (0, [])):
+        calls.clear()
+        dec = BatchDecoder(info, setup, device="cpu")
+        dec.set_pplevel(level)
+        assert len(dec.decode_clip(datas, batch=3)) == len(datas)
+        # A batch runs plane by plane, each over its frames.
+        assert sorted(calls) == sorted([c + (True, True) for c in want]
+                                       * len(datas))
+        calls.clear()
+        pd = PacketDecoder(info, setup, device="cpu")
+        pd.set_pplevel(level)
+        for d in datas[:2]:
+            pd.decode_packet(d)
+        assert calls == [c + (True, True) for c in want] * 2
+
+    new = ("ops/postproc.py", "ops/postproc_cuda.py", "decode/telemetry.py",
+           "compat.py", "tools/bench_pp.py")
+    sources = list(_port_sources())
+    for rel in new:
+        path = os.path.join(REPO_ROOT, "theora_tpu_torch", rel)
+        assert path in sources
+        assert not [m for m in _imported_modules(path)
+                    if m.split(".")[0] in FORBIDDEN], rel
+    for path in sources:
+        rel = os.path.relpath(path, REPO_ROOT)
+        if rel in (os.path.join("theora_tpu_torch", "ops",
+                                "postproc_cuda.py"), "chip_smoke.py") or \
+                rel.startswith(os.path.join("theora_tpu_torch", "tools")):
+            continue
+        for n in ast.walk(_parse(path)):
+            if isinstance(n, ast.ImportFrom) and n.module:
+                names = {a.name for a in n.names}
+                assert not (n.module.endswith("ops.postproc")
+                            and "postprocess_plane" in names), rel
+                assert not (n.module.endswith("ops")
+                            and "postproc" in names), rel

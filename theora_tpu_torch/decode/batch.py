@@ -5,7 +5,11 @@ frame's blocks and a Python loop over frames for MC and reconstruction
 fills the borders and the output frame of a frame whose limit is 0) and
 the loop filter and borders (kernel KL, one launch per plane of a frame
 whose limit is above 0), with the reference planes carried on the
-device.
+device. With a postprocessing level set (set_pplevel), kernel KP
+deblocks and derings each postprocessed plane of a frame into the output
+frame, from the frame's unpadded image; the references stay as decoded.
+Telemetry overlays are drawn on the downloaded display-orientation frame
+(decode/telemetry.py), as the JAX decoder draws them.
 
 Port of theora_tpu/decode/tpu_batch.py (`TpuBatchDecoder`). The JAX scan
 over frames becomes a loop; dequant + iDCT reads no carried plane, so it
@@ -36,10 +40,12 @@ from theora_tpu_torch import resolve_device, transfer
 from theora_tpu_torch.constants import (
     FRAME_GOLD, FRAME_PREV, FRAME_SELF, MVMAP, MVMAP2,
 )
-from theora_tpu_torch.decode.decoder import Decoder
+from theora_tpu_torch.decode.decoder import BadPacketError, Decoder
+from theora_tpu_torch.decode.telemetry import render_telemetry
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME
 from theora_tpu_torch.native import dc_predict_native
-from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda
+from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda, \
+    postproc_cuda
 
 # Rows of the per-fragment int8 side array uploaded per plane and batch;
 # rows _RS .. _U2 are KS's side rows (ops/mc.py:SIDE_ROWS).
@@ -65,11 +71,21 @@ class BatchDecoder(Decoder):
         # around each batch's device work appended to it.
         self.host_parse_s = 0.0
         self.device_spans: list[tuple] | None = None
+        # The last live frame's output planes on the device ({pli: [h, w]
+        # uint8}, postprocessed where KP ran), and whether it was
+        # postprocessed as of the host parse: a frame that codes no block
+        # then repeats it, as the JAX decoder returns its last output for
+        # such a frame (decode.c:2763-2772).
+        self._last_out: dict[int, torch.Tensor] | None = None
+        self._pp_shown = False
+        self._pp_tables: tuple[torch.Tensor, torch.Tensor] | None = None
 
     # ------------------------------------------------------------------
     def _parse_batch(self, packets: list[bytes]) -> list[dict | None]:
         """Host side of a batch: side info, tokens and DC prediction per
-        packet (None for a dup packet)."""
+        packet (None for a dup packet), and the postprocessor's and the
+        overlays' per-frame state. Raises BadPacketError for a packet the
+        parse rejects."""
         g = self.geometry
         per_frame = []
         for data in packets:
@@ -81,11 +97,28 @@ class BatchDecoder(Decoder):
             side = self._parse_sideinfo_native(data)
             coded = side["coded"]
             fragis = [f[coded[f]] for f in self._scan_by_plane]
-            qzc, lz, dcc, _ = self._native.decode_frame_tokens(
-                data, side["bitpos"], [len(f) for f in fragis]
-            )
+            want_bits = bool(self.telemetry["bits"])
+            try:
+                qzc, lz, dcc, *rest = self._native.decode_frame_tokens(
+                    data, side["bitpos"], [len(f) for f in fragis],
+                    want_bits)
+            except ValueError as e:
+                raise BadPacketError(str(e)) from e
             self._update_granpos()
             order = np.concatenate(fragis)
+            pp, repeat = None, False
+            if coded.any():
+                pp = self._pp_frame(side, self.qis,
+                                    self.frame_type == INTRA_FRAME)
+                self._pp_shown = pp is not None
+                if any(self.telemetry.values()):
+                    self._telemetry_state = {
+                        "coded": coded, "mode": side["mode"],
+                        "mv": side["mv"], "qii": side["qii"],
+                        "order": order,
+                        "frag_bits": rest[1] if want_bits else None}
+            else:
+                repeat = self._pp_shown
             last_zzi = np.full(g.nfrags, 64, dtype=np.int32)
             last_zzi[order] = lz
             dc_full = np.zeros(g.nfrags, dtype=np.int32)
@@ -99,9 +132,13 @@ class BatchDecoder(Decoder):
                                   side["refi"][sl].reshape(shape), dc_pl,
                                   [0, 0, 0])
                 dc_full[sl] = dc_pl.reshape(-1)
+            tele = None
+            if any(self.telemetry.values()) and self._telemetry_state:
+                tele = (dict(self.telemetry), self._telemetry_state)
             per_frame.append(
                 dict(side=side, fragis=fragis, qz=qzc, last_zzi=last_zzi,
-                     dc=dc_full, ftype=self.frame_type, qis=list(self.qis))
+                     dc=dc_full, ftype=self.frame_type, qis=list(self.qis),
+                     pp=pp, repeat=repeat, tele=tele)
             )
         return per_frame
 
@@ -115,6 +152,18 @@ class BatchDecoder(Decoder):
         qpx = 1 if (pli != 0 and not (self.info.pixel_fmt & 1)) else 0
         qpy = 1 if (pli != 0 and not (self.info.pixel_fmt & 2)) else 0
         F = len(live)
+        # Postprocessing per frame: None, or (dering, strong) with the
+        # frame's DC qis and qi per fragment in ppq[f] (pp levels 2-4
+        # filter luma only, 5-7 all three planes).
+        pp, ppq = [], np.zeros((F, 2, n), np.uint8)
+        for fi, fr in enumerate(live):
+            lvl = fr["pp"][2] if fr["pp"] is not None else 0
+            if lvl < (5 if pli else 2):
+                pp.append(None)
+                continue
+            ppq[fi, 0] = fr["pp"][0][sl]
+            ppq[fi, 1] = fr["pp"][1][sl]
+            pp.append((lvl >= (6 if pli else 3), lvl >= (7 if pli else 4)))
         counts = np.zeros((F, n), np.uint8)
         frag = np.zeros((F, 10, n), np.int8)
         deqt = np.zeros((F, 3, 2, 64), np.int16)
@@ -159,7 +208,8 @@ class BatchDecoder(Decoder):
             intra.append(fr["ftype"] == INTRA_FRAME)
         return dict(counts=counts, frag=frag, deqt=deqt, dc=dc,
                     zz=np.concatenate(zzs), vals=np.concatenate(vals),
-                    limits=limits, intra=intra)
+                    limits=limits, intra=intra, pp=pp, ppq=ppq,
+                    repeat=[fr["repeat"] for fr in live])
 
     def _initial_refs(self, pli: int):
         if self._refs is not None:
@@ -211,30 +261,58 @@ class BatchDecoder(Decoder):
             residual = idct_cuda.dequantize_idct_frames(*k1_args)
         residual = residual.reshape(F, n, 64)
 
+        if any(p is not None for p in inp["pp"]):
+            with record_function("theora.upload"):
+                ppq = transfer.upload(inp["ppq"], dev).reshape(F, 2, nv, nh)
+            dc_scale, sharp = self._pp_device_tables()
+
         prev, gold = self._initial_refs(pli)
         out = torch.empty((F, h, w), dtype=torch.uint8, device=dev)
         for f in range(F):
             fs = frag[f]
+            pp, repeat = inp["pp"][f], inp["repeat"][f]
             # KL fills the borders and the output of the planes it
-            # filters; KS those of the others.
+            # filters; KS those of the others. KP writes the output of a
+            # postprocessed plane; a frame that codes no block repeats the
+            # last output when that was postprocessed.
             filtered = bool(inp["limits"][f])
+            direct = pp is None and not repeat
             with record_function("theora.mc_recon"):
                 plane = mc_cuda.mc_recon(
                     prev, gold, residual[f], fs[_RS:_U2 + 1], nv, nh, vpad,
                     hpad, borders=not filtered,
-                    pic=None if filtered else out[f])
+                    pic=out[f] if direct and not filtered else None)
             if filtered:
                 with record_function("theora.loopfilter"):
                     plane = loopfilter_cuda.loop_filter_plane(
                         plane, fs[_CODED].bool().reshape(nv, nh),
                         inp["limits"][f], nv, nh, vpad, hpad,
                     )
-                with record_function("theora.borders"):
-                    out[f] = plane[vpad:vpad + h, hpad:hpad + w]
+                if direct:
+                    with record_function("theora.borders"):
+                        out[f] = plane[vpad:vpad + h, hpad:hpad + w]
+            if repeat:
+                out[f] = out[f - 1] if f else self._last_out[pli]
+            elif pp is not None:
+                with record_function("theora.postproc"):
+                    postproc_cuda.postprocess_plane(
+                        plane[vpad:vpad + h, hpad:hpad + w], ppq[f, 0],
+                        ppq[f, 1], dc_scale, sharp, pp[0], pp[1], pli,
+                        out=out[f])
             if inp["intra"][f]:
                 gold = plane
             prev = plane
         return out, prev, gold
+
+    def _pp_device_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The postprocessor's [64] int32 DC scale and sharpening tables on
+        the device, uploaded once."""
+        if self._pp_tables is None:
+            self._pp_tables = tuple(
+                torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(
+                    self.device) for t in (self._pp_dc_scale,
+                                           self._pp_sharp_mod))
+        return self._pp_tables
 
     def dispatch_batch(self, packets: list[bytes]):
         """Parse a batch on the host and enqueue its device work without
@@ -255,7 +333,8 @@ class BatchDecoder(Decoder):
             if fr is not None:
                 li += 1
             emit.append(li)
-        return {"dev": self._dispatch_live(live), "emit": emit}
+        return {"dev": self._dispatch_live(live), "emit": emit,
+                "tele": [fr["tele"] for fr in live]}
 
     def _dispatch_live(self, live: list[dict]) -> dict:
         """Enqueue the device work of parsed live frames, carry the
@@ -276,6 +355,7 @@ class BatchDecoder(Decoder):
             out_planes[pli] = out
             refs[pli] = (prev, gold)
         self._refs = refs
+        self._last_out = {pli: out_planes[pli][-1] for pli in range(3)}
         if span is not None:
             span[1].record()
             self.device_spans.append(span)
@@ -302,39 +382,68 @@ class BatchDecoder(Decoder):
         """Begin the device->host copies of a batch's planes."""
         return transfer.Download([dev_planes[pli] for pli in range(3)])
 
-    def _frame(self, host: list, li: int) -> list[np.ndarray]:
-        """Display-orientation [y, u, v] of live frame li."""
-        return [host[pli][li][::-1].copy() for pli in range(3)]
+    def _frame(self, host: list, li: int, st: dict) -> list[np.ndarray]:
+        """Display-orientation [y, u, v] of live frame li, with the
+        overlays that were on when it was parsed."""
+        frame = [host[pli][li][::-1].copy() for pli in range(3)]
+        if st["tele"][li] is not None:
+            flags, state = st["tele"][li]
+            render_telemetry(self.geometry, frame, state, **flags)
+        return frame
 
     def _prev_output_frame(self) -> list[np.ndarray]:
-        """The most recent output frame (the PREV reference), display
-        orientation; for a batch that begins with dup packets."""
+        """The most recent output frame, display orientation, without
+        overlays: the last live frame's output (postprocessed where KP
+        ran), or the PREV reference's image when the references were
+        loaded (decode/state.py) or made gray; for a batch that begins
+        with dup packets."""
         if self._refs is None:
             raise ValueError("stream must start with a live frame")
         g = self.geometry
         frame = []
         for pli in range(3):
-            vpad, hpad = g.plane_padding(pli)
-            h, w = g.plane_shape(pli)
-            p = self._refs[pli][0][vpad:vpad + h, hpad:hpad + w]
+            if self._last_out is not None:
+                p = self._last_out[pli]
+            else:
+                vpad, hpad = g.plane_padding(pli)
+                h, w = g.plane_shape(pli)
+                p = self._refs[pli][0][vpad:vpad + h, hpad:hpad + w]
             frame.append(p.cpu().numpy()[::-1].copy())
         return frame
+
+    def _output_frame(self) -> list[np.ndarray]:
+        """The most recent output frame as the JAX decoder's ycbcr_out
+        gives it: display orientation, the overlays that are on drawn
+        with the last state recorded while any was on."""
+        frame = self._prev_output_frame()
+        if any(self.telemetry.values()) and self._telemetry_state:
+            render_telemetry(self.geometry, frame, self._telemetry_state,
+                             **self.telemetry)
+        return frame
+
+    def _no_callback(self, what: str) -> None:
+        if self.stripe_callback is not None:
+            raise ValueError(f"{what} does not fire the stripe callback; "
+                             f"decode with PacketDecoder.decode_packet")
 
     def decode_batch(self, packets: list[bytes]) -> list[list[np.ndarray]]:
         """Display-orientation [y, u, v] planes per packet. The batch must
         start at a decodable point (keyframe or existing reference
-        state); dup packets repeat the previous output."""
+        state); dup packets repeat the previous output. Raises ValueError
+        when a stripe callback is set."""
+        self._no_callback("decode_batch")
         prev_frame = None
         if packets and len(packets[0]) == 0:
-            prev_frame = self._prev_output_frame()
+            prev_frame = self._output_frame()
         st = self.dispatch_batch(packets)
         if st is None:
             if prev_frame is None:
-                prev_frame = self._prev_output_frame()
+                prev_frame = self._output_frame()
             return [[p.copy() for p in prev_frame] for _ in packets]
         host = self._start_download(st["dev"]).wait()
         return [
-            [p.copy() for p in prev_frame] if li < 0 else self._frame(host, li)
+            [p.copy() for p in prev_frame] if li < 0
+            else self._frame(host, li, st)
             for li in st["emit"]
         ]
 
@@ -345,14 +454,16 @@ class BatchDecoder(Decoder):
         are waited for only after the next batch has been parsed and
         enqueued, so the copies of batch k overlap the host parse and
         device work of batch k+1. Returns display-orientation [y, u, v]
-        planes per packet."""
+        planes per packet. Raises ValueError when a stripe callback is
+        set."""
+        self._no_callback("decode_clip")
         chunks = [packets[i:i + batch] for i in range(0, len(packets), batch)]
         outs: list = []
         # A clip that leads with a dup repeats a frame from before this
         # call.
         prior_frame = None
         if packets and len(packets[0]) == 0:
-            prior_frame = self._prev_output_frame()
+            prior_frame = self._output_frame()
 
         def last_frame():
             prev = outs[-1] if outs else prior_frame
@@ -369,7 +480,8 @@ class BatchDecoder(Decoder):
             for li in st["emit"]:
                 # A dup before the chunk's first live frame repeats the
                 # previous chunk's last output, not a future frame.
-                outs.append(last_frame() if li < 0 else self._frame(host, li))
+                outs.append(last_frame() if li < 0
+                            else self._frame(host, li, st))
 
         pending = None
         for chunk in chunks + [None]:

@@ -1,12 +1,16 @@
 """Host decoder state shared by the port's decoders.
 
-Port of the part of theora_tpu/decode/decoder.py that
-`theora_tpu.decode.tpu_batch.TpuBatchDecoder` inherits from `Decoder`: the
-dequant tables, the reference slots and frame counters with `_update_granpos`,
-and the native side-info parse `_parse_sideinfo_native`
-(decode.c:442-981). The scalar `decode_packet`, postprocessing and
-telemetry are not in this slice. Frames are in bitstream orientation
-(row 0 = display bottom) in UMV-padded planes.
+Port of the part of theora_tpu/decode/decoder.py that the port's
+decoders share: the dequant tables, the reference slots and frame counters
+with `_update_granpos`, the native side-info parse `_parse_sideinfo_native`
+(decode.c:442-981), and the decoder controls a user sets through
+`th_decode_ctl` (compat.py): the postprocessing level with its per-frame
+state (`set_pplevel`, `_pp_frame`; the filter itself is kernel KP, run by
+decode/batch.py), the telemetry overlays (`set_telemetry`, drawn by
+decode/telemetry.py) and the striped-decode callback (`stripe_callback`,
+fired by decode/scalar.py). The pixel pipeline is BatchDecoder's
+(decode/batch.py). Frames are in bitstream orientation (row 0 = display
+bottom) in UMV-padded planes.
 """
 from __future__ import annotations
 
@@ -17,7 +21,12 @@ from theora_tpu_torch.geometry import get_geometry
 from theora_tpu_torch.headers import SetupInfo
 from theora_tpu_torch.info import INTRA_FRAME, TheoraInfo
 from theora_tpu_torch.native import NativeEntropy, get_lib
-from theora_tpu_torch.quant import dequant_tables_init
+from theora_tpu_torch.quant import dequant_tables_init, pp_dc_scale_init, \
+    pp_sharp_mod
+
+class BadPacketError(ValueError):
+    """A data packet that the host parse (side info, tokens) rejects."""
+
 
 class Decoder:
     """Stream-level decoder state (th_dec_ctx analogue) without a pixel
@@ -49,6 +58,77 @@ class Decoder:
             np.ascontiguousarray(g.mb_maps.reshape(-1), dtype=np.int32),
             np.ascontiguousarray(g.mb_valid, dtype=np.uint8),
         )
+        # Out-of-loop postprocessor (decode.c:1204-1325): the level, the
+        # last DC qi of each fragment (None until the first intra frame
+        # decoded at a level from 1; reset at level 0), and the
+        # PERSISTENT per-fragment qii and 3-slot qi list: the reference
+        # updates a fragment's qii only where it is coded and qis[1..2]
+        # only when a frame carries them, so dering on an uncoded fragment
+        # reads the qii it was last coded with, into a list whose upper
+        # slots may be stale (decode.c:1928). Both are kept current on
+        # every decoded frame, whatever the level.
+        self.pp_level = 0
+        self._pp_dc_qis: np.ndarray | None = None
+        self._pp_qii_state = np.zeros(g.nfrags, np.uint8)
+        self._pp_qis_state = np.zeros(3, np.uint8)
+        self._pp_dc_scale = pp_dc_scale_init(setup.qinfo)
+        self._pp_sharp_mod = pp_sharp_mod(self.dequant)
+        # Telemetry overlays (TH_DECCTL_SET_TELEMETRY_*), and the state of
+        # the last frame decoded while any was on.
+        self.telemetry = {"mbmode": 0, "mv": 0, "qi": 0, "bits": 0}
+        self._telemetry_state: dict | None = None
+        # Striped-decode callback (TH_DECCTL_SET_STRIPE_CB): called as
+        # callback(ycbcr, yfrag0, yfrag_end) per stripe of a decoded frame.
+        self.stripe_callback = None
+
+    def set_pplevel(self, level: int) -> None:
+        """TH_DECCTL_SET_PPLEVEL analogue: 0 = off .. 7 = max
+        (decode.c:31-48). Level 1 tracks the DC qis only; 2 deblocks
+        luma; 3 derings luma too, 4 strongly; 5 deblocks all three
+        planes; 6 derings chroma, 7 strongly."""
+        if not 0 <= level <= 7:
+            raise ValueError("pp level must be 0..7")
+        self.pp_level = level
+
+    def set_telemetry(self, mbmode=None, mv=None, qi=None, bits=None):
+        """Turn the debug overlays on decoded output on or off
+        (TH_DECCTL_SET_TELEMETRY_{MBMODE,MV,QI,BITS} analogue)."""
+        for k, v in (("mbmode", mbmode), ("mv", mv), ("qi", qi),
+                     ("bits", bits)):
+            if v is not None:
+                self.telemetry[k] = int(v)
+
+    def _pp_frame(self, side: dict, qis: list[int], intra: bool):
+        """The postprocessor's host state step for a decoded frame that
+        codes blocks (theora_tpu/decode/decoder.py:212-265,492-493), in
+        stream order. Returns None when the frame is not postprocessed,
+        else (dc_qis [nfrags] uint8, qi per fragment [nfrags] uint8,
+        level) as this frame's filter reads them.
+
+        Level 0 clears the DC-qi tracking, as the reference's level-0
+        branch intends: the JAX decoder never reaches that branch (it
+        calls its postprocessor only from level 1), so after a switch to
+        0 its output keeps returning the last postprocessed frame (fault
+        F9); here the frame decodes without pp."""
+        coded = side["coded"]
+        self._pp_qis_state[:len(qis)] = qis
+        self._pp_qii_state[coded] = side["qii"][coded]
+        level = self.pp_level
+        if level < 1:
+            self._pp_dc_qis = None
+            return None
+        # DC qi tracking starts at the first intra frame
+        # (decode.c:1220-1244).
+        if self._pp_dc_qis is None:
+            if not intra:
+                return None
+            self._pp_dc_qis = np.full(self.geometry.nfrags, qis[0], np.uint8)
+        else:
+            self._pp_dc_qis[coded] = qis[0]
+        if level < 2:
+            return None
+        return (self._pp_dc_qis.copy(),
+                self._pp_qis_state[self._pp_qii_state], level)
 
     def _parse_sideinfo_native(self, packet: bytes) -> dict:
         """Frame header, coded flags, MB modes, MVs and block qi indices
@@ -74,7 +154,7 @@ class Decoder:
             mode.ctypes.data, mv.ctypes.data, qii.ctypes.data,
         )
         if pos < 0:
-            raise ValueError("bad frame packet")
+            raise BadPacketError("bad frame packet")
         self.frame_type = int(ft[0])
         self.qis = [int(q) for q in qis[: int(nqis[0])]]
         if self.frame_type == INTRA_FRAME:

@@ -41,6 +41,8 @@ def load_reference_state(dec, prev_planes, gold_planes, ref_idx: dict,
     if missing:
         raise ValueError(f"ref_idx lacks slots {sorted(missing)}")
     dec._refs = refs
+    dec._last_out = None
+    dec._pp_shown = False
     dec.ref_idx = {k: int(ref_idx[k])
                    for k in (FRAME_GOLD, FRAME_PREV, FRAME_SELF)}
     dec.keyframe_num = int(keyframe_num)

@@ -25,6 +25,12 @@ class BadHeaderError(ValueError):
     pass
 
 
+class VersionError(BadHeaderError):
+    """Unsupported bitstream version (the reference's TH_EVERSION,
+    decinfo.c:62-67); distinct so th_decode_headerin can report the
+    same code the reference does."""
+
+
 def _check_magic(br: BitReader, kind: int, what: str) -> None:
     if br.read(8) != kind:
         raise BadHeaderError(f"not a {what} header")
@@ -43,7 +49,7 @@ def parse_info_header(packet: bytes) -> TheoraInfo:
         info.version_major == VERSION_MAJOR
         and info.version_minor > VERSION_MINOR
     ):
-        raise BadHeaderError("unsupported bitstream version")
+        raise VersionError("unsupported bitstream version")
     info.frame_width = br.read(16) << 4
     info.frame_height = br.read(16) << 4
     info.pic_width = br.read(24)

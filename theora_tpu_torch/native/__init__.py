@@ -81,6 +81,7 @@ def get_lib():
         _P,    # qcoeffs out
         _P,    # last_zzi out
         _P,    # dc out
+        _P,    # frag_bits out (null: not counted)
     ]
     lib.th_dc_predict_plane.restype = None
     lib.th_dc_predict_plane.argtypes = [
@@ -164,23 +165,29 @@ class NativeEntropy:
             self._lib.th_entropy_destroy(self._ctx)
             self._ctx = None
 
-    def decode_frame_tokens(self, packet: bytes, bit_offset: int, ncoded):
+    def decode_frame_tokens(self, packet: bytes, bit_offset: int, ncoded,
+                            want_bits: bool = False):
         """Returns (qcoeffs [total,64] int16 zig-zag, last_zzi [total],
-        dc [total] pre-prediction, end_bitpos), in coded order."""
+        dc [total] pre-prediction, end_bitpos), in coded order; with
+        want_bits also frag_bits [total] int32, the bits of the tokens
+        each fragment's coefficients took (the telemetry's bits
+        overlay)."""
         total = int(sum(ncoded))
         nc = np.asarray(ncoded, dtype=np.int64)
         qcoeffs = np.zeros((max(total, 1), 64), dtype=np.int16)
         last_zzi = np.zeros(max(total, 1), dtype=np.int32)
         dc = np.zeros(max(total, 1), dtype=np.int32)
+        fbits = np.zeros(max(total, 1), dtype=np.int32) if want_bits else None
         buf = np.frombuffer(packet, dtype=np.uint8)
         end = self._lib.th_decode_frame_tokens(
             self._ctx, buf.ctypes.data, len(packet), bit_offset,
             nc.ctypes.data, qcoeffs.ctypes.data, last_zzi.ctypes.data,
-            dc.ctypes.data,
+            dc.ctypes.data, fbits.ctypes.data if want_bits else None,
         )
         if end < 0:
             raise ValueError("native token decode failed")
-        return qcoeffs[:total], last_zzi[:total], dc[:total], int(end)
+        out = (qcoeffs[:total], last_zzi[:total], dc[:total], int(end))
+        return out + (fbits[:total],) if want_bits else out
 
 
 def _dc_predict(mode, coded, refi, dc, out, pred_last) -> None:

@@ -236,7 +236,8 @@ void th_entropy_destroy(void* p) { delete (Ctx*)p; }
 // Returns final bit position, or -1 on error.
 int64_t th_decode_frame_tokens(
     void* pctx, const uint8_t* packet, int64_t packet_len, int64_t bit_offset,
-    const int64_t* ncoded, int16_t* qcoeffs, int32_t* last_zzi, int32_t* dc) {
+    const int64_t* ncoded, int16_t* qcoeffs, int32_t* last_zzi, int32_t* dc,
+    int32_t* frag_bits) {
   Ctx* ctx = (Ctx*)pctx;
   BitReader br;
   br.init(packet, packet_len);
@@ -248,6 +249,8 @@ int64_t th_decode_frame_tokens(
   // Token streams: store per (pli, zzi).
   std::vector<uint8_t> toks[3][64];
   std::vector<int32_t> ebs[3][64];
+  std::vector<int32_t> tbits[3][64];  // per-token bit lengths (telemetry)
+  if (frag_bits) memset(frag_bits, 0, sizeof(int32_t) * total);
   int64_t eob_start[3][64];
   int64_t ntoks_left[3][64];
   for (int pli = 0; pli < 3; pli++)
@@ -270,11 +273,13 @@ int64_t th_decode_frame_tokens(
     eobs -= eobi;
     fragii += eobi;
     while (fragii < n) {
+      int64_t p0 = br.pos;
       int t = book.decode(br);
       if (t < 0) return -1;
       int eb = TOKEN_EB[t] ? (int)br.read(TOKEN_EB[t]) : 0;
       toks[pli][0].push_back((uint8_t)t);
       ebs[pli][0].push_back(eb);
+      if (frag_bits) tbits[pli][0].push_back((int32_t)(br.pos - p0));
       int64_t te; int rl, cf;
       expand_token(t, eb, &te, &rl, &cf);
       if (te) {
@@ -315,11 +320,13 @@ int64_t th_decode_frame_tokens(
         while (ntoks + eobs < ntl) {
           ntoks += eobs;
           eob_count += eobs;
+          int64_t p0 = br.pos;
           int t = book.decode(br);
           if (t < 0) return -1;
           int eb = TOKEN_EB[t] ? (int)br.read(TOKEN_EB[t]) : 0;
           toks[pli][zzi].push_back((uint8_t)t);
           ebs[pli][zzi].push_back(eb);
+          if (frag_bits) tbits[pli][zzi].push_back((int32_t)(br.pos - p0));
           int64_t te; int rl, cf;
           expand_token(t, eb, &te, &rl, &cf);
           eobs = te;
@@ -362,6 +369,7 @@ int64_t th_decode_frame_tokens(
         if (ti[z] >= toks[pli][z].size()) return -1;
         int t = toks[pli][z][ti[z]];
         int eb = ebs[pli][z][ti[z]];
+        if (frag_bits) frag_bits[frag_base + f] += tbits[pli][z][ti[z]];
         ti[z]++;
         int64_t te; int rl, cf;
         expand_token(t, eb, &te, &rl, &cf);

@@ -4,7 +4,8 @@ Each kernel (csrc/*.cu) has a plain C interface and is compiled with nvcc
 for sm_90a at first use into the git-ignored ``csrc/build/``, then bound
 with ctypes by its wrapper (ops/idct_cuda.py, ops/fdct_cuda.py,
 ops/trellis_cuda.py, ops/qrd_cuda.py, ops/me_cuda.py,
-ops/loopfilter_cuda.py, ops/mc_cuda.py). A failed build raises.
+ops/loopfilter_cuda.py, ops/mc_cuda.py, ops/postproc_cuda.py). A failed
+build raises.
 """
 from __future__ import annotations
 

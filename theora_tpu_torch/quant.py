@@ -178,3 +178,46 @@ def dequant_tables_init(qinfo: dict) -> np.ndarray:
                         + sz
                     ) // (2 * sz)
     return out
+
+
+def pp_dc_scale_init(qinfo: dict) -> np.ndarray:
+    """The postprocessor's DC scale per qi, [64] int32 (quant.c:86-87).
+
+    The reference writes the slot in every (qti, pli) walk of the qi
+    ranges; each walk covers qi 0..63, so the last walk's values stand
+    (the copy of theora_tpu/quant.py:pp_dc_scale_init walks all six)."""
+    out = np.zeros(64, dtype=np.int32)
+    dc_scale = np.asarray(qinfo["dc_scale"], dtype=np.uint32)
+    for qti in range(2):
+        for pli in range(3):
+            ranges = qinfo["qi_ranges"][qti][pli]
+            sizes = ranges["sizes"]
+            mats = [np.asarray(m, dtype=np.uint32)
+                    for m in ranges["base_matrices"]]
+            qi = 0
+            for qri in range(len(sizes) + 1):
+                base = mats[qri].copy()
+                qi_start = qi
+                qi_end = qi + (sizes[qri] if qri < len(sizes) else 1)
+                while True:
+                    out[qi] = int(dc_scale[qi] * base[0]) // 160
+                    qi += 1
+                    if qi >= qi_end:
+                        break
+                    sz = sizes[qri]
+                    base = (
+                        2 * ((qi_end - qi) * mats[qri]
+                             + (qi - qi_start) * mats[qri + 1])
+                        + sz
+                    ) // (2 * sz)
+    return out
+
+
+def pp_sharp_mod(dequant: np.ndarray) -> np.ndarray:
+    """The postprocessor's sharpening weight per qi, [64] int32, from the
+    dequant tables [64, 3, 2, 64] (decode.c:399-409; the copy of
+    theora_tpu/decode/decoder.py:192-203)."""
+    d = dequant.astype(np.int64)
+    taps = d[..., 12] + d[..., 17] + d[..., 18] + d[..., 24]  # [64, 3, 2]
+    taps[:, 0] <<= 1  # luma counts twice
+    return (-(taps.sum(axis=(1, 2)) >> 11)).astype(np.int32)

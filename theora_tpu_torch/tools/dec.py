@@ -1,10 +1,14 @@
 """Decode an Ogg Theora (.ogv) file to .y4m through the batch decoder.
 
-Usage: python -m theora_tpu_torch.tools.dec [--batch N] [--device D] in.ogv out.y4m
+Usage: python -m theora_tpu_torch.tools.dec [--pp N] [--telemetry ...]
+       [--batch N] [--device D] in.ogv out.y4m
 
-Counterpart of theora_tpu/tools/dec.py, decoding with
-`BatchDecoder.decode_clip` on the card (``--device cuda``, the default).
-Postprocessing (--pp) and telemetry overlays are not offered yet.
+Counterpart of theora_tpu/tools/dec.py (the dump_video analogue, with its
+postprocessing and telemetry ctl usage, examples/dump_video.c:157-213),
+decoding with `BatchDecoder.decode_clip` on the card (``--device cuda``,
+the default; ``cpu`` runs the plain PyTorch path). --pp sets the
+postprocessing level (kernel KP on the card), --telemetry the overlays
+drawn on the output frames.
 """
 from __future__ import annotations
 
@@ -21,6 +25,10 @@ def main(argv=None):
                     help="frames per device batch")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--pp", type=int, default=0,
+                    help="postprocessing level 0-7 (deblock/dering)")
+    ap.add_argument("--telemetry", default="",
+                    help="comma list of overlays: mbmode,mv,qi,bits")
     args = ap.parse_args(argv)
 
     from theora_tpu_torch.decode.batch import BatchDecoder
@@ -38,6 +46,12 @@ def main(argv=None):
     parse_comment_header(pkts[1].data)
     setup = parse_setup_header(pkts[2].data)
     dec = BatchDecoder(info, setup, device=args.device)
+    if args.pp:
+        dec.set_pplevel(args.pp)
+    if args.telemetry:
+        dec.set_telemetry(
+            **{k.strip(): 1 for k in args.telemetry.split(",") if k.strip()}
+        )
     t0 = time.perf_counter()
     outs = dec.decode_clip([p.data for p in pkts[3:]], batch=args.batch)
     dt = time.perf_counter() - t0
