@@ -7,7 +7,7 @@ and prints no result line):
 
 1. card: name and power limit;
 2. build: the native host library (g++) and kernels K1, K2, KT, KR, KM,
-   KL, KS and KP (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
+   KL, KS and KP, and KP's earlier design (nvcc, sm_90a; K1, KT and KR with -fmad=false; K2 and KR include
    csrc/fdct_core.cuh, K2's block core; K1, K2, KR and KS include
    csrc/mc_core.cuh, KS's row core) and the byte-SIMD rate
    measurement (csrc/simd_rate.cu), all from the sources in the checkout,
@@ -43,15 +43,17 @@ and prints no result line):
    with K1's launch count reset just before it;
 5b. postprocessing (pp_goldens, real_size_pp7): clip64x48_k8_q5 at pp 2
    and pp 7 through decode_clip and PacketDecoder(device="cuda") against
-   libtheora's .pp2.yuv / .pp7.yuv byte for byte (KP once per frame at
-   pp 2, six times at pp 7); the slice's main path, the 1280x720 stream
-   at pp 7 through decode_clip(batch=8) and PacketDecoder, every frame's
-   SHA-256 against testdata/hd720_q56_k12_pp7.sha256 (the JAX host
-   Decoder's at level 7), warm decode_clip passes at pp 0 and pp 7 in
-   turns with the counts reset before each (KP two launches per plane
-   per frame at pp 7, none at pp 0; the other kernels' counts equal),
-   their walls, host parse and device busy time, and KP's share of the
-   device time in one traced pp 7 pass;
+   libtheora's .pp2.yuv / .pp7.yuv byte for byte (KP once at pp 2, six
+   times at pp 7, per batch of decode_clip and per packet); the slice's
+   main path, the 1280x720 stream at pp 7 through decode_clip(batch=8)
+   and PacketDecoder, every frame's SHA-256 against
+   testdata/hd720_q56_k12_pp7.sha256 (the JAX host Decoder's at level
+   7), warm decode_clip passes at pp 0 and pp 7 in turns with the counts
+   reset before each (KP two launches per plane per batch at pp 7, 18
+   per 24-frame pass, none at pp 0; the other kernels' counts equal; per
+   packet two per plane per frame), their walls, host parse and device
+   busy time, and KP's traced time and share of the device time in one
+   traced pp 7 pass;
 6. K2 against its plain version on the card: random residuals with the
    int16-safe extremes and random frame types at the encode path's
    per-plane shapes (14,400 and 3,600 blocks at 1280x720 4:2:0) and their
@@ -176,24 +178,30 @@ and prints no result line):
    transcode's decode, the per-packet decoder, the host Encoder's closed
    loop), none on the intra paths;
 6g. KP (the decoder's out-of-loop postprocessor, deblock + dering:
-   ops/postproc_cuda.py, csrc/postproc.cu; two launches per postprocessed
-   plane) against its plain version (ops/postproc.py:postprocess_plane, on
-   the same inputs on the CPU) byte for byte on tools/bench_pp.py:cases:
-   random 720p luma, 4:2:0, 4:2:2 and 4:4:4 chroma planes at every pp
-   level's plane and strength choice, one-row and one-column planes,
-   grids with variances on each dering threshold and one either side of
-   it; each call contiguous and into a padded plane's strided image, the
-   inputs left as they were; and the long-chain frame (frame 0 of the JAX
-   package's 720p benchmark clip, bench.py:gen_frames, as a qi-5
-   keyframe from GopEncoder on the card, decoded by PacketDecoder at pp 7
-   against the plain version on its pp 0 planes), with its count of
-   three-pass blocks, its longest chain of filtered neighbours, its path
-   in the kernel's block order and its dependency chain. CUDA-event times
-   of the deblock and the dering launches at its 720p luma and chroma
-   beside the bound (bench_pp.kp_bound: the call's own bytes, or the
-   dependency chain at one pixel update's latency as the kernel's step
-   probe measures it, whichever is longer), the plain version and a
-   device copy of the plane;
+   ops/postproc_cuda.py, csrc/postproc.cu; a deblock and a dering launch
+   per plane per batch) against its plain version (ops/postproc.py:
+   postprocess_plane, on the same inputs on the CPU) byte for byte: its
+   one-frame entry on tools/bench_pp.py:cases (random 720p luma, 4:2:0,
+   4:2:2 and 4:4:4 chroma planes at every pp level's plane and strength
+   choice, one-row and one-column planes, grids with variances on each
+   dering threshold and one either side of it; each call contiguous and
+   into a padded plane's strided image, the inputs left as they were) and
+   on the long-chain frame (frame 0 of the JAX package's 720p benchmark
+   clip, bench.py:gen_frames, as a qi-5 keyframe from GopEncoder on the
+   card, decoded by PacketDecoder at pp 7 against the plain version on
+   its pp 0 planes), with its count of three-pass blocks, its longest
+   chain of filtered neighbours, its path in the kernel's block order and
+   its dependency chain; its frame-axis entry on bench_pp.frame_cases
+   (F = 1, 3 and 8, dering off, on and strong mixed, a frame without pp
+   in the middle, padded planes' views, 4:2:0, 4:2:2 and 4:4:4 chroma,
+   rows waiting on filtered blocks above). CUDA-event times in turns
+   with KP's earlier design (tools/kp_block_serial.cu, built from the
+   checkout) of the deblock and the dering launches at the keyframe's
+   and a raw frame's 720p luma and chroma and of an 8-frame luma batch,
+   beside the bound (bench_pp.kp_bound and kp_bound_batch: the call's
+   own bytes, or the dependency chain at one pixel update's latency as
+   the kernel's step probe measures it, whichever is longer), the plain
+   version, a device copy of the plane and as many empty launches;
 7. small encodes: GopEncoder(device="cuda", adaptive_quant=False) at
    64x48 for pixel formats 0, 2 and 3; adaptive_quant=True on the 96x64
    half-smooth, half-noise clip (the qi triple) and "auto" on the
@@ -324,7 +332,8 @@ and KS's also on the golden decodes and the 2-pass packets' decode, KL's
 on the small mesh;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches;
 KP's on the 720p decode at pp 7, by batch and per packet, and the pp
-goldens), the card's name and power limit from nvidia-smi, and {"ok": true,
+goldens, its traced time per pp 7 pass and its times in turns with its
+earlier design), the card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
@@ -369,14 +378,16 @@ def build() -> None:
     from theora_tpu_torch import native
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
         mc_cuda, me_cuda, postproc_cuda, qrd_cuda, trellis_cuda
-    from theora_tpu_torch.tools import bench_me
+    from theora_tpu_torch.ops.cuda_build import nvcc_build
+    from theora_tpu_torch.tools import bench_me, bench_pp
 
     def timed(fn):
         t0 = time.perf_counter()
         path = fn()
         return path, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(10) as ex:
+    kp_parent = postproc_cuda._SO.replace(".so", "_parent.so")
+    with concurrent.futures.ThreadPoolExecutor(11) as ex:
         jobs = {"native (g++)": ex.submit(timed, native.build),
                 "K1 (nvcc sm_90a, -fmad=false)": ex.submit(
                     timed, idct_cuda.build),
@@ -389,6 +400,9 @@ def build() -> None:
                 "KL (nvcc sm_90a)": ex.submit(timed, loopfilter_cuda.build),
                 "KS (nvcc sm_90a)": ex.submit(timed, mc_cuda.build),
                 "KP (nvcc sm_90a)": ex.submit(timed, postproc_cuda.build),
+                "KP's earlier design (nvcc sm_90a)": ex.submit(
+                    timed, lambda: nvcc_build(bench_pp.PARENT_SRC,
+                                              kp_parent)),
                 "byte-SIMD rates (nvcc sm_90a)": ex.submit(
                     timed, bench_me.simd_build)}
         for what, job in jobs.items():
@@ -397,11 +411,15 @@ def build() -> None:
     for k, so in (("K1", idct_cuda._SO), ("K2", fdct_cuda._SO),
                   ("KT", trellis_cuda._SO), ("KR", qrd_cuda._SO),
                   ("KM", me_cuda._SO), ("KL", loopfilter_cuda._SO),
-                  ("KS", mc_cuda._SO), ("KP", postproc_cuda._SO)):
+                  ("KS", mc_cuda._SO)):
         with open(so + ".log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {k} ptxas: {line.strip()}")
+    for k, so in (("KP", postproc_cuda._SO),
+                  ("KP's earlier design", kp_parent)):
+        for line in bench_pp.ptxas_report(so + ".log"):
+            log(f"[build] {k} ptxas: {line}")
 
 
 def _vector_inputs(device):
@@ -1516,7 +1534,8 @@ def _reset_counts() -> None:
               qrd_cuda.fdct_quantize_rd, qrd_cuda.mc_fdct_quantize_rd,
               qrd_cuda.quantize_rd, me_cuda.plan_with_gold,
               loopfilter_cuda.loop_filter_plane, *mc_cuda.ENTRIES,
-              postproc_cuda.postprocess_plane):
+              postproc_cuda.postprocess_plane,
+              postproc_cuda.postprocess_frames):
         w.launches = 0
 
 
@@ -1809,7 +1828,8 @@ def _counts_all() -> dict:
             "KM": me_cuda.plan_with_gold.launches,
             "KL": loopfilter_cuda.loop_filter_plane.launches,
             "KS": sum(w.launches for w in mc_cuda.ENTRIES),
-            "KP": postproc_cuda.postprocess_plane.launches}
+            "KP": (postproc_cuda.postprocess_plane.launches
+                   + postproc_cuda.postprocess_frames.launches)}
 
 
 def transcode_720p(smi: str) -> dict:
@@ -2952,38 +2972,39 @@ def enc_cli_workers(smi: str) -> None:
 def _kp_launches() -> int:
     from theora_tpu_torch.ops import postproc_cuda
 
-    return postproc_cuda.postprocess_plane.launches
+    return (postproc_cuda.postprocess_plane.launches
+            + postproc_cuda.postprocess_frames.launches)
 
 
 def kp_vs_plain(device, smi: str) -> dict:
     """6g: KP (the decoder's postprocessor, ops/postproc_cuda.py,
     csrc/postproc.cu) against its plain version (ops/postproc.py:
-    postprocess_plane, on the same inputs on the CPU) byte for byte, on
-    tools/bench_pp.py:cases (random 720p luma, 4:2:0, 4:2:2 and 4:4:4
-    chroma planes at every pp level's plane and strength choice, one-row
-    and one-column planes, variances on each dering threshold and one
-    either side) and on the long-chain frame: frame 0 of the JAX
-    package's 720p benchmark clip (bench_pp.gen_frames, a copy of
-    bench.py:gen_frames) encoded on the card by GopEncoder at qi 5 as a
+    postprocess_plane, on the same inputs on the CPU) byte for byte:
+    postprocess_plane on tools/bench_pp.py:cases (random 720p luma, 4:2:0,
+    4:2:2 and 4:4:4 chroma planes at every pp level's plane and strength
+    choice, one-row and one-column planes, variances on each dering
+    threshold and one either side) and on the long-chain frame: frame 0
+    of the JAX package's 720p benchmark clip (bench_pp.gen_frames, a copy
+    of bench.py:gen_frames) encoded on the card by GopEncoder at qi 5 as a
     keyframe and decoded by PacketDecoder(device="cuda"), whose pp 7
-    output must equal the plain version on its pp 0 planes; its count of
-    three-pass blocks, the longest chain of filtered neighbours, the path
-    in the kernel's block order and the dependency chain. CUDA-event times
-    at that frame's luma and 4:2:0 chroma (the deblock launch, the dering
-    launch, both; the plain version, one call; a device copy of the
-    plane) beside the bound (bench_pp.kp_bound, the chain at
-    bench_pp.measure_step_ns)."""
+    output must equal the plain version on its pp 0 planes; and
+    postprocess_frames on bench_pp.frame_cases (F = 1, 3 and 8, dering
+    off, on and strong mixed, a frame without pp in the middle, padded
+    planes' views, 4:2:0, 4:2:2 and 4:4:4 chroma; rows that wait on a
+    filtered block above, counted). CUDA-event times in turns with KP's
+    earlier design (tools/kp_block_serial.cu, built from the checkout) at
+    the keyframe's and the raw frame's (bench_pp.frame_calls) luma and
+    4:2:0 chroma (the deblock launch, the dering launch, both; the plain
+    version, one call; a device copy of the plane; the call's empty
+    launches) beside the bound (bench_pp.kp_bound, the chain at
+    bench_pp.measure_step_ns), and an 8-frame luma batch of raw frames
+    (bench_pp.time_batch) beside bench_pp.kp_bound_batch."""
     from theora_tpu_torch.decode.scalar import PacketDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
-    from theora_tpu_torch.ops import postproc_cuda
     from theora_tpu_torch.tools import bench_pp as bp
 
     t0 = time.perf_counter()
-    with open(postproc_cuda._SO + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[kp] ptxas: {line.strip()}")
     y, u, v = bp.gen_frames(1)[0]
     pkts = _encoder(1280, 720, 0, 5, False).encode_clip([[y, u, v]],
                                                         keyframe_freq=1)
@@ -3005,17 +3026,27 @@ def kp_vs_plain(device, smi: str) -> dict:
         q = np.full((plane.shape[0] >> 3, plane.shape[1] >> 3), 5)
         args = bp._args(plane, q, q, tabs, True, True, pli, device)
         long_cases.append((f"long-chain frame {label}", args))
-    todo = bp.cases(device) + long_cases
+    frame_cases = bp.frame_cases(device)
+    todo = bp.cases(device) + frame_cases + long_cases
     wants = bp.plain_all([a for _, a in todo])
     for pli, want in enumerate(wants[-3:]):
         if not np.array_equal(outs[7][pli][::-1], want.numpy()):
             raise AssertionError(f"PacketDecoder at pp 7, plane {pli}: != "
                                  f"the plain version on its pp 0 planes")
     n, err = bp.check(device, todo, wants)
-    log(f"[kp] {n} cases: kernel == plain (deblock, then dering) byte for "
-        f"byte, contiguous and into a padded plane's strided image, one "
-        f"launch each for the deblock and the dering, inputs untouched; max "
-        f"|err| {err} (tolerance 0: exact)")
+    waits = {label: bp.north_waits(c) for label, c in frame_cases}
+    if not all(waits[label] for label, c in frame_cases
+               if any(c["dering"])):
+        raise AssertionError(f"a frame case derings no block under a "
+                             f"filtered one: {waits}")
+    log(f"[kp] {n} cases: kernels == plain (deblock, then dering) byte for "
+        f"byte: {n - len(frame_cases)} postprocess_plane calls, contiguous "
+        f"and into a padded plane's strided image, one launch each for the "
+        f"deblock and the dering; {len(frame_cases)} postprocess_frames "
+        f"batches into a strided [F, h, w] output, one deblock and one "
+        f"dering launch each, the frames without pp untouched; inputs "
+        f"untouched; max |err| {err} (tolerance 0: exact); filtered blocks "
+        f"under a filtered block (where rows wait) per batch {waits}")
     log("[kp] long-chain frame (1280x720 keyframe at qi 5, GopEncoder on "
         "the card): PacketDecoder pp 7 == plain on its pp 0 planes")
     step = bp.measure_step_ns(device)
@@ -3024,12 +3055,28 @@ def kp_vs_plain(device, smi: str) -> dict:
     log(f"[kp] one dering pixel update on the chain (th_pp_step_probe): "
         f"{step:.3f} ns | {smi}")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
-    rows = {"720p luma": bp.time_call(long_cases[0][1], flush, step),
-            "720p 4:2:0 chroma": bp.time_call(long_cases[1][1], flush, step)}
-    for label, r in rows.items():
-        log(f"[kp] time, long-chain frame, {bp.describe(label, r)} | {smi}")
+    parent = bp.parent_kernel()
+    raw = bp.gen_frames(8)
+    raw_calls = bp.frame_calls(raw[0], device)
+    rows = {}
+    for label, args in (("keyframe 720p luma", long_cases[0][1]),
+                        ("keyframe 720p 4:2:0 chroma", long_cases[1][1]),
+                        ("raw frame 720p luma", raw_calls["720p luma"]),
+                        ("raw frame 720p 4:2:0 chroma",
+                         raw_calls["720p 4:2:0 chroma"])):
+        rows[label] = bp.time_call(args, flush, step, parent)
+        log(f"[kp] time, {bp.describe(label, rows[label])} | {smi}")
+    batch = bp.time_batch([bp.frame_calls(f, device)["720p luma"]
+                           for f in raw], flush, step, parent)
+    log(f"[kp] time, {bp.describe_batch('raw frames, 720p luma', batch)} | "
+        f"{smi}")
     log(f"[kp] phase 6g took {time.perf_counter() - t0:.1f} s")
-    one = rows["720p luma"]
+    one = rows["keyframe 720p luma"]
+    keys = ("ms", "parent_ms", "deblock_ms", "parent_deblock_ms",
+            "dering_ms", "parent_dering_ms", "turns", "deblock_turns",
+            "dering_turns", "plain_ms", "copy_ms", "empty_ms", "bound_ms",
+            "bound_by", "bytes", "bytes_ms", "chain_steps", "step_ns",
+            "chain_ms", "launch_bytes", "wavefront")
     return {
         "name": "postprocess", "route": "cuda",
         "source": "theora_tpu_torch/csrc/postproc.cu",
@@ -3039,21 +3086,20 @@ def kp_vs_plain(device, smi: str) -> dict:
         "bound_by": one["bound_by"], "library_ms": None,
         "timed": "720p luma plane of the qi-5 keyframe at pp 7: the "
                  "deblock and the dering launch",
-        "copy_ms": one["copy_ms"],
-        "shapes": {label: {k: r[k] for k in (
-            "ms", "deblock_ms", "dering_ms", "plain_ms", "copy_ms",
-            "bound_ms", "bound_by", "bytes", "bytes_ms", "chain_steps",
-            "step_ns", "chain_ms", "launch_bytes", "wavefront")}
-            for label, r in rows.items()},
+        "copy_ms": one["copy_ms"], "parent_ms": one["parent_ms"],
+        "shapes": {label: {k: r[k] for k in keys if k in r}
+                   for label, r in rows.items()},
+        "batch_8_luma": batch,
     }
 
 
 def pp_goldens() -> int:
     """The pp 2 and pp 7 goldens: clip64x48_k8_q5 through
     PacketDecoder(device="cuda") and decode_clip at each level against
-    libtheora's .pp2.yuv / .pp7.yuv byte for byte, KP launched once per
-    frame at level 2 (luma deblock) and six times at level 7 (deblock and
-    dering of each plane). Returns KP's launches."""
+    libtheora's .pp2.yuv / .pp7.yuv byte for byte, KP launched once (level
+    2: the luma deblock) or six times (level 7: deblock and dering of each
+    plane) per batch of 8 by decode_clip and per frame by PacketDecoder.
+    Returns KP's launches."""
     from theora_tpu_torch.decode.scalar import PacketDecoder
 
     t0 = time.perf_counter()
@@ -3066,6 +3112,7 @@ def pp_goldens() -> int:
         before = _kp_launches()
         bd.set_pplevel(level)
         got = [_frame_bytes(o) for o in bd.decode_clip(data, batch=8)]
+        kp_batch = _kp_launches() - before
         pd = PacketDecoder(bd.info, bd.setup, device="cuda")
         pd.set_pplevel(level)
         for d in data:
@@ -3077,12 +3124,16 @@ def pp_goldens() -> int:
         if bad:
             raise AssertionError(f"pp {level}: frames {bad} differ from "
                                  f"the golden (decode_clip, then per packet)")
-        if kp != 2 * per_frame * len(data):
-            raise AssertionError(f"pp {level}: KP launches {kp}")
+        batches = -(-len(data) // 8)
+        if kp_batch != per_frame * batches \
+                or kp != per_frame * (batches + len(data)):
+            raise AssertionError(f"pp {level}: KP launches {kp_batch} by "
+                                 f"batch, {kp - kp_batch} per packet")
         total += kp
         log(f"[pp golden] clip64x48_k8_q5 pp {level}: decode_clip and "
             f"PacketDecoder, {len(data)} frames each, byte-identical to "
-            f".pp{level}.yuv; KP launches {kp}")
+            f".pp{level}.yuv; KP launches {kp_batch} by batch ({batches} "
+            f"batches), {kp - kp_batch} per packet")
     log(f"[pp golden] took {time.perf_counter() - t0:.1f} s")
     return total
 
@@ -3093,8 +3144,8 @@ def real_size_pp7(smi: str) -> dict:
     testdata/hd720_q56_k12_pp7.sha256 (the JAX host Decoder's at level 7,
     testdata/make_hd720.py pp7); warm passes with the counts reset just
     before each: decode_clip at pp 7 and at pp 0 in turns (pp 0, 7, 7, 0),
-    KP's launches (two per plane per frame at pp 7, none at pp 0; K1,
-    KS and KL as at pp 0), walls, host parse and device busy time (CUDA
+    KP's launches (two per plane per batch of 8 at pp 7, none at pp 0;
+    K1, KS and KL as at pp 0; per packet two per plane per frame), walls, host parse and device busy time (CUDA
     events around each batch's device work); one pass under torch.profiler
     for KP's share of the device time. Returns KP's launches by path."""
     from torch.profiler import ProfilerActivity, profile
@@ -3141,7 +3192,7 @@ def real_size_pp7(smi: str) -> dict:
         for r in rs:
             c = dict(r["launches"])
             kp = c.pop("KP")
-            if kp != (6 * nf if level else 0) or c != {
+            if kp != (6 * -(-nf // 8) if level else 0) or c != {
                     k: v for k, v in base.items() if k != "KP"}:
                 raise AssertionError(f"pp {level} launches {r['launches']}"
                                      f" (pp 0: {base})")
@@ -3185,8 +3236,9 @@ def real_size_pp7(smi: str) -> dict:
         f"{mean(runs[0], 'host_parse_s'):.4f} s; device busy (CUDA events "
         f"per batch) pp 7 {mean(runs[7], 'device_busy_s'):.4f} s, pp 0 "
         f"{mean(runs[0], 'device_busy_s'):.4f} s; KP launches "
-        f"{runs[7][0]['launches']['KP']} = {runs[7][0]['launches']['KP'] / (3 * nf):.0f} "
-        f"per plane per frame, the other kernels' as at pp 0 {base}; per "
+        f"{runs[7][0]['launches']['KP']} = "
+        f"{runs[7][0]['launches']['KP'] / (3 * -(-nf // 8)):.0f} per plane "
+        f"per batch of 8, the other kernels' as at pp 0 {base}; per "
         f"packet {pwall:.4f} s = {1e3 * pwall / nf:.3f} ms per frame, KP "
         f"{pcounts['KP']} | {smi}")
     log(f"[720p pp7] traced decode_clip pass: wall {traced_wall:.4f} s, "
@@ -3197,6 +3249,7 @@ def real_size_pp7(smi: str) -> dict:
     log(f"[720p pp7] took {time.perf_counter() - t_phase:.1f} s")
     return {"decode pp7": runs[7][0]["launches"]["KP"],
             "decode per packet pp7": pcounts["KP"],
+            "pp7 traced KP s": kp_sum,
             "pp7 warm walls_s": {str(k): [r["wall_s"] for r in rs]
                                  for k, rs in runs.items()},
             "pp7 traced share": kp_sum / busy}
@@ -3329,6 +3382,7 @@ def main() -> int:
         "pp goldens (pp 2, pp 7)": kp_golden, "decode (pp 0)": decode["KP"]}
     kp["pp7_warm_walls_s"] = decode_pp["pp7 warm walls_s"]
     kp["pp7_traced_device_share"] = decode_pp["pp7 traced share"]
+    kp["pp7_traced_s"] = decode_pp["pp7 traced KP s"]
     print(json.dumps({"kernels": [k1, k2, kt, kr, km, kl, ks, kp]}),
           flush=True)
     print(smi, flush=True)

@@ -26,6 +26,10 @@ from theora_tpu_torch.encode.gop import trellis_bit_costs
 from theora_tpu_torch.ops import fdct_cuda, trellis_cuda
 from theora_tpu_torch.quant import dequant_tables_init
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 _spec = importlib.util.spec_from_file_location(
     "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
 make_enc = importlib.util.module_from_spec(_spec)

@@ -600,3 +600,39 @@ def test_kp_kernel_matches_plain(card):
             torch.cuda.synchronize()
             assert torch.equal(out.cpu(), want)
             assert not big[:8].any() and not big[:, :8].any()
+
+
+def test_kp_frames_match_plain(card):
+    """KP's frame-axis entry (postprocess_frames: one deblock and one
+    dering launch over a plane's frames) against the plain version frame
+    by frame, byte for byte, on small stacks: F = 1, 3 and 8, dering off,
+    on and strong mixed, a frame without pp left as it was, padded
+    planes' images as sources, luma and chroma."""
+    from theora_tpu_torch.ops import postproc, postproc_cuda
+
+    rng = np.random.default_rng(32)
+    for F, nv, nh, pli in ((1, 6, 10, 0), (3, 7, 1, 1), (8, 5, 9, 2)):
+        frames = [f for f in range(F) if F < 3 or f != 1]
+        dering = [k % 3 > 0 for k in range(len(frames))]
+        strong = [k % 3 == 2 for k in range(len(frames))]
+        tabs = (torch.from_numpy(rng.integers(0, 300, 64, dtype=np.int32)),
+                torch.from_numpy(-rng.integers(0, 200, 64, dtype=np.int32)))
+        ppq = torch.from_numpy(rng.integers(0, 64, (F, 2, nv, nh),
+                                            dtype=np.uint8))
+        srcs = []
+        for _ in frames:
+            big = torch.from_numpy(rng.integers(
+                0, 256, (8 * nv + 16, 8 * nh + 32), dtype=np.uint8))
+            srcs.append(big[8:-8, 16:-16])
+        out = torch.full((F, 8 * nv, 8 * nh), 7, dtype=torch.uint8,
+                         device=card)
+        postproc_cuda.postprocess_frames(
+            [s.to(card) for s in srcs], frames, out, ppq.to(card),
+            *[t.to(card) for t in tabs], dering, strong, pli)
+        torch.cuda.synchronize()
+        for src, f, d, s in zip(srcs, frames, dering, strong):
+            want = postproc.postprocess_plane(src, ppq[f, 0], ppq[f, 1],
+                                              *tabs, d, s, pli)
+            assert torch.equal(out[f].cpu(), want)
+        if F >= 3:
+            assert (out[1] == 7).all()

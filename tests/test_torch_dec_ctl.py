@@ -330,7 +330,7 @@ def test_packetin_lets_a_kernel_failure_through(clip, monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("KP launch failed: CUDA error 700")
 
-    monkeypatch.setattr(postproc_cuda, "postprocess_plane", broken)
+    monkeypatch.setattr(postproc_cuda, "postprocess_frames", broken)
     with pytest.raises(RuntimeError, match="CUDA error"):
         p.packetin(pkts[3].data)
 
@@ -345,9 +345,9 @@ def test_packetin_lets_a_wrapper_value_error_through(clip, monkeypatch):
     p.ctl(compat.TH_DECCTL_SET_PPLEVEL, 7)
 
     def rejects(*args, **kwargs):
-        raise ValueError("src: rows must be contiguous")
+        raise ValueError("srcs[0]: rows must be contiguous")
 
-    monkeypatch.setattr(postproc_cuda, "postprocess_plane", rejects)
+    monkeypatch.setattr(postproc_cuda, "postprocess_frames", rejects)
     with pytest.raises(ValueError, match="rows must be contiguous"):
         p.packetin(pkts[3].data)
 

@@ -24,6 +24,10 @@ from theora_tpu_torch.encode.gop import trellis_bit_costs
 from theora_tpu_torch.ops import fdct_cuda, me, transforms, trellis_cuda
 from theora_tpu_torch.quant import dequant_tables_init
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 DQ = dequant_tables_init(tables.DEF_QUANT_INFO)
 
 

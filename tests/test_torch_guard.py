@@ -17,6 +17,10 @@ import torch
 from tests.conftest import REPO_ROOT, TESTDATA
 from theora_tpu_torch.ops import idct_cuda, transforms
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 FORBIDDEN = ("jax", "jaxlib", "theora_tpu")
 
 
@@ -1722,7 +1726,29 @@ def _kp_args(device, nv=2, nh=3):
             t(-rng.integers(0, 30, 64, dtype=np.int32)), True, True, 0)
 
 
-def test_kp_plain_path_only_for_cpu_tensors(monkeypatch):
+def _kp_frames_args(device, F=3, nv=2, nh=3):
+    """postprocess_frames' arguments: frames 0 and 2 of an [F, h, w]
+    output postprocessed from padded planes' images, dering on (strong)
+    and off."""
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.from_numpy(a).to(device)
+    h, w = 8 * nv, 8 * nh
+    srcs = []
+    for _ in range(2):
+        big = t(rng.integers(0, 256, (h + 16, w + 32), dtype=np.uint8))
+        srcs.append(big[8:8 + h, 16:16 + w])
+    return (srcs, [2, 0], torch.zeros((F, h, w), dtype=torch.uint8,
+                                      device=device),
+            t(rng.integers(0, 64, (F, 2, nv, nh), dtype=np.uint8)),
+            t(rng.integers(0, 300, 64, dtype=np.int32)),
+            t(-rng.integers(0, 30, 64, dtype=np.int32)), [True, False],
+            [True, False], 0)
+
+
+def _kp_cpu_only(monkeypatch, entry, make, plain_calls):
+    """entry runs the plain version for CPU tensors only, raises on
+    another device rather than falling back to it, counts no CPU call as
+    a launch, and its module holds no try."""
     from theora_tpu_torch.ops import postproc, postproc_cuda
 
     calls = []
@@ -1732,14 +1758,110 @@ def test_kp_plain_path_only_for_cpu_tensors(monkeypatch):
         return src.clone()
 
     monkeypatch.setattr(postproc, "postprocess_plane", plain)
-    postproc_cuda.postprocess_plane(*_kp_args("cpu"))
-    assert calls == ["cpu"]
+    fn = getattr(postproc_cuda, entry)
+    fn(*make("cpu"))
+    assert calls == ["cpu"] * plain_calls
     with pytest.raises(ValueError, match="unsupported device"):
-        postproc_cuda.postprocess_plane(*_kp_args("meta"))
-    assert calls == ["cpu"]
+        fn(*make("meta"))
+    assert calls == ["cpu"] * plain_calls
     assert postproc_cuda.postprocess_plane.launches == 0
+    assert postproc_cuda.postprocess_frames.launches == 0
     tree = _parse(postproc_cuda.__file__)
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_kp_plain_path_only_for_cpu_tensors(monkeypatch):
+    _kp_cpu_only(monkeypatch, "postprocess_plane", _kp_args, 1)
+
+
+def test_kp_frames_plain_path_only_for_cpu_tensors(monkeypatch):
+    """The frame-axis entry too: its CPU path is one plain call per
+    listed frame; a tensor on another device raises."""
+    _kp_cpu_only(monkeypatch, "postprocess_frames", _kp_frames_args, 2)
+
+
+def test_kp_frames_output_on_cpu():
+    """postprocess_frames' CPU path writes each listed frame's plain call
+    into its frame of out and leaves the other frames as they were."""
+    from theora_tpu_torch.ops import postproc, postproc_cuda
+
+    srcs, frames, out, ppq, scale, sharp, dering, strong, pli = \
+        _kp_frames_args("cpu")
+    out.fill_(9)
+    got = postproc_cuda.postprocess_frames(srcs, frames, out, ppq, scale,
+                                           sharp, dering, strong, pli)
+    assert got is out
+    for src, f, d, s in zip(srcs, frames, dering, strong):
+        want = postproc.postprocess_plane(src, ppq[f, 0], ppq[f, 1], scale,
+                                          sharp, d, s, pli)
+        assert torch.equal(out[f], want)
+    assert (out[1] == 9).all()
+
+
+def _bad_frames(which):
+    """_kp_frames_args with one argument made bad."""
+    args = list(_kp_frames_args("cpu"))
+    srcs = list(args[0])
+    bad = {
+        "src dtype": lambda: srcs.__setitem__(0, srcs[0].to(torch.int16)),
+        "src shape": lambda: srcs.__setitem__(0, srcs[0][:, :16]),
+        "src stride": lambda: srcs.__setitem__(
+            0, torch.zeros((24, 16), dtype=torch.uint8).t()),
+        "src device": lambda: srcs.__setitem__(
+            0, torch.zeros((16, 24), dtype=torch.uint8, device="meta")),
+        "src not a tensor": lambda: srcs.__setitem__(
+            0, np.zeros((16, 24), np.uint8)),
+        "out dtype": lambda: args.__setitem__(
+            2, torch.zeros((3, 16, 24), dtype=torch.int16)),
+        "out 2-d": lambda: args.__setitem__(
+            2, torch.zeros((16, 24), dtype=torch.uint8)),
+        "out width": lambda: args.__setitem__(
+            2, torch.zeros((3, 16, 20), dtype=torch.uint8)),
+        "out too wide": lambda: args.__setitem__(
+            2, torch.zeros((1, 8, 16392), dtype=torch.uint8)),
+        "out column stride": lambda: args.__setitem__(
+            2, torch.zeros((3, 16, 48), dtype=torch.uint8)[:, :, ::2]),
+        "out frames overlap": lambda: args.__setitem__(
+            2, torch.zeros((16, 24), dtype=torch.uint8)[None].expand(
+                3, 16, 24)),
+        "ppq frames": lambda: args.__setitem__(
+            3, torch.zeros((2, 2, 2, 3), dtype=torch.uint8)),
+        "ppq dtype": lambda: args.__setitem__(
+            3, torch.zeros((3, 2, 2, 3), dtype=torch.int32)),
+        "table dtype": lambda: args.__setitem__(
+            4, torch.zeros(64, dtype=torch.int64)),
+        "too few frame indices": lambda: args.__setitem__(1, [2]),
+        "too many flags": lambda: args.__setitem__(6, [True, True, False]),
+        "too few strong flags": lambda: args.__setitem__(7, [True]),
+        "no frames": lambda: (srcs.clear(), args.__setitem__(1, []),
+                              args.__setitem__(6, []),
+                              args.__setitem__(7, [])),
+        "index out of range": lambda: args.__setitem__(1, [3, 0]),
+        "index repeats": lambda: args.__setitem__(1, [0, 0]),
+        "index a bool": lambda: args.__setitem__(1, [True, 0]),
+        "flag not a bool": lambda: args.__setitem__(6, [1, 0]),
+        "pli": lambda: args.__setitem__(8, 3),
+    }[which]
+    bad()
+    args[0] = srcs
+    return args
+
+
+@pytest.mark.parametrize("which", [
+    "src dtype", "src shape", "src stride", "src device",
+    "src not a tensor", "out dtype", "out 2-d", "out width", "out too wide",
+    "out column stride", "out frames overlap", "ppq frames", "ppq dtype",
+    "table dtype", "too few frame indices", "too many flags",
+    "too few strong flags", "no frames", "index out of range",
+    "index repeats", "index a bool", "flag not a bool", "pli"])
+def test_kp_frames_wrapper_rejects_what_the_kernels_do_not_take(which):
+    """postprocess_frames raises on a bad shape, dtype, stride, device,
+    descriptor count, frame index, flag or plane index."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    postproc_cuda.postprocess_frames(*_kp_frames_args("cpu"))
+    with pytest.raises((TypeError, ValueError)):
+        postproc_cuda.postprocess_frames(*_bad_frames(which))
 
 
 def test_kp_wrapper_output_on_cpu():
@@ -1792,6 +1914,60 @@ def test_kp_wrapper_rejects_what_the_kernel_does_not_take(which, bad):
         postproc_cuda.postprocess_plane(*args)
 
 
+def test_repeats_are_copied_after_kp_in_frame_order(monkeypatch):
+    """A frame that repeats the last output (it codes no block after a
+    postprocessed frame) is left out of the batch's postprocess_frames call
+    and copied after it, in frame order: a repeat, and a repeat of a
+    repeat, show the postprocessed frame before them, the first frame of
+    the next batch repeats the last output of the one before, and the
+    references are not touched. The repeats are marked on clip64x48_k8_q5's
+    live frames at level 7."""
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.ops import postproc_cuda
+    from theora_tpu_torch.tpkt import read_tpkt
+
+    pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
+    info = parse_info_header(pkts[0].data)
+    setup = parse_setup_header(pkts[2].data)
+    datas = [p.data for p in pkts[3:11]]
+
+    def decode(marked):
+        dec = BatchDecoder(info, setup, device="cpu")
+        dec.set_pplevel(7)
+        return [b"".join(np.ascontiguousarray(p).tobytes() for p in f)
+                for f in dec.decode_clip(datas, batch=4)]
+
+    want = decode(None)
+    real_inputs = BatchDecoder._plane_inputs
+    calls = []
+    real_pp = postproc_cuda.postprocess_frames
+
+    seen = []
+
+    def inputs(self, live, pli):
+        inp = real_inputs(self, live, pli)
+        # Batch 1: frames 2 and 3 repeat frame 1; batch 2: frame 0
+        # repeats batch 1's last output (frame 1's), frame 3 frame 2.
+        seen.append(pli)
+        inp["repeat"] = [f in ((2, 3) if len(seen) <= 3 else (0, 3))
+                         for f in range(len(live))]
+        return inp
+
+    def spy(srcs, frames, out, *rest):
+        calls.append((rest[-1], tuple(frames)))
+        return real_pp(srcs, frames, out, *rest)
+
+    monkeypatch.setattr(BatchDecoder, "_plane_inputs", inputs)
+    monkeypatch.setattr(postproc_cuda, "postprocess_frames", spy)
+    got = decode(True)
+    assert calls == [(pli, (0, 1)) for pli in range(3)] + [
+        (pli, (1, 2)) for pli in range(3)]
+    assert got[:2] == want[:2] and got[2] == got[3] == want[1]
+    assert got[4] == want[1] and got[5:7] == want[5:7] and got[7] == want[6]
+
+
 def test_kp_build_is_sm90a(monkeypatch, tmp_path):
     """KP's library is built by nvcc_build from csrc/postproc.cu for
     sm_90a, without fast math (its arithmetic is integer). Nothing is
@@ -1824,9 +2000,10 @@ def test_kp_build_is_sm90a(monkeypatch, tmp_path):
 def test_decoders_reach_kp_and_nothing_calls_the_plain_postprocessor(
         monkeypatch):
     """With a pp level set, the decoders postprocess through
-    postproc_cuda.postprocess_plane: at level 7 once per plane of every
-    frame from the first keyframe, with the dering on and strong, into the
-    output frame, from the padded reference plane's image; at level 4
+    postproc_cuda.postprocess_frames, once per plane per decoded batch
+    (per packet: one frame): at level 7 every frame of the batch from the
+    first keyframe, with the dering on and strong, into the batch's
+    output frames, from the padded reference planes' images; at level 4
     luma only; at level 0 never. No module of the port but the wrapper
     calls ops/postproc.py's filter (the tools and chip_smoke.py call it
     to hold the kernel against it). The new modules import neither JAX
@@ -1839,34 +2016,36 @@ def test_decoders_reach_kp_and_nothing_calls_the_plain_postprocessor(
     from theora_tpu_torch.tpkt import read_tpkt
 
     calls = []
-    real = postproc_cuda.postprocess_plane
+    real = postproc_cuda.postprocess_frames
 
-    def spy(src, dcq, qi, scale, sharp, dering, strong, pli, out=None):
-        calls.append((pli, dering, strong, out is not None,
-                      src.stride(0) > src.shape[1]))
-        return real(src, dcq, qi, scale, sharp, dering, strong, pli, out)
+    def spy(srcs, frames, out, ppq, scale, sharp, dering, strong, pli):
+        calls.append((pli, tuple(frames), tuple(dering), tuple(strong),
+                      out.shape[0],
+                      all(s.stride(0) > s.shape[1] for s in srcs)))
+        return real(srcs, frames, out, ppq, scale, sharp, dering, strong,
+                    pli)
 
-    monkeypatch.setattr(postproc_cuda, "postprocess_plane", spy)
+    monkeypatch.setattr(postproc_cuda, "postprocess_frames", spy)
     pkts = read_tpkt(os.path.join(TESTDATA, "clip64x48_k8_q5.tpkt"))
     info = parse_info_header(pkts[0].data)
     setup = parse_setup_header(pkts[2].data)
     datas = [p.data for p in pkts[3:]]
-    for level, want in ((7, [(0, True, True), (1, True, True),
-                             (2, True, True)]), (4, [(0, True, True)]),
-                        (0, [])):
+    batches = [len(datas[i:i + 3]) for i in range(0, len(datas), 3)]
+    for level, plis in ((7, (0, 1, 2)), (4, (0,)), (0, ())):
         calls.clear()
         dec = BatchDecoder(info, setup, device="cpu")
         dec.set_pplevel(level)
         assert len(dec.decode_clip(datas, batch=3)) == len(datas)
         # A batch runs plane by plane, each over its frames.
-        assert sorted(calls) == sorted([c + (True, True) for c in want]
-                                       * len(datas))
+        assert calls == [(pli, tuple(range(n)), (True,) * n, (True,) * n, n,
+                          True) for n in batches for pli in plis]
         calls.clear()
         pd = PacketDecoder(info, setup, device="cpu")
         pd.set_pplevel(level)
         for d in datas[:2]:
             pd.decode_packet(d)
-        assert calls == [c + (True, True) for c in want] * 2
+        assert calls == [(pli, (0,), (True,), (True,), 1, True)
+                         for pli in plis] * 2
 
     new = ("ops/postproc.py", "ops/postproc_cuda.py", "decode/telemetry.py",
            "compat.py", "tools/bench_pp.py")

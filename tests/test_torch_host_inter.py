@@ -20,6 +20,10 @@ from theora_tpu_torch.bitio import BitReader
 from theora_tpu_torch.encode.encoder import Encoder
 from theora_tpu_torch.info import TheoraInfo
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 _spec = importlib.util.spec_from_file_location(
     "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
 mk = importlib.util.module_from_spec(_spec)

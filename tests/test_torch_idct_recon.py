@@ -15,6 +15,10 @@ from theora_tpu_torch.ops import idct_cuda
 from theora_tpu_torch.ops import transforms as tt
 from theora_tpu_torch.tools import bench_idct as bi
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 
 def _cases():
     rng = np.random.default_rng(7)

@@ -19,6 +19,10 @@ from tests.conftest import TESTDATA
 from theora_tpu_torch.encode.intra import BatchIntraEncoder
 from theora_tpu_torch.info import TheoraInfo
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 _spec = importlib.util.spec_from_file_location(
     "make_hd720_enc", os.path.join(TESTDATA, "make_hd720_enc.py"))
 mk = importlib.util.module_from_spec(_spec)

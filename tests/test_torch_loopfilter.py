@@ -23,6 +23,10 @@ from theora_tpu_torch.ops import loopfilter, loopfilter_cuda
 from theora_tpu_torch.tools.bench_loopfilter import TILE, patterns, pixels, \
     plane_shape, seam_patterns
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 # (nv, nh, pad): an odd nv, one fragment row, one block column. The
 # scalar filter takes one padding for both axes.
 SHAPES = [(5, 6, 8), (1, 7, 8), (4, 1, 16)]

@@ -34,6 +34,10 @@ from theora_tpu.pipeline import fill_borders as fill_borders_jax
 from theora_tpu_torch.ops import loopfilter_cuda, mc_cuda
 from theora_tpu_torch.tools import bench_mc as bm
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 # (label, nv, nh, pad_y, pad_x): 64x48 and 96x64 luma, the chroma planes
 # of 4:2:0, 4:2:2 and 4:4:4 frames.
 GEOMS = {"luma 64x48": (6, 8, 16, 16), "luma 96x64": (8, 12, 16, 16),

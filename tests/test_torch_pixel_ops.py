@@ -15,6 +15,10 @@ from theora_tpu_torch.ops.mc import block_index_grid, blocks_to_plane, \
     mc_predict
 from theora_tpu_torch.pipeline import fill_borders
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 
 def _plane(rng, nv, nh, pad_y, pad_x):
     return rng.integers(0, 256, (nv * 8 + 2 * pad_y, nh * 8 + 2 * pad_x),

@@ -31,6 +31,10 @@ from theora_tpu_torch.headers import parse_info_header, parse_setup_header
 from theora_tpu_torch.ops import postproc
 from theora_tpu_torch.tools import bench_pp
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 STREAMS = ("clip64x48_k8_q5", "clip422", "clip444")
 
 
@@ -240,6 +244,59 @@ def test_kp_bound_counts_the_calls_own_bytes():
     b = bench_pp.kp_bound(h, w, True, 3000, 10.0)
     assert b["chain_ms"] == pytest.approx(0.03)
     assert b["bound_ms"] == b["chain_ms"] and b["bound_by"] == "operations"
+
+
+def test_kp_bound_batch_takes_all_bytes_and_the_longest_chain():
+    """A batch's bound counts every frame's own bytes and the longest
+    frame's dependency chain (the frames' chains run side by side)."""
+    h, w = 720, 1280
+    b = bench_pp.kp_bound_batch(h, w, [True, False, True], [700, 900, 800],
+                                10.0)
+    assert b["bytes"] == 2 * bench_pp.call_bytes(h, w, True) \
+        + bench_pp.call_bytes(h, w, False)
+    assert b["chain_steps"] == 900 and b["chain_ms"] == pytest.approx(0.009)
+    assert b["bound_by"] == "operations" and b["bound_ms"] == b["chain_ms"]
+    b = bench_pp.kp_bound_batch(h, w, [True] * 8, [10] * 8, 10.0)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(
+        8 * bench_pp.call_bytes(h, w, True) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("nv,nh", [(6, 8), (5, 9)])
+def test_postprocess_frames_equals_jax_frame_by_frame(nv, nh):
+    """postprocess_frames' CPU path (the decoder's batch entry) over a
+    stack of F = 3 frames equals JAX's postprocess_plane frame by frame:
+    frames 2 and 0 from padded planes' images, one strongly deringed and
+    one deblocked only, frame 1 without pp left as it was."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    h, w = 8 * nv, 8 * nh
+    cases = [_np_case(seed) for seed in (3, 4)]
+    rng = np.random.default_rng(nv * nh)
+    srcs, wants = [], []
+    ppq = rng.integers(0, 64, (3, 2, nv, nh)).astype(np.uint8)
+    scale, sharp = cases[0][3], cases[0][4]
+    for k, (f, dering, strong) in enumerate(((2, True, True),
+                                             (0, False, False))):
+        src = (np.repeat(np.repeat(rng.integers(0, 256, (nv, nh)), 8, 0), 8,
+                         1) + rng.integers(-9, 10, (h, w))).clip(0, 255)
+        if k:
+            src = rng.integers(0, 256, (h, w))
+        src = src.astype(np.uint8)
+        big = torch.zeros((h + 16, w + 32), dtype=torch.uint8)
+        big[8:8 + h, 16:16 + w] = torch.from_numpy(src)
+        srcs.append(big[8:8 + h, 16:16 + w])
+        wants.append(postproc_np.postprocess_plane(
+            src, ppq[f, 0], ppq[f, 1], scale, sharp, dering=dering,
+            strong=strong, pli=0))
+    out = torch.full((3, h, w), 5, dtype=torch.uint8)
+    t = torch.from_numpy
+    postproc_cuda.postprocess_frames(srcs, [2, 0], out, t(ppq), t(scale),
+                                     t(sharp), [True, False], [True, False],
+                                     0)
+    assert np.array_equal(out[2].numpy(), wants[0])
+    assert np.array_equal(out[0].numpy(), wants[1])
+    assert (out[1] == 5).all()
 
 
 def test_pp_tables_equal_jax(streams):

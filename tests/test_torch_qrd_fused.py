@@ -20,6 +20,10 @@ from theora_tpu_torch.constants import ZIGZAG_TO_NAT
 from theora_tpu_torch.ops import fdct_cuda, qrd_cuda, transforms
 from theora_tpu_torch.tools import bench_qrd, bench_segments
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():

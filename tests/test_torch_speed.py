@@ -23,6 +23,10 @@ from theora_tpu_torch.ops import fdct_cuda, qrd_cuda, transforms
 from theora_tpu_torch.quant import dequant_tables_init
 from theora_tpu_torch.tools import bench_fdct, bench_qrd
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 
 def _load(name):
     spec = importlib.util.spec_from_file_location(

@@ -17,6 +17,10 @@ from theora_tpu.ops import transforms_jax as tj
 from theora_tpu_torch.ops import idct_cuda
 from theora_tpu_torch.ops import transforms as tt
 
+# The tests run in several worker processes on a few CPUs: one torch
+# thread each (their tensors are small, and idle intra-op threads spin).
+torch.set_num_threads(1)
+
 _REC = np.dtype([("x", "<i2", 64), ("zzi", "<i4"), ("y", "<i2", 64)])
 
 

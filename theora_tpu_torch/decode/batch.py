@@ -268,13 +268,17 @@ class BatchDecoder(Decoder):
 
         prev, gold = self._initial_refs(pli)
         out = torch.empty((F, h, w), dtype=torch.uint8, device=dev)
+        # KP's frames: the padded planes' images, kept here until its
+        # launches.
+        pp_srcs, pp_frames = [], []
         for f in range(F):
             fs = frag[f]
             pp, repeat = inp["pp"][f], inp["repeat"][f]
             # KL fills the borders and the output of the planes it
             # filters; KS those of the others. KP writes the output of a
-            # postprocessed plane; a frame that codes no block repeats the
-            # last output when that was postprocessed.
+            # postprocessed plane, after the loop (it is out of loop: no
+            # reference reads it); a frame that codes no block repeats the
+            # last output when that was postprocessed, after KP.
             filtered = bool(inp["limits"][f])
             direct = pp is None and not repeat
             with record_function("theora.mc_recon"):
@@ -291,17 +295,21 @@ class BatchDecoder(Decoder):
                 if direct:
                     with record_function("theora.borders"):
                         out[f] = plane[vpad:vpad + h, hpad:hpad + w]
-            if repeat:
-                out[f] = out[f - 1] if f else self._last_out[pli]
-            elif pp is not None:
-                with record_function("theora.postproc"):
-                    postproc_cuda.postprocess_plane(
-                        plane[vpad:vpad + h, hpad:hpad + w], ppq[f, 0],
-                        ppq[f, 1], dc_scale, sharp, pp[0], pp[1], pli,
-                        out=out[f])
+            if pp is not None and not repeat:
+                pp_srcs.append(plane[vpad:vpad + h, hpad:hpad + w])
+                pp_frames.append(f)
             if inp["intra"][f]:
                 gold = plane
             prev = plane
+        if pp_frames:
+            with record_function("theora.postproc"):
+                postproc_cuda.postprocess_frames(
+                    pp_srcs, pp_frames, out, ppq, dc_scale, sharp,
+                    [inp["pp"][f][0] for f in pp_frames],
+                    [inp["pp"][f][1] for f in pp_frames], pli)
+        for f in range(F):
+            if inp["repeat"][f]:
+                out[f] = out[f - 1] if f else self._last_out[pli]
         return out, prev, gold
 
     def _pp_device_tables(self) -> tuple[torch.Tensor, torch.Tensor]:

@@ -2,8 +2,9 @@
 
 Usage: python -m theora_tpu_torch.tools.bench_pp
 
-Holds the postprocessor's kernels (ops/postproc_cuda.py:
-postprocess_plane, csrc/postproc.cu) against their plain version
+Holds the postprocessor's kernels (ops/postproc_cuda.py, csrc/
+postproc.cu: postprocess_plane, one frame, and postprocess_frames, a
+plane's frames of a batch in two launches) against their plain version
 (ops/postproc.py:postprocess_plane, run on the same inputs copied to the
 CPU) byte for byte (check), on cases(): random 1280x720 planes (4:2:0
 luma and chroma, a 4:2:2 and a 4:4:4 chroma plane) at every pp level's
@@ -11,21 +12,31 @@ plane and strength choice (luma: deblock, + dering, + strong dering;
 chroma: the same at levels 5, 6, 7), one-row and one-column planes, and
 grids whose deblock variances lie on each dering threshold and one either
 side of it (threshold_plane); the postprocessed output written into a
-row-strided padded plane's image as the decoder hands it over. Then
-CUDA-event times over 20 calls, L2 flushed before each, at the 720p luma
-and 4:2:0 chroma shapes of a decoded-like frame: the deblock launch, the
-dering launch and both, the plain version, a device copy of the same
-bytes, beside the bound (kp_bound: the call's own bytes, or the
+row-strided padded plane's image as the decoder hands it over; and on
+frame_cases(): batches of 1, 3 and 8 frames mixing dering off, on and
+strong, a frame without pp between postprocessed ones, padded planes'
+views as sources, 720p luma and 4:2:0, 4:2:2, 4:4:4 chroma. Prints each
+kernel's ptxas report (registers, shared memory, spills), the tree's and
+the earlier design's (tools/kp_block_serial.cu, parent_kernel). Then
+CUDA-event times over 20 calls, L2 flushed before each, in turns with the
+earlier design, at the 720p luma and 4:2:0 chroma shapes of a raw frame
+(gen_frames) at pp 7, qi 5: the deblock launch, the dering launch and
+both; the plain version, a device copy of the same bytes and the call's
+empty launches, beside the bound (kp_bound: the call's own bytes, or the
 dering's dependency chain at the measured latency of one pixel update,
-measure_step_ns, whichever is longer). Needs a CUDA card. Prints one JSON
+measure_step_ns, whichever is longer); and an 8-frame luma batch through
+postprocess_frames, postprocess_plane frame by frame and the earlier
+design, beside kp_bound_batch. Needs a CUDA card. Prints one JSON
 summary as its last line.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 
@@ -36,6 +47,9 @@ from theora_tpu_torch.ops import postproc
 from theora_tpu_torch.tools.bench_trellis import HBM_BYTES_S, event_ms
 
 SEED = 20261018
+# KP's earlier design (one frame per call), the yardstick of its redesign.
+PARENT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "kp_block_serial.cu")
 TIMED_ITERS = 20
 # (label, nv, nh, pli) of the 1280x720 planes.
 HD_PLANES = (("720p luma", 90, 160, 0), ("720p 4:2:0 chroma", 45, 80, 1),
@@ -96,6 +110,39 @@ def kp_bound(h: int, w: int, dering: bool, steps: int = 0,
             "step_ns": step_ns, "chain_ms": chain_ms,
             "bound_ms": max(bytes_ms, chain_ms),
             "bound_by": "bytes" if bytes_ms >= chain_ms else "operations"}
+
+
+def kp_bound_batch(h: int, w: int, derings: list, steps: list,
+                   step_ns: float) -> dict:
+    """KP's least time for one batch call over frames of one plane at
+    (h, w): the larger of all frames' own bytes (call_bytes of each, by
+    its dering flag) over the memory rate and the longest frame's
+    dependency chain (steps per frame, dependency_steps) at step_ns per
+    update: the frames' chains run side by side."""
+    nbytes = sum(call_bytes(h, w, d) for d in derings)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    chain = max(steps) if steps else 0
+    chain_ms = chain * step_ns * 1e-6
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "chain_steps": chain,
+            "step_ns": step_ns, "chain_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations"}
+
+
+def frames_bound(args, step_ns: float | None = None) -> dict:
+    """kp_bound_batch of one postprocess_frames call's arguments: each
+    frame's dependency chain from its plan on the CPU, at step_ns per
+    update (by default measure_step_ns on the call's device, once)."""
+    srcs, frames, _, ppq, scale, sharp, dering, strong, pli = args
+    if step_ns is None:
+        if not hasattr(frames_bound, "step_ns"):
+            frames_bound.step_ns = measure_step_ns(srcs[0].device)
+        step_ns = frames_bound.step_ns
+    steps = [wavefront((src, ppq[f, 0], ppq[f, 1], scale, sharp, d, s, pli))[
+        "dependency_steps"] for src, f, d, s in zip(srcs, frames, dering,
+                                                    strong)]
+    h, w = srcs[0].shape
+    return kp_bound_batch(h, w, list(dering), steps, step_ns)
 
 
 def critical_path(npass: np.ndarray) -> int:
@@ -290,6 +337,72 @@ def cases(device, seed: int = SEED) -> list:
     return out
 
 
+def frame_cases(device, seed: int = SEED) -> list:
+    """[(label, case)]: postprocess_frames' arguments on the device, case
+    a dict of srcs (padded planes' images, row-strided views), frames (the
+    indices into out), F, ppq [F, 2, nv, nh], tabs, dering, strong, pli:
+    F = 1, 3 and 8; frames mixing dering off, on and strong; a frame of
+    out without pp between postprocessed ones; 720p luma and 4:2:0, 4:2:2
+    and 4:4:4 chroma planes. Noisy planes dering most blocks, so rows wait
+    on filtered blocks above them (north_waits counts those blocks)."""
+    rng = np.random.default_rng(seed + 1)
+    default = pp_tables()
+    mix = ((False, False), (True, False), (True, True))
+    shapes = {0: (90, 160), 1: (45, 80), "4:2:2": (90, 80),
+              "4:4:4": (90, 160)}
+    out = []
+
+    def add(label, shape, pli, F, frames, flags):
+        nv, nh = shape
+        srcs = []
+        for k, _ in enumerate(frames):
+            if k % 2:
+                a = rng.integers(0, 256, (8 * nv, 8 * nh))
+            else:
+                a = (rng.integers(0, 24, (8 * nv, 8 * nh))
+                     + np.repeat(np.repeat(rng.integers(0, 200, (nv, nh)),
+                                           8, 0), 8, 1))
+            srcs.append(padded_view(torch.from_numpy(
+                a.astype(np.uint8)).to(device)))
+        ppq = rng.integers(0, 64, (F, 2, nv, nh)).astype(np.uint8)
+        out.append((label, {
+            "srcs": srcs, "frames": list(frames), "F": F,
+            "ppq": torch.from_numpy(ppq).to(device),
+            "tabs": tuple(torch.from_numpy(t.astype(np.int32)).to(device)
+                          for t in default),
+            "dering": [d for d, _ in flags], "strong": [s for _, s in flags],
+            "pli": pli}))
+
+    add("F 1, 720p luma, strong dering", shapes[0], 0, 1, [0], [mix[2]])
+    add("F 3, 720p luma, off / on / strong", shapes[0], 0, 3, [0, 1, 2],
+        mix)
+    add("F 3, 720p luma, frame 1 without pp", shapes[0], 0, 3, [2, 0],
+        [mix[2], mix[1]])
+    add("F 8, 720p 4:2:0 chroma, mixed, frame 5 without pp", shapes[1], 1,
+        8, [0, 1, 2, 3, 4, 6, 7],
+        [mix[k % 3] for k in (2, 0, 1, 2, 2, 1, 2)])
+    add("F 3, 720p 4:2:2 chroma, strong / off / on", shapes["4:2:2"], 1, 3,
+        [0, 1, 2], [mix[2], mix[0], mix[1]])
+    add("F 3, 720p 4:4:4 chroma, strong", shapes["4:4:4"], 2, 3, [0, 1, 2],
+        [mix[2]] * 3)
+    return out
+
+
+def north_waits(case) -> int:
+    """Filtered blocks, over a frame case's dering frames, whose block
+    above is filtered too: where the dering's rows wait on each other."""
+    n = 0
+    for src, f, d, s in zip(case["srcs"], case["frames"], case["dering"],
+                            case["strong"]):
+        if not d:
+            continue
+        _, var = postproc.deblock_plane(src.cpu(), case["ppq"][f, 0].cpu(),
+                                        case["tabs"][0].cpu())
+        npass = postproc.dering_plan(var, s, case["pli"])[0].numpy()
+        n += int(((npass[1:] > 0) & (npass[:-1] > 0)).sum())
+    return n
+
+
 def cpu_args(args) -> tuple:
     return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
 
@@ -309,53 +422,123 @@ def padded_view(src: torch.Tensor, pad: int = 16) -> torch.Tensor:
     return big[pad:pad + h, pad:pad + w]
 
 
+def plain_frames(case) -> list:
+    """The plain version of a frame case's calls, on the CPU, in order."""
+    ppq = case["ppq"].cpu()
+    tabs = [t.cpu() for t in case["tabs"]]
+    return [postproc.postprocess_plane(src.cpu(), ppq[f, 0], ppq[f, 1], *tabs,
+                                       d, s, case["pli"])
+            for src, f, d, s in zip(case["srcs"], case["frames"],
+                                    case["dering"], case["strong"])]
+
+
+def _plain_any(item):
+    return plain_frames(item) if isinstance(item, dict) else plain(item)
+
+
+def _cpu_item(item):
+    if isinstance(item, dict):
+        return {k: ([t.cpu() for t in v] if k in ("srcs", "tabs") else
+                    v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in item.items()}
+    return cpu_args(item)
+
+
 def plain_all(args_list: list, workers: int = 8) -> list:
-    """The plain version of every call, on the CPU in up to workers spawned
-    processes of one torch thread each (the dering's wave loop is host
-    bound: small ops, and the 720p cases take seconds each)."""
-    cpu = [cpu_args(a) for a in args_list]
+    """The plain version of every call (a frame case's: a list, one per
+    frame), on the CPU in up to workers spawned processes of one torch
+    thread each (the dering's wave loop is host bound: small ops, and the
+    720p cases take seconds each)."""
+    cpu = [_cpu_item(a) for a in args_list]
     n = max(1, min(workers, os.cpu_count() or 1, len(cpu)))
     with concurrent.futures.ProcessPoolExecutor(
             n, mp_context=multiprocessing.get_context("spawn"),
             initializer=torch.set_num_threads, initargs=(1,)) as ex:
-        return list(ex.map(plain, cpu))
+        return list(ex.map(_plain_any, cpu))
+
+
+def _check_plane(device, label, args, want) -> None:
+    """One postprocess_plane case, contiguous and as a padded plane's view
+    into a strided output: two launches per call with dering, one
+    without; nothing written outside the output; inputs left as they
+    were."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    before = [a.clone() for a in args[:5]]
+    launches = postproc_cuda.postprocess_plane.launches
+    got = postproc_cuda.postprocess_plane(*args)
+    h, w = args[0].shape
+    out = torch.zeros((h + 8, w + 24), dtype=torch.uint8, device=device)
+    got2 = postproc_cuda.postprocess_plane(
+        padded_view(args[0]), *args[1:], out=out[4:4 + h, 8:8 + w])
+    torch.cuda.synchronize()
+    nl = postproc_cuda.postprocess_plane.launches - launches
+    if nl != 2 * (1 + bool(args[5])):
+        raise AssertionError(f"{label}: {nl} launches for two calls")
+    for what, g in (("contiguous", got), ("padded view", got2)):
+        if not torch.equal(g.cpu(), want):
+            bad = (g.cpu() != want).nonzero()[:4].tolist()
+            raise AssertionError(f"KP != plain, {label}, {what}: {bad}")
+    if out[:4].any() or out[4 + h:].any() or out[:, :8].any() \
+            or out[:, 8 + w:].any():
+        raise AssertionError(f"{label}: KP wrote outside its output")
+    for a, b in zip(args[:5], before):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: KP changed an input")
+
+
+def _check_frames(device, label, case, wants) -> None:
+    """One postprocess_frames case into a row-strided [F, h, w] view of a
+    marked buffer: one deblock launch, one dering launch where a frame
+    derings; each listed frame equal to its plain call, the other frames
+    and the buffer's margins untouched, the inputs left as they were."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    F, (h, w) = case["F"], case["srcs"][0].shape
+    before = [t.clone() for t in case["srcs"]] + [case["ppq"].clone()]
+    store = torch.full((F, h + 8, w + 16), 77, dtype=torch.uint8,
+                       device=device)
+    out = store[:, 4:4 + h, 8:8 + w]
+    launches = postproc_cuda.postprocess_frames.launches
+    postproc_cuda.postprocess_frames(
+        case["srcs"], case["frames"], out, case["ppq"], *case["tabs"],
+        case["dering"], case["strong"], case["pli"])
+    torch.cuda.synchronize()
+    nl = postproc_cuda.postprocess_frames.launches - launches
+    if nl != 1 + any(case["dering"]):
+        raise AssertionError(f"{label}: {nl} launches for one batch call")
+    for f, want in zip(case["frames"], wants):
+        if not torch.equal(out[f].cpu(), want):
+            bad = (out[f].cpu() != want).nonzero()[:4].tolist()
+            raise AssertionError(f"KP batch != plain, {label}, frame {f}: "
+                                 f"{bad}")
+    keep = torch.ones(F, dtype=torch.bool)
+    keep[case["frames"]] = False
+    if not (store[keep] == 77).all() or not (store[:, :4] == 77).all() \
+            or not (store[:, 4 + h:] == 77).all() \
+            or not (store[:, :, :8] == 77).all() \
+            or not (store[:, :, 8 + w:] == 77).all():
+        raise AssertionError(f"{label}: KP wrote outside its frames")
+    for a, b in zip(case["srcs"] + [case["ppq"]], before):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: KP changed an input")
 
 
 def check(device, todo=None, wants=None) -> tuple[int, int]:
-    """Every (label, args) of todo (by default cases()) through the
-    kernel, contiguous and as a padded plane's view into a strided output,
-    against the plain version (wants, computed here unless given) byte for
-    byte; the inputs left as they were. Returns (cases, max |err|)."""
-    from theora_tpu_torch.ops import postproc_cuda
-
-    n = 0
-    todo = cases(device) if todo is None else todo
+    """Every (label, case) of todo (by default cases() and frame_cases())
+    through the kernels against the plain version (wants, computed here
+    unless given) byte for byte: postprocess_plane's cases contiguous and
+    as a padded plane's view into a strided output, postprocess_frames'
+    into a strided [F, h, w] output. Returns (cases, max |err|)."""
+    todo = cases(device) + frame_cases(device) if todo is None else todo
     if wants is None:
         wants = plain_all([args for _, args in todo])
     for (label, args), want in zip(todo, wants):
-        before = [a.clone() for a in args[:5]]
-        launches = postproc_cuda.postprocess_plane.launches
-        got = postproc_cuda.postprocess_plane(*args)
-        h, w = args[0].shape
-        out = torch.zeros((h + 8, w + 24), dtype=torch.uint8, device=device)
-        got2 = postproc_cuda.postprocess_plane(
-            padded_view(args[0]), *args[1:], out=out[4:4 + h, 8:8 + w])
-        torch.cuda.synchronize()
-        nl = postproc_cuda.postprocess_plane.launches - launches
-        if nl != 2 * (1 + bool(args[5])):
-            raise AssertionError(f"{label}: {nl} launches for two calls")
-        for what, g in (("contiguous", got), ("padded view", got2)):
-            if not torch.equal(g.cpu(), want):
-                bad = (g.cpu() != want).nonzero()[:4].tolist()
-                raise AssertionError(f"KP != plain, {label}, {what}: {bad}")
-        if out[:4].any() or out[4 + h:].any() or out[:, :8].any() \
-                or out[:, 8 + w:].any():
-            raise AssertionError(f"{label}: KP wrote outside its output")
-        for a, b in zip(args[:5], before):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{label}: KP changed an input")
-        n += 1
-    return n, 0
+        if isinstance(args, dict):
+            _check_frames(device, label, args, want)
+        else:
+            _check_plane(device, label, args, want)
+    return len(todo), 0
 
 
 def gen_frames(nframes: int = 1):
@@ -425,56 +608,218 @@ def measure_step_ns(device, steps: int = 1 << 16, reps: int = 5) -> float:
     return (t[2 * steps] - t[steps]) * 1e6 / steps
 
 
-def time_call(args, flush, step_ns: float) -> dict:
-    """CUDA-event times of one call's launches: the deblock alone (the
-    call at dering off), the dering launch alone (its counters zeroed in
-    the same timed span, as the deblock launch zeroes them), both (the
-    call), the plain version on the card (one call: it takes seconds) and
-    a device copy of the plane; beside kp_bound, whose dependency chain is
-    this call's (wavefront) at step_ns per update, and the bytes each
-    launch moves (kp_bytes)."""
-    from theora_tpu_torch.ops import postproc_cuda
+def parent_kernel(src: str = PARENT_SRC):
+    """KP's earlier design (by default tools/kp_block_serial.cu, one frame
+    per call through its two-launch C interface), built from src: returns
+    launch(args, out, only=None) for postprocess_plane's arguments, which
+    writes out; only="deblock" runs its deblock launch alone, only=
+    "dering" its dering launch alone on the scratch of the last deblock
+    of that shape, its counters zeroed first."""
+    from theora_tpu_torch.ops.cuda_build import nvcc_build
+    from theora_tpu_torch.ops.postproc_cuda import _SO
+
+    lib = ctypes.CDLL(nvcc_build(src, _SO.replace(".so", "_parent.so")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.th_pp_deblock.restype = i32
+    lib.th_pp_deblock.argtypes = [ptr, i32, ptr, i32, ptr, i32] + [
+        ptr] * 4 + [i32, i32, ptr]
+    lib.th_pp_dering.restype = i32
+    lib.th_pp_dering.argtypes = [ptr, i32, ptr, i32] + [ptr] * 5 + [
+        i32] * 4 + [ptr]
+    scratch = {}
+
+    def launch(args, out, only=None):
+        src, dcq, qi, scale, sharp, dering, strong, pli = args
+        h, w = src.shape
+        nv, nh = h >> 3, w >> 3
+        dev = src.device
+        if (h, w) not in scratch:
+            scratch[h, w] = (
+                torch.empty((nv, nh), dtype=torch.int32, device=dev),
+                torch.zeros(1 + nv, dtype=torch.int32, device=dev),
+                torch.empty((h, w), dtype=torch.uint8, device=dev))
+        var, counters, deb = scratch[h, w]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        dst = deb if dering else out
+        if only != "dering":
+            err = lib.th_pp_deblock(
+                src.data_ptr(), src.stride(0), dst.data_ptr(),
+                dst.stride(0), out.data_ptr() if dering else None,
+                out.stride(0), dcq.data_ptr(), scale.data_ptr(),
+                var.data_ptr(), counters.data_ptr(), h, w, stream)
+            if err != 0:
+                raise RuntimeError(f"KP from {src}: CUDA error {err}")
+        if dering and only != "deblock":
+            if only == "dering":
+                counters.zero_()
+            err = lib.th_pp_dering(
+                deb.data_ptr(), w, out.data_ptr(), out.stride(0),
+                var.data_ptr(), qi.data_ptr(), scale.data_ptr(),
+                sharp.data_ptr(), counters.data_ptr(), nv, nh, int(strong),
+                pli, stream)
+            if err != 0:
+                raise RuntimeError(f"KP from {src}: CUDA error {err}")
+        return out
+
+    launch.so = lib._name
+    return launch
+
+
+def _dering_alone(args, out):
+    """The tree's dering launch alone on one call's scratch (a deblock
+    launch made here first): returns a function that zeroes the counters,
+    as the deblock launch does, and launches the dering."""
+    from theora_tpu_torch.ops import postproc_cuda as kp
 
     src, dcq, qi, scale, sharp, dering, strong, pli = args
     h, w = src.shape
     nv, nh = h >> 3, w >> 3
+    dev = src.device
+    lib = kp._load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    deb = torch.empty((1, h, w), dtype=torch.uint8, device=dev)
+    var = torch.empty((1, nv, nh), dtype=torch.int32, device=dev)
+    counters = torch.empty(1, dtype=torch.int32, device=dev)
+    mail = torch.empty(2 * nv * nh, dtype=torch.int64, device=dev)
+    desc = (kp.KPFrame * 1)(kp.KPFrame(src.data_ptr(), src.stride(0), 0, -1,
+                                       1 | int(strong) << 1))
+    planes = kp.KPPlanes(out.data_ptr(), out.stride(0), dcq.data_ptr(), 0,
+                         qi.data_ptr(), 0, scale.data_ptr(),
+                         sharp.data_ptr(), deb.data_ptr(), var.data_ptr(),
+                         counters.data_ptr(), mail.data_ptr(), out.stride(0),
+                         h, w, nv, nh, pli)
+    if lib.th_pp_deblock(desc, 1, ctypes.byref(planes), stream) != 0:
+        raise RuntimeError("KP deblock launch failed")
+
+    def run():
+        counters.zero_()
+        mail.zero_()
+        if lib.th_pp_dering(desc, 1, ctypes.byref(planes), stream) != 0:
+            raise RuntimeError("KP dering launch failed")
+
+    run.keep = (deb, var, counters, mail, desc, planes)
+    return run
+
+
+def in_turns(fns: dict, flush, iters: int = TIMED_ITERS) -> dict:
+    """CUDA-event times of each fn of fns, in turns: the order, then the
+    order reversed (parent, new, new, parent for two); {name: [ms, ...]}."""
+    order = list(fns) + list(fns)[::-1]
+    out = {k: [] for k in fns}
+    for k in order:
+        out[k].append(event_ms(fns[k], iters, flush))
+    return out
+
+
+def empty_ms(launches: int, flush) -> float:
+    """CUDA-event time of as many empty kernel launches
+    (torch.cuda._sleep(0)): the launch floor on this timer."""
+    def run():
+        for _ in range(launches):
+            torch.cuda._sleep(0)
+    return event_ms(run, TIMED_ITERS, flush)
+
+
+def time_call(args, flush, step_ns: float, parent) -> dict:
+    """CUDA-event times of one postprocess_plane call in turns with the
+    earlier design (parent, from parent_kernel): the deblock alone (the
+    call at dering off), the dering launch alone (its counters zeroed in
+    the same timed span, as the deblock launch zeroes them), the call;
+    the plain version on the card (one call: it takes seconds), a device
+    copy of the plane and the call's empty launches; beside kp_bound,
+    whose dependency chain is this call's (wavefront) at step_ns per
+    update, and the bytes each launch moves (kp_bytes). Both designs'
+    outputs must be equal."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    src, dcq, qi, scale, sharp, dering, strong, pli = args
+    h, w = src.shape
     wf = wavefront(args)
     launches = postproc_cuda.postprocess_plane.launches
-    out = torch.empty_like(src)
-    row = {"deblock_ms": event_ms(
-        lambda: postproc_cuda.postprocess_plane(
-            src, dcq, qi, scale, sharp, False, strong, pli, out=out),
-        TIMED_ITERS, flush)}
+    out, pout = torch.empty_like(src), torch.empty_like(src)
+    off = (*args[:5], False, strong, pli)
+    if not torch.equal(postproc_cuda.postprocess_plane(*args, out=out),
+                       parent(args, pout)):
+        raise AssertionError("KP != its earlier design")
+    row = {"deblock_turns": in_turns({
+        "parent": lambda: parent(off, pout),
+        "new": lambda: postproc_cuda.postprocess_plane(*off, out=out)},
+        flush)}
     row["deblock_bound"] = kp_bound(h, w, False)
     row["launch_bytes"] = kp_bytes(h, w, dering)
     if dering:
-        # The dering launch on the deblock's own scratch.
-        lib = postproc_cuda._load()
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        var = torch.empty((nv, nh), dtype=torch.int32, device=src.device)
-        counters = torch.zeros(1 + nv, dtype=torch.int32, device=src.device)
-        deb = torch.empty_like(src)
-        lib.th_pp_deblock(src.data_ptr(), src.stride(0), deb.data_ptr(), w,
-                          out.data_ptr(), w, dcq.data_ptr(),
-                          scale.data_ptr(), var.data_ptr(),
-                          counters.data_ptr(), h, w, stream)
-
-        def dering_launch():
-            counters.zero_()
-            lib.th_pp_dering(deb.data_ptr(), w, out.data_ptr(), w,
-                             var.data_ptr(), qi.data_ptr(), scale.data_ptr(),
-                             sharp.data_ptr(), counters.data_ptr(), nv, nh,
-                             int(strong), pli, stream)
-
-        row["dering_ms"] = event_ms(dering_launch, TIMED_ITERS, flush)
-    row["ms"] = event_ms(lambda: postproc_cuda.postprocess_plane(
-        src, dcq, qi, scale, sharp, dering, strong, pli, out=out),
-        TIMED_ITERS, flush)
+        alone = _dering_alone(args, out)
+        parent(args, pout, only="deblock")
+        row["dering_turns"] = in_turns({
+            "parent": lambda: parent(args, pout, only="dering"),
+            "new": alone}, flush)
+    row["turns"] = in_turns({
+        "parent": lambda: parent(args, pout),
+        "new": lambda: postproc_cuda.postprocess_plane(*args, out=out)},
+        flush)
+    for key in ("deblock", "dering", ""):
+        t = row.get(f"{key}_turns" if key else "turns")
+        if t is not None:
+            pre = f"{key}_" if key else ""
+            row[f"{pre}ms"] = sum(t["new"]) / len(t["new"])
+            row[f"parent_{pre}ms"] = sum(t["parent"]) / len(t["parent"])
     row.update(kp_bound(h, w, dering, wf["dependency_steps"], step_ns))
     row["wavefront"] = wf
     row["plain_ms"] = once_ms(lambda: postproc.postprocess_plane(*args))
     row["copy_ms"] = event_ms(lambda: out.copy_(src), TIMED_ITERS, flush)
+    row["empty_ms"] = empty_ms(1 + bool(dering), flush)
     postproc_cuda.postprocess_plane.launches = launches
+    return row
+
+
+def time_batch(calls: list, flush, step_ns: float, parent) -> dict:
+    """One plane's frames as the batch decoder hands them to KP (calls:
+    postprocess_plane arguments of equal shape and flags), in turns: the
+    earlier design frame by frame (parent), postprocess_frames over all
+    of them (two launches), postprocess_plane frame by frame; beside
+    kp_bound_batch (all frames' bytes, the longest frame's dependency
+    chain at step_ns) and the batch's two empty launches. All three
+    outputs must be equal."""
+    from theora_tpu_torch.ops import postproc_cuda
+
+    srcs = [a[0] for a in calls]
+    F, (h, w) = len(calls), srcs[0].shape
+    _, _, _, scale, sharp, dering, strong, pli = calls[0]
+    ppq = torch.stack([torch.stack([a[1], a[2]]) for a in calls])
+    outs = {k: torch.empty((F, h, w), dtype=torch.uint8,
+                           device=srcs[0].device)
+            for k in ("parent", "batch", "per frame")}
+    counts = (postproc_cuda.postprocess_plane.launches,
+              postproc_cuda.postprocess_frames.launches)
+
+    def old():
+        for k, a in enumerate(calls):
+            parent(a, outs["parent"][k])
+
+    def batch():
+        postproc_cuda.postprocess_frames(
+            srcs, list(range(F)), outs["batch"], ppq, scale, sharp,
+            [dering] * F, [strong] * F, pli)
+
+    def per_frame():
+        for k, a in enumerate(calls):
+            postproc_cuda.postprocess_plane(*a, out=outs["per frame"][k])
+
+    fns = {"parent": old, "batch": batch, "per frame": per_frame}
+    for fn in fns.values():
+        fn()
+    if not (torch.equal(outs["batch"], outs["parent"])
+            and torch.equal(outs["batch"], outs["per frame"])):
+        raise AssertionError("KP's batch != frame by frame")
+    turns = in_turns(fns, flush)
+    steps = [wavefront(a)["dependency_steps"] for a in calls]
+    row = {"frames": F, "turns": turns,
+           **{f"{k}_ms": sum(v) / len(v) for k, v in turns.items()},
+           "empty_ms": empty_ms(1 + bool(dering), flush),
+           "frame_steps": steps}
+    row.update(kp_bound_batch(h, w, [dering] * F, steps, step_ns))
+    (postproc_cuda.postprocess_plane.launches,
+     postproc_cuda.postprocess_frames.launches) = counts
     return row
 
 
@@ -490,21 +835,69 @@ def once_ms(fn) -> float:
     return e0.elapsed_time(e1)
 
 
+def _ms(v) -> str:
+    return " / ".join(f"{x:.4f}" for x in v)
+
+
 def describe(label: str, r: dict) -> str:
-    s = (f"{label}: deblock {r['deblock_ms']:.4f} ms (bound "
+    s = (f"{label}: deblock {r['deblock_ms']:.4f} ms (turns "
+         f"{_ms(r['deblock_turns']['new'])}; the earlier design "
+         f"{_ms(r['deblock_turns']['parent'])}; bound "
          f"{r['deblock_bound']['bound_ms']:.4f}, by bytes)")
     if "dering_ms" in r:
-        s += f", dering {r['dering_ms']:.4f} ms (the counters' reset included)"
-    return (s + f", the call {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+        s += (f", dering {r['dering_ms']:.4f} ms (turns "
+              f"{_ms(r['dering_turns']['new'])}; the earlier design "
+              f"{_ms(r['dering_turns']['parent'])}; the counters' reset "
+              f"included)")
+    return (s + f", the call {r['ms']:.4f} ms (turns "
+            f"{_ms(r['turns']['new'])}; the earlier design "
+            f"{_ms(r['turns']['parent'])}); bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']} (the call's {r['bytes']} B -> "
             f"{r['bytes_ms']:.4f} ms; the dependency chain "
             f"{r['chain_steps']} updates x {r['step_ns']:.2f} ns -> "
             f"{r['chain_ms']:.4f} ms), the call at "
-            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it; bytes per launch "
+            f"{100 * r['bound_ms'] / r['ms']:.2f}% of it (the earlier "
+            f"design {100 * r['bound_ms'] / r['parent_ms']:.2f}%); its empty "
+            f"launches {r['empty_ms']:.4f} ms; bytes per launch "
             f"{r['launch_bytes']}; plain {r['plain_ms']:.4f} ms, device copy "
             f"of the plane {r['copy_ms']:.4f} ms; no single PyTorch call "
             f"computes the filter (library_ms null); dering plan "
             f"{r['wavefront']}")
+
+
+def describe_batch(label: str, r: dict) -> str:
+    return (f"{label}, {r['frames']} frames: postprocess_frames "
+            f"{r['batch_ms']:.4f} ms (turns {_ms(r['turns']['batch'])}), "
+            f"postprocess_plane frame by frame {r['per frame_ms']:.4f} "
+            f"({_ms(r['turns']['per frame'])}), the earlier design frame by "
+            f"frame {r['parent_ms']:.4f} ({_ms(r['turns']['parent'])}); "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} (all frames' "
+            f"{r['bytes']} B -> {r['bytes_ms']:.4f} ms; the longest frame's "
+            f"chain {r['chain_steps']} updates x {r['step_ns']:.2f} ns -> "
+            f"{r['chain_ms']:.4f} ms; chains {r['frame_steps']}), the batch "
+            f"at {100 * r['bound_ms'] / r['batch_ms']:.2f}% of it; its two "
+            f"empty launches {r['empty_ms']:.4f} ms")
+
+
+def ptxas_report(log_path: str) -> list[str]:
+    """Each kernel's registers, shared memory, barriers and spills from a
+    build's ptxas log (cuda_build.nvcc_build keeps it beside the
+    library)."""
+    out, name = [], None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = re.search(r"th_pp_\w+?_kernel", m.group(1))
+                name = name.group(0) if name else m.group(1)
+                spill = ""
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and name:
+                out.append(f"{name}: {line.split(':', 1)[1].strip()}; "
+                           f"{spill}")
+                name = None
+    return out
 
 
 def frame_calls(frame, device, qi: int = 5) -> dict:
@@ -533,23 +926,29 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    with open(postproc_cuda.build() + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[kp] ptxas: {line.strip()}", flush=True)
+    parent = parent_kernel()
+    for what, so in (("KP", postproc_cuda.build()),
+                     ("the earlier design", parent.so)):
+        for line in ptxas_report(so + ".log"):
+            print(f"[kp] ptxas, {what}: {line}", flush=True)
     n, err = check(dev)
-    print(f"[kp] {n} cases: kernel == plain byte for byte | {smi}",
-          flush=True)
+    print(f"[kp] {n} cases (postprocess_plane and postprocess_frames): "
+          f"kernels == plain byte for byte | {smi}", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     step = measure_step_ns(dev)
     print(f"[kp] one dering pixel update on the chain: {step:.3f} ns | "
           f"{smi}", flush=True)
+    raw = gen_frames(8)
     rows = {}
-    for label, args in frame_calls(gen_frames(1)[0], dev).items():
-        rows[label] = time_call(args, flush, step)
+    for label, args in frame_calls(raw[0], dev).items():
+        rows[label] = time_call(args, flush, step, parent)
         print(f"[kp] {describe(label, rows[label])} | {smi}", flush=True)
+    batch = time_batch([frame_calls(f, dev)["720p luma"] for f in raw],
+                       flush, step, parent)
+    print(f"[kp] {describe_batch('720p luma batch', batch)} | {smi}",
+          flush=True)
     print(json.dumps({"card": smi, "cases": n, "step_ns": step,
-                      "timed": rows}), flush=True)
+                      "timed": rows, "batch": batch}), flush=True)
     return 0
 
 

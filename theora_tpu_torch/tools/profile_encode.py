@@ -120,9 +120,9 @@ def _kernel_stages() -> list:
     """(stage, wrapper module, wrapper name, device kernel names, bound of
     one call's arguments) for each hand kernel an encode may launch."""
     from theora_tpu_torch.ops import fdct_cuda, idct_cuda, loopfilter_cuda, \
-        mc_cuda, me_cuda, qrd_cuda, trellis_cuda
+        mc_cuda, me_cuda, postproc_cuda, qrd_cuda, trellis_cuda
     from theora_tpu_torch.tools import bench_idct, bench_loopfilter, \
-        bench_mc, bench_me, bench_trellis
+        bench_mc, bench_me, bench_pp, bench_trellis
 
     return [
         ("ME plan (KM)", me_cuda, "plan_with_gold",
@@ -149,6 +149,9 @@ def _kernel_stages() -> list:
          lambda a: bench_mc.ks_bound("place_rows", a)),
         ("MC + recon (KS mc_recon)", mc_cuda, "mc_recon",
          ("mc_recon_kernel",), lambda a: bench_mc.ks_bound("mc_recon", a)),
+        ("postprocess (KP)", postproc_cuda, "postprocess_frames",
+         ("th_pp_deblock_kernel", "th_pp_dering_kernel"),
+         bench_pp.frames_bound),
     ]
 
 
