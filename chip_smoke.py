@@ -319,15 +319,38 @@ and prints no result line):
    (b) parallel/transcode.py on two threads over the same frames, against
    the same list; (c) parallel/distributed.py in two local "gloo"
    processes both on the card, rank 0's packets against the list, the
-   workers' K1 counts summed; (d) every 64x48 and 96x64 HOST_CASES case
-   against host64x48_enc and host96x64_aq_enc (q40 filters in the closed
-   loop); (e) `tools.enc -j 2` (two spawned processes, each on the card)
-   on the 64x48 clip against its lines of host64x48_enc.
+   workers' K1 counts summed; (d) the th_* encode API's main path:
+   compat.th_enc_ctx(device="cuda") under a target bitrate, the 16 720p
+   frames, a keyframe every 8 (TH_ENCCTL_SET_KEYFRAME_FREQUENCY_FORCE),
+   info quality 0, 300 kbit/s (testdata/make_compat_enc.py:run_hd720):
+   a first pass, then a warm pass with the counts reset, every packet
+   against hd720_compat_cbr_enc.sha256 (the JAX th_enc_ctx's), the
+   dropped frames (0-byte packets) counted, at least one, and the
+   closed loop's launches against the frames it decoded (K1's decode
+   entry 1 to 3 per frame, KS's mc_recon 3 per frame, KL 3 per frame
+   that filters: above 0, as every frame is coded at qi 0; no other
+   kernel), the wall split; (e) every make_compat_enc case (th_enc_ctx
+   at VBR, CBR with drops, drops off with a mid-stream bitrate and rate
+   buffer, VP3 with VP31's tables and its drop frames, VP31's
+   quantization parameters, other Huffman codes, another encoder's setup
+   header, the dup count (F11), the 2-pass ctl protocol, the legacy
+   theora_* round trip) on the card against compat64x48_enc.sha256, the
+   VP3 stream decoded by PacketDecoder on the card equal to the plain
+   path's, drop frames included, the same count check; (f)
+   `tools.enc --host` (the host Encoder, closed loop on the card) at -b
+   with drops, --drop-frames 0 and --two-pass --rate-buffer 12 on the
+   64x48 clip cut to 60x44, each .ogv against compat_cli.sha256 (the JAX
+   CLI's default branch), the same count check; (g) every 64x48 and
+   96x64 HOST_CASES case against host64x48_enc and host96x64_aq_enc (q40
+   filters in the closed loop); (h) `tools.enc -j 2` (two spawned
+   processes, each on the card) on the 64x48 clip against its lines of
+   host64x48_enc.
 
 Then one JSON line listing the eight kernels (times and bounds, K1's at
 both entries, KS's at its three and in the fused entries; launches on the 720p decode, each 720p
 encode path, the transcode, the per-packet decode, the mesh, the mesh
-over ranks (per path and per rank) and the host Encoder's paths, KL's
+over ranks (per path and per rank) and the host Encoder's paths (the
+th_* encode API's among them, KL's too), KL's
 and KS's also on the golden decodes and the 2-pass packets' decode, KL's
 on the small mesh;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches;
@@ -2919,8 +2942,188 @@ def distributed_720p(smi: str) -> int:
     return sum(k1), sum(ks)
 
 
+@contextlib.contextmanager
+def _decoded_frames():
+    """Every packet that a PacketDecoder (the host Encoder's closed loop,
+    th_dec_ctx, the legacy decoder) decodes to a new frame while the
+    block runs: yields a list that gets, per such packet, whether its
+    frame filters (its qi's loop-filter limit is above 0)."""
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+
+    out = []
+    real = PacketDecoder.decode_packet
+
+    def recorded(self, packet):
+        ret = real(self, packet)
+        if ret == 0:
+            lim = self.setup.qinfo["loop_filter_limits"][packet[0] & 0x3F]
+            out.append(lim > 0)
+        return ret
+
+    PacketDecoder.decode_packet = recorded
+    try:
+        yield out
+    finally:
+        PacketDecoder.decode_packet = real
+
+
+def _closed_loop_counts(what: str, decoded: list) -> tuple:
+    """(K1's decode entry, KL, KS's mc_recon) since _reset_counts, for the
+    frames `decoded` recorded (_decoded_frames): K1 1 to 3 per frame, KL
+    3 per frame that filters, mc_recon 3 per frame, and no other kernel
+    (the host tier quantizes, plans and searches natively; no pp level)."""
+    c = _counts_all()
+    n, nf = len(decoded), sum(decoded)
+    others = {k: v for k, v in c.items()
+              if k not in ("K1 decode", "KL", "KS") and v}
+    ks = _ks_decode_only(what, 3 * n)
+    if others or not 0 < c["K1 decode"] <= 3 * n or c["KL"] != 3 * nf:
+        raise AssertionError(f"{what}: launches {c}; expected K1's decode "
+                             f"entry 1 to {3 * n}, KL {3 * nf} and KS "
+                             f"{3 * n} ({n} decoded frames, {nf} "
+                             f"filtered) and nothing else")
+    return c["K1 decode"], c["KL"], ks
+
+
+def compat_cbr_720p(smi: str) -> tuple:
+    """12 (d), the slice's main path: th_enc_ctx (compat.py) on the card
+    under a target bitrate, the 16 720p frames, a keyframe every 8, info
+    quality 0, 300 kbit/s (make_compat_enc.run_hd720): a first pass, then
+    a warm pass with the counts reset just before it; every packet
+    against hd720_compat_cbr_enc.sha256 (the JAX th_enc_ctx's), the
+    dropped frames (0-byte packets) counted, at least one; the closed
+    loop's launches (K1's decode entry, KL, KS's mc_recon), KL above 0;
+    the wall split. Returns (K1, KL, KS)."""
+    from theora_tpu_torch import compat
+    from theora_tpu_torch.info import TheoraInfo
+
+    mc = _load_testdata("make_compat_enc")
+    name = "hd720_compat_cbr_enc"
+    frames = mc.mk.hd_frames()
+    pkts, _ = mc.run_hd720(compat, TheoraInfo, frames, device="cuda")
+    _check_hashes(pkts, name, "first pass")
+    with _decoded_frames() as decoded:
+        _reset_counts()
+        t0 = time.perf_counter()
+        pkts, ctx = mc.run_hd720(compat, TheoraInfo, frames, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = _check_hashes(pkts, name, "warm pass")
+    k1, kl, ks = _closed_loop_counts("th_enc_ctx 720p CBR", decoded)
+    drops = [i for i, p in enumerate(pkts[3:]) if not p.data]
+    rc = ctx._enc.rc
+    if not drops or rc.ndrops != len(drops) or kl == 0:
+        raise AssertionError(f"th_enc_ctx 720p CBR: dropped frames {drops}, "
+                             f"the controller's {rc.ndrops}, KL {kl}; "
+                             f"expected a drop and KL above 0")
+    qis = sorted({p.data[0] & 0x3F for p in pkts[3:] if p.data})
+    tm = ctx._enc.timing
+    rest = tm["frame_s"] - tm["analysis_s"] - tm["decode_s"]
+    nbytes = sum(len(p.data) for p in pkts[3:])
+    log(f"[compat720p] th_enc_ctx(device='cuda') at {mc.HD_CBR_RATE} bit/s, "
+        f"keyframe every {mc.HD_KF}: all {n} packet SHA-256 equal the JAX "
+        f"th_enc_ctx's list; dropped frames {drops} (0-byte packets), qis "
+        f"{qis}, {nbytes} bytes = {nbytes * 8 * 30 / len(frames):.0f} "
+        f"bit/s; warm pass {wall:.4f} s = {len(frames) / wall:.2f} "
+        f"frames/s: ME and mode decision {tm['analysis_s']:.4f} s, "
+        f"closed-loop decode and download {tm['decode_s']:.4f} s "
+        f"({len(decoded)} frames decoded, {sum(decoded)} filtered), "
+        f"transform, trellis and packing {rest:.4f} s; launches K1 decode "
+        f"entry {k1}, KL {kl}, KS mc_recon {ks}, no other kernel | {smi}")
+    return k1, kl, ks
+
+
+def compat_small() -> tuple:
+    """12 (e): every case of make_compat_enc.CASES (th_enc_ctx at VBR,
+    CBR with drops, drops off with mid-stream bitrate and buffer changes,
+    VP3 with its drop frames, VP31 quantization parameters, other Huffman
+    codes, another encoder's setup header, the dup count, the 2-pass ctl
+    protocol, the legacy theora_* round trip) with device="cuda" against
+    compat64x48_enc.sha256 (the JAX package's); the VP3 stream decoded by
+    PacketDecoder(device="cuda") equal to the plain path's
+    (device="cpu") frame by frame, drop frames included. Returns (K1, KL,
+    KS) of the cases' closed loops and decoders."""
+    from theora_tpu_torch import compat, tables
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.tpkt import Packet
+
+    mc = _load_testdata("make_compat_enc")
+    want = mc.mk.read_records("compat64x48_enc.sha256")
+    got = {}
+    with _decoded_frames() as decoded:
+        _reset_counts()
+        for name in mc.CASES:
+            got[name] = mc.run_case(name, compat, tables, TheoraInfo,
+                                    Packet, device="cuda")
+        torch.cuda.synchronize()
+    counts = _closed_loop_counts("compat 64x48", decoded)
+    bad = [name for name in mc.CASES
+           if mc.mk.record_of(got[name]) != want[name]]
+    if bad:
+        raise AssertionError(f"compat64x48_enc: cases {bad} differ from the "
+                             f"JAX package's")
+    vp3 = [p.data for p in got["vp3_8k"]]
+    info, setup = parse_info_header(vp3[0]), parse_setup_header(vp3[2])
+    card_dec = PacketDecoder(info, setup, device="cuda")
+    plain = PacketDecoder(info, setup, device="cpu")
+    for i, d in enumerate(vp3[3:]):
+        if card_dec.decode_packet(d) != plain.decode_packet(d) or not all(
+                np.array_equal(a, b) for a, b in zip(card_dec.ycbcr_out(),
+                                                     plain.ycbcr_out())):
+            raise AssertionError(f"vp3_8k: frame {i} of the card's decode "
+                                 f"differs from the plain path's")
+    ndrop = sum(len(d) == 6 for d in vp3[3:])
+    log(f"[compat64x48_enc] {len(mc.CASES)} cases {list(mc.CASES)}: all "
+        f"{sum(map(len, got.values()))} records (the packets and the 2-pass "
+        f"blob) equal the JAX package's; the VP3 stream's {len(vp3) - 3} "
+        f"frames ({ndrop} drop frames) decode on the card as on the plain path; "
+        f"launches K1 decode entry {counts[0]}, KL {counts[1]}, KS mc_recon "
+        f"{counts[2]} ({len(decoded)} frames decoded)")
+    return counts
+
+
+def enc_cli_host(smi: str) -> tuple:
+    """12 (f): `tools.enc --host` (the host Encoder, its closed loop on
+    the card) on the 64x48 clip cut to 60x44, for each make_compat_enc.
+    CLI_CASES case (-b with drops, --drop-frames 0, --two-pass
+    --rate-buffer 12): the .ogv against compat_cli.sha256 (the JAX CLI's
+    default branch). Returns (K1, KL, KS) of the three runs."""
+    import tempfile
+
+    from theora_tpu_torch.tools import enc
+    from theora_tpu_torch.tools.y4m import write_y4m
+
+    mc = _load_testdata("make_compat_enc")
+    want = mc.mk.read_cli("compat_cli.sha256")
+    walls = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp, \
+            _decoded_frames() as decoded:
+        src = os.path.join(tmp, "in.y4m")
+        write_y4m(src, mc.cli_frames())
+        _reset_counts()
+        for case, flags in mc.CLI_CASES.items():
+            out = os.path.join(tmp, f"{case}.ogv")
+            t0 = time.perf_counter()
+            enc.main(["--host", *flags, src, out])
+            walls[case] = round(time.perf_counter() - t0, 4)
+            with open(out, "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != want[case]:
+                    raise AssertionError(f"enc --host {case}: the .ogv "
+                                         f"differs from the JAX CLI's")
+        torch.cuda.synchronize()
+    counts = _closed_loop_counts("enc --host", decoded)
+    log(f"[enc --host] {list(mc.CLI_CASES)}: every .ogv equals the JAX "
+        f"CLI's (compat_cli.sha256); walls {walls} s; launches K1 decode "
+        f"entry {counts[0]}, KL {counts[1]}, KS mc_recon {counts[2]} | "
+        f"{smi}")
+    return counts
+
+
 def host_small() -> None:
-    """12 (d): every 64x48 and 96x64 HOST_CASES case through the host
+    """12 (g): every 64x48 and 96x64 HOST_CASES case through the host
     Encoder on the card against host64x48_enc and host96x64_aq_enc (q40
     filters in the closed loop on the card)."""
     mk = _load_testdata("make_hd720_enc")
@@ -2933,7 +3136,7 @@ def host_small() -> None:
 
 
 def enc_cli_workers(smi: str) -> None:
-    """12 (e): `python -m theora_tpu_torch.tools.enc -j 2` on the card:
+    """12 (h): `python -m theora_tpu_torch.tools.enc -j 2` on the card:
     transcode over two spawned processes, each encoding on the card, of
     the 64x48 clip at q40, a keyframe every 4 (HOST_CASES "q40"); the
     Ogg stream's packets against the case's lines of host64x48_enc."""
@@ -3322,6 +3525,15 @@ def main() -> int:
                       ("distributed", distributed_720p)):
         k1_host, ks_host = fn(smi)
         paths[label] = (k1_host, 0, 0, 0, 0, 0, ks_host)
+    # The th_* encode API's slice: th_enc_ctx under a target bitrate at
+    # 720p (the host Encoder drops frames; its closed loop filters, so KL
+    # runs beside K1's and KS's decode entries), the small compat and
+    # legacy cases and the CLI's --host branch.
+    for label, fn in (("host th_enc_ctx 720p CBR", compat_cbr_720p),
+                      ("compat and legacy 64x48", lambda smi: compat_small()),
+                      ("enc --host 60x44", enc_cli_host)):
+        k1_host, kl_host, ks_host = fn(smi)
+        paths[label] = (k1_host, 0, 0, 0, 0, kl_host, ks_host)
     host_small()
     enc_cli_workers(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
@@ -3329,7 +3541,7 @@ def main() -> int:
     # intra encoder; KT on the encode, the transcode and the mesh.
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
                   "intra core", "intra encode", "host encode",
-                  "mesh ranks q56 auto {1,2}")
+                  "mesh ranks q56 auto {1,2}", "host th_enc_ctx 720p CBR")
     k1["launches"] = (decode["K1 decode"]
                       + sum(paths[p][0] for p in main_paths))
     k2["launches"] = sum(paths[p][1] for p in main_paths)
@@ -3339,12 +3551,14 @@ def main() -> int:
                       + paths["mesh ranks q48 speed 2 {1,2}"][3])
     km["launches"] = sum(paths[p][4] for p in main_paths)
     # KL runs where a frame's qi is below 47: the 2-pass encode and the
-    # decode of its packets, the golden decodes and the small mesh.
+    # decode of its packets, the golden decodes, the small mesh and the
+    # host Encoder's closed loop under a target bitrate.
     kl_extra = {"golden decodes": kl_golden,
                 "decode of the 2-pass packets": kl_twopass_decode,
                 "mesh 64x48 CBR gop axis 4": kl_mesh_small}
-    kl["launches"] = paths["encode 2-pass 2 Mbit/s"][5] + sum(
-        kl_extra.values())
+    kl["launches"] = (paths["encode 2-pass 2 Mbit/s"][5]
+                      + paths["host th_enc_ctx 720p CBR"][5]
+                      + sum(kl_extra.values()))
     # KS launches on its own once per plane per decoded frame, and once
     # per plane per frame step on a frag group's ranks (its place entry);
     # on an encode step its work runs inside K1's, K2's and KR's fused

@@ -161,17 +161,24 @@ def test_k2_runs_once_per_plane_per_batch_on_frames_that_use_it(
 
 
 def test_inter_frame_under_target_bitrate_raises():
-    """An inter frame under a target bitrate (the host rate control's
-    frame drop is not ported); without one it encodes
-    (tests/test_torch_host_inter.py)."""
+    """Named for when an inter frame under a target bitrate raised
+    NotImplementedError (the host rate control's frame drop was not
+    ported); it no longer raises. It now encodes: at F5's rate with a
+    keyframe every 4, the packets equal the JAX host Encoder's
+    (tests/test_torch_compat.py holds the drops)."""
+    from theora_tpu.encode.encoder import Encoder as JaxEncoder
+    from theora_tpu.info import TheoraInfo as JaxInfo
     from theora_tpu_torch.encode.encoder import Encoder
 
     enc = Encoder(TheoraInfo(**_kw("q40", mk.F5_RATE)), device="cpu")
-    enc.keyframe_freq = 4
-    frames = mk.clip64x48_frames(2)
-    enc.encode_frame(frames[0])
-    with pytest.raises(NotImplementedError, match="target bitrate"):
-        enc.encode_frame(frames[1])
+    jenc = JaxEncoder(JaxInfo(**_kw("q40", mk.F5_RATE)))
+    enc.keyframe_freq = jenc.keyframe_freq = 4
+    frames = mk.clip64x48_frames(6)
+    got = [enc.encode_frame(f) for f in frames]
+    want = [jenc.encode_frame(f) for f in frames]
+    assert [(p.data, p.granulepos) for p in got] == \
+        [(p.data, p.granulepos) for p in want]
+    assert any(p.data[0] & 0x40 for p in got if p.data)
 
 
 def _core_inputs(rng):

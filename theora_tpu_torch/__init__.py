@@ -4,12 +4,14 @@ The decoders: the GOP-batch decoder (``decode/batch.py``) and the
 per-packet decoder on its references (``decode/scalar.py``), with the
 host decoder's controls: the postprocessor (pp levels 1-7), telemetry
 overlays, the striped-decode callback, and the ``th_*`` decode API over
-them (``compat.py``). The device GOP encoder (``encode/gop.py``) with
-every setting of the JAX one (speed levels, adaptive quantization, scene
-cuts, CBR, 2-pass), its three stages and the device-resident transcode;
-the mesh GOP encoder (``parallel/gop.py``), which runs a batch of GOPs
-side by side on one card, and over torch.distributed ranks, one per
-device, splits the batch's GOPs and each frame's fragments between them
+them (``compat.py``, with its encode half over the host encoder and the
+pre-1.0 ``theora_*`` API over both). The device GOP encoder
+(``encode/gop.py``) with every setting of the JAX one (speed levels,
+adaptive quantization, scene cuts, CBR, 2-pass), its three stages and
+the device-resident transcode; the mesh GOP encoder
+(``parallel/gop.py``), which runs a batch of GOPs side by side on one
+card, and over torch.distributed ranks, one per device, splits the
+batch's GOPs and each frame's fragments between them
 (``parallel/ranks.py``); the all-keyframe batch encoder
 (``encode/intra.py``); and the host encoder (``encode/encoder.py``),
 whose closed loop decodes on the card, with the GOP-parallel transcodes

@@ -4,7 +4,9 @@ on the card.
 Port of theora_tpu/encode/encoder.py (`Encoder`): the constructor's fields
 these paths read, `set_splevel`, `encode_frame` (the keyframe decision,
 the auto-keyframe retry, the original-frame references of the motion
-search; one-pass rate control on keyframes, which are never dropped),
+search; rate control: one-pass CBR, where an inter frame that busts the
+budget is dropped, and pass 2 of a 2-pass encode at pass 1's keyframes),
+`_drop_frame_pack` (VP3 compatibility's explicit drop frame),
 `_encode_intra`; `_encode_inter` (luma motion estimation on the original
 references, the no-MV and golden SADs, the integer intra cost, the 4MV
 block refinement, the native mode decision with its fragment fill; speed
@@ -33,11 +35,15 @@ replaces every older undecoded packet, so an all-keyframe encode builds no
 decoder. Because only final packets are decoded, the auto-keyframe retry
 needs none of the JAX decoder's rewinds (encoder.py:383-404).
 
-Left out (ROADMAP section 1): an inter frame under a target bitrate (the
-host rate control's frame drop, encoder.py:410-424; `encode_frame` raises
-NotImplementedError), vp3_compatible and its drop-frame packet, collect,
-mode_rd, coupled_skip, the luma skip guards and luma_ext_skip (off by
-default), fast_recon and the pack/recon overlap thread. With
+A dropped frame is a 0-byte packet (or, with vp3_compatible, an inter
+frame that codes no block); the closed loop decodes it like any final
+packet, so its references stay put, as the JAX Encoder's do.
+vp3_compatible also turns adaptive quantization off and makes an inter
+frame that codes no block a drop frame.
+
+Left out (ROADMAP section 1): collect, mode_rd, coupled_skip, the luma
+skip guards and luma_ext_skip (off by default), fast_recon and the
+pack/recon overlap thread. With
 use_trellis=False at speed levels 0-1 (set directly; set_splevel never
 makes it), a frame that engages adaptive quantization's qi triple raises
 NotImplementedError.
@@ -68,7 +74,7 @@ from theora_tpu_torch.constants import (
 )
 from theora_tpu_torch.decode.scalar import PacketDecoder
 from theora_tpu_torch.encode import aq
-from theora_tpu_torch.encode.packer import FramePacker
+from theora_tpu_torch.encode.packer import FramePacker, sb_run_pack
 from theora_tpu_torch.encode.rate import RateControl
 from theora_tpu_torch.headers import SetupInfo
 from theora_tpu_torch.huffman import Codebook
@@ -121,6 +127,7 @@ class Encoder:
         self._fp = FramePacker(info, qinfo, huff_codes)
         self.info = info
         self.huff_codes = self._fp.huff_codes
+        self.qinfo = self._fp.qinfo
         self.geometry = self._fp.geometry
         self.dequant = self._fp.dequant
         self.qi = max(0, min(63, info.quality))
@@ -146,6 +153,10 @@ class Encoder:
         # counterpart of the JAX Encoder's _precomputed_tq; called only
         # where the device branch takes the results (one qi, speed 0-1).
         self.device_tq = None
+        # VP3 compatibility: explicit drop-frame packets in place of
+        # 0-byte dups (encode.c:865-906), no adaptive quantization; pair
+        # with the VP31 quantization and Huffman tables.
+        self.vp3_compatible = False
         self.rc = None
         self.curframe_num = -1
         self.keyframe_num = 0
@@ -193,8 +204,10 @@ class Encoder:
     def frame_gates(self, ycbcr):
         """The adaptive-quantization gates of a frame (display
         orientation), or None where no qi triple can engage (mode off,
-        speed 2 and more): (noise_like, mixed, luma lambda scales)."""
-        if not self.adaptive_quant or self.sp_level >= 2:
+        VP3 compatibility, speed 2 and more): (noise_like, mixed, luma
+        lambda scales)."""
+        if (not self.adaptive_quant or self.vp3_compatible
+                or self.sp_level >= 2):
             return None
         return aq.frame_gates(np.ascontiguousarray(ycbcr[0][::-1]),
                               self.adaptive_quant, keep_noise_scales=True)
@@ -224,30 +237,31 @@ class Encoder:
     # ------------------------------------------------------------------
     def encode_frame(self, ycbcr: list, e_o_s: bool = False,
                      gates=None) -> Packet:
-        """Encode one frame (display-orientation planes) -> Packet.
+        """Encode one frame (display-orientation planes) -> Packet
+        (encoder.py:343-468).
 
         gates: the frame's `frame_gates(ycbcr)`, when the caller has
         them already."""
         t_frame = time.perf_counter()
-        is_key = (self._prev_orig is None
-                  or self._frames_since_keyframe + 1 >= self.keyframe_freq)
-        if not is_key and self.info.target_bitrate > 0:
-            raise NotImplementedError(
-                "an inter frame under a target bitrate is not ported: the "
-                "host rate control's frame drop is left out (ROADMAP "
-                "section 1); use keyframe_freq=1, or the device encoder "
-                "(encode/gop.py) for CBR")
         if gates is None:
             gates = self.frame_gates(ycbcr)
         self.curframe_num += 1
         self._frames_since_keyframe += 1
         if self.info.target_bitrate > 0 and self.rc is None:
             self.rc = RateControl(self.info, self.keyframe_freq)
+        is_key = (self._prev_orig is None
+                  or self._frames_since_keyframe >= self.keyframe_freq)
+        if self.rc is not None and self.rc.twopass == 2:
+            # Pass 2 replays pass 1's keyframe positions
+            # (rc.twopass_force_kf; encode.c:1753-1764).
+            is_key = self._prev_orig is None or self.rc.twopass_force_kf
         if is_key:
             self._frames_since_keyframe = 0
         planes = [p[::-1].astype(np.uint8) for p in ycbcr]
         if self.rc is not None:
-            self.qi = self.rc.select_qi(INTRA_FRAME, self.qi)
+            self.qi = self.rc.select_qi(
+                INTRA_FRAME if is_key else INTER_FRAME, self.qi,
+                frames_since_kf=self._frames_since_keyframe)
         if is_key:
             data = self._keyframe(planes, gates)
         else:
@@ -259,11 +273,22 @@ class Encoder:
                 is_key = True
                 self._frames_since_keyframe = 0
                 data = self._keyframe(planes, gates)
+        dropped = False
         if self.rc is not None:
-            self.rc.update(INTRA_FRAME, self.qi, len(data) * 8)
+            # Post-encode drop decision: an inter frame that busts the
+            # budget becomes a 0-byte dup (or an explicit VP3 drop frame),
+            # and the references stay put (rate.c:825-832,
+            # encode.c:1259-1271).
+            dropped = self.rc.update(
+                INTRA_FRAME if is_key else INTER_FRAME, self.qi,
+                len(data) * 8, droppable=not is_key)
+            if dropped:
+                data = self._drop_frame_pack() if self.vp3_compatible \
+                    else b""
+        if is_key and not dropped:
+            self._last_kf_size = len(data)
         self._prev_orig = planes
         if is_key:
-            self._last_kf_size = len(data)
             self._gold_orig = planes
             # A keyframe sets both references: older packets need no
             # decode.
@@ -277,6 +302,28 @@ class Encoder:
         self.packetno += 1
         self.timing["frame_s"] += time.perf_counter() - t_frame
         return pkt
+
+    def _drop_frame_pack(self) -> bytes:
+        """Explicit drop frame: an inter frame that codes no block, at the
+        frame's qi (encode.c:875-906; encoder.py:471-491)."""
+        nsbs = self.geometry.nsbs
+        bw = BitWriter()
+        bw.write(0, 1)
+        bw.write(1, 1)          # inter
+        bw.write(self.qi, 6)
+        bw.write(0, 1)
+        # No partially coded super blocks, then no fully coded ones.
+        bw.write(0, 1)
+        sb_run_pack(bw, nsbs, 0, True)
+        bw.write(0, 1)
+        sb_run_pack(bw, nsbs, 0, True)
+        # Mode scheme 7 (no modes to code), MV scheme 1.
+        bw.write(7, 3)
+        bw.write(1, 1)
+        # DC and AC Huffman table choices (no token follows).
+        for _ in range(4):
+            bw.write(0, 4)
+        return bw.bytes()
 
     def _keyframe(self, planes, gates) -> bytes:
         # GOP-local trellis cost model, so that GOP-parallel encoding is
@@ -692,10 +739,11 @@ class Encoder:
                       mb_modes, mb_mvs) -> bytes:
         """DC prediction, the frame header, coded flags, modes, vectors,
         qi indices and tokens (encoder.py:2128-2170); a frame that codes
-        no block is a 0-byte dup packet (encode.c:926-928)."""
+        no block is a 0-byte dup packet, or with vp3_compatible a drop
+        frame (encode.c:865-906, 926-928)."""
         g = self.geometry
         if not coded.any():
-            return b""
+            return self._drop_frame_pack() if self.vp3_compatible else b""
         # Uncoded fragments keep FRAME_NONE so DC prediction skips them.
         frag_refi[~coded] = FRAME_NONE
         ordered = self._dc_predict_and_order(per_plane, coded, frag_refi)

@@ -1,17 +1,22 @@
-"""Rate control of the device encoder: the fixed-qi pass 1 and the
-window allocation of pass 2 (the OT2P metrics file), after the reference
-controller (rate.c).
+"""Rate control: 1-pass CBR with frame dropping, the fixed-qi pass 1 and
+the window allocation of pass 2 (the OT2P metrics file), after the
+reference controller (rate.c).
 
-Port of theora_tpu/encode/rate.py trimmed to what the device encoder
-uses: `RateControl` (select_qi, update, start_pass1, pass1_frame_data,
-pass1_summary, pack_metrics, twopass_parse, start_pass2 and its window
-machinery), `FrameMetrics`, `BesselFollower` and `twopass_window_qvecs`;
-the device encoder never drops a frame, so frame dropping, trial
-encodes and the rate flags are left out.
-The arithmetic is the JAX package's, float by float, so the qi choices
-and the pass-1 file are byte-identical; numeric constants lifted from
-the reference are cited. The CBR path of `GopEncoder.encode_clip` uses
-`WindowRateController` (encode/gop.py) instead.
+Port of theora_tpu/encode/rate.py: `RateControl` (select_qi, update with
+the post-encode frame drop, the rate flags drop_frames / cap_overflow /
+cap_underflow, resize_buffer, set_bitrate, start_pass1,
+pass1_frame_data, pass1_summary, pack_metrics, twopass_parse,
+start_pass2 and its window machinery), `FrameMetrics`, `BesselFollower`
+and `twopass_window_qvecs`. Only the host Encoder (encode/encoder.py)
+passes droppable=True; the device encoders never drop a frame. Left out,
+as no caller of the port sets them: the JAX update's trial encodes, dup
+counts and activity average. The constructor takes no dequant tables
+(the JAX one's argument is unused).
+The arithmetic is the JAX package's, float by float, so the qi choices,
+the drops and the pass-1 file are byte-identical; numeric constants
+lifted from the reference are cited. The CBR path of
+`GopEncoder.encode_clip` uses `WindowRateController` (encode/gop.py)
+instead.
 """
 from __future__ import annotations
 
@@ -107,10 +112,14 @@ class RateControl:
             max(12, min(buf_delay, 256 * 256)) if buf_delay
             else min(max(self.keyframe_freq, 12), 256)
         )
+        self.drop_frames = True
+        self.cap_overflow = True
+        self.cap_underflow = False
         self.twopass = 0
         self.twopass_force_kf = False
         self.frame_metrics: list[FrameMetrics] = []  # pass-1 output log
         self._finite_window = False
+        self.ndrops = 0           # cumulative drop count (diagnostics)
         self._reset(fps)
 
     # ------------------------------------------------------------------
@@ -205,7 +214,48 @@ class RateControl:
         return nframes
 
     # ------------------------------------------------------------------
+    def resize_buffer(self, buf_delay: int, started: bool = True) -> None:
+        """On-the-fly rate buffer resize (oc_enc_rc_resize, rate.c:345):
+        update the bounds but not the current fullness once encoding has
+        begun."""
+        self.buf_delay = max(12, min(int(buf_delay), 256 * 256))
+        if not started or self.nencoded == 0:
+            self._reset()
+            return
+        fps = self.info.fps_numerator / self.info.fps_denominator
+        self.bits_per_frame = min(
+            max(self.info.target_bitrate / fps, 32.0), float(1 << 46)
+        )
+        self.max_fullness = self.bits_per_frame * self.buf_delay
+        self.target = self.max_fullness / 2.0 + (self.bits_per_frame / 4.0) \
+            * min(self.keyframe_freq, self.buf_delay)
+        idt = max(self.buf_delay >> 1, 10)
+        self.inter_delay_target = idt
+        # Jump to the new delay immediately if enough frames were seen;
+        # otherwise it is just the new target (rate.c:372-379).
+        if idt < min(self.inter_delay, self.inter_count):
+            self.scalefilter[1].reinit(idt)
+            self.inter_delay = idt
+        if self.twopass == 2:
+            self._finite_window = True
+            self._tp_refill_window()
+
+    def set_bitrate(self, bitrate: int) -> None:
+        """Mid-stream bitrate change (TH_ENCCTL_SET_BITRATE: a resize
+        that keeps the fullness, encode.c:1359-1553)."""
+        self.info.target_bitrate = bitrate
+        self.resize_buffer(self.buf_delay)
+
+    def set_rate_flags(self, flags: int) -> None:
+        """TH_RATECTL_DROP_FRAMES | CAP_OVERFLOW | CAP_UNDERFLOW
+        (theoraenc.h:390-405)."""
+        self.drop_frames = bool(flags & 1)
+        self.cap_overflow = bool(flags & 2)
+        self.cap_underflow = bool(flags & 4)
+
+    # ------------------------------------------------------------------
     def select_qi(self, frame_type: int, prev_qi: int | None,
+                  frames_since_kf: int | None = None,
                   clamp: bool = True) -> int:
         """Choose qi for the next frame (oc_enc_select_qi,
         rate.c:463-730)."""
@@ -225,9 +275,10 @@ class RateControl:
             # 1-pass: count the forced keyframes inside the buffer
             # window and target the last keyframe boundary before the
             # window's end (rate.c:482-499).
+            fsk = (frames_since_kf if frames_since_kf is not None
+                   else self._frames_since_kf)
             next_key = (
-                max(self.keyframe_freq - self._frames_since_kf, 0)
-                if qti == INTER else 0
+                max(self.keyframe_freq - fsk, 0) if qti == INTER else 0
             )
             nframes0 = (
                 self.buf_delay - min(next_key, self.buf_delay)
@@ -283,16 +334,17 @@ class RateControl:
         exp0 = self.exp[qti]
         # Soft overflow cap: keep 3% margin bits from going to waste
         # (rate.c:663-683).
-        margin = self.max_fullness / 32.0
-        soft_limit = self.fullness + self.bits_per_frame \
-            - (self.max_fullness - margin)
-        if soft_limit >= 1.0:
-            log_soft_limit = math.log2(soft_limit)
-            log_qexp = (log_qtarget - 2.0) * exp0
-            if log_scale0 - log_qexp < log_soft_limit:
-                log_qexp += (log_scale0 - log_soft_limit - log_qexp) \
-                    * (min(margin, soft_limit) / margin)
-                log_qtarget = log_qexp / exp0 + 2.0
+        if self.cap_overflow:
+            margin = self.max_fullness / 32.0
+            soft_limit = self.fullness + self.bits_per_frame \
+                - (self.max_fullness - margin)
+            if soft_limit >= 1.0:
+                log_soft_limit = math.log2(soft_limit)
+                log_qexp = (log_qtarget - 2.0) * exp0
+                if log_scale0 - log_qexp < log_soft_limit:
+                    log_qexp += (log_scale0 - log_soft_limit - log_qexp) \
+                        * (min(margin, soft_limit) / margin)
+                    log_qtarget = log_qexp / exp0 + 2.0
         # Limit the quality change per frame (rate.c:685-694).
         old_qi = prev_qi if prev_qi is not None else max(self.qi_min, 40)
         if clamp and self.nencoded > 0:
@@ -336,11 +388,18 @@ class RateControl:
         return best_qi
 
     # ------------------------------------------------------------------
-    def update(self, frame_type: int, qi: int, bits: int) -> None:
-        """Post-frame state update (oc_enc_update_rc_state,
-        rate.c:731-870), without frame dropping: the device encoder
-        never drops a frame."""
+    def update(self, frame_type: int, qi: int, bits: int,
+               droppable: bool = False) -> bool:
+        """Post-frame state update; returns True if the frame must be
+        dropped (oc_enc_update_rc_state, rate.c:731-870). Only a
+        droppable frame drops; the caller replaces it with a 0-byte dup
+        packet and must not advance the reference frames with the coded
+        data."""
         qti = INTRA if frame_type == INTRA else INTER
+        if not self.drop_frames or (
+            self.twopass == 2 and not self._finite_window
+        ):
+            droppable = False
         if bits <= 0:
             log_scale = -64.0
             bits = 0
@@ -363,6 +422,7 @@ class RateControl:
                     / (n + 1)
                 self._tp_bias_n[qti] += 1
             self._tp_advance_window()
+        dropped = False
         if bits > 0:
             if (
                 self.inter_delay < self.inter_delay_target
@@ -372,23 +432,33 @@ class RateControl:
                 self.inter_delay += 1
                 self.scalefilter[1].reinit(self.inter_delay)
             self.log_scale[qti] = self.scalefilter[qti].update(log_scale)
-            drop_count = min(self.prev_drop_count + 1, 0x7F)
-            self.log_drop_scale = math.log2(
-                max(self.vfrfilter.update(float(drop_count)), 1e-9)
-            )
-            self.prev_drop_count = 0
+            if droppable and self.fullness + self.bits_per_frame < bits:
+                self.prev_drop_count += 1
+                bits = 0
+                dropped = True
+                self.ndrops += 1
+            else:
+                drop_count = min(self.prev_drop_count + 1, 0x7F)
+                self.log_drop_scale = math.log2(
+                    max(self.vfrfilter.update(float(drop_count)), 1e-9)
+                )
+                self.prev_drop_count = 0
             if qti == INTER:
                 self.inter_count += 1
         else:
             self.prev_drop_count += 1
         self.fullness += self.bits_per_frame - bits
-        self.fullness = min(self.fullness, self.max_fullness)
+        if self.cap_overflow:
+            self.fullness = min(self.fullness, self.max_fullness)
+        if self.cap_underflow:
+            self.fullness = max(self.fullness, 0.0)
         self.rate_bias -= bits
         self.nencoded += 1
         if qti == INTRA:
             self._frames_since_kf = 0
         else:
             self._frames_since_kf += 1
+        return dropped
 
     # ------------------------------------------------------------------
     # 2-pass: pass 1 side.

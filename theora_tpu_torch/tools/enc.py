@@ -1,9 +1,10 @@
-"""Encode a .y4m file to Ogg Theora (.ogv) with the device GOP encoder.
+"""Encode a .y4m file to Ogg Theora (.ogv) with the device GOP encoder,
+or with the host encoder (--host).
 
 Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [-z SPEED]
            [-b BITRATE [--two-pass [--two-pass-file F] [--rate-buffer N]]]
            [--adaptive-quant {auto,on,off}] [--rd-strength S] [-j N]
-           [--device D] in.y4m out.ogv
+           [--host [--drop-frames 0|1]] [--device D] in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
 TpuGopEncoder) with its device-branch options: the qi (with a bitrate, the
@@ -23,6 +24,18 @@ copied: JAX's -j silently drops -z and --adaptive-quant (its transcode
 builds default encoders); here -j with either set to anything but its
 default, or with -b, is a usage error. JAX's --device drops
 --rd-strength (:147); here the device encoder takes it.
+
+``--host`` is JAX's default branch (``tools/enc.py:190-245``, taken there
+without --device): one host Encoder (encode/encoder.py) at -q, -k, -z,
+--adaptive-quant and --rd-strength, its closed loop decoded on --device;
+-b is one-pass CBR, where an inter frame that busts the budget is
+dropped (a 0-byte packet) unless ``--drop-frames 0``; --two-pass runs a
+pass-1 encoder (the fixed-qi measurement pass) and then a pass-2 one on
+its metrics, with --rate-buffer as pass 2's window (0: the whole file,
+where no frame drops). The output is byte-equal to ``python -m
+theora_tpu.tools.enc`` with the same flags. The device encoders never
+drop a frame, so --drop-frames without --host is a usage error (JAX's
+--device ignores it).
 """
 from __future__ import annotations
 
@@ -48,6 +61,54 @@ def pad_frames(frames, W: int, H: int, pixel_fmt: int):
          for p, (h, w) in zip(fr, sizes)]
         for fr in frames
     ]
+
+
+def host_encode(args, info, frames) -> list:
+    """JAX's host branch (tools/enc.py:190-245): headers and packets of
+    one host Encoder, after a pass-1 encoder with --two-pass."""
+    from theora_tpu_torch.encode.encoder import Encoder
+    from theora_tpu_torch.encode.rate import RateControl
+
+    def make_encoder():
+        e = Encoder(info, device=args.device)
+        e.keyframe_freq = args.keyframe_freq
+        e.adaptive_quant = {"auto": "auto", "on": True,
+                            "off": False}[args.adaptive_quant]
+        if args.rd_strength is not None:
+            e.rd_strength = args.rd_strength
+        if args.speed:
+            e.set_splevel(args.speed)
+        return e
+
+    blob = None
+    if args.two_pass:
+        # Pass 1: the fixed-qi measurement pass writing the reference's
+        # OT2P metrics (rate.c:878-936, encoder_example.c:1190-1226).
+        enc1 = make_encoder()
+        enc1.rc = RateControl(info, args.keyframe_freq)
+        enc1.rc.start_pass1()
+        body = b""
+        for fr in frames:
+            enc1.encode_frame(fr)
+            body += enc1.rc.pass1_frame_data()
+        blob = enc1.rc.pass1_summary() + body
+        if args.two_pass_file:
+            with open(args.two_pass_file, "wb") as f:
+                f.write(blob)
+        print(f"pass 1: {len(enc1.rc.frame_metrics)} frame metrics "
+              f"({len(blob)} bytes OT2P)", file=sys.stderr)
+    enc = make_encoder()
+    if blob is not None:
+        enc.rc = RateControl(info, args.keyframe_freq)
+        enc.rc.start_pass2(blob, buf_delay=args.rate_buffer or None)
+    if args.bitrate and args.drop_frames == 0:
+        if enc.rc is None:
+            enc.rc = RateControl(info, args.keyframe_freq)
+        enc.rc.drop_frames = False
+    pkts = enc.flush_headers()
+    for i, fr in enumerate(frames):
+        pkts.append(enc.encode_frame(fr, e_o_s=i == len(frames) - 1))
+    return pkts
 
 
 def main(argv=None):
@@ -83,11 +144,20 @@ def main(argv=None):
                          "through the host encoder (VBR, speed 0, "
                          "adaptive quant auto; byte-identical to "
                          "sequential)")
+    ap.add_argument("--host", action="store_true",
+                    help="the host encoder (JAX's default branch), its "
+                         "closed loop decoded on --device")
+    ap.add_argument("--drop-frames", type=int, choices=[0, 1], default=None,
+                    help="with --host and -b: drop an inter frame that "
+                         "busts the rate budget (1, the default) or not")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
     if args.two_pass and not args.bitrate:
         ap.error("--two-pass requires --bitrate")
+    if args.drop_frames is not None and not args.host:
+        ap.error("--drop-frames applies to the host encoder (--host); the "
+                 "device encoders never drop a frame")
     if args.workers and (args.speed or args.adaptive_quant != "auto"
                          or args.bitrate):
         ap.error("-j encodes at speed 0 with adaptive quant 'auto' and no "
@@ -119,6 +189,18 @@ def main(argv=None):
         mpix = len(frames) * W * H * 1.5 / 1e6
         print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "
               f"({mpix / dt:.2f} Mpix/s, {args.workers} workers on "
+              f"{args.device})", file=sys.stderr)
+        return
+    if args.host:
+        t0 = time.perf_counter()
+        pkts = host_encode(args, info, frames)
+        dt = time.perf_counter() - t0
+        with open(args.output, "wb") as f:
+            f.write(mux_stream(pkts))
+        total = sum(len(p.data) for p in pkts[3:])
+        mpix = len(frames) * W * H * 1.5 / 1e6
+        print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "
+              f"({mpix / dt:.2f} Mpix/s, host encoder, closed loop on "
               f"{args.device})", file=sys.stderr)
         return
     rd = {} if args.rd_strength is None else {"rd_strength": args.rd_strength}
