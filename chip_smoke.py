@@ -346,6 +346,26 @@ and prints no result line):
    processes, each on the card) on the 64x48 clip against its lines of
    host64x48_enc.
 
+13. the tools (theora_tpu_torch/tools/), each on the card: (a) the
+   slice's main path, `qualitysweep --size 1280x720 --frames 16 --qis
+   24,48 --content smooth,textured --skip ref`, the counts reset just
+   before it: every host-column and device-column stream against
+   sweep720_host.sha256 and sweep720_dev.sha256 (the JAX tool's
+   encoders', testdata/make_tools.py), each stream's BatchDecoder frames
+   equal to the sweep's PacketDecoder frames, the rows' PSNR and SSIM
+   repeated on the card and against the CPU to 1e-9, the walls; (b)
+   crosscheck's --gop, --fuzz and --synth trials (seed 24, 6 each, up to
+   96x80) and a fuzz stream with damaged packets: the card's
+   PacketDecoder against the CPU's (the plain versions), the same
+   statuses and bytes, KP, KL and KS's mc_recon launched; (c) collect
+   with mode_rd on 8 frames of the 720p source at qi 24 and 48: packets
+   and per-frame rows against collect720_moderd.sha256 (the JAX host
+   Encoder's); (d) profile --mode encode and decode: each Chrome trace
+   carries the codec's record_function labels; (e) play --stats-only -o
+   on the 720p test stream against hd720_q56_k12.sha256; (f) enc -a on
+   both branches where libvorbis loads (else a line says it is absent).
+   Every part's launches by kernel.
+
 Then one JSON line listing the eight kernels (times and bounds, K1's at
 both entries, KS's at its three and in the fused entries; launches on the 720p decode, each 720p
 encode path, the transcode, the per-packet decode, the mesh, the mesh
@@ -356,7 +376,8 @@ on the small mesh;
 for K1, K2, KT and KR the one launch over 3 segments beside 3 launches;
 KP's on the 720p decode at pp 7, by batch and per packet, and the pp
 goldens, its traced time per pp 7 pass and its times in turns with its
-earlier design), the card's name and power limit from nvidia-smi, and {"ok": true,
+earlier design; every kernel's launches on each tool path of 13, the
+sweep's counted in "launches"), the card's name and power limit from nvidia-smi, and {"ok": true,
 "device": {...}}. Imports nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
@@ -3459,6 +3480,346 @@ def real_size_pp7(smi: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# 13. The tools on the card.
+SWEEP_720P = ["--size", "1280x720", "--frames", "16", "--qis", "24,48",
+              "--content", "smooth,textured", "--skip", "ref"]
+TOOLS_COUNTS = {}
+
+
+def _tool_counts(what: str, must: tuple, never: tuple = ()) -> dict:
+    """The launches since _reset_counts of every kernel, kept under
+    TOOLS_COUNTS[what]: each kernel of `must` launched, none of `never`."""
+    c = _counts_all()
+    missing = [k for k in must if not c[k]]
+    extra = {k: c[k] for k in never if c[k]}
+    if missing or extra:
+        raise AssertionError(f"{what}: launches {c}; expected launches of "
+                             f"{missing} and none of {extra}")
+    TOOLS_COUNTS[what] = c
+    return c
+
+
+def _listed_blocks(name: str, n: int) -> list:
+    with open(os.path.join(TESTDATA, name)) as f:
+        lines = f.read().split()
+    return [lines[i:i + n] for i in range(0, len(lines), n)]
+
+
+def tools_sweep(smi: str) -> None:
+    """13 (a), the slice's main path: `qualitysweep --size 1280x720
+    --frames 16 --qis 24,48 --content smooth,textured --skip ref` on the
+    card, counts reset just before it. Every host-column stream against
+    sweep720_host.sha256 and every device-column stream against
+    sweep720_dev.sha256 (the JAX tool's encoders'); each stream decoded by
+    BatchDecoder(device="cuda").decode_clip equal to the sweep's
+    PacketDecoder frames; every row's PSNR and SSIM against the same
+    metric recomputed on the card (equal) and on the CPU (to 1e-9: the
+    clip's PSNR, and one frame's SSIM per stream); the walls."""
+    from theora_tpu_torch import metrics
+    from theora_tpu_torch.decode.batch import BatchDecoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.tools import qualitysweep as qs
+
+    keep = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = qs.main([*SWEEP_720P, "--device", "cuda"], keep=keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _tool_counts("qualitysweep 720p",
+                     ("K1 decode", "K1 encode", "K2", "KT", "KM", "KL",
+                      "KS"), ("KR", "KP"))
+    lists = {"host": _listed_blocks("sweep720_host.sha256", 19),
+             "dev": _listed_blocks("sweep720_dev.sha256", 19)}
+    order = [(r["content"], r["qi"]) for r in rows]
+    worst = 0.0
+    for i, (kind, qi) in enumerate(order):
+        src = qs.gen_content(kind, 16)
+        for col in ("host", "dev"):
+            pkts, rec = keep[(kind, qi, col)]
+            if _packet_hashes(pkts) != lists[col][i]:
+                raise AssertionError(f"qualitysweep {kind} q{qi} {col}: "
+                                     f"packets differ from the JAX list")
+            dec = BatchDecoder(parse_info_header(pkts[0].data),
+                               parse_setup_header(pkts[2].data), "cuda")
+            frames = dec.decode_clip([p.data for p in pkts[3:]], batch=8)
+            for a, b in zip(frames, rec):
+                if any(not np.array_equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"qualitysweep {kind} q{qi} {col}:"
+                                         f" the two decoders differ")
+            dev_psnr = qs.luma_psnr(src, rec, "cuda")
+            dev_ssim = qs.luma_ssim(src, rec, "cuda")
+            r = rows[i]
+            if (dev_psnr, dev_ssim) != (r[f"{col}_psnr"], r[f"{col}_ssim"]):
+                raise AssertionError(f"qualitysweep {kind} q{qi} {col}: the "
+                                     f"card's metrics are not repeatable")
+            cpu_psnr = metrics.clip_luma_psnr(src, rec)
+            last = len(rec) - 1
+            card_ssim = metrics.ssim(
+                torch.as_tensor(src[last][0]).cuda(),
+                torch.as_tensor(rec[last][0]).cuda())
+            cpu_ssim = metrics.ssim(src[last][0], rec[last][0])
+            for a, b in ((dev_psnr, cpu_psnr), (card_ssim, cpu_ssim)):
+                err = abs(a - b) / abs(b)
+                worst = max(worst, err)
+                if err > 1e-9:
+                    raise AssertionError(f"qualitysweep {kind} q{qi} {col}:"
+                                         f" card {a!r} vs CPU {b!r}")
+            log(f"[13a] {kind} q{qi} {col}: {r[f'{col}_bytes']} bytes, "
+                f"{dev_psnr:.4f} dB, SSIM {dev_ssim:.5f}, encode wall "
+                f"{keep[(kind, qi, col, 's')]:.4f} s; packets equal the "
+                f"JAX list; BatchDecoder == PacketDecoder | {smi}")
+    log(f"[13a] qualitysweep 1280x720 16 frames x 2 contents x 2 qis, host "
+        f"and device columns: wall {wall:.4f} s (host encodes "
+        f"{sum(v for k, v in keep.items() if k[2:] == ('host', 's')):.4f}"
+        f" s, device encodes "
+        f"{sum(v for k, v in keep.items() if k[2:] == ('dev', 's')):.4f} "
+        f"s); card vs CPU metrics worst relative error {worst:.3g}; "
+        f"launches {c} | {smi}")
+
+
+def _damaged(stream):
+    """A fuzz stream with packets the host parse rejects (a header bit
+    set, all ones) and ones it takes (all zeros, one byte)."""
+    from theora_tpu_torch.tpkt import Packet
+
+    pk = stream.packets
+    bad = [b"\x80" + pk[4].data[1:], b"\xff" * 30, bytes(30), pk[4].data[:1]]
+    stream.packets = pk[:4] + [Packet(d, granulepos=1) for d in bad] + pk[4:]
+    stream.desc += " +damaged"
+    return stream
+
+
+def tools_crosscheck(smi: str) -> dict:
+    """13 (b): crosscheck's --gop, --fuzz and --synth trials (seed 24, 6
+    each, up to 96x80; the streams built on the card) and a fuzz stream
+    with damaged packets: PacketDecoder(device="cuda") against
+    PacketDecoder(device="cpu") (the kernels' plain versions), the same
+    per-packet statuses and bytes; the card decodes' launches of KP, KL
+    and KS's mc_recon, each above 0."""
+    from theora_tpu_torch.tools import crosscheck as cc
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(_counts_all(), 0)
+    statuses = {"ok": 0, "dup": 0, "bad": 0}
+    n = 0
+    for direction in ("gop", "fuzz", "synth"):
+        rng = np.random.RandomState(24)
+        for t in range(7 if direction == "fuzz" else 6):
+            stream = cc.BUILDERS[direction](rng, t, "cuda")
+            if t == 6:
+                stream = _damaged(stream)
+            _reset_counts()
+            card = cc.decode_port(stream, "cuda")
+            torch.cuda.synchronize()
+            for k, v in _counts_all().items():
+                total[k] += v
+            _reset_counts()
+            plain = cc.decode_port(stream, "cpu")
+            if any(_counts_all().values()):
+                raise AssertionError(f"crosscheck {stream.desc}: the CPU "
+                                     f"decode launched {_counts_all()}")
+            err = cc.compare(stream, plain, card)
+            if card[0] != plain[0] or err:
+                raise AssertionError(f"crosscheck {stream.desc}: card "
+                                     f"{card[0]} vs plain {plain[0]}: {err}")
+            for s in card[0]:
+                statuses[s] += 1
+            n += 1
+    if not (total["KP"] and total["KL"] and total["KS"] and statuses["bad"]):
+        raise AssertionError(f"crosscheck: launches {total}, statuses "
+                             f"{statuses}; expected KP, KL, mc_recon and a "
+                             f"rejected packet")
+    TOOLS_COUNTS["crosscheck decodes"] = total
+    log(f"[13b] crosscheck --gop/--fuzz/--synth: {n} streams, statuses "
+        f"{statuses}, card == plain for every packet; the card decodes' "
+        f"launches KP {total['KP']}, KL {total['KL']}, KS mc_recon "
+        f"{total['KS']}, K1 decode {total['K1 decode']}; "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+    return total
+
+
+def tools_collect(smi: str) -> None:
+    """13 (c): collect's gather with mode_rd on the first 8 frames of the
+    720p source at qi 24 and 48 on the card: every packet and every
+    frame's rows against collect720_moderd.sha256 (the JAX host
+    Encoder's); the closed loop's launches."""
+    import tempfile
+
+    from theora_tpu_torch.tools import collect
+
+    mk = _load_testdata("make_tools")
+    want = mk.read_collect()
+    frames = mk.hd_source()[:mk.COLLECT_FRAMES]
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "src.i420")
+        with open(path, "wb") as f:
+            for fr in frames:
+                for p in fr:
+                    f.write(np.ascontiguousarray(p).tobytes())
+        record = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rows = collect.gather([(path, 1280, 720)], list(want),
+                                  kf=mk.COLLECT_KF,
+                                  max_frames=mk.COLLECT_FRAMES, mode_rd=True,
+                                  device="cuda", record=record)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c = _tool_counts("collect mode_rd 720p", ("K1 decode", "KS"),
+                     ("K1 encode", "K2", "KT", "KR", "KM", "KP"))
+    for (qi, (pk_want, rows_want)), (pkts, per_frame) in zip(want.items(),
+                                                              record):
+        got = [mk.rows_hash(r) for r in per_frame]
+        if _packet_hashes(pkts) != pk_want or got != rows_want:
+            raise AssertionError(f"collect q{qi}: packets or rows differ "
+                                 f"from the JAX list")
+    log(f"[13c] collect --mode-rd 1280x720 8 frames at qi {list(want)}: "
+        f"{len(rows)} rows, every packet and every frame's rows equal the "
+        f"JAX list; wall {wall:.4f} s; launches {c} | {smi}")
+
+
+def tools_profile(smi: str) -> None:
+    """13 (d): profile --mode encode and --mode decode on the card: each
+    trace file exists and carries the codec's record_function labels."""
+    import tempfile
+
+    from theora_tpu_torch.tools import profile
+
+    labels = {"encode": ("theora.enc.me", "theora.enc.fdct_quant",
+                         "theora.enc.trellis", "theora.enc.idct_recon"),
+              "decode": ("theora.dequant_idct", "theora.mc_recon")}
+    with tempfile.TemporaryDirectory() as td:
+        for mode, want in labels.items():
+            out = os.path.join(td, mode)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                profile.main(["--mode", mode, "--out", out, "--device",
+                              "cuda"])
+            with open(os.path.join(out, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            names = {e.get("name") for e in events}
+            kernels = sum(e.get("cat") == "kernel" for e in events)
+            missing = [x for x in want if x not in names]
+            if missing:
+                raise AssertionError(f"profile {mode}: labels {missing} "
+                                     f"missing from the trace")
+            log(f"[13d] profile --mode {mode}: trace.json with "
+                f"{len(events)} events, labels {list(want)} present, "
+                f"{kernels} device kernel events; "
+                f"{time.perf_counter() - t0:.1f} s | {smi}")
+
+
+def tools_play(smi: str) -> None:
+    """13 (e): play --stats-only -o on the 720p test stream: the y4m's
+    frames against hd720_q56_k12.sha256; its launches."""
+    import tempfile
+
+    from theora_tpu_torch.tools import play
+
+    with open(os.path.join(TESTDATA, f"{HD_NAME}.sha256")) as f:
+        want = f.read().split()
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "out.y4m")
+        _reset_counts()
+        t0 = time.perf_counter()
+        play.main(["--stats-only", "-o", out,
+                   os.path.join(TESTDATA, f"{HD_NAME}.ogv"), "--device",
+                   "cuda"])
+        wall = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            data = f.read()
+    frames = data.split(b"FRAME\n")[1:]
+    got = [hashlib.sha256(fr).hexdigest() for fr in frames]
+    if got != want:
+        raise AssertionError(f"play: {len(got)} frames, "
+                             f"{sum(a == b for a, b in zip(got, want))} "
+                             f"equal the list of {len(want)}")
+    c = _tool_counts("play 720p", ("K1 decode", "KS"), ("KP",))
+    log(f"[13e] play --stats-only -o: all {len(got)} y4m frames equal "
+        f"{HD_NAME}.sha256; wall {wall:.4f} s (a warm-up decoder's first "
+        f"frame included); launches {c} | {smi}")
+
+
+def tools_audio(smi: str) -> None:
+    """13 (f): enc -a on a WAV this phase writes, where the system's
+    libvorbis loads: the device and the host branch; the A/V file holds
+    the video stream of the same encode without audio and a Vorbis
+    stream that decodes to the WAV's length."""
+    import tempfile
+    import wave
+
+    from theora_tpu_torch.ogg import PageReader
+    from theora_tpu_torch.tools import enc, vorbis
+    from theora_tpu_torch.tools.y4m import write_y4m
+
+    if not vorbis.available():
+        log(f"[13f] libvorbis is absent on this machine: enc -a not run "
+            f"| {smi}")
+        return
+    mk = _load_testdata("make_hd720_enc")
+    rate, n = 44100, 44100
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "a.wav")
+        t = np.arange(n) / rate
+        pcm = np.stack([np.sin(2 * np.pi * 440 * t),
+                        np.sin(2 * np.pi * 550 * t)], axis=1)
+        with wave.open(wav, "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes((pcm * 16000).astype("<i2").tobytes())
+        y4m = os.path.join(td, "v.y4m")
+        write_y4m(y4m, mk.clip64x48_frames(6))
+        for branch in ([], ["--host"]):
+            outs = {}
+            for audio in ([], ["-a", wav]):
+                path = os.path.join(td, f"{len(audio)}.ogv")
+                _reset_counts()
+                enc.main([y4m, path, "-q", "40", "-k", "4", *branch, *audio,
+                          "--device", "cuda"])
+                per = {}
+                with open(path, "rb") as f:
+                    for sn, p in PageReader(f.read()).packets():
+                        per.setdefault(sn, []).append(p)
+                outs[bool(audio)] = per
+            video = list(outs[False].values())[0]
+            av = outs[True]
+            vids = [v for v in av.values() if v[0].data[:7] == b"\x80theora"]
+            auds = [v for v in av.values() if v[0].data[:7] == b"\x01vorbis"]
+            if ([p.data for p in vids[0]] != [p.data for p in video]
+                    or len(auds) != 1):
+                raise AssertionError(f"enc -a {branch}: the A/V file's "
+                                     f"streams are wrong")
+            dec = vorbis.VorbisDecoder(auds[0][:3])
+            got = sum(len(dec.decode(p)) for p in auds[0][3:])
+            if abs(got - n) > 2048:
+                raise AssertionError(f"enc -a {branch}: {got} samples "
+                                     f"decoded of {n}")
+            c = _counts_all()
+            TOOLS_COUNTS[f"enc -a {' '.join(branch) or 'device'}"] = c
+            log(f"[13f] enc -a {' '.join(branch) or '(device branch)'}: "
+                f"video equal to the encode without audio, Vorbis "
+                f"{len(auds[0]) - 3} packets decoding to {got} samples of "
+                f"{n}; launches {c} | {smi}")
+
+
+def tools_phase(smi: str) -> None:
+    """13: the tools on the card, (a)-(f)."""
+    t0 = time.perf_counter()
+    tools_sweep(smi)
+    tools_crosscheck(smi)
+    tools_collect(smi)
+    tools_profile(smi)
+    tools_play(smi)
+    tools_audio(smi)
+    log(f"[13] the tools' phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3536,20 +3897,24 @@ def main() -> int:
         paths[label] = (k1_host, 0, 0, 0, 0, kl_host, ks_host)
     host_small()
     enc_cli_workers(smi)
+    # The tools' slice: its main path is the quality sweep (13a).
+    tools_phase(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
     # the mesh, the intra core; K2 on those encode paths and the batch
     # intra encoder; KT on the encode, the transcode and the mesh.
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
                   "intra core", "intra encode", "host encode",
                   "mesh ranks q56 auto {1,2}", "host th_enc_ctx 720p CBR")
+    sweep = TOOLS_COUNTS["qualitysweep 720p"]
     k1["launches"] = (decode["K1 decode"]
-                      + sum(paths[p][0] for p in main_paths))
-    k2["launches"] = sum(paths[p][1] for p in main_paths)
-    kt["launches"] = sum(paths[p][2] for p in main_paths)
+                      + sum(paths[p][0] for p in main_paths)
+                      + sweep["K1 decode"] + sweep["K1 encode"])
+    k2["launches"] = sum(paths[p][1] for p in main_paths) + sweep["K2"]
+    kt["launches"] = sum(paths[p][2] for p in main_paths) + sweep["KT"]
     kr["launches"] = (paths["encode q48 speed 2"][3]
                       + paths["mesh speed 2"][3]
                       + paths["mesh ranks q48 speed 2 {1,2}"][3])
-    km["launches"] = sum(paths[p][4] for p in main_paths)
+    km["launches"] = sum(paths[p][4] for p in main_paths) + sweep["KM"]
     # KL runs where a frame's qi is below 47: the 2-pass encode and the
     # decode of its packets, the golden decodes, the small mesh and the
     # host Encoder's closed loop under a target bitrate.
@@ -3558,14 +3923,15 @@ def main() -> int:
                 "mesh 64x48 CBR gop axis 4": kl_mesh_small}
     kl["launches"] = (paths["encode 2-pass 2 Mbit/s"][5]
                       + paths["host th_enc_ctx 720p CBR"][5]
-                      + sum(kl_extra.values()))
+                      + sum(kl_extra.values()) + sweep["KL"])
     # KS launches on its own once per plane per decoded frame, and once
     # per plane per frame step on a frag group's ranks (its place entry);
     # on an encode step its work runs inside K1's, K2's and KR's fused
     # entries, whose launches are listed by path too.
     ks_extra = {"golden decodes": ks_golden,
                 "decode of the 2-pass packets": ks_twopass_decode}
-    ks["launches"] = decode["KS"] + sum(paths[p][6] for p in main_paths)
+    ks["launches"] = (decode["KS"] + sum(paths[p][6] for p in main_paths)
+                      + sweep["KS"])
     ks["launches_in_fused_entries_by_path"] = dict(KS_FUSED)
     for k, entry in ((k1, "mc_idct_recon_skip"), (k2, "mc_fdct_quantize"),
                      (kr, "mc_fdct_quantize_rd")):
@@ -3583,6 +3949,15 @@ def main() -> int:
                                    "three_launches": segments[key][1]}
     kl["launches_by_path"].update(kl_extra)
     ks["launches_by_path"].update(ks_extra)
+    # The tools' paths (13): every kernel's launches on each, K1's decode
+    # and encode entries apart.
+    for k, keys in ((k1, ("K1 decode", "K1 encode")), (k2, ("K2",)),
+                    (kt, ("KT",)), (kr, ("KR",)), (km, ("KM",)),
+                    (kl, ("KL",)), (ks, ("KS",)), (kp, ("KP",))):
+        k["launches_by_tool_path"] = {
+            path: (c[keys[0]] if len(keys) == 1
+                   else {key: c[key] for key in keys})
+            for path, c in TOOLS_COUNTS.items()}
     k1["intra_core"] = intra_kern["K1"]
     k2["intra_core"] = intra_kern["K2"]
     # KP runs where a pp level is set: the 720p decode at pp 7 (the

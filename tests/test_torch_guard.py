@@ -93,7 +93,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 10
     for rel in ("encode/intra.py", "encode/encoder.py", "pipeline.py",
-                "debug.py"):
+                "debug.py", "metrics.py", "modedec_tables.py",
+                "encode/modedec.py", "tools/psnr.py", "tools/info.py",
+                "tools/collect.py", "tools/qualitysweep.py",
+                "tools/crosscheck.py", "tools/profile.py",
+                "tools/vorbis.py", "tools/play.py", "tools/img2theora.py"):
         assert os.path.join(REPO_ROOT, "theora_tpu_torch", rel) in sources
     bad = []
     for path in sources:
@@ -107,7 +111,7 @@ def test_smoke_scripts_import_no_jax_when_loaded():
     scripts = _smoke_scripts()
     names = sorted(os.path.basename(p) for p in scripts)
     assert names == ["make_compat_enc.py", "make_hd720.py",
-                     "make_hd720_enc.py"]
+                     "make_hd720_enc.py", "make_tools.py"]
     bad = [(os.path.basename(path), mod) for path in scripts
            for mod in _imports_of(_import_time_nodes(_parse(path)))
            if mod.split(".")[0] in FORBIDDEN]
@@ -406,6 +410,19 @@ def test_encoder_settings_that_are_ported():
         ref = inspect.signature(getattr(TpuGopEncoder, fn)).parameters
         assert {k: v.default for k, v in ours.items()} == \
             {k: v.default for k, v in ref.items()}, fn
+    # The host Encoder's mode_rd and collect settings, with JAX's
+    # defaults: off, a rate scale of 1 and three seed levels.
+    from theora_tpu.encode.encoder import Encoder as JEncoder
+    from theora_tpu.info import TheoraInfo as JInfo
+    from theora_tpu_torch.encode.encoder import Encoder
+
+    host = Encoder(_small_info(), device="cpu")
+    jhost = JEncoder(JInfo(frame_width=64, frame_height=48, pic_width=64,
+                           pic_height=48, quality=40))
+    for name in ("mode_rd", "mode_rd_rate_scale", "mode_rd_seed_levels",
+                 "collect"):
+        assert getattr(host, name) == getattr(jhost, name), name
+    assert host.mode_rd is False and host.collect is None
 
 
 def test_stages_and_transcode_take_the_jax_signatures():
@@ -2069,3 +2086,90 @@ def test_decoders_reach_kp_and_nothing_calls_the_plain_postprocessor(
                             and "postprocess_plane" in names), rel
                 assert not (n.module.endswith("ops")
                             and "postproc" in names), rel
+
+
+# Each tool that encodes, decodes or computes on a device: its module and
+# the arguments that reach the device (files that exist where one is
+# read).
+_TOOL_CLIS = {
+    "psnr": lambda d: [d["y4m"], d["y4m"]],
+    "collect": lambda d: [f"{d['i420']}:64:48", "--out", d["out"],
+                          "--qis", "40"],
+    "qualitysweep": lambda d: ["--size", "64x48", "--frames", "2",
+                               "--qis", "40", "--skip", "ref"],
+    "crosscheck": lambda d: ["1", "3"],
+    "profile": lambda d: ["--size", "64x48", "--frames", "2", "--out",
+                          d["out"]],
+    "play": lambda d: ["--stats-only", d["ogv"]],
+    "img2theora": lambda d: [d["png"], d["out"]],
+    "enc": lambda d: [d["y4m"], d["out"]],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_TOOL_CLIS))
+def test_tool_clis_default_to_cuda_and_raise_without_a_card(
+        monkeypatch, tmp_path, tool):
+    """Every tool that runs an encoder, a decoder or the metrics takes
+    --device, runs on "cuda" unless asked for the CPU, and raises without
+    a card (info, which decodes nothing, takes no device)."""
+    import importlib
+
+    from PIL import Image
+
+    from theora_tpu_torch.tools.y4m import write_y4m
+
+    mod = importlib.import_module(f"theora_tpu_torch.tools.{tool}")
+    frames = [[np.full((48, 64), 90, np.uint8),
+               np.full((24, 32), 120, np.uint8),
+               np.full((24, 32), 130, np.uint8)]]
+    d = {"y4m": str(tmp_path / "a.y4m"), "out": str(tmp_path / "out"),
+         "i420": os.path.join(TESTDATA, "clip64x48.i420"),
+         "ogv": os.path.join(TESTDATA, "cif_k4_q40.ogv"),
+         "png": str(tmp_path / "*.png")}
+    write_y4m(d["y4m"], frames)
+    Image.fromarray(np.zeros((48, 64, 3), np.uint8)).save(tmp_path / "a.png")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (_TOOL_CLIS[tool](d), _TOOL_CLIS[tool](d) + ["--device",
+                                                             "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
+    if tool != "crosscheck":
+        src = inspect_source(mod)
+        assert 'ap.add_argument("--device", default="cuda"' in src
+    from theora_tpu_torch.tools import info
+
+    assert "--device" not in inspect_source(info)
+
+
+def inspect_source(mod) -> str:
+    import inspect
+
+    return inspect.getsource(mod)
+
+
+@pytest.mark.parametrize("tool", ["collect", "crosscheck", "qualitysweep"])
+def test_tool_helpers_default_to_cuda(monkeypatch, tool):
+    """Every public function of a tool that takes a device runs on "cuda"
+    unless the caller asks for the CPU; the sweep's metric helpers raise
+    without a card."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"theora_tpu_torch.tools.{tool}")
+    fns = [f for name, f in vars(mod).items()
+           if inspect.isfunction(f) and not name.startswith("_")
+           and f.__module__ == mod.__name__
+           and "device" in inspect.signature(f).parameters]
+    assert fns
+    for f in fns:
+        assert inspect.signature(f).parameters["device"].default == "cuda", \
+            f.__name__
+    if tool == "qualitysweep":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        frames = [[np.zeros((16, 16), np.uint8)]]
+        for f in (mod.luma_psnr, mod.luma_ssim):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                f(frames, frames)
+            assert np.isfinite(f(frames, [[np.ones((16, 16), np.uint8)]],
+                                 "cpu"))

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The torch device an entry point runs on. ``cuda`` without a

@@ -77,6 +77,11 @@ MODE_INTER_MV_FOUR = 7
 # Reference index of an uncoded fragment (state.h:171-184).
 FRAME_NONE = 3
 
+# The reference frame each coding mode predicts from (state.c:33-45).
+FRAME_FOR_MODE = np.array(
+    [FRAME_PREV, FRAME_SELF, FRAME_PREV, FRAME_PREV, FRAME_PREV,
+     FRAME_GOLD, FRAME_GOLD, FRAME_PREV], dtype=np.int32)
+
 # Mode alphabets of coding schemes 1..6 (decode.c:54-93); scheme 0 is
 # transmitted, scheme 7 is fixed-length in mode order.
 MODE_ALPHABETS = np.array(

@@ -79,6 +79,13 @@ class BatchDecoder(Decoder):
         self._last_out: dict[int, torch.Tensor] | None = None
         self._pp_shown = False
         self._pp_tables: tuple[torch.Tensor, torch.Tensor] | None = None
+        # With want_frag_bits set, each parsed packet leaves its coded
+        # fragments in token order (_last_token_order) and the bits each
+        # spent (_frag_bits): the host Encoder's collect reads them
+        # (JAX decoder.py:365-374).
+        self.want_frag_bits = False
+        self._last_token_order = None
+        self._frag_bits = None
 
     # ------------------------------------------------------------------
     def _parse_batch(self, packets: list[bytes]) -> list[dict | None]:
@@ -97,7 +104,7 @@ class BatchDecoder(Decoder):
             side = self._parse_sideinfo_native(data)
             coded = side["coded"]
             fragis = [f[coded[f]] for f in self._scan_by_plane]
-            want_bits = bool(self.telemetry["bits"])
+            want_bits = bool(self.telemetry["bits"]) or self.want_frag_bits
             try:
                 qzc, lz, dcc, *rest = self._native.decode_frame_tokens(
                     data, side["bitpos"], [len(f) for f in fragis],
@@ -106,6 +113,8 @@ class BatchDecoder(Decoder):
                 raise BadPacketError(str(e)) from e
             self._update_granpos()
             order = np.concatenate(fragis)
+            self._last_token_order = order
+            self._frag_bits = rest[1] if want_bits else None
             pp, repeat = None, False
             if coded.any():
                 pp = self._pp_frame(side, self.qis,

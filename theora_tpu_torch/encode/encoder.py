@@ -18,7 +18,10 @@ qis, the early skip of speed 1 and more, the R/D skip), `_finish_inter`;
 keyframe, the native one with the trellis or the R/D quantizer), the
 trellis planner's bit tables, `_select_adaptive_qis` (gates and qi triple
 from encode/aq.py), `_dc_predict_and_order`, `_uncoded_ssd_plane`,
-`_pad_plane` and the token packing. Headers, the frame header, the coded
+`_pad_plane` and the token packing; the SATD + fitted-table mode
+decision of mode_rd (`_mode_decide_rd`, encode/modedec.py, with the
+per-fragment fill of its plan, `_fill_fragments`) and the R-D metrics of
+collect (`_collect_frame_metrics`). Headers, the frame header, the coded
 flags, the modes, the vectors and the qi-index runs come from
 encode/packer.py:FramePacker. The host tier is native (C++, native/),
 with no pure-Python fallback.
@@ -33,7 +36,9 @@ entry, motion compensation, the loop filter and the borders, and hands
 the padded planes to the host once per inter frame. A keyframe's packet
 replaces every older undecoded packet, so an all-keyframe encode builds no
 decoder. Because only final packets are decoded, the auto-keyframe retry
-needs none of the JAX decoder's rewinds (encoder.py:383-404).
+needs none of the JAX decoder's rewinds (encoder.py:383-404). Under
+collect the decoder decodes each frame's packet at once, with the bits of
+each fragment's tokens, and the frame's rows read its reconstruction.
 
 A dropped frame is a 0-byte packet (or, with vp3_compatible, an inter
 frame that codes no block); the closed loop decodes it like any final
@@ -41,9 +46,9 @@ packet, so its references stay put, as the JAX Encoder's do.
 vp3_compatible also turns adaptive quantization off and makes an inter
 frame that codes no block a drop frame.
 
-Left out (ROADMAP section 1): collect, mode_rd, coupled_skip, the luma
-skip guards and luma_ext_skip (off by default), fast_recon and the
-pack/recon overlap thread. With
+Left out (ROADMAP section 1): coupled_skip, the luma skip guards and
+luma_ext_skip (off by default), fast_recon and the pack/recon overlap
+thread. With
 use_trellis=False at speed levels 0-1 (set directly; set_splevel never
 makes it), a frame that engages adaptive quantization's qi triple raises
 NotImplementedError.
@@ -53,6 +58,19 @@ has no block left to code before the transform (the early skip of speed
 1), the JAX Encoder keeps no trellis plans for it, so a later plane's
 plans and its columns cannot be packed together (ROADMAP section 3); the
 port gives the plane empty plans, as on a one-qi frame.
+
+Fault F12 of the reference, not copied: JAX's mode_rd at speed levels 2-4
+reads the 4MV search's block coordinates, which only levels 0-1 compute,
+and raises UnboundLocalError (encoder.py:1484-1486,1594); the port
+computes them at every level, so mode_rd prices 4MV with zero vectors
+there, as the JAX decision does with the zero bmvs of those levels.
+
+Fault F13 of the reference, not copied: the 4MV block refinement can
+return a -32 half-pel component (its seed, the MB vector halved, reaches
+-16 full-pel), which the MV code cannot carry; JAX's mode_rd then raises
+KeyError pricing its bits (encoder.py:1856). The port leaves 4MV out of
+the candidates of an MB whose block vectors hold such a component, for
+any mode_rd_seed_levels and mode_rd_rate_scale.
 """
 from __future__ import annotations
 
@@ -65,28 +83,37 @@ from theora_tpu_torch import resolve_device
 from theora_tpu_torch.bitio import BitWriter
 from theora_tpu_torch.constants import (
     DCT_TOKEN_EXTRA_BITS,
+    FRAME_FOR_MODE,
     FRAME_GOLD,
     FRAME_NONE,
     FRAME_SELF,
+    MODE_GOLDEN_NOMV,
+    MODE_INTER_MV,
+    MODE_INTER_MV_FOUR,
+    MODE_INTER_MV_LAST,
+    MODE_INTER_MV_LAST2,
     MODE_INTER_NOMV,
+    MODE_INTRA,
     MVMAP,
     MVMAP2,
 )
 from theora_tpu_torch.decode.scalar import PacketDecoder
-from theora_tpu_torch.encode import aq
+from theora_tpu_torch.encode import aq, modedec
 from theora_tpu_torch.encode.packer import FramePacker, sb_run_pack
 from theora_tpu_torch.encode.rate import RateControl
 from theora_tpu_torch.headers import SetupInfo
-from theora_tpu_torch.huffman import Codebook
+from theora_tpu_torch.huffman import MV_VLC_BOOK, Codebook
 from theora_tpu_torch.info import INTER_FRAME, INTRA_FRAME, TheoraInfo
 from theora_tpu_torch.native import (
     dc_residuals_native,
     enc_residuals_native,
     fdct_quantize_rd_native,
+    hadamard_batch_native,
     me_block_refine_native,
     mode_decide_fill_native,
     motion_estimate_native,
     sad_batch_native,
+    satd_halfpel_batch_native,
     ssd8_plane_native,
     trellis_plan_blocks_native,
 )
@@ -157,6 +184,19 @@ class Encoder:
         # 0-byte dups (encode.c:865-906), no adaptive quantization; pair
         # with the VP31 quantization and Huffman tables.
         self.vp3_compatible = False
+        # R-D metrics collection (collect.c analogue): None, or a list to
+        # which each frame appends an [n, 7] int64 array, one row (qi,
+        # pli, qti, satd, bits, ssd, ctx) per coded fragment in token
+        # order (encoder.py:151-153, 2487-2540).
+        self.collect = None
+        # The SATD + fitted-table mode decision (encoder.py:154-177): off
+        # by default; the rate multiplier on its lambda; the MV-bit
+        # discounts of its seeded walks (the cheapest full-price plan
+        # wins).
+        self.mode_rd = False
+        self.mode_rd_rate_scale = 1.0
+        self.mode_rd_seed_levels = (1.0, 0.25, 0.0)
+        self._mv_len = None
         self.rc = None
         self.curframe_num = -1
         self.keyframe_num = 0
@@ -174,6 +214,9 @@ class Encoder:
         # and the final packets it has not decoded yet.
         self._dec = None
         self._undecoded: list[bytes] = []
+        # The references as the host last downloaded them; None once a
+        # packet is queued for the decoder.
+        self._refs_host = None
         # Cumulative host seconds: whole frames ("frame_s"), the inter
         # frames' motion search and mode decision ("analysis_s"), and the
         # closed loop's decode and download of the references
@@ -258,6 +301,11 @@ class Encoder:
         if is_key:
             self._frames_since_keyframe = 0
         planes = [p[::-1].astype(np.uint8) for p in ycbcr]
+        if self.collect is not None:
+            # Each block's SATD and qti as the last transform of the frame
+            # left them (encoder.py:372-375).
+            self._satd_frame = np.zeros(self.geometry.nfrags, np.int64)
+            self._qti_frame = np.zeros(self.geometry.nfrags, np.int32)
         if self.rc is not None:
             self.qi = self.rc.select_qi(
                 INTRA_FRAME if is_key else INTER_FRAME, self.qi,
@@ -294,6 +342,13 @@ class Encoder:
             # decode.
             self._undecoded = []
         self._undecoded.append(data)
+        self._refs_host = None
+        if self.collect is not None:
+            # Decode the frame at once, with its bits per fragment, and
+            # read its reconstruction (encoder.py:431-445).
+            refs = self._references(want_bits=True)
+            if len(data):
+                self._collect_frame_metrics(planes, refs[0])
         shift = self.info.keyframe_granule_shift
         self.granpos = ((self.keyframe_num + 1) << shift) + (
             self.curframe_num - self.keyframe_num)
@@ -333,23 +388,66 @@ class Encoder:
         self.keyframe_num = self.curframe_num
         return data
 
-    def _references(self):
+    def _references(self, want_bits: bool = False):
         """The closed loop's (prev, gold) references, three padded uint8
         planes each in bitstream orientation: the decoder on the card
         decodes the final packets it has not seen, then hands its
-        references over once."""
+        references over once per decoded frame. want_bits: the decoder
+        keeps each fragment's token bits (collect)."""
+        if self._refs_host is not None:
+            return self._refs_host
         t0 = time.perf_counter()
         if self._dec is None:
             books = [Codebook([(t, p, n) for t, (p, n) in enumerate(tb)])
                      for tb in self.huff_codes]
             setup = SetupInfo(qinfo=self._fp.qinfo, codebooks=books)
             self._dec = PacketDecoder(self.info, setup, self.device)
+        self._dec.want_frag_bits = want_bits
         for data in self._undecoded:
             self._dec.decode_packet(data)
         self._undecoded = []
-        refs = self._dec.reference_planes()
+        self._refs_host = self._dec.reference_planes()
         self.timing["decode_s"] += time.perf_counter() - t0
-        return refs
+        return self._refs_host
+
+    def _collect_frame_metrics(self, planes, recon) -> None:
+        """Append the frame's rows to self.collect, one per coded
+        fragment in token order: (qi, pli, qti, satd, bits, ssd, ctx),
+        ssd the reconstruction's pixel SSD and ctx the mean of the left
+        and upper neighbours' SATDs (encoder.py:2487-2540)."""
+        dec = self._dec
+        order = dec._last_token_order
+        bits = dec._frag_bits
+        if order is None or bits is None or len(order) == 0:
+            return
+        g = self.geometry
+        ssd_full = np.zeros(g.nfrags, dtype=np.int64)
+        ctx = np.zeros(g.nfrags, dtype=np.int64)
+        for pli in range(3):
+            pl = g.planes[pli]
+            vpad, hpad = g.plane_padding(pli)
+            h, w = pl.nvfrags * 8, pl.nhfrags * 8
+            d = (planes[pli].astype(np.int64)
+                 - recon[pli][vpad:vpad + h, hpad:hpad + w])
+            sl = slice(pl.froffset, pl.froffset + pl.nfrags)
+            ssd_full[sl] = ((d * d).reshape(pl.nvfrags, 8, pl.nhfrags, 8)
+                            .sum(axis=(1, 3)).reshape(-1))
+            s = self._satd_frame[sl].reshape(pl.nvfrags, pl.nhfrags)
+            left = np.zeros_like(s)
+            left[:, 1:] = s[:, :-1]
+            up = np.zeros_like(s)
+            up[1:, :] = s[:-1, :]
+            ctx[sl] = ((left + up) // 2).reshape(-1)
+        self.collect.append(np.stack([
+            np.full(len(order), self.qi, dtype=np.int64),
+            np.repeat(np.arange(3, dtype=np.int64),
+                      [pl.nfrags for pl in g.planes])[order],
+            self._qti_frame[order].astype(np.int64),
+            self._satd_frame[order],
+            bits[:len(order)].astype(np.int64),
+            ssd_full[order],
+            ctx[order],
+        ], axis=1))
 
     # ------------------------------------------------------------------
     def _select_adaptive_qis(self, gates, qti: int):
@@ -426,6 +524,13 @@ class Encoder:
             fragis = np.flatnonzero(coded[sl]) + pl.froffset
             n = len(fragis)
             qti = (frag_refi[fragis] != FRAME_SELF).astype(np.int32)
+            res = None
+            if self.collect is not None and n:
+                # encoder.py:541-546: the SATD of the residual each coded
+                # block is transformed from.
+                res = residual_fn(pli, fragis)
+                self._satd_frame[fragis] = hadamard_batch_native(res)[0]
+                self._qti_frame[fragis] = qti
             if n == 0:
                 # F6: empty plans (and nothing else) on every frame with
                 # the trellis.
@@ -448,7 +553,8 @@ class Encoder:
                 out.append((fragis, qdct, err2, None, dct16, qti, paths,
                             acbits))
                 continue
-            res = residual_fn(pli, fragis)
+            if res is None:
+                res = residual_fn(pli, fragis)
             if trellis and len(qis) > 1:
                 out.append(self._tq_trellis_multi_qi(pli, fragis, res, qti,
                                                      qis))
@@ -622,6 +728,10 @@ class Encoder:
                      .sum(axis=(1, 2)).astype(np.int64))
         if sad_mv is None:
             sad_mv = sad_nomv.copy()
+        # Each MB's four luma blocks (F12: at every speed level).
+        blk_off = np.array([(0, 0), (0, 8), (8, 0), (8, 8)])
+        blk_fy = (mb_fy[:, None] + blk_off[None, :, 0]).reshape(-1)
+        blk_fx = (mb_fx[:, None] + blk_off[None, :, 1]).reshape(-1)
         if sp >= 2:
             # No per-block 4MV search; the mode is priced out.
             bmvs = np.zeros((nmb, 4, 2), np.int32)
@@ -629,9 +739,6 @@ class Encoder:
             if sp >= 4:
                 sad_mv = np.full(nmb, _NO_SAD)
         else:
-            blk_off = np.array([(0, 0), (0, 8), (8, 0), (8, 8)])
-            blk_fy = (mb_fy[:, None] + blk_off[None, :, 0]).reshape(-1)
-            blk_fx = (mb_fx[:, None] + blk_off[None, :, 1]).reshape(-1)
             seed = np.stack([np.repeat(full_mvs[:, 0], 4),
                              np.repeat(full_mvs[:, 1], 4)], axis=1)
             bmvs, bsad = me_block_refine_native(cur_y, prev_o, blk_fy,
@@ -642,22 +749,239 @@ class Encoder:
         # the quantizer step (analyze.c:1063-1076 in spirit).
         bias_scale = min(1.0, float(self.dequant[self.qi, 0, 1, 1])
                          / float(self.dequant[40, 0, 1, 1]))
-        mb_modes_n, mb_mvs_n, frag_refi, frag_mode, frag_mv = \
-            mode_decide_fill_native(
-                cur_y, prev_o, mb_list, mb_fy, mb_fx, sad_nomv, sad_gold,
-                sad_intra, sad_mv, sad_4mv, mvs, bmvs.reshape(-1, 2),
-                g.mb_maps, int(self.info.pixel_fmt),
-                28 * int(self.rd_strength * 4 + 4) * bias_scale, g.nfrags,
-                bias_scale=bias_scale)
         mb_modes = np.zeros(g.nmbs, dtype=np.int32)
-        mb_modes[~g.mb_valid] = -1
-        mb_modes[mb_list] = mb_modes_n
         mb_mvs = np.zeros((g.nmbs, 2), dtype=np.int32)
-        mb_mvs[mb_list] = mb_mvs_n
+        if self.mode_rd and modedec.tables_available():
+            # encoder.py:1591-1595: the SATD + fitted-table decision in
+            # place of the native one, then the fragment fill.
+            self._mode_decide_rd(cur_y, prev_o, gold_o, mb_list, mvs, bmvs,
+                                 blk_fy, blk_fx, mb_modes, mb_mvs)
+            frag_refi, frag_mode, frag_mv = self._fill_fragments(
+                mb_list, mb_modes, mb_mvs, bmvs)
+        else:
+            mb_modes_n, mb_mvs_n, frag_refi, frag_mode, frag_mv = \
+                mode_decide_fill_native(
+                    cur_y, prev_o, mb_list, mb_fy, mb_fx, sad_nomv,
+                    sad_gold, sad_intra, sad_mv, sad_4mv, mvs,
+                    bmvs.reshape(-1, 2), g.mb_maps,
+                    int(self.info.pixel_fmt),
+                    28 * int(self.rd_strength * 4 + 4) * bias_scale,
+                    g.nfrags, bias_scale=bias_scale)
+            mb_modes[~g.mb_valid] = -1
+            mb_modes[mb_list] = mb_modes_n
+            mb_mvs[mb_list] = mb_mvs_n
         self._frag_mv4 = frag_mv
         self.timing["analysis_s"] += time.perf_counter() - t0
         return self._encode_inter_tail(planes, gates, frag_refi, frag_mode,
                                        frag_mv, mb_modes, mb_mvs)
+
+    def _fill_fragments(self, mb_list, mb_modes, mb_mvs, bmvs):
+        """Each fragment's reference, mode and vector from its MB's plan;
+        a 4MV MB's chroma vectors derived from its luma block vectors
+        (state.c:33-97). encoder.py:1643-1692. Returns (frag_refi,
+        frag_mode, frag_mv)."""
+        g = self.geometry
+        nfrags = g.nfrags
+        frag_refi = np.full(nfrags, FRAME_NONE, dtype=np.int32)
+        frag_mode = np.zeros(nfrags, dtype=np.int32)
+        frag_mv = np.zeros((nfrags, 2), dtype=np.int32)
+
+        def div_round(v, shift, rval):
+            return (int(v) + (-1 if v < 0 else 0) + rval) >> shift
+
+        pf = int(self.info.pixel_fmt)
+        for i, mbi in enumerate(mb_list):
+            mode = int(mb_modes[mbi])
+            refi = int(FRAME_FOR_MODE[mode])
+            if mode == MODE_INTER_MV_FOUR:
+                lb = bmvs[i]
+                for bi in range(4):
+                    fragi = g.mb_maps[mbi, 0, bi]
+                    if fragi >= 0:
+                        frag_refi[fragi] = refi
+                        frag_mode[fragi] = mode
+                        frag_mv[fragi] = lb[bi]
+                cb = [(0, 0)] * 4
+                if pf == 0:
+                    cb[0] = (div_round(int(lb[:, 0].sum()), 2, 2),
+                             div_round(int(lb[:, 1].sum()), 2, 2))
+                elif pf == 2:
+                    for k, (a, b) in enumerate(((0, 1), (2, 3))):
+                        cb[k * 2] = (
+                            div_round(int(lb[a, 0] + lb[b, 0]), 1, 1),
+                            div_round(int(lb[a, 1] + lb[b, 1]), 1, 1))
+                else:
+                    cb = [tuple(v) for v in lb]
+                for pli in (1, 2):
+                    for bi in range(4):
+                        fragi = g.mb_maps[mbi, pli, bi]
+                        if fragi >= 0:
+                            frag_refi[fragi] = refi
+                            frag_mode[fragi] = mode
+                            frag_mv[fragi] = cb[bi]
+                continue
+            for pli in range(3):
+                for bi in range(4):
+                    fragi = g.mb_maps[mbi, pli, bi]
+                    if fragi >= 0:
+                        frag_refi[fragi] = refi
+                        frag_mode[fragi] = mode
+                        frag_mv[fragi] = mb_mvs[mbi]
+        return frag_refi, frag_mode, frag_mv
+
+    def _mode_decide_rd(self, cur_y, prev_o, gold_o, mb_list, mvs, bmvs,
+                        blk_fy, blk_fx, mb_modes, mb_mvs):
+        """SATD + fitted-R/D-table mode decision (analyze.c:1968-2450
+        analogue over the collect-fitted tables): fills mb_modes and
+        mb_mvs at mb_list. One greedy walk over the MBs per level of
+        mode_rd_seed_levels; the plan whose full-price cost is least wins
+        (encoder.py:1700-1900)."""
+        g = self.geometry
+        n = len(mb_list)
+        qi = self.frame_qis[0]
+        fmt = int(self.info.pixel_fmt)
+        lam = float(RD_LAMBDA.get(fmt, RD_LAMBDA[0])[1][qi]) * float(
+            self.mode_rd_rate_scale)
+        rows = {qti: modedec.interp_rows(self.dequant, qi, qti, 0)
+                for qti in (0, 1)}
+        z4 = np.zeros(4 * n, np.int32)
+        satd_nomv, _ = satd_halfpel_batch_native(cur_y, prev_o, blk_fy,
+                                                 blk_fx, z4, z4, bs=8)
+        satd_gold, _ = satd_halfpel_batch_native(cur_y, gold_o, blk_fy,
+                                                 blk_fx, z4, z4, bs=8)
+        ay = blk_fy[:, None, None] + np.arange(8)[None, :, None]
+        ax = blk_fx[:, None, None] + np.arange(8)[None, None, :]
+        satd_intra, _ = hadamard_batch_native(cur_y[ay, ax].astype(np.int32))
+        mv_rep = np.repeat(mvs, 4, axis=0)
+        satd_mv, _ = satd_halfpel_batch_native(
+            cur_y, prev_o, blk_fy, blk_fx, mv_rep[:, 0], mv_rep[:, 1], bs=8)
+        b2 = bmvs.reshape(-1, 2)
+        # F13: the MV code carries -31..31 half-pel; the 4MV refinement
+        # can return -32, whose MB leaves 4MV out (the SATD's table lookup
+        # gets -31 in its place, never read).
+        codable_4mv = (b2 > -32).all(axis=1).reshape(n, 4).all(axis=1)
+        b2s = np.maximum(b2, -31)
+        satd_4mv, _ = satd_halfpel_batch_native(
+            cur_y, prev_o, blk_fy, blk_fx, b2s[:, 0], b2s[:, 1], bs=8)
+        # The uncoded (skip) SSD against the reconstructed previous frame,
+        # x16 (the tables' RMSE domain), for the NOMV MBs' skip coupling.
+        prev_rec = self._references()[0][0]
+        pl = g.planes[0]
+        vpad, hpad = g.plane_padding(0)
+        h, w = pl.nvfrags * 8, pl.nhfrags * 8
+        dd = cur_y.astype(np.int64) - prev_rec[vpad:vpad + h, hpad:hpad + w]
+        grid = (dd * dd).reshape(pl.nvfrags, 8, pl.nhfrags, 8).sum(
+            axis=(1, 3))
+        skip_ssd = 16.0 * grid[blk_fy // 8, blk_fx // 8].astype(np.float64)
+        if self._mv_len is None:
+            lens = {}
+            for t, _p, nb in MV_VLC_BOOK.codes:
+                lens.setdefault(t - 32, nb)
+            self._mv_len = lens
+        mv_len = self._mv_len
+
+        def blocks_cost(satds, qti, skips, may_skip=False):
+            # x16-domain distortion + lambda * bits per block; a block the
+            # skip pass may drop (luma of a NOMV MB) costs the cheaper of
+            # coding and skipping (analyze.c:1275-1304).
+            tot = 0.0
+            r_row, m_row = rows[qti]
+            for sv, sk in zip(satds, skips):
+                r, ssd = modedec.dct_cost(r_row, m_row, int(sv))
+                c = ssd + lam * r
+                if may_skip and sk < c:
+                    c = sk
+                tot += c
+            return tot
+
+        cur_c = np.ascontiguousarray(cur_y)
+        satd_cache: dict = {}
+
+        def last_satd(i, mvt, mv, s4):
+            """SATD of MB i predicted with a LAST/LAST2 candidate vector,
+            cached across walks."""
+            if mvt == mv:
+                return satd_mv[s4]
+            key = (i, mvt)
+            s_l = satd_cache.get(key)
+            if s_l is None:
+                mvx = np.full(4, mvt[0], np.int32)
+                mvy = np.full(4, mvt[1], np.int32)
+                s_l, _ = satd_halfpel_batch_native(
+                    cur_c, prev_o, blk_fy[s4], blk_fx[s4], mvx, mvy, bs=8)
+                satd_cache[key] = s_l
+            return s_l
+
+        def walk(seed_discount):
+            """One greedy pass; seed_discount < 1 makes the MV bits of
+            MV-bearing modes cheaper at decision time only (they seed the
+            last-MV predictor), while the returned total is at full
+            price."""
+            chooser = modedec.SchemeChooser()
+            last_mv = (0, 0)
+            prior_mv = (0, 0)
+            plan = []
+            total = 0.0
+            for i in range(n):
+                s4 = slice(4 * i, 4 * i + 4)
+                sk = skip_ssd[s4]
+                mv = (int(mvs[i, 0]), int(mvs[i, 1]))
+                costs = {}
+
+                def add(mode, bc, mv_bits=0.0):
+                    sc = chooser.cost(mode)
+                    costs[mode] = (bc + lam * (sc + mv_bits * seed_discount),
+                                   bc + lam * (sc + mv_bits))
+
+                add(MODE_INTER_NOMV,
+                    blocks_cost(satd_nomv[s4], 1, sk, may_skip=True))
+                add(MODE_INTRA, blocks_cost(satd_intra[s4], 0, sk))
+                add(MODE_GOLDEN_NOMV, blocks_cost(satd_gold[s4], 1, sk))
+                if codable_4mv[i]:
+                    add(MODE_INTER_MV_FOUR,
+                        blocks_cost(satd_4mv[s4], 1, sk),
+                        sum(mv_len[int(b2[4 * i + bi, 0])]
+                            + mv_len[int(b2[4 * i + bi, 1])]
+                            for bi in range(4)))
+                if mv != (0, 0):
+                    add(MODE_INTER_MV, blocks_cost(satd_mv[s4], 1, sk),
+                        mv_len[mv[0]] + mv_len[mv[1]])
+                for m_last, mvt in ((MODE_INTER_MV_LAST, last_mv),
+                                    (MODE_INTER_MV_LAST2, prior_mv)):
+                    if mvt == (0, 0) or (m_last == MODE_INTER_MV_LAST2
+                                         and mvt == last_mv):
+                        continue
+                    add(m_last,
+                        blocks_cost(last_satd(i, mvt, mv, s4), 1, sk))
+                mode = min(costs, key=lambda m: costs[m][0])
+                total += costs[mode][1]
+                chooser.update(mode)
+                if mode == MODE_INTER_MV:
+                    vec = mv
+                    prior_mv = last_mv
+                    last_mv = mv
+                elif mode == MODE_INTER_MV_LAST:
+                    vec = last_mv
+                elif mode == MODE_INTER_MV_LAST2:
+                    vec = prior_mv
+                    prior_mv, last_mv = last_mv, prior_mv
+                elif mode == MODE_INTER_MV_FOUR:
+                    vec = (0, 0)
+                    prior_mv = last_mv
+                    last_mv = (int(bmvs[i, 3, 0]), int(bmvs[i, 3, 1]))
+                else:
+                    vec = (0, 0)
+                plan.append((mode, vec))
+            return total, plan
+
+        best_total, best_plan = None, None
+        for d in self.mode_rd_seed_levels:
+            total, plan = walk(d)
+            if best_total is None or total < best_total:
+                best_total, best_plan = total, plan
+        for (mode, vec), mbi in zip(best_plan, mb_list):
+            mb_modes[mbi] = mode
+            mb_mvs[mbi] = vec
 
     def _encode_inter_tail(self, planes, gates, frag_refi, frag_mode,
                            frag_mv, mb_modes, mb_mvs) -> bytes:

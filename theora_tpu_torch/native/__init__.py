@@ -10,8 +10,9 @@ parser. Encode: `NativeTokenPacker.pack_frame`, `dc_residuals_native`,
 `NativeTokenPacker.pack_frame_trellis_perm`; its inter path:
 `motion_estimate_native`, `me_block_refine_native`,
 `mode_decide_fill_native`, `sad_batch_native`, `enc_residuals_native` and
-`ssd8_plane_native`. The library is built with g++ from entropy.cpp at
-first use into ``native/build/``, with the JAX package's flags (the mode
+`ssd8_plane_native`; the SATD of the mode_rd decision and of collect:
+`hadamard_batch_native` and `satd_halfpel_batch_native`. The library is
+built with g++ from entropy.cpp at first use into ``native/build/``, with the JAX package's flags (the mode
 decision's double-precision costs then compile to the same instructions).
 A failed build or a missing symbol raises: the port has no pure-Python
 host tier.
@@ -135,6 +136,12 @@ def get_lib():
         + [ctypes.c_int, ctypes.c_int, _P])
     lib.th_ssd8_plane.restype = None
     lib.th_ssd8_plane.argtypes = [_P, _P, _I64, _I64, _I64, _P]
+    lib.th_hadamard_batch.restype = None
+    lib.th_hadamard_batch.argtypes = [_I64, _P, _P, _P]
+    lib.th_satd_halfpel_batch.restype = None
+    lib.th_satd_halfpel_batch.argtypes = [
+        _P, ctypes.c_int, _P, ctypes.c_int, _I64, _P, _P, _P, _P,
+        ctypes.c_int, _P, _P]
     lib.th_parse_frame_sideinfo.restype = _I64
     lib.th_parse_frame_sideinfo.argtypes = [
         _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P,
@@ -555,3 +562,38 @@ def ssd8_plane_native(cur, prev_padded, vpad, hpad):
                       prev.ctypes.data + vpad * prev.shape[1] + hpad,
                       h, w, prev.shape[1], out.ctypes.data)
     return out
+
+
+def hadamard_batch_native(res_blocks):
+    """SATD (8x8 Hadamard, DC excluded) of residual blocks [n, 8, 8] or
+    [n, 64]. Returns (satd [n] int64, dc [n] int32)."""
+    lib = get_lib()
+    n = len(res_blocks)
+    res32 = np.ascontiguousarray(np.asarray(res_blocks).reshape(n, 64),
+                                 dtype=np.int32)
+    satd = np.empty(n, dtype=np.int64)
+    dc = np.empty(n, dtype=np.int32)
+    lib.th_hadamard_batch(n, res32.ctypes.data, satd.ctypes.data,
+                          dc.ctypes.data)
+    return satd, dc
+
+
+def satd_halfpel_batch_native(cur, ref_padded, fy, fx, mvx, mvy, bs=16):
+    """Half-pel SATD of bs x bs blocks at pixel coordinates (fy, fx)
+    against the padded reference at half-pel vectors (mvx, mvy); bs=16
+    sums the four 8x8 SATDs of a macroblock. Returns (satd [n] int64,
+    dc [n] int32)."""
+    lib = get_lib()
+    cur = np.ascontiguousarray(cur)
+    ref = np.ascontiguousarray(ref_padded)
+    w = cur.shape[1]
+    arrs = [np.ascontiguousarray(x, dtype=np.int32)
+            for x in (fy, fx, mvx, mvy)]
+    n = len(arrs[0])
+    satd = np.empty(n, dtype=np.int64)
+    dc = np.empty(n, dtype=np.int32)
+    lib.th_satd_halfpel_batch(
+        cur.ctypes.data, w, ref.ctypes.data, (ref.shape[1] - w) // 2, n,
+        *[x.ctypes.data for x in arrs], int(bs), satd.ctypes.data,
+        dc.ctypes.data)
+    return satd, dc

@@ -2548,3 +2548,121 @@ extern "C" void th_ssd8_plane(const uint8_t* cur, const uint8_t* prev,
     }
   }
 }
+
+// ===================================================================
+// 8x8 Hadamard SATD (encfrag.c:184-337 analogue): transform the
+// residual, sum |coefficients| excluding the DC term; the summed
+// residual (DC) is returned separately.
+namespace {
+
+inline unsigned hadamard_satd8x8(const int32_t res[64], int* dc_out) {
+  int32_t buf[64];
+  // Column transform (3 butterfly stages).
+  for (int c = 0; c < 8; c++) {
+    int t0 = res[0 * 8 + c] + res[4 * 8 + c];
+    int t4 = res[0 * 8 + c] - res[4 * 8 + c];
+    int t1 = res[1 * 8 + c] + res[5 * 8 + c];
+    int t5 = res[1 * 8 + c] - res[5 * 8 + c];
+    int t2 = res[2 * 8 + c] + res[6 * 8 + c];
+    int t6 = res[2 * 8 + c] - res[6 * 8 + c];
+    int t3 = res[3 * 8 + c] + res[7 * 8 + c];
+    int t7 = res[3 * 8 + c] - res[7 * 8 + c];
+    int r;
+    r = t0; t0 += t2; t2 = r - t2;
+    r = t1; t1 += t3; t3 = r - t3;
+    r = t4; t4 += t6; t6 = r - t6;
+    r = t5; t5 += t7; t7 = r - t7;
+    buf[0 * 8 + c] = t0 + t1; buf[1 * 8 + c] = t0 - t1;
+    buf[2 * 8 + c] = t2 + t3; buf[3 * 8 + c] = t2 - t3;
+    buf[4 * 8 + c] = t4 + t5; buf[5 * 8 + c] = t4 - t5;
+    buf[6 * 8 + c] = t6 + t7; buf[7 * 8 + c] = t6 - t7;
+  }
+  unsigned sad = 0;
+  int dc = 0;
+  for (int i = 0; i < 8; i++) {
+    int t0 = buf[i * 8 + 0] + buf[i * 8 + 4];
+    int t4 = buf[i * 8 + 0] - buf[i * 8 + 4];
+    int t1 = buf[i * 8 + 1] + buf[i * 8 + 5];
+    int t5 = buf[i * 8 + 1] - buf[i * 8 + 5];
+    int t2 = buf[i * 8 + 2] + buf[i * 8 + 6];
+    int t6 = buf[i * 8 + 2] - buf[i * 8 + 6];
+    int t3 = buf[i * 8 + 3] + buf[i * 8 + 7];
+    int t7 = buf[i * 8 + 3] - buf[i * 8 + 7];
+    int r;
+    r = t0; t0 += t2; t2 = r - t2;
+    r = t1; t1 += t3; t3 = r - t3;
+    r = t4; t4 += t6; t6 = r - t6;
+    r = t5; t5 += t7; t7 = r - t7;
+    int s = 0;
+    if (i > 0) s += abs(t0 + t1);
+    else dc = t0 + t1;
+    s += abs(t0 - t1);
+    s += abs(t2 + t3);
+    s += abs(t2 - t3);
+    s += abs(t4 + t5);
+    s += abs(t4 - t5);
+    s += abs(t6 + t7);
+    s += abs(t6 - t7);
+    sad += (unsigned)s;
+  }
+  *dc_out = dc;
+  return sad;
+}
+
+}  // namespace
+
+extern "C" {
+
+// SATD of pre-computed residual blocks ([n][64] int32 row-major).
+void th_hadamard_batch(int64_t n, const int32_t* res, int64_t* satd,
+                       int32_t* dc) {
+  for (int64_t i = 0; i < n; i++) {
+    int d;
+    satd[i] = (int64_t)hadamard_satd8x8(res + i * 64, &d);
+    dc[i] = d;
+  }
+}
+
+// SATD of cur vs a half-pel prediction from a padded reference
+// (mvx/mvy half-pel; bs must be 8 or 16 -- 16 sums the four 8x8 SATDs,
+// matching the reference's per-block accumulation).
+void th_satd_halfpel_batch(const uint8_t* cur, int W, const uint8_t* ref,
+                           int pad, int64_t n, const int32_t* fy,
+                           const int32_t* fx, const int32_t* mvx,
+                           const int32_t* mvy, int bs, int64_t* satd,
+                           int32_t* dc) {
+  int Wp = W + 2 * pad;
+  for (int64_t i = 0; i < n; i++) {
+    int mx = MVMAP_C[0][mvx[i] + 31];
+    int mx2 = MVMAP2_C[0][mvx[i] + 31];
+    int my = MVMAP_C[0][mvy[i] + 31];
+    int my2 = MVMAP2_C[0][mvy[i] + 31];
+    int64_t stot = 0;
+    int dtot = 0;
+    for (int by = 0; by < bs; by += 8) {
+      for (int bx = 0; bx < bs; bx += 8) {
+        int32_t res[64];
+        const uint8_t* c = cur + (int64_t)(fy[i] + by) * W + fx[i] + bx;
+        const uint8_t* s1 = ref + (int64_t)(fy[i] + by + pad + my) * Wp +
+                            fx[i] + bx + pad + mx;
+        if (mx2 | my2) {
+          const uint8_t* s2 = s1 + (int64_t)my2 * Wp + mx2;
+          for (int r = 0; r < 8; r++, c += W, s1 += Wp, s2 += Wp)
+            for (int k = 0; k < 8; k++)
+              res[r * 8 + k] = (int)c[k] - (((int)s1[k] + s2[k]) >> 1);
+        } else {
+          for (int r = 0; r < 8; r++, c += W, s1 += Wp)
+            for (int k = 0; k < 8; k++)
+              res[r * 8 + k] = (int)c[k] - s1[k];
+        }
+        int d;
+        stot += hadamard_satd8x8(res, &d);
+        dtot += d;
+      }
+    }
+    satd[i] = stot;
+    dc[i] = dtot;
+  }
+}
+
+}  // extern "C"

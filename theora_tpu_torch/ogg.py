@@ -1,7 +1,7 @@
 """Ogg (RFC 3533): page mux and demux, CRC, packet reassembly.
 
-Copy of theora_tpu/ogg.py (`PageWriter`, `mux_stream`, `PageReader`,
-`demux_stream`).
+Copy of theora_tpu/ogg.py (`PageWriter`, `mux_stream`, `mux_av`,
+`PageReader`, `demux_stream`).
 """
 from __future__ import annotations
 
@@ -95,6 +95,66 @@ def mux_stream(packets: list[Packet], serialno: int = 0x74707531) -> bytes:
             out += page
     for page in w.flush():
         out += page
+    return bytes(out)
+
+
+def mux_av(
+    video_pkts: list[Packet],
+    audio_pkts: list[Packet],
+    video_time,
+    audio_time,
+    v_serial: int = 0x74707531,
+    a_serial: int = 0x74707532,
+) -> bytes:
+    """Mux Theora video + Vorbis audio packet lists into one Ogg stream
+    with reference page ordering (encoder_example.c:1766-1860): all BOS
+    pages first (video, then audio), remaining header pages, then data
+    pages interleaved by page END time -- the stream whose next page ends
+    earlier is written first, audio winning ties.
+
+    video_time/audio_time map a stream granulepos to seconds. Both packet
+    lists start with their 3 header packets."""
+    vw, aw = PageWriter(v_serial), PageWriter(a_serial)
+    out = bytearray()
+    out += b"".join(vw.add_packet(video_pkts[0], flush=True))
+    out += b"".join(aw.add_packet(audio_pkts[0], flush=True))
+    for p in video_pkts[1:3]:
+        out += b"".join(vw.add_packet(p, flush=True))
+    for p in audio_pkts[1:3]:
+        out += b"".join(aw.add_packet(p, flush=True))
+
+    def paginate(w, pkts, max_buf=4096):
+        pages = []
+        for p in pkts:
+            flush = len(w._data) + len(p.data) >= max_buf or p.e_o_s
+            pages += w.add_packet(p, flush=flush)
+        pages += w.flush()
+        return pages
+
+    def end_times(pages, to_time):
+        # A page granulepos of -1 means no packet ends on it; it ends
+        # with the next page that does.
+        gps = [struct.unpack_from("<q", pg, 6)[0] for pg in pages]
+        nxt = None
+        times = [0.0] * len(gps)
+        for i in range(len(gps) - 1, -1, -1):
+            if gps[i] >= 0:
+                nxt = to_time(gps[i])
+            times[i] = nxt if nxt is not None else float("inf")
+        return times
+
+    vp = paginate(vw, video_pkts[3:])
+    ap = paginate(aw, audio_pkts[3:])
+    vt = end_times(vp, video_time)
+    at = end_times(ap, audio_time)
+    vi = ai = 0
+    while vi < len(vp) or ai < len(ap):
+        if ai < len(ap) and (vi >= len(vp) or at[ai] <= vt[vi]):
+            out += ap[ai]
+            ai += 1
+        else:
+            out += vp[vi]
+            vi += 1
     return bytes(out)
 
 

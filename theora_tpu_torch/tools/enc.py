@@ -4,7 +4,8 @@ or with the host encoder (--host).
 Usage: python -m theora_tpu_torch.tools.enc [-q QI] [-k KF] [-z SPEED]
            [-b BITRATE [--two-pass [--two-pass-file F] [--rate-buffer N]]]
            [--adaptive-quant {auto,on,off}] [--rd-strength S] [-j N]
-           [--host [--drop-frames 0|1]] [--device D] in.y4m out.ogv
+           [--host [--drop-frames 0|1]] [-a in.wav [--audio-quality Q]]
+           [--device D] in.y4m out.ogv
 
 Counterpart of ``python -m theora_tpu.tools.enc --device`` (the JAX
 TpuGopEncoder) with its device-branch options: the qi (with a bitrate, the
@@ -36,6 +37,11 @@ where no frame drops). The output is byte-equal to ``python -m
 theora_tpu.tools.enc`` with the same flags. The device encoders never
 drop a frame, so --drop-frames without --host is a usage error (JAX's
 --device ignores it).
+
+``-a in.wav`` (JAX ``tools/enc.py:50-56,113-140``) encodes a 16-bit PCM
+WAV to a Vorbis stream through the system libvorbis (tools/vorbis.py) at
+``--audio-quality`` and muxes it with the video by page end time
+(ogg.mux_av), on every branch.
 """
 from __future__ import annotations
 
@@ -111,6 +117,40 @@ def host_encode(args, info, frames) -> list:
     return pkts
 
 
+def write_output(path, pkts, info, audio=None, audio_quality=0.2):
+    """Write the Theora packets to path as Ogg, muxed with a Vorbis
+    encode of the WAV file `audio` where one is given (JAX
+    tools/enc.py:113-140)."""
+    from theora_tpu_torch.ogg import mux_av, mux_stream
+
+    if not audio:
+        with open(path, "wb") as f:
+            f.write(mux_stream(pkts))
+        return
+    from theora_tpu_torch.tools.vorbis import VorbisEncoder, read_wav
+
+    pcm, rate = read_wav(audio)
+    venc = VorbisEncoder(pcm.shape[1], rate, audio_quality)
+    apkts = venc.headers()
+    for off in range(0, len(pcm), 65536):
+        apkts += venc.encode(pcm[off : off + 65536])
+    apkts += venc.finish()
+    shift = info.keyframe_granule_shift
+    num, den = info.fps_numerator, info.fps_denominator
+
+    def vtime(gp):
+        nfr = (gp >> shift) + (gp & ((1 << shift) - 1))
+        return (nfr + 1) * den / num
+
+    with open(path, "wb") as f:
+        f.write(mux_av(pkts, apkts, vtime, lambda gp: gp / rate))
+    print(
+        f"muxed Vorbis audio: {len(apkts) - 3} packets, "
+        f"{pcm.shape[0] / rate:.2f}s @ {rate} Hz",
+        file=sys.stderr,
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("input")
@@ -150,6 +190,12 @@ def main(argv=None):
     ap.add_argument("--drop-frames", type=int, choices=[0, 1], default=None,
                     help="with --host and -b: drop an inter frame that "
                          "busts the rate budget (1, the default) or not")
+    ap.add_argument("-a", "--audio", default=None,
+                    help="16-bit PCM WAV to encode as a Vorbis stream and "
+                         "mux A/V with reference page ordering "
+                         "(encoder_example.c:1790-1860)")
+    ap.add_argument("--audio-quality", type=float, default=0.2,
+                    help="Vorbis VBR quality -0.1..1.0 (default 0.2)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
@@ -165,7 +211,6 @@ def main(argv=None):
 
     from theora_tpu_torch.encode.gop import GopEncoder
     from theora_tpu_torch.info import TheoraInfo
-    from theora_tpu_torch.ogg import mux_stream
     from theora_tpu_torch.tools.y4m import read_y4m
 
     W, H, fps, pixel_fmt, frames = read_y4m(args.input)
@@ -183,8 +228,8 @@ def main(argv=None):
                          rd_strength=args.rd_strength, use_processes=True,
                          device=args.device)
         dt = time.perf_counter() - t0
-        with open(args.output, "wb") as f:
-            f.write(mux_stream(pkts))
+        write_output(args.output, pkts, info, args.audio,
+                     args.audio_quality)
         total = sum(len(p.data) for p in pkts[3:])
         mpix = len(frames) * W * H * 1.5 / 1e6
         print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "
@@ -195,8 +240,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         pkts = host_encode(args, info, frames)
         dt = time.perf_counter() - t0
-        with open(args.output, "wb") as f:
-            f.write(mux_stream(pkts))
+        write_output(args.output, pkts, info, args.audio,
+                     args.audio_quality)
         total = sum(len(p.data) for p in pkts[3:])
         mpix = len(frames) * W * H * 1.5 / 1e6
         print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "
@@ -222,8 +267,7 @@ def main(argv=None):
         pkts = enc.encode_clip(frames, keyframe_freq=args.keyframe_freq,
                                target_bitrate=args.bitrate)
     dt = time.perf_counter() - t0
-    with open(args.output, "wb") as f:
-        f.write(mux_stream(pkts))
+    write_output(args.output, pkts, info, args.audio, args.audio_quality)
     total = sum(len(p.data) for p in pkts[3:])
     mpix = len(frames) * W * H * 1.5 / 1e6
     print(f"{len(frames)} frames, {total} bytes, {dt:.2f}s "

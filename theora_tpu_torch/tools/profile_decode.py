@@ -72,8 +72,6 @@ def main(argv=None) -> int:
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         return 2
 
-    from torch.profiler import ProfilerActivity, profile
-
     from theora_tpu_torch.decode.batch import BatchDecoder
     from theora_tpu_torch.headers import parse_info_header, \
         parse_setup_header
@@ -81,7 +79,7 @@ def main(argv=None) -> int:
     from theora_tpu_torch.ops import idct_cuda, loopfilter_cuda, mc_cuda, \
         postproc_cuda
     from theora_tpu_torch.tools.profile_encode import _stage_kernels, \
-        speed_of_light, stage_bounds
+        speed_of_light, stage_bounds, traced
 
     with open(args.input, "rb") as f:
         pkts = demux_stream(f.read())
@@ -119,15 +117,10 @@ def main(argv=None) -> int:
                 "KS": mc_cuda.mc_recon, "KP": postproc_cuda.postprocess_frames}
     before = {k: w.launches for k, w in wrappers.items()}
     dec = decoder()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dec.decode_clip(data, batch=BATCH)
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    stages, kernels = _split(prof.events())
-    stage_kernels = _stage_kernels(prof.events())
+    _, events, traced_wall = traced(lambda: dec.decode_clip(data,
+                                                            batch=BATCH))
+    stages, kernels = _split(events)
+    stage_kernels = _stage_kernels(events)
     lib_launches = {k: w.launches - before[k] for k, w in wrappers.items()}
     sol = speed_of_light(kernels, stage_bounds(
         lambda: decoder().decode_clip(data, batch=BATCH)))

@@ -71,19 +71,25 @@ def hd720_frames(n: int):
     return mod.source_frames()[:n]
 
 
-def traced(fn):
-    """fn() once under torch.profiler (CPU and CUDA activity), the card
-    synchronised after it: (its return value, the profiler's events, the
-    wall in seconds)."""
+def traced(fn, device="cuda", chrome_trace=None):
+    """fn() once under torch.profiler (CPU activity, and CUDA activity on
+    the card, which is synchronised before and after it): (its return
+    value, the profiler's events, the wall in seconds). With chrome_trace
+    a path, the trace is written there as Chrome trace JSON."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if chrome_trace is not None:
+        prof.export_chrome_trace(chrome_trace)
     return out, prof.events(), wall
 
 

@@ -1,6 +1,7 @@
-"""Reader for the simple framed packet container of the test streams.
+"""Reader and writer of the simple framed packet container of the test
+streams (the reference binaries' input).
 
-Read-side copy of theora_tpu/tpkt.py. Format: magic b"TPKT"; per packet:
+Copy of theora_tpu/tpkt.py. Format: magic b"TPKT"; per packet:
 u32le length, u8 flags (bit0 b_o_s, bit1 e_o_s), i64le granulepos,
 i64le packetno, payload.
 """
@@ -39,3 +40,13 @@ def read_tpkt(path: str) -> list[Packet]:
         )
         off += ln
     return pkts
+
+
+def write_tpkt(path: str, pkts: list[Packet]) -> None:
+    with open(path, "wb") as f:
+        f.write(b"TPKT")
+        for p in pkts:
+            f.write(struct.pack("<I", len(p.data)))
+            f.write(bytes([(1 if p.b_o_s else 0) | (2 if p.e_o_s else 0)]))
+            f.write(struct.pack("<qq", p.granulepos, p.packetno))
+            f.write(p.data)
