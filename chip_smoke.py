@@ -344,7 +344,17 @@ and prints no result line):
    96x64 HOST_CASES case against host64x48_enc and host96x64_aq_enc (q40
    filters in the closed loop); (h) `tools.enc -j 2` (two spawned
    processes, each on the card) on the 64x48 clip against its lines of
-   host64x48_enc.
+   host64x48_enc; (i) the host Encoder's settings off its defaults
+   (testdata/make_host_settings.py HD_RUNS) on 8 of the 720p frames, a
+   keyframe every 8, "auto": coupled_skip at q48 and at q40 (the closed
+   loop filters), luma_ext_skip at q40, aq_estimate_margin=8.0 at q56
+   (at least one frame at more than one qi, counted), use_trellis=False
+   at q56, auto_keyframe=False with skip_lambda_scale=1.0 at q48; each
+   run's packets against host_settings720.pkts (the JAX host Encoder's),
+   its stream decoded to the end by PacketDecoder(device="cuda"), its
+   wall and its closed loop's launches, the counts reset just before it
+   (K1's decode entry 1 to 3 per decoded frame, KS's mc_recon 3, KL 3 per
+   frame below q47, no other kernel).
 
 13. the tools (theora_tpu_torch/tools/), each on the card: (a) the
    slice's main path, `qualitysweep --size 1280x720 --frames 16 --qis
@@ -3191,6 +3201,63 @@ def enc_cli_workers(smi: str) -> None:
         f"{wall:.2f} s with the processes' start ({r.stderr.strip()}) | "
         f"{smi}")
 
+
+def host_settings_720p(smi: str) -> dict:
+    """12 (i): the host Encoder on the card under each of
+    make_host_settings.HD_RUNS, 8 of the 720p frames, a keyframe every 8,
+    "auto": the packets against host_settings720.pkts, the stream decoded
+    to its end on the card, the wall and the closed loop's launches (the
+    counts reset just before each run). Returns {run: (K1, KL, KS)}."""
+    from theora_tpu_torch.decode.scalar import PacketDecoder
+    from theora_tpu_torch.encode.encoder import Encoder
+    from theora_tpu_torch.headers import parse_info_header, \
+        parse_setup_header
+    from theora_tpu_torch.info import TheoraInfo
+
+    hs = _load_testdata("make_host_settings")
+    want = hs.mk.read_records(hs.NAME)
+    frames = hs.hd_frames()
+    t_phase = time.perf_counter()
+    out = {}
+    for run, (qi, attrs) in hs.HD_RUNS.items():
+        with _decoded_frames() as decoded:
+            _reset_counts()
+            t0 = time.perf_counter()
+            pkts, _ = hs.encode(Encoder, TheoraInfo, frames, qi, attrs,
+                                device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[run] = _closed_loop_counts(f"host settings {run}", decoded)
+        got = hs.mk.record_of(pkts)
+        bad = [i for i, (a, b) in enumerate(zip(got, want[run])) if a != b]
+        if len(got) != len(want[run]) or bad:
+            raise AssertionError(f"host settings {run}: packets {bad} differ "
+                                 f"from the JAX host Encoder's")
+        multi = hs.multi_qi_frames(pkts)
+        if "aq_estimate_margin" in attrs and not multi:
+            raise AssertionError(f"host settings {run}: the qi triple "
+                                 f"engaged on no frame")
+        dec = PacketDecoder(parse_info_header(pkts[0].data),
+                            parse_setup_header(pkts[2].data), device="cuda")
+        for p in pkts[3:]:
+            dec.decode_packet(p.data)
+        frame = dec.ycbcr_out()
+        if frame[0].shape != frames[0][0].shape:
+            raise AssertionError(f"host settings {run}: decoded frame "
+                                 f"shape {frame[0].shape}")
+        k1, kl, ks = out[run]
+        log(f"[host settings] {run} {attrs} q{qi}: all {len(pkts)} packets "
+            f"equal the JAX host Encoder's; decoded to the end on the card; "
+            f"{len(multi)} frames at more than one qi; warm wall "
+            f"{wall:.4f} s = {len(frames) / wall:.2f} frames/s "
+            f"({len(decoded)} frames decoded in the closed loop, "
+            f"{sum(decoded)} filtered); launches K1 decode entry {k1}, KS "
+            f"mc_recon {ks}, KL {kl}, no other kernel; "
+            f"{sum(len(p.data) for p in pkts[3:])} bytes | {smi}")
+    log(f"[host settings] phase 12i took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return out
+
 # ------------------------------------------------ kernel KP: postprocessing
 
 def _kp_launches() -> int:
@@ -3897,14 +3964,21 @@ def main() -> int:
         paths[label] = (k1_host, 0, 0, 0, 0, kl_host, ks_host)
     host_small()
     enc_cli_workers(smi)
+    # The host Encoder's settings off its defaults (this slice's main
+    # path): its closed loop launches K1's and KS's decode entries, and KL
+    # below q47.
+    for run, c in host_settings_720p(smi).items():
+        paths[f"host settings {run}"] = (c[0], 0, 0, 0, 0, c[1], c[2])
     # The tools' slice: its main path is the quality sweep (13a).
     tools_phase(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
     # the mesh, the intra core; K2 on those encode paths and the batch
     # intra encoder; KT on the encode, the transcode and the mesh.
+    settings = tuple(p for p in paths if p.startswith("host settings "))
     main_paths = ("encode", "transcode", "decode per packet", "mesh",
                   "intra core", "intra encode", "host encode",
-                  "mesh ranks q56 auto {1,2}", "host th_enc_ctx 720p CBR")
+                  "mesh ranks q56 auto {1,2}", "host th_enc_ctx 720p CBR",
+                  *settings)
     sweep = TOOLS_COUNTS["qualitysweep 720p"]
     k1["launches"] = (decode["K1 decode"]
                       + sum(paths[p][0] for p in main_paths)
@@ -3917,12 +3991,13 @@ def main() -> int:
     km["launches"] = sum(paths[p][4] for p in main_paths) + sweep["KM"]
     # KL runs where a frame's qi is below 47: the 2-pass encode and the
     # decode of its packets, the golden decodes, the small mesh and the
-    # host Encoder's closed loop under a target bitrate.
+    # host Encoder's closed loop under a target bitrate and at q40.
     kl_extra = {"golden decodes": kl_golden,
                 "decode of the 2-pass packets": kl_twopass_decode,
                 "mesh 64x48 CBR gop axis 4": kl_mesh_small}
     kl["launches"] = (paths["encode 2-pass 2 Mbit/s"][5]
                       + paths["host th_enc_ctx 720p CBR"][5]
+                      + sum(paths[p][5] for p in settings)
                       + sum(kl_extra.values()) + sweep["KL"])
     # KS launches on its own once per plane per decoded frame, and once
     # per plane per frame step on a frag group's ranks (its place entry);

@@ -111,7 +111,8 @@ def test_smoke_scripts_import_no_jax_when_loaded():
     scripts = _smoke_scripts()
     names = sorted(os.path.basename(p) for p in scripts)
     assert names == ["make_compat_enc.py", "make_hd720.py",
-                     "make_hd720_enc.py", "make_tools.py"]
+                     "make_hd720_enc.py", "make_host_settings.py",
+                     "make_tools.py"]
     bad = [(os.path.basename(path), mod) for path in scripts
            for mod in _imports_of(_import_time_nodes(_parse(path)))
            if mod.split(".")[0] in FORBIDDEN]

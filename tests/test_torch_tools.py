@@ -468,9 +468,10 @@ def test_play_sdl_display(tmp_path):
     """play's SDL window path renders every frame under SDL's headless
     dummy driver (as tests/test_tools.py runs JAX's)."""
     pytest.importorskip("pygame")
-    # At 4 fps: the plain PyTorch path on the CPU decodes a frame in tens
-    # of milliseconds, and paced playback drops a frame that is late.
-    ogv = _ogv(tmp_path, fps=(4, 1))
+    # At 1 fps: paced playback drops a frame whose decode ends more than
+    # one frame time late, and the plain PyTorch path on a loaded CPU can
+    # end 250 ms late (4 fps's frame time); a second leaves it room.
+    ogv = _ogv(tmp_path, fps=(1, 1))
     env = dict(os.environ, SDL_VIDEODRIVER="dummy", SDL_AUDIODRIVER="dummy")
     r = subprocess.run(
         [sys.executable, "-m", "theora_tpu_torch.tools.play", *CPU, ogv],

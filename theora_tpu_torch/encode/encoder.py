@@ -18,7 +18,12 @@ qis, the early skip of speed 1 and more, the R/D skip), `_finish_inter`;
 keyframe, the native one with the trellis or the R/D quantizer), the
 trellis planner's bit tables, `_select_adaptive_qis` (gates and qi triple
 from encode/aq.py), `_dc_predict_and_order`, `_uncoded_ssd_plane`,
-`_pad_plane` and the token packing; the SATD + fitted-table mode
+`_pad_plane` and the token packing; the settings off its defaults:
+`auto_keyframe`, `skip_lambda_scale`, `luma_ext_skip` with its guard,
+`coupled_skip` (`_coupled_transform_skip`, the luma-first coupled mode/skip
+rollback, and its four tunables), `aq_estimate_margin` (the estimate-first
+qii of finer rows) and, with `use_trellis=False`, the qi triple's activity
+terciles; the SATD + fitted-table mode
 decision of mode_rd (`_mode_decide_rd`, encode/modedec.py, with the
 per-fragment fill of its plan, `_fill_fragments`) and the R-D metrics of
 collect (`_collect_frame_metrics`). Headers, the frame header, the coded
@@ -46,12 +51,8 @@ packet, so its references stay put, as the JAX Encoder's do.
 vp3_compatible also turns adaptive quantization off and makes an inter
 frame that codes no block a drop frame.
 
-Left out (ROADMAP section 1): coupled_skip, the luma skip guards and
-luma_ext_skip (off by default), fast_recon and the pack/recon overlap
-thread. With
-use_trellis=False at speed levels 0-1 (set directly; set_splevel never
-makes it), a frame that engages adaptive quantization's qi triple raises
-NotImplementedError.
+Left out (ROADMAP section 1): fast_recon and the pack/recon overlap
+thread, which the closed loop on the card replaces.
 
 Fault F6 of the reference, not copied: where a plane of a multi-qi frame
 has no block left to code before the transform (the early skip of speed
@@ -86,6 +87,7 @@ from theora_tpu_torch.constants import (
     FRAME_FOR_MODE,
     FRAME_GOLD,
     FRAME_NONE,
+    FRAME_PREV,
     FRAME_SELF,
     MODE_GOLDEN_NOMV,
     MODE_INTER_MV,
@@ -112,6 +114,7 @@ from theora_tpu_torch.native import (
     me_block_refine_native,
     mode_decide_fill_native,
     motion_estimate_native,
+    quantize_estimate_native,
     sad_batch_native,
     satd_halfpel_batch_native,
     ssd8_plane_native,
@@ -126,8 +129,15 @@ from theora_tpu_torch.tpkt import Packet
 _QII_SIG = np.array([1.0, 2.0, 2.0])
 # A mode's SAD where its search is skipped (speed levels 2 and 4).
 _NO_SAD = np.int64(1) << 40
-# Skip-decision lambda multiplier on top of rd_strength * 4.
-_SKIP_LAMBDA_SCALE = 2.5
+# The luma modes luma_ext_skip may skip; those whose macroblocks the
+# coupled skip may roll back whole (they leave the decoder's vector
+# predictors as they are); those whose macroblocks keep a coded luma block
+# (they move the predictors).
+_EXT_SKIP_MODES = (MODE_INTER_NOMV, MODE_INTER_MV, MODE_INTER_MV_LAST,
+                   MODE_INTER_MV_LAST2)
+_ROLLBACK_MODES = (MODE_INTER_NOMV, MODE_GOLDEN_NOMV, MODE_INTRA,
+                   MODE_INTER_MV_LAST)
+_GUARD_MODES = (MODE_INTER_MV, MODE_INTER_MV_LAST2, MODE_INTER_MV_FOUR)
 
 
 def _quantize(dct: np.ndarray, dq: np.ndarray) -> np.ndarray:
@@ -141,6 +151,24 @@ def _quantize(dct: np.ndarray, dq: np.ndarray) -> np.ndarray:
 
 def _pad_plane(plane: np.ndarray, pad: int = 16) -> np.ndarray:
     return np.pad(plane, pad, mode="edge")
+
+
+def _bits_est(plane_out) -> np.ndarray:
+    """The skip test's bits per block of a _transform_quantize plane
+    tuple: the trellis plans' AC bits + 2, else 6 per nonzero value + 2."""
+    qdct, paths, acbits = plane_out[1], plane_out[6], plane_out[7]
+    if paths is not None:
+        return acbits + 2
+    return 6 * (qdct != 0).sum(axis=1) + 2
+
+
+def _apply_skip(per_plane, pli, skip, coded) -> None:
+    """Drop the skipped blocks from plane pli's tuple and uncode them
+    (encoder.py:2233-2251)."""
+    coded[per_plane[pli][0][skip]] = False
+    keep = ~skip
+    per_plane[pli] = tuple(None if a is None else a[keep]
+                           for a in per_plane[pli])
 
 
 class Encoder:
@@ -160,6 +188,22 @@ class Encoder:
         self.qi = max(0, min(63, info.quality))
         self.rd_quant = True
         self.rd_strength = 3.0
+        # Skip-decision lambda multiplier on top of rd_strength * 4.
+        self.skip_lambda_scale = 2.5
+        # The reference's coupled mode/skip rollback (analyze.c:859-882,
+        # 933-956), off by default: _coupled_transform_skip. Its tunables:
+        # the lambda scale of a non-NOMV block's skip, whether such blocks
+        # may skip at all, the mode and flag bits an MB rollback saves,
+        # and whether MBs roll back.
+        self.coupled_skip = False
+        self.skip_other_scale = 0.25
+        self.skip_nonnomv = True
+        self.mb_skip_overhead_bits = 6.0
+        self.mb_rollback = True
+        # The non-coupled luma R/D skip extended from INTER_NOMV to the MV,
+        # LAST and LAST2 modes against the true uncoded SSD, off by
+        # default (encoder.py:2053-2081).
+        self.luma_ext_skip = False
         self.use_trellis = True
         self.sp_level = 0
         # AC Huffman indices of the last packed frame of each type, the
@@ -169,8 +213,15 @@ class Encoder:
         self._cur_fti = 0
         self.adaptive_quant = "auto"
         self.aq_lambda_scale = 1.0
+        # Estimate-first qii: None, or a margin in bits; a finer row then
+        # runs the exact trellis only on the blocks whose cheap estimate
+        # comes within that many lambda-bits of beating the base row
+        # (encoder.py:740-803).
+        self.aq_estimate_margin = None
         self._frame_qis = None
-        self._frag_qii_rd = None
+        # Each fragment's index into the frame's qi list: chosen by the
+        # multi-qi trellis, or by luma activity without the trellis.
+        self._frag_qii = None
         self._frag_lam_scale = None
         self._aq_scale_frame = self.aq_lambda_scale
         # None, or a callable (planes, qi) -> {pli: (dct16, qdct)}: a
@@ -204,6 +255,9 @@ class Encoder:
         self.keyframe_freq = 64
         self._frames_since_keyframe = -1
         self.granpos = -1
+        # The scene-cut fallback: an inter frame at least as big as the
+        # last keyframe is encoded again as a keyframe.
+        self.auto_keyframe = True
         # The original frames the motion search reads (the *_ORIG
         # references, mcenc.c:314-316).
         self._prev_orig = None
@@ -317,7 +371,8 @@ class Encoder:
             # Scene-cut fallback: an inter frame at least as big as the
             # last keyframe is encoded again as a keyframe
             # (analyze.c:2690-2711).
-            if self._last_kf_size and len(data) >= self._last_kf_size:
+            if (self.auto_keyframe and self._last_kf_size
+                    and len(data) >= self._last_kf_size):
                 is_key = True
                 self._frames_since_keyframe = 0
                 data = self._keyframe(planes, gates)
@@ -450,19 +505,34 @@ class Encoder:
         ], axis=1))
 
     # ------------------------------------------------------------------
-    def _select_adaptive_qis(self, gates, qti: int):
+    def _select_adaptive_qis(self, planes, gates, qti: int):
         """The frame's qi list and, with the triple, the per-fragment qii
-        array the multi-qi trellis fills (encoder.py:1122-1177)."""
+        array: filled by the multi-qi trellis, or without the trellis
+        from luma block variance (encoder.py:1122-1177)."""
         self._frame_qis = None
         self._frag_lam_scale = None
         qis = self._qis(gates, qti)
         if len(qis) == 1:
             return None
-        if not self.use_trellis:
-            raise NotImplementedError(
-                "adaptive quantization's qi triple without the trellis "
-                "(use_trellis=False at speed levels 0-1) is not ported")
         g = self.geometry
+        if not self.use_trellis:
+            # Activity terciles: the calmest tenth of the luma blocks takes
+            # the finer qi and those from the 55th percentile on the
+            # coarser, where each is in the list; chroma keeps the base.
+            coarser = next((i for i in range(1, len(qis))
+                            if qis[i] < qis[0]), 0)
+            finer = next((i for i in range(1, len(qis))
+                          if qis[i] > qis[0]), 0)
+            y = planes[0]
+            h, w = y.shape
+            var = (y.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+                   .reshape(-1, 64).astype(np.float64).var(axis=1))
+            lo, hi = np.quantile(var, [0.10, 0.55])
+            self._frag_qii = np.zeros(g.nfrags, dtype=np.int32)
+            self._frag_qii[:g.planes[0].nfrags] = np.where(
+                var <= lo, finer, np.where(var >= hi, coarser, 0))
+            self._frame_qis = qis
+            return self._frag_qii
         nl, _, sc = gates
         self._aq_scale_frame = aq.chooser_lambda_scale(
             self.adaptive_quant, self.qi, qti, int(self.info.pixel_fmt), nl,
@@ -472,13 +542,13 @@ class Encoder:
             full[:g.planes[0].nfrags] = sc
             self._frag_lam_scale = full
         self._frame_qis = qis
-        self._frag_qii_rd = np.zeros(g.nfrags, dtype=np.int32)
-        return self._frag_qii_rd
+        self._frag_qii = np.zeros(g.nfrags, dtype=np.int32)
+        return self._frag_qii
 
     def _encode_intra(self, planes, gates) -> bytes:
         self._cur_fti = 0
         g = self.geometry
-        frag_qii = self._select_adaptive_qis(gates, 0)
+        frag_qii = self._select_adaptive_qis(planes, gates, 0)
         qis = self.frame_qis
         pre = None
         if self.device_tq is not None and self.uses_device_tq(qis):
@@ -559,6 +629,9 @@ class Encoder:
                 out.append(self._tq_trellis_multi_qi(pli, fragis, res, qti,
                                                      qis))
                 continue
+            if len(qis) > 1:
+                out.append(self._tq_qii_rows(pli, fragis, res, qti, qis))
+                continue
             qdct = np.empty((n, 64), dtype=np.int32)
             err2 = np.zeros(n, dtype=np.int64)
             res2 = np.zeros(n, dtype=np.int64)
@@ -587,12 +660,45 @@ class Encoder:
                         acbits))
         return out
 
+    def _tq_qii_rows(self, pli, fragis, res, qti, qis):
+        """Without the trellis, a multi-qi frame (encoder.py:632-686):
+        each block's fDCT and quantization (R/D or round-to-nearest, by
+        rd_quant) at the row of its qii (_select_adaptive_qis), the DC at
+        qis[0] (decode.c:1530). err2 is taken against the row's
+        quantizers, the DC's too, as the JAX Encoder takes it."""
+        n = len(fragis)
+        qiis = self._frag_qii[fragis]
+        qdct = np.empty((n, 64), dtype=np.int32)
+        dct = np.empty((n, 64), dtype=np.int64)
+        dq_b = np.empty((n, 64), dtype=np.int64)
+        for t in (0, 1):
+            mt = qti == t
+            for qii, qi in enumerate(qis):
+                m = mt & (qiis == qii)
+                if not m.any():
+                    continue
+                dq = self.dequant[qi, pli, t]
+                lam = rd_lambda(qi, int(dq[1])) * self.rd_strength
+                qz, _, _, d16 = fdct_quantize_rd_native(
+                    res[m], dq, lam, rd=self.rd_quant, want_dct=True)
+                qdct[m] = qz
+                dct[m] = d16
+                dq_b[m] = dq
+            if mt.any():
+                qdct[mt, 0] = _quantize(dct[mt, 0],
+                                        self.dequant[qis[0], pli, t][0])
+        d = dct - qdct * dq_b
+        res2 = (res.astype(np.int64) ** 2).reshape(n, -1).sum(axis=1) * 16
+        return (fragis, qdct, (d * d).sum(axis=1), res2, None, qti, None,
+                None)
+
     def _tq_trellis_multi_qi(self, pli, fragis, res, qti, qis):
         """fDCT once, then quantization and a trellis plan per qi row;
         each block's qii by exact R/D cost, err2 + lambda (acbits +
         signalling). DC always quantizes with qis[0] (decode.c:1530).
-        encoder.py:690-853 with its estimate pass off (the default
-        aq_estimate_margin None)."""
+        With aq_estimate_margin set, a finer row runs the trellis only on
+        the blocks whose cheap estimate comes within that margin of
+        beating the base row (encoder.py:690-853)."""
         n = len(fragis)
         fti = self._cur_fti
         lam = (RD_LAMBDA.get(int(self.info.pixel_fmt), RD_LAMBDA[0])[fti][
@@ -624,6 +730,11 @@ class Encoder:
             paths = paths0.copy()
             acb = acbits0.copy()
             err = np.full(n, big, np.int64)
+            if (len(idx) and qi > qis[0]
+                    and self.aq_estimate_margin is not None):
+                idx = self._estimate_winners(pli, idx, dct16, qti, qi,
+                                             qis[0], lam, nbt, acbits0,
+                                             err20)
             if len(idx):
                 d16c = np.ascontiguousarray(dct16[idx])
                 qtis = np.ascontiguousarray(qti[idx])
@@ -654,11 +765,37 @@ class Encoder:
             for q in range(len(qis))])
         best = np.argmin(costs, axis=0).astype(np.int32)
         rows = np.arange(n)
-        self._frag_qii_rd[fragis] = best
+        self._frag_qii[fragis] = best
         res2 = (res.astype(np.int64) ** 2).reshape(n, -1).sum(axis=1) * 16
         return (fragis, np.stack(qdcts)[best, rows].astype(np.int32),
                 np.stack(err2s)[best, rows], res2, dct16, qti,
                 np.stack(pathss)[best, rows], np.stack(acbitss)[best, rows])
+
+    def _estimate_winners(self, pli, idx, dct16, qti, qi, qi0, lam, nbt,
+                          acbits0, err20):
+        """The blocks of idx whose finer row at qi, priced by the cheap
+        model (th_quantize_estimate) with its bits anchored to the base
+        row's exact ones, comes within aq_estimate_margin lambda-bits of
+        beating the base row (encoder.py:770-803)."""
+        d16 = np.ascontiguousarray(dct16[idx])
+        qtis = qti[idx]
+        ni = len(idx)
+        bits_r = np.empty(ni, dtype=np.int64)
+        err_r = np.empty(ni, dtype=np.int64)
+        bits_b = np.empty(ni, dtype=np.int64)
+        for t in (0, 1):
+            m = qtis == t
+            if not m.any():
+                continue
+            dq_b = self.dequant[qi0, pli, t]
+            _, bits_r[m], err_r[m] = quantize_estimate_native(
+                d16[m], self.dequant[qi, pli, t], int(dq_b[0]), lam, nbt)
+            _, bits_b[m], _ = quantize_estimate_native(
+                d16[m], dq_b, int(dq_b[0]), lam, nbt)
+        est_bits = acbits0[idx] + (bits_r - bits_b)
+        dcost = ((err_r + (lam * (est_bits + 1.0)).astype(np.int64))
+                 - (err20[idx] + (lam * acbits0[idx]).astype(np.int64)))
+        return idx[dcost < lam * float(self.aq_estimate_margin)]
 
     def _nb_table(self, pli, fti):
         """[5, 32] int64 bit cost of each token per zig-zag group, from
@@ -986,8 +1123,10 @@ class Encoder:
     def _encode_inter_tail(self, planes, gates, frag_refi, frag_mode,
                            frag_mv, mb_modes, mb_mvs) -> bytes:
         """Residuals against the reconstructed references, transform,
-        quantization, the early and R/D skips (encoder.py:1902-2125 with
-        coupled_skip and luma_ext_skip off)."""
+        quantization, the early and R/D skips, or with coupled_skip the
+        coupled mode/skip rollback (encoder.py:1902-2125). residual()
+        reads frag_refi and frag_mv when it is called: the rollback's mode
+        forcing rewrites chroma's in place before chroma's transform."""
         g = self.geometry
         fmt = int(self.info.pixel_fmt)
         prev_rec, gold_rec = self._references()
@@ -1013,10 +1152,10 @@ class Encoder:
         coded[g.scan_fragis] = True
         coded &= frag_refi != FRAME_NONE
         # One quantizer at speed levels 2 and more (FAST_ANALYSIS).
-        frag_qii = (self._select_adaptive_qis(gates, 1)
+        frag_qii = (self._select_adaptive_qis(planes, gates, 1)
                     if self.sp_level < 2 else None)
         lam = (rd_lambda(self.qi, int(self.dequant[self.qi, 0, 1, 1]))
-               * self.rd_strength * 4.0 * _SKIP_LAMBDA_SCALE)
+               * self.rd_strength * 4.0 * self.skip_lambda_scale)
         if self.sp_level >= 1:
             # Early skip (OC_SP_LEVEL_EARLY_SKIP, analyze.c:708-715): a
             # block whose uncoded SSD cannot beat any coded version skips
@@ -1035,29 +1174,156 @@ class Encoder:
                 unc = self._uncoded_ssd_plane(planes, prev_rec, pli)
                 coded[np.flatnonzero(cand & (unc <= thresh))
                       + pl.froffset] = False
+        if self.coupled_skip:
+            per_plane = self._coupled_transform_skip(
+                planes, prev_rec, coded, frag_refi, frag_mode, frag_mv,
+                mb_modes, residual, lam)
+            return self._finish_inter(per_plane, coded, frag_refi, frag_qii,
+                                      mb_modes, mb_mvs)
         per_plane = self._transform_quantize(coded, frag_refi, residual)
-        # R/D skip (analyze.c:859-867): a luma NOMV block, or a chroma
-        # block of any mode, stays uncoded when coding it does not beat
-        # the uncoded copy from the previous frame by its bit cost.
+        # R/D skip (analyze.c:859-867): a luma NOMV block (with
+        # luma_ext_skip, also an MV, LAST or LAST2 block, against its true
+        # uncoded SSD), or a chroma block of any mode, stays uncoded when
+        # coding it does not beat the uncoded copy from the previous frame
+        # by its bit cost.
         for pli in range(3):
-            fragis, qdct, err2, res2, _, _, paths, acbits = per_plane[pli]
+            fragis, _, err2, res2 = per_plane[pli][:4]
             if len(fragis) == 0:
                 continue
-            bits_est = (acbits + 2 if paths is not None
-                        else 6 * (qdct != 0).sum(axis=1) + 2)
-            cost = err2 + (lam * bits_est).astype(np.int64)
-            if pli == 0:
+            cost = err2 + (lam * _bits_est(per_plane[pli])).astype(np.int64)
+            if pli == 0 and self.luma_ext_skip:
+                unc = self._uncoded_ssd_plane(planes, prev_rec, 0)[fragis]
+                skip = np.isin(frag_mode[fragis], _EXT_SKIP_MODES) & (
+                    unc <= cost)
+                self._luma_skip_guard(fragis, skip, coded, frag_mode)
+            elif pli == 0:
                 skip = (res2 <= cost) & (frag_mode[fragis] == MODE_INTER_NOMV)
             else:
                 unc = self._uncoded_ssd_plane(planes, prev_rec, pli)
                 skip = unc[fragis - g.planes[pli].froffset] <= cost
             if skip.any():
-                keep = ~skip
-                coded[fragis[skip]] = False
-                per_plane[pli] = tuple(None if a is None else a[keep]
-                                       for a in per_plane[pli])
+                _apply_skip(per_plane, pli, skip, coded)
         return self._finish_inter(per_plane, coded, frag_refi, frag_qii,
                                   mb_modes, mb_mvs)
+
+    def _coupled_transform_skip(self, planes, prev_rec, coded, frag_refi,
+                                frag_mode, frag_mv, mb_modes, residual, lam):
+        """The coupled mode/skip R/D, luma first (encoder.py:2254-2386;
+        the reference's retroactive skip with rollback,
+        analyze.c:859-882, 933-956):
+
+        1. luma's transform; each block of any mode but 4MV skips against
+           its true uncoded SSD, a non-NOMV block at lambda times
+           skip_other_scale (none with skip_nonnomv False), and an MV,
+           LAST2 or 4MV macroblock keeps a coded luma block;
+        2. with mb_rollback, a NOMV, GOLDEN_NOMV, INTRA or LAST macroblock
+           (modes that leave the vector predictors as they are) drops its
+           remaining luma when the uncoded SSD beats the coded one plus
+           lambda times (AC bits + mb_skip_overhead_bits);
+        3. a macroblock left with no coded luma becomes INTER_NOMV and its
+           coded chroma predicts from the previous frame at vector 0;
+        4. chroma's transform, then its skip as on the plain path.
+
+        Returns the per-plane tuples; coded, frag_refi, frag_mode, frag_mv
+        and mb_modes are updated in place."""
+        g = self.geometry
+        luma = np.zeros(g.nfrags, dtype=bool)
+        luma[:g.planes[0].nfrags] = True
+        per_plane = self._transform_quantize(coded & luma, frag_refi,
+                                             residual)
+        fragis, _, err2 = per_plane[0][:3]
+        bits = _bits_est(per_plane[0])
+        unc = self._uncoded_ssd_plane(planes, prev_rec, 0)[fragis]
+        modes = frag_mode[fragis]
+        lam_other = lam * self.skip_other_scale
+        nomv = modes == MODE_INTER_NOMV
+        skip = (unc <= err2 + (np.where(nomv, lam, lam_other) * bits)
+                .astype(np.int64)) & (modes != MODE_INTER_MV_FOUR)
+        if not self.skip_nonnomv:
+            skip &= nomv
+        self._luma_skip_guard_modes(fragis, skip, coded, frag_mode)
+        if self.mb_rollback and len(fragis):
+            mbis, lum, lc = self._mb_coded_luma(coded)
+            safe = np.isin(mb_modes[mbis], _ROLLBACK_MODES)
+            lum, lc = lum[safe], lc[safe]
+            # Each MB's blocks as rows of the plane tuple; live: coded and
+            # not skipped yet.
+            idx = np.minimum(np.searchsorted(fragis, np.maximum(lum, 0)),
+                             len(fragis) - 1)
+            live = lc & ~skip[idx]
+            lam_mb = np.where(mb_modes[mbis[safe]] == MODE_INTER_NOMV, lam,
+                              lam_other)
+            thr = (lam_mb * ((bits[idx] * live).sum(axis=1)
+                             + self.mb_skip_overhead_bits)).astype(np.int64)
+            roll = live.any(axis=1) & ((unc[idx] * live).sum(axis=1) <= (
+                err2[idx] * live).sum(axis=1) + thr)
+            skip[idx[live & roll[:, None]]] = True
+        _apply_skip(per_plane, 0, skip, coded)
+        # Mode forcing: an MB that lost all its coded luma transmits no
+        # mode, so the decoder takes INTER_NOMV for its chroma.
+        lum = g.mb_maps[:, 0]
+        has_luma = (lum >= 0).any(axis=1)
+        luma_coded = ((lum >= 0) & coded[np.maximum(lum, 0)]).any(axis=1)
+        forced = np.flatnonzero(g.mb_valid & has_luma & ~luma_coded
+                                & (mb_modes != MODE_INTER_NOMV))
+        mb_modes[forced] = MODE_INTER_NOMV
+        ch = g.mb_maps[forced, 1:].reshape(-1)
+        ch = ch[ch >= 0]
+        ch = ch[coded[ch]]
+        frag_refi[ch] = FRAME_PREV
+        frag_mode[ch] = MODE_INTER_NOMV
+        frag_mv[ch] = 0
+        per_chroma = self._transform_quantize(coded & ~luma, frag_refi,
+                                              residual)
+        for pli in (1, 2):
+            per_plane[pli] = per_chroma[pli]
+            fragis, _, err2 = per_plane[pli][:3]
+            if len(fragis) == 0:
+                continue
+            unc = self._uncoded_ssd_plane(planes, prev_rec, pli)[
+                fragis - g.planes[pli].froffset]
+            skip = unc <= err2 + (lam * _bits_est(per_plane[pli])).astype(
+                np.int64)
+            if skip.any():
+                _apply_skip(per_plane, pli, skip, coded)
+        return per_plane
+
+    def _mb_coded_luma(self, coded):
+        """Per valid MB: its luma fragments [M, 4] (-1 where none), which
+        of them are coded, and the MB indices."""
+        g = self.geometry
+        mbis = np.flatnonzero(g.mb_valid)
+        lum = g.mb_maps[mbis, 0]
+        return mbis, lum, (lum >= 0) & coded[np.maximum(lum, 0)]
+
+    def _luma_all_skipped(self, fragis, skip, coded):
+        """Per valid MB: its index, its first coded luma fragment, and
+        whether it has coded luma that would all skip."""
+        skipmap = np.zeros(self.geometry.nfrags, dtype=bool)
+        skipmap[fragis] = skip
+        mbis, lum, lc = self._mb_coded_luma(coded)
+        first = lum[np.arange(len(lum)), lc.argmax(axis=1)]
+        return mbis, first, lc.any(axis=1) & ~(
+            lc & ~skipmap[np.maximum(lum, 0)]).any(axis=1)
+
+    def _luma_skip_guard_modes(self, fragis, skip, coded, frag_mode):
+        """Un-skip the first coded luma block of each MB whose mode moves
+        the decoder's vector predictors (MV, LAST2, 4MV) and whose coded
+        luma would all skip: its mode must stay transmitted
+        (encoder.py:2389-2411)."""
+        _, first, gone = self._luma_all_skipped(fragis, skip, coded)
+        need = gone & np.isin(frag_mode[first], _GUARD_MODES)
+        skip[np.searchsorted(fragis, first[need])] = False
+
+    def _luma_skip_guard(self, fragis, skip, coded, frag_mode):
+        """luma_ext_skip's guard: un-skip the first coded luma block of
+        each non-NOMV MB whose coded luma would all skip while some of its
+        chroma stays coded (encoder.py:2459-2484)."""
+        mbis, first, gone = self._luma_all_skipped(fragis, skip, coded)
+        ch = self.geometry.mb_maps[mbis, 1:].reshape(len(mbis), -1)
+        chroma = ((ch >= 0) & coded[np.maximum(ch, 0)]).any(axis=1)
+        need = gone & (frag_mode[first] != MODE_INTER_NOMV) & chroma
+        skip[np.searchsorted(fragis, first[need])] = False
 
     def _finish_inter(self, per_plane, coded, frag_refi, frag_qii,
                       mb_modes, mb_mvs) -> bytes:

@@ -11,7 +11,9 @@ parser. Encode: `NativeTokenPacker.pack_frame`, `dc_residuals_native`,
 `motion_estimate_native`, `me_block_refine_native`,
 `mode_decide_fill_native`, `sad_batch_native`, `enc_residuals_native` and
 `ssd8_plane_native`; the SATD of the mode_rd decision and of collect:
-`hadamard_batch_native` and `satd_halfpel_batch_native`. The library is
+`hadamard_batch_native` and `satd_halfpel_batch_native`; the estimate of
+adaptive quantization's estimate-first qii chooser:
+`quantize_estimate_native`. The library is
 built with g++ from entropy.cpp at first use into ``native/build/``, with the JAX package's flags (the mode
 decision's double-precision costs then compile to the same instructions).
 A failed build or a missing symbol raises: the port has no pure-Python
@@ -142,6 +144,9 @@ def get_lib():
     lib.th_satd_halfpel_batch.argtypes = [
         _P, ctypes.c_int, _P, ctypes.c_int, _I64, _P, _P, _P, _P,
         ctypes.c_int, _P, _P]
+    lib.th_quantize_estimate.restype = None
+    lib.th_quantize_estimate.argtypes = [_I64, _P, _P, _I32,
+                                         ctypes.c_double] + [_P] * 4
     lib.th_parse_frame_sideinfo.restype = _I64
     lib.th_parse_frame_sideinfo.argtypes = [
         _P, _I64, _I64, _I32, _I32, _I32, _P, _P, _P, _I64, _I32, _P, _P,
@@ -597,3 +602,25 @@ def satd_halfpel_batch_native(cur, ref_padded, fy, fx, mvx, mvy, bs=16):
         *[x.ctypes.data for x in arrs], int(bs), satd.ctypes.data,
         dc.ctypes.data)
     return satd, dc
+
+
+def quantize_estimate_native(dct16, dq, dq_dc, lam, nbt):
+    """Round-to-nearest quantization with the R/D quantizer's sweeps, priced
+    by a greedy tokenization (th_quantize_estimate): the cost model of the
+    estimate-first qii chooser. dct16 [n, 64] int16 zig-zag; dq [64] AC
+    row; dq_dc the base qi's DC quantizer; lam the R/D lambda (0: plain
+    round-to-nearest); nbt [5, 32] int64 bit costs. Returns (qz [n, 64]
+    int16, bits [n] int64, err [n] int64)."""
+    lib = get_lib()
+    n = len(dct16)
+    dct_c = np.ascontiguousarray(dct16, dtype=np.int16)
+    dq_c = np.ascontiguousarray(dq, dtype=np.int32)
+    nbt_c = np.ascontiguousarray(nbt, dtype=np.int64)
+    qz = np.empty((n, 64), dtype=np.int16)
+    bits = np.empty(n, dtype=np.int64)
+    err = np.empty(n, dtype=np.int64)
+    lib.th_quantize_estimate(n, dct_c.ctypes.data, dq_c.ctypes.data,
+                             int(dq_dc), float(lam), nbt_c.ctypes.data,
+                             qz.ctypes.data, bits.ctypes.data,
+                             err.ctypes.data)
+    return qz, bits, err

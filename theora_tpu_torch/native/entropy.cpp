@@ -11,8 +11,9 @@
 // the host encoder's keyframe path: fDCT + R/D quantization, the trellis
 // planner (tokenize.c:457-744) and the packer of its plans; its inter
 // path: luma motion estimation, the mode decision with its fragment fill,
-// the batch SAD, the MC residual gather and the uncoded SSD.
-// Bit-serial work stays on the host; the pixel pipeline runs on the card.
+// the batch SAD, the MC residual gather and the uncoded SSD; the cheap
+// quantize + greedy token estimate of adaptive quantization's
+// estimate-first qii chooser. Bit-serial work stays on the host; the pixel pipeline runs on the card.
 //
 // Pure C ABI (loaded via ctypes). No Python.h dependency.
 #include <algorithm>
@@ -1850,6 +1851,133 @@ static void emit_plan(EncStreams& es, int pli, int dc, const int16_t* path) {
 }  // namespace
 
 extern "C" {
+
+// Greedy tokenization bit estimate of one quantized AC row (zig-zag,
+// slots 1..63): runs/values priced with the same nbt table the trellis
+// uses, but no DP -- the cheap cost model behind the estimate-first
+// qii chooser (the reference likewise picks qii from estimates and
+// tokenizes once; analyze.c qii flow + rate.c:175-201).
+static int64_t greedy_ac_bits(const int16_t* q, const int64_t* nbt) {
+  auto nb = [&](int zzi, int tok) -> int64_t {
+    return nbt[(int)ZZI_GROUP_T[zzi] * 32 + tok];
+  };
+  int64_t bits = 0;
+  int run = 0;
+  for (int z = 1; z < 64; z++) {
+    int v = q[z];
+    if (!v) { run++; continue; }
+    int t, e;
+    if (run == 0) {
+      value_token(v, &t, &e);
+      bits += nb(z, t);
+    } else if (combo_token(run, v, &t, &e)) {
+      bits += nb(z - run, t);
+    } else {
+      bits += nb(z - run, run <= 8 ? 7 : 8);  // ZRL
+      value_token(v, &t, &e);
+      bits += nb(z, t);
+    }
+    run = 0;
+  }
+  return bits + 2;  // amortized share of the terminal EOB run
+}
+
+static void quantize_estimate_range(int64_t lo, int64_t hi,
+                                    const int16_t* dct, const int32_t* dq,
+                                    int32_t dq_dc, double lam,
+                                    const int64_t* nbt, int16_t* qz,
+                                    int64_t* bits, int64_t* err) {
+  for (int64_t i = lo; i < hi; i++) {
+    const int16_t* x = dct + i * 64;
+    int16_t* q = qz + i * 64;
+    for (int z = 0; z < 64; z++) {
+      int64_t d = z == 0 ? dq_dc : dq[z];
+      int64_t v2 = (int64_t)2 * (x[z] < 0 ? -x[z] : x[z]);
+      int64_t qq = v2 >= d ? (v2 + d) / (2 * d) : 0;
+      q[z] = (int16_t)(x[z] < 0 ? -qq : qq);
+    }
+    // Cheap R/D sweeps (the th_fdct_quantize_rd heuristics): without
+    // them the estimate overprices fine-quantizer rows, whose many
+    // small coefficients the trellis prunes -- the pruning gain MUST
+    // be modeled or the estimate-first chooser ranks rows wrongly.
+    if (lam > 0) {
+      // Magnitude-step choice.
+      for (int z = 1; z < 64; z++) {
+        int a0 = q[z] < 0 ? -q[z] : q[z];
+        if (!a0) continue;
+        int a1 = a0 - 1;
+        int64_t d = dq[z];
+        int64_t av = x[z] < 0 ? -x[z] : x[z];
+        double e0 = (double)(a0 * d - av) * (a0 * d - av);
+        double e1 = (double)(a1 * d - av) * (a1 * d - av);
+        double b0 = MAG_BITS[a0 > 8 ? 8 : a0];
+        double b1 = MAG_BITS[a1 > 8 ? 8 : a1];
+        if (e1 + lam * b1 <= e0 + lam * b0)
+          q[z] = (int16_t)(q[z] < 0 ? -a1 : a1);
+      }
+      // Isolated +-1 kill (2 sweeps).
+      for (int sweep = 0; sweep < 2; sweep++) {
+        bool any = false;
+        for (int z = 1; z < 64; z++) {
+          if (q[z] != 1 && q[z] != -1) continue;
+          bool lz = z < 2 || q[z - 1] == 0;
+          bool rz = z == 63 || q[z + 1] == 0;
+          if (!(lz && rz)) continue;
+          int64_t d = dq[z];
+          int64_t av = x[z] < 0 ? -x[z] : x[z];
+          double ec = (double)(d - av) * (d - av);
+          double ez = (double)av * av;
+          if (ez - ec <= lam * 11.0) { q[z] = 0; any = true; }
+        }
+        if (!any) break;
+      }
+      // Tail kill (4 sweeps).
+      for (int sweep = 0; sweep < 4; sweep++) {
+        int last = -1;
+        for (int z = 63; z >= 1; z--)
+          if (q[z]) { last = z; break; }
+        if (last < 1) break;
+        if (q[last] != 1 && q[last] != -1) break;
+        int64_t d = dq[last];
+        int64_t av = x[last] < 0 ? -x[last] : x[last];
+        double ec = (double)(1 * d - av) * (1 * d - av);
+        double ez = (double)av * av;
+        if (ez - ec > lam * 14.0) break;
+        q[last] = 0;
+      }
+    }
+    int64_t e2 = 0;
+    for (int z = 0; z < 64; z++) {
+      int64_t d = z == 0 ? dq_dc : dq[z];
+      int64_t r = (int64_t)x[z] - (int64_t)q[z] * d;
+      e2 += r * r;
+    }
+    err[i] = e2;
+    bits[i] = greedy_ac_bits(q, nbt);
+  }
+}
+
+extern "C" void th_quantize_estimate(int64_t n, const int16_t* dct,
+                                     const int32_t* dq, int32_t dq_dc,
+                                     double lam, const int64_t* nbt,
+                                     int16_t* qz, int64_t* bits,
+                                     int64_t* err) {
+  unsigned hw = std::thread::hardware_concurrency();
+  int nthreads = (int)(hw ? hw : 1);
+  if (nthreads > 4) nthreads = 4;
+  if (n < 8192 || nthreads < 2) {
+    quantize_estimate_range(0, n, dct, dq, dq_dc, lam, nbt, qz, bits,
+                            err);
+    return;
+  }
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nthreads; t++) {
+    int64_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    ts.emplace_back(quantize_estimate_range, lo, hi, dct, dq, dq_dc, lam,
+                    nbt, qz, bits, err);
+  }
+  for (auto& t : ts) t.join();
+}
 
 // Phase 1: plan one plane's blocks. dct/qdct: [n][64] int16 (qdct
 // round-to-nearest in, AC rewritten to the chosen values out); dq0/dq1:
