@@ -373,8 +373,17 @@ and prints no result line):
    Encoder's); (d) profile --mode encode and decode: each Chrome trace
    carries the codec's record_function labels; (e) play --stats-only -o
    on the 720p test stream against hd720_q56_k12.sha256; (f) enc -a on
-   both branches where libvorbis loads (else a line says it is absent).
-   Every part's launches by kernel.
+   both branches where libvorbis loads (else a line says it is absent);
+   (g) `roofline --size 1280x720 --frames 8 --reps 6 --json`, the JAX
+   tool's per-stage table of the device encode, the counts reset just
+   before it: its seven stages in JAX's order with times above 0, the
+   card's line from nvidia-smi, the launches of each kernel on its path
+   (KM three per plan, K2, KT and K1's encode entry once per plane per
+   frame step, KR once per frame of the R/D scan, K2 and K1's decode
+   entry once per transform-core call; KL none at qi 48, KP none, KS none
+   of its own), and its luma trellis and R/D scans on the card against
+   the plain path on the CPU at 64x48, exact. Every part's launches by
+   kernel.
 
 Then one JSON line listing the eight kernels (times and bounds, K1's at
 both entries, KS's at its three and in the fused entries; launches on the 720p decode, each 720p
@@ -387,8 +396,9 @@ for K1, K2, KT and KR the one launch over 3 segments beside 3 launches;
 KP's on the 720p decode at pp 7, by batch and per packet, and the pp
 goldens, its traced time per pp 7 pass and its times in turns with its
 earlier design; every kernel's launches on each tool path of 13, the
-sweep's counted in "launches"), the card's name and power limit from nvidia-smi, and {"ok": true,
-"device": {...}}. Imports nothing of JAX or theora_tpu.
+sweep's and the roofline's counted in "launches"), the card's name and
+power limit from nvidia-smi, and {"ok": true, "device": {...}}. Imports
+nothing of JAX or theora_tpu.
 """
 from __future__ import annotations
 
@@ -3875,8 +3885,81 @@ def tools_audio(smi: str) -> None:
                 f"{n}; launches {c} | {smi}")
 
 
+ROOFLINE_720P = ["--size", "1280x720", "--frames", "8", "--reps", "6",
+                 "--json"]
+
+
+def tools_roofline(smi: str) -> None:
+    """13 (g): `roofline --size 1280x720 --frames 8 --reps 6 --json` on
+    the card, counts reset just before it: JAX's seven stages in order,
+    each time above 0, the card's nvidia-smi line, and every kernel's
+    launches on the tool's path, each stage called once warm and reps
+    times timed; then its luma scans at 64x48, the trellis and the R/D
+    quantizer, on the card against the plain path on the CPU, exact."""
+    import io
+
+    from theora_tpu_torch.encode.gop import GopEncoder
+    from theora_tpu_torch.encode.scan import encode_plane
+    from theora_tpu_torch.info import TheoraInfo
+    from theora_tpu_torch.tools import roofline
+
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        roofline.main([*ROOFLINE_720P, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _tool_counts("roofline 720p",
+                     ("KM", "K2", "KT", "KR", "K1 encode", "K1 decode"),
+                     ("KP",))
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    rows = res["stages"]
+    if [r["stage"] for r in rows] != list(roofline.STAGES):
+        raise AssertionError(f"roofline 720p: stages "
+                             f"{[r['stage'] for r in rows]}")
+    if not all(r[k] > 0 for r in rows for k in ("ms_per_gop",
+                                                 "ms_per_frame")):
+        raise AssertionError(f"roofline 720p: a time is not above 0: "
+                             f"{rows}")
+    if res["card"] != smi:
+        raise AssertionError(f"roofline 720p: card {res['card']!r}, "
+                             f"nvidia-smi says {smi!r}")
+    # Each stage: one warm call and reps timed calls. The ME plan runs in
+    # me_plan and pipeline_total; the trellis scans (3 planes x F frame
+    # steps) in their own stages and in pipeline_total; the R/D scan in
+    # scan_luma_rdquant; the transform core once per call.
+    F, calls = 8, 7
+    scans = 2 * 3 * F * calls
+    want = {"KM": 2 * 3 * calls, "K2": scans + calls, "KT": scans,
+            "KR": F * calls, "K1 encode": scans + F * calls,
+            "K1 decode": calls, "KL": 0, "KS": 0, "KP": 0}
+    if c != want:
+        raise AssertionError(f"roofline 720p: launches {c}; expected {want}")
+    log(f"[13g] roofline --size 1280x720 --frames 8 --reps 6: card "
+        f"{res['card']}; model {json.dumps(res['model'])}")
+    for r in rows:
+        log(f"[13g]   {r['stage']:22s} {r['ms_per_gop']:9.2f} ms/GOP "
+            f"{r['ms_per_frame']:8.3f} ms/frame {r['mpix_s']:9.1f} Mpix/s")
+    frames = roofline._synth_frames(64, 48, 3)
+    info = TheoraInfo(frame_width=64, frame_height=48, pic_width=64,
+                      pic_height=48, quality=roofline.QI)
+    for trellis in (True, False):
+        got, ref = (encode_plane(**roofline._plane_args(
+            GopEncoder(info, qi=roofline.QI, device=d), frames, 3, 0)[0],
+            use_trellis=trellis, emit_recon=True) for d in ("cuda", "cpu"))
+        for name, a, b in zip(("qout", "coded", "qii", "recon"), got, ref):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"roofline 64x48 luma scan (trellis "
+                                     f"{trellis}): {name} differs between "
+                                     f"the card and the plain path")
+    log(f"[13g] roofline's luma trellis and R/D scans at 64x48: the card "
+        f"equals the plain path; 720p wall {wall:.1f} s; launches {c} "
+        f"| {smi}")
+
+
 def tools_phase(smi: str) -> None:
-    """13: the tools on the card, (a)-(f)."""
+    """13: the tools on the card, (a)-(g)."""
     t0 = time.perf_counter()
     tools_sweep(smi)
     tools_crosscheck(smi)
@@ -3884,6 +3967,7 @@ def tools_phase(smi: str) -> None:
     tools_profile(smi)
     tools_play(smi)
     tools_audio(smi)
+    tools_roofline(smi)
     log(f"[13] the tools' phase took {time.perf_counter() - t0:.1f} s")
 
 
@@ -3969,7 +4053,8 @@ def main() -> int:
     # below q47.
     for run, c in host_settings_720p(smi).items():
         paths[f"host settings {run}"] = (c[0], 0, 0, 0, 0, c[1], c[2])
-    # The tools' slice: its main path is the quality sweep (13a).
+    # The tools' slice: its main path is the quality sweep (13a); the
+    # roofline's (13g) is the last slice's.
     tools_phase(smi)
     # K1 runs on every main path: the decodes, the encode, the transcode,
     # the mesh, the intra core; K2 on those encode paths and the batch
@@ -3980,15 +4065,21 @@ def main() -> int:
                   "mesh ranks q56 auto {1,2}", "host th_enc_ctx 720p CBR",
                   *settings)
     sweep = TOOLS_COUNTS["qualitysweep 720p"]
+    roof = TOOLS_COUNTS["roofline 720p"]
     k1["launches"] = (decode["K1 decode"]
                       + sum(paths[p][0] for p in main_paths)
-                      + sweep["K1 decode"] + sweep["K1 encode"])
-    k2["launches"] = sum(paths[p][1] for p in main_paths) + sweep["K2"]
-    kt["launches"] = sum(paths[p][2] for p in main_paths) + sweep["KT"]
+                      + sweep["K1 decode"] + sweep["K1 encode"]
+                      + roof["K1 decode"] + roof["K1 encode"])
+    k2["launches"] = (sum(paths[p][1] for p in main_paths) + sweep["K2"]
+                      + roof["K2"])
+    kt["launches"] = (sum(paths[p][2] for p in main_paths) + sweep["KT"]
+                      + roof["KT"])
     kr["launches"] = (paths["encode q48 speed 2"][3]
                       + paths["mesh speed 2"][3]
-                      + paths["mesh ranks q48 speed 2 {1,2}"][3])
-    km["launches"] = sum(paths[p][4] for p in main_paths) + sweep["KM"]
+                      + paths["mesh ranks q48 speed 2 {1,2}"][3]
+                      + roof["KR"])
+    km["launches"] = (sum(paths[p][4] for p in main_paths) + sweep["KM"]
+                      + roof["KM"])
     # KL runs where a frame's qi is below 47: the 2-pass encode and the
     # decode of its packets, the golden decodes, the small mesh and the
     # host Encoder's closed loop under a target bitrate and at q40.

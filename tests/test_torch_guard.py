@@ -2174,3 +2174,17 @@ def test_tool_helpers_default_to_cuda(monkeypatch, tool):
                 f(frames, frames)
             assert np.isfinite(f(frames, [[np.ones((16, 16), np.uint8)]],
                                  "cpu"))
+
+
+def test_roofline_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """tools/roofline.py's --device defaults to "cuda": without a card its
+    main raises before building any input, and it never times the CPU
+    unasked."""
+    from theora_tpu_torch.tools import roofline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roofline.main(["--size", "64x48", "--frames", "2", "--reps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roofline.main(["--size", "64x48", "--frames", "2", "--reps", "1",
+                       "--json", "--device", "cuda"])

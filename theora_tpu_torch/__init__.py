@@ -49,3 +49,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# The stream parameters and their enums, as the JAX package exports them
+# (info.py imports nothing of this package).
+from theora_tpu_torch.info import ColorSpace, PixelFormat, TheoraInfo  # noqa: E402,F401

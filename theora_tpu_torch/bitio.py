@@ -50,6 +50,13 @@ class BitReader:
             return 0
         return (self.data[pos >> 3] >> (7 - (pos & 7))) & 1
 
+    def look1(self) -> int:
+        """The next bit without consuming it; 0 past the end."""
+        pos = self.pos
+        if pos >= self.nbits:
+            return 0
+        return (self.data[pos >> 3] >> (7 - (pos & 7))) & 1
+
     def bytes_left(self) -> int:
         """Whole bytes remaining, or -1 once EOF has been hit
         (oc_pack_bytes_left, bitpack.c:110-114)."""

@@ -101,7 +101,11 @@ from theora_tpu_torch.constants import (
 )
 from theora_tpu_torch.decode.scalar import PacketDecoder
 from theora_tpu_torch.encode import aq, modedec
-from theora_tpu_torch.encode.packer import FramePacker, sb_run_pack
+from theora_tpu_torch.encode.packer import (  # noqa: F401
+    FramePacker,
+    block_run_pack,
+    sb_run_pack,
+)
 from theora_tpu_torch.encode.rate import RateControl
 from theora_tpu_torch.headers import SetupInfo
 from theora_tpu_torch.huffman import MV_VLC_BOOK, Codebook
@@ -1394,6 +1398,23 @@ class Encoder:
                 vecs[:, 0] = dc_resid[scan]
                 out.append(vecs)
         return out
+
+    def pack_frame_plan(self, ftype, coded, frag_refi, mb_modes, mb_mvs,
+                        qdct_by_frag, qis=None, frag_qii=None) -> bytes:
+        """Pack one frame from a coding plan made elsewhere (JAX's
+        signature): FramePacker.pack_frame_plan at self.qi, a 4MV MB's
+        block vectors from self._frag_mv4. coded: [nfrags] bool;
+        frag_refi: [nfrags] FRAME_* (FRAME_NONE for uncoded);
+        qdct_by_frag: [nfrags, 64] zig-zag values with the actual DC at 0;
+        mb_modes, mb_mvs as packed; qis and frag_qii: adaptive
+        quantization's qi list (more than one entry) and each block's
+        index into it."""
+        self._cur_fti = 0 if ftype == INTRA_FRAME else 1
+        self._frame_qis = list(qis) if qis and len(qis) > 1 else None
+        return self._fp.pack_frame_plan(
+            ftype, self.qi, coded, frag_refi, mb_modes, mb_mvs,
+            qdct_by_frag, frag_mv4=self._frag_mv4, qis=self._frame_qis,
+            frag_qii=frag_qii)
 
     def _pack(self, bw: BitWriter, ordered) -> bytes:
         """The residual section after the header bits in bw: the trellis

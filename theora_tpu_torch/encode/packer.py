@@ -65,6 +65,23 @@ def sb_run_pack(bw: BitWriter, run: int, flag: int, done: bool) -> None:
              _SB_RUN_CODE_NBITS[i])
 
 
+# Block run codes (encode.c:433-441).
+_BLOCK_RUN_CODE_NBITS = [2, 2, 3, 3, 4, 4, 6, 6, 6, 6, 7, 7, 7, 7] + [9] * 16
+_BLOCK_RUN_CODE_PATTERN = [
+    0x000, 0x001, 0x004, 0x005, 0x00C, 0x00D, 0x038,
+    0x039, 0x03A, 0x03B, 0x078, 0x079, 0x07A, 0x07B, 0x1F0,
+    0x1F1, 0x1F2, 0x1F3, 0x1F4, 0x1F5, 0x1F6, 0x1F7, 0x1F8,
+    0x1F9, 0x1FA, 0x1FB, 0x1FC, 0x1FD, 0x1FE, 0x1FF,
+]
+
+
+def block_run_pack(bw: BitWriter, run: int) -> None:
+    """One run (1-30) of the short-run flag code of the blocks' coded
+    flags (encode.c:433-441). The packers code those flags natively
+    (coded_flags_pack_native); this is the public Python form."""
+    bw.write(_BLOCK_RUN_CODE_PATTERN[run - 1], _BLOCK_RUN_CODE_NBITS[run - 1])
+
+
 def _flag_runs_pack(bw: BitWriter, flags) -> None:
     """The first flag, then the runs of equal flags (encode.c:685-725)."""
     flag = int(flags[0])

@@ -21,6 +21,11 @@ class SetupInfo:
     codebooks: list[Codebook]
 
 
+class NotFormatError(ValueError):
+    """The packet does not carry the "theora" codec magic (the reference's
+    TH_ENOTFORMAT): it is not a Theora header at all."""
+
+
 class BadHeaderError(ValueError):
     pass
 
@@ -35,7 +40,7 @@ def _check_magic(br: BitReader, kind: int, what: str) -> None:
     if br.read(8) != kind:
         raise BadHeaderError(f"not a {what} header")
     if br.read_string(6) != b"theora":
-        raise BadHeaderError("bad codec magic")
+        raise NotFormatError("bad codec magic")
 
 
 def parse_info_header(packet: bytes) -> TheoraInfo:

@@ -1,4 +1,5 @@
-"""Stream parameters (the `th_info` analogue).
+"""Stream parameters (the `th_info` analogue) and the pixel-format and
+colorspace enums.
 
 Copy of theora_tpu/info.py (codec.h:206-298 in the reference).
 """
@@ -16,6 +17,14 @@ class PixelFormat(enum.IntEnum):
     PF_RSVD = 1
     PF_422 = 2
     PF_444 = 3
+
+
+class ColorSpace(enum.IntEnum):
+    """Colorspaces (codec.h:100-109)."""
+
+    UNSPECIFIED = 0
+    ITU_REC_470M = 1
+    ITU_REC_470BG = 2
 
 
 # Frame types (lib/state.h:157-161)
@@ -46,7 +55,7 @@ class TheoraInfo:
     fps_denominator: int = 1
     aspect_numerator: int = 0
     aspect_denominator: int = 0
-    colorspace: int = 0
+    colorspace: int = ColorSpace.UNSPECIFIED
     pixel_fmt: int = PixelFormat.PF_420
     target_bitrate: int = 0
     quality: int = 48
@@ -85,3 +94,24 @@ class TheoraInfo:
     def vdec(self) -> int:
         """1 when chroma is decimated vertically."""
         return 0 if (self.pixel_fmt & 2) else 1
+
+    def granule_frame(self, granpos: int) -> int:
+        """The frame index of a granule position, -1 for a negative one
+        (state.c:1242-1267): streams of version 3.2.1 and later count
+        from 1, earlier ones from 0."""
+        if granpos < 0:
+            return -1
+        shift = self.keyframe_granule_shift
+        iframe = granpos >> shift
+        pframe = granpos - (iframe << shift)
+        counts_from_one = (self.version_major, self.version_minor,
+                           self.version_subminor) >= (3, 2, 1)
+        return iframe + pframe - (1 if counts_from_one else 0)
+
+    def granule_time(self, granpos: int) -> float:
+        """The end time in seconds of the frame of a granule position,
+        -1.0 for a negative one."""
+        if granpos < 0:
+            return -1.0
+        return ((self.granule_frame(granpos) + 1) * self.fps_denominator
+                / self.fps_numerator)

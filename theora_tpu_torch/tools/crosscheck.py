@@ -29,7 +29,9 @@ gets the same from the reference binaries (refbuild/build/ref_dec,
 ref_fuzz, ref_hdr; a missing binary is an error that names it).
 ``compare`` holds one against the other. Only a host-parse rejection of a
 data packet (BadPacketError) counts as "bad"; a failure of the card or
-of a kernel is never caught.
+of a kernel is never caught. run_trial(direction, ...) runs the three;
+the JAX tool's per-direction names (run_reverse_trial, run_device_trial,
+run_fuzz_trial, run_hdr_fuzz_trial, run_synth_trial) call it.
 
 Usage: python -m theora_tpu_torch.tools.crosscheck
        [--reverse|--gop|--fuzz|--hdr|--synth] [--device D] [trials] [seed]
@@ -640,11 +642,15 @@ WHICH = {"forward": "our encodes", "reverse": "reference encodes",
          "synth": "synthetic random plans", "hdr": "mutated headers"}
 
 
-def run_trial(direction, rng, trial, tmp, device="cuda"):
-    """One trial, its files at the path prefix tmp: (description, None or
-    the divergence)."""
+def run_trial(direction, rng, trial, tmp=None, device="cuda"):
+    """One trial, its files at the path prefix tmp (None: in a temporary
+    directory of its own): (description, None or the divergence)."""
     import signal
 
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as td:
+            return run_trial(direction, rng, trial,
+                             os.path.join(td, direction), device)
     stream = BUILDERS[direction](rng, trial, device)
     ref = run_ref(stream, tmp)
 
@@ -661,6 +667,28 @@ def run_trial(direction, rng, trial, tmp, device="cuda"):
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
     return stream.desc, compare(stream, ref, mine)
+
+
+# The JAX tool's trials by name (its run_trial is the forward one, here
+# run_trial("forward", ...)).
+def run_reverse_trial(rng, trial, tmp=None, device="cuda"):
+    return run_trial("reverse", rng, trial, tmp, device)
+
+
+def run_device_trial(rng, trial, tmp=None, device="cuda"):
+    return run_trial("gop", rng, trial, tmp, device)
+
+
+def run_fuzz_trial(rng, trial, tmp=None, device="cuda"):
+    return run_trial("fuzz", rng, trial, tmp, device)
+
+
+def run_hdr_fuzz_trial(rng, trial, tmp=None, device="cuda"):
+    return run_trial("hdr", rng, trial, tmp, device)
+
+
+def run_synth_trial(rng, trial, tmp=None, device="cuda"):
+    return run_trial("synth", rng, trial, tmp, device)
 
 
 def main(argv=None):

@@ -241,6 +241,27 @@ def measure(frames, pkts, device="cuda", keep=None, tag=None):
                                                             device)
 
 
+# JAX's one-call columns (qualitysweep.py:147,181,196): each encodes the
+# frames at qi and returns measure's (bytes, luma PSNR, luma SSIM). The
+# device column keeps JAX's module-wide cache, one GopEncoder per
+# (device, adaptive setting).
+_DEV_CACHE = {}
+
+
+def run_reference(frames, qi, device="cuda"):
+    return measure(frames, encode_reference(frames, qi), device)
+
+
+def run_host(frames, qi, device="cuda"):
+    return measure(frames, encode_host(frames, qi, device), device)
+
+
+def run_device(frames, qi, adaptive="auto", device="cuda"):
+    cache = _DEV_CACHE.setdefault(str(device), {})
+    return measure(frames, encode_device(frames, qi, cache, adaptive,
+                                         device), device)
+
+
 def main(argv=None, keep=None):
     """The sweep; returns its rows. keep: a dict that gets, per (content,
     qi, column), the stream's packets and decoded frames, and per
